@@ -1,0 +1,536 @@
+"""Batched alignment runner: orientation calls, band sizing, length-bucketed
+chunks, the two alignment kernels, band certification and escalation.
+
+The port of the banded route of ``seqrush_tpu/align/runner.py``, the route
+that runs the sweep kernel and then the walk kernel per chunk:
+
+* orientation: a mash-sketch fwd-vs-RC comparison decides clear pairs;
+  undecided pairs enter the first round in BOTH orientations at a probe
+  band and the better banded score wins (ties forward);
+* each job's initial band comes from the sketch divergence estimate, and
+  jobs sort by (band, length) into chunks cut at the traceback memory
+  budget; every job of a chunk runs at the chunk's band;
+* per chunk: Q/T are packed on the host (QPAD/TPAD), the sweep kernel and
+  the walk kernel run on the device, and the opcodes [B, tmax + 1] come
+  back through a non-blocking copy into pinned memory.  Chunk k+1 is
+  dispatched before chunk k is collected;
+* collect: the band certificate (a banded score S with half-width K is
+  optimal iff S < 2*o_min + e_min*(2K + 2 - |diff|)), escalation of the
+  uncertified jobs to the band their score demands, the divergence cap,
+  and one vectorized decode of the opcodes into CIGARs.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ..ops import nw, nw_cuda
+from ..pos import encode_bases, reverse_complement_codes
+from ..scores import AlignmentScores
+from ..sequences import SequenceSet
+from ..utils import resolve_device
+
+
+@dataclass
+class AlignmentResult:
+    query_idx: int
+    target_idx: int
+    is_reverse: bool
+    score: int
+    cigar: list[tuple[int, str]]  # standard ops =,X,I,D (query-consuming I)
+    # local-alignment starts (0 for global backends; RC-space when is_reverse)
+    query_start: int = 0
+    target_start: int = 0
+
+    @property
+    def cigar_string(self) -> str:
+        return "".join(f"{n}{op}" for n, op in self.cigar)
+
+
+@dataclass
+class RunnerConfig:
+    scores: AlignmentScores = field(default_factory=AlignmentScores)
+    max_divergence: float | None = None
+    band_slack: int = 64  # minimum extra diagonals beyond the length difference
+    # traceback-tensor budget per dispatch ([B, tmax, W] uint8).  Chunking
+    # fixes each job's band, and the band can change tie-broken CIGARs, so
+    # this stays at the JAX package's value until a measured change
+    memory_budget_bytes: int = int(2.6e9)
+    verbose: bool = False
+    # cap pairs per chunk (0 = memory budget only)
+    max_chunk_pairs: int = 0
+    # the options below select code paths of the JAX package that this
+    # package does not have yet; anything but the default raises
+    kernel: str = "nw"  # 'wfa': ROADMAP item 13
+    dp_dtype: str = "int32"  # 'int16': item 13
+    sweep: str = "antidiag"  # 'rows': item 13
+    fold: bool | str = False  # item 13
+    band_tiling: str = "off"  # item 13
+    emit: str = "auto"  # 'runs': item 13; 'auto' and 'ops' emit opcodes
+    # pairs longer than this (qlen + tlen) need the segmented sweep (item 10)
+    long_pair_threshold: int = 65536
+    # wide-pair route: 'anchored' diverts wide jobs to the piecewise route
+    # (item 9, raises here); 'full' runs them as wide-band sweeps
+    wide_route: str = "anchored"
+    wide_band_threshold: int = 767
+    wide_min_len: int = 2048
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def _check_config(cfg: RunnerConfig) -> None:
+    unported = (
+        ("kernel", cfg.kernel != "nw", 13),
+        ("dp_dtype", cfg.dp_dtype != "int32", 13),
+        ("sweep", cfg.sweep != "antidiag", 13),
+        ("fold", cfg.fold is not False, 13),
+        ("band_tiling", cfg.band_tiling != "off", 13),
+        ("emit", cfg.emit not in ("auto", "ops"), 13),
+    )
+    for name, bad, item in unported:
+        if bad:
+            raise NotImplementedError(
+                f"RunnerConfig.{name}={getattr(cfg, name)!r} is not ported yet "
+                f"(ROADMAP item {item})"
+            )
+    if cfg.wide_route not in ("anchored", "full"):
+        raise ValueError(f"wide_route must be 'anchored' or 'full', got {cfg.wide_route!r}")
+
+
+class WfaAligner:
+    """Aligns batches of sequence pairs on a torch device ('cuda' runs the
+    kernels, 'cpu' their plain versions)."""
+
+    def __init__(
+        self,
+        seqs: SequenceSet,
+        config: RunnerConfig | None = None,
+        device: str | torch.device = "cuda",
+    ):
+        self.seqs = seqs
+        self.cfg = config or RunnerConfig()
+        _check_config(self.cfg)
+        self.device = resolve_device(device)
+        self.codes = [encode_bases(s.data) for s in seqs.sequences]
+        self.rc_codes = [reverse_complement_codes(c).copy() for c in self.codes]
+        self._mash: tuple[list, list] | None = None
+        self.stats = {
+            "alignments": 0,
+            "dropped": 0,
+            "wall_s": 0.0,
+            "band_escalations": 0,
+            "cells_padded": 0,  # B_padded * (tmax + 2) * W summed over dispatches
+            "cells_true": 0,  # (qlen+tlen+1) * W summed over aligned jobs
+            # host-side phase timers (collect includes the device wait)
+            "orient_s": 0.0,
+            "dispatch_s": 0.0,
+            "collect_s": 0.0,
+            # one entry per dispatch: batch rows, band, tmax and the jobs
+            # [pair index, reverse] it carried
+            "dispatches": [],
+        }
+
+    # -- orientation ---------------------------------------------------------
+
+    def _orient_and_estimate(
+        self, pairs: np.ndarray
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Sketch-stage orientation calls plus per-pair divergence estimates.
+
+        Returns (is_rev[P] bool, undecided[P] bool, d_est[P] float).  The
+        sketch decides orientation where the fwd/RC margin is clear;
+        undecided pairs are aligned in both orientations.  d_est converts
+        the winning mash distance to a per-base divergence estimate, which
+        sizes the initial band.
+        """
+        P = len(pairs)
+        is_rev = np.zeros(P, dtype=bool)
+        undecided = np.zeros(P, dtype=bool)
+        d_est = np.zeros(P, dtype=np.float64)
+        if P == 0:
+            return is_rev, undecided, d_est
+        identical = np.zeros(P, dtype=bool)
+        for p, (i, j) in enumerate(pairs):
+            qi, tj = self.codes[i], self.codes[j]
+            if qi.size == tj.size and (qi == tj).all():
+                identical[p] = True
+        MARGIN = 0.02  # on the mash per-base-divergence scale
+        K_SKETCH = 15
+        d_fwd, d_rc = self._sketch_orientation_distances(pairs)
+        is_rev = (~identical) & (d_rc < d_fwd - MARGIN)
+        undecided = (~identical) & ~is_rev & ~(d_fwd < d_rc - MARGIN)
+        d_est = np.where(identical, 0.0, np.minimum(d_fwd, d_rc))
+        # mixed-orientation content (e.g. an inverted block): both
+        # orientations share k-mer content and the chosen one pays
+        # near-mismatch cost over the opposite-strand fraction f; fold an
+        # empirical block cost into d_est so the first band certifies
+        mixed = (~identical) & (d_fwd < 0.35) & (d_rc < 0.35)
+        if mixed.any():
+            s_f = np.exp(-K_SKETCH * d_fwd)
+            s_r = np.exp(-K_SKETCH * d_rc)
+            f_opp = np.where(is_rev, s_f, s_r) / np.maximum(s_f + s_r, 1e-9)
+            d_block = 0.45 * 0.75 * f_opp + np.minimum(d_fwd, d_rc)
+            d_est = np.where(mixed, np.maximum(d_est, d_block), d_est)
+        return is_rev, undecided, d_est
+
+    def _sketch_orientation_distances(self, pairs: np.ndarray):
+        """Mash distances (q fwd vs t, q RC vs t) for every pair."""
+        from ..ops.kmer import mash_distance_batch, mash_sketches
+
+        t0 = time.time()
+        if self._mash is None:
+            self._mash = (mash_sketches(self.codes), mash_sketches(self.rc_codes))
+        n = len(self.codes)
+        sketches = self._mash[0] + self._mash[1]  # rc sketch of seq i at n + i
+        pa = np.asarray(pairs)
+        d_fwd = mash_distance_batch(sketches, pa[:, 0], pa[:, 1])
+        d_rc = mash_distance_batch(sketches, pa[:, 0] + n, pa[:, 1])
+        self.stats["orient_s"] += time.time() - t0
+        return d_fwd, d_rc
+
+    # -- full alignment ------------------------------------------------------
+
+    def align_pairs(self, pairs: np.ndarray) -> list[AlignmentResult]:
+        """Align all (query_idx, target_idx) pairs; returns completed results."""
+        return self._align(pairs, None)
+
+    def align_pairs_oriented(self, pairs, is_rev) -> list[AlignmentResult]:
+        """Align every pair in a FORCED orientation, skipping the sketch's
+        orientation call (it still sizes the initial band)."""
+        return self._align(pairs, np.asarray(is_rev, dtype=bool))
+
+    def _align(self, pairs, forced_rev) -> list[AlignmentResult]:
+        t0 = time.time()
+        pairs = np.asarray(pairs)
+        if len(pairs) == 0:
+            return []
+        results = self._align_pairs_nw(pairs, forced_rev)
+        self.stats["alignments"] += len(results)
+        self.stats["wall_s"] += time.time() - t0
+        if self.cfg.verbose:
+            print(
+                f"[runner] aligned {len(results)}/{len(pairs)} pairs in "
+                f"{self.stats['wall_s']:.2f}s ({self.stats['dropped']} dropped, "
+                f"{self.stats['band_escalations']} band escalations)"
+            )
+        return results
+
+    # -- banded anti-diagonal Gotoh path --------------------------------------
+
+    def _gap_mins(self) -> tuple[int, int]:
+        sc = self.cfg.scores
+        if sc.has_two_piece:
+            return min(sc.gap1_extend, sc.gap2_extend), min(sc.gap1_open, sc.gap2_open)
+        return sc.gap1_extend, sc.gap1_open
+
+    def _penalties(self) -> dict:
+        sc = self.cfg.scores
+        two = sc.has_two_piece
+        return dict(
+            mismatch=sc.mismatch_penalty,
+            o1=sc.gap1_open,
+            e1=sc.gap1_extend,
+            o2=sc.gap2_open if two else -1,
+            e2=sc.gap2_extend if two else -1,
+        )
+
+    def _quantize_band(self, k: int, qlen: int, tlen: int) -> int:
+        # lane width W = k+1 in multiples of 128; coarser 256 quanta above
+        # 512 so near-identical wide bands share one chunk
+        quantum = 128 if k < 512 else 256
+        k = _round_up(k + 1, quantum) - 1
+        return min(k, max(qlen, tlen) + 1)
+
+    def _cert_bound(self, band: int, qlen: int, tlen: int) -> int:
+        e_min, o_min = self._gap_mins()
+        diff = abs(qlen - tlen)
+        return 2 * o_min + e_min * max(2 * band + 2 - diff, 0)
+
+    def _initial_band(self, qlen: int, tlen: int, d_est: float) -> int:
+        sc = self.cfg.scores
+        e_min, o_min = self._gap_mins()
+        diff = abs(qlen - tlen)
+        # estimated score: SNP cost + indel headroom; size K so the
+        # certificate holds at that score with a little margin
+        s_est = d_est * min(qlen, tlen) * max(sc.mismatch_penalty, 1) + 280
+        k_cert = (s_est - 2 * o_min) / (2 * max(e_min, 1)) + diff / 2
+        k = max(diff + self.cfg.band_slack, int(k_cert) + 1)
+        return self._quantize_band(k, qlen, tlen)
+
+    def _escalated_band(self, score: int, band: int, qlen: int, tlen: int) -> int:
+        e_min, o_min = self._gap_mins()
+        diff = abs(qlen - tlen)
+        k = max(
+            (score - 2 * o_min) // (2 * max(e_min, 1)) + diff // 2 + 2,
+            band + 1,
+        )
+        return self._quantize_band(int(k), qlen, tlen)
+
+    @staticmethod
+    def _quantize_batch(n: int) -> int:
+        """Smallest ladder value >= n: multiples of 8 up to 64, then 96, 144,
+        216, 256, then multiples of 64."""
+        if n <= 64:
+            return max(((n + 7) // 8) * 8, 8)
+        for b in (96, 144, 216, 256):
+            if n <= b:
+                return b
+        return _round_up(n, 64)
+
+    def _initial_jobs(self, pairs, forced_rev=None) -> list[tuple[int, bool, int]]:
+        """First-round jobs (pair_idx, rc, band).  Sketch-undecided pairs
+        enter in both orientations at a probe band: the orientation call is
+        relative, and the winner escalates from its own score."""
+        if forced_rev is not None:
+            d_fwd, d_rc = self._sketch_orientation_distances(pairs)
+            is_rev = forced_rev
+            undecided = np.zeros(len(pairs), dtype=bool)
+            d_est = np.where(is_rev, d_rc, d_fwd)
+        else:
+            is_rev, undecided, d_est = self._orient_and_estimate(pairs)
+        jobs = []
+        for p, (qi, tj) in enumerate(pairs):
+            qlen = self.codes[qi].size
+            tlen = self.codes[tj].size
+            band0 = self._initial_band(qlen, tlen, float(d_est[p]))
+            if undecided[p]:
+                diff = abs(qlen - tlen)
+                band0 = min(band0, self._quantize_band(diff + 255, qlen, tlen))
+                orients = (False, True)
+            else:
+                orients = (bool(is_rev[p]),)
+            for rc in orients:
+                jobs.append((p, rc, band0))
+        return jobs
+
+    def _align_pairs_nw(self, pairs, forced_rev=None) -> list[AlignmentResult]:
+        attempts: dict[tuple[int, bool], AlignmentResult | None] = {}
+        queue = self._initial_jobs(pairs, forced_rev)
+        while queue:
+            if self.cfg.wide_route == "anchored":
+                for job in queue:
+                    if self._wants_anchored(job, pairs):
+                        raise NotImplementedError(
+                            f"pair {tuple(int(x) for x in pairs[job[0]])} needs a "
+                            f"band of {job[2]}, which the anchored wide route "
+                            "would take; that route is not ported yet (ROADMAP "
+                            "item 9): pass --wide-route full"
+                        )
+            chunks = self._make_nw_chunks(queue, pairs)
+            retries_scored = []  # (job, banded_score)
+            # pipeline: dispatch chunk k+1 (device work) before the host
+            # collect of chunk k
+            inflight = None
+            for chunk in chunks:
+                t0 = time.time()
+                dispatched = self._dispatch_nw_chunk(chunk)
+                self.stats["dispatch_s"] += time.time() - t0
+                if inflight is not None:
+                    self._collect_into(inflight, pairs, attempts, retries_scored)
+                inflight = dispatched
+            if inflight is not None:
+                self._collect_into(inflight, pairs, attempts, retries_scored)
+            queue = self._prune_orientation_losers(attempts, retries_scored)
+
+        results: list[AlignmentResult] = []
+        for p in range(len(pairs)):
+            best = None
+            for rc in (False, True):
+                res = attempts.get((p, rc))
+                if res is not None and (best is None or res.score < best.score):
+                    best = res
+            if best is None:
+                if (p, False) in attempts or (p, True) in attempts:
+                    self.stats["dropped"] += 1  # exceeded divergence cap
+            else:
+                results.append(best)
+        return results
+
+    def _collect_into(self, dispatched, pairs, attempts, retries_scored) -> None:
+        t0 = time.time()
+        done, retries = self._collect_nw_chunk(dispatched, pairs)
+        self.stats["collect_s"] += time.time() - t0
+        attempts.update(done)
+        retries_scored.extend(retries)
+
+    def _prune_orientation_losers(self, attempts, retries_scored):
+        """Escalate only the better-scoring orientation of each pair.
+
+        Banded scores are upper bounds of the true scores, so the smaller
+        banded score is the orientation probe's answer.  Ties keep forward."""
+        best_known: dict[int, tuple[int, bool]] = {}
+        for (p, rc), res in attempts.items():
+            if res is not None:
+                s = res.score
+                cur = best_known.get(p)
+                if cur is None or (s, rc) < cur:
+                    best_known[p] = (s, rc)
+        for (p, rc, _band), s in retries_scored:
+            cur = best_known.get(p)
+            if cur is None or (s, rc) < cur:
+                best_known[p] = (s, rc)
+        out = []
+        for (p, rc, band), s in retries_scored:
+            cur = best_known.get(p)
+            if cur is not None and (cur[0], cur[1]) < (s, rc):
+                continue  # the other orientation already scores better
+            out.append((p, rc, band))
+        return out
+
+    def _wants_anchored(self, job, pairs) -> bool:
+        """Would the JAX package's default route take this job piecewise?
+        (A wide band on a long pair.)"""
+        p, _rc, band = job
+        qi, tj = pairs[p]
+        qlen, tlen = self.codes[qi].size, self.codes[tj].size
+        return band > self.cfg.wide_band_threshold and max(qlen, tlen) >= self.cfg.wide_min_len
+
+    def _make_nw_chunks(self, queue, pairs):
+        """Pack jobs into as few dispatches as possible: jobs sort by
+        (band, length) and chunks cut only at the traceback memory budget /
+        max_chunk_pairs; every job in a chunk runs at the chunk-max band.
+
+        Entries are (pair_idx, rc, band, q, t)."""
+        entries = []
+        for p, rc, band in queue:
+            qi, tj = pairs[p]
+            q = self.rc_codes[qi] if rc else self.codes[qi]
+            t = self.codes[tj]
+            entries.append((band, q.size + t.size, p, rc, q, t))
+        entries.sort(key=lambda e: (e[0], e[1]))
+
+        chunks = []
+        i = 0
+        while i < len(entries):
+            chunk = []
+            band = 0
+            while i < len(entries):
+                bandj, _ln, p, rc, q, t = entries[i]
+                trial_band = max(band, bandj)
+                trial_tmax = _round_up(q.size + t.size, 512)
+                B_pad = self._quantize_batch(len(chunk) + 1)
+                bytes_needed = B_pad * (trial_tmax + 2) * (trial_band + 1)
+                if chunk and bytes_needed > self.cfg.memory_budget_bytes:
+                    break
+                if self.cfg.max_chunk_pairs and len(chunk) >= self.cfg.max_chunk_pairs:
+                    break
+                chunk.append((p, rc, q, t))
+                band = trial_band
+                i += 1
+            chunks.append([(p, rc, band, q, t) for (p, rc, q, t) in chunk])
+        return chunks
+
+    def pack_chunk(self, chunk):
+        """Host-packed kernel inputs of a chunk: (Q [B, lq], T [B, lt] uint8
+        padded with QPAD/TPAD, qlens [B], tlens [B] int32, tmax).  Rows past
+        the chunk's jobs are zero-length padding."""
+        tmax = _round_up(max(q.size + t.size for *_, q, t in chunk), 512)
+        B = self._quantize_batch(len(chunk))
+        lq = _round_up(max(q.size for *_, q, _t in chunk), 256)
+        lt = _round_up(max(t.size for *_, t in chunk), 256)
+        Q = np.full((B, lq), nw.QPAD, dtype=np.uint8)
+        T = np.full((B, lt), nw.TPAD, dtype=np.uint8)
+        qlens = np.zeros(B, np.int32)
+        tlens = np.zeros(B, np.int32)
+        for b, (*_, q, t) in enumerate(chunk):
+            Q[b, : q.size] = q
+            T[b, : t.size] = t
+            qlens[b] = q.size
+            tlens[b] = t.size
+        return Q, T, qlens, tlens, tmax
+
+    def _dispatch_nw_chunk(self, chunk):
+        """Launch the sweep and the walk for one chunk; the opcodes and
+        scores start copying back without blocking the host."""
+        band = chunk[0][2]
+        Q, T, qlens, tlens, tmax = self.pack_chunk(chunk)
+        if tmax > self.cfg.long_pair_threshold:
+            raise NotImplementedError(
+                f"a chunk needs {tmax} anti-diagonals, above long_pair_threshold="
+                f"{self.cfg.long_pair_threshold}; the segmented long-pair sweep "
+                "is not ported yet (ROADMAP item 10)"
+            )
+        B = Q.shape[0]
+        self.stats["cells_padded"] += B * (tmax + 2) * (band + 1)
+        self.stats["dispatches"].append(
+            {"B": B, "band": band, "tmax": tmax,
+             "jobs": [[int(p), int(rc)] for p, rc, *_ in chunk]}
+        )
+        dev = self.device
+        Qd, Td, qd, td = (torch.from_numpy(a).to(dev) for a in (Q, T, qlens, tlens))
+        scores, tb = nw_cuda.nw_align(Qd, Td, qd, td, band=band, tmax=tmax, **self._penalties())
+        ops = nw_cuda.nw_walk(tb, qd, td, band=band, tmax=tmax)
+        del tb  # stream-ordered: the allocator reuses it only after the walk
+        ready = None
+        if dev.type == "cuda":
+            scores_h = torch.empty(scores.shape, dtype=scores.dtype, pin_memory=True)
+            ops_h = torch.empty(ops.shape, dtype=ops.dtype, pin_memory=True)
+            scores_h.copy_(scores, non_blocking=True)
+            ops_h.copy_(ops, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record()
+            scores, ops = scores_h, ops_h
+        return chunk, scores, ops, ready, qlens, tlens
+
+    def _collect_nw_chunk(self, dispatched, pairs):
+        """Returns (done: {(pair_idx, rc): result-or-None}, retries).
+
+        A job is retried (not returned) when the band certificate fails; a
+        None result means the pair exceeded the divergence cap with a
+        certified-exact score."""
+        chunk, scores, ops, ready, qlens, tlens = dispatched
+        if ready is not None:
+            ready.synchronize()
+        scores = scores.numpy()
+        ops = ops.numpy()
+
+        done: dict[tuple[int, bool], AlignmentResult | None] = {}
+        retries: list[tuple[tuple[int, bool, int], int]] = []
+        decode_jobs = []
+        for b, (p, rc, bandj, q, t) in enumerate(chunk):
+            qlen, tlen = int(qlens[b]), int(tlens[b])
+            score = int(scores[b])
+            exact = bandj >= max(qlen, tlen) or (
+                0 <= score < self._cert_bound(bandj, qlen, tlen)
+            )
+            if not exact:
+                self.stats["band_escalations"] += 1
+                retries.append(
+                    (
+                        (p, rc, self._escalated_band(max(score, 0), bandj, qlen, tlen)),
+                        score if score >= 0 else np.iinfo(np.int32).max,
+                    )
+                )
+                continue
+            if score < 0 or score > self._pair_cap(qlen, tlen):
+                done[(p, rc)] = None  # certified-exact score exceeds the cap
+                continue
+            self.stats["cells_true"] += (qlen + tlen + 1) * (bandj + 1)
+            decode_jobs.append((b, p, rc, q, t, score))
+
+        if decode_jobs:
+            rows = [b for b, *_ in decode_jobs]
+            items_all = nw.decode_batch(
+                ops[rows],
+                [q for _b, _p, _rc, q, _t, _s in decode_jobs],
+                [t for _b, _p, _rc, _q, t, _s in decode_jobs],
+            )
+            for (b, p, rc, q, t, score), items in zip(decode_jobs, items_all):
+                qi, tj = pairs[p]
+                done[(p, rc)] = AlignmentResult(int(qi), int(tj), rc, score, items)
+        return done, retries
+
+    def _pair_cap(self, qlen: int, tlen: int) -> int:
+        sc = self.cfg.scores
+        hard = sc.mismatch_penalty * max(qlen, tlen) + sc.gap1_open + sc.gap1_extend * (
+            qlen + tlen
+        )
+        if self.cfg.max_divergence is not None:
+            return min(hard, sc.max_score_for_divergence(max(qlen, tlen), self.cfg.max_divergence))
+        return hard

@@ -1,0 +1,182 @@
+"""Banded anti-diagonal Gotoh alignment: constants and host decode.
+
+The port's counterpart of the host half of ``seqrush_tpu/ops/nw.py``.  The
+device half (the forward sweep and the reverse traceback walk) lives in
+``ops/nw_cuda.py`` as two hand-written CUDA kernels, each with its plain
+PyTorch version beside it.
+
+Geometry shared by both halves: cell (i, j) lives on anti-diagonal t = i + j
+at lane l = i - i0(t), where i0(t) = max((t - K + 1) // 2, 0) anchors a band
+of W = K + 1 lanes around the main diagonal.
+
+DP (penalties, match = 0):
+  H[i,j]  = min(H[i-1,j-1] + sub(i,j), I1, I2, D1, D2 at [i,j])
+  I1[i,j] = min(H[i-1,j] + o1 + e1, I1[i-1,j] + e1)      (consume query)
+  D1[i,j] = min(H[i,j-1] + o1 + e1, D1[i,j-1] + e1)      (consume target)
+  (I2/D2 with o2/e2; o2 < 0 means one-piece penalties)
+
+The walk emits one opcode per anti-diagonal (0 none, 1 M, 2 I, 3 D) at
+column td; ``decode_batch`` turns a batch of opcode rows into run-length
+CIGAR items with 'M' split into '=' / 'X' against the sequences.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+INF = 2**28  # +infinity of the int32 DP; INF + o2 + e2 stays below 2^31
+QPAD = 6  # query pad code (codes 0..5 are real bases)
+TPAD = 7  # target pad code, distinct so pads never match
+
+# traceback byte layout: bits 0-2 H choice (0=match/mismatch diag, 1=D1,
+# 2=I1, 3=D2, 4=I2); bit 3 I1 opened; bit 4 I2 opened; bit 5 D1 opened;
+# bit 6 D2 opened
+H_DIAG, H_D1, H_I1, H_D2, H_I2 = 0, 1, 2, 3, 4
+
+OP_NONE, OP_M, OP_I, OP_D = 0, 1, 2, 3
+
+TB_CHUNK = 128  # traceback rows are padded to a multiple of this
+
+
+def _i0_of(t: int, K: int) -> int:
+    """Band anchor: first query index on anti-diagonal t."""
+    return max((t - K + 1) // 2, 0)
+
+
+def tmax_pad_of(tmax: int) -> int:
+    """Rows of the traceback tensor: tmax + 1 rounded up to TB_CHUNK."""
+    return ((tmax + 1 + TB_CHUNK - 1) // TB_CHUNK) * TB_CHUNK
+
+
+def resolve_matches(
+    items: list[tuple[int, str]], q: np.ndarray, t: np.ndarray
+) -> list[tuple[int, str]]:
+    """Split 'M' runs into '='/'X' by comparing bases (vectorized: the inner
+    loop runs over equal/unequal segments, not bases)."""
+    out: list[tuple[int, str]] = []
+    qi = ti = 0
+    q = np.asarray(q)
+    t = np.asarray(t)
+
+    def push(n, op):
+        if n <= 0:
+            return
+        if out and out[-1][1] == op:
+            out[-1] = (out[-1][0] + n, op)
+        else:
+            out.append((n, op))
+
+    for n, op in items:
+        if op == "M":
+            eq = q[qi : qi + n] == t[ti : ti + n]
+            idx = np.flatnonzero(np.diff(eq)) + 1
+            bounds = np.concatenate([[0], idx, [n]])
+            for s_b, e_b in zip(bounds[:-1], bounds[1:]):
+                push(int(e_b - s_b), "=" if eq[s_b] else "X")
+            qi += n
+            ti += n
+        else:
+            push(n, op)
+            if op == "I":
+                qi += n
+            elif op == "D":
+                ti += n
+    return out
+
+
+def unpack_opcodes(packed: np.ndarray, length: int) -> np.ndarray:
+    """2-bit-packed opcodes [B, ceil(L/4)] -> [B, length] uint8."""
+    packed = np.asarray(packed)
+    B = packed.shape[0]
+    out = np.empty((B, packed.shape[1], 4), np.uint8)
+    for k in range(4):
+        out[:, :, k] = (packed >> (2 * k)) & 3
+    return out.reshape(B, -1)[:, :length]
+
+
+def decode_opcodes(op_row: np.ndarray) -> list[tuple[int, str]]:
+    """[tmax+1] opcodes -> run-length items with 'M' placeholders (ascending
+    t = forward sequence order); resolve with resolve_matches()."""
+    codes = np.asarray(op_row)
+    nz = codes[codes != OP_NONE]
+    if nz.size == 0:
+        return []
+    syms = np.array([0, ord("M"), ord("I"), ord("D")], dtype=np.uint8)[nz]
+    change = np.empty(nz.size, dtype=bool)
+    change[0] = True
+    change[1:] = syms[1:] != syms[:-1]
+    starts = np.nonzero(change)[0]
+    ends = np.append(starts[1:], nz.size)
+    return [(int(e - s), chr(syms[s])) for s, e in zip(starts, ends)]
+
+
+_SYM_CHARS = ("", "=", "X", "I", "D")
+
+
+def decode_batch(
+    ops: np.ndarray,
+    qs: list[np.ndarray],
+    ts: list[np.ndarray],
+) -> list[list[tuple[int, str]]]:
+    """Whole-batch equivalent of per-pair decode_opcodes + resolve_matches.
+
+    ops [B, L] uint8 (0 none, 1 M, 2 I, 3 D) in ascending anti-diagonal
+    order; qs/ts are the per-row base-code arrays.  Returns one run-length
+    CIGAR item list per row with 'M' already split into '='/'X'.  Cursor
+    positions come from two cumsums, the M-step base comparison is one
+    gather, and run boundaries fall out of one RLE over the flattened symbol
+    stream (rows separated by sentinel tokens).
+    """
+    ops = np.asarray(ops)
+    B, L = ops.shape
+    if B == 0:
+        return []
+    Lq = max(1, max(q.size for q in qs))
+    Lt = max(1, max(t.size for t in ts))
+    # distinct pads: an M step beyond either sequence (cannot happen for a
+    # valid walk) decodes as 'X', never a fabricated '='
+    Qh = np.full((B, Lq), 254, np.uint8)
+    Th = np.full((B, Lt), 255, np.uint8)
+    for b, (q, t) in enumerate(zip(qs, ts)):
+        Qh[b, : q.size] = q
+        Th[b, : t.size] = t
+
+    is_m = ops == OP_M
+    qcons = is_m | (ops == OP_I)
+    tcons = is_m | (ops == OP_D)
+    # index of the query/target base consumed at each step (0-based)
+    qpos = np.cumsum(qcons, axis=1, dtype=np.int32)
+    np.subtract(qpos, qcons, out=qpos)
+    tpos = np.cumsum(tcons, axis=1, dtype=np.int32)
+    np.subtract(tpos, tcons, out=tpos)
+
+    # symbol codes: 0 none, 1 '=', 2 'X', 3 'I', 4 'D'  (see _SYM_CHARS)
+    sym = np.zeros((B, L), np.uint8)
+    bm, lm = np.nonzero(is_m)
+    if bm.size:
+        eq = Qh[bm, np.minimum(qpos[bm, lm], Lq - 1)] == Th[
+            bm, np.minimum(tpos[bm, lm], Lt - 1)
+        ]
+        sym[bm, lm] = np.where(eq, 1, 2).astype(np.uint8)
+    sym[ops == OP_I] = 3
+    sym[ops == OP_D] = 4
+
+    # flatten with per-row sentinel breaks, drop inactive steps, RLE
+    flat = np.concatenate([np.full((B, 1), 5, np.uint8), sym], axis=1).ravel()
+    keep = flat != 0
+    comp = flat[keep]
+    rowid = np.repeat(np.arange(B, dtype=np.int32), L + 1)[keep]
+    change = np.empty(comp.size, dtype=bool)
+    change[0] = True
+    change[1:] = comp[1:] != comp[:-1]
+    starts = np.flatnonzero(change)
+    lengths = np.diff(np.append(starts, comp.size))
+    vals = comp[starts]
+    rows = rowid[starts]
+
+    out: list[list[tuple[int, str]]] = [[] for _ in range(B)]
+    for r, v, n in zip(rows.tolist(), vals.tolist(), lengths.tolist()):
+        if v == 5:
+            continue
+        out[r].append((int(n), _SYM_CHARS[v]))
+    return out
