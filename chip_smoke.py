@@ -22,24 +22,49 @@ Phases (any failure exits non-zero and prints no ok line):
      band's first 7 jobs plus a zero-length padding row): exact equality
      (tolerance 0, all integer).  Kernel times are CUDA-event medians of 3
      runs after a warm-up, on the largest dispatch and on the widest one in
-     full; the plain versions are timed once, on the largest dispatch;
+     full; the plain versions are timed once, on the largest dispatch.  The
+     sweep is also timed at 1, 2 and 4 warps per pair on the largest
+     dispatch and at each lanes-per-thread shape on the widest, each held
+     bit-equal to the planner's launch; registers per thread, shared memory
+     per block and resident pairs per SM come from the CUDA runtime and the
+     launch code; the build's ptxas registers and spills are printed for
+     every kernel;
   6. prints {"kernels": [...]}, the nvidia-smi line, and last
      {"ok": true, "device": {...}}.
 
 Bounds: the least time the card could take for the same work, the larger
-of (bytes moved / 3.35 TB/s) and (int32 operations / 16.7 TOP/s).  The H100
-SXM data sheet gives no int32 rate; 16.7 TOP/s is its 64 INT32 lanes per SM
-(half the 128 FP32 lanes behind the 67 TFLOP/s float32 figure) x 132 SMs x
-1.98 GHz.  The sweep needs 58 int32 operations per needed cell (the DP
-recurrence, tie-ordered choice, validity, clamps and byte packing; see
-csrc/nw_sweep.cu) over (qlen + tlen) anti-diagonals x W lanes per pair, and
-must write the whole traceback tensor; the walk needs one byte read and
-about 25 operations per step it takes and writes the opcode rows.
+of (bytes moved / 3.35 TB/s) and (instructions / their peak rate).  The
+H100 SXM data sheet gives 67 TFLOP/s in float32: 33.5 T lane operations a
+second, one warp instruction per cycle on each of the 528 SM
+sub-partitions (32 lanes x 4 x 132 SMs x 1.98 GHz), the most the card
+issues of any 32-bit instruction.  Integer minima (IMNMX and the DPX forms)
+run on the integer ALU pipe alone, 16 lanes a sub-partition: 16.7 T a
+second.  The sweep must write the whole traceback tensor and needs, per
+needed cell ((qlen + tlen) anti-diagonals x W lanes per pair), the fewest
+instructions this recurrence takes on sm_90 with DPX (m: a minimum):
+  8  the four gap candidates' open and extend additions;
+  8  the four gap minima (4 m), each with the compare that gives its opened
+     bit (sm_90 has no min that also sets a predicate);
+  1  the four opened bits into the byte (one predicate-to-register move);
+  3  the substitution cost (compare, select) and the diagonal candidate;
+  9  the H choice: five keys value * 8 + tag, two 3-way DPX minima (2 m),
+     the value and the choice taken back out of the key;
+  2  the cell's validity (one range compare, one select);
+  5  validity and INF clamp of the five states, one DPX add-min each (5 m);
+  1  the byte into its packed word;
+ = 37 instructions, 11 of them minima.  Per cell the bound is the larger of
+37 / 33.5 T (issue) and 11 / 16.7 T (the ALU pipe), which is the first.
+Only the minima are charged to the ALU pipe: the other instructions could
+issue on the FMA pipe (IMAD forms) or not, and counting them there could
+only raise the bound.  The walk needs one byte read and about 25
+instructions per step it takes, at the issue rate, and writes the opcode
+rows.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -51,8 +76,10 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 16.7e12
-SWEEP_OPS_PER_CELL = 58
+ISSUE_OPS_PER_S = 33.5e12  # 32-bit lane instructions of any kind
+ALU_OPS_PER_S = 16.7e12  # integer minima, on the ALU pipe alone
+SWEEP_OPS_PER_CELL = 37
+SWEEP_MIN_OPS_PER_CELL = 11
 WALK_OPS_PER_STEP = 25
 REPS = 3
 SCORES = "0,5,8,2,24,1"
@@ -133,10 +160,39 @@ def once_ms(fn):
     return start.elapsed_time(stop), out
 
 
+def ptxas_summary(log: str) -> list[str]:
+    """One line per compiled kernel of nvcc's -Xptxas=-v log: its name,
+    registers, barriers, stack frame and spill bytes."""
+    out, name, frame = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '_Z(\d+)(\w+)'", line)
+        if m:
+            n = int(m.group(1))
+            name, rest = m.group(2)[:n], m.group(2)[n:]
+            t = re.match(r"ILi(\d+)ELb([01])E", rest)
+            if t:
+                name += f"<{t.group(1)}, {'two' if t.group(2) == '1' else 'one'}-piece>"
+        elif "spill" in line:
+            frame = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            used = line.split("Used", 1)[1].strip()
+            out.append(f"{name}: {used}; {frame}")
+            name, frame = None, ""
+    return out
+
+
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest |a - b| over integer tensors, in slices of the first axis so a
+    2 GB traceback needs no 16 GB int64 copy."""
     if a.shape != b.shape:
         raise AssertionError(f"shape mismatch {tuple(a.shape)} vs {tuple(b.shape)}")
-    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item()) if a.numel() else 0
+    if not a.numel():
+        return 0
+    step = max(1, (1 << 27) // max(1, a[0].numel()))
+    return max(
+        int((a[k : k + step].to(torch.int64) - b[k : k + step].to(torch.int64)).abs().max().item())
+        for k in range(0, a.shape[0], step)
+    )
 
 
 def main() -> int:
@@ -159,9 +215,8 @@ def main() -> int:
     t0 = time.time()
     lib_path, log = nw_cuda.build()
     print(f"build: {time.time() - t0:.2f} s -> {lib_path.relative_to(root)}")
-    for line in log.splitlines():
-        if "registers" in line or "error" in line or line.startswith("=="):
-            print(f"  {line.strip()}")
+    for line in ptxas_summary(log):
+        print(f"  ptxas {line}")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         return run(Path(tmp), name, smi)
@@ -251,6 +306,7 @@ def run(work: Path, name: str, smi: str) -> int:
 
     main_d = max(st["dispatches"], key=tb_bytes)
     wide_d = max(st["dispatches"], key=lambda d: (d["band"], tb_bytes(d)))
+    two = pen["o2"] >= 0
     parity = []
     kernels = {}
     for label, d, n_jobs in (("largest", main_d, None), ("widest", wide_d, 7)):
@@ -261,24 +317,45 @@ def run(work: Path, name: str, smi: str) -> int:
         kw = dict(band=band, tmax=tmax, **pen)
         s_k, tb_k = nw_cuda.nw_align(Q, T, ql, tl, **kw)
         plain_sweep_ms, (s_p, tb_p) = once_ms(lambda: nw_cuda.nw_align_reference(Q, T, ql, tl, **kw))
-        err_a = max(max_abs_err(s_k, s_p), max_abs_err(tb_k[:, 1 : tmax + 1], tb_p[:, 1 : tmax + 1]))
+        err_a = max(max_abs_err(s_k, s_p), max_abs_err(tb_k, tb_p))
         ops_k = nw_cuda.nw_walk(tb_k, ql, tl, band=band, tmax=tmax)
         plain_walk_ms, ops_p = once_ms(lambda: nw_cuda.nw_walk_reference(tb_k, ql, tl, band=band, tmax=tmax))
         err_b = max_abs_err(ops_k, ops_p)
         B, W = Q.shape[0], band + 1
-        entry = {"dispatch": label, "B": B, "W": W, "tmax": tmax,
-                 "sweep_err": err_a, "walk_err": err_b}
-        parity.append(entry)
+        parity.append({"dispatch": label, "B": B, "W": W, "tmax": tmax,
+                       "sweep_err": err_a, "walk_err": err_b})
         print(f"parity {label}: B={B} W={W} tmax={tmax} sweep max_abs_err={err_a} "
               f"walk max_abs_err={err_b}")
         if err_a or err_b:
             raise AssertionError(f"kernel disagrees with its plain version ({label})")
+        del s_p, tb_p, ops_p, ops_k
         if n_jobs:
             # time the kernels on the widest dispatch in full
             Q, T, ql, tl = chunk_inputs(d)
             B = Q.shape[0]
+            s_k, tb_k = nw_cuda.nw_align(Q, T, ql, tl, **kw)
+        plan = nw_cuda.plan_sweep(B, W, Q.shape[1], T.shape[1])
+        occ = nw_cuda.sweep_occupancy(plan, W, two)
         sweep_ms = cuda_ms(lambda: nw_cuda.nw_align(Q, T, ql, tl, **kw), REPS)
-        _s, tb = nw_cuda.nw_align(Q, T, ql, tl, **kw)
+        # each warps-per-pair shape, timed and held to the kernel's output
+        # (itself held to the plain version above)
+        if label == "largest":
+            wpp_choices = (1, 2, 4)
+        else:
+            wpp_choices = sorted({-(-W // (32 * s)) for s in nw_cuda.SWEEP_LANES
+                                  if -(-W // (32 * s)) * 32 <= nw_cuda._MAX_THREADS[s]})
+        by_wpp = {}
+        for w in wpp_choices:
+            try:
+                alt = nw_cuda.plan_sweep(B, W, Q.shape[1], T.shape[1], warps_per_pair=w)
+            except ValueError:
+                continue
+            s_w, tb_w = nw_cuda.sweep_launch(Q, T, ql, tl, alt, **kw)
+            if max(max_abs_err(s_w, s_k), max_abs_err(tb_w, tb_k)):
+                raise AssertionError(f"sweep at {w} warps per pair disagrees ({label})")
+            del s_w, tb_w
+            by_wpp[w] = cuda_ms(lambda: nw_cuda.sweep_launch(Q, T, ql, tl, alt, **kw), REPS)
+        tb = tb_k
         walk_ms = cuda_ms(lambda: nw_cuda.nw_walk(tb, ql, tl, band=band, tmax=tmax), REPS)
         ops = nw_cuda.nw_walk(tb, ql, tl, band=band, tmax=tmax)
         steps = int((ops != 0).sum().item())
@@ -288,25 +365,31 @@ def run(work: Path, name: str, smi: str) -> int:
         kernels[label] = {
             "shape": {"B": B, "W": W, "tmax": tmax},
             "sweep": (sweep_ms, sweep_bytes / HBM_BYTES_PER_S * 1e3,
-                      cells * SWEEP_OPS_PER_CELL / INT32_OPS_PER_S * 1e3),
+                      cells * max(SWEEP_OPS_PER_CELL / ISSUE_OPS_PER_S,
+                                  SWEEP_MIN_OPS_PER_CELL / ALU_OPS_PER_S) * 1e3),
             "walk": (walk_ms, walk_bytes / HBM_BYTES_PER_S * 1e3,
-                     steps * WALK_OPS_PER_STEP / INT32_OPS_PER_S * 1e3),
+                     steps * WALK_OPS_PER_STEP / ISSUE_OPS_PER_S * 1e3),
+            "sweep_occ": occ,
+            "walk_occ": nw_cuda.walk_occupancy(),
+            "wpp_ms": by_wpp,
         }
         if label == "largest":
             # the parity run above was the plain versions at this full shape
             kernels[label]["plain"] = (plain_sweep_ms, plain_walk_ms)
         print(f"timing {label}: B={B} W={W} tmax={tmax} sweep {sweep_ms:.3f} ms "
-              f"walk {walk_ms:.3f} ms (walk steps {steps})")
-        del tb, ops, Q, T, ql, tl, s_k, tb_k, s_p, tb_p, ops_k, ops_p
+              f"(by warps per pair {json.dumps(by_wpp)}) walk {walk_ms:.3f} ms "
+              f"(walk steps {steps}); {plan}")
+        print(f"  occupancy sweep {json.dumps(kernels[label]['sweep_occ'])} "
+              f"walk {json.dumps(kernels[label]['walk_occ'])}")
+        del tb, tb_k, s_k, ops, Q, T, ql, tl
         torch.cuda.empty_cache()
 
-    big = kernels["largest"]
+    big, wide = kernels["largest"], kernels["widest"]
     out = []
-    for kname, src, replaces, idx in (
-        ("nw_sweep", "seqrush_tpu_torch/ops/csrc/nw_sweep.cu", "seqrush_tpu/ops/nw_pallas.py:38", 0),
-        ("nw_walk", "seqrush_tpu_torch/ops/csrc/nw_walk.cu", "seqrush_tpu/ops/nw_pallas.py:194", 1),
+    for kname, key, src, replaces, idx in (
+        ("nw_sweep", "sweep", "seqrush_tpu_torch/ops/csrc/nw_sweep.cu", "seqrush_tpu/ops/nw_pallas.py:38", 0),
+        ("nw_walk", "walk", "seqrush_tpu_torch/ops/csrc/nw_walk.cu", "seqrush_tpu/ops/nw_pallas.py:194", 1),
     ):
-        key = "sweep" if idx == 0 else "walk"
         ms, b_ms, o_ms = big[key]
         out.append({
             "name": kname, "route": "cuda", "source": src, "replaces": replaces,
@@ -315,9 +398,12 @@ def run(work: Path, name: str, smi: str) -> int:
             "ms": ms, "plain_ms": big["plain"][idx],
             "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations",
             "library_ms": None,
+            **big[f"{key}_occ"],
             "shape": big["shape"],
-            "widest": {"shape": kernels["widest"]["shape"], "ms": kernels["widest"][key][0],
-                       "bound_ms": max(kernels["widest"][key][1:])},
+            "warps_per_pair_ms": big["wpp_ms"] if key == "sweep" else None,
+            "widest": {"shape": wide["shape"], "ms": wide[key][0], "bound_ms": max(wide[key][1:]),
+                       **wide[f"{key}_occ"],
+                       "warps_per_pair_ms": wide["wpp_ms"] if key == "sweep" else None},
             "parity": parity, "tolerance": 0,
         })
     print(json.dumps({"kernels": out}))

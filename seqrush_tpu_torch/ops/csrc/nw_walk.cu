@@ -5,17 +5,36 @@
 // lane qlen - i0(t), visits at most one cell per anti-diagonal, reads its
 // packed byte and steps the 5-state machine (H, D1, I1, D2, I2).  Gap-state
 // switches consume the same byte as the gap op.  The opcode (0 none, 1 M,
-// 2 I, 3 D) lands at column td of a zero-filled [B, tmax + 1] row.
+// 2 I, 3 D) lands at column td of a zero-filled [B, tmax + 1] row.  The
+// reference scans every anti-diagonal and acts only where the pair's cursor
+// sits; here the walk jumps from cursor to cursor, which visits the same
+// cells in the same order and leaves the skipped columns at zero.  A cell
+// outside [0, W) reads byte 0.  A step that consumes nothing ends the walk.
 //
-// Design (first version): one thread per pair.  The reference scans every
-// anti-diagonal and acts only where the pair's cursor sits; here the thread
-// jumps from cursor to cursor, which visits the same cells in the same order
-// and leaves the skipped columns at zero.  A cell outside [0, W) reads byte
-// 0, as in the reference.
-//
-// Bound on H100: one dependent byte load per step, so the walk is latency-
-// bound (qlen + tlen - #diagonal steps loads in a chain per pair); the bytes
-// it must move are tiny next to that.
+// What bounds it on an H100: latency.  The steps of one pair form a chain
+// (each cell's byte picks the next cell), a dispatch has about one pair per
+// SM sub-partition, so nothing overlaps a step's latency; the bytes and
+// operations it needs are tiny next to that chain.  The design shortens it:
+//   * one warp per pair, four pairs per block, so a dispatch's pairs spread
+//     over the whole card;
+//   * the warp keeps a tile of the traceback in shared memory -- R = 64 rows
+//     [top - R + 1, top] x C = 32 lanes [c0, c0 + C), one lane per thread,
+//     bytes outside [0, W) as 0.  Going back one anti-diagonal moves the lane
+//     by at most one, and along matches not at all, so a tile serves up to
+//     R / 2 steps before its rows run out.  While the walk consumes one tile,
+//     the next one (the R rows below it) is already loading into registers:
+//     one coalesced byte load per row and thread, all in flight at once.
+//     Tiles are centred on the lanes a path of matches would take: the same
+//     lane, except in the band's corner (t <= K, where i0 is 0) where it
+//     falls by one every two anti-diagonals.  Only a cursor that leaves a
+//     tile sideways, after a long gap, waits for a load of its own;
+//   * in state H, thread k reads the cell k diagonal steps ahead and one
+//     ballot finds the first that is not a diagonal choice: the run of
+//     diagonal steps before it (matches and mismatches, most of a path) is
+//     taken at once, one opcode per thread;
+//   * gap steps go one at a time, with the cursor kept as its row and column
+//     in the tile and moved by the step's fixed offset, and every thread
+//     storing the same opcode, so the warp never diverges.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -29,71 +48,178 @@
 #define OP_M 1
 #define OP_I 2
 #define OP_D 3
+#define FULL_MASK 0xffffffffu
+
+#define WALK_R 64                // tile rows
+#define WALK_C 32                // tile lanes: one per thread
+#define WALK_PAIRS_PER_BLOCK 4   // one warp each
 
 __device__ __forceinline__ int walk_i0_of(int t, int K) {
   const int x = t - K + 1;
   return x > 0 ? (x >> 1) : 0;
 }
 
-__global__ void nw_walk_kernel(
+// Lanes a path of matches loses over the rows top - R + 1 .. top: one per
+// two anti-diagonals at or below K, none above.
+__device__ __forceinline__ int corner_drift(int top, int K) {
+  const int rows = min(top, K) - max(top - WALK_R, 0);
+  return rows > 0 ? rows / 2 : 0;
+}
+
+// Lanes lost by n diagonal steps from anti-diagonal td: one for each step
+// taken at or below K.
+__device__ __forceinline__ int corner_steps(int td, int K, int n) {
+  const int above = td > K ? (td - K + 1) >> 1 : 0;  // steps taken above K
+  return n > above ? n - above : 0;
+}
+
+// This thread's column (lane c0 + x) of the tile whose top row is `top`,
+// one byte per 32-bit register: nothing reads the registers until the tile
+// is stored, so the loads stay in flight while the walk goes on.
+__device__ __forceinline__ void load_tile(uint32_t (&col)[WALK_R], const uint8_t* __restrict__ tbb,
+                                          int top, int c0, int x, int W) {
+  const int l = c0 + x;
+  const bool in_band = l >= 0 && l < W;
+#pragma unroll
+  for (int rr = 0; rr < WALK_R; ++rr) {
+    const int row = top - rr;
+    col[rr] = (in_band && row >= 0) ? (uint32_t)__ldg(tbb + (size_t)row * W + l) : 0u;
+  }
+}
+
+__device__ __forceinline__ void store_tile(uint8_t (*tile)[WALK_C], const uint32_t (&col)[WALK_R],
+                                           int x) {
+#pragma unroll
+  for (int rr = 0; rr < WALK_R; ++rr) tile[rr][x] = (uint8_t)col[rr];
+}
+
+__global__ void __launch_bounds__(32 * WALK_PAIRS_PER_BLOCK) nw_walk_kernel(
     const uint8_t* __restrict__ tb,   // [B, tmax_pad, W]
     const int* __restrict__ qlens,    // [B]
     const int* __restrict__ tlens,    // [B]
     uint8_t* __restrict__ ops,        // [B, tmax + 1] out, zero-filled
     int B, int W, int tmax, int tmax_pad) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  __shared__ uint8_t tiles[WALK_PAIRS_PER_BLOCK][2][WALK_R][WALK_C];
+  const int warp = threadIdx.x >> 5;
+  const int x = threadIdx.x & 31;
+  const int b = blockIdx.x * WALK_PAIRS_PER_BLOCK + warp;
   if (b >= B) return;
   const int K = W - 1;
   const uint8_t* tbb = tb + (size_t)b * tmax_pad * W;
   uint8_t* out = ops + (size_t)b * (tmax + 1);
 
-  const int qlen = qlens[b];
-  const int tlen = tlens[b];
-  int cur_t = qlen + tlen;
-  int lane = qlen - walk_i0_of(cur_t, K);
+  // the cursor: cell (i, j) on anti-diagonal td = i + j, lane i - i0(td)
+  int i = qlens[b];
+  int j = tlens[b];
+  int td = i + j;
+  if (td < 1 || td > tmax) return;  // nothing to walk (the ops row stays zero)
   int mat = 0;  // 0 H, 1 D1, 2 I1, 3 D2, 4 I2
+  // tile in use (`cur`): rows top - R + 1 .. top, lanes c0 .. c0 + C - 1;
+  // the cursor sits at row ur = top - td, column uc = lane - c0 of it.  The
+  // next tile loads into `next`: rows ntop - R + 1 .. ntop, lanes nc0 ..
+  uint8_t* cur = &tiles[warp][0][0][0];
+  uint8_t* spare = &tiles[warp][1][0][0];
+  int top = -1, c0 = 0;
+  int ntop = -1, nc0 = 0;
+  int ur = top - td;
+  int uc = i - walk_i0_of(td, K) - c0;
+  uint32_t next[WALK_R];
 
-  while (cur_t >= 1 && cur_t <= tmax) {
-    const int td = cur_t;
-    const int bb = (lane >= 0 && lane < W) ? (int)tbb[(size_t)td * W + lane] : 0;
-    const int i = walk_i0_of(td, K) + lane;
-    const int j = td - i;
-
-    const int choice = bb & 7;
-    const bool is_h = mat == 0;
-    const bool go_d1 = (is_h && choice == H_D1) || mat == 1;
-    const bool go_i1 = (is_h && choice == H_I1) || mat == 2;
-    const bool go_d2 = (is_h && choice == H_D2) || mat == 3;
-    const bool go_i2 = (is_h && choice == H_I2) || mat == 4;
-    const bool diag = is_h && choice == H_DIAG;
-    const bool opened =
-        (go_d1 ? (bb >> 5) : go_i1 ? (bb >> 3) : go_d2 ? (bb >> 6) : (bb >> 4)) & 1;
-
-    const bool gap_d = go_d1 || go_d2;
-    const bool gap_i = go_i1 || go_i2;
-    const int op = diag ? OP_M : gap_i ? OP_I : gap_d ? OP_D : OP_NONE;
-    const int ni = (diag || gap_i) ? i - 1 : i;
-    const int nj = (diag || gap_d) ? j - 1 : j;
-    const int nmat = (diag || opened) ? 0 : go_d1 ? 1 : go_i1 ? 2 : go_d2 ? 3 : 4;
-
-    out[td] = (uint8_t)op;
-    const int nt = ni + nj;
-    // a step that consumes nothing leaves the cursor where the reference's
-    // scan has already passed it: the walk ends there
-    if ((ni == 0 && nj == 0) || nt >= td) break;
-    cur_t = nt;
-    lane = ni - walk_i0_of(nt, K);
-    mat = nmat;
+  while (true) {
+    if ((unsigned)ur >= WALK_R || (unsigned)uc >= WALK_C) {
+      const int lane = c0 + uc;
+      if ((unsigned)(ntop - td) >= WALK_R || (unsigned)(lane - nc0) >= WALK_C) {
+        ntop = td;  // the prefetched tile misses the cursor: load one around it
+        nc0 = lane - min(corner_drift(td, K) / 2 + WALK_C / 2, WALK_C - 1);
+        load_tile(next, tbb, ntop, nc0, x, W);
+      }
+      __syncwarp();  // every thread has finished reading the buffer replaced now
+      uint8_t* t = spare;
+      spare = cur;
+      cur = t;
+      store_tile(reinterpret_cast<uint8_t(*)[WALK_C]>(cur), next, x);
+      __syncwarp();
+      top = ntop;
+      c0 = nc0;
+      ur = top - td;
+      uc = lane - c0;
+      ntop = top - WALK_R;  // prefetch the rows below
+      nc0 = lane - corner_drift(td, K) - corner_drift(ntop, K) / 2 - WALK_C / 2;
+      load_tile(next, tbb, ntop, nc0, x, W);
+    }
+    if (mat == 0) {
+      // thread x looks x diagonal steps ahead.  A step there is taken if the
+      // cell is in the tile, its choice is the diagonal, the walk has not
+      // ended before it (it ends after step i - 1 when i == j) and every
+      // step before it is taken; a run of n such steps is taken at once.
+      const int k = x;
+      const int row = ur + 2 * k;
+      const int col = uc - corner_steps(td, K, k);
+      const bool reach = row < WALK_R && (unsigned)col < WALK_C && td - 2 * k >= 1 &&
+                         (i != j || k < i);
+      const bool take = reach && (cur[row * WALK_C + col] & 7) == H_DIAG;
+      const unsigned run = __ballot_sync(FULL_MASK, take);
+      const int n = run == FULL_MASK ? 32 : __ffs(~run) - 1;
+      if (n > 0) {
+        if (x < n) out[td - 2 * x] = OP_M;
+        uc -= corner_steps(td, K, n);
+        ur += 2 * n;
+        td -= 2 * n;
+        i -= n;
+        j -= n;
+        if ((i == 0 && j == 0) || td < 1) break;
+        // the cell that stopped the run is decided below if it is in reach
+        if (n == 32 || !((__ballot_sync(FULL_MASK, reach) >> n) & 1)) continue;
+      }
+    }
+    const int bb = cur[ur * WALK_C + uc];
+    // g: the state this step leaves: 0 the diagonal, 1 D1, 2 I1, 3 D2, 4 I2
+    const int g = mat ? mat : (bb & 7);
+    if (g > 4) {  // a choice code no state has: the step consumes nothing
+      out[td] = OP_NONE;
+      break;
+    }
+    const bool diag = g == 0;
+    const bool del = g & 1;  // D1 or D2: the target advances alone
+    // every thread stores the same byte: no divergence around the store
+    out[td] = (uint8_t)(diag ? OP_M : del ? OP_D : OP_I);
+    // the opened bit of D1, I1, D2, I2 is bit 5, 3, 6, 4
+    const bool opened = (bb >> ((0x46350 >> (4 * g)) & 15)) & 1;
+    mat = (diag || opened) ? 0 : g;
+    if (!del) --i;
+    if (diag || del) --j;
+    if (i == 0 && j == 0) break;
+    // the lane moves by i0(td) - i0(td') less what i lost: i0 grows by one
+    // every two anti-diagonals above K (dp: on this one) and not at all
+    // below, so a diagonal step keeps the lane above K and loses one below
+    const bool above = td > K;
+    const int dp = above ? (td - K) & 1 : 0;
+    const int drow = diag ? 2 : 1;
+    uc += diag ? (above ? 0 : -1) : del ? dp : dp - 1;
+    ur += drow;
+    td -= drow;
+    if (td < 1) break;
   }
 }
 
 extern "C" int nw_walk_launch(
     const void* tb, const void* qlens, const void* tlens, void* ops,
-    int B, int W, int tmax, int tmax_pad, int threads, void* stream) {
+    int B, int W, int tmax, int tmax_pad, void* stream) {
   if (B <= 0) return (int)cudaSuccess;
-  const int blocks = (B + threads - 1) / threads;
-  nw_walk_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  const int blocks = (B + WALK_PAIRS_PER_BLOCK - 1) / WALK_PAIRS_PER_BLOCK;
+  nw_walk_kernel<<<blocks, 32 * WALK_PAIRS_PER_BLOCK, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)tb, (const int*)qlens, (const int*)tlens, (uint8_t*)ops,
       B, W, tmax, tmax_pad);
   return (int)cudaGetLastError();
+}
+
+// Registers per thread and resident blocks per SM of the walk's launch shape.
+extern "C" int nw_walk_occupancy(int* regs, int* blocks_per_sm, int* smem_bytes) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, nw_walk_kernel);
+  if (err != cudaSuccess) return (int)err;
+  *regs = attr.numRegs;
+  *smem_bytes = (int)attr.sharedSizeBytes;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, nw_walk_kernel, 32 * WALK_PAIRS_PER_BLOCK, 0);
 }

@@ -14,6 +14,12 @@ plain versions repeat the reference arithmetic step by step, including the
 bytes written at cells outside the pair's matrix, so the traceback tensor
 can be compared whole.
 
+Kernel A has two routes, which ``plan_sweep`` (pure Python) picks from the
+band: the register route (each pair's lanes in the registers of one to
+eight warps) up to W = REG_MAX_W, and the wide route (one block per pair,
+DP rows in shared memory, or in a global scratch where they do not fit)
+above it or for penalties outside [0, 2^16).
+
 The kernels are compiled at first use with ``nvcc`` for ``sm_90a`` from the
 sources under ``csrc/`` into ``build/seqrush_tpu_torch/`` at the repository
 root, one ``nvcc`` per source in parallel, and loaded with ctypes.  The file
@@ -30,6 +36,7 @@ import os
 import shutil
 import subprocess
 import threading
+from dataclasses import dataclass
 from pathlib import Path
 
 import torch
@@ -45,11 +52,22 @@ _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
-_SWEEP_ROWS = 11  # DP rows the sweep keeps per pair (see nw_sweep.cu)
-# dynamic shared memory a block may opt into on H100 (sm_90); wider bands
-# keep the sweep's rows in a global scratch instead
+# lanes per thread the register route is built for, and the launch bound
+# (threads per block) of each instantiation, as __launch_bounds__ in
+# csrc/nw_sweep.cu states it (a larger block fails to launch)
+_MAX_THREADS = {4: 128, 8: 384, 12: 256, 16: 256}
+SWEEP_LANES = tuple(_MAX_THREADS)
+# widest band the register route covers; wider bands take the wide route
+REG_MAX_W = max(s * t for s, t in _MAX_THREADS.items())
+_SWEEP_ROWS = 11  # DP rows per pair on the wide route
+# dynamic shared memory a block may opt into on H100 (sm_90)
 _SMEM_OPTIN_BYTES = 232448
-_WALK_THREADS = 128
+_MAX_PAIR_BARRIERS = 2  # named barriers 1 and 2, one per multi-warp pair
+_REG_PENALTY_LIMIT = 1 << 16  # the register route takes penalties in [0, 2^16)
+# per-step work of a thread (edge exchange, stores, window slide) in lanes
+STEP_OVERHEAD_LANES = 1
+_SMSPS_PER_SM = 4
+_H100_SMS = 132
 
 _lib: ctypes.CDLL | None = None
 _lib_lock = threading.Lock()
@@ -134,10 +152,14 @@ def _library() -> ctypes.CDLL:
             path, _log = build()
             lib = ctypes.CDLL(str(path))
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.nw_sweep_launch.argtypes = [ptr] * 7 + [i32] * 12 + [ptr]
+            lib.nw_sweep_launch.argtypes = [ptr] * 7 + [i32] * 16 + [ptr]
             lib.nw_sweep_launch.restype = i32
-            lib.nw_walk_launch.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
+            lib.nw_sweep_occupancy.argtypes = [i32] * 7 + [ptr] * 3
+            lib.nw_sweep_occupancy.restype = i32
+            lib.nw_walk_launch.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
             lib.nw_walk_launch.restype = i32
+            lib.nw_walk_occupancy.argtypes = [ptr] * 3
+            lib.nw_walk_occupancy.restype = i32
             _lib = lib
         return _lib
 
@@ -168,6 +190,117 @@ def _require_cuda(device: torch.device) -> None:
         raise ValueError(f"unsupported device {device}: tensors must be on cuda or cpu")
 
 
+# -- launch planning (pure Python) ---------------------------------------------
+
+
+@dataclass(frozen=True)
+class SweepPlan:
+    """How kernel A covers a dispatch.  Pair b runs in block b // pairs_per_block
+    as warps [p * warps_per_pair, (p + 1) * warps_per_pair) with
+    p = b % pairs_per_block; its thread r owns lanes [r * lanes, r * lanes + lanes)
+    (lanes >= W are ghosts).  The wide route (lanes 0) runs one block of
+    `threads` threads per pair, lane l on thread l % threads, with its DP
+    rows in smem_bytes of shared memory, or in a global scratch where
+    smem_bytes is 0."""
+
+    route: str  # "regs" or "wide"
+    lanes: int  # lanes per thread; 0 on the wide route
+    warps_per_pair: int
+    pairs_per_block: int
+    threads: int  # per block
+    pair_bytes: int  # shared memory of one pair
+    smem_bytes: int  # dynamic shared memory per block
+    blocks: int
+
+
+def _round16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def pair_smem_bytes(Lq: int, Lt: int, W: int, lanes: int, wpp: int) -> int:
+    """Shared memory of one pair on the register route: the padded query, the
+    padded reversed target and the warp-edge slots (csrc/nw_sweep.cu)."""
+    L = lanes * 32 * wpp
+    return _round16(Lq + 1 + L) + _round16(Lt + W + L) + 2 * wpp * 6 * 4
+
+
+def register_route_penalties(mismatch: int, o1: int, e1: int, o2: int, e2: int) -> bool:
+    """Whether the register route's arithmetic holds for these penalties:
+    every penalty it uses in [0, 2^16), so every DP value stays in
+    [0, INF + 2^17] (csrc/nw_sweep.cu).  Others take the wide route."""
+    used = (mismatch, o1, e1) + ((o2, e2) if o2 >= 0 else ())
+    return all(0 <= int(v) < _REG_PENALTY_LIMIT for v in used)
+
+
+def wide_plan(B: int, W: int) -> SweepPlan:
+    """One block per pair, lane l on thread l % threads, its 11 DP rows of W
+    int32 in shared memory while they fit, else in a global scratch."""
+    threads = min(1024, -(-W // 32) * 32)
+    rows = _SWEEP_ROWS * W * 4
+    return SweepPlan("wide", 0, threads // 32, 1, threads, 0,
+                     rows if rows <= _SMEM_OPTIN_BYTES else 0, B)
+
+
+def _regs_plan(B: int, W: int, Lq: int, Lt: int, lanes: int, wpp: int) -> SweepPlan:
+    pair_bytes = pair_smem_bytes(Lq, Lt, W, lanes, wpp)
+    ppb = max(1, _SMSPS_PER_SM // wpp)
+    ppb = min(ppb, _MAX_THREADS[lanes] // (32 * wpp), _SMEM_OPTIN_BYTES // pair_bytes, max(B, 1))
+    if wpp > 1:
+        ppb = min(ppb, _MAX_PAIR_BARRIERS)
+    return SweepPlan("regs", lanes, wpp, ppb, 32 * wpp * ppb, pair_bytes, pair_bytes * ppb,
+                     -(-B // ppb))
+
+
+def _sweep_cost(plan: SweepPlan) -> int:
+    """Relative time of a register-route launch: the warps on the busiest SM
+    sub-partition, each costing its lanes per thread plus a per-step
+    overhead worth STEP_OVERHEAD_LANES lanes.  It counts the work a
+    sub-partition is given, whether its warps are resident at once or run
+    in waves.  On the card its pick was the fastest strip at 10 of 12 bands
+    of the runner's ladder and within 6.5% at the other two (PERF.md)."""
+    warps_per_sm = -(-plan.blocks // _H100_SMS) * plan.pairs_per_block * plan.warps_per_pair
+    return -(-warps_per_sm // _SMSPS_PER_SM) * (plan.lanes + STEP_OVERHEAD_LANES)
+
+
+def plan_sweep(B: int, W: int, Lq: int, Lt: int, *, warps_per_pair: int | None = None) -> SweepPlan:
+    """Route, lanes per thread, warps per pair, pairs per block and shared
+    memory of one sweep launch.
+
+    By default the cheapest strip by _sweep_cost, each strip at as many
+    warps as W needs (ties keep more lanes per thread); `warps_per_pair`
+    forces another count, with the fewest lanes that cover W (its last warp
+    must hold a real lane).  Blocks hold four warps where they can, one per
+    SM sub-partition.  Bands wider than REG_MAX_W, or pairs whose sequences
+    do not fit in shared memory, take the wide route."""
+    if B < 0 or W < 1:
+        raise ValueError(f"bad dispatch B={B}, W={W}")
+    if W > REG_MAX_W:
+        return wide_plan(B, W)
+    if warps_per_pair is not None:
+        wpp = int(warps_per_pair)
+        lanes = next((s for s in SWEEP_LANES
+                      if s * 32 * wpp >= W and 32 * wpp <= _MAX_THREADS[s]), None)
+        if wpp < 1 or lanes is None or lanes * 32 * (wpp - 1) >= W:
+            raise ValueError(f"{warps_per_pair} warps per pair cannot cover W={W}")
+        if pair_smem_bytes(Lq, Lt, W, lanes, wpp) > _SMEM_OPTIN_BYTES:
+            return wide_plan(B, W)
+        return _regs_plan(B, W, Lq, Lt, lanes, wpp)
+    best = None
+    for s in sorted(SWEEP_LANES, reverse=True):
+        wpp = -(-W // (32 * s))
+        if 32 * wpp > _MAX_THREADS[s] or pair_smem_bytes(Lq, Lt, W, s, wpp) > _SMEM_OPTIN_BYTES:
+            continue
+        plan = _regs_plan(B, W, Lq, Lt, s, wpp)
+        cost = _sweep_cost(plan)
+        if best is None or cost < best[0]:
+            best = (cost, plan)
+    return best[1] if best is not None else wide_plan(B, W)
+
+
+WALK_PAIRS_PER_BLOCK = 4  # one warp per pair (csrc/nw_walk.cu)
+WALK_TILE = (64, 32)  # rows x lanes of the walk's shared-memory tile
+
+
 # -- kernel A: the sweep -------------------------------------------------------
 
 
@@ -191,14 +324,28 @@ def nw_align(Q, T, qlens, tlens, *, mismatch, o1, e1, o2, e2, band, tmax):
     if device.type == "cpu":
         return nw_align_reference(Q, T, qlens, tlens, **kw)
     _require_cuda(device)
+    plan = plan_sweep(B, band + 1, Q.shape[1], T.shape[1])
+    if not register_route_penalties(mismatch, o1, e1, o2, e2):
+        plan = wide_plan(B, band + 1)
+    return sweep_launch(Q, T, qlens, tlens, plan, **kw)
+
+
+def sweep_launch(Q, T, qlens, tlens, plan: SweepPlan, *, mismatch, o1, e1, o2, e2, band, tmax):
+    """Launch kernel A on checked CUDA tensors with a given plan (nw_align's
+    plan, or another one to compare launch shapes)."""
+    if plan.route == "regs" and not register_route_penalties(mismatch, o1, e1, o2, e2):
+        raise ValueError("the register route takes penalties in [0, 2^16) only")
+    device = Q.device
+    B, Lq = Q.shape
     W = band + 1
     tmax_pad = tmax_pad_of(tmax)
     scores = torch.empty(B, dtype=torch.int32, device=device)
     tb = torch.empty((B, tmax_pad, W), dtype=torch.uint8, device=device)
+    if B == 0:
+        return scores, tb
     scratch = None
-    if _SWEEP_ROWS * W * 4 > _SMEM_OPTIN_BYTES:
+    if plan.route == "wide" and not plan.smem_bytes:
         scratch = torch.empty(B * _SWEEP_ROWS * W, dtype=torch.int32, device=device)
-    threads = min(1024, ((W + 31) // 32) * 32)
     lib = _library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -206,13 +353,41 @@ def nw_align(Q, T, qlens, tlens, *, mismatch, o1, e1, o2, e2, band, tmax):
             Q.data_ptr(), T.data_ptr(), qlens.data_ptr(), tlens.data_ptr(),
             scores.data_ptr(), tb.data_ptr(),
             scratch.data_ptr() if scratch is not None else None,
-            B, Q.shape[1], T.shape[1], W, tmax, tmax_pad,
-            mismatch, o1, e1, o2, e2, threads, stream,
+            B, Lq, T.shape[1], W, tmax, tmax_pad, mismatch, o1, e1, o2, e2,
+            plan.lanes, plan.warps_per_pair, plan.pairs_per_block, plan.pair_bytes,
+            plan.threads, stream,
         )
     if err != 0:
         raise RuntimeError(f"nw_sweep launch failed with CUDA error {err}")
     LAUNCHES["nw_sweep"] += 1
     return scores, tb
+
+
+def sweep_occupancy(plan: SweepPlan, W: int, two_piece: bool) -> dict:
+    """Registers per thread, shared memory per block and resident pairs per
+    SM of a plan's launch shape, from the CUDA runtime and the launch code
+    (needs the card)."""
+    regs, blocks, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    scratch = int(plan.route == "wide" and not plan.smem_bytes)
+    err = _library().nw_sweep_occupancy(plan.lanes, int(two_piece), W, plan.pairs_per_block,
+                                        plan.pair_bytes, scratch, plan.threads,
+                                        ctypes.byref(regs), ctypes.byref(blocks), ctypes.byref(smem))
+    if err != 0:
+        raise RuntimeError(f"nw_sweep occupancy query failed with CUDA error {err}")
+    return {"regs_per_thread": regs.value, "smem_per_block": smem.value,
+            "resident_pairs_per_sm": blocks.value * plan.pairs_per_block,
+            "warps_per_pair": plan.warps_per_pair}
+
+
+def walk_occupancy() -> dict:
+    """Registers per thread, shared memory per block and resident pairs per
+    SM of the walk's launch shape (needs the card)."""
+    regs, blocks, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = _library().nw_walk_occupancy(ctypes.byref(regs), ctypes.byref(blocks), ctypes.byref(smem))
+    if err != 0:
+        raise RuntimeError(f"nw_walk occupancy query failed with CUDA error {err}")
+    return {"regs_per_thread": regs.value, "smem_per_block": smem.value,
+            "resident_pairs_per_sm": blocks.value * WALK_PAIRS_PER_BLOCK, "warps_per_pair": 1}
 
 
 def _frame(x: torch.Tensor, delta: int, inf_col: torch.Tensor) -> torch.Tensor:
@@ -336,12 +511,14 @@ def nw_walk(tb, qlens, tlens, *, band, tmax):
         return nw_walk_reference(tb, qlens, tlens, band=band, tmax=tmax)
     _require_cuda(device)
     ops = torch.zeros((B, tmax + 1), dtype=torch.uint8, device=device)
+    if B == 0:
+        return ops
     lib = _library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.nw_walk_launch(
             tb.data_ptr(), qlens.data_ptr(), tlens.data_ptr(), ops.data_ptr(),
-            B, W, tmax, tb.shape[1], _WALK_THREADS, stream,
+            B, W, tmax, tb.shape[1], stream,
         )
     if err != 0:
         raise RuntimeError(f"nw_walk launch failed with CUDA error {err}")

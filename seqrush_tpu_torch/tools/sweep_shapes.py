@@ -1,0 +1,150 @@
+"""Time kernel A (the sweep) at chosen batch sizes and bands on one GPU.
+
+    python3 seqrush_tpu_torch/tools/sweep_shapes.py [--shapes B:W,...]
+        [--each-strip] [--root DIR]
+
+The pairs are synthetic gene-length haplotypes made from seed 0 (a random
+base of 3,300 bases, ~2% SNPs and a few indels per copy), packed as the
+runner packs a chunk (lengths rounded up to 256, tmax to 512), with the
+headline scoring 0,5,8,2,24,1.  For each shape B:W it prints one JSON line
+with the time of ``nw_align`` (the planner's launch; a CUDA-event median of
+5 runs after a warm-up).  With --each-strip it also times every other
+lanes-per-thread strip that covers W, at as many warps as it needs, and on
+the wide route the rows in a global scratch; each is held bit-equal to
+``nw_align``'s scores and traceback first.
+
+--root imports seqrush_tpu_torch from another checkout, such as an earlier
+commit unpacked with ``git archive``; only ``nw_align`` is used then, so
+two versions of the kernel can be timed on one card in one call.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+PENALTIES = dict(mismatch=5, o1=8, e1=2, o2=24, e2=1)
+LENGTH = 3300
+REPS = 5
+
+
+def make_pairs(B: int, length: int, seed: int):
+    """B pairs (query, target) of ~length bases: a base with ~2% SNPs and
+    two to five indels of 1-29 bases per copy."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 4, length).astype(np.uint8)
+
+    def variant():
+        v = base.copy()
+        pos = rng.integers(0, length, length // 50)
+        v[pos] = rng.integers(0, 4, pos.size)
+        for _ in range(int(rng.integers(2, 6))):
+            p = int(rng.integers(0, v.size - 50))
+            n = int(rng.integers(1, 30))
+            if rng.random() < 0.5:
+                v = np.delete(v, np.arange(p, p + n))
+            else:
+                v = np.insert(v, p, rng.integers(0, 4, n).astype(np.uint8))
+        return v
+
+    return [(variant(), variant()) for _ in range(B)]
+
+
+def pack(pairs, device):
+    B = len(pairs)
+    lq = -(-max(q.size for q, _ in pairs) // 256) * 256
+    lt = -(-max(t.size for _, t in pairs) // 256) * 256
+    Q = np.full((B, lq), 6, np.uint8)
+    T = np.full((B, lt), 7, np.uint8)
+    for b, (q, t) in enumerate(pairs):
+        Q[b, : q.size] = q
+        T[b, : t.size] = t
+    ql = np.array([q.size for q, _ in pairs], np.int32)
+    tl = np.array([t.size for _, t in pairs], np.int32)
+    tmax = -(-int((ql + tl).max()) // 512) * 512
+    return [torch.from_numpy(a).to(device) for a in (Q, T, ql, tl)], tmax
+
+
+def cuda_ms(fn, reps: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def strips(nw_cuda, B: int, W: int, Lq: int, Lt: int):
+    """(label, plan) of every strip that covers W, and the wide route with
+    its rows in a global scratch where the planner keeps them in shared
+    memory."""
+    out = []
+    if W <= nw_cuda.REG_MAX_W:
+        for s in nw_cuda.SWEEP_LANES:
+            wpp = -(-W // (32 * s))
+            if 32 * wpp <= nw_cuda._MAX_THREADS[s]:
+                out.append((f"{s} lanes x {wpp} warps", nw_cuda._regs_plan(B, W, Lq, Lt, s, wpp)))
+    else:
+        plan = nw_cuda.wide_plan(B, W)
+        if plan.smem_bytes:
+            out.append(("wide, rows in global scratch",
+                        nw_cuda.SweepPlan("wide", 0, plan.warps_per_pair, 1, plan.threads, 0, 0, B)))
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--shapes", default="576:512,48:1536")
+    ap.add_argument("--each-strip", action="store_true")
+    ap.add_argument("--root", type=Path, default=Path(__file__).resolve().parents[2])
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("sweep_shapes: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(args.root.resolve()))
+    from seqrush_tpu_torch.ops import nw_cuda
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda")
+    for spec in args.shapes.split(","):
+        B, W = (int(x) for x in spec.split(":"))
+        (Q, T, ql, tl), tmax = pack(make_pairs(B, LENGTH, 0), dev)
+        kw = dict(PENALTIES, band=W - 1, tmax=tmax)
+        s_k, tb_k = nw_cuda.nw_align(Q, T, ql, tl, **kw)
+        row = {"root": str(args.root), "B": B, "W": W, "tmax": tmax, "card": smi,
+               "nw_align_ms": cuda_ms(lambda: nw_cuda.nw_align(Q, T, ql, tl, **kw), REPS)}
+        if hasattr(nw_cuda, "plan_sweep"):
+            row["plan"] = repr(nw_cuda.plan_sweep(B, W, Q.shape[1], T.shape[1]))
+        if args.each_strip:
+            row["strips_ms"] = {}
+            for label, plan in strips(nw_cuda, B, W, Q.shape[1], T.shape[1]):
+                s_w, tb_w = nw_cuda.sweep_launch(Q, T, ql, tl, plan, **kw)
+                if not (torch.equal(s_w, s_k) and torch.equal(tb_w, tb_k)):
+                    raise AssertionError(f"{label} disagrees with nw_align at B={B} W={W}")
+                del s_w, tb_w
+                row["strips_ms"][label] = cuda_ms(
+                    lambda: nw_cuda.sweep_launch(Q, T, ql, tl, plan, **kw), REPS)
+        print(json.dumps(row), flush=True)
+        del s_k, tb_k, Q, T, ql, tl
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
