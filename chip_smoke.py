@@ -12,11 +12,22 @@ Phases (any failure exits non-zero and prints no ok line):
   3. the main path: the JAX bench's headline corpus (25 synthetic HLA-like
      sequences of ~3.3 kb, ~2% SNPs plus indels, one sample carrying an
      inversion; all 600 ordered pairs; scoring 0,5,8,2,24,1) through
-     ``python -m seqrush_tpu_torch ... --no-sort --wide-route full`` (the
-     CLI's main); the golden invariant gates the GFA write, and the kernels'
-     launch counters are reset just before and read just after;
-  4. a small corpus through the pipeline on cuda and on cpu (the kernels'
-     plain versions): the GFA files must be byte-identical;
+     ``python -m seqrush_tpu_torch -s in.fa -o out.gfa --wide-route full``
+     (the CLI's main): alignment, union-find, graph, compaction, the Ygs
+     layout (PG-SGD on the card, groom, final order) and the GFA
+     write, which the golden invariant gates.  The kernels' launch counters
+     are reset just before and read just after.  Then the same run with
+     ``--no-sort``, counted the same way.  The sorted graph must have node
+     ids 1..N, be isomorphic to the unsorted one, and have a layout RMSE no
+     higher; the layout's phase seconds, the SGD's ticks and their width
+     and both graphs' RMSE and MAE are printed, and the SGD of this graph
+     is timed with its sums in a fixed order (as shipped) and with float
+     atomics (seqrush_tpu_torch/tools/sgd_timing.py);
+  4. a small corpus through the pipeline: with ``--no-sort`` on cuda and on
+     cpu (the kernels' plain versions), byte-identical GFA files; with the
+     layout twice on cuda, byte-identical GFA files, and once on cpu, a GFA
+     isomorphic to the cuda one; then ``-x tree:2,1,0.2`` and
+     ``--iterative`` on cuda, with their pair counts printed;
   5. each kernel against its plain PyTorch version on the card, on the
      main path's own chunk inputs (the largest dispatch in full, the widest
      band's first 7 jobs plus a zero-length padding row): exact equality
@@ -226,24 +237,40 @@ def run(work: Path, name: str, smi: str) -> int:
     from seqrush_tpu_torch import cli
     from seqrush_tpu_torch.align.pairs import all_ordered_pairs
     from seqrush_tpu_torch.align.runner import RunnerConfig, WfaAligner
+    from seqrush_tpu_torch.graph.bigraph import parse_gfa
+    from seqrush_tpu_torch.layout.sgd import sgd_setup
+    from seqrush_tpu_torch.layout.ygs import YgsParams
     from seqrush_tpu_torch.ops import nw_cuda
+    from seqrush_tpu_torch.tools.isomorphic import isomorphic
+    from seqrush_tpu_torch.tools.measure_layout_quality import layout_quality
+    from seqrush_tpu_torch.tools.sgd_timing import time_sgd
     from seqrush_tpu_torch.scores import AlignmentScores
     from seqrush_tpu_torch.sequences import make_sequence_set
 
     named = synth_hla()
     fa, gfa, prof = work / "hla25.fa", work / "hla25.gfa", work / "profile.json"
+    gfa_ns = work / "hla25_nosort.gfa"
     write_fasta(fa, named)
 
-    # 3. main path, counters reset just before and read just after
-    nw_cuda.reset_launch_counts()
-    t0 = time.time()
-    rc = cli.main(["-s", str(fa), "-o", str(gfa), "--no-sort", "--wide-route", "full",
-                   "--profile", str(prof)])
-    wall = time.time() - t0
-    launches = dict(nw_cuda.LAUNCHES)
-    if rc != 0:
-        raise RuntimeError(f"main path returned {rc}")
-    rep = json.loads(prof.read_text())
+    def drive(out: Path, *flags: str):
+        """One CLI run on cuda with the launch counters reset just before and
+        read just after: (profile report, launches, wall seconds)."""
+        nw_cuda.reset_launch_counts()
+        t0 = time.time()
+        rc = cli.main(["-s", str(fa), "-o", str(out), "--wide-route", "full",
+                       "--profile", str(prof), *flags])
+        wall = time.time() - t0
+        counts = dict(nw_cuda.LAUNCHES)
+        if rc != 0:
+            raise RuntimeError(f"cli.main returned {rc} with flags {flags}")
+        for k, n in counts.items():
+            if n <= 0:
+                raise AssertionError(f"kernel {k} was not launched with flags {flags}")
+        return json.loads(prof.read_text()), counts, wall
+
+    # 3. main path (layout on), then the same with --no-sort
+    rep, launches, wall = drive(gfa)
+    rep_ns, launches_ns, wall_ns = drive(gfa_ns, "--no-sort")
     st = rep["stats"]["aligner"]
     n_align = int(rep["counters"]["alignments"])
     g = rep["graph"]
@@ -262,27 +289,83 @@ def run(work: Path, name: str, smi: str) -> int:
     )
     print("  dispatches " + json.dumps([[d["B"], d["band"], d["tmax"], len(d["jobs"])]
                                         for d in st["dispatches"]]) + " ([B, band, tmax, jobs])")
+    print(f"main path with --no-sort: total {wall_ns:.2f} s; launches {launches_ns}; phases_s "
+          + json.dumps({k: round(v, 4) for k, v in rep_ns["phases_s"].items()}))
     if n_align != 600 or g["paths"] != 25 or not lines or not lines[0].startswith("H\t"):
         raise AssertionError("main path output is not a 25-path GFA of 600 alignments")
     if st["dropped"]:
         raise AssertionError(f"{st['dropped']} pairs dropped")
-    for k, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {k} was not launched on the main path")
+    if rep_ns["graph"] != g or int(rep_ns["counters"]["alignments"]) != 600:
+        raise AssertionError("the --no-sort run built another graph")
 
-    # 4. small corpus: cuda vs cpu, byte-identical GFA
+    sorted_g, unsorted_g = parse_gfa(gfa.read_text()), parse_gfa(gfa_ns.read_text())
+    if sorted(sorted_g.nodes) != list(range(1, g["nodes"] + 1)):
+        raise AssertionError("sorted graph's node ids are not 1..N")
+    same, why = isomorphic(sorted_g, unsorted_g)
+    if not same:
+        raise AssertionError(f"sorted and unsorted graphs are not isomorphic: {why}")
+    q, q_ns = layout_quality(sorted_g), layout_quality(unsorted_g)
+    plan = sgd_setup(unsorted_g, YgsParams.from_graph(unsorted_g).to_sgd(), "cuda")
+    ph = rep["phases_s"]
+    print(
+        f"layout: {ph['layout']:.3f} s (sgd {ph['layout_sgd']:.3f}, groom "
+        f"{ph['layout_groom']:.3f}, final order {ph['layout_final_order']:.3f}); "
+        f"SGD {plan.n_ticks} ticks of {plan.u_per_sub} terms over {plan.n_steps} steps; "
+        f"sorted rmse {q['rmse']:.3f} mae {q['mae']:.3f} | --no-sort rmse {q_ns['rmse']:.3f} "
+        f"mae {q_ns['mae']:.3f} (bp)"
+    )
+    if not q["rmse"] <= q_ns["rmse"]:
+        raise AssertionError("the sorted graph's RMSE is above the unsorted one's")
+    sgd_times = time_sgd(unsorted_g)
+    print("sgd timing " + json.dumps(sgd_times))
+    if not sgd_times["fixed_order_runs_bit_equal"]:
+        raise AssertionError("two SGD runs with one seed gave different positions")
+
+    # 4. small corpus
     small = small_corpus()
     sfa = work / "small.fa"
     write_fasta(sfa, small)
-    outs = {}
-    for dev in ("cuda", "cpu"):
-        out = work / f"small_{dev}.gfa"
-        if cli.main(["-s", str(sfa), "-o", str(out), "--no-sort", "--device", dev]) != 0:
-            raise RuntimeError(f"small corpus failed on {dev}")
-        outs[dev] = out.read_bytes()
-    if outs["cuda"] != outs["cpu"]:
-        raise AssertionError("cuda and cpu GFA differ on the small corpus")
-    print(f"small corpus: cuda GFA == cpu GFA ({len(outs['cuda'])} bytes)")
+
+    def small_run(tag: str, *flags: str) -> bytes:
+        out = work / f"small_{tag}.gfa"
+        if cli.main(["-s", str(sfa), "-o", str(out), *flags]) != 0:
+            raise RuntimeError(f"small corpus failed with flags {flags}")
+        return out.read_bytes()
+
+    cuda_ns = small_run("cuda_ns", "--no-sort")
+    if cuda_ns != small_run("cpu_ns", "--no-sort", "--device", "cpu"):
+        raise AssertionError("cuda and cpu GFA differ on the small corpus with --no-sort")
+    print(f"small corpus --no-sort: cuda GFA == cpu GFA ({len(cuda_ns)} bytes)")
+    cuda_a, cuda_b = small_run("cuda_a"), small_run("cuda_b")
+    if cuda_a != cuda_b:
+        raise AssertionError("two layout runs on cuda gave different GFA files")
+    cpu_sorted = small_run("cpu", "--device", "cpu")
+    ga, gc = parse_gfa(cuda_a.decode()), parse_gfa(cpu_sorted.decode())
+    same, why = isomorphic(ga, gc)
+    if not same:
+        raise AssertionError(f"cuda and cpu sorted GFA are not isomorphic: {why}")
+    print(
+        f"small corpus with layout: cuda run 1 == cuda run 2 ({len(cuda_a)} bytes); cuda "
+        f"isomorphic to cpu; rmse cuda {layout_quality(ga)['rmse']:.3f} cpu "
+        f"{layout_quality(gc)['rmse']:.3f} --no-sort "
+        f"{layout_quality(parse_gfa(cuda_ns.decode()))['rmse']:.3f} (bp)"
+    )
+
+    # 4b. the sparsified and the iterative schedule on the card (the golden
+    # invariant gates each GFA write)
+    sprof = work / "small_profile.json"
+    for tag, flags in (("tree", ("-x", "tree:2,1,0.2")), ("iterative", ("--iterative",))):
+        text = small_run(tag, "--profile", str(sprof), *flags).decode()
+        srep = json.loads(sprof.read_text())
+        faults = parse_gfa(text).comprehensive_verify(dict(small))
+        if faults or srep["graph"]["paths"] != len(small):
+            raise AssertionError(f"{tag} run wrote a faulty graph: {faults[:3]}")
+        counts = {k: v for k, v in srep["stats"].items() if k.startswith("iterative_")}
+        print(
+            f"small corpus {' '.join(flags)}: {srep['stats']['aligner']['alignments']} "
+            f"alignments of {len(small) * (len(small) - 1)} ordered pairs; graph "
+            f"{json.dumps(srep['graph'])} {json.dumps(counts) if counts else ''}"
+        )
 
     # 5. kernels against their plain versions, on the main path's inputs
     al = WfaAligner(make_sequence_set(named),

@@ -1,11 +1,11 @@
 """Command-line interface — the same flags as ``python -m seqrush_tpu``, plus
 ``--device``:
 
-  python -m seqrush_tpu_torch -s in.fa -o out.gfa --no-sort
+  python -m seqrush_tpu_torch -s in.fa -o out.gfa
 
 Flags whose code paths are not ported yet are accepted and raise
-``NotImplementedError`` naming their ROADMAP item (layout needs --no-sort;
-wide pairs of long sequences need --wide-route full).
+``NotImplementedError`` naming their ROADMAP item (wide pairs of long
+sequences need --wide-route full).
 """
 
 from __future__ import annotations

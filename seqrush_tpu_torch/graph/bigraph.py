@@ -10,12 +10,12 @@ instead of per-step loops.
 Edge iteration order: the reference stores edges in a HashSet (arbitrary
 order) and sorts wherever determinism matters; we keep insertion order, which
 is deterministic by construction and compatible with every sorted consumer.
-Copied from seqrush_tpu/graph/bigraph.py, trimmed to what graph induction,
-compaction and the GFA writer use.
+Copied from seqrush_tpu/graph/bigraph.py.
 """
 
 from __future__ import annotations
 
+import hashlib
 from dataclasses import dataclass
 
 import numpy as np
@@ -71,17 +71,60 @@ class BidirectedGraph:
         for i in first_idx:
             self.add_edge(int(f[i]), int(t[i]))
 
+    def has_edge(self, from_handle: int, to_handle: int) -> bool:
+        e = (int(from_handle), int(to_handle))
+        comp = (int(to_handle) ^ 1, int(from_handle) ^ 1)
+        return e in self.edges or comp in self.edges
+
     def add_path(self, name: str, steps) -> None:
         self.paths.append(BiPath(name, np.asarray(steps, dtype=np.int64)))
+
+    def build_path(self, name: str, steps: list[tuple[int, bool]]) -> None:
+        handles = np.array([(nid << 1) | int(rev) for nid, rev in steps], dtype=np.int64)
+        self.paths.append(BiPath(name, handles))
 
     # -- queries -------------------------------------------------------------
 
     def node_count(self) -> int:
         return len(self.nodes)
 
+    def node_ids(self) -> list[int]:
+        return sorted(self.nodes)
+
+    def edge_array(self) -> np.ndarray:
+        """Edges as an int64 [E, 2] array in insertion order."""
+        if not self.edges:
+            return np.zeros((0, 2), dtype=np.int64)
+        return np.array(list(self.edges), dtype=np.int64)
+
+    def edges_from(self, handle: int) -> list[int]:
+        """Successors of an oriented handle incl. implied complements
+        (bidirected_ops.rs:843-855)."""
+        h = int(handle)
+        out = []
+        for (f, t) in self.edges:
+            if f == h:
+                out.append(t)
+            elif (t ^ 1) == h:
+                out.append(f ^ 1)
+        return out
+
+    def edges_to(self, handle: int) -> list[int]:
+        h = int(handle)
+        out = []
+        for (f, t) in self.edges:
+            if t == h:
+                out.append(f)
+            elif (f ^ 1) == h:
+                out.append(t ^ 1)
+        return out
+
     def get_sequence(self, handle: int) -> np.ndarray:
         seq = self.nodes[int(handle) >> 1]
         return reverse_complement(seq) if (int(handle) & 1) else seq
+
+    def node_lengths(self) -> dict[int, int]:
+        return {i: len(s) for i, s in self.nodes.items()}
 
     def path_sequence(self, path: BiPath) -> np.ndarray:
         """Concatenate oriented node sequences along a path (vectorized for 1bp-heavy graphs)."""
@@ -93,6 +136,12 @@ class BidirectedGraph:
             seq = self.nodes[h >> 1]
             parts.append(reverse_complement(seq) if h & 1 else seq)
         return np.concatenate(parts) if parts else np.zeros(0, dtype=np.uint8)
+
+    def path_hash(self, path: BiPath) -> str:
+        return hashlib.sha256(self.path_sequence(path).tobytes()).hexdigest()
+
+    def all_path_hashes(self) -> dict[str, str]:
+        return {p.name: self.path_hash(p) for p in self.paths}
 
     # -- renumbering ---------------------------------------------------------
 
@@ -121,6 +170,37 @@ class BidirectedGraph:
         """Renumber to 1..N in ascending old-id order (bidirected_ops.rs:75-89)."""
         mapping = {old: i + 1 for i, old in enumerate(sorted(self.nodes))}
         self._remap(mapping)
+
+    def apply_ordering(self, ordering: list[int] | np.ndarray) -> None:
+        """Renumber nodes 1..N by an ordered list of handles
+        (bidirected_ops.rs:1609-1697).  Orientation bits in the ordering are
+        ignored for numbering (reference emits forward handles)."""
+        ordering = np.asarray(ordering, dtype=np.int64)
+        if ordering.size == 0:
+            return
+        mapping = {int(h) >> 1: i + 1 for i, h in enumerate(ordering)}
+        self._remap(mapping)
+
+    def flip_nodes(self, node_ids: set[int]) -> None:
+        """Reverse-complement the given nodes; XOR orientations in edges and
+        paths (groom apply, reference src/groom.rs:613-685)."""
+        if not node_ids:
+            return
+        for nid in node_ids:
+            self.nodes[nid] = reverse_complement(self.nodes[nid])
+        max_id = max(self.nodes, default=0)
+        flip_lut = np.zeros(max_id + 1, dtype=np.int64)
+        for nid in node_ids:
+            if nid <= max_id:
+                flip_lut[nid] = 1
+        new_edges: dict[tuple[int, int], None] = {}
+        for (f, t) in self.edges:
+            nf = f ^ int(flip_lut[f >> 1])
+            nt = t ^ int(flip_lut[t >> 1])
+            new_edges[(nf, nt)] = None
+        self.edges = new_edges
+        for path in self.paths:
+            path.steps = path.steps ^ flip_lut[path.steps >> 1]
 
     # -- path-derived structure ----------------------------------------------
 
@@ -161,6 +241,107 @@ class BidirectedGraph:
             self.edges[(int(mf[i]), int(mt[i]))] = None
         return int(first.size)
 
+    def find_head_nodes(self) -> list[int]:
+        """Forward handles of nodes with no incoming edges to either
+        orientation, sorted by earliest path position then node id
+        (bidirected_ops.rs:1316-1356)."""
+        has_incoming: set[int] = set()
+        for (_, t) in self.edges:
+            has_incoming.add(t >> 1)
+        heads = [nid for nid in self.nodes if nid not in has_incoming]
+        pos_map = self.build_path_position_map()
+        heads.sort(key=lambda nid: (pos_map.get(nid, np.inf), nid))
+        return [nid << 1 for nid in heads]
+
+    def find_tail_nodes(self) -> list[int]:
+        # reference checks only edges FROM the forward handle
+        has_outgoing = {f >> 1 for (f, _) in self.edges if not (f & 1)}
+        tails = sorted(nid for nid in self.nodes if nid not in has_outgoing)
+        return [nid << 1 for nid in tails]
+
+    def build_path_position_map(self) -> dict[int, int]:
+        """node id -> earliest step rank across all paths
+        (bidirected_ops.rs:1296-1311)."""
+        pos_map: dict[int, int] = {}
+        for path in self.paths:
+            ids = path.steps >> 1
+            for rank, nid in enumerate(ids):
+                nid = int(nid)
+                if nid not in pos_map or rank < pos_map[nid]:
+                    pos_map[nid] = rank
+        return pos_map
+
+    # -- validation ----------------------------------------------------------
+
+    def validate_consistency(self) -> list[str]:
+        errors = []
+        for (f, t) in self.edges:
+            if (f >> 1) not in self.nodes:
+                errors.append(f"Edge references non-existent node: {f >> 1} (from)")
+            if (t >> 1) not in self.nodes:
+                errors.append(f"Edge references non-existent node: {t >> 1} (to)")
+        for path in self.paths:
+            for h in np.unique(path.steps >> 1):
+                if int(h) not in self.nodes:
+                    errors.append(f"Path {path.name} references non-existent node: {int(h)}")
+        return errors
+
+    def comprehensive_verify(self, originals: dict[str, bytes] | None = None) -> list[str]:
+        """Full structural verification (reference graph_ops.rs
+        comprehensive_verify, :689-1141): consistency, path-edge support,
+        connected components vs path coverage, optional sequence equality."""
+        errors = self.validate_consistency()
+        # every consecutive path step must have a supporting edge
+        for path in self.paths:
+            for a, b in zip(path.steps[:-1], path.steps[1:]):
+                if not self.has_edge(int(a), int(b)):
+                    errors.append(
+                        f"Path {path.name}: missing edge {handle_str(a)} -> {handle_str(b)}"
+                    )
+        # nodes unreachable from any path are orphans
+        covered = set()
+        for path in self.paths:
+            covered.update(int(h) >> 1 for h in path.steps)
+        orphans = set(self.nodes) - covered
+        if orphans:
+            errors.append(f"{len(orphans)} nodes not covered by any path")
+        # every stored edge must be traversed by some path, in either
+        # direction (the reference's edge-traversal battery asserts that no
+        # L line exists that no path walks and that self-loops stay minimal,
+        # reference tests/test_edge_traversal.rs:17-176).  Edges come
+        # only from observed path adjacencies here, so an untraversed edge
+        # means that induction or compaction corrupted the graph.
+        traversed: set[tuple[int, int]] = set()
+        for path in self.paths:
+            for a, b in zip(path.steps[:-1], path.steps[1:]):
+                a, b = int(a), int(b)
+                traversed.add((a, b))
+                traversed.add((b ^ 1, a ^ 1))  # bidirected complement
+        untraversed = [e for e in self.edges if e not in traversed]
+        if untraversed:
+            errors.append(
+                f"{len(untraversed)} edges not traversed by any path "
+                f"(first: {untraversed[0][0] >> 1}"
+                f"{'-' if untraversed[0][0] & 1 else '+'} -> "
+                f"{untraversed[0][1] >> 1}"
+                f"{'-' if untraversed[0][1] & 1 else '+'})"
+            )
+        # self-loop legality: a node-level self-loop (f>>1 == t>>1) is only
+        # legal when a path actually walks it (tandem repeat); spurious
+        # self-loops are a classic unite-corruption symptom
+        for f, t in self.edges:
+            if f >> 1 == t >> 1 and (f, t) not in traversed:
+                errors.append(
+                    f"spurious self-loop on node {f >> 1} "
+                    "(no path traverses it)"
+                )
+        if originals is not None:
+            for path in self.paths:
+                want = originals.get(path.name)
+                if want is not None and self.path_sequence(path).tobytes() != want:
+                    errors.append(f"Path {path.name} does not reconstruct its sequence")
+        return errors
+
     # -- GFA -----------------------------------------------------------------
 
     def write_gfa(self, fh) -> None:
@@ -177,3 +358,40 @@ class BidirectedGraph:
         for path in self.paths:
             steps = ",".join(handle_str(h) for h in path.steps)
             w(f"P\t{path.name}\t{steps}\t*\n")
+
+    def to_gfa_string(self) -> str:
+        import io
+
+        buf = io.StringIO()
+        self.write_gfa(buf)
+        return buf.getvalue()
+
+
+def parse_gfa(text_or_fh) -> BidirectedGraph:
+    """Read GFA 1.0 (S/L/P) into a BidirectedGraph — interop + tools."""
+    if hasattr(text_or_fh, "read"):
+        text = text_or_fh.read()
+    else:
+        text = text_or_fh
+    g = BidirectedGraph()
+    links: list[tuple[int, int]] = []
+    for line in text.splitlines():
+        if not line:
+            continue
+        fields = line.split("\t")
+        tag = fields[0]
+        if tag == "S":
+            g.add_node(int(fields[1]), fields[2].encode())
+        elif tag == "L":
+            f = (int(fields[1]) << 1) | (fields[2] == "-")
+            t = (int(fields[3]) << 1) | (fields[4] == "-")
+            links.append((f, t))
+        elif tag == "P":
+            steps = []
+            for step in fields[2].split(","):
+                rev = step.endswith("-")
+                steps.append((int(step[:-1]) << 1) | rev)
+            g.add_path(fields[1], np.array(steps, dtype=np.int64))
+    for f, t in links:
+        g.add_edge(f, t)
+    return g

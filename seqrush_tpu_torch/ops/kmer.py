@@ -1,15 +1,24 @@
-"""Bottom-k MinHash (mash) sketches and distances, for orientation calls and
-band sizing.
+"""K-mer sketches and distances.
 
-Host numpy, copied from ``seqrush_tpu/ops/kmer.py`` (``_kmer_codes``,
-``mash_sketches``, ``mash_distance_batch``).  The sketch-matrix distances
-that tree sparsification uses are not part of this package yet (ROADMAP
-item 8).
+The port of ``seqrush_tpu/ops/kmer.py``:
+
+* bottom-k MinHash (mash) sketches and distances, for orientation calls and
+  band sizing (host numpy);
+* bucketed k-mer count sketches and their cosine distance matrix, one
+  float32 matrix product on the run's device, which the tree, auto and
+  connectivity pair schedules and the iterative mode read;
+* the minimum spanning tree and the tree-sampling pair selection over that
+  matrix (host numpy).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from ..utils import resolve_device
+
+_DIM = 1024  # sketch dimensionality (buckets)
 
 
 def _kmer_codes(codes: np.ndarray, k: int) -> np.ndarray:
@@ -27,6 +36,18 @@ def _kmer_codes(codes: np.ndarray, k: int) -> np.ndarray:
         ok &= valid[i : i + h.size]
     h = (h * mult) >> np.uint64(32)
     return h[ok]
+
+
+def kmer_sketches(seq_codes: list[np.ndarray], k: int) -> np.ndarray:
+    """Per-sequence bucketed k-mer count sketches, L2-normalized [n, DIM]."""
+    n = len(seq_codes)
+    out = np.zeros((n, _DIM), dtype=np.float32)
+    for i, codes in enumerate(seq_codes):
+        h = _kmer_codes(codes, k) % _DIM
+        np.add.at(out[i], h.astype(np.int64), 1.0)
+    norms = np.linalg.norm(out, axis=1, keepdims=True)
+    norms[norms == 0] = 1.0
+    return out / norms
 
 
 def mash_sketches(
@@ -84,3 +105,83 @@ def mash_distance_batch(
         out[lo : lo + BLOCK] = np.where(j <= 0.0, 1.0, d)
     empty = (sizes[ia] == 0) | (sizes[ib] == 0)
     return np.where(empty, 1.0, out)
+
+
+def kmer_distance_matrix(
+    seq_codes: list[np.ndarray], k: int, device: str | torch.device = "cuda"
+) -> np.ndarray:
+    """[n, n] cosine distance over k-mer sketches: ``1 - S @ S.T`` as one
+    float32 matrix product on ``device``."""
+    sketches = torch.from_numpy(kmer_sketches(seq_codes, k)).to(resolve_device(device))
+    return (1.0 - torch.matmul(sketches, sketches.T)).cpu().numpy()
+
+
+def mst_pairs(dist: np.ndarray) -> np.ndarray:
+    """Minimum spanning tree edges (Prim) over a dense distance matrix —
+    the distance-aware connectivity guarantee for sparsified pair schedules
+    ([n-1, 2] int32)."""
+    n = dist.shape[0]
+    if n < 2:
+        return np.zeros((0, 2), dtype=np.int32)
+    in_tree = np.zeros(n, dtype=bool)
+    in_tree[0] = True
+    best = dist[0].copy()
+    best_from = np.zeros(n, dtype=np.int64)
+    out = []
+    for _ in range(n - 1):
+        cand = np.where(in_tree, np.inf, best)
+        j = int(np.argmin(cand))
+        out.append((int(best_from[j]), j))
+        in_tree[j] = True
+        upd = dist[j] < best
+        best = np.where(upd, dist[j], best)
+        best_from = np.where(upd, j, best_from)
+    return np.array(out, dtype=np.int32)
+
+
+def tree_sampling_pairs(
+    dist: np.ndarray,
+    k_nearest: int,
+    k_farthest: int,
+    rand_frac: float,
+    seed: int = 42,
+) -> tuple[np.ndarray, np.ndarray]:
+    """(tree_pairs, random_pairs) — the two phases of TreeSampling.
+
+    tree_pairs: for every sequence its k nearest and k farthest partners by
+    sketch distance, unioned with a minimum spanning tree so the alignment
+    graph is always connected (the reference's tree phase guarantee).
+    random_pairs: rand_frac of the remaining ordered pairs, shuffled.
+    """
+    n = dist.shape[0]
+    if n < 2:
+        z = np.zeros((0, 2), dtype=np.int32)
+        return z, z
+    chosen: set[tuple[int, int]] = set()
+    order = np.argsort(dist + np.eye(n) * 1e9, axis=1, kind="stable")
+    for i in range(n):
+        for j in order[i, : max(k_nearest, 0)]:
+            chosen.add((i, int(j)))
+        if k_farthest > 0:
+            for j in order[i, ::-1][:k_farthest]:
+                if int(j) != i:
+                    chosen.add((i, int(j)))
+    # MST for connectivity
+    for a, b in mst_pairs(dist):
+        chosen.add((int(a), int(b)))
+    tree_pairs = np.array(sorted(chosen), dtype=np.int32) if chosen else np.zeros((0, 2), np.int32)
+
+    rng = np.random.default_rng(seed)
+    if rand_frac > 0:
+        ii, jj = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+        mask = ii != jj
+        allp = np.stack([ii[mask], jj[mask]], axis=1)
+        tkey = tree_pairs[:, 0].astype(np.int64) * n + tree_pairs[:, 1]
+        akey = allp[:, 0].astype(np.int64) * n + allp[:, 1]
+        remaining = allp[~np.isin(akey, tkey)]
+        m = int(round(rand_frac * len(remaining)))
+        idx = rng.permutation(len(remaining))[:m]
+        random_pairs = remaining[idx].astype(np.int32)
+    else:
+        random_pairs = np.zeros((0, 2), dtype=np.int32)
+    return tree_pairs, random_pairs

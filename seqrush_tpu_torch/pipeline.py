@@ -2,14 +2,14 @@
 
 The port of ``seqrush_tpu/pipeline.py``:
 
-  load -> pre-unite F/R of every offset -> [PAF replay | all-pairs banded
-  alignment] -> bulk unite on the device -> induce graph -> compact and
-  renumber (unless --no-compact) -> validate that every path reconstructs
-  its input -> GFA 1.0.
+  load -> pre-unite F/R of every offset -> [PAF replay | batched banded
+  alignment of all pairs (sparsified) | iterative two-phase] -> bulk unite
+  on the device -> induce graph -> compact and renumber (unless
+  --no-compact) -> Ygs (unless --no-sort) -> validate that every path
+  reconstructs its input -> GFA 1.0.
 
-Layout (``no_sort=False``), sparsification, iterative, inversion-aware,
-mesh and multi-host modes are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP item.
+Inversion-aware, sweepga, mesh and multi-host modes are not ported yet and
+raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -18,13 +18,14 @@ import json
 import os
 import sys
 import time
+from collections import deque
 
 import numpy as np
 
 from .align import cigar as cigar_mod
 from .align.base import runner_class
-from .align.pairs import parse_sparsification, schedule_pairs
-from .align.runner import RunnerConfig
+from .align.pairs import all_ordered_pairs, parse_sparsification, schedule_pairs
+from .align.runner import RunnerConfig, WfaAligner
 from .config import Args
 from .graph.bigraph import BidirectedGraph
 from .graph.builder import build_bidirected_graph
@@ -34,25 +35,23 @@ from .scores import AlignmentScores
 from .sequences import SequenceSet, load_fasta
 from .utils import PhaseTimer, resolve_device
 
-_LAYOUT_MESSAGE = (
-    "graph layout (the Ygs sort) is not ported yet (ROADMAP item 7); "
-    "pass --no-sort (Args.no_sort=True)"
-)
+# iterative-mode stabilization constants (reference seqrush.rs:1038-1121):
+# the component count is evaluated at every CHECK_INTERVAL-result boundary;
+# STABILITY_THRESHOLD consecutive unchanged counts stop the random phase.
+# ITER_DISPATCH pairs align per device dispatch — early-stop semantics are
+# invariant to it (results are consumed in pair order either way).
+CHECK_INTERVAL = 10
+STABILITY_THRESHOLD = 10
+ITER_DISPATCH = 250
 
 
 def unsupported_reason(args: Args) -> str | None:
-    """Why this package cannot align under ``args`` yet, or None when it can
-    (layout is checked where it would run, in ``write_gfa``)."""
+    """Why this package cannot align under ``args`` yet, or None when it can."""
     checks = (
-        (args.iterative, "iterative mode is not ported yet (ROADMAP item 8)"),
         (args.inversion_aware, "inversion-aware mode is not ported yet (ROADMAP item 11)"),
         (args.aligner != "allwave", "the sweepga backend is not ported yet (ROADMAP item 11)"),
         (bool(args.mesh_devices), "mesh alignment is not ported yet (ROADMAP item 12)"),
         (args.wide_verify, "--wide-verify belongs to the anchored route (ROADMAP item 9)"),
-        (
-            args.sparsification not in ("none", "1.0"),
-            "sparsification is not ported yet (ROADMAP item 8); use -x none",
-        ),
     )
     for bad, why in checks:
         if bad:
@@ -78,6 +77,12 @@ class SeqRushTorch:
         self.stats: dict = {}
 
     # -- alignment phase -----------------------------------------------------
+
+    def count_components(self) -> int:
+        self._flush_unites()
+        # self-root reduction, not root-unique: the iterative mode calls
+        # this every CHECK_INTERVAL results
+        return uf.count_components_fast(self.parent, self.total_length << 1)
 
     def _queue_unites(self, u: np.ndarray, v: np.ndarray) -> None:
         if u.size:
@@ -160,19 +165,115 @@ class SeqRushTorch:
         )
         aligner = aligner_cls(self.seqs, cfg, device=self.device)
         n = len(self.seqs)
-        pairs = schedule_pairs(n, parse_sparsification(args.sparsification))
+
+        spars = parse_sparsification(args.sparsification)
+        sparsified = spars.kind != "none" or args.iterative
+        kdist = None
+        if spars.kind in ("tree", "auto", "connectivity") or args.iterative:
+            # sketch distances feed tree sampling AND the MST connectivity
+            # backbone of auto/connectivity schedules
+            from .ops.kmer import kmer_distance_matrix
+
+            kdist = kmer_distance_matrix(aligner.codes, spars.kmer_size or 16, self.device)
+
         self.timer.count("pairs_total", n * n)
-        if args.verbose:
-            print(f"Total sequence pairs: {len(pairs)} (sparsification: none)")
-        with self.timer.phase("align"):
-            results = aligner.align_pairs(pairs)
-        self.timer.count("alignments", len(results))
-        self._paf_out(results)
+        # PAF pre-pass: --output-alignments always records the full all-pairs
+        # set, independent of sparsification (reference seqrush.rs:694-716
+        # runs an unsparsified AllPairIterator just for the PAF)
+        if args.output_alignments and sparsified:
+            with self.timer.phase("paf_prepass"):
+                self._paf_out(aligner.align_pairs(all_ordered_pairs(n)))
+
+        if args.iterative:
+            with self.timer.phase("align"):
+                self._align_iterative(aligner, kdist, spars)
+        else:
+            pairs = schedule_pairs(n, spars, seed=args.seed, kmer_distances=kdist)
+            if args.verbose:
+                print(f"Total sequence pairs: {len(pairs)} (sparsification: {spars.kind})")
+            with self.timer.phase("align"):
+                results = aligner.align_pairs(pairs)
+            self.timer.count("alignments", len(results))
+            if not sparsified:
+                self._paf_out(results)
+            with self.timer.phase("unite"):
+                for res in results:
+                    self._result_to_unites(res, args.min_match_length)
         with self.timer.phase("unite"):
-            for res in results:
-                self._result_to_unites(res, args.min_match_length)
             self._flush_unites()
         self.stats["aligner"] = aligner.stats
+
+    def _align_iterative(self, aligner: WfaAligner, kdist, spars) -> None:
+        """Two-phase iterative alignment with stabilization detection
+        (reference seqrush.rs:867-1132): tree pairs first (connectivity),
+        then random pairs with component-count early stopping."""
+        from .ops.kmer import tree_sampling_pairs
+
+        k_near = spars.k_nearest or 3
+        k_far = spars.k_farthest or 1
+        rand_frac = spars.rand_frac if spars.rand_frac > 0 else 1.0
+        tree_pairs, random_pairs = tree_sampling_pairs(
+            kdist, k_near, k_far, rand_frac, seed=self.args.seed
+        )
+        if self.args.verbose:
+            print(f"[iterative] phase 1: {len(tree_pairs)} tree pairs")
+        results = aligner.align_pairs(tree_pairs)
+        self.stats["iterative_dispatches"] = 1 if len(tree_pairs) else 0
+        for res in results:
+            self._result_to_unites(res, self.args.min_match_length)
+        components = self.count_components()
+        if self.args.verbose:
+            print(f"[iterative] after tree phase: {components} components")
+
+        # The reference aligns pair-by-pair and checks the component count
+        # after every 10 pairs (seqrush.rs:1038-1121).  Its early-stop
+        # semantics depend on RESULT order, not dispatch size — so here the
+        # random phase dispatches device-sized batches and then consumes the
+        # results IN PAIR ORDER, evaluating the component count at every
+        # 10-result boundary.  On stop, results not yet consumed are
+        # discarded un-united, exactly as the reference never aligns the
+        # remaining pairs.
+        DISPATCH = max(CHECK_INTERVAL, ITER_DISPATCH)
+        stable = 0
+        prev = components
+        stopped = False
+        pair_counter = 0  # phase-global, like the reference's pair_idx
+        for lo in range(0, len(random_pairs), DISPATCH):
+            batch = random_pairs[lo : lo + DISPATCH]
+            results = aligner.align_pairs(batch)
+            self.stats["iterative_dispatches"] += 1
+            # key results by pair so consumption follows BATCH order even if
+            # the backend returned them in completion order
+            by_pair: dict[tuple[int, int], deque] = {}
+            for r in results:
+                by_pair.setdefault((r.query_idx, r.target_idx), deque()).append(r)
+            for i, j in batch:
+                dq = by_pair.get((int(i), int(j)))
+                while dq:
+                    # all records of this pair (multi-chain backends emit
+                    # several) unite before the pair advances the counter,
+                    # as the reference's inner for-alignment loop does
+                    self._result_to_unites(dq.popleft(), self.args.min_match_length)
+                # else: the pair was dropped (divergence cap) — it still
+                # advances the check counter, as in the reference
+                pair_counter += 1
+                if pair_counter % CHECK_INTERVAL == 0:
+                    comp = self.count_components()
+                    if comp == prev:
+                        stable += 1
+                        if stable >= STABILITY_THRESHOLD:
+                            stopped = True
+                            break
+                    else:
+                        stable = 0
+                    prev = comp
+            if stopped:
+                if self.args.verbose:
+                    print(f"[iterative] stabilized after {pair_counter} random pairs")
+                break
+        self.stats["iterative_random_pairs"] = pair_counter
+        self.stats["iterative_tree_pairs"] = int(len(tree_pairs))
+        self.stats["iterative_stabilized"] = stopped
 
     def _paf_out(self, results) -> None:
         if not self.args.output_alignments:
@@ -267,8 +368,6 @@ class SeqRushTorch:
 
     def write_gfa(self, graph: BidirectedGraph | None = None) -> BidirectedGraph:
         args = self.args
-        if not args.no_sort:
-            raise NotImplementedError(_LAYOUT_MESSAGE)
         t0 = time.time()
         if graph is None:
             with self.timer.phase("induce"):
@@ -283,6 +382,33 @@ class SeqRushTorch:
                 graph.renumber_nodes_sequentially()
             if args.verbose:
                 print(f"Compacted from {before} to {graph.node_count()} nodes")
+
+        if not args.no_sort and graph.node_count() > 0:
+            from .layout.ygs import YgsParams, ygs_sort
+
+            params = YgsParams.from_graph(graph, verbose=args.verbose)
+            params.iter_max = args.sgd_iter_max
+            params.theta = args.sgd_theta
+            params.eps = args.sgd_eps
+            params.cooling_start = args.sgd_cooling_start
+            params.topo_mode = args.topo_mode
+            if args.sgd_eta_max is not None:
+                params.eta_max = args.sgd_eta_max
+            with self.timer.phase("layout"):
+                sub: dict[str, float] = {}
+                ygs_sort(
+                    graph,
+                    params,
+                    use_sgd=not args.skip_sgd,
+                    use_groom=not args.skip_groom,
+                    use_topo=not args.skip_topo,
+                    timings=sub,
+                    device=self.device,
+                )
+                for k, v in sub.items():
+                    self.timer.phases[f"layout_{k}"] = (
+                        self.timer.phases.get(f"layout_{k}", 0.0) + v
+                    )
 
         with self.timer.phase("validate"):
             errors = self.validate_paths_match_sequences(graph)
@@ -348,8 +474,6 @@ def _runs_of(cigar_items):
 
 def run_seqrush(args: Args) -> BidirectedGraph:
     """Top-level entry point: FASTA in, GFA out."""
-    if not args.no_sort:
-        raise NotImplementedError(_LAYOUT_MESSAGE)
     why = unsupported_reason(args)
     if why is not None:
         raise NotImplementedError(why)

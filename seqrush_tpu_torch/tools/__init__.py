@@ -1,1 +1,3 @@
-"""Command-line tools of the port that need a GPU (see each module)."""
+"""Command-line tools of the port: GFA sorting, statistics, layout quality
+and isomorphism (each takes ``--device`` where it runs device code), and the
+kernel timing scripts, which need a GPU."""

@@ -231,3 +231,84 @@ def test_pipeline_cuda_equals_cpu(cuda, tmp_path):
         assert cli.main(["-s", str(fa), "-o", str(gfa), "--no-sort", "--device", dev]) == 0
         out[dev] = gfa.read_bytes()
     assert out["cuda"] == out["cpu"]
+
+
+def _chain_graph(seed, n_nodes=400, n_paths=6):
+    """A backbone of short segments under shuffled ids, each path skipping a
+    few segments: enough terms for the SGD, no alignment needed."""
+    from seqrush_tpu_torch.graph.bigraph import BidirectedGraph
+
+    rng = np.random.default_rng(seed)
+    ids = rng.permutation(np.arange(1, n_nodes + 1))
+    g = BidirectedGraph()
+    for nid in ids:
+        g.add_node(int(nid), bytes(rng.choice(list(b"ACGT"), size=int(rng.integers(1, 9))).astype(np.uint8)))
+    for p in range(n_paths):
+        keep = rng.random(n_nodes) > 0.05
+        g.add_path(f"p{p}", ids[keep].astype(np.int64) << 1)
+    g.verify_path_edges()
+    return g
+
+
+def test_sgd_tick_on_cuda_close_to_cpu_and_reproducible(cuda):
+    """The same draws through sgd_tick on cuda and on cpu: after one
+    iteration the positions agree within 1e-3 bp (float32 sums in another
+    order), and two cuda runs are bit-equal (the sums' order is fixed)."""
+    from seqrush_tpu_torch.layout import sgd
+
+    g = _chain_graph(4)
+    params = sgd.PathSGDParams()
+    on_cpu, on_gpu = sgd.sgd_setup(g, params, "cpu"), sgd.sgd_setup(g, params, "cuda")
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(3)
+    draws = sgd.draw_block(gen, on_cpu.n_sub, on_cpu.u_per_sub, on_cpu.n_steps)
+
+    def run(plan):
+        x = plan.x0
+        for k in range(plan.n_sub):
+            x = sgd.sgd_tick(x, 0, *(d[k].to(x.device) for d in draws), plan.tables)
+        return x.cpu()
+
+    a, b, c = run(on_gpu), run(on_gpu), run(on_cpu)
+    assert torch.equal(a, b)
+    assert torch.isfinite(a).all()
+    assert (a - c).abs().max().item() <= 1e-3
+    first = sgd.path_linear_sgd(g, params, "cuda")
+    assert sgd.path_linear_sgd(g, params, "cuda") == first
+
+
+def test_layout_and_schedules_on_cuda(cuda, tmp_path):
+    """The default run (layout on) twice on cuda: byte-identical; against
+    cpu: isomorphic; the tree schedule picks the same pairs on both."""
+    from seqrush_tpu_torch.graph.bigraph import parse_gfa
+    from seqrush_tpu_torch.ops.kmer import kmer_distance_matrix
+    from seqrush_tpu_torch.tools.isomorphic import isomorphic_gfa
+
+    rng = np.random.default_rng(1)
+    base = rng.integers(0, 4, 700)
+    codes, recs = [], []
+    for k in range(5):
+        v = base.copy()
+        v[rng.integers(0, v.size, 12)] = rng.integers(0, 4, 12)
+        codes.append(v.astype(np.uint8))
+        recs.append(b">s%d\n%s\n" % (k, np.frombuffer(b"ACGT", np.uint8)[v].tobytes()))
+    fa = tmp_path / "in.fa"
+    fa.write_bytes(b"".join(recs))
+    out = {}
+    for tag, flags in (("a", []), ("b", []), ("cpu", ["--device", "cpu"]),
+                       ("tree", ["-x", "tree:2,1,0.2", "--no-sort"]),
+                       ("tree_cpu", ["-x", "tree:2,1,0.2", "--no-sort", "--device", "cpu"]),
+                       ("iter", ["--iterative", "--no-sort"]),
+                       ("iter_cpu", ["--iterative", "--no-sort", "--device", "cpu"])):
+        gfa = tmp_path / f"{tag}.gfa"
+        assert cli.main(["-s", str(fa), "-o", str(gfa), *flags]) == 0
+        out[tag] = gfa.read_text()
+    assert out["a"] == out["b"]
+    assert isomorphic_gfa(out["a"], out["cpu"]) == (True, "isomorphic")
+    ids = sorted(parse_gfa(out["a"]).nodes)
+    assert ids == list(range(1, len(ids) + 1))
+    assert out["tree"] == out["tree_cpu"]
+    assert out["iter"] == out["iter_cpu"]
+    d_gpu = kmer_distance_matrix(codes, 16, "cuda")
+    d_cpu = kmer_distance_matrix(codes, 16, "cpu")
+    assert np.abs(d_gpu - d_cpu).max() <= 4e-6

@@ -136,9 +136,6 @@ def test_cli_paf_round_trip(tmp_path):
 @pytest.mark.parametrize(
     "flags,item",
     [
-        (dict(no_sort=False), "item 7"),
-        (dict(sparsification="tree:2"), "item 8"),
-        (dict(iterative=True), "item 8"),
         (dict(inversion_aware=True), "item 11"),
         (dict(aligner="sweepga"), "item 11"),
         (dict(mesh_devices=2), "item 12"),
