@@ -8,38 +8,63 @@ Run from the repository root with one CUDA device:
 Phases (any failure exits non-zero and prints no ok line):
   1. the device: torch's name for it and nvidia-smi's name and power limit;
   2. build the sweep and walk kernels from seqrush_tpu_torch/ops/csrc with
-     nvcc (sm_90a), one process per source;
+     nvcc (sm_90a), one process per source, then the host library
+     (seqrush_tpu_torch/csrc/seqrush_native.cpp) with g++;
   3. the main path: the JAX bench's headline corpus (25 synthetic HLA-like
      sequences of ~3.3 kb, ~2% SNPs plus indels, one sample carrying an
      inversion; all 600 ordered pairs; scoring 0,5,8,2,24,1) through
-     ``python -m seqrush_tpu_torch -s in.fa -o out.gfa --wide-route full``
-     (the CLI's main): alignment, union-find, graph, compaction, the Ygs
-     layout (PG-SGD on the card, groom, final order) and the GFA
-     write, which the golden invariant gates.  The kernels' launch counters
-     are reset just before and read just after.  Then the same run with
-     ``--no-sort``, counted the same way.  The sorted graph must have node
-     ids 1..N, be isomorphic to the unsorted one, and have a layout RMSE no
+     ``python -m seqrush_tpu_torch -s in.fa -o out.gfa`` (the CLI's main,
+     no route flag: the inversion carrier's wide pairs take the anchored
+     route, chained on the host, their small windows aligned by the host
+     DP, their inversion cores by device window chunks): alignment,
+     union-find, graph, compaction, the Ygs layout (PG-SGD on the card,
+     groom, final order) and the GFA write, which the golden invariant
+     gates.  The kernels' launch counters are reset just before and read
+     just after each run.  Then the same run with ``--no-sort``.  The
+     anchored route's counters and seconds, the align phase's rate and the
+     dispatch shapes are printed.  The sorted graph must have node ids
+     1..N, be isomorphic to the unsorted one, and have a layout RMSE no
      higher; the layout's phase seconds, the SGD's ticks and their width
      and both graphs' RMSE and MAE are printed, and the SGD of this graph
      is timed with its sums in a fixed order (as shipped) and with float
      atomics (seqrush_tpu_torch/tools/sgd_timing.py);
-  4. a small corpus through the pipeline: with ``--no-sort`` on cuda and on
-     cpu (the kernels' plain versions), byte-identical GFA files; with the
-     layout twice on cuda, byte-identical GFA files, and once on cpu, a GFA
-     isomorphic to the cuda one; then ``-x tree:2,1,0.2`` and
-     ``--iterative`` on cuda, with their pair counts printed;
-  5. each kernel against its plain PyTorch version on the card, on the
-     main path's own chunk inputs (the largest dispatch in full, the widest
-     band's first 7 jobs plus a zero-length padding row): exact equality
-     (tolerance 0, all integer).  Kernel times are CUDA-event medians of 3
-     runs after a warm-up, on the largest dispatch and on the widest one in
-     full; the plain versions are timed once, on the largest dispatch.  The
-     sweep is also timed at 1, 2 and 4 warps per pair on the largest
-     dispatch and at each lanes-per-thread shape on the widest, each held
-     bit-equal to the planner's launch; registers per thread, shared memory
-     per block and resident pairs per SM come from the CUDA runtime and the
-     launch code; the build's ptxas registers and spills are printed for
-     every kernel;
+  3b. the same corpus with ``--wide-route full --no-sort`` (one wide-band
+     sweep per wide pair): every pair aligned, every path in the graph;
+     both graphs' counts and whether the two --no-sort GFA files are
+     byte-identical are printed, not required (the host window DP and the
+     device walk may break an equal-score tie differently, so a gap may
+     slide; phase 5 holds every score equal), with the sha256 of both
+     --no-sort GFA files (scripts/jax_route_graphs.py prints the JAX
+     package's);
+  3c. the same corpus with ``--wide-verify --no-sort``: every stitch must
+     be certified by the score-only sweep (wide_verified == anchored_pairs
+     > 0);
+  4. small corpora through the pipeline: a 5 x 1.2 kb one with
+     ``--no-sort`` on cuda and on cpu (the kernels' plain versions),
+     byte-identical GFA files; with the layout twice on cuda, byte-identical
+     GFA files, and once on cpu, a GFA isomorphic to the cuda one; then
+     ``-x tree:2,1,0.2`` and ``--iterative`` on cuda, with their pair counts
+     printed; and a 4 x 2.3 kb family with an inversion carrier (wide pairs
+     on the anchored route) with ``--no-sort`` on cuda and on cpu,
+     byte-identical GFA files;
+  5. all 600 pairs through an anchored and a full-route WfaAligner on the
+     card, three times each in turns: every pair's score equal (both are
+     DP-exact), and the runner's seconds printed.  Each kernel
+     against its plain PyTorch version on the card, on the main path's own
+     dispatch inputs (the largest chunk in full; the widest chunk, from
+     the full-route run, and the first device window chunk, each as its
+     first 7 jobs plus a zero-length padding row): exact equality
+     (tolerance 0, all integer).  The score-only sweep's scores must equal
+     the full sweep's and the plain version's on the largest chunk and on
+     the first verify dispatch of 3c.  Kernel times are CUDA-event medians
+     of 3 runs after a warm-up, on each of those dispatches in full; the
+     plain versions are timed once, on the largest chunk (score-only: on
+     the verify dispatch).  The sweep is also timed at 1, 2 and 4 warps per
+     pair on the largest dispatch and at each lanes-per-thread shape on the
+     widest, each held bit-equal to the planner's launch; registers per
+     thread, shared memory per block and resident pairs per SM come from
+     the CUDA runtime and the launch code; the build's ptxas registers and
+     spills are printed for every kernel;
   6. prints {"kernels": [...]}, the nvidia-smi line, and last
      {"ok": true, "device": {...}}.
 
@@ -67,13 +92,22 @@ instructions this recurrence takes on sm_90 with DPX (m: a minimum):
 37 / 33.5 T (issue) and 11 / 16.7 T (the ALU pipe), which is the first.
 Only the minima are charged to the ALU pipe: the other instructions could
 issue on the FMA pipe (IMAD forms) or not, and counting them there could
-only raise the bound.  The walk needs one byte read and about 25
-instructions per step it takes, at the issue rate, and writes the opcode
-rows.
+only raise the bound.  The score-only sweep moves no traceback, and per
+cell it needs none of the instructions that build the byte:
+  8  the four gap candidates' additions;
+  4  the four gap minima (4 m);
+  3  the substitution cost and the diagonal candidate;
+  2  H: two 3-way DPX minima over the five values (2 m);
+  2  the cell's validity;
+  5  validity and INF clamp of the five states (5 m);
+ = 24 instructions, 11 of them minima: again the issue rate bounds it.
+The walk needs one byte read and about 25 instructions per step it takes,
+at the issue rate, and writes the opcode rows.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import re
 import statistics
@@ -91,6 +125,8 @@ ISSUE_OPS_PER_S = 33.5e12  # 32-bit lane instructions of any kind
 ALU_OPS_PER_S = 16.7e12  # integer minima, on the ALU pipe alone
 SWEEP_OPS_PER_CELL = 37
 SWEEP_MIN_OPS_PER_CELL = 11
+SCORE_ONLY_OPS_PER_CELL = 24
+SCORE_ONLY_MIN_OPS_PER_CELL = 11
 WALK_OPS_PER_STEP = 25
 REPS = 3
 SCORES = "0,5,8,2,24,1"
@@ -120,6 +156,32 @@ def synth_hla(n_seqs=25, length=3300, seed=7):
             a, b = len(s) // 3, 2 * len(s) // 3
             s[a:b] = bytes(s[a:b]).translate(comp)[::-1]
         out.append((f"gene*{k:02d}", bytes(s)))
+    return out
+
+
+def synth_family(n_seqs=4, length=2304, seed=11):
+    """Clone family: ~2% SNPs and indels per haplotype; the last one carries
+    a reverse-complemented middle third (the anchored route's test family)."""
+    rng = np.random.default_rng(seed)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    base = bases[rng.integers(0, 4, size=length)]
+    comp = bytes.maketrans(b"ACGT", b"TGCA")
+    out = [("h0", base.tobytes())]
+    for k in range(1, n_seqs):
+        s = bytearray(base.tobytes())
+        for pos in rng.integers(0, len(s), size=int(0.02 * len(s))):
+            s[pos] = bases[rng.integers(0, 4)]
+        for _ in range(rng.integers(2, 5)):
+            pos = int(rng.integers(0, len(s) - 50))
+            ln = int(rng.integers(1, 25))
+            if rng.random() < 0.5:
+                del s[pos : pos + ln]
+            else:
+                s[pos:pos] = bases[rng.integers(0, 4, size=ln)].tobytes()
+        if k == n_seqs - 1:
+            a, b = len(s) // 3, 2 * len(s) // 3
+            s[a:b] = bytes(s[a:b]).translate(comp)[::-1]
+        out.append((f"h{k}", bytes(s)))
     return out
 
 
@@ -180,9 +242,13 @@ def ptxas_summary(log: str) -> list[str]:
         if m:
             n = int(m.group(1))
             name, rest = m.group(2)[:n], m.group(2)[n:]
-            t = re.match(r"ILi(\d+)ELb([01])E", rest)
+            t = re.match(r"ILi(\d+)ELb([01])ELb([01])E", rest)
+            w = re.match(r"ILb([01])E", rest)
             if t:
-                name += f"<{t.group(1)}, {'two' if t.group(2) == '1' else 'one'}-piece>"
+                name += (f"<{t.group(1)}, {'two' if t.group(2) == '1' else 'one'}-piece, "
+                         f"{'traceback' if t.group(3) == '1' else 'score-only'}>")
+            elif w:
+                name += f"<{'traceback' if w.group(1) == '1' else 'score-only'}>"
         elif "spill" in line:
             frame = line.strip()
         elif "Used" in line and "registers" in line and name:
@@ -212,6 +278,7 @@ def main() -> int:
         return 2
     root = Path(__file__).resolve().parent
     sys.path.insert(0, str(root))
+    from seqrush_tpu_torch import native
     from seqrush_tpu_torch.ops import nw_cuda
 
     # 1. device
@@ -222,10 +289,13 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(f"device: {name} | torch {torch.__version__} cuda {torch.version.cuda} | {smi}")
 
-    # 2. build
+    # 2. build: nvcc for the kernels, then g++ for the host library
     t0 = time.time()
     lib_path, log = nw_cuda.build()
-    print(f"build: {time.time() - t0:.2f} s -> {lib_path.relative_to(root)}")
+    t1 = time.time()
+    host_path = native.build()
+    print(f"build: {t1 - t0:.2f} s -> {lib_path.relative_to(root)}; host library "
+          f"{time.time() - t1:.2f} s -> {host_path.relative_to(root)}")
     for line in ptxas_summary(log):
         print(f"  ptxas {line}")
 
@@ -235,12 +305,13 @@ def main() -> int:
 
 def run(work: Path, name: str, smi: str) -> int:
     from seqrush_tpu_torch import cli
+    from seqrush_tpu_torch.align import anchored
     from seqrush_tpu_torch.align.pairs import all_ordered_pairs
     from seqrush_tpu_torch.align.runner import RunnerConfig, WfaAligner
     from seqrush_tpu_torch.graph.bigraph import parse_gfa
     from seqrush_tpu_torch.layout.sgd import sgd_setup
     from seqrush_tpu_torch.layout.ygs import YgsParams
-    from seqrush_tpu_torch.ops import nw_cuda
+    from seqrush_tpu_torch.ops import nw, nw_cuda
     from seqrush_tpu_torch.tools.isomorphic import isomorphic
     from seqrush_tpu_torch.tools.measure_layout_quality import layout_quality
     from seqrush_tpu_torch.tools.sgd_timing import time_sgd
@@ -251,22 +322,32 @@ def run(work: Path, name: str, smi: str) -> int:
     fa, gfa, prof = work / "hla25.fa", work / "hla25.gfa", work / "profile.json"
     gfa_ns = work / "hla25_nosort.gfa"
     write_fasta(fa, named)
+    path_kernels = ("nw_sweep", "nw_walk")
 
-    def drive(out: Path, *flags: str):
+    def drive(out: Path, *flags: str, kernels=path_kernels):
         """One CLI run on cuda with the launch counters reset just before and
-        read just after: (profile report, launches, wall seconds)."""
+        read just after: (profile report, launches, wall seconds).  Fails if
+        a kernel of the run's path was not launched."""
         nw_cuda.reset_launch_counts()
         t0 = time.time()
-        rc = cli.main(["-s", str(fa), "-o", str(out), "--wide-route", "full",
-                       "--profile", str(prof), *flags])
+        rc = cli.main(["-s", str(fa), "-o", str(out), "--profile", str(prof), *flags])
         wall = time.time() - t0
         counts = dict(nw_cuda.LAUNCHES)
         if rc != 0:
             raise RuntimeError(f"cli.main returned {rc} with flags {flags}")
-        for k, n in counts.items():
-            if n <= 0:
+        for k in kernels:
+            if counts[k] <= 0:
                 raise AssertionError(f"kernel {k} was not launched with flags {flags}")
         return json.loads(prof.read_text()), counts, wall
+
+    def anchored_line(st):
+        keys = ("anchored_pairs", "anchored_windows", "host_windows", "anchored_fallbacks",
+                "wide_verified", "anchored_s")
+        return json.dumps({k: st[k] for k in keys})
+
+    def shapes(st, kind):
+        return json.dumps([[d["B"], d["band"], d["tmax"], len(d["jobs"])]
+                           for d in st["dispatches"] if d["kind"] == kind])
 
     # 3. main path (layout on), then the same with --no-sort
     rep, launches, wall = drive(gfa)
@@ -287,16 +368,54 @@ def run(work: Path, name: str, smi: str) -> int:
         + json.dumps({k: (round(v, 4) if isinstance(v, float) else v)
                       for k, v in st.items() if k != "dispatches"})
     )
-    print("  dispatches " + json.dumps([[d["B"], d["band"], d["tmax"], len(d["jobs"])]
-                                        for d in st["dispatches"]]) + " ([B, band, tmax, jobs])")
-    print(f"main path with --no-sort: total {wall_ns:.2f} s; launches {launches_ns}; phases_s "
+    print("  anchored route " + anchored_line(st))
+    print(f"  chunk dispatches {shapes(st, 'chunk')} window dispatches {shapes(st, 'window')}"
+          " ([B, band, tmax, jobs])")
+    st_ns = rep_ns["stats"]["aligner"]
+    print(f"main path with --no-sort: total {wall_ns:.2f} s; align phase "
+          f"{rep_ns['alignments_per_s']:.1f} alignments/s; launches {launches_ns}; anchored route "
+          f"{anchored_line(st_ns)}; phases_s "
           + json.dumps({k: round(v, 4) for k, v in rep_ns["phases_s"].items()}))
-    if n_align != 600 or g["paths"] != 25 or not lines or not lines[0].startswith("H\t"):
-        raise AssertionError("main path output is not a 25-path GFA of 600 alignments")
+    n_pairs = len(named) * (len(named) - 1)
+    if n_align != n_pairs or g["paths"] != len(named) or not lines or not lines[0].startswith("H\t"):
+        raise AssertionError(f"main path output is not a {len(named)}-path GFA of {n_pairs} alignments")
     if st["dropped"]:
         raise AssertionError(f"{st['dropped']} pairs dropped")
-    if rep_ns["graph"] != g or int(rep_ns["counters"]["alignments"]) != 600:
+    if rep_ns["graph"] != g or int(rep_ns["counters"]["alignments"]) != n_pairs:
         raise AssertionError("the --no-sort run built another graph")
+    if st["anchored_pairs"] <= 0 or not any(d["kind"] == "window" for d in st["dispatches"]):
+        raise AssertionError("the default run did not take the anchored route's device windows")
+
+    # 3b. the full wide route on the same corpus
+    gfa_full = work / "hla25_full_nosort.gfa"
+    rep_full, launches_full, wall_full = drive(gfa_full, "--wide-route", "full", "--no-sort")
+    st_full = rep_full["stats"]["aligner"]
+    same_bytes = gfa_full.read_bytes() == gfa_ns.read_bytes()
+    digests = {tag: hashlib.sha256(f.read_bytes()).hexdigest()
+               for tag, f in (("default", gfa_ns), ("full", gfa_full))}
+    print(f"--wide-route full --no-sort: total {wall_full:.2f} s; align phase "
+          f"{rep_full['phases_s']['align']:.3f} s = {rep_full['alignments_per_s']:.1f} alignments/s; "
+          f"launches {launches_full}; chunk dispatches {shapes(st_full, 'chunk')}; graph "
+          f"{json.dumps(rep_full['graph'])} (default route {json.dumps(g)}); GFA byte-identical "
+          f"to the default --no-sort run: {same_bytes}; --no-sort GFA sha256 {json.dumps(digests)}")
+    # the host window DP and the device walk may break an equal-score tie
+    # differently (a gap slides inside a repeat), so the two routes' graphs
+    # need not be equal; 5a holds every pair's score equal
+    if int(rep_full["counters"]["alignments"]) != n_pairs or rep_full["graph"]["paths"] != len(named):
+        raise AssertionError("the full-route run did not align every pair into every path")
+
+    # 3c. --wide-verify: the score-only sweep certifies every stitch
+    gfa_v = work / "hla25_verify_nosort.gfa"
+    rep_v, launches_v, wall_v = drive(gfa_v, "--wide-verify", "--no-sort",
+                                      kernels=path_kernels + ("nw_sweep_score_only",))
+    st_v = rep_v["stats"]["aligner"]
+    print(f"--wide-verify --no-sort: total {wall_v:.2f} s; align phase "
+          f"{rep_v['phases_s']['align']:.3f} s; launches {launches_v}; anchored route "
+          f"{anchored_line(st_v)}; verify dispatches {shapes(st_v, 'verify')}")
+    if not st_v["wide_verified"] == st_v["anchored_pairs"] > 0:
+        raise AssertionError("--wide-verify did not certify every stitch")
+    if rep_v["graph"] != g:
+        raise AssertionError("the --wide-verify run built another graph")
 
     sorted_g, unsorted_g = parse_gfa(gfa.read_text()), parse_gfa(gfa_ns.read_text())
     if sorted(sorted_g.nodes) != list(range(1, g["nodes"] + 1)):
@@ -321,14 +440,14 @@ def run(work: Path, name: str, smi: str) -> int:
     if not sgd_times["fixed_order_runs_bit_equal"]:
         raise AssertionError("two SGD runs with one seed gave different positions")
 
-    # 4. small corpus
+    # 4. small corpora
     small = small_corpus()
     sfa = work / "small.fa"
     write_fasta(sfa, small)
 
-    def small_run(tag: str, *flags: str) -> bytes:
+    def small_run(tag: str, *flags: str, fasta: Path = sfa) -> bytes:
         out = work / f"small_{tag}.gfa"
-        if cli.main(["-s", str(sfa), "-o", str(out), *flags]) != 0:
+        if cli.main(["-s", str(fasta), "-o", str(out), *flags]) != 0:
             raise RuntimeError(f"small corpus failed with flags {flags}")
         return out.read_bytes()
 
@@ -367,34 +486,113 @@ def run(work: Path, name: str, smi: str) -> int:
             f"{json.dumps(srep['graph'])} {json.dumps(counts) if counts else ''}"
         )
 
-    # 5. kernels against their plain versions, on the main path's inputs
-    al = WfaAligner(make_sequence_set(named),
-                    RunnerConfig(scores=AlignmentScores.parse(SCORES), wide_route="full"))
-    pen = al._penalties()
-    pairs = all_ordered_pairs(len(named))
+    # 4c. a family with a >= 2,048 bp inversion carrier: its wide pairs take
+    # the anchored route; cuda and cpu must write the same bytes
+    ffa = work / "family.fa"
+    write_fasta(ffa, synth_family())
+    t0 = time.time()
+    fam_cuda = small_run("family_cuda", "--no-sort", "--profile", str(sprof), fasta=ffa)
+    fam_st = json.loads(sprof.read_text())["stats"]["aligner"]
+    t1 = time.time()
+    fam_cpu = small_run("family_cpu", "--no-sort", "--device", "cpu", fasta=ffa)
+    print(f"family (4 x 2.3 kb, inversion carrier) --no-sort: cuda {t1 - t0:.2f} s, cpu "
+          f"{time.time() - t1:.2f} s; anchored route {anchored_line(fam_st)}; cuda GFA == cpu "
+          f"GFA: {fam_cuda == fam_cpu} ({len(fam_cuda)} bytes)")
+    if fam_st["anchored_pairs"] <= 0:
+        raise AssertionError("the family's wide pairs did not take the anchored route")
+    if fam_cuda != fam_cpu:
+        raise AssertionError("cuda and cpu GFA differ on the family with --no-sort")
 
-    def chunk_inputs(d, n_jobs=None):
-        jobs = d["jobs"][:n_jobs] if n_jobs else d["jobs"]
-        entries = []
-        for p, rc in jobs:
-            qi, tj = pairs[p]
-            q = al.rc_codes[qi] if rc else al.codes[qi]
-            entries.append((p, bool(rc), d["band"], q, al.codes[tj]))
-        Q, T, ql, tl, _tmax = al.pack_chunk(entries)
-        dev = torch.device("cuda")
-        return tuple(torch.from_numpy(a).to(dev) for a in (Q, T, ql, tl))
+    # 5a. the anchored and the full route give every pair the same score;
+    # the runner's seconds for each, three runs each in turns
+    scores = AlignmentScores.parse(SCORES)
+    pairs = all_ordered_pairs(len(named))
+    by_route, secs = {}, {"anchored": [], "full": []}
+    for route in ("anchored", "full", "full", "anchored", "anchored", "full"):
+        aligner = WfaAligner(make_sequence_set(named), RunnerConfig(scores=scores, wide_route=route))
+        t0 = time.time()
+        res = aligner.align_pairs(pairs)
+        torch.cuda.synchronize()
+        secs[route].append(round(time.time() - t0, 4))
+        by_route.setdefault(route, ({(r.query_idx, r.target_idx): r.score for r in res},
+                                    aligner.stats["anchored_pairs"]))
+    (anch, anch_n), (full, _) = by_route["anchored"], by_route["full"]
+    diff = [k for k in full if anch.get(k) != full[k]]
+    print(f"anchored vs full route: {len(anch)} / {len(full)} pairs, {anch_n} anchored, "
+          f"{len(diff)} scores differ; runner seconds in turns {json.dumps(secs)}")
+    if len(anch) != n_pairs or len(full) != n_pairs or diff:
+        raise AssertionError(f"anchored and full-route scores differ at {diff[:5]}")
+
+    # 5b. kernels against their plain versions, on the main path's inputs
+    al = WfaAligner(make_sequence_set(named), RunnerConfig(scores=scores, wide_route="full"))
+    pen = al._penalties()
+    dev = torch.device("cuda")
+
+    def oriented(p, rc):
+        qi, tj = pairs[p]
+        return (al.rc_codes[qi] if rc else al.codes[qi]), al.codes[tj]
+
+    def with_padding_row(arrays, n_jobs):
+        """The first n_jobs rows and one zero-length padding row, at the
+        dispatch's own Lq, Lt."""
+        Q, T, ql, tl = arrays
+        Q = np.concatenate([Q[:n_jobs], np.full((1, Q.shape[1]), nw.QPAD, np.uint8)])
+        T = np.concatenate([T[:n_jobs], np.full((1, T.shape[1]), nw.TPAD, np.uint8)])
+        return Q, T, np.append(ql[:n_jobs], 0).astype(np.int32), np.append(tl[:n_jobs], 0).astype(np.int32)
+
+    def inputs(d, n_jobs=None):
+        """Kernel inputs of a recorded dispatch (all of it, or its first
+        n_jobs jobs plus a zero-length padding row) and its band and tmax."""
+        if d["kind"] == "window":
+            jobs = []
+            for p, rc, q0, t0, nq, nt in d["jobs"]:
+                q, t = oriented(p, rc)
+                jobs.append((q[q0 : q0 + nq], t[t0 : t0 + nt], (p, rc, q0, t0)))
+            Q, T, ql, tl, band, tmax = anchored.pack_windows(
+                jobs, [(j, d["band"]) for j in range(len(jobs))], d["band"])
+            arrays = (Q, T, ql, tl)
+            if n_jobs:
+                arrays = with_padding_row(arrays, n_jobs)
+        elif d["kind"] == "verify":
+            entries = [(*oriented(p, rc), d["band"], (p, rc)) for p, rc in d["jobs"]]
+            Q, T, ql, tl, band, tmax = anchored.pack_verify(entries, np.arange(len(entries)))
+            arrays = (Q, T, ql, tl)
+        else:
+            jobs = d["jobs"][:n_jobs] if n_jobs else d["jobs"]
+            Q, T, ql, tl, _tmax = al.pack_chunk([(p, bool(rc), d["band"], *oriented(p, rc))
+                                                 for p, rc in jobs])
+            arrays = (Q, T, ql, tl)
+        if d["kind"] != "chunk" and (band, tmax) != (d["band"], d["tmax"]):
+            raise AssertionError(f"a rebuilt {d['kind']} dispatch has another shape")
+        return tuple(torch.from_numpy(a).to(dev) for a in arrays)
 
     def tb_bytes(d):
         return d["B"] * ((d["tmax"] + 1 + 127) // 128 * 128) * (d["band"] + 1)
 
-    main_d = max(st["dispatches"], key=tb_bytes)
-    wide_d = max(st["dispatches"], key=lambda d: (d["band"], tb_bytes(d)))
+    chunks = [d for d in st["dispatches"] if d["kind"] == "chunk"]
+    main_d = max(chunks, key=tb_bytes)
+    wide_d = max((d for d in st_full["dispatches"] if d["kind"] == "chunk"),
+                 key=lambda d: (d["band"], tb_bytes(d)))
+    win_d = next(d for d in st["dispatches"] if d["kind"] == "window")
+    ver_d = next(d for d in st_v["dispatches"] if d["kind"] == "verify")
     two = pen["o2"] >= 0
     parity = []
     kernels = {}
-    for label, d, n_jobs in (("largest", main_d, None), ("widest", wide_d, 7)):
+    score_only = {}
+
+    def bounds(Q, T, ql, tl, W, tb_numel):
+        """(bytes, operations) bounds in ms of one sweep; tb_numel 0 is the
+        score-only mode."""
+        cells = int((ql + tl).to(torch.int64).sum().item()) * W
+        sweep_bytes = Q.numel() + T.numel() + 8 * Q.shape[0] + 4 * Q.shape[0] + tb_numel
+        ops, mins = ((SWEEP_OPS_PER_CELL, SWEEP_MIN_OPS_PER_CELL) if tb_numel
+                     else (SCORE_ONLY_OPS_PER_CELL, SCORE_ONLY_MIN_OPS_PER_CELL))
+        ops_ms = cells * max(ops / ISSUE_OPS_PER_S, mins / ALU_OPS_PER_S) * 1e3
+        return sweep_bytes / HBM_BYTES_PER_S * 1e3, ops_ms
+
+    for label, d, n_jobs in (("largest", main_d, None), ("widest", wide_d, 7), ("window", win_d, 7)):
         band, tmax = d["band"], d["tmax"]
-        Q, T, ql, tl = chunk_inputs(d, n_jobs)
+        Q, T, ql, tl = inputs(d, n_jobs)
         if n_jobs and int((ql == 0).sum()) == 0:
             raise AssertionError("parity batch has no padding row")
         kw = dict(band=band, tmax=tmax, **pen)
@@ -407,14 +605,25 @@ def run(work: Path, name: str, smi: str) -> int:
         B, W = Q.shape[0], band + 1
         parity.append({"dispatch": label, "B": B, "W": W, "tmax": tmax,
                        "sweep_err": err_a, "walk_err": err_b})
-        print(f"parity {label}: B={B} W={W} tmax={tmax} sweep max_abs_err={err_a} "
-              f"walk max_abs_err={err_b}")
+        print(f"parity {label}: B={B} W={W} tmax={tmax} Lq={Q.shape[1]} Lt={T.shape[1]} "
+              f"sweep max_abs_err={err_a} walk max_abs_err={err_b}")
         if err_a or err_b:
             raise AssertionError(f"kernel disagrees with its plain version ({label})")
-        del s_p, tb_p, ops_p, ops_k
+        del tb_p, ops_p, ops_k
+        if label == "largest":
+            # the score-only mode on the same inputs: the full sweep's scores,
+            # which are the plain version's
+            s_o, none = nw_cuda.nw_align(Q, T, ql, tl, with_traceback=False, **kw)
+            err_o = max(max_abs_err(s_o, s_k), max_abs_err(s_o, s_p))
+            if none is not None or err_o:
+                raise AssertionError("the score-only sweep disagrees on the largest dispatch")
+            only_ms = cuda_ms(lambda: nw_cuda.nw_align(Q, T, ql, tl, with_traceback=False, **kw), REPS)
+            score_only["largest"] = {"shape": {"B": B, "W": W, "tmax": tmax}, "ms": only_ms,
+                                     "bound_ms": max(bounds(Q, T, ql, tl, W, 0)), "max_abs_err": err_o}
+        del s_p
         if n_jobs:
-            # time the kernels on the widest dispatch in full
-            Q, T, ql, tl = chunk_inputs(d)
+            # time the kernels on the dispatch in full
+            Q, T, ql, tl = inputs(d)
             B = Q.shape[0]
             s_k, tb_k = nw_cuda.nw_align(Q, T, ql, tl, **kw)
         plan = nw_cuda.plan_sweep(B, W, Q.shape[1], T.shape[1])
@@ -424,9 +633,11 @@ def run(work: Path, name: str, smi: str) -> int:
         # (itself held to the plain version above)
         if label == "largest":
             wpp_choices = (1, 2, 4)
-        else:
+        elif label == "widest":
             wpp_choices = sorted({-(-W // (32 * s)) for s in nw_cuda.SWEEP_LANES
                                   if -(-W // (32 * s)) * 32 <= nw_cuda._MAX_THREADS[s]})
+        else:
+            wpp_choices = ()
         by_wpp = {}
         for w in wpp_choices:
             try:
@@ -442,14 +653,10 @@ def run(work: Path, name: str, smi: str) -> int:
         walk_ms = cuda_ms(lambda: nw_cuda.nw_walk(tb, ql, tl, band=band, tmax=tmax), REPS)
         ops = nw_cuda.nw_walk(tb, ql, tl, band=band, tmax=tmax)
         steps = int((ops != 0).sum().item())
-        cells = int((ql + tl).to(torch.int64).sum().item()) * W
-        sweep_bytes = Q.numel() + T.numel() + 8 * B + 4 * B + tb.numel()
         walk_bytes = steps + ops.numel() + 8 * B
         kernels[label] = {
             "shape": {"B": B, "W": W, "tmax": tmax},
-            "sweep": (sweep_ms, sweep_bytes / HBM_BYTES_PER_S * 1e3,
-                      cells * max(SWEEP_OPS_PER_CELL / ISSUE_OPS_PER_S,
-                                  SWEEP_MIN_OPS_PER_CELL / ALU_OPS_PER_S) * 1e3),
+            "sweep": (sweep_ms, *bounds(Q, T, ql, tl, W, tb.numel())),
             "walk": (walk_ms, walk_bytes / HBM_BYTES_PER_S * 1e3,
                      steps * WALK_OPS_PER_STEP / ISSUE_OPS_PER_S * 1e3),
             "sweep_occ": occ,
@@ -467,7 +674,34 @@ def run(work: Path, name: str, smi: str) -> int:
         del tb, tb_k, s_k, ops, Q, T, ql, tl
         torch.cuda.empty_cache()
 
-    big, wide = kernels["largest"], kernels["widest"]
+    # the score-only sweep on the first verify dispatch of 3c, in full
+    Q, T, ql, tl = inputs(ver_d)
+    B, W, tmax = Q.shape[0], ver_d["band"] + 1, ver_d["tmax"]
+    kw = dict(band=ver_d["band"], tmax=tmax, **pen)
+    s_o, _ = nw_cuda.nw_align(Q, T, ql, tl, with_traceback=False, **kw)
+    s_k, _tb = nw_cuda.nw_align(Q, T, ql, tl, **kw)
+    del _tb
+    plain_only_ms, (s_p, _) = once_ms(
+        lambda: nw_cuda.nw_align_reference(Q, T, ql, tl, with_traceback=False, **kw))
+    err_o = max(max_abs_err(s_o, s_k), max_abs_err(s_o, s_p))
+    print(f"parity verify (score-only): B={B} W={W} tmax={tmax} max_abs_err={err_o}; "
+          f"largest {score_only['largest']['max_abs_err']}")
+    if err_o:
+        raise AssertionError("the score-only sweep disagrees on the verify dispatch")
+    only_ms = cuda_ms(lambda: nw_cuda.nw_align(Q, T, ql, tl, with_traceback=False, **kw), REPS)
+    full_ms = cuda_ms(lambda: nw_cuda.nw_align(Q, T, ql, tl, **kw), REPS)
+    b_ms, o_ms = bounds(Q, T, ql, tl, W, 0)
+    only_occ = nw_cuda.sweep_occupancy(nw_cuda.plan_sweep(B, W, Q.shape[1], T.shape[1]), W, two,
+                                       with_traceback=False)
+    print(f"timing verify: B={B} W={W} tmax={tmax} score-only {only_ms:.3f} ms, with traceback "
+          f"{full_ms:.3f} ms; largest score-only {score_only['largest']['ms']:.3f} ms; bound "
+          f"{max(b_ms, o_ms):.4f} ms; occupancy {json.dumps(only_occ)}")
+    score_only["verify"] = {"shape": {"B": B, "W": W, "tmax": tmax}, "ms": only_ms,
+                            "full_mode_ms": full_ms, "bound": (b_ms, o_ms), "plain_ms": plain_only_ms,
+                            "max_abs_err": err_o, "occ": only_occ}
+    del Q, T, ql, tl, s_o, s_k, s_p
+
+    big = kernels["largest"]
     out = []
     for kname, key, src, replaces, idx in (
         ("nw_sweep", "sweep", "seqrush_tpu_torch/ops/csrc/nw_sweep.cu", "seqrush_tpu/ops/nw_pallas.py:38", 0),
@@ -484,17 +718,29 @@ def run(work: Path, name: str, smi: str) -> int:
             **big[f"{key}_occ"],
             "shape": big["shape"],
             "warps_per_pair_ms": big["wpp_ms"] if key == "sweep" else None,
-            "widest": {"shape": wide["shape"], "ms": wide[key][0], "bound_ms": max(wide[key][1:]),
-                       **wide[f"{key}_occ"],
-                       "warps_per_pair_ms": wide["wpp_ms"] if key == "sweep" else None},
+            **{other: {"shape": kernels[other]["shape"], "ms": kernels[other][key][0],
+                       "bound_ms": max(kernels[other][key][1:]), **kernels[other][f"{key}_occ"],
+                       "warps_per_pair_ms": kernels[other]["wpp_ms"] if key == "sweep" else None}
+               for other in ("widest", "window")},
             "parity": parity, "tolerance": 0,
         })
+    v = score_only["verify"]
+    out.append({
+        "name": "nw_sweep_score_only", "route": "cuda",
+        "source": "seqrush_tpu_torch/ops/csrc/nw_sweep.cu", "replaces": "seqrush_tpu/ops/nw_pallas.py:38",
+        "launches": launches_v["nw_sweep_score_only"],
+        "max_abs_err": max(v["max_abs_err"], score_only["largest"]["max_abs_err"]),
+        "ms": v["ms"], "plain_ms": v["plain_ms"], "bound_ms": max(v["bound"]),
+        "bound_by": "bytes" if v["bound"][0] >= v["bound"][1] else "operations",
+        "library_ms": None, **v["occ"], "shape": v["shape"], "full_mode_ms": v["full_mode_ms"],
+        "largest": score_only["largest"], "tolerance": 0,
+        "launches_path": "--wide-verify",
+    })
     print(json.dumps({"kernels": out}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -17,7 +17,13 @@ that runs the sweep kernel and then the walk kernel per chunk:
 * collect: the band certificate (a banded score S with half-width K is
   optimal iff S < 2*o_min + e_min*(2K + 2 - |diff|)), escalation of the
   uncertified jobs to the band their score demands, the divergence cap,
-  and one vectorized decode of the opcodes into CIGARs.
+  and one vectorized decode of the opcodes into CIGARs;
+* wide jobs on long pairs (the default ``wide_route='anchored'``) are split
+  off first and aligned piecewise by ``align/anchored.py``: chaining and the
+  host window DP run while the narrow chunks compute, its device window
+  chunks queue behind them, and a job without a usable chain (or, under
+  ``wide_verify``, with a stitch that is not optimal) goes back to the
+  banded chunks.
 """
 
 from __future__ import annotations
@@ -28,11 +34,12 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..ops import nw, nw_cuda
+from ..ops import anchors, nw, nw_cuda
 from ..pos import encode_bases, reverse_complement_codes
 from ..scores import AlignmentScores
 from ..sequences import SequenceSet
 from ..utils import resolve_device
+from . import anchored
 
 
 @dataclass
@@ -71,13 +78,38 @@ class RunnerConfig:
     fold: bool | str = False  # item 13
     band_tiling: str = "off"  # item 13
     emit: str = "auto"  # 'runs': item 13; 'auto' and 'ops' emit opcodes
+    # host worker threads of the anchored route's window DP
+    threads: int = 4
     # pairs longer than this (qlen + tlen) need the segmented sweep (item 10)
     long_pair_threshold: int = 65536
-    # wide-pair route: 'anchored' diverts wide jobs to the piecewise route
-    # (item 9, raises here); 'full' runs them as wide-band sweeps
+    # seed-frequency cutoff of the anchored route's minimizer anchors (a
+    # query minimizer occurring more often in the target is not a seed);
+    # None = no cutoff
+    frequency: int | None = None
+    # wide-pair route: 'anchored' aligns jobs whose band exceeds
+    # wide_band_threshold on pairs of at least wide_min_len piecewise
+    # (minimizer chain + exact DP on the inter-anchor windows,
+    # align/anchored.py); 'full' runs them as wide-band sweeps.  Pairs with
+    # no usable chain fall back to the full route
     wide_route: str = "anchored"
     wide_band_threshold: int = 767
     wide_min_len: int = 2048
+    # above this many anchored jobs in one round, moderately wide jobs go
+    # back to banded chunks (the route's host work grows per pair, a banded
+    # chunk's serial steps are shared by its rows); very wide
+    # (> 2 * wide_band_threshold + 1) or long pairs stay anchored.  0: no cap
+    anchored_max_jobs: int = 256
+    # check every stitched score against a score-only banded sweep at the
+    # certified band; a stitch that is not optimal goes back to the full
+    # wide route, so the results are certified exact
+    wide_verify: bool = False
+    # anchored windows of at most this many DP cells run on the host
+    # (threaded C++ full-matrix DP, native.window_dp_native); larger ones
+    # (inversion cores) run on the device.  0: every window on the device
+    wide_host_window_cells: int = 1 << 18
+    # when the whole anchored window workload has at most this many cells,
+    # every window runs on the host.  0: off
+    wide_host_total_cells: int = 0
 
 
 def _round_up(x: int, m: int) -> int:
@@ -131,10 +163,43 @@ class WfaAligner:
             "orient_s": 0.0,
             "dispatch_s": 0.0,
             "collect_s": 0.0,
-            # one entry per dispatch: batch rows, band, tmax and the jobs
-            # [pair index, reverse] it carried
+            # anchored route: wide jobs aligned piecewise, their divergence
+            # cores, the cores aligned by the host DP, jobs sent back to the
+            # banded route, stitches certified by the verify sweep, seconds
+            "anchored_pairs": 0,
+            "anchored_windows": 0,
+            "host_windows": 0,
+            "anchored_fallbacks": 0,
+            "wide_verified": 0,
+            "anchored_s": 0.0,
+            # one entry per dispatch: its kind ('chunk', the anchored route's
+            # 'window' chunks, 'verify' sweeps), batch rows, band, tmax and
+            # the jobs it carried ([pair index, reverse] for chunk and
+            # verify; see anchored._dispatch_window_chunk for windows)
             "dispatches": [],
         }
+        # per-(sequence, orientation) minimizer cache of the anchored route
+        self.anchor_k = 15
+        self.anchor_w = 10
+        self._min_cache: dict[tuple, tuple] = {}
+        # (pair_idx, rc) jobs already routed through the anchored route in
+        # this call (a failed or suboptimal stitch must not loop back)
+        self._anchored_tried: set[tuple[int, bool]] = set()
+
+    def _minimizers(self, idx: int, rc: bool):
+        key = (idx, rc)
+        if key not in self._min_cache:
+            codes = self.rc_codes[idx] if rc else self.codes[idx]
+            self._min_cache[key] = anchors.minimizers(codes, self.anchor_k, self.anchor_w)
+        return self._min_cache[key]
+
+    def _minimizers_sorted(self, idx: int, rc: bool):
+        """Value-sorted minimizer index (cached): the all-pairs anchor join
+        sorts each target index once, not once per pair."""
+        key = (idx, rc, "sorted")
+        if key not in self._min_cache:
+            self._min_cache[key] = anchors.sort_minimizers(self._minimizers(idx, rc))
+        return self._min_cache[key]
 
     # -- orientation ---------------------------------------------------------
 
@@ -310,20 +375,39 @@ class WfaAligner:
         return jobs
 
     def _align_pairs_nw(self, pairs, forced_rev=None) -> list[AlignmentResult]:
+        # a failed or suboptimal stitch must not re-enter the anchored route
+        # within this call; a fresh call starts clean
+        self._anchored_tried = set()
+        pen = self._penalties()
         attempts: dict[tuple[int, bool], AlignmentResult | None] = {}
         queue = self._initial_jobs(pairs, forced_rev)
         while queue:
+            # wide jobs divert to the anchored route first
+            anchored_jobs: list = []
             if self.cfg.wide_route == "anchored":
+                rest = []
                 for job in queue:
-                    if self._wants_anchored(job, pairs):
-                        raise NotImplementedError(
-                            f"pair {tuple(int(x) for x in pairs[job[0]])} needs a "
-                            f"band of {job[2]}, which the anchored wide route "
-                            "would take; that route is not ported yet (ROADMAP "
-                            "item 9): pass --wide-route full"
+                    (anchored_jobs if self._wants_anchored(job, pairs) else rest).append(job)
+                queue = rest
+                cap = self.cfg.anchored_max_jobs
+                if cap and len(anchored_jobs) > cap:
+                    # many wide jobs: banded chunks share their serial steps
+                    # across rows while the route's host work grows per pair,
+                    # so only very wide bands and long pairs stay anchored
+                    keep, back = [], []
+                    for job in anchored_jobs:
+                        p, _rc, band = job
+                        qi, tj = pairs[p]
+                        big = band > 2 * self.cfg.wide_band_threshold + 1 or (
+                            self.codes[qi].size + self.codes[tj].size
+                            > self.cfg.long_pair_threshold
                         )
+                        (keep if big else back).append(job)
+                    anchored_jobs = keep
+                    queue.extend(back)
             chunks = self._make_nw_chunks(queue, pairs)
             retries_scored = []  # (job, banded_score)
+            a_fallbacks: list = []
             # pipeline: dispatch chunk k+1 (device work) before the host
             # collect of chunk k
             inflight = None
@@ -334,9 +418,25 @@ class WfaAligner:
                 if inflight is not None:
                     self._collect_into(inflight, pairs, attempts, retries_scored)
                 inflight = dispatched
+            a_state = None
+            if anchored_jobs:
+                # chaining, flanks and the host window DP run while the
+                # dispatched chunks compute; the window chunks queue behind
+                t0 = time.time()
+                a_state = self._align_anchored_start(anchored_jobs, pairs, pen)
+                self.stats["anchored_s"] += time.time() - t0
             if inflight is not None:
                 self._collect_into(inflight, pairs, attempts, retries_scored)
+            if a_state is not None:
+                t0 = time.time()
+                a_done, a_fallbacks, a_retries = self._align_anchored_finish(a_state, pairs, pen)
+                self.stats["anchored_s"] += time.time() - t0
+                attempts.update(a_done)
+                retries_scored.extend(a_retries)
             queue = self._prune_orientation_losers(attempts, retries_scored)
+            # chainless wide jobs re-enter the full route unpruned (a missing
+            # chain says nothing about which orientation wins)
+            queue.extend(a_fallbacks)
 
         results: list[AlignmentResult] = []
         for p in range(len(pairs)):
@@ -384,12 +484,103 @@ class WfaAligner:
         return out
 
     def _wants_anchored(self, job, pairs) -> bool:
-        """Would the JAX package's default route take this job piecewise?
-        (A wide band on a long pair.)"""
-        p, _rc, band = job
+        """Route this job through the anchored route?  A wide band on a long
+        pair, not tried before in this call, and under wide_verify a pair
+        the single-shot verify sweep can take."""
+        p, rc, band = job
+        if (p, rc) in self._anchored_tried:
+            return False
         qi, tj = pairs[p]
         qlen, tlen = self.codes[qi].size, self.codes[tj].size
-        return band > self.cfg.wide_band_threshold and max(qlen, tlen) >= self.cfg.wide_min_len
+        return (
+            band > self.cfg.wide_band_threshold
+            and max(qlen, tlen) >= self.cfg.wide_min_len
+            and (not self.cfg.wide_verify or qlen + tlen <= self.cfg.long_pair_threshold)
+        )
+
+    def _align_anchored_start(self, wide_jobs, pairs, pen):
+        """Phase 1 of the anchored route: chain, trim flanks, build plans,
+        run the host windows and dispatch the first device window chunk
+        (queued behind the narrow chunks already dispatched)."""
+        plans, fallbacks, window_jobs = [], [], []
+        runs_per_job = anchored.chain_jobs(self, wide_jobs, pairs)
+        flanks_per_job = anchored.flank_trim_jobs(self, wide_jobs, pairs, runs_per_job)
+        for job, runs, flanks in zip(wide_jobs, runs_per_job, flanks_per_job):
+            self._anchored_tried.add((job[0], job[1]))
+            plan = anchored.build_plan(self, job, pairs, window_jobs, runs, flanks)
+            if plan is None:
+                self.stats["anchored_fallbacks"] += 1
+                fallbacks.append(job)
+            else:
+                plans.append(plan)
+        dispatched = anchored.dispatch_windows(self, window_jobs, pen)
+        self.stats["anchored_windows"] += len(window_jobs)
+        return plans, fallbacks, window_jobs, dispatched
+
+    def _align_anchored_finish(self, state, pairs, pen):
+        """Phase 2: collect the windows, stitch, and (under wide_verify)
+        verify.  Returns (done, fallback jobs, retries_scored): ``done``
+        maps (pair_idx, rc) to results (None = divergence-cap drop),
+        fallbacks are chainless jobs for the full wide route, retries are
+        verify-failed jobs re-queued at their certified band."""
+        plans, fallbacks, window_jobs, dispatched = state
+        witems = anchored.collect_windows(self, window_jobs, dispatched, pen)
+
+        done: dict[tuple[int, bool], AlignmentResult | None] = {}
+        retries_scored = []
+        verify_entries = []  # (plan, items, stitched score, band_v)
+        e_min, o_min = self._gap_mins()
+        for plan in plans:
+            items, nq, nt = anchored.stitch(plan, witems)
+            s = anchored.cigar_cost(items, pen)
+            qlen, tlen = plan.q.size, plan.t.size
+            if nq != qlen or nt != tlen:
+                raise RuntimeError(
+                    f"anchored stitch consumption mismatch: q {nq}/{qlen} "
+                    f"t {nt}/{tlen} (pair {pairs[plan.p]}, rc={plan.rc})"
+                )
+            if self.cfg.wide_verify:
+                diff = abs(qlen - tlen)
+                k_v = max(
+                    anchored.max_excursion(items),
+                    (s - 2 * o_min) // (2 * max(e_min, 1)) + diff // 2 + 2,
+                )
+                band_v = self._quantize_band(int(k_v), qlen, tlen)
+                verify_entries.append((plan, items, s, band_v))
+                continue
+            self._finish_anchored(plan, items, s, pairs, done)
+
+        if verify_entries:
+            scores_v = anchored.verify_scores(
+                self,
+                [(pl.q, pl.t, bv, (pl.p, pl.rc)) for pl, _i, _s, bv in verify_entries],
+                pen,
+            )
+            for (plan, items, s, band_v), s_v in zip(verify_entries, scores_v):
+                s_v = int(s_v)
+                if s_v > s:
+                    raise RuntimeError(
+                        f"verify sweep beat its own band: {s_v} > {s} "
+                        f"(pair {pairs[plan.p]}, band {band_v})"
+                    )
+                if s_v == s:
+                    # the stitch reaches the certified-optimal score, so it
+                    # is an optimal alignment
+                    self.stats["wide_verified"] += 1
+                    self._finish_anchored(plan, items, s, pairs, done)
+                else:
+                    # the optimum beats the stitch: re-run the full wide
+                    # route at band_v (already certified for s_v)
+                    retries_scored.append(((plan.p, plan.rc, band_v), s_v))
+        return done, fallbacks, retries_scored
+
+    def _finish_anchored(self, plan, items, score, pairs, done):
+        self.stats["anchored_pairs"] += 1
+        qi, tj = pairs[plan.p]
+        if score > self._pair_cap(plan.q.size, plan.t.size):
+            done[(plan.p, plan.rc)] = None  # exceeds the divergence cap
+        else:
+            done[(plan.p, plan.rc)] = AlignmentResult(int(qi), int(tj), plan.rc, score, items)
 
     def _make_nw_chunks(self, queue, pairs):
         """Pack jobs into as few dispatches as possible: jobs sort by
@@ -459,7 +650,7 @@ class WfaAligner:
         B = Q.shape[0]
         self.stats["cells_padded"] += B * (tmax + 2) * (band + 1)
         self.stats["dispatches"].append(
-            {"B": B, "band": band, "tmax": tmax,
+            {"kind": "chunk", "B": B, "band": band, "tmax": tmax,
              "jobs": [[int(p), int(rc)] for p, rc, *_ in chunk]}
         )
         dev = self.device

@@ -4,8 +4,7 @@
   python -m seqrush_tpu_torch -s in.fa -o out.gfa
 
 Flags whose code paths are not ported yet are accepted and raise
-``NotImplementedError`` naming their ROADMAP item (wide pairs of long
-sequences need --wide-route full).
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -97,8 +96,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--wide-route", default="anchored", choices=["anchored", "full"],
         dest="wide_route",
-        help="divergent/wide-band pairs: 'anchored' = chain + piecewise "
-        "window DP (fast), 'full' = monster-band sweep",
+        help="divergent/wide-band pairs: 'anchored' = minimizer chain + "
+        "piecewise window DP (host DP for small windows, device sweeps for "
+        "large ones), 'full' = one wide-band sweep per pair",
     )
     p.add_argument(
         "--wide-verify", action="store_true", dest="wide_verify",

@@ -85,7 +85,7 @@ class Args:
     # (align/runner.py RunnerConfig.wide_route)
     wide_route: str = "anchored"
     # certify every anchored stitch against a score-only sweep at the
-    # certified band (exactness guarantee at ~45% of the wide-chunk cost)
+    # certified band (a stitch that is not optimal takes the full route)
     wide_verify: bool = False
     # torch device for the alignment kernels and the union-find: 'cuda'
     # (default) or 'cpu' (the plain PyTorch versions; no fallback between them)

@@ -1,0 +1,176 @@
+"""ctypes loader for the port's host library (``csrc/seqrush_native.cpp``):
+the anchored wide route's anchor chaining (``chain_pairs_native``) and its
+exact host window DP (``window_dp_native``).
+
+The library is compiled with ``g++`` at first use into
+``build/seqrush_tpu_torch/`` at the repository root, under a file name that
+carries a hash of the source and the flags, so an edit rebuilds.  Each
+process compiles into a file of its own and renames it into place, so
+concurrent first uses (test workers) do not race.  A failed build or load
+raises: the route has no pure-Python substitute on its main path, because
+the host DP and the device walk may break equal-score ties differently.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+from pathlib import Path
+
+import numpy as np
+
+_SRC = Path(__file__).resolve().parent / "csrc" / "seqrush_native.cpp"
+# -ffp-contract=off: chain scores are sums of doubles; a fused multiply-add
+# on one host and not on another could change an argmax
+_CXX_FLAGS = ("-O3", "-march=native", "-ffp-contract=off", "-shared", "-fPIC", "-std=c++17")
+_CXX = "g++"
+
+_lib: ctypes.CDLL | None = None
+_lib_lock = threading.Lock()
+
+
+def _build_dir() -> Path:
+    return Path(__file__).resolve().parents[1] / "build" / "seqrush_tpu_torch"
+
+
+def build() -> Path:
+    """Compile the library if it is not built yet; returns its path."""
+    digest = hashlib.sha256(_SRC.read_bytes())
+    digest.update(" ".join((_CXX, *_CXX_FLAGS)).encode())
+    out_dir = _build_dir()
+    lib_path = out_dir / f"libseqrush_native-{digest.hexdigest()[:16]}.so"
+    if lib_path.exists():
+        return lib_path
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"{lib_path.stem}-{os.getpid()}-{threading.get_ident()}.so"
+    try:
+        proc = subprocess.run(
+            [_CXX, *_CXX_FLAGS, str(_SRC), "-o", str(tmp)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=300,
+        )
+    except OSError as exc:
+        raise RuntimeError(f"cannot run {_CXX} to build {_SRC.name}: {exc}") from exc
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{_CXX} failed to build {_SRC.name}:\n{proc.stdout}")
+    os.replace(tmp, lib_path)
+    return lib_path
+
+
+def get_lib() -> ctypes.CDLL:
+    """The loaded library, built on first use (raises if it cannot be)."""
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            i64, i32 = ctypes.c_int64, ctypes.c_int32
+            i64p = ctypes.POINTER(ctypes.c_int64)
+            i32p = ctypes.POINTER(ctypes.c_int32)
+            u8p = ctypes.POINTER(ctypes.c_uint8)
+            lib.chain_pairs.argtypes = [i64p] * 3 + [i64] * 6 + [i64p] * 5
+            lib.chain_pairs.restype = i64
+            lib.window_dp.argtypes = [
+                u8p, i64p, u8p, i64p, i64, i32, i32, i32, i32, i32, i64,
+                i32p, i64p, u8p, i32p, i64p,
+            ]
+            lib.window_dp.restype = i64
+            _lib = lib
+        return _lib
+
+
+def _i64p(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+
+
+def chain_pairs_native(
+    qs: np.ndarray,
+    ts: np.ndarray,
+    offs: np.ndarray,
+    k: int,
+    max_gap: int,
+    max_skew: int,
+    max_chains: int,
+    min_matched: int,
+):
+    """Batched chain extraction and run merging for all pairs in one C++
+    call (bit-identical to ops/anchors.py chain_anchors + chain_to_runs per
+    pair when max_chains is 1).  qs/ts are all pairs' anchors concatenated,
+    each pair's block sorted by (q, t); offs [P+1] delimits pairs.
+    Returns (chain_pair [C], chain_off [C+1], runs_q, runs_t, runs_len)."""
+    lib = get_lib()
+    n = int(qs.size)
+    n_pairs = int(offs.size) - 1
+    qs = np.ascontiguousarray(qs, dtype=np.int64)
+    ts = np.ascontiguousarray(ts, dtype=np.int64)
+    offs = np.ascontiguousarray(offs, dtype=np.int64)
+    runs_q = np.zeros(max(n, 1), dtype=np.int64)
+    runs_t = np.zeros(max(n, 1), dtype=np.int64)
+    runs_len = np.zeros(max(n, 1), dtype=np.int64)
+    cap_chains = max(n_pairs * max_chains, 1)
+    chain_pair = np.zeros(cap_chains, dtype=np.int64)
+    chain_off = np.zeros(cap_chains + 1, dtype=np.int64)
+    c = lib.chain_pairs(
+        _i64p(qs), _i64p(ts), _i64p(offs), n_pairs, k, max_gap, max_skew,
+        max_chains, min_matched,
+        _i64p(runs_q), _i64p(runs_t), _i64p(runs_len), _i64p(chain_pair), _i64p(chain_off),
+    )
+    nr = int(chain_off[c])
+    return chain_pair[:c], chain_off[: c + 1], runs_q[:nr], runs_t[:nr], runs_len[:nr]
+
+
+_OP_CHARS = ("=", "X", "I", "D")
+
+
+def window_dp_native(qs: list[np.ndarray], ts: list[np.ndarray], pen: dict, threads: int = 8):
+    """Batched exact two-piece-affine window DP on the host (C++, threaded).
+
+    ``pen`` holds mismatch, o1, e1, o2, e2 (o2 < 0: one-piece).  Scores are
+    the exact global optima; CIGARs follow the kernels' walk-order tie
+    preference (diag, D1, I1, D2, I2).  Returns (scores [n] int64, items:
+    one run-length list of (length, op) per window)."""
+    lib = get_lib()
+    n = len(qs)
+    if n == 0:
+        return np.zeros(0, np.int64), []
+    qoffs = np.zeros(n + 1, np.int64)
+    toffs = np.zeros(n + 1, np.int64)
+    np.cumsum(np.fromiter((q.size for q in qs), np.int64, n), out=qoffs[1:])
+    np.cumsum(np.fromiter((t.size for t in ts), np.int64, n), out=toffs[1:])
+    qbuf = np.ascontiguousarray(
+        (np.concatenate(qs) if qoffs[-1] else np.zeros(1, np.uint8)).astype(np.uint8, copy=False)
+    )
+    tbuf = np.ascontiguousarray(
+        (np.concatenate(ts) if toffs[-1] else np.zeros(1, np.uint8)).astype(np.uint8, copy=False)
+    )
+    caps = (qoffs[1:] - qoffs[:-1]) + (toffs[1:] - toffs[:-1]) + 1
+    item_offs = np.zeros(n + 1, np.int64)
+    item_offs[1:] = np.cumsum(caps)
+    scores = np.zeros(n, np.int32)
+    ops = np.zeros(max(int(item_offs[-1]), 1), np.uint8)
+    lens = np.zeros(max(int(item_offs[-1]), 1), np.int32)
+    counts = np.zeros(n, np.int64)
+    u8p = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+    i32p = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+    lib.window_dp(
+        u8p(qbuf), _i64p(qoffs), u8p(tbuf), _i64p(toffs), n,
+        pen["mismatch"], pen["o1"], pen["e1"], pen["o2"], pen["e2"], threads,
+        i32p(scores), _i64p(item_offs), u8p(ops), i32p(lens), _i64p(counts),
+    )
+    # gather the used (op, len) entries flat, decode the ops in one take,
+    # then slice per window
+    total = int(counts.sum())
+    if total:
+        flat = (
+            np.arange(total, dtype=np.int64)
+            - np.repeat(np.cumsum(counts) - counts, counts)
+            + np.repeat(item_offs[:-1], counts)
+        )
+        pairs_flat = list(zip(lens[flat].tolist(), np.take(np.array(_OP_CHARS), ops[flat]).tolist()))
+    else:
+        pairs_flat = []
+    bounds = np.cumsum(counts).tolist()
+    items = [pairs_flat[a:b] for a, b in zip([0] + bounds[:-1], bounds)]
+    return scores.astype(np.int64), items

@@ -50,6 +50,11 @@
 //   * S is 4, 8, 12 or 16; the planner (ops/nw_cuda.py::plan_sweep) picks
 //     S, warps per pair and pairs per block by the work on the busiest SM
 //     sub-partition.
+// Score-only mode (TB = false; the wrapper passes a null traceback pointer):
+// the same sweep with every traceback store left out and the rows past
+// t_final not visited, for the anchored route's verify sweep, which needs
+// the scores alone.  Its instantiations are separate, so the full mode's
+// code and register budget do not change.
 // Bands too wide for registers, and penalties outside [0, 2^16), take the
 // wide route (nw_sweep_wide), the port's first design kept as it was: one
 // block per pair with the DP rows in shared memory while they fit
@@ -308,8 +313,8 @@ __device__ __forceinline__ void slide_windows(Strip<S>& s, const Pair& pr, int t
 }
 
 // Anti-diagonal t (>= 2) of the recurrence: slide the windows, step, store
-// the traceback row, take the score at t_final, exchange the edges.
-template <int S, bool TWO, int DP, int DPP>
+// the traceback row (TB), take the score at t_final, exchange the edges.
+template <int S, bool TWO, bool TB, int DP, int DPP>
 __device__ __forceinline__ void advance(Strip<S>& s, Edges& e, const Pair& pr, const Pen& p,
                                         int t, int& qs, int& ts) {
   if (t > 1) slide_windows<S>(s, pr, t, qs, ts);
@@ -325,7 +330,7 @@ __device__ __forceinline__ void advance(Strip<S>& s, Edges& e, const Pair& pr, c
   }
   uint32_t words[(S + 3) / 4];
   sweep_step<S, TWO, DP, DPP>(s, e, p, vlo, vspan, words);
-  store_row<S>(pr.tbb + (size_t)t * pr.W, pr.s0, pr.W, pr.walign, words);
+  if (TB) store_row<S>(pr.tbb + (size_t)t * pr.W, pr.s0, pr.W, pr.walign, words);
   if (t == pr.t_final) {
     const int fl = pr.qlen - i0 - pr.s0;
 #pragma unroll
@@ -335,13 +340,13 @@ __device__ __forceinline__ void advance(Strip<S>& s, Edges& e, const Pair& pr, c
   exchange<S, TWO>(s, e, pr, t & 1);
 }
 
-template <int S, bool TWO>
+template <int S, bool TWO, bool TB>
 __global__ void __launch_bounds__(S <= 4 ? 128 : S <= 8 ? 384 : 256, S == 4 ? 5 : 1)
 nw_sweep_regs(const uint8_t* __restrict__ Q,  // [B, Lq] query codes, QPAD-padded
               const uint8_t* __restrict__ T,  // [B, Lt] target codes, TPAD-padded
               const int* __restrict__ qlens, const int* __restrict__ tlens,
               int* __restrict__ scores,        // [B] out
-              uint8_t* __restrict__ tb,        // [B, tmax_pad, W] out
+              uint8_t* __restrict__ tb,        // [B, tmax_pad, W] out (TB only)
               int B, int Lq, int Lt, int W, int tmax, int tmax_pad, Pen p, int wpp, int ppb,
               int pair_bytes) {
   extern __shared__ __align__(16) uint8_t smem[];
@@ -373,7 +378,7 @@ nw_sweep_regs(const uint8_t* __restrict__ Q,  // [B, Lq] query codes, QPAD-padde
   Pair pr;
   pr.Qs = Qs;
   pr.Ts = Ts;
-  pr.tbb = tb + (size_t)b * tmax_pad * W;
+  pr.tbb = TB ? tb + (size_t)b * tmax_pad * W : nullptr;
   pr.score = scores + b;
   pr.slots = reinterpret_cast<int*>(Ts + pair_t_bytes(Lt, W, L));
   pr.s0 = r * S;
@@ -393,7 +398,7 @@ nw_sweep_regs(const uint8_t* __restrict__ Q,  // [B, Lq] query codes, QPAD-padde
   constexpr int NWORD = (S + 3) / 4;
 
   // traceback row 0 and the padding rows past tmax are zero
-  {
+  if (TB) {
     uint32_t zero[NWORD];
 #pragma unroll
     for (int w = 0; w < NWORD; ++w) zero[w] = 0;
@@ -420,15 +425,17 @@ nw_sweep_regs(const uint8_t* __restrict__ Q,  // [B, Lq] query codes, QPAD-padde
   int ts = max(0, min(Lt - 1 + i0_of(1, K) + W, Lt + W));
   load_windows<S>(s, pr, qs, ts);
 
-  // from t_final + 3 on every input is INF (the states are INF past t_final)
-  const int last = min(tmax, pr.t_final + 2);
+  // from t_final + 3 on every input is INF (the states are INF past t_final);
+  // without a traceback nothing past t_final is needed
+  const int last = min(tmax, TB ? pr.t_final + 2 : pr.t_final);
   int t = 1;
-  for (; t <= last && t <= K; ++t) advance<S, TWO, 0, 0>(s, e, pr, p, t, qs, ts);
+  for (; t <= last && t <= K; ++t) advance<S, TWO, TB, 0, 0>(s, e, pr, p, t, qs, ts);
   for (; t + 1 <= last; t += 2) {  // (t - K) is odd here
-    advance<S, TWO, 1, 1>(s, e, pr, p, t, qs, ts);
-    advance<S, TWO, 0, 1>(s, e, pr, p, t + 1, qs, ts);
+    advance<S, TWO, TB, 1, 1>(s, e, pr, p, t, qs, ts);
+    advance<S, TWO, TB, 0, 1>(s, e, pr, p, t + 1, qs, ts);
   }
-  if (t <= last) advance<S, TWO, 1, 1>(s, e, pr, p, t++, qs, ts);
+  if (t <= last) advance<S, TWO, TB, 1, 1>(s, e, pr, p, t++, qs, ts);
+  if (!TB) return;
 
   // the all-INF bytes, for a matching and a mismatching base pair
   uint32_t cheap_eq, cheap_ne;
@@ -462,13 +469,14 @@ __device__ __forceinline__ int framed(const int* row, int l, int delta, int W) {
   return (k >= 0 && k < W) ? row[k] : NW_INF;
 }
 
+template <bool TB>
 __global__ void __launch_bounds__(1024) nw_sweep_wide(
     const uint8_t* __restrict__ Q,      // [B, Lq] query codes, QPAD-padded
     const uint8_t* __restrict__ T,      // [B, Lt] target codes, TPAD-padded
     const int* __restrict__ qlens,      // [B]
     const int* __restrict__ tlens,      // [B]
     int* __restrict__ scores,           // [B] out
-    uint8_t* __restrict__ tb,           // [B, tmax_pad, W] out
+    uint8_t* __restrict__ tb,           // [B, tmax_pad, W] out (TB only)
     int* __restrict__ gscratch,         // [B, 11, W] or null (shared memory)
     int Lq, int Lt, int W, int tmax, int tmax_pad,
     int mismatch, int o1, int e1, int o2, int e2) {
@@ -488,7 +496,7 @@ __global__ void __launch_bounds__(1024) nw_sweep_wide(
   const int t_final = qlen + tlen;
   const uint8_t* q = Q + (size_t)b * Lq;
   const uint8_t* tg = T + (size_t)b * Lt;
-  uint8_t* tbb = tb + (size_t)b * tmax_pad * W;
+  uint8_t* tbb = TB ? tb + (size_t)b * tmax_pad * W : nullptr;
 
   // state at t = 0 (H[0], gap slot 0) and t = -1 (H[2]); traceback row 0
   // and the padding rows past tmax are never computed: they are zero
@@ -499,8 +507,10 @@ __global__ void __launch_bounds__(1024) nw_sweep_wide(
     D1[0][l] = NW_INF;
     I2[0][l] = NW_INF;
     D2[0][l] = NW_INF;
-    tbb[l] = 0;
-    for (int t = tmax + 1; t < tmax_pad; ++t) tbb[(size_t)t * W + l] = 0;
+    if (TB) {
+      tbb[l] = 0;
+      for (int t = tmax + 1; t < tmax_pad; ++t) tbb[(size_t)t * W + l] = 0;
+    }
   }
   if (threadIdx.x == 0) scores[b] = -1;
   __syncthreads();
@@ -518,7 +528,7 @@ __global__ void __launch_bounds__(1024) nw_sweep_wide(
     // [TPAD]*W + reverse(tg) + [TPAD]*W, clamped as a dynamic slice is
     const int qs = min(i0, Lq + 1);
     const int ts = max(0, min(Lt - t + i0 + W, Lt + W));
-    uint8_t* tbrow = tbb + (size_t)t * W;
+    uint8_t* tbrow = TB ? tbb + (size_t)t * W : nullptr;
 
     for (int l = threadIdx.x; l < W; l += blockDim.x) {
       const int h_up = framed(h1, l, dp - 1, W);
@@ -577,8 +587,9 @@ __global__ void __launch_bounds__(1024) nw_sweep_wide(
       }
       if (t == t_final && l == qlen - i0 && Hn < NW_INF) scores[b] = Hn;
 
-      tbrow[l] = (uint8_t)(choice | ((int)i1o << 3) | ((int)i2o << 4) |
-                           ((int)d1o << 5) | ((int)d2o << 6));
+      if (TB)
+        tbrow[l] = (uint8_t)(choice | ((int)i1o << 3) | ((int)i2o << 4) |
+                             ((int)d1o << 5) | ((int)d2o << 6));
     }
     __syncthreads();
   }
@@ -598,36 +609,36 @@ static cudaError_t allow_smem(const void* fn, size_t smem) {
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <int S, bool TWO>
+template <int S, bool TWO, bool TB>
 static cudaError_t launch_regs(const void* Q, const void* T, const void* qlens, const void* tlens,
                                void* scores, void* tb, int B, int Lq, int Lt, int W, int tmax,
                                int tmax_pad, Pen p, int wpp, int ppb, int pair_bytes,
                                cudaStream_t stream) {
   const int threads = ppb * wpp * 32;
   const size_t smem = dynamic_smem(S, W, ppb, pair_bytes, false);
-  const cudaError_t err = allow_smem((const void*)nw_sweep_regs<S, TWO>, smem);
+  const cudaError_t err = allow_smem((const void*)nw_sweep_regs<S, TWO, TB>, smem);
   if (err != cudaSuccess) return err;
   const int blocks = (B + ppb - 1) / ppb;
-  nw_sweep_regs<S, TWO><<<blocks, threads, smem, stream>>>(
+  nw_sweep_regs<S, TWO, TB><<<blocks, threads, smem, stream>>>(
       (const uint8_t*)Q, (const uint8_t*)T, (const int*)qlens, (const int*)tlens, (int*)scores,
       (uint8_t*)tb, B, Lq, Lt, W, tmax, tmax_pad, p, wpp, ppb, pair_bytes);
   return cudaGetLastError();
 }
 
-template <bool TWO>
+template <bool TWO, bool TB>
 static const void* regs_kernel(int S) {
   switch (S) {
-    case 4: return (const void*)nw_sweep_regs<4, TWO>;
-    case 8: return (const void*)nw_sweep_regs<8, TWO>;
-    case 12: return (const void*)nw_sweep_regs<12, TWO>;
-    case 16: return (const void*)nw_sweep_regs<16, TWO>;
+    case 4: return (const void*)nw_sweep_regs<4, TWO, TB>;
+    case 8: return (const void*)nw_sweep_regs<8, TWO, TB>;
+    case 12: return (const void*)nw_sweep_regs<12, TWO, TB>;
+    case 16: return (const void*)nw_sweep_regs<16, TWO, TB>;
     default: return nullptr;
   }
 }
 
 // lanes: S of the register route, or 0 for the wide route (its rows then go
 // to scratch, a [B, 11, W] int32 buffer, or to shared memory where scratch is
-// null).  Returns the CUDA error code.
+// null).  A null tb selects the score-only mode.  Returns the CUDA error code.
 extern "C" int nw_sweep_launch(const void* Q, const void* T, const void* qlens, const void* tlens,
                                void* scores, void* tb, void* scratch, int B, int Lq, int Lt, int W,
                                int tmax, int tmax_pad, int mismatch, int o1, int e1, int o2,
@@ -635,23 +646,32 @@ extern "C" int nw_sweep_launch(const void* Q, const void* T, const void* qlens, 
                                int wide_threads, void* stream) {
   if (B <= 0) return (int)cudaSuccess;
   const bool two = o2 >= 0;
+  const bool with_tb = tb != nullptr;
   const Pen p{mismatch, o1 + e1, e1, o2 + e2, e2};
   cudaStream_t st = (cudaStream_t)stream;
   if (lanes == 0) {
     const size_t smem = dynamic_smem(0, W, 1, 0, scratch != nullptr);
-    const cudaError_t err = allow_smem((const void*)nw_sweep_wide, smem);
+    const void* fn = with_tb ? (const void*)nw_sweep_wide<true> : (const void*)nw_sweep_wide<false>;
+    const cudaError_t err = allow_smem(fn, smem);
     if (err != cudaSuccess) return (int)err;
-    nw_sweep_wide<<<B, wide_threads, smem, st>>>(
-        (const uint8_t*)Q, (const uint8_t*)T, (const int*)qlens, (const int*)tlens, (int*)scores,
-        (uint8_t*)tb, (int*)scratch, Lq, Lt, W, tmax, tmax_pad, mismatch, o1, e1, o2, e2);
+    if (with_tb)
+      nw_sweep_wide<true><<<B, wide_threads, smem, st>>>(
+          (const uint8_t*)Q, (const uint8_t*)T, (const int*)qlens, (const int*)tlens, (int*)scores,
+          (uint8_t*)tb, (int*)scratch, Lq, Lt, W, tmax, tmax_pad, mismatch, o1, e1, o2, e2);
+    else
+      nw_sweep_wide<false><<<B, wide_threads, smem, st>>>(
+          (const uint8_t*)Q, (const uint8_t*)T, (const int*)qlens, (const int*)tlens, (int*)scores,
+          nullptr, (int*)scratch, Lq, Lt, W, tmax, tmax_pad, mismatch, o1, e1, o2, e2);
     return (int)cudaGetLastError();
   }
-#define NW_LAUNCH(SV)                                                                            \
-  case SV:                                                                                       \
-    return (int)(two ? launch_regs<SV, true>(Q, T, qlens, tlens, scores, tb, B, Lq, Lt, W, tmax, \
-                                             tmax_pad, p, wpp, ppb, pair_bytes, st)              \
-                     : launch_regs<SV, false>(Q, T, qlens, tlens, scores, tb, B, Lq, Lt, W,      \
-                                              tmax, tmax_pad, p, wpp, ppb, pair_bytes, st));
+#define NW_LAUNCH_TB(SV, TWOV)                                                                    \
+  (with_tb ? launch_regs<SV, TWOV, true>(Q, T, qlens, tlens, scores, tb, B, Lq, Lt, W, tmax,      \
+                                         tmax_pad, p, wpp, ppb, pair_bytes, st)                  \
+           : launch_regs<SV, TWOV, false>(Q, T, qlens, tlens, scores, tb, B, Lq, Lt, W, tmax,     \
+                                          tmax_pad, p, wpp, ppb, pair_bytes, st))
+#define NW_LAUNCH(SV) \
+  case SV:            \
+    return (int)(two ? NW_LAUNCH_TB(SV, true) : NW_LAUNCH_TB(SV, false));
   switch (lanes) {
     NW_LAUNCH(4)
     NW_LAUNCH(8)
@@ -660,15 +680,23 @@ extern "C" int nw_sweep_launch(const void* Q, const void* T, const void* qlens, 
     default: return (int)cudaErrorInvalidValue;
   }
 #undef NW_LAUNCH
+#undef NW_LAUNCH_TB
 }
 
 // Registers per thread, resident blocks per SM and shared memory per block
 // (static, from the runtime, plus the dynamic bytes the launch asks for) of
-// one launch shape; lanes 0 is the wide route.
-extern "C" int nw_sweep_occupancy(int lanes, int two, int W, int ppb, int pair_bytes, int scratch,
-                                  int threads, int* regs, int* blocks_per_sm, int* smem_bytes) {
-  const void* fn = lanes == 0 ? (const void*)nw_sweep_wide
-                              : (two ? regs_kernel<true>(lanes) : regs_kernel<false>(lanes));
+// one launch shape in the full mode (with_tb) or the score-only mode; lanes 0
+// is the wide route.
+extern "C" int nw_sweep_occupancy(int lanes, int two, int with_tb, int W, int ppb, int pair_bytes,
+                                  int scratch, int threads, int* regs, int* blocks_per_sm,
+                                  int* smem_bytes) {
+  const void* fn;
+  if (lanes == 0)
+    fn = with_tb ? (const void*)nw_sweep_wide<true> : (const void*)nw_sweep_wide<false>;
+  else if (two)
+    fn = with_tb ? regs_kernel<true, true>(lanes) : regs_kernel<true, false>(lanes);
+  else
+    fn = with_tb ? regs_kernel<false, true>(lanes) : regs_kernel<false, false>(lanes);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   const size_t smem = dynamic_smem(lanes, W, ppb, pair_bytes, scratch != 0);
   cudaError_t err = allow_smem(fn, smem);

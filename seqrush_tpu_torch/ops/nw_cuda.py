@@ -2,7 +2,10 @@
 
 * ``nw_align`` -- kernel A, the banded two-piece Gotoh sweep
   (``csrc/nw_sweep.cu``; replaces ``seqrush_tpu/ops/nw_pallas.py::_kernel``).
-  Returns scores [B] int32 and the packed traceback [B, tmax_pad, W] uint8.
+  Returns scores [B] int32 and the packed traceback [B, tmax_pad, W] uint8,
+  or, with ``with_traceback=False`` (the score-only mode of the anchored
+  route's verify sweep), the scores alone and None: no traceback tensor is
+  allocated and the kernel stores none.
 * ``nw_walk`` -- kernel B, the reverse traceback walk (``csrc/nw_walk.cu``;
   replaces ``nw_pallas.py::_walk_kernel``).  Returns opcodes [B, tmax + 1]
   uint8 (0 none, 1 M, 2 I, 3 D at column td).
@@ -25,7 +28,8 @@ sources under ``csrc/`` into ``build/seqrush_tpu_torch/`` at the repository
 root, one ``nvcc`` per source in parallel, and loaded with ctypes.  The file
 name carries a hash of the sources and flags, so an edit rebuilds.
 
-``LAUNCHES`` counts kernel launches (not plain-version calls) per kernel.
+``LAUNCHES`` counts kernel launches (not plain-version calls) per kernel,
+kernel A's score-only mode apart as ``nw_sweep_score_only``.
 """
 
 from __future__ import annotations
@@ -42,10 +46,10 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
-from .nw import H_D1, H_D2, H_DIAG, H_I1, H_I2, INF, OP_D, OP_I, OP_M, OP_NONE, QPAD, TPAD
+from .nw import H_D1, H_D2, H_I1, H_I2, INF, OP_D, OP_I, OP_M, OP_NONE, QPAD, TPAD
 from .nw import _i0_of, tmax_pad_of
 
-LAUNCHES = {"nw_sweep": 0, "nw_walk": 0}
+LAUNCHES = {"nw_sweep": 0, "nw_sweep_score_only": 0, "nw_walk": 0}
 
 _SOURCES = ("nw_sweep.cu", "nw_walk.cu")
 _NVCC_FLAGS = (
@@ -154,7 +158,7 @@ def _library() -> ctypes.CDLL:
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             lib.nw_sweep_launch.argtypes = [ptr] * 7 + [i32] * 16 + [ptr]
             lib.nw_sweep_launch.restype = i32
-            lib.nw_sweep_occupancy.argtypes = [i32] * 7 + [ptr] * 3
+            lib.nw_sweep_occupancy.argtypes = [i32] * 8 + [ptr] * 3
             lib.nw_sweep_occupancy.restype = i32
             lib.nw_walk_launch.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
             lib.nw_walk_launch.restype = i32
@@ -304,13 +308,14 @@ WALK_TILE = (64, 32)  # rows x lanes of the walk's shared-memory tile
 # -- kernel A: the sweep -------------------------------------------------------
 
 
-def nw_align(Q, T, qlens, tlens, *, mismatch, o1, e1, o2, e2, band, tmax):
+def nw_align(Q, T, qlens, tlens, *, mismatch, o1, e1, o2, e2, band, tmax, with_traceback=True):
     """Banded Gotoh sweep over a batch of pairs.
 
     Q [B, Lq] / T [B, Lt] uint8 base codes padded with QPAD/TPAD; qlens,
     tlens [B] int32; o2 < 0 selects one-piece penalties.  Returns (scores
     [B] int32, -1 where the final cell was not reached; tb [B, tmax_pad, W]
-    uint8 with rows 0 and > tmax zero)."""
+    uint8 with rows 0 and > tmax zero, or None when with_traceback is
+    False)."""
     device = Q.device
     _check("Q", Q, torch.uint8, 2, device)
     _check("T", T, torch.uint8, 2, device)
@@ -320,7 +325,8 @@ def nw_align(Q, T, qlens, tlens, *, mismatch, o1, e1, o2, e2, band, tmax):
     _check_lengths(qlens, tlens, B, device)
     if band < 0 or tmax < 0:
         raise ValueError("band and tmax must be >= 0")
-    kw = dict(mismatch=mismatch, o1=o1, e1=e1, o2=o2, e2=e2, band=band, tmax=tmax)
+    kw = dict(mismatch=mismatch, o1=o1, e1=e1, o2=o2, e2=e2, band=band, tmax=tmax,
+              with_traceback=with_traceback)
     if device.type == "cpu":
         return nw_align_reference(Q, T, qlens, tlens, **kw)
     _require_cuda(device)
@@ -330,7 +336,8 @@ def nw_align(Q, T, qlens, tlens, *, mismatch, o1, e1, o2, e2, band, tmax):
     return sweep_launch(Q, T, qlens, tlens, plan, **kw)
 
 
-def sweep_launch(Q, T, qlens, tlens, plan: SweepPlan, *, mismatch, o1, e1, o2, e2, band, tmax):
+def sweep_launch(Q, T, qlens, tlens, plan: SweepPlan, *, mismatch, o1, e1, o2, e2, band, tmax,
+                 with_traceback=True):
     """Launch kernel A on checked CUDA tensors with a given plan (nw_align's
     plan, or another one to compare launch shapes)."""
     if plan.route == "regs" and not register_route_penalties(mismatch, o1, e1, o2, e2):
@@ -340,7 +347,7 @@ def sweep_launch(Q, T, qlens, tlens, plan: SweepPlan, *, mismatch, o1, e1, o2, e
     W = band + 1
     tmax_pad = tmax_pad_of(tmax)
     scores = torch.empty(B, dtype=torch.int32, device=device)
-    tb = torch.empty((B, tmax_pad, W), dtype=torch.uint8, device=device)
+    tb = torch.empty((B, tmax_pad, W), dtype=torch.uint8, device=device) if with_traceback else None
     if B == 0:
         return scores, tb
     scratch = None
@@ -351,7 +358,7 @@ def sweep_launch(Q, T, qlens, tlens, plan: SweepPlan, *, mismatch, o1, e1, o2, e
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.nw_sweep_launch(
             Q.data_ptr(), T.data_ptr(), qlens.data_ptr(), tlens.data_ptr(),
-            scores.data_ptr(), tb.data_ptr(),
+            scores.data_ptr(), tb.data_ptr() if tb is not None else None,
             scratch.data_ptr() if scratch is not None else None,
             B, Lq, T.shape[1], W, tmax, tmax_pad, mismatch, o1, e1, o2, e2,
             plan.lanes, plan.warps_per_pair, plan.pairs_per_block, plan.pair_bytes,
@@ -359,18 +366,18 @@ def sweep_launch(Q, T, qlens, tlens, plan: SweepPlan, *, mismatch, o1, e1, o2, e
         )
     if err != 0:
         raise RuntimeError(f"nw_sweep launch failed with CUDA error {err}")
-    LAUNCHES["nw_sweep"] += 1
+    LAUNCHES["nw_sweep" if with_traceback else "nw_sweep_score_only"] += 1
     return scores, tb
 
 
-def sweep_occupancy(plan: SweepPlan, W: int, two_piece: bool) -> dict:
+def sweep_occupancy(plan: SweepPlan, W: int, two_piece: bool, with_traceback: bool = True) -> dict:
     """Registers per thread, shared memory per block and resident pairs per
-    SM of a plan's launch shape, from the CUDA runtime and the launch code
-    (needs the card)."""
+    SM of a plan's launch shape in the full or the score-only mode, from the
+    CUDA runtime and the launch code (needs the card)."""
     regs, blocks, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     scratch = int(plan.route == "wide" and not plan.smem_bytes)
-    err = _library().nw_sweep_occupancy(plan.lanes, int(two_piece), W, plan.pairs_per_block,
-                                        plan.pair_bytes, scratch, plan.threads,
+    err = _library().nw_sweep_occupancy(plan.lanes, int(two_piece), int(with_traceback), W,
+                                        plan.pairs_per_block, plan.pair_bytes, scratch, plan.threads,
                                         ctypes.byref(regs), ctypes.byref(blocks), ctypes.byref(smem))
     if err != 0:
         raise RuntimeError(f"nw_sweep occupancy query failed with CUDA error {err}")
@@ -399,9 +406,11 @@ def _frame(x: torch.Tensor, delta: int, inf_col: torch.Tensor) -> torch.Tensor:
     return torch.cat([x[:, 1:], inf_col], dim=1)
 
 
-def nw_align_reference(Q, T, qlens, tlens, *, mismatch, o1, e1, o2, e2, band, tmax):
+def nw_align_reference(Q, T, qlens, tlens, *, mismatch, o1, e1, o2, e2, band, tmax,
+                       with_traceback=True):
     """Plain PyTorch version of kernel A: one [B, W] step per anti-diagonal,
-    the same arithmetic as nw_pallas._kernel."""
+    the same arithmetic as nw_pallas._kernel (the traceback None when
+    with_traceback is False)."""
     B, Lq = Q.shape
     Lt = T.shape[1]
     K = band
@@ -428,9 +437,13 @@ def nw_align_reference(Q, T, qlens, tlens, *, mismatch, o1, e1, o2, e2, band, tm
     false_row = torch.zeros((B, W), dtype=torch.bool, device=dev)
     inf_col = torch.full((B, 1), INF, dtype=i32, device=dev)
     scores = torch.full((B,), -1, dtype=i32, device=dev)
-    tb = torch.zeros((B, tmax_pad_of(tmax), W), dtype=torch.uint8, device=dev)
+    tb = torch.zeros((B, tmax_pad_of(tmax), W), dtype=torch.uint8, device=dev) if with_traceback else None
+    # the anti-diagonals where some pair's final cell lies; without a
+    # traceback nothing past the last of them is needed
+    finals = set(t_final.tolist())
+    t_last = tmax if with_traceback else min(tmax, max(finals, default=0))
 
-    for t in range(1, tmax + 1):
+    for t in range(1, t_last + 1):
         i0 = _i0_of(t, K)
         dp = i0 - _i0_of(t - 1, K)
         dpp = i0 - _i0_of(t - 2, K)
@@ -442,50 +455,54 @@ def nw_align_reference(Q, T, qlens, tlens, *, mismatch, o1, e1, o2, e2, band, tm
 
         qs = min(i0, Lq + 1)
         ts = min(max(Lt - t + i0 + W, 0), Lt + W)
-        sub = torch.where(Qi[:, qs : qs + W] == Trev[:, ts : ts + W], 0, mismatch).to(i32)
+        sub = (Qi[:, qs : qs + W] != Trev[:, ts : ts + W]).to(i32) * mismatch
 
-        I1n = torch.minimum(h_up + (o1 + e1), i1_up + e1)
-        i1_opened = (h_up + (o1 + e1)) <= (i1_up + e1)
-        D1n = torch.minimum(h_left + (o1 + e1), d1_left + e1)
-        d1_opened = (h_left + (o1 + e1)) <= (d1_left + e1)
+        # a gap state is min(open, extend); its opened bit is open <= extend
+        up_open, left_open = h_up + (o1 + e1), h_left + (o1 + e1)
+        ext = i1_up + e1
+        I1n, i1_opened = torch.minimum(up_open, ext), up_open <= ext
+        ext = d1_left + e1
+        D1n, d1_opened = torch.minimum(left_open, ext), left_open <= ext
         if two:
-            i2_up = _frame(i2r, dp - 1, inf_col)
-            d2_left = _frame(d2r, dp, inf_col)
-            I2n = torch.minimum(h_up + (o2 + e2), i2_up + e2)
-            i2_opened = (h_up + (o2 + e2)) <= (i2_up + e2)
-            D2n = torch.minimum(h_left + (o2 + e2), d2_left + e2)
-            d2_opened = (h_left + (o2 + e2)) <= (d2_left + e2)
+            up_open, left_open = h_up + (o2 + e2), h_left + (o2 + e2)
+            ext = _frame(i2r, dp - 1, inf_col) + e2
+            I2n, i2_opened = torch.minimum(up_open, ext), up_open <= ext
+            ext = _frame(d2r, dp, inf_col) + e2
+            D2n, d2_opened = torch.minimum(left_open, ext), left_open <= ext
         else:
             I2n, D2n = inf_row, inf_row
             i2_opened, d2_opened = false_row, false_row
 
+        # strict '<' in the order D1, I1, D2, I2: a tie keeps the earlier choice
         Hn = h_diag + sub
         choice = torch.zeros((B, W), dtype=torch.uint8, device=dev)
         for cand, tag in ((D1n, H_D1), (I1n, H_I1), (D2n, H_D2), (I2n, H_I2)):
-            better = cand < Hn
-            Hn = torch.where(better, cand, Hn)
-            choice = torch.where(better, tag, choice).to(torch.uint8)
+            choice.masked_fill_(cand < Hn, tag)
+            Hn = torch.minimum(Hn, cand)
 
         i = i0 + lanes
         j = t - i
-        valid = (i >= 0) & (i <= ql) & (j >= 0) & (j <= tl)
-        Hn = torch.where(valid, Hn.clamp(max=INF), INF)
-        I1n = torch.where(valid, I1n.clamp(max=INF), INF)
-        D1n = torch.where(valid, D1n.clamp(max=INF), INF)
-        I2n = torch.where(valid, I2n.clamp(max=INF), INF)
-        D2n = torch.where(valid, D2n.clamp(max=INF), INF)
+        invalid = ~((i >= 0) & (i <= ql) & (j >= 0) & (j <= tl))
+        Hn = Hn.clamp_(max=INF).masked_fill_(invalid, INF)
+        I1n = I1n.clamp_(max=INF).masked_fill_(invalid, INF)
+        D1n = D1n.clamp_(max=INF).masked_fill_(invalid, INF)
+        if two:
+            I2n = I2n.clamp_(max=INF).masked_fill_(invalid, INF)
+            D2n = D2n.clamp_(max=INF).masked_fill_(invalid, INF)
 
-        at_final = (t_final[:, None] == t) & (lanes == (ql - i0))
-        fin_val = torch.where(at_final, Hn, INF).amin(dim=1)
-        scores = torch.where((t_final == t) & (scores < 0) & (fin_val < INF), fin_val, scores)
+        if t in finals:
+            at_final = (t_final[:, None] == t) & (lanes == (ql - i0))
+            fin_val = torch.where(at_final, Hn, INF).amin(dim=1)
+            scores = torch.where((t_final == t) & (scores < 0) & (fin_val < INF), fin_val, scores)
 
-        tb[:, t, :] = (
-            choice
-            | (i1_opened.to(torch.uint8) << 3)
-            | (i2_opened.to(torch.uint8) << 4)
-            | (d1_opened.to(torch.uint8) << 5)
-            | (d2_opened.to(torch.uint8) << 6)
-        )
+        if tb is not None:
+            tb[:, t, :] = (
+                choice
+                | (i1_opened.to(torch.uint8) << 3)
+                | (i2_opened.to(torch.uint8) << 4)
+                | (d1_opened.to(torch.uint8) << 5)
+                | (d2_opened.to(torch.uint8) << 6)
+            )
         h2, h1 = h1, Hn
         i1r, d1r = I1n, D1n
         if two:
@@ -533,12 +550,26 @@ def _i0_tensor(t: torch.Tensor, K: int) -> torch.Tensor:
 def nw_walk_reference(tb, qlens, tlens, *, band, tmax):
     """Plain PyTorch version of kernel B: a reverse scan over every
     anti-diagonal, acting on the pairs whose cursor sits there (the
-    arithmetic of nw.traceback_scan_device and nw_pallas._walk_kernel)."""
+    arithmetic of nw.traceback_scan_device and nw_pallas._walk_kernel, its
+    per-state cases read from small tables indexed by the state the step
+    leaves: the H choice in an H cell, else the gap state)."""
     B = tb.shape[0]
     K = band
     W = K + 1
     dev = tb.device
     i64 = torch.int64
+
+    def table(*vals):
+        return torch.tensor(vals, dtype=i64, device=dev)
+
+    # by state L = 0 diagonal, 1 D1, 2 I1, 3 D2, 4 I2 (5-7: no such choice):
+    # the opcode, the bit of the gap's opened flag, the moves in i and j,
+    # and the state the next step is in unless the gap opened here
+    op_of = table(OP_M, OP_D, OP_I, OP_D, OP_I, OP_NONE, OP_NONE, OP_NONE)
+    opened_bit = table(4, 5, 3, 6, 4, 4, 4, 4)
+    di = table(1, 0, 1, 0, 1, 0, 0, 0)
+    dj = table(1, 1, 0, 1, 0, 0, 0, 0)
+    next_gap = table(0, H_D1, H_I1, H_D2, H_I2, H_I2, H_I2, H_I2)
     rows = torch.arange(B, device=dev)
     cur_t = qlens.to(i64) + tlens.to(i64)
     lane = qlens.to(i64) - _i0_tensor(cur_t, K)
@@ -546,38 +577,18 @@ def nw_walk_reference(tb, qlens, tlens, *, band, tmax):
     done = cur_t == 0
     ops = torch.zeros((B, tmax + 1), dtype=torch.uint8, device=dev)
 
-    for td in range(tmax, 0, -1):
+    # no cursor starts above the longest pair's final anti-diagonal
+    for td in range(min(tmax, int(cur_t.max()) if B else 0), 0, -1):
         active = ~done & (cur_t == td)
         in_band = (lane >= 0) & (lane < W)
         byte = tb[rows, td, lane.clamp(0, W - 1)].to(i64)
         b = torch.where(in_band, byte, 0)
+        state = torch.where(mat == 0, b & 7, mat)
+        opened = ((b >> opened_bit[state]) & 1) != 0
         i = _i0_of(td, K) + lane
-        j = td - i
-
-        choice = b & 7
-        is_h = mat == 0
-        go_d1 = (is_h & (choice == H_D1)) | (mat == 1)
-        go_i1 = (is_h & (choice == H_I1)) | (mat == 2)
-        go_d2 = (is_h & (choice == H_D2)) | (mat == 3)
-        go_i2 = (is_h & (choice == H_I2)) | (mat == 4)
-        diag = is_h & (choice == H_DIAG)
-        opened = torch.where(
-            go_d1, (b >> 5) & 1,
-            torch.where(go_i1, (b >> 3) & 1, torch.where(go_d2, (b >> 6) & 1, (b >> 4) & 1)),
-        ) != 0
-
-        gap_d = go_d1 | go_d2
-        gap_i = go_i1 | go_i2
-        op = torch.where(
-            diag, OP_M, torch.where(gap_i, OP_I, torch.where(gap_d, OP_D, OP_NONE))
-        )
-        ni = torch.where(diag | gap_i, i - 1, i)
-        nj = torch.where(diag | gap_d, j - 1, j)
-        nmat = torch.where(
-            diag | opened,
-            0,
-            torch.where(go_d1, 1, torch.where(go_i1, 2, torch.where(go_d2, 3, 4))),
-        )
+        ni = i - di[state]
+        nj = (td - i) - dj[state]
+        nmat = torch.where((state == 0) | opened, 0, next_gap[state])
         nt = ni + nj
         nl = ni - _i0_tensor(nt, K)
         ndone = (ni == 0) & (nj == 0)
@@ -586,5 +597,5 @@ def nw_walk_reference(tb, qlens, tlens, *, band, tmax):
         lane = torch.where(active, nl, lane)
         mat = torch.where(active, nmat, mat)
         done = done | (active & ndone)
-        ops[:, td] = torch.where(active, op, OP_NONE).to(torch.uint8)
+        ops[:, td] = torch.where(active, op_of[state], OP_NONE).to(torch.uint8)
     return ops

@@ -51,7 +51,6 @@ def unsupported_reason(args: Args) -> str | None:
         (args.inversion_aware, "inversion-aware mode is not ported yet (ROADMAP item 11)"),
         (args.aligner != "allwave", "the sweepga backend is not ported yet (ROADMAP item 11)"),
         (bool(args.mesh_devices), "mesh alignment is not ported yet (ROADMAP item 12)"),
-        (args.wide_verify, "--wide-verify belongs to the anchored route (ROADMAP item 9)"),
     )
     for bad, why in checks:
         if bad:
@@ -160,7 +159,10 @@ class SeqRushTorch:
             band_slack=args.band_slack,
             verbose=args.verbose,
             max_chunk_pairs=args.max_chunk_pairs,
+            threads=args.threads,
+            frequency=args.frequency,
             wide_route=args.wide_route,
+            wide_verify=args.wide_verify,
             **cfg_kw,
         )
         aligner = aligner_cls(self.seqs, cfg, device=self.device)

@@ -1,7 +1,7 @@
 """Time kernel A (the sweep) at chosen batch sizes and bands on one GPU.
 
     python3 seqrush_tpu_torch/tools/sweep_shapes.py [--shapes B:W,...]
-        [--each-strip] [--root DIR]
+        [--each-strip] [--root DIR] [--ptxas]
 
 The pairs are synthetic gene-length haplotypes made from seed 0 (a random
 base of 3,300 bases, ~2% SNPs and a few indels per copy), packed as the
@@ -15,7 +15,9 @@ the wide route the rows in a global scratch; each is held bit-equal to
 
 --root imports seqrush_tpu_torch from another checkout, such as an earlier
 commit unpacked with ``git archive``; only ``nw_align`` is used then, so
-two versions of the kernel can be timed on one card in one call.
+two versions of the kernel can be timed on one card in one call.  --ptxas
+first prints the registers, stack and spills ptxas reports for each kernel
+of that checkout's build (empty when the library was already built).
 """
 
 from __future__ import annotations
@@ -110,6 +112,7 @@ def main(argv=None) -> int:
     ap.add_argument("--shapes", default="576:512,48:1536")
     ap.add_argument("--each-strip", action="store_true")
     ap.add_argument("--root", type=Path, default=Path(__file__).resolve().parents[2])
+    ap.add_argument("--ptxas", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("sweep_shapes: no CUDA device", file=sys.stderr)
@@ -121,6 +124,11 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
+    if args.ptxas:
+        _path, log = nw_cuda.build()
+        for line in log.splitlines():
+            if "Compiling entry function" in line or "Used" in line or "spill" in line:
+                print(json.dumps({"root": str(args.root), "ptxas": line.strip()}), flush=True)
     dev = torch.device("cuda")
     for spec in args.shapes.split(","):
         B, W = (int(x) for x in spec.split(":"))

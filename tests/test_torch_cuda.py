@@ -212,6 +212,96 @@ def test_penalties_outside_register_range_take_wide_route(cuda):
                              band=63, tmax=tmax)
 
 
+def _window_chunk(rng, n, mx, device):
+    """n divergence-core windows of up to mx bases a side (an inverted
+    block, SNPs, unequal lengths) packed as the anchored route packs a
+    device window chunk at full band: B a power of two >= 8 (padding rows of
+    length 0), Lq and Lt multiples of 128, tmax of 256, W = mx + 2."""
+    from seqrush_tpu_torch.align import anchored
+
+    jobs = []
+    for k in range(n):
+        q = rng.integers(0, 4, mx - (int(rng.integers(0, 40)) if k else 0)).astype(np.uint8)
+        t = (3 - q[::-1]).copy()
+        t[rng.integers(0, t.size, t.size // 40)] = rng.integers(0, 4, t.size // 40)
+        if k % 2:
+            t = t[: t.size - int(rng.integers(1, 30))]
+        jobs.append((q, t, (k, False, 0, 0)))
+    chunk = [(j, anchored._initial_window_band(q, t)) for j, (q, t, _s) in enumerate(jobs)]
+    Q, T, ql, tl, band, tmax = anchored.pack_windows(jobs, chunk, max(b for _j, b in chunk))
+    return [torch.from_numpy(a).to(device) for a in (Q, T, ql, tl)], band, tmax
+
+
+@pytest.mark.parametrize("n,mx,two_piece", [(6, 300, True), (7, 701, False), (5, 1100, True),
+                                            (3, 1149, True)])
+def test_kernels_equal_plain_versions_at_window_shapes(cuda, n, mx, two_piece):
+    """The anchored route's device window chunks: W is rarely a multiple of
+    4, Lq and Lt are multiples of 128 and tmax of 256, and the padding rows
+    are empty.  Scores, the traceback and the opcodes equal the plain
+    versions exactly."""
+    rng = np.random.default_rng(mx)
+    (Q, T, ql, tl), band, tmax = _window_chunk(rng, n, mx, cuda)
+    B = Q.shape[0]
+    assert B >= 8 and B & (B - 1) == 0 and int((ql == 0).sum()) == B - n
+    assert Q.shape[1] % 128 == 0 and T.shape[1] % 128 == 0 and tmax % 256 == 0
+    assert band == mx + 1
+    kw = _penalties(two_piece, band, tmax)
+    s_k, tb_k = nw_cuda.nw_align(Q, T, ql, tl, **kw)
+    ops_k = nw_cuda.nw_walk(tb_k, ql, tl, band=band, tmax=tmax)
+    torch.cuda.synchronize()
+    s_p, tb_p = nw_cuda.nw_align_reference(Q, T, ql, tl, **kw)
+    ops_p = nw_cuda.nw_walk_reference(tb_k, ql, tl, band=band, tmax=tmax)
+    assert torch.equal(s_k, s_p) and (s_k[:n] >= 0).all()
+    assert torch.equal(tb_k, tb_p)
+    assert torch.equal(ops_k, ops_p)
+
+
+@pytest.mark.parametrize("band,two_piece", [(511, True), (1535, False), (1101, True), (4607, True)])
+def test_score_only_sweep_equals_full_sweep(cuda, band, two_piece):
+    """with_traceback=False (the verify sweep) launches the score-only
+    kernel, on the register route and on the wide route (W > 4,096): the
+    scores equal the full launch's and the plain version's; no traceback."""
+    rng = np.random.default_rng(band)
+    (Q, T, ql, tl), tmax = _pack(*_variants(rng, 7, 1500, band, 0.3), cuda)
+    kw = _penalties(two_piece, band, tmax)
+    assert nw_cuda.plan_sweep(Q.shape[0], band + 1, Q.shape[1], T.shape[1]).route == (
+        "wide" if band + 1 > nw_cuda.REG_MAX_W else "regs")
+    s_full, _tb = nw_cuda.nw_align(Q, T, ql, tl, **kw)
+    before = dict(nw_cuda.LAUNCHES)
+    s_only, none = nw_cuda.nw_align(Q, T, ql, tl, with_traceback=False, **kw)
+    torch.cuda.synchronize()
+    assert none is None
+    assert nw_cuda.LAUNCHES["nw_sweep_score_only"] == before["nw_sweep_score_only"] + 1
+    assert nw_cuda.LAUNCHES["nw_sweep"] == before["nw_sweep"]
+    s_p, _ = nw_cuda.nw_align_reference(Q, T, ql, tl, with_traceback=False, **kw)
+    assert torch.equal(s_only, s_full)
+    assert torch.equal(s_only, s_p)
+
+
+def test_host_library_equals_python_chain(cuda):
+    """The host library builds with g++ on the card's host, and its chain
+    equals the Python chain on seeded anchor sets."""
+    from seqrush_tpu_torch import native
+    from seqrush_tpu_torch.ops import anchors
+
+    rng = np.random.default_rng(8)
+    sets = []
+    for k in range(12):
+        n = int(rng.integers(1, 150))
+        q = np.sort(rng.choice(5000, size=n, replace=False))
+        t = np.where(rng.random(n) < 0.2, rng.integers(0, 5000, n), q + 30)
+        sets.append(np.unique(np.stack([q, t], axis=1), axis=0).astype(np.int64))
+    offs = np.cumsum([0] + [a.shape[0] for a in sets]).astype(np.int64)
+    flat = np.concatenate(sets)
+    chain_pair, chain_off, rq, rt, rl = native.chain_pairs_native(
+        flat[:, 0].copy(), flat[:, 1].copy(), offs, 15, max_gap=anchors.DEFAULT_MAX_GAP,
+        max_skew=anchors.DEFAULT_MAX_SKEW, max_chains=1, min_matched=0)
+    assert chain_pair.tolist() == list(range(len(sets)))
+    for c, a in enumerate(sets):
+        got = list(zip(*(x[chain_off[c]:chain_off[c + 1]].tolist() for x in (rq, rt, rl))))
+        assert got == anchors.chain_to_runs(anchors.chain_anchors(a), 15)
+
+
 def test_pipeline_cuda_equals_cpu(cuda, tmp_path):
     """The same FASTA gives byte-identical GFA on cuda and on cpu."""
     rng = np.random.default_rng(0)

@@ -112,19 +112,3 @@ def test_runner_forced_orientation_and_divergence_cap():
 def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
         WfaAligner(make_sequence_set(_nw_corpus()), RunnerConfig(**option), device="cpu")
-
-
-def test_anchored_route_raises_for_wide_long_pairs():
-    """Under the default wide_route='anchored', the first job the JAX
-    package would align piecewise raises (here after the orientation probe
-    escalates it); short inputs run as usual."""
-    rng = np.random.default_rng(3)
-    base = BASES[rng.integers(0, 4, 2100)].tobytes()
-    s = bytearray(base)
-    s[600:1450] = bytes(s[600:1450]).translate(COMP)[::-1]
-    named = [("a", base), ("b", bytes(s))]
-    al = WfaAligner(make_sequence_set(named), RunnerConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        al.align_pairs(np.array([(0, 1)]))
-    short = WfaAligner(make_sequence_set(_nw_corpus()), RunnerConfig(), device="cpu")
-    assert len(short.align_pairs(np.array([(0, 1)]))) == 1
