@@ -65,7 +65,17 @@ Phases (any failure exits non-zero and prints no ok line):
      thread, shared memory per block and resident pairs per SM come from
      the CUDA runtime and the launch code; the build's ptxas registers and
      spills are printed for every kernel;
-  6. prints {"kernels": [...]}, the nvidia-smi line, and last
+  6. long pairs (qlen + tlen > 65,536) through the segmented route (kernels
+     A and B in their segment modes, segments of 2,048 anti-diagonals; see
+     run_long): the 110 kb pair of tests/test_zoo_extended.py through
+     ``--no-sort``, whose GFA must have the JAX package's sha256
+     (LONG_PAIR_GFA_SHA256); an 8 x 60 kb locus through the default run and
+     ``--no-sort``, every pair on the long route; each segment kernel
+     against its plain version on the first, a middle and the last segment
+     of the largest long chunk; the route against single-shot kernels A + B
+     on that chunk; the times of each segment kind, of the route per chunk
+     and of single-shot A + B;
+  7. prints {"kernels": [...]}, the nvidia-smi line, and last
      {"ok": true, "device": {...}}.
 
 Bounds: the least time the card could take for the same work, the larger
@@ -102,7 +112,11 @@ cell it needs none of the instructions that build the byte:
   5  validity and INF clamp of the five states (5 m);
  = 24 instructions, 11 of them minima: again the issue rate bounds it.
 The walk needs one byte read and about 25 instructions per step it takes,
-at the issue rate, and writes the opcode rows.
+at the issue rate, and writes the opcode rows.  A segment launch is charged
+the same instructions for the cells its pairs need in its anti-diagonals,
+its traceback rows [B, seg, W] (full mode), the carry read and written (2 x
+24 bytes a lane) and its windows of the operands; a segment walk its steps,
+its opcode columns [B, seg] and the cursor.
 """
 
 from __future__ import annotations
@@ -202,6 +216,43 @@ def small_corpus(n=5, length=1200):
     return named
 
 
+def long_pair():
+    """The 110 kb pair of tests/test_zoo_extended.py (seed 11): a 55,000 bp
+    base and a copy with 55 SNPs and a 20 bp deletion, qlen + tlen 109,980."""
+    rng = np.random.default_rng(11)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    base = bases[rng.integers(0, 4, size=55_000)]
+    s = bytearray(base.tobytes())
+    for pos in rng.integers(0, len(s), size=55):  # 0.1% SNPs
+        s[pos] = bases[rng.integers(0, 4)]
+    del s[30_000:30_020]
+    return [("long0", base.tobytes()), ("long1", bytes(s))]
+
+
+def synth_locus(n_seqs=8, length=60_000, seed=13):
+    """A locus at real size: n_seqs haplotypes of one seeded ~60 kb base,
+    each with 0.1% SNPs and two 20 bp deletions (long_pair's recipe), so
+    every pair has qlen + tlen of about 120 k."""
+    rng = np.random.default_rng(seed)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    base = bases[rng.integers(0, 4, size=length)]
+    out = []
+    for k in range(n_seqs):
+        s = bytearray(base.tobytes())
+        for pos in rng.integers(0, len(s), size=length // 1000):
+            s[pos] = bases[rng.integers(0, 4)]
+        for pos in sorted(rng.integers(1000, len(s) - 1000, size=2), reverse=True):
+            del s[int(pos) : int(pos) + 20]
+        out.append((f"hap{k}", bytes(s)))
+    return out
+
+
+# sha256 of the JAX package's --no-sort GFA of long_pair() written to a
+# FASTA (``python -m seqrush_tpu -s long.fa -o long.gfa --no-sort`` on the
+# CPU; tests/test_torch_long.py recomputes it)
+LONG_PAIR_GFA_SHA256 = "03cb6fe066479f93204cdbd7d217313ead1d884d6d3c21c701361be623a63c7e"
+
+
 def write_fasta(path: Path, named) -> None:
     path.write_bytes(b"".join(b">%s\n%s\n" % (n.encode(), s) for n, s in named))
 
@@ -296,14 +347,15 @@ def main() -> int:
     host_path = native.build()
     print(f"build: {t1 - t0:.2f} s -> {lib_path.relative_to(root)}; host library "
           f"{time.time() - t1:.2f} s -> {host_path.relative_to(root)}")
-    for line in ptxas_summary(log):
+    ptxas = ptxas_summary(log)
+    for line in ptxas:
         print(f"  ptxas {line}")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        return run(Path(tmp), name, smi)
+        return run(Path(tmp), name, smi, ptxas)
 
 
-def run(work: Path, name: str, smi: str) -> int:
+def run(work: Path, name: str, smi: str, ptxas: list[str]) -> int:
     from seqrush_tpu_torch import cli
     from seqrush_tpu_torch.align import anchored
     from seqrush_tpu_torch.align.pairs import all_ordered_pairs
@@ -324,13 +376,13 @@ def run(work: Path, name: str, smi: str) -> int:
     write_fasta(fa, named)
     path_kernels = ("nw_sweep", "nw_walk")
 
-    def drive(out: Path, *flags: str, kernels=path_kernels):
+    def drive(out: Path, *flags: str, kernels=path_kernels, fasta=fa):
         """One CLI run on cuda with the launch counters reset just before and
         read just after: (profile report, launches, wall seconds).  Fails if
         a kernel of the run's path was not launched."""
         nw_cuda.reset_launch_counts()
         t0 = time.time()
-        rc = cli.main(["-s", str(fa), "-o", str(out), "--profile", str(prof), *flags])
+        rc = cli.main(["-s", str(fasta), "-o", str(out), "--profile", str(prof), *flags])
         wall = time.time() - t0
         counts = dict(nw_cuda.LAUNCHES)
         if rc != 0:
@@ -701,6 +753,8 @@ def run(work: Path, name: str, smi: str) -> int:
                             "max_abs_err": err_o, "occ": only_occ}
     del Q, T, ql, tl, s_o, s_k, s_p
 
+    long_out = run_long(work, smi, drive, shapes, ptxas)
+
     big = kernels["largest"]
     out = []
     for kname, key, src, replaces, idx in (
@@ -736,11 +790,301 @@ def run(work: Path, name: str, smi: str) -> int:
         "largest": score_only["largest"], "tolerance": 0,
         "launches_path": "--wide-verify",
     })
+    out.extend(long_out)
     print(json.dumps({"kernels": out}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+LONG_KERNELS = ("nw_sweep_segment", "nw_sweep_segment_score_only", "nw_walk_segment")
+
+
+def ptxas_registers(ptxas: list[str], kernel: str) -> int | None:
+    """Registers of one kernel from ptxas_summary's lines (None when the
+    library was built before this process, so there is no log)."""
+    for line in ptxas:
+        m = re.match(r"(.*?): (\d+) registers", line)
+        if m and m.group(1) == kernel:
+            return int(m.group(2))
+    return None
+
+
+def run_long(work: Path, smi: str, drive, shapes, ptxas: list[str]) -> list[dict]:
+    """6. Long pairs (qlen + tlen > 65,536) through the segmented route.
+
+    6a. the 110 kb pair through ``--no-sort``: long_pairs >= 1 and the JAX
+        package's GFA (its sha256);
+    6b. the 8 x 60 kb locus through the default run (layout on) and with
+        ``--no-sort``: all 56 ordered pairs aligned on the long route, none
+        anchored; the sorted graph's checks of phase 3;
+    6c. on the largest long chunk: each segment kernel against its plain
+        version on the first, a middle and the last segment (exact); the
+        route's scores and opcodes against single-shot kernels A + B;
+        CUDA-event times of each segment launch kind (on the middle
+        segment), the route per chunk and single-shot A + B.
+    Returns the kernels line's entries of the three segment modes."""
+    from seqrush_tpu_torch.align.pairs import all_ordered_pairs
+    from seqrush_tpu_torch.align.runner import RunnerConfig, WfaAligner
+    from seqrush_tpu_torch.graph.bigraph import parse_gfa
+    from seqrush_tpu_torch.ops import nw_cuda
+    from seqrush_tpu_torch.scores import AlignmentScores
+    from seqrush_tpu_torch.sequences import make_sequence_set
+    from seqrush_tpu_torch.tools.isomorphic import isomorphic
+    from seqrush_tpu_torch.tools.measure_layout_quality import layout_quality
+
+    def long_line(st):
+        return json.dumps({k: st[k] for k in ("long_pairs", "anchored_pairs", "dropped",
+                                              "band_escalations")})
+
+    def long_shapes(st):
+        return json.dumps([[d["B"], d["band"], d["tmax"], d["n_seg"], len(d["jobs"])]
+                           for d in st["dispatches"] if d["kind"] == "long"])
+
+    # 6a. the 110 kb pair
+    pfa, pgfa = work / "long.fa", work / "long.gfa"
+    write_fasta(pfa, long_pair())
+    rep_p, launches_p, wall_p = drive(pgfa, "--no-sort", kernels=LONG_KERNELS, fasta=pfa)
+    st_p = rep_p["stats"]["aligner"]
+    digest = hashlib.sha256(pgfa.read_bytes()).hexdigest()
+    print(f"long pair (2 x 55 kb) --no-sort: total {wall_p:.2f} s, align phase "
+          f"{rep_p['phases_s']['align']:.3f} s; {long_line(st_p)}; long dispatches "
+          f"{long_shapes(st_p)} ([B, band, tmax, n_seg, jobs]); launches {launches_p}; graph "
+          f"{json.dumps(rep_p['graph'])}; GFA sha256 {digest} (JAX package's "
+          f"{LONG_PAIR_GFA_SHA256}) | {smi}")
+    if st_p["long_pairs"] < 1 or rep_p["graph"]["paths"] != 2:
+        raise AssertionError("the 110 kb pair did not take the long route into a 2-path graph")
+    if digest != LONG_PAIR_GFA_SHA256:
+        raise AssertionError("the 110 kb pair's --no-sort GFA is not the JAX package's")
+
+    # 6b. the 8 x 60 kb locus, default run and --no-sort
+    named = synth_locus()
+    n_pairs = len(named) * (len(named) - 1)
+    lfa, lgfa, lgfa_ns = work / "locus.fa", work / "locus.gfa", work / "locus_nosort.gfa"
+    write_fasta(lfa, named)
+    rep, launches, wall = drive(lgfa, kernels=LONG_KERNELS, fasta=lfa)
+    rep_ns, launches_ns, wall_ns = drive(lgfa_ns, "--no-sort", kernels=LONG_KERNELS, fasta=lfa)
+    st, g = rep["stats"]["aligner"], rep["graph"]
+    print(f"locus ({len(named)} x {len(named[0][1])} bp) default run: total {wall:.2f} s; align "
+          f"phase {rep['phases_s']['align']:.3f} s = {rep['alignments_per_s']:.2f} alignments/s; "
+          f"{long_line(st)}; long dispatches {long_shapes(st)}; other dispatches "
+          f"{shapes(st, 'chunk')}; launches {launches}; graph {json.dumps(g)} | {smi}")
+    print("  phases_s " + json.dumps({k: round(v, 4) for k, v in rep["phases_s"].items()}))
+    print(f"locus --no-sort: total {wall_ns:.2f} s; align phase {rep_ns['phases_s']['align']:.3f} s "
+          f"= {rep_ns['alignments_per_s']:.2f} alignments/s; launches {launches_ns}; phases_s "
+          + json.dumps({k: round(v, 4) for k, v in rep_ns["phases_s"].items()}))
+    for r in (rep, rep_ns):
+        sr = r["stats"]["aligner"]
+        if int(r["counters"]["alignments"]) != n_pairs or sr["dropped"]:
+            raise AssertionError("the locus run did not align every pair")
+        if sr["long_pairs"] < n_pairs or sr["anchored_pairs"] != 0:
+            raise AssertionError("the locus's pairs did not all take the long route")
+        if r["graph"]["paths"] != len(named):
+            raise AssertionError("the locus graph lacks a path")
+    if rep_ns["graph"] != g:
+        raise AssertionError("the locus's --no-sort run built another graph")
+    sorted_g, unsorted_g = parse_gfa(lgfa.read_text()), parse_gfa(lgfa_ns.read_text())
+    if sorted(sorted_g.nodes) != list(range(1, g["nodes"] + 1)):
+        raise AssertionError("the locus's sorted graph's node ids are not 1..N")
+    same, why = isomorphic(sorted_g, unsorted_g)
+    if not same:
+        raise AssertionError(f"the locus's sorted and unsorted graphs are not isomorphic: {why}")
+    q, q_ns = layout_quality(sorted_g), layout_quality(unsorted_g)
+    print(f"  locus layout rmse {q['rmse']:.3f} mae {q['mae']:.3f} | --no-sort rmse "
+          f"{q_ns['rmse']:.3f} (bp)")
+    if not q["rmse"] <= q_ns["rmse"]:
+        raise AssertionError("the locus's sorted graph's RMSE is above the unsorted one's")
+
+    # 6c. the segment kernels on the largest long chunk
+    dev = torch.device("cuda")
+    al = WfaAligner(make_sequence_set(named), RunnerConfig(scores=AlignmentScores.parse(SCORES)),
+                    device=dev)
+    pen = al._penalties()
+    pairs = all_ordered_pairs(len(named))
+
+    def long_inputs(d):
+        """Kernel inputs of a recorded long dispatch: (Q, T, qlens, tlens, tmax)."""
+        chunk = []
+        for p, rc in d["jobs"]:
+            qi, tj = pairs[p]
+            chunk.append((p, bool(rc), d["band"], al.rc_codes[qi] if rc else al.codes[qi],
+                          al.codes[tj]))
+        *arrays, tmax = al.pack_chunk(chunk)
+        return (*(torch.from_numpy(a).to(dev) for a in arrays), tmax)
+
+    longs = [d for d in st["dispatches"] if d["kind"] == "long"]
+    # the route's time on every long chunk of the run: its device time
+    chunk_ms = []
+    for dd in longs:
+        Qc, Tc, qc, tc, _ = long_inputs(dd)
+        chunk_ms.append(cuda_ms(lambda: nw_cuda.nw_align_long(
+            Qc, Tc, qc, tc, band=dd["band"], seg=dd["seg"], t_need=int((qc + tc).max()), **pen),
+            REPS))
+    print(f"long route per chunk {json.dumps(chunk_ms)} ms ([B, band] "
+          f"{json.dumps([[dd['B'], dd['band']] for dd in longs])}), {sum(chunk_ms) / 1e3:.4f} s of the "
+          f"{rep['phases_s']['align']:.4f} s align phase | {smi}")
+    d = max(longs, key=lambda d: d["B"] * d["band"])
+    Q, T, ql, tl, tmax = long_inputs(d)
+    band, seg, n_seg = d["band"], d["seg"], d["n_seg"]
+    B, W = Q.shape[0], band + 1
+    t_need = int((ql + tl).max())
+    two = pen["o2"] >= 0
+    kw = dict(band=band, seg=seg, **pen)
+    if (B, tmax) != (d["B"], d["tmax"]) or n_seg != -(-t_need // seg):
+        raise AssertionError("the rebuilt long chunk has another shape")
+
+    # the forward pass, keeping every checkpoint
+    carries = [nw_cuda.initial_carry(B, W, dev)]
+    scores = [torch.full((B,), -1, dtype=torch.int32, device=dev)]
+    for s in range(n_seg):
+        c, sc, _ = nw_cuda.nw_align_segment(Q, T, ql, tl, carries[s], scores[s], t0=s * seg,
+                                            with_traceback=False, **kw)
+        carries.append(c)
+        scores.append(sc)
+    picks = sorted({0, n_seg // 2, n_seg - 1})
+    mid = n_seg // 2
+    err = {"sweep": 0, "score_only": 0, "walk": 0}
+    plain = {}
+    for s in picks:
+        c_k, s_k, tb_k = nw_cuda.nw_align_segment(Q, T, ql, tl, carries[s], scores[s], t0=s * seg, **kw)
+        ms_p, (c_p, s_p, tb_p) = once_ms(lambda: nw_cuda.nw_align_segment_reference(
+            Q, T, ql, tl, carries[s], scores[s], t0=s * seg, **kw))
+        ms_o, (c_o, s_o, _) = once_ms(lambda: nw_cuda.nw_align_segment_reference(
+            Q, T, ql, tl, carries[s], scores[s], t0=s * seg, with_traceback=False, **kw))
+        err["sweep"] = max(err["sweep"], max_abs_err(c_k, c_p), max_abs_err(s_k, s_p),
+                           max_abs_err(tb_k, tb_p))
+        err["score_only"] = max(err["score_only"], max_abs_err(carries[s + 1], c_o),
+                                max_abs_err(scores[s + 1], s_o), max_abs_err(c_o, c_p))
+        if s == mid:
+            plain["sweep"], plain["score_only"] = ms_p, ms_o
+        del c_k, s_k, tb_k, c_p, s_p, tb_p, c_o, s_o
+    # the reverse pass, each picked segment's walk against the plain version
+    state = nw_cuda.walk_state(ql, tl, band=band)
+    ops = torch.zeros((B, n_seg * seg + 1), dtype=torch.uint8, device=dev)
+    mid_walk = None
+    for s in reversed(range(n_seg)):
+        _, _, tb_s = nw_cuda.nw_align_segment(Q, T, ql, tl, carries[s], scores[s], t0=s * seg, **kw)
+        st_in = state
+        if s in picks:
+            ops_p = ops.clone()
+            ms_w, st_p = once_ms(lambda: nw_cuda.nw_walk_segment_reference(
+                tb_s, st_in, ops_p, t0=s * seg, seg=seg, band=band))
+            state = nw_cuda.nw_walk_segment(tb_s, st_in, ops, t0=s * seg, seg=seg, band=band)
+            err["walk"] = max(err["walk"], max_abs_err(state, st_p), max_abs_err(ops, ops_p))
+            if s == mid:
+                plain["walk"] = ms_w
+                mid_walk = (tb_s, st_in)
+            del ops_p, st_p
+        else:
+            state = nw_cuda.nw_walk_segment(tb_s, st_in, ops, t0=s * seg, seg=seg, band=band)
+    print(f"long parity (largest long chunk B={B} W={W} tmax={tmax} seg={seg} n_seg={n_seg}, "
+          f"segments {picks}): max_abs_err {json.dumps(err)}")
+    if any(err.values()):
+        raise AssertionError("a segment kernel disagrees with its plain version")
+
+    # the route in one call against the chained launches and single-shot A + B
+    s_long, ops_long = nw_cuda.nw_align_long(Q, T, ql, tl, t_need=t_need, **kw)
+    s_one, tb_one = nw_cuda.nw_align(Q, T, ql, tl, band=band, tmax=tmax, **pen)
+    ops_one = nw_cuda.nw_walk(tb_one, ql, tl, band=band, tmax=tmax)
+    del tb_one
+    err_route = max(max_abs_err(s_long, scores[-1]), max_abs_err(ops_long, ops),
+                    max_abs_err(s_long, s_one),
+                    max_abs_err(ops_long[:, : t_need + 1], ops_one[:, : t_need + 1]),
+                    int(ops_long[:, t_need + 1 :].any().item()), int(ops_one[:, t_need + 1 :].any().item()))
+    print(f"long route vs single-shot A + B on that chunk: max_abs_err {err_route} "
+          f"(scores {int((s_long >= 0).sum())} of {B} rows, {int((ops_long != 0).sum())} walk steps)")
+    if err_route:
+        raise AssertionError("the long route disagrees with single-shot kernels A + B")
+
+    # times: each segment kind on the middle segment, the route, single-shot A + B
+    spare = torch.empty_like(carries[0])
+    ms = {
+        "score_only": cuda_ms(lambda: nw_cuda.nw_align_segment(
+            Q, T, ql, tl, carries[mid], scores[mid], t0=mid * seg, with_traceback=False, out=spare,
+            **kw), REPS),
+        "sweep": cuda_ms(lambda: nw_cuda.nw_align_segment(
+            Q, T, ql, tl, carries[mid], scores[mid], t0=mid * seg, out=spare, **kw), REPS),
+    }
+    tb_mid, st_mid = mid_walk
+    ops_w = torch.zeros_like(ops)
+    ms["walk"] = cuda_ms(lambda: nw_cuda.nw_walk_segment(tb_mid, st_mid, ops_w, t0=mid * seg,
+                                                          seg=seg, band=band), REPS)
+    route_ms = cuda_ms(lambda: nw_cuda.nw_align_long(Q, T, ql, tl, t_need=t_need, **kw), REPS)
+    single_ms = cuda_ms(lambda: nw_cuda.nw_walk(nw_cuda.nw_align(Q, T, ql, tl, band=band, tmax=tmax,
+                                                                  **pen)[1],
+                                                 ql, tl, band=band, tmax=tmax), REPS)
+    steps_mid = int((ops[:, mid * seg + 1 : (mid + 1) * seg + 1] != 0).sum().item())
+    # other segment lengths: the same scores and opcodes, and their time
+    by_seg = {}
+    for sg in (1024, 4096):
+        s_g, ops_g = nw_cuda.nw_align_long(Q, T, ql, tl, band=band, seg=sg, t_need=t_need, **pen)
+        if max(max_abs_err(s_g, s_long), max_abs_err(ops_g[:, : t_need + 1], ops_long[:, : t_need + 1])):
+            raise AssertionError(f"the long route at seg {sg} disagrees with seg {seg}")
+        del s_g, ops_g
+        by_seg[sg] = cuda_ms(lambda: nw_cuda.nw_align_long(Q, T, ql, tl, band=band, seg=sg,
+                                                            t_need=t_need, **pen), REPS)
+    by_seg[seg] = route_ms
+
+    # bounds of the middle segment: its needed cells (the rows each pair's
+    # matrix has in it) at 37 (24 score-only) instructions each; the full
+    # mode writes [B, seg, W] traceback bytes; both read and write the carry
+    t_final = (ql + tl).to(torch.int64)
+    rows = (torch.clamp(torch.minimum(t_final, torch.tensor((mid + 1) * seg, device=dev))
+                        - mid * seg, min=0)).sum().item()
+    cells = int(rows) * W
+    carry_bytes = 2 * 24 * B * W
+    win_bytes = B * (seg // 2 + seg + 2 * W)
+
+    def bound(nbytes, n_ops, n_min):
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        o_ms = max(n_ops / ISSUE_OPS_PER_S, n_min / ALU_OPS_PER_S) * 1e3
+        return max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations"
+
+    bounds = {
+        "sweep": bound(B * seg * W + carry_bytes + win_bytes, cells * SWEEP_OPS_PER_CELL,
+                       cells * SWEEP_MIN_OPS_PER_CELL),
+        "score_only": bound(carry_bytes + win_bytes, cells * SCORE_ONLY_OPS_PER_CELL,
+                            cells * SCORE_ONLY_MIN_OPS_PER_CELL),
+        "walk": bound(steps_mid + B * seg + 2 * 16 * B, steps_mid * WALK_OPS_PER_STEP, 0),
+    }
+    plan = nw_cuda.plan_sweep(B, W, Q.shape[1], T.shape[1], seg=seg)
+    piece = "two-piece" if two else "one-piece"
+    regs = {
+        "sweep": ptxas_registers(ptxas, f"nw_sweep_regs_seg<{plan.lanes}, {piece}, traceback>"),
+        "score_only": ptxas_registers(ptxas, f"nw_sweep_regs_seg<{plan.lanes}, {piece}, score-only>"),
+        "walk": ptxas_registers(ptxas, "nw_walk_seg_kernel"),
+    }
+    print(f"timing long (B={B} W={W} seg={seg} n_seg={n_seg}, middle segment {mid}): segment "
+          f"score-only {ms['score_only']:.4f} ms, with traceback {ms['sweep']:.4f} ms, walk "
+          f"{ms['walk']:.4f} ms ({steps_mid} steps); route per chunk {route_ms:.3f} ms; "
+          f"single-shot A + B {single_ms:.3f} ms; route by segment length {json.dumps(by_seg)} "
+          f"ms; bounds {json.dumps(bounds)}; plain "
+          f"{json.dumps(plain)}; {plan}; registers {json.dumps(regs)} | {smi}")
+
+    shape = {"B": B, "W": W, "tmax": tmax, "seg": seg, "n_seg": n_seg, "segment": mid}
+    out = []
+    for kname, key, src, replaces in (
+        ("nw_sweep_segment", "sweep", "seqrush_tpu_torch/ops/csrc/nw_sweep_seg.cu",
+         "seqrush_tpu/ops/nw_pallas.py:38"),
+        ("nw_sweep_segment_score_only", "score_only", "seqrush_tpu_torch/ops/csrc/nw_sweep_seg.cu",
+         "seqrush_tpu/ops/nw_pallas.py:38"),
+        ("nw_walk_segment", "walk", "seqrush_tpu_torch/ops/csrc/nw_walk.cu",
+         "seqrush_tpu/ops/nw_pallas.py:194"),
+    ):
+        out.append({
+            "name": kname, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": launches[kname], "max_abs_err": err[key], "ms": ms[key],
+            "plain_ms": plain[key], "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
+            "library_ms": None, "regs_per_thread": regs[key], "shape": shape,
+            "launches_per_chunk": n_seg, "route_per_chunk_ms": route_ms,
+            "route_ms_by_seg": by_seg, "route_ms_by_chunk": chunk_ms,
+            "single_shot_per_chunk_ms": single_ms, "tolerance": 0,
+            "launches_path": "8 x 60 kb locus, default run",
+        })
+    del carries, scores, ops, ops_long, ops_one, ops_w, mid_walk, tb_mid, tb_s
+    torch.cuda.empty_cache()
+    return out
+
 
 if __name__ == "__main__":
     sys.exit(main())

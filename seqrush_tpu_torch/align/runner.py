@@ -14,6 +14,12 @@ that runs the sweep kernel and then the walk kernel per chunk:
   the walk kernel run on the device, and the opcodes [B, tmax + 1] come
   back through a non-blocking copy into pinned memory.  Chunk k+1 is
   dispatched before chunk k is collected;
+* a chunk of more than ``long_pair_threshold`` anti-diagonals (pairs of
+  qlen + tlen above it) takes the long-pair route, ``nw_cuda.nw_align_long``:
+  the same kernels in their segment modes, segments of 2,048 anti-diagonals
+  with the DP rows and the walk's cursor carried across, so its device
+  memory does not grow with the pairs' length.  It returns opcodes like a
+  chunk's and is collected the same way;
 * collect: the band certificate (a banded score S with half-width K is
   optimal iff S < 2*o_min + e_min*(2K + 2 - |diff|)), escalation of the
   uncertified jobs to the band their score demands, the divergence cap,
@@ -80,7 +86,8 @@ class RunnerConfig:
     emit: str = "auto"  # 'runs': item 13; 'auto' and 'ops' emit opcodes
     # host worker threads of the anchored route's window DP
     threads: int = 4
-    # pairs longer than this (qlen + tlen) need the segmented sweep (item 10)
+    # chunks of more anti-diagonals than this (pairs of qlen + tlen above it)
+    # take the segmented long-pair route (nw_cuda.nw_align_long)
     long_pair_threshold: int = 65536
     # seed-frequency cutoff of the anchored route's minimizer anchors (a
     # query minimizer occurring more often in the target is not a seed);
@@ -172,9 +179,12 @@ class WfaAligner:
             "anchored_fallbacks": 0,
             "wide_verified": 0,
             "anchored_s": 0.0,
-            # one entry per dispatch: its kind ('chunk', the anchored route's
+            # jobs aligned through the segmented long-pair route
+            "long_pairs": 0,
+            # one entry per dispatch: its kind ('chunk', 'long' chunks with
+            # their segment length seg and count n_seg, the anchored route's
             # 'window' chunks, 'verify' sweeps), batch rows, band, tmax and
-            # the jobs it carried ([pair index, reverse] for chunk and
+            # the jobs it carried ([pair index, reverse] for chunk, long and
             # verify; see anchored._dispatch_window_chunk for windows)
             "dispatches": [],
         }
@@ -637,27 +647,29 @@ class WfaAligner:
         return Q, T, qlens, tlens, tmax
 
     def _dispatch_nw_chunk(self, chunk):
-        """Launch the sweep and the walk for one chunk; the opcodes and
+        """Launch the sweep and the walk for one chunk (through the long-pair
+        route above long_pair_threshold anti-diagonals); the opcodes and
         scores start copying back without blocking the host."""
         band = chunk[0][2]
         Q, T, qlens, tlens, tmax = self.pack_chunk(chunk)
-        if tmax > self.cfg.long_pair_threshold:
-            raise NotImplementedError(
-                f"a chunk needs {tmax} anti-diagonals, above long_pair_threshold="
-                f"{self.cfg.long_pair_threshold}; the segmented long-pair sweep "
-                "is not ported yet (ROADMAP item 10)"
-            )
         B = Q.shape[0]
         self.stats["cells_padded"] += B * (tmax + 2) * (band + 1)
-        self.stats["dispatches"].append(
-            {"kind": "chunk", "B": B, "band": band, "tmax": tmax,
-             "jobs": [[int(p), int(rc)] for p, rc, *_ in chunk]}
-        )
+        entry = {"kind": "chunk", "B": B, "band": band, "tmax": tmax,
+                 "jobs": [[int(p), int(rc)] for p, rc, *_ in chunk]}
         dev = self.device
         Qd, Td, qd, td = (torch.from_numpy(a).to(dev) for a in (Q, T, qlens, tlens))
-        scores, tb = nw_cuda.nw_align(Qd, Td, qd, td, band=band, tmax=tmax, **self._penalties())
-        ops = nw_cuda.nw_walk(tb, qd, td, band=band, tmax=tmax)
-        del tb  # stream-ordered: the allocator reuses it only after the walk
+        if tmax > self.cfg.long_pair_threshold:
+            seg = nw_cuda.LONG_SEG
+            t_need = int((qlens + tlens).max())
+            entry.update(kind="long", seg=seg, n_seg=-(-t_need // seg))
+            self.stats["long_pairs"] += len(chunk)
+            scores, ops = nw_cuda.nw_align_long(Qd, Td, qd, td, band=band, seg=seg, t_need=t_need,
+                                                **self._penalties())
+        else:
+            scores, tb = nw_cuda.nw_align(Qd, Td, qd, td, band=band, tmax=tmax, **self._penalties())
+            ops = nw_cuda.nw_walk(tb, qd, td, band=band, tmax=tmax)
+            del tb  # stream-ordered: the allocator reuses it only after the walk
+        self.stats["dispatches"].append(entry)
         ready = None
         if dev.type == "cuda":
             scores_h = torch.empty(scores.shape, dtype=scores.dtype, pin_memory=True)

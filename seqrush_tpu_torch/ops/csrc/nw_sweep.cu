@@ -1,344 +1,8 @@
-// Kernel A: banded two-piece-affine global Gotoh sweep by anti-diagonals.
-//
-// Replaces the Pallas kernel seqrush_tpu/ops/nw_pallas.py::_kernel (wrapped
-// by nw_align_pallas).  Same DP, same operand framing, same tie order and the
-// same packed traceback byte at every cell, valid or not, so the traceback
-// tensor matches the plain PyTorch version (ops/nw_cuda.py::
-// nw_align_reference) byte for byte.
-//
-// What bounds it on an H100: integer instructions.  Every needed cell costs a few
-// dozen int32 instructions (the recurrence, the tie-ordered choice, the
-// clamps and the byte packing) against one traceback byte written, so the
-// SMs' integer pipes, not memory, set the floor.  The anti-diagonal
-// recurrence is a serial chain per pair, so the other costs are whatever
-// stalls that chain: barriers, shared-memory round trips, register moves,
-// and SM sub-partitions left with fewer pairs than others.
-//
-// Design (register route, nw_sweep_regs):
-//   * the DP lanes live in registers.  Thread r of a pair owns the S
-//     contiguous lanes [r*S, r*S + S); a cell reads only lanes l + dp - 1 and
-//     l + dp of the previous rows (i0 moves by 0 or 1 per anti-diagonal), so
-//     the only values that cross threads are the strip edges, by
-//     __shfl_up_sync / __shfl_down_sync inside a warp.  Where one pair spans
-//     several warps, the warp-edge values go through a double-buffered
-//     shared-memory slot with one named barrier over that pair's warps
-//     (bar.sync id, count; a block holds at most two such pairs), never
-//     over the whole block;
-//   * dp and dpp (the lane shifts to the previous two rows) are uniform over
-//     the pair: (0, 0) up to t = K, then (1, 1) and (0, 1) in turn.  The
-//     sweep runs in those phases, two anti-diagonals per iteration in the
-//     second, so each step is compiled for its shifts with the lane loop
-//     unrolled and the rows rotate without register moves;
-//   * the recurrence is Hopper DPX: each gap state and its opened bit is one
-//     __vibmin_s32 (min and the '<=' predicate); H and its choice are two
-//     unsigned 3-way mins over keys value * 8 + tag, whose ties pick the
-//     smaller tag, i.e. the earlier candidate, as the reference's strict '<'
-//     in the order D1, I1, D2, I2 does; validity and the INF clamp of each
-//     state are one __viaddmin_s32(x, valid ? 0 : INF, INF).  The keys and
-//     that clamp need every value in [0, 2^31 / 8): the planner gives this
-//     route only penalties in [0, 2^16), under which every value is at most
-//     INF + 2^17;
-//   * the pair's query and reversed, padded target are staged once in shared
-//     memory; each thread keeps its S bases of each in a register window that
-//     slides by one base when the clamped window start moves;
-//   * a thread's S traceback bytes are packed into 32-bit words and stored as
-//     one 16-, 8- or 4-byte store where W allows it (byte stores at a ragged
-//     edge);
-//   * anti-diagonals from t_final + 3 on see only INF inputs, so their byte
-//     is one of two constants chosen by the base comparison; those rows skip
-//     the recurrence and the exchanges;
-//   * S is 4, 8, 12 or 16; the planner (ops/nw_cuda.py::plan_sweep) picks
-//     S, warps per pair and pairs per block by the work on the busiest SM
-//     sub-partition.
-// Score-only mode (TB = false; the wrapper passes a null traceback pointer):
-// the same sweep with every traceback store left out and the rows past
-// t_final not visited, for the anchored route's verify sweep, which needs
-// the scores alone.  Its instantiations are separate, so the full mode's
-// code and register budget do not change.
-// Bands too wide for registers, and penalties outside [0, 2^16), take the
-// wide route (nw_sweep_wide), the port's first design kept as it was: one
-// block per pair with the DP rows in shared memory while they fit
-// (W <= 5,282) and in a global scratch above that, one block barrier per
-// anti-diagonal, and the reference's arithmetic for any int32 penalties.
+// Kernel A, single-shot: anti-diagonals 1..tmax of every pair of a dispatch.
+// The device code and the design note are in nw_sweep.cuh; the segment mode
+// is instantiated in nw_sweep_seg.cu.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#define NW_INF (1 << 28)
-#define NW_QPAD 6
-#define NW_TPAD 7
-#define NW_ROWS 11
-#define FULL_MASK 0xffffffffu
-
-struct Pen {
-  int mis, oe1, e1, oe2, e2;
-};
-
-__device__ __forceinline__ int i0_of(int t, int K) {
-  // max(floor((t - K + 1) / 2), 0): negative numerators clamp to 0 anyway
-  const int x = t - K + 1;
-  return x > 0 ? (x >> 1) : 0;
-}
-
-__device__ __forceinline__ int round16(int x) { return (x + 15) & ~15; }
-
-// One cell from its framed neighbours, where every input is in [0, INF] and
-// every penalty in [0, 2^16) (see the design note).  `off` is 0 on a valid
-// cell and INF on an invalid one; the new states come back clamped and INF
-// off the matrix, ready to store.  __vibmin_s32(a, b, &pred) returns
-// min(a, b) and sets pred = (a <= b): the opened bits are that predicate
-// ('<=' keeps the opening on a tie).  With one-piece penalties I2/D2 are INF
-// and still take part in the choice, as in the reference.
-template <bool TWO>
-__device__ __forceinline__ uint32_t cell_keyed(int h_up, int h_left, int h_diag, int i1_up,
-                                               int d1_left, int i2_up, int d2_left, int sub,
-                                               int off, const Pen& p, int& Hn, int& I1n,
-                                               int& D1n, int& I2n, int& D2n) {
-  bool op;
-  const int i1 = __vibmin_s32(h_up + p.oe1, i1_up + p.e1, &op);
-  uint32_t byte = op ? 8u : 0u;
-  const int d1 = __vibmin_s32(h_left + p.oe1, d1_left + p.e1, &op);
-  byte |= op ? 32u : 0u;
-  int i2 = NW_INF, d2 = NW_INF;
-  if (TWO) {
-    i2 = __vibmin_s32(h_up + p.oe2, i2_up + p.e2, &op);
-    byte |= op ? 16u : 0u;
-    d2 = __vibmin_s32(h_left + p.oe2, d2_left + p.e2, &op);
-    byte |= op ? 64u : 0u;
-  }
-  // candidates in the reference's order carry tags 0..4 (the choice codes)
-  const uint32_t k01 = __vimin3_u32((uint32_t)(h_diag + sub) << 3, ((uint32_t)d1 << 3) | 1u,
-                                    ((uint32_t)i1 << 3) | 2u);
-  const uint32_t key = __vimin3_u32(k01, ((uint32_t)d2 << 3) | 3u, ((uint32_t)i2 << 3) | 4u);
-  Hn = __viaddmin_s32((int)(key >> 3), off, NW_INF);
-  I1n = __viaddmin_s32(i1, off, NW_INF);
-  D1n = __viaddmin_s32(d1, off, NW_INF);
-  if (TWO) {
-    I2n = __viaddmin_s32(i2, off, NW_INF);
-    D2n = __viaddmin_s32(d2, off, NW_INF);
-  }
-  return byte | (key & 7u);
-}
-
-// values of the neighbouring strips: H(t-1), H(t-2), I1/I2(t-1) at lane
-// s0 - 1, and H(t-1), D1/D2(t-1) at lane s0 + S
-struct Edges {
-  int hl1, hl2, i1l, i2l, hr1, d1r, d2r;
-};
-
-template <int S>
-struct Strip {
-  int h1[S], h2[S], i1[S], d1[S], i2[S], d2[S];
-  int qw[S], tw[S];  // query / reversed-target bases under the lanes
-};
-
-// What a thread needs beside its strip: the pair's operands and geometry.
-struct Pair {
-  const uint8_t* Qs;  // staged query, shared memory
-  const uint8_t* Ts;  // staged reversed target, shared memory
-  uint8_t* tbb;       // the pair's traceback [tmax_pad, W]
-  int* score;
-  int* slots;         // warp-edge slots [2][wpp][6]
-  int s0, K, W, Lq, Lt, qlen, tlen, t_final, walign, lane, wip, wpp, pib;
-};
-
-// Barrier over the warps of pair `pib` of the block (at most two multi-warp
-// pairs a block).  The ids are immediates so that a block reserves three
-// barriers (0 for __syncthreads, 1, 2), not all sixteen: the SM's barriers
-// would otherwise cap its resident blocks at four.
-__device__ __forceinline__ void bar_pair(int pib, int count) {
-  if (pib == 0)
-    asm volatile("bar.sync 1, %0;" ::"r"(count) : "memory");
-  else
-    asm volatile("bar.sync 2, %0;" ::"r"(count) : "memory");
-}
-
-// One anti-diagonal of the recurrence over the thread's S lanes.  DP/DPP:
-// the lane shift to rows t-1 and t-2.  Lane k is valid iff
-// (unsigned)(k - vlo) <= vspan.  Packs the bytes into words[].
-template <int S, bool TWO, int DP, int DPP>
-__device__ __forceinline__ void sweep_step(Strip<S>& s, const Edges& e, const Pen& p, int vlo,
-                                           uint32_t vspan, uint32_t (&words)[(S + 3) / 4]) {
-  int nh[S], ni1[S], nd1[S], ni2[S], nd2[S];
-#pragma unroll
-  for (int w = 0; w < (S + 3) / 4; ++w) words[w] = 0;
-#pragma unroll
-  for (int k = 0; k < S; ++k) {
-    const int h_up = DP ? s.h1[k] : (k ? s.h1[k - 1] : e.hl1);
-    const int h_left = DP ? (k < S - 1 ? s.h1[k + 1] : e.hr1) : s.h1[k];
-    const int h_diag = DPP ? s.h2[k] : (k ? s.h2[k - 1] : e.hl2);
-    const int i1_up = DP ? s.i1[k] : (k ? s.i1[k - 1] : e.i1l);
-    const int d1_left = DP ? (k < S - 1 ? s.d1[k + 1] : e.d1r) : s.d1[k];
-    int i2_up = NW_INF, d2_left = NW_INF;
-    if (TWO) {
-      i2_up = DP ? s.i2[k] : (k ? s.i2[k - 1] : e.i2l);
-      d2_left = DP ? (k < S - 1 ? s.d2[k + 1] : e.d2r) : s.d2[k];
-    }
-    const int sub = s.qw[k] == s.tw[k] ? 0 : p.mis;
-    const int off = (uint32_t)(k - vlo) <= vspan ? 0 : NW_INF;
-    const uint32_t byte = cell_keyed<TWO>(h_up, h_left, h_diag, i1_up, d1_left, i2_up, d2_left,
-                                          sub, off, p, nh[k], ni1[k], nd1[k], ni2[k], nd2[k]);
-    words[k >> 2] |= byte << (8 * (k & 3));
-  }
-#pragma unroll
-  for (int k = 0; k < S; ++k) {
-    s.h2[k] = s.h1[k];
-    s.h1[k] = nh[k];
-    s.i1[k] = ni1[k];
-    s.d1[k] = nd1[k];
-    if (TWO) {
-      s.i2[k] = ni2[k];
-      s.d2[k] = nd2[k];
-    }
-  }
-}
-
-// Exchange the strip edges of the rows just computed (and of the initial
-// rows) with the neighbouring threads.
-template <int S, bool TWO>
-__device__ __forceinline__ void exchange(const Strip<S>& s, Edges& e, const Pair& pr, int parity) {
-  e.hl2 = e.hl1;
-  int hl = __shfl_up_sync(FULL_MASK, s.h1[S - 1], 1);
-  int il = __shfl_up_sync(FULL_MASK, s.i1[S - 1], 1);
-  int hr = __shfl_down_sync(FULL_MASK, s.h1[0], 1);
-  int dr = __shfl_down_sync(FULL_MASK, s.d1[0], 1);
-  int i2l = NW_INF, d2r = NW_INF;
-  if (TWO) {
-    i2l = __shfl_up_sync(FULL_MASK, s.i2[S - 1], 1);
-    d2r = __shfl_down_sync(FULL_MASK, s.d2[0], 1);
-  }
-  if (pr.lane == 0) hl = il = i2l = NW_INF;
-  if (pr.lane == 31) hr = dr = d2r = NW_INF;
-  if (pr.wpp > 1) {
-    int* sl = pr.slots + (parity * pr.wpp + pr.wip) * 6;
-    if (pr.lane == 31) {
-      sl[0] = s.h1[S - 1];
-      sl[1] = s.i1[S - 1];
-      sl[2] = TWO ? s.i2[S - 1] : NW_INF;
-    }
-    if (pr.lane == 0) {
-      sl[3] = s.h1[0];
-      sl[4] = s.d1[0];
-      sl[5] = TWO ? s.d2[0] : NW_INF;
-    }
-    bar_pair(pr.pib, pr.wpp * 32);
-    if (pr.lane == 0 && pr.wip > 0) {
-      hl = sl[-6 + 0];
-      il = sl[-6 + 1];
-      i2l = sl[-6 + 2];
-    }
-    if (pr.lane == 31 && pr.wip < pr.wpp - 1) {
-      hr = sl[6 + 3];
-      dr = sl[6 + 4];
-      d2r = sl[6 + 5];
-    }
-  }
-  e.hl1 = hl;
-  e.i1l = il;
-  e.i2l = i2l;
-  e.hr1 = hr;
-  e.d1r = dr;
-  e.d2r = d2r;
-}
-
-// Store the thread's S bytes of one traceback row: the widest aligned
-// store W allows when the strip lies inside the band, else byte by byte.
-template <int S>
-__device__ __forceinline__ void store_row(uint8_t* row, int s0, int W, int walign,
-                                          const uint32_t (&words)[(S + 3) / 4]) {
-  if (s0 >= W) return;
-  if (s0 + S <= W) {
-    if (S % 16 == 0 && walign >= 16) {
-#pragma unroll
-      for (int w = 0; w < S / 4; w += 4)
-        *reinterpret_cast<uint4*>(row + s0 + 4 * w) =
-            make_uint4(words[w], words[w + 1], words[w + 2], words[w + 3]);
-      return;
-    }
-    if (S % 8 == 0 && walign >= 8) {
-#pragma unroll
-      for (int w = 0; w < S / 4; w += 2)
-        *reinterpret_cast<uint2*>(row + s0 + 4 * w) = make_uint2(words[w], words[w + 1]);
-      return;
-    }
-    if (S % 4 == 0 && walign >= 4) {
-#pragma unroll
-      for (int w = 0; w < S / 4; ++w) *reinterpret_cast<uint32_t*>(row + s0 + 4 * w) = words[w];
-      return;
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < S; ++k)
-    if (s0 + k < W) row[s0 + k] = (uint8_t)(words[k >> 2] >> (8 * (k & 3)));
-}
-
-// shared-memory layout of one pair: padded query, padded reversed target,
-// edge slots.  Mirrored by ops/nw_cuda.py::pair_smem_bytes.
-__device__ __forceinline__ int pair_q_bytes(int Lq, int L) { return round16(Lq + 1 + L); }
-__device__ __forceinline__ int pair_t_bytes(int Lt, int W, int L) { return round16(Lt + W + L); }
-
-template <int S>
-__device__ __forceinline__ void load_windows(Strip<S>& s, const Pair& pr, int qs, int ts) {
-#pragma unroll
-  for (int k = 0; k < S; ++k) {
-    s.qw[k] = pr.Qs[qs + pr.s0 + k];
-    s.tw[k] = pr.Ts[ts + pr.s0 + k];
-  }
-}
-
-// Slide the base windows to anti-diagonal t: the query start moves by 0 or
-// +1, the target start by 0 or -1, except where the clamps hold them.
-template <int S>
-__device__ __forceinline__ void slide_windows(Strip<S>& s, const Pair& pr, int t, int& qs,
-                                              int& ts) {
-  const int i0 = i0_of(t, pr.K);
-  const int nqs = min(i0, pr.Lq + 1);
-  const int nts = max(0, min(pr.Lt - t + i0 + pr.W, pr.Lt + pr.W));
-  if (nqs == qs + 1) {
-#pragma unroll
-    for (int k = 0; k < S - 1; ++k) s.qw[k] = s.qw[k + 1];
-    s.qw[S - 1] = pr.Qs[nqs + pr.s0 + S - 1];
-  } else if (nqs != qs) {
-    load_windows<S>(s, pr, nqs, ts);
-  }
-  if (nts == ts - 1) {
-#pragma unroll
-    for (int k = S - 1; k > 0; --k) s.tw[k] = s.tw[k - 1];
-    s.tw[0] = pr.Ts[nts + pr.s0];
-  } else if (nts != ts) {
-    load_windows<S>(s, pr, nqs, nts);
-  }
-  qs = nqs;
-  ts = nts;
-}
-
-// Anti-diagonal t (>= 2) of the recurrence: slide the windows, step, store
-// the traceback row (TB), take the score at t_final, exchange the edges.
-template <int S, bool TWO, bool TB, int DP, int DPP>
-__device__ __forceinline__ void advance(Strip<S>& s, Edges& e, const Pair& pr, const Pen& p,
-                                        int t, int& qs, int& ts) {
-  if (t > 1) slide_windows<S>(s, pr, t, qs, ts);
-  const int i0 = i0_of(t, pr.K);
-  // valid lanes: t - tlen - i0 <= l <= min(qlen, t) - i0, and l < W
-  const int lo = t - pr.tlen - i0;
-  const int hi = min(min(pr.qlen, t) - i0, pr.W - 1);
-  int vlo = lo - pr.s0;
-  uint32_t vspan = (uint32_t)(hi - lo);
-  if (hi < lo) {
-    vlo = -(1 << 30);
-    vspan = 0;
-  }
-  uint32_t words[(S + 3) / 4];
-  sweep_step<S, TWO, DP, DPP>(s, e, p, vlo, vspan, words);
-  if (TB) store_row<S>(pr.tbb + (size_t)t * pr.W, pr.s0, pr.W, pr.walign, words);
-  if (t == pr.t_final) {
-    const int fl = pr.qlen - i0 - pr.s0;
-#pragma unroll
-    for (int k = 0; k < S; ++k)
-      if (k == fl && s.h1[k] < NW_INF) *pr.score = s.h1[k];
-  }
-  exchange<S, TWO>(s, e, pr, t & 1);
-}
+#include "nw_sweep.cuh"
 
 template <int S, bool TWO, bool TB>
 __global__ void __launch_bounds__(S <= 4 ? 128 : S <= 8 ? 384 : 256, S == 4 ? 5 : 1)
@@ -349,126 +13,12 @@ nw_sweep_regs(const uint8_t* __restrict__ Q,  // [B, Lq] query codes, QPAD-padde
               uint8_t* __restrict__ tb,        // [B, tmax_pad, W] out (TB only)
               int B, int Lq, int Lt, int W, int tmax, int tmax_pad, Pen p, int wpp, int ppb,
               int pair_bytes) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int pib = warp / wpp;  // pair in block
-  const int wip = warp - pib * wpp;  // warp in pair
-  const int b = blockIdx.x * ppb + pib;
-  const int tpp = wpp * 32;
-  const int r = wip * 32 + lane;
-  const int L = S * tpp;  // lanes covered, >= W
-
-  uint8_t* Qs = smem + (size_t)pib * pair_bytes;
-  uint8_t* Ts = Qs + pair_q_bytes(Lq, L);
-
-  // stage [QPAD] + q + [QPAD]* and [TPAD]*W + reverse(t) + [TPAD]*; the
-  // score starts at -1 before the barrier orders it ahead of the final write
-  if (b < B) {
-    const uint8_t* q = Q + (size_t)b * Lq;
-    const uint8_t* tg = T + (size_t)b * Lt;
-    for (int x = r; x < Lq + 1 + L; x += tpp) Qs[x] = (x >= 1 && x <= Lq) ? q[x - 1] : NW_QPAD;
-    for (int y = r; y < Lt + W + L; y += tpp)
-      Ts[y] = (y >= W && y < W + Lt) ? tg[Lt - 1 - (y - W)] : NW_TPAD;
-    if (r == 0) scores[b] = -1;
-  }
-  __syncthreads();
-  if (b >= B) return;
-
-  Pair pr;
-  pr.Qs = Qs;
-  pr.Ts = Ts;
-  pr.tbb = TB ? tb + (size_t)b * tmax_pad * W : nullptr;
-  pr.score = scores + b;
-  pr.slots = reinterpret_cast<int*>(Ts + pair_t_bytes(Lt, W, L));
-  pr.s0 = r * S;
-  pr.K = W - 1;
-  pr.W = W;
-  pr.Lq = Lq;
-  pr.Lt = Lt;
-  pr.qlen = qlens[b];
-  pr.tlen = tlens[b];
-  pr.t_final = pr.qlen + pr.tlen;
-  pr.walign = (W & 15) == 0 ? 16 : (W & 7) == 0 ? 8 : (W & 3) == 0 ? 4 : 1;
-  pr.lane = lane;
-  pr.wip = wip;
-  pr.wpp = wpp;
-  pr.pib = pib;
-  const int K = pr.K;
-  constexpr int NWORD = (S + 3) / 4;
-
-  // traceback row 0 and the padding rows past tmax are zero
-  if (TB) {
-    uint32_t zero[NWORD];
-#pragma unroll
-    for (int w = 0; w < NWORD; ++w) zero[w] = 0;
-    store_row<S>(pr.tbb, pr.s0, W, pr.walign, zero);
-    for (int t = tmax + 1; t < tmax_pad; ++t)
-      store_row<S>(pr.tbb + (size_t)t * W, pr.s0, W, pr.walign, zero);
-  }
-
-  // state at t = 0 (H row 0 is 0 at lane 0) and t = -1
-  Strip<S> s;
-#pragma unroll
-  for (int k = 0; k < S; ++k) {
-    s.h1[k] = (pr.s0 + k == 0) ? 0 : NW_INF;
-    s.h2[k] = NW_INF;
-    s.i1[k] = s.d1[k] = s.i2[k] = s.d2[k] = NW_INF;
-  }
-  Edges e;
-  e.hl1 = NW_INF;
-  exchange<S, TWO>(s, e, pr, 0);
-  e.hl2 = NW_INF;  // H(-1)
-
-  // window starts into the padded operands, clamped as a dynamic slice is
-  int qs = min(i0_of(1, K), Lq + 1);
-  int ts = max(0, min(Lt - 1 + i0_of(1, K) + W, Lt + W));
-  load_windows<S>(s, pr, qs, ts);
-
-  // from t_final + 3 on every input is INF (the states are INF past t_final);
-  // without a traceback nothing past t_final is needed
-  const int last = min(tmax, TB ? pr.t_final + 2 : pr.t_final);
-  int t = 1;
-  for (; t <= last && t <= K; ++t) advance<S, TWO, TB, 0, 0>(s, e, pr, p, t, qs, ts);
-  for (; t + 1 <= last; t += 2) {  // (t - K) is odd here
-    advance<S, TWO, TB, 1, 1>(s, e, pr, p, t, qs, ts);
-    advance<S, TWO, TB, 0, 1>(s, e, pr, p, t + 1, qs, ts);
-  }
-  if (t <= last) advance<S, TWO, TB, 1, 1>(s, e, pr, p, t++, qs, ts);
-  if (!TB) return;
-
-  // the all-INF bytes, for a matching and a mismatching base pair
-  uint32_t cheap_eq, cheap_ne;
-  {
-    int a, c, d, f, g;
-    cheap_eq = cell_keyed<TWO>(NW_INF, NW_INF, NW_INF, NW_INF, NW_INF, NW_INF, NW_INF, 0, NW_INF, p,
-                               a, c, d, f, g);
-    cheap_ne = cell_keyed<TWO>(NW_INF, NW_INF, NW_INF, NW_INF, NW_INF, NW_INF, NW_INF, p.mis,
-                               NW_INF, p, a, c, d, f, g);
-  }
-  for (; t <= tmax; ++t) {
-    if (t > 1) slide_windows<S>(s, pr, t, qs, ts);
-    uint32_t words[NWORD];
-#pragma unroll
-    for (int w = 0; w < NWORD; ++w) words[w] = 0;
-#pragma unroll
-    for (int k = 0; k < S; ++k)
-      words[k >> 2] |= (s.qw[k] == s.tw[k] ? cheap_eq : cheap_ne) << (8 * (k & 3));
-    store_row<S>(pr.tbb + (size_t)t * W, pr.s0, W, pr.walign, words);
-  }
+  const SegArgs none{};
+  sweep_regs_body<S, TWO, TB, false>(Q, T, qlens, tlens, scores, tb, B, Lq, Lt, W, tmax, tmax_pad,
+                                      p, wpp, ppb, pair_bytes, none);
 }
 
-// ---------------------------------------------------------------------------
-// Wide route: one block per pair, DP rows (H in three, each gap state in two)
-// in dynamic shared memory, or in a global scratch [B, 11, W] where 11 rows
-// do not fit, one block barrier per anti-diagonal.
-
-// lane l of a row framed by a lane shift delta in {-1, 0, 1}, INF outside
-__device__ __forceinline__ int framed(const int* row, int l, int delta, int W) {
-  const int k = l + delta;
-  return (k >= 0 && k < W) ? row[k] : NW_INF;
-}
-
+// Wide route, single-shot (see the header's design note).
 template <bool TB>
 __global__ void __launch_bounds__(1024) nw_sweep_wide(
     const uint8_t* __restrict__ Q,      // [B, Lq] query codes, QPAD-padded
@@ -593,20 +143,6 @@ __global__ void __launch_bounds__(1024) nw_sweep_wide(
     }
     __syncthreads();
   }
-}
-
-// ---------------------------------------------------------------------------
-
-// Dynamic shared memory of a launch: the wide route's rows unless it has a
-// scratch, or ppb pairs of pair_bytes on the register route.
-static size_t dynamic_smem(int lanes, int W, int ppb, int pair_bytes, bool scratch) {
-  if (lanes == 0) return scratch ? 0 : (size_t)NW_ROWS * W * sizeof(int);
-  return (size_t)ppb * pair_bytes;
-}
-
-static cudaError_t allow_smem(const void* fn, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 template <int S, bool TWO, bool TB>

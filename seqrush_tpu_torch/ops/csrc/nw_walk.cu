@@ -35,6 +35,14 @@
 //   * gap steps go one at a time, with the cursor kept as its row and column
 //     in the tile and moved by the step's fixed offset, and every thread
 //     storing the same opcode, so the warp never diverges.
+// Segment mode (nw_walk_seg_kernel; replaces seqrush_tpu/ops/nw.py::
+// _tb_scan_segment, the reverse scan of nw_align_long): the traceback holds
+// only the rows [t_lo, t_hi] of one segment, and the cursor (anti-diagonal,
+// lane, gap state, done) comes from a carry [4, B] int32 and goes back to
+// it.  The walk acts only on a cursor inside the segment, stops where it
+// leaves it (td < t_lo), and stores the cursor; a walk that ended (done, or
+// a step that consumed nothing) stays ended.  Tiles read no row below t_lo
+// (they hold zeros there) and the diagonal ballot takes no step from one.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -76,14 +84,18 @@ __device__ __forceinline__ int corner_steps(int td, int K, int n) {
 // This thread's column (lane c0 + x) of the tile whose top row is `top`,
 // one byte per 32-bit register: nothing reads the registers until the tile
 // is stored, so the loads stay in flight while the walk goes on.
+// In segment mode tbb's row 0 is anti-diagonal rlo, and rows below it read 0.
+template <bool SEG>
 __device__ __forceinline__ void load_tile(uint32_t (&col)[WALK_R], const uint8_t* __restrict__ tbb,
-                                          int top, int c0, int x, int W) {
+                                          int top, int c0, int x, int W, int rlo) {
   const int l = c0 + x;
   const bool in_band = l >= 0 && l < W;
 #pragma unroll
   for (int rr = 0; rr < WALK_R; ++rr) {
     const int row = top - rr;
-    col[rr] = (in_band && row >= 0) ? (uint32_t)__ldg(tbb + (size_t)row * W + l) : 0u;
+    col[rr] = (in_band && row >= (SEG ? rlo : 0))
+                  ? (uint32_t)__ldg(tbb + (size_t)(SEG ? row - rlo : row) * W + l)
+                  : 0u;
   }
 }
 
@@ -93,27 +105,41 @@ __device__ __forceinline__ void store_tile(uint8_t (*tile)[WALK_C], const uint32
   for (int rr = 0; rr < WALK_R; ++rr) tile[rr][x] = (uint8_t)col[rr];
 }
 
-__global__ void __launch_bounds__(32 * WALK_PAIRS_PER_BLOCK) nw_walk_kernel(
-    const uint8_t* __restrict__ tb,   // [B, tmax_pad, W]
-    const int* __restrict__ qlens,    // [B]
-    const int* __restrict__ tlens,    // [B]
-    uint8_t* __restrict__ ops,        // [B, tmax + 1] out, zero-filled
-    int B, int W, int tmax, int tmax_pad) {
+// The walk of pair b.  Single-shot: from (qlen, tlen) over tb [B, tmax_pad,
+// W] into ops [B, tmax + 1].  Segment mode: from the cursor in state [4, B]
+// (cur_t, lane, mat, done) over tb [B, t_hi - t_lo + 1, W] (rows t_lo..t_hi)
+// into ops [B, ops_cols], and the cursor back into state.
+template <bool SEG>
+__device__ __forceinline__ void walk_body(const uint8_t* __restrict__ tb,
+                                          const int* __restrict__ qlens,
+                                          const int* __restrict__ tlens, uint8_t* __restrict__ ops,
+                                          int B, int W, int tmax, int tmax_pad, int* state,
+                                          int t_lo, int t_hi, int ops_cols) {
   __shared__ uint8_t tiles[WALK_PAIRS_PER_BLOCK][2][WALK_R][WALK_C];
   const int warp = threadIdx.x >> 5;
   const int x = threadIdx.x & 31;
   const int b = blockIdx.x * WALK_PAIRS_PER_BLOCK + warp;
   if (b >= B) return;
   const int K = W - 1;
-  const uint8_t* tbb = tb + (size_t)b * tmax_pad * W;
-  uint8_t* out = ops + (size_t)b * (tmax + 1);
+  const uint8_t* tbb = tb + (size_t)b * (SEG ? t_hi - t_lo + 1 : tmax_pad) * W;
+  uint8_t* out = ops + (size_t)b * (SEG ? ops_cols : tmax + 1);
+  const int tmin = SEG ? t_lo : 1;  // the lowest anti-diagonal the walk may act on
 
   // the cursor: cell (i, j) on anti-diagonal td = i + j, lane i - i0(td)
-  int i = qlens[b];
-  int j = tlens[b];
-  int td = i + j;
-  if (td < 1 || td > tmax) return;  // nothing to walk (the ops row stays zero)
+  int i, j, td;
   int mat = 0;  // 0 H, 1 D1, 2 I1, 3 D2, 4 I2
+  if (SEG) {
+    td = state[b];
+    if (state[3 * B + b] || td < t_lo || td > t_hi) return;  // ended, or not in this segment
+    i = walk_i0_of(td, K) + state[B + b];
+    j = td - i;
+    mat = state[2 * B + b];
+  } else {
+    i = qlens[b];
+    j = tlens[b];
+    td = i + j;
+    if (td < 1 || td > tmax) return;  // nothing to walk (the ops row stays zero)
+  }
   // tile in use (`cur`): rows top - R + 1 .. top, lanes c0 .. c0 + C - 1;
   // the cursor sits at row ur = top - td, column uc = lane - c0 of it.  The
   // next tile loads into `next`: rows ntop - R + 1 .. ntop, lanes nc0 ..
@@ -131,7 +157,7 @@ __global__ void __launch_bounds__(32 * WALK_PAIRS_PER_BLOCK) nw_walk_kernel(
       if ((unsigned)(ntop - td) >= WALK_R || (unsigned)(lane - nc0) >= WALK_C) {
         ntop = td;  // the prefetched tile misses the cursor: load one around it
         nc0 = lane - min(corner_drift(td, K) / 2 + WALK_C / 2, WALK_C - 1);
-        load_tile(next, tbb, ntop, nc0, x, W);
+        load_tile<SEG>(next, tbb, ntop, nc0, x, W, t_lo);
       }
       __syncwarp();  // every thread has finished reading the buffer replaced now
       uint8_t* t = spare;
@@ -145,7 +171,7 @@ __global__ void __launch_bounds__(32 * WALK_PAIRS_PER_BLOCK) nw_walk_kernel(
       uc = lane - c0;
       ntop = top - WALK_R;  // prefetch the rows below
       nc0 = lane - corner_drift(td, K) - corner_drift(ntop, K) / 2 - WALK_C / 2;
-      load_tile(next, tbb, ntop, nc0, x, W);
+      load_tile<SEG>(next, tbb, ntop, nc0, x, W, t_lo);
     }
     if (mat == 0) {
       // thread x looks x diagonal steps ahead.  A step there is taken if the
@@ -155,7 +181,7 @@ __global__ void __launch_bounds__(32 * WALK_PAIRS_PER_BLOCK) nw_walk_kernel(
       const int k = x;
       const int row = ur + 2 * k;
       const int col = uc - corner_steps(td, K, k);
-      const bool reach = row < WALK_R && (unsigned)col < WALK_C && td - 2 * k >= 1 &&
+      const bool reach = row < WALK_R && (unsigned)col < WALK_C && td - 2 * k >= tmin &&
                          (i != j || k < i);
       const bool take = reach && (cur[row * WALK_C + col] & 7) == H_DIAG;
       const unsigned run = __ballot_sync(FULL_MASK, take);
@@ -167,7 +193,7 @@ __global__ void __launch_bounds__(32 * WALK_PAIRS_PER_BLOCK) nw_walk_kernel(
         td -= 2 * n;
         i -= n;
         j -= n;
-        if ((i == 0 && j == 0) || td < 1) break;
+        if ((i == 0 && j == 0) || td < tmin) break;
         // the cell that stopped the run is decided below if it is in reach
         if (n == 32 || !((__ballot_sync(FULL_MASK, reach) >> n) & 1)) continue;
       }
@@ -177,6 +203,7 @@ __global__ void __launch_bounds__(32 * WALK_PAIRS_PER_BLOCK) nw_walk_kernel(
     const int g = mat ? mat : (bb & 7);
     if (g > 4) {  // a choice code no state has: the step consumes nothing
       out[td] = OP_NONE;
+      if (SEG) mat = ((bb >> 4) & 1) ? 0 : 4;  // the reference's state after such a step
       break;
     }
     const bool diag = g == 0;
@@ -198,8 +225,33 @@ __global__ void __launch_bounds__(32 * WALK_PAIRS_PER_BLOCK) nw_walk_kernel(
     uc += diag ? (above ? 0 : -1) : del ? dp : dp - 1;
     ur += drow;
     td -= drow;
-    if (td < 1) break;
+    if (td < tmin) break;
   }
+  if (SEG && x == 0) {
+    // the cursor after the last step: cell (i, j), whose anti-diagonal is
+    // i + j (td is not moved by a step that ends the walk or consumes nothing)
+    state[b] = i + j;
+    state[B + b] = i - walk_i0_of(i + j, K);
+    state[2 * B + b] = mat;
+    state[3 * B + b] = i == 0 && j == 0;
+  }
+}
+
+__global__ void __launch_bounds__(32 * WALK_PAIRS_PER_BLOCK) nw_walk_kernel(
+    const uint8_t* __restrict__ tb,   // [B, tmax_pad, W]
+    const int* __restrict__ qlens,    // [B]
+    const int* __restrict__ tlens,    // [B]
+    uint8_t* __restrict__ ops,        // [B, tmax + 1] out, zero-filled
+    int B, int W, int tmax, int tmax_pad) {
+  walk_body<false>(tb, qlens, tlens, ops, B, W, tmax, tmax_pad, nullptr, 0, 0, 0);
+}
+
+__global__ void __launch_bounds__(32 * WALK_PAIRS_PER_BLOCK) nw_walk_seg_kernel(
+    const uint8_t* __restrict__ tb,   // [B, t_hi - t_lo + 1, W]
+    int* __restrict__ state,          // [4, B] cursor in and out
+    uint8_t* __restrict__ ops,        // [B, ops_cols] out (columns t_lo..t_hi)
+    int B, int W, int t_lo, int t_hi, int ops_cols) {
+  walk_body<true>(tb, nullptr, nullptr, ops, B, W, 0, 0, state, t_lo, t_hi, ops_cols);
 }
 
 extern "C" int nw_walk_launch(
@@ -210,6 +262,19 @@ extern "C" int nw_walk_launch(
   nw_walk_kernel<<<blocks, 32 * WALK_PAIRS_PER_BLOCK, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)tb, (const int*)qlens, (const int*)tlens, (uint8_t*)ops,
       B, W, tmax, tmax_pad);
+  return (int)cudaGetLastError();
+}
+
+// One segment's walk: anti-diagonals [t_lo, t_hi] of tb [B, t_hi - t_lo + 1,
+// W], the cursor carry state [4, B] int32 (updated in place), opcodes into
+// columns t_lo..t_hi of ops [B, ops_cols].  Returns the CUDA error code.
+extern "C" int nw_walk_segment_launch(const void* tb, void* state, void* ops, int B, int W,
+                                      int t_lo, int t_hi, int ops_cols, void* stream) {
+  if (B <= 0) return (int)cudaSuccess;
+  if (t_hi < t_lo || t_lo < 1 || ops_cols <= t_hi) return (int)cudaErrorInvalidValue;
+  const int blocks = (B + WALK_PAIRS_PER_BLOCK - 1) / WALK_PAIRS_PER_BLOCK;
+  nw_walk_seg_kernel<<<blocks, 32 * WALK_PAIRS_PER_BLOCK, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)tb, (int*)state, (uint8_t*)ops, B, W, t_lo, t_hi, ops_cols);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,8 @@
 """Kernels A and B of the alignment path, for Hopper, with their plain versions.
 
 * ``nw_align`` -- kernel A, the banded two-piece Gotoh sweep
-  (``csrc/nw_sweep.cu``; replaces ``seqrush_tpu/ops/nw_pallas.py::_kernel``).
+  (``csrc/nw_sweep.cu``, device code in ``csrc/nw_sweep.cuh``; replaces
+  ``seqrush_tpu/ops/nw_pallas.py::_kernel``).
   Returns scores [B] int32 and the packed traceback [B, tmax_pad, W] uint8,
   or, with ``with_traceback=False`` (the score-only mode of the anchored
   route's verify sweep), the scores alone and None: no traceback tensor is
@@ -9,6 +10,16 @@
 * ``nw_walk`` -- kernel B, the reverse traceback walk (``csrc/nw_walk.cu``;
   replaces ``nw_pallas.py::_walk_kernel``).  Returns opcodes [B, tmax + 1]
   uint8 (0 none, 1 M, 2 I, 3 D at column td).
+* ``nw_align_segment`` / ``nw_walk_segment`` -- the segment modes of kernels
+  A and B (``csrc/nw_sweep_seg.cu``, ``csrc/nw_walk.cu``; the counterparts of
+  ``seqrush_tpu/ops/nw.py::_nw_segment`` and ``_tb_scan_segment``): one
+  segment of anti-diagonals [t0 + 1, t0 + seg] from a carried state, the DP
+  rows [6, B, W] forwards and the walk's cursor [4, B] backwards.
+* ``nw_align_long`` -- the long-pair route (``seqrush_tpu/ops/nw.py::
+  nw_align_long``): a score-only forward pass of segments that checkpoints
+  the DP rows at each segment start, then per segment from the last a full
+  segment sweep from its checkpoint and a segment walk.  Memory is
+  O(B * seg * W) whatever the pairs' length; the sweep runs twice.
 
 Each wrapper runs its plain PyTorch version (``nw_align_reference``,
 ``nw_walk_reference``) when the tensors lie on the CPU, and launches its CUDA
@@ -29,7 +40,9 @@ root, one ``nvcc`` per source in parallel, and loaded with ctypes.  The file
 name carries a hash of the sources and flags, so an edit rebuilds.
 
 ``LAUNCHES`` counts kernel launches (not plain-version calls) per kernel,
-kernel A's score-only mode apart as ``nw_sweep_score_only``.
+kernel A's score-only mode apart as ``nw_sweep_score_only``, and each segment
+mode apart (``nw_sweep_segment``, ``nw_sweep_segment_score_only``,
+``nw_walk_segment``).
 """
 
 from __future__ import annotations
@@ -49,9 +62,13 @@ import torch.nn.functional as F
 from .nw import H_D1, H_D2, H_I1, H_I2, INF, OP_D, OP_I, OP_M, OP_NONE, QPAD, TPAD
 from .nw import _i0_of, tmax_pad_of
 
-LAUNCHES = {"nw_sweep": 0, "nw_sweep_score_only": 0, "nw_walk": 0}
+LAUNCHES = {"nw_sweep": 0, "nw_sweep_score_only": 0, "nw_walk": 0, "nw_sweep_segment": 0,
+            "nw_sweep_segment_score_only": 0, "nw_walk_segment": 0}
 
-_SOURCES = ("nw_sweep.cu", "nw_walk.cu")
+_SOURCES = ("nw_sweep.cu", "nw_sweep_seg.cu", "nw_walk.cu")
+_HEADERS = ("nw_sweep.cuh",)
+# anti-diagonals per segment of the long-pair route (the JAX package's default)
+LONG_SEG = 2048
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -108,7 +125,7 @@ def build() -> tuple[Path, str]:
     csrc = Path(__file__).resolve().parent / "csrc"
     sources = [csrc / s for s in _SOURCES]
     digest = hashlib.sha256()
-    for src in sources:
+    for src in sources + [csrc / h for h in _HEADERS]:
         digest.update(src.read_bytes())
     digest.update(" ".join(_NVCC_FLAGS).encode())
     tag = digest.hexdigest()[:16]
@@ -160,8 +177,12 @@ def _library() -> ctypes.CDLL:
             lib.nw_sweep_launch.restype = i32
             lib.nw_sweep_occupancy.argtypes = [i32] * 8 + [ptr] * 3
             lib.nw_sweep_occupancy.restype = i32
+            lib.nw_sweep_segment_launch.argtypes = [ptr] * 10 + [i32] * 16 + [ptr]
+            lib.nw_sweep_segment_launch.restype = i32
             lib.nw_walk_launch.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
             lib.nw_walk_launch.restype = i32
+            lib.nw_walk_segment_launch.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
+            lib.nw_walk_segment_launch.restype = i32
             lib.nw_walk_occupancy.argtypes = [ptr] * 3
             lib.nw_walk_occupancy.restype = i32
             _lib = lib
@@ -221,17 +242,21 @@ def _round16(x: int) -> int:
     return (x + 15) // 16 * 16
 
 
-def pair_smem_bytes(Lq: int, Lt: int, W: int, lanes: int, wpp: int) -> int:
+def pair_smem_bytes(Lq: int, Lt: int, W: int, lanes: int, wpp: int, seg: int | None = None) -> int:
     """Shared memory of one pair on the register route: the padded query, the
-    padded reversed target and the warp-edge slots (csrc/nw_sweep.cu)."""
+    padded reversed target and the warp-edge slots (csrc/nw_sweep.cuh).  In
+    segment mode (seg anti-diagonals) only the segment's windows of the two
+    operands, whatever the pair's length."""
     L = lanes * 32 * wpp
+    if seg is not None:
+        return _round16(seg // 2 + 1 + L) + _round16(seg + L) + 2 * wpp * 6 * 4
     return _round16(Lq + 1 + L) + _round16(Lt + W + L) + 2 * wpp * 6 * 4
 
 
 def register_route_penalties(mismatch: int, o1: int, e1: int, o2: int, e2: int) -> bool:
     """Whether the register route's arithmetic holds for these penalties:
     every penalty it uses in [0, 2^16), so every DP value stays in
-    [0, INF + 2^17] (csrc/nw_sweep.cu).  Others take the wide route."""
+    [0, INF + 2^17] (csrc/nw_sweep.cuh).  Others take the wide route."""
     used = (mismatch, o1, e1) + ((o2, e2) if o2 >= 0 else ())
     return all(0 <= int(v) < _REG_PENALTY_LIMIT for v in used)
 
@@ -245,8 +270,8 @@ def wide_plan(B: int, W: int) -> SweepPlan:
                      rows if rows <= _SMEM_OPTIN_BYTES else 0, B)
 
 
-def _regs_plan(B: int, W: int, Lq: int, Lt: int, lanes: int, wpp: int) -> SweepPlan:
-    pair_bytes = pair_smem_bytes(Lq, Lt, W, lanes, wpp)
+def _regs_plan(B: int, W: int, Lq: int, Lt: int, lanes: int, wpp: int, seg: int | None) -> SweepPlan:
+    pair_bytes = pair_smem_bytes(Lq, Lt, W, lanes, wpp, seg)
     ppb = max(1, _SMSPS_PER_SM // wpp)
     ppb = min(ppb, _MAX_THREADS[lanes] // (32 * wpp), _SMEM_OPTIN_BYTES // pair_bytes, max(B, 1))
     if wpp > 1:
@@ -266,9 +291,11 @@ def _sweep_cost(plan: SweepPlan) -> int:
     return -(-warps_per_sm // _SMSPS_PER_SM) * (plan.lanes + STEP_OVERHEAD_LANES)
 
 
-def plan_sweep(B: int, W: int, Lq: int, Lt: int, *, warps_per_pair: int | None = None) -> SweepPlan:
+def plan_sweep(B: int, W: int, Lq: int, Lt: int, *, warps_per_pair: int | None = None,
+               seg: int | None = None) -> SweepPlan:
     """Route, lanes per thread, warps per pair, pairs per block and shared
-    memory of one sweep launch.
+    memory of one sweep launch (of one segment of seg anti-diagonals when
+    seg is given: its shared memory does not depend on Lq and Lt).
 
     By default the cheapest strip by _sweep_cost, each strip at as many
     warps as W needs (ties keep more lanes per thread); `warps_per_pair`
@@ -286,15 +313,15 @@ def plan_sweep(B: int, W: int, Lq: int, Lt: int, *, warps_per_pair: int | None =
                       if s * 32 * wpp >= W and 32 * wpp <= _MAX_THREADS[s]), None)
         if wpp < 1 or lanes is None or lanes * 32 * (wpp - 1) >= W:
             raise ValueError(f"{warps_per_pair} warps per pair cannot cover W={W}")
-        if pair_smem_bytes(Lq, Lt, W, lanes, wpp) > _SMEM_OPTIN_BYTES:
+        if pair_smem_bytes(Lq, Lt, W, lanes, wpp, seg) > _SMEM_OPTIN_BYTES:
             return wide_plan(B, W)
-        return _regs_plan(B, W, Lq, Lt, lanes, wpp)
+        return _regs_plan(B, W, Lq, Lt, lanes, wpp, seg)
     best = None
     for s in sorted(SWEEP_LANES, reverse=True):
         wpp = -(-W // (32 * s))
-        if 32 * wpp > _MAX_THREADS[s] or pair_smem_bytes(Lq, Lt, W, s, wpp) > _SMEM_OPTIN_BYTES:
+        if 32 * wpp > _MAX_THREADS[s] or pair_smem_bytes(Lq, Lt, W, s, wpp, seg) > _SMEM_OPTIN_BYTES:
             continue
-        plan = _regs_plan(B, W, Lq, Lt, s, wpp)
+        plan = _regs_plan(B, W, Lq, Lt, s, wpp, seg)
         cost = _sweep_cost(plan)
         if best is None or cost < best[0]:
             best = (cost, plan)
@@ -406,11 +433,21 @@ def _frame(x: torch.Tensor, delta: int, inf_col: torch.Tensor) -> torch.Tensor:
     return torch.cat([x[:, 1:], inf_col], dim=1)
 
 
-def nw_align_reference(Q, T, qlens, tlens, *, mismatch, o1, e1, o2, e2, band, tmax,
-                       with_traceback=True):
-    """Plain PyTorch version of kernel A: one [B, W] step per anti-diagonal,
-    the same arithmetic as nw_pallas._kernel (the traceback None when
-    with_traceback is False)."""
+def initial_carry(B: int, W: int, device) -> torch.Tensor:
+    """The DP rows before anti-diagonal 1 as a carry [6, B, W] int32: H at
+    t = 0 (0 at lane 0), H at t = -1 and the gap states at t = 0, all INF."""
+    carry = torch.full((6, B, W), INF, dtype=torch.int32, device=device)
+    carry[0, :, 0] = 0
+    return carry
+
+
+def _sweep_reference(Q, T, qlens, tlens, rows, scores, t_lo, t_hi, tb, tb_row0, *,
+                     mismatch, o1, e1, o2, e2, band):
+    """Anti-diagonals t_lo..t_hi of the recurrence, one [B, W] step each, the
+    arithmetic of nw_pallas._kernel and nw._nw_segment.  rows = (H at
+    t_lo - 1, H at t_lo - 2, I1, D1, I2, D2 at t_lo - 1); a pair's score is
+    taken at its final cell where it has none yet (-1); row t goes to
+    tb[:, t - tb_row0] when tb is given.  Returns (rows at t_hi, scores)."""
     B, Lq = Q.shape
     Lt = T.shape[1]
     K = band
@@ -425,25 +462,14 @@ def nw_align_reference(Q, T, qlens, tlens, *, mismatch, o1, e1, o2, e2, band, tm
     ql = qlens.to(i32)[:, None]
     tl = tlens.to(i32)[:, None]
     t_final = (qlens + tlens).to(i32)
-
-    def full(val):
-        return torch.full((B, W), val, dtype=i32, device=dev)
-
-    h1 = full(INF)
-    h1[:, 0] = 0
-    h2 = full(INF)
-    i1r, d1r, i2r, d2r = full(INF), full(INF), full(INF), full(INF)
-    inf_row = full(INF)
+    h1, h2, i1r, d1r, i2r, d2r = rows
+    inf_row = torch.full((B, W), INF, dtype=i32, device=dev)
     false_row = torch.zeros((B, W), dtype=torch.bool, device=dev)
     inf_col = torch.full((B, 1), INF, dtype=i32, device=dev)
-    scores = torch.full((B,), -1, dtype=i32, device=dev)
-    tb = torch.zeros((B, tmax_pad_of(tmax), W), dtype=torch.uint8, device=dev) if with_traceback else None
-    # the anti-diagonals where some pair's final cell lies; without a
-    # traceback nothing past the last of them is needed
+    # the anti-diagonals where some pair's final cell lies
     finals = set(t_final.tolist())
-    t_last = tmax if with_traceback else min(tmax, max(finals, default=0))
 
-    for t in range(1, t_last + 1):
+    for t in range(t_lo, t_hi + 1):
         i0 = _i0_of(t, K)
         dp = i0 - _i0_of(t - 1, K)
         dpp = i0 - _i0_of(t - 2, K)
@@ -496,7 +522,7 @@ def nw_align_reference(Q, T, qlens, tlens, *, mismatch, o1, e1, o2, e2, band, tm
             scores = torch.where((t_final == t) & (scores < 0) & (fin_val < INF), fin_val, scores)
 
         if tb is not None:
-            tb[:, t, :] = (
+            tb[:, t - tb_row0, :] = (
                 choice
                 | (i1_opened.to(torch.uint8) << 3)
                 | (i2_opened.to(torch.uint8) << 4)
@@ -507,7 +533,130 @@ def nw_align_reference(Q, T, qlens, tlens, *, mismatch, o1, e1, o2, e2, band, tm
         i1r, d1r = I1n, D1n
         if two:
             i2r, d2r = I2n, D2n
+    if not two and t_hi >= t_lo:
+        i2r, d2r = inf_row, inf_row  # one-piece: the second gap states are INF rows
+    return (h1, h2, i1r, d1r, i2r, d2r), scores
+
+
+def nw_align_reference(Q, T, qlens, tlens, *, mismatch, o1, e1, o2, e2, band, tmax,
+                       with_traceback=True):
+    """Plain PyTorch version of kernel A: one [B, W] step per anti-diagonal,
+    the same arithmetic as nw_pallas._kernel (the traceback None when
+    with_traceback is False)."""
+    B = Q.shape[0]
+    W = band + 1
+    dev = Q.device
+    scores = torch.full((B,), -1, dtype=torch.int32, device=dev)
+    tb = torch.zeros((B, tmax_pad_of(tmax), W), dtype=torch.uint8, device=dev) if with_traceback else None
+    # without a traceback nothing past the last pair's final anti-diagonal is needed
+    t_last = tmax if with_traceback else min(tmax, int((qlens + tlens).max()) if B else 0)
+    _rows, scores = _sweep_reference(
+        Q, T, qlens, tlens, tuple(initial_carry(B, W, dev)), scores, 1, t_last, tb, 0,
+        mismatch=mismatch, o1=o1, e1=e1, o2=o2, e2=e2, band=band)
     return scores, tb
+
+
+# -- kernel A, segment mode ------------------------------------------------------
+
+
+def _check_segment(Q, T, qlens, tlens, carry, scores, band, t0, seg):
+    device = Q.device
+    _check("Q", Q, torch.uint8, 2, device)
+    _check("T", T, torch.uint8, 2, device)
+    B = Q.shape[0]
+    if T.shape[0] != B:
+        raise ValueError("Q and T must have the same batch size")
+    _check_lengths(qlens, tlens, B, device)
+    _check("carry", carry, torch.int32, 3, device)
+    _check("scores", scores, torch.int32, 1, device)
+    if band < 0 or t0 < 0 or seg < 1:
+        raise ValueError("band and t0 must be >= 0 and seg >= 1")
+    if tuple(carry.shape) != (6, B, band + 1) or scores.shape[0] != B:
+        raise ValueError(f"carry must be [6, {B}, {band + 1}] and scores [{B}], got "
+                         f"{tuple(carry.shape)} and {tuple(scores.shape)}")
+
+
+def nw_align_segment(Q, T, qlens, tlens, carry, scores, *, t0, seg, mismatch, o1, e1, o2, e2,
+                     band, with_traceback=True, out=None):
+    """Kernel A over one segment, anti-diagonals [t0 + 1, t0 + seg].
+
+    carry [6, B, W] int32 holds the DP rows before it (H at t0 and t0 - 1,
+    I1, D1, I2, D2 at t0; ``initial_carry`` for t0 = 0); scores [B] int32
+    the scores so far (-1 where a pair has not ended).  Returns (the carry
+    after the segment, in ``out`` when given (not carry itself); the scores
+    with those of the pairs that end in it; tb [B, seg, W] uint8 of rows
+    t0 + 1 .. t0 + seg, every row computed, or None when with_traceback is
+    False)."""
+    _check_segment(Q, T, qlens, tlens, carry, scores, band, t0, seg)
+    device = Q.device
+    if out is not None:
+        _check("out", out, torch.int32, 3, device)
+        if out.shape != carry.shape or out.data_ptr() == carry.data_ptr():
+            raise ValueError("out must be a carry of the same shape, not carry itself")
+    pen = dict(mismatch=mismatch, o1=o1, e1=e1, o2=o2, e2=e2, band=band)
+    if device.type == "cpu":
+        carry_out, scores_out, tb = nw_align_segment_reference(
+            Q, T, qlens, tlens, carry, scores, t0=t0, seg=seg, with_traceback=with_traceback, **pen)
+        if out is not None:
+            carry_out = out.copy_(carry_out)
+        return carry_out, scores_out, tb
+    _require_cuda(device)
+    B, W = Q.shape[0], band + 1
+    plan = plan_sweep(B, W, Q.shape[1], T.shape[1], seg=seg)
+    if not register_route_penalties(mismatch, o1, e1, o2, e2):
+        plan = wide_plan(B, W)
+    return segment_launch(Q, T, qlens, tlens, carry, scores, plan, t0=t0, seg=seg,
+                          with_traceback=with_traceback, out=out, **pen)
+
+
+def segment_launch(Q, T, qlens, tlens, carry, scores, plan: SweepPlan, *, t0, seg, mismatch, o1,
+                   e1, o2, e2, band, with_traceback=True, out=None):
+    """Launch kernel A's segment mode on checked CUDA tensors with a given
+    plan (plan_sweep(..., seg=seg), or another one to compare shapes)."""
+    if plan.route == "regs" and not register_route_penalties(mismatch, o1, e1, o2, e2):
+        raise ValueError("the register route takes penalties in [0, 2^16) only")
+    device = Q.device
+    B, Lq = Q.shape
+    W = band + 1
+    carry_out = out if out is not None else torch.empty_like(carry)
+    scores_out = torch.empty_like(scores)
+    tb = torch.empty((B, seg, W), dtype=torch.uint8, device=device) if with_traceback else None
+    if B == 0:
+        return carry_out, scores_out, tb
+    scratch = None
+    if plan.route == "wide" and not plan.smem_bytes:
+        scratch = torch.empty(B * _SWEEP_ROWS * W, dtype=torch.int32, device=device)
+    lib = _library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.nw_sweep_segment_launch(
+            Q.data_ptr(), T.data_ptr(), qlens.data_ptr(), tlens.data_ptr(), carry.data_ptr(),
+            carry_out.data_ptr(), scores.data_ptr(), scores_out.data_ptr(),
+            tb.data_ptr() if tb is not None else None,
+            scratch.data_ptr() if scratch is not None else None,
+            B, Lq, T.shape[1], W, t0 + 1, t0 + seg, mismatch, o1, e1, o2, e2,
+            plan.lanes, plan.warps_per_pair, plan.pairs_per_block, plan.pair_bytes,
+            plan.threads, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"nw_sweep segment launch failed with CUDA error {err}")
+    LAUNCHES["nw_sweep_segment" if with_traceback else "nw_sweep_segment_score_only"] += 1
+    return carry_out, scores_out, tb
+
+
+def nw_align_segment_reference(Q, T, qlens, tlens, carry, scores, *, t0, seg, mismatch, o1, e1,
+                               o2, e2, band, with_traceback=True):
+    """Plain PyTorch version of kernel A's segment mode: the arithmetic of
+    nw._nw_segment, whose framing and clamps are nw_align_reference's.
+    Every row of tb is computed, rows past a pair's end and past the chunk's
+    last anti-diagonal included."""
+    B = Q.shape[0]
+    W = band + 1
+    tb = torch.zeros((B, seg, W), dtype=torch.uint8, device=Q.device) if with_traceback else None
+    rows, scores = _sweep_reference(
+        Q, T, qlens, tlens, tuple(carry.unbind(0)), scores, t0 + 1, t0 + seg, tb, t0 + 1,
+        mismatch=mismatch, o1=o1, e1=e1, o2=o2, e2=e2, band=band)
+    return torch.stack(rows), scores, tb
 
 
 # -- kernel B: the walk --------------------------------------------------------
@@ -554,6 +703,19 @@ def nw_walk_reference(tb, qlens, tlens, *, band, tmax):
     per-state cases read from small tables indexed by the state the step
     leaves: the H choice in an H cell, else the gap state)."""
     B = tb.shape[0]
+    ops = torch.zeros((B, tmax + 1), dtype=torch.uint8, device=tb.device)
+    state = walk_state(qlens, tlens, band=band).to(torch.int64)
+    # no cursor starts above the longest pair's final anti-diagonal
+    top = min(tmax, int(state[0].max()) if B else 0)
+    _walk_rows(tb, 0, state, ops, top, 1, band)
+    return ops
+
+
+def _walk_rows(tb, tb_row0, state, ops, td_hi, td_lo, band):
+    """Anti-diagonals td_hi down to td_lo of the walk: the cursor state [4, B]
+    int64 (cur_t, lane, mat, done) steps where it sits, in place; row td is
+    tb[:, td - tb_row0]; ops[:, td] gets each step's opcode."""
+    B = tb.shape[0]
     K = band
     W = K + 1
     dev = tb.device
@@ -571,24 +733,19 @@ def nw_walk_reference(tb, qlens, tlens, *, band, tmax):
     dj = table(1, 1, 0, 1, 0, 0, 0, 0)
     next_gap = table(0, H_D1, H_I1, H_D2, H_I2, H_I2, H_I2, H_I2)
     rows = torch.arange(B, device=dev)
-    cur_t = qlens.to(i64) + tlens.to(i64)
-    lane = qlens.to(i64) - _i0_tensor(cur_t, K)
-    mat = torch.zeros(B, dtype=i64, device=dev)
-    done = cur_t == 0
-    ops = torch.zeros((B, tmax + 1), dtype=torch.uint8, device=dev)
+    cur_t, lane, mat, done = state[0], state[1], state[2], state[3] != 0
 
-    # no cursor starts above the longest pair's final anti-diagonal
-    for td in range(min(tmax, int(cur_t.max()) if B else 0), 0, -1):
+    for td in range(td_hi, td_lo - 1, -1):
         active = ~done & (cur_t == td)
         in_band = (lane >= 0) & (lane < W)
-        byte = tb[rows, td, lane.clamp(0, W - 1)].to(i64)
+        byte = tb[rows, td - tb_row0, lane.clamp(0, W - 1)].to(i64)
         b = torch.where(in_band, byte, 0)
-        state = torch.where(mat == 0, b & 7, mat)
-        opened = ((b >> opened_bit[state]) & 1) != 0
+        st = torch.where(mat == 0, b & 7, mat)
+        opened = ((b >> opened_bit[st]) & 1) != 0
         i = _i0_of(td, K) + lane
-        ni = i - di[state]
-        nj = (td - i) - dj[state]
-        nmat = torch.where((state == 0) | opened, 0, next_gap[state])
+        ni = i - di[st]
+        nj = (td - i) - dj[st]
+        nmat = torch.where((st == 0) | opened, 0, next_gap[st])
         nt = ni + nj
         nl = ni - _i0_tensor(nt, K)
         ndone = (ni == 0) & (nj == 0)
@@ -597,5 +754,105 @@ def nw_walk_reference(tb, qlens, tlens, *, band, tmax):
         lane = torch.where(active, nl, lane)
         mat = torch.where(active, nmat, mat)
         done = done | (active & ndone)
-        ops[:, td] = torch.where(active, op_of[state], OP_NONE).to(torch.uint8)
-    return ops
+        ops[:, td] = torch.where(active, op_of[st], OP_NONE).to(torch.uint8)
+    state[0], state[1], state[2], state[3] = cur_t, lane, mat, done.to(i64)
+
+
+# -- kernel B, segment mode ------------------------------------------------------
+
+
+def walk_state(qlens, tlens, *, band) -> torch.Tensor:
+    """The walk's starting cursor as a carry [4, B] int32: the anti-diagonal
+    qlen + tlen, the lane qlen - i0 of it, the H state, done where the pair
+    is empty."""
+    cur_t = qlens.to(torch.int32) + tlens.to(torch.int32)
+    lane = qlens.to(torch.int32) - _i0_tensor(cur_t, band)
+    return torch.stack([cur_t, lane, torch.zeros_like(cur_t), (cur_t == 0).to(torch.int32)])
+
+
+def nw_walk_segment(tb_seg, state, ops, *, t0, seg, band):
+    """Kernel B over one segment: the rows t0 + 1 .. t0 + seg of the
+    traceback, tb_seg [B, seg, W] uint8 (nw_align_segment's), from the
+    cursor state [4, B] int32 (walk_state's, or the last segment's).  Writes
+    the opcodes of the steps taken into columns t0 + 1 .. t0 + seg of ops
+    [B, L] uint8 (zero-filled by the caller, L > t0 + seg) and returns the
+    cursor where it leaves the segment; a walk that ended stays ended."""
+    device = tb_seg.device
+    _check("tb_seg", tb_seg, torch.uint8, 3, device)
+    B = tb_seg.shape[0]
+    _check("state", state, torch.int32, 2, device)
+    _check("ops", ops, torch.uint8, 2, device)
+    if t0 < 0 or seg < 1 or tuple(tb_seg.shape) != (B, seg, band + 1):
+        raise ValueError(f"tb_seg shape {tuple(tb_seg.shape)} does not fit band {band}, seg {seg}")
+    if tuple(state.shape) != (4, B) or ops.shape[0] != B or ops.shape[1] <= t0 + seg:
+        raise ValueError(f"state must be [4, {B}] and ops [{B}, > {t0 + seg}], got "
+                         f"{tuple(state.shape)} and {tuple(ops.shape)}")
+    if device.type == "cpu":
+        return nw_walk_segment_reference(tb_seg, state, ops, t0=t0, seg=seg, band=band)
+    _require_cuda(device)
+    out = state.clone()
+    if B == 0:
+        return out
+    lib = _library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.nw_walk_segment_launch(tb_seg.data_ptr(), out.data_ptr(), ops.data_ptr(),
+                                         B, band + 1, t0 + 1, t0 + seg, ops.shape[1], stream)
+    if err != 0:
+        raise RuntimeError(f"nw_walk segment launch failed with CUDA error {err}")
+    LAUNCHES["nw_walk_segment"] += 1
+    return out
+
+
+def nw_walk_segment_reference(tb_seg, state, ops, *, t0, seg, band):
+    """Plain PyTorch version of kernel B's segment mode: nw_walk_reference's
+    scan over the segment's rows, the cursor carried as nw._tb_scan_segment
+    carries it."""
+    st = state.to(torch.int64)
+    live = st[0][st[3] == 0]
+    # no cursor acts above the highest live one
+    top = min(t0 + seg, int(live.max()) if live.numel() else 0)
+    _walk_rows(tb_seg, t0 + 1, st, ops, top, t0 + 1, band)
+    return st.to(torch.int32)
+
+
+# -- the long-pair route -----------------------------------------------------------
+
+
+def nw_align_long(Q, T, qlens, tlens, *, mismatch, o1, e1, o2, e2, band, seg=LONG_SEG,
+                  t_need=None):
+    """Banded alignment of pairs of any length through segments of seg
+    anti-diagonals (nw.nw_align_long's contract).
+
+    Returns (scores [B] int32, opcodes [B, n_seg * seg + 1] uint8 in
+    ascending anti-diagonal order, as nw_walk's), on the tensors' device with
+    no host synchronisation.  n_seg = ceil(t_need / seg), t_need the largest
+    qlen + tlen (computed from the lengths when not given, which reads them
+    back).  The forward pass sweeps every segment score-only and keeps only
+    the DP rows at each segment start, [n_seg, 6, B, W] int32; the reverse
+    pass recomputes each segment's traceback from its checkpoint, from the
+    last segment down, and walks it with the cursor carried across."""
+    B = Q.shape[0]
+    W = band + 1
+    device = Q.device
+    pen = dict(mismatch=mismatch, o1=o1, e1=e1, o2=o2, e2=e2, band=band)
+    if t_need is None:
+        t_need = int((qlens + tlens).max()) if B else 0
+    n_seg = -(-int(t_need) // seg)
+    ckpt = torch.empty((n_seg, 6, B, W), dtype=torch.int32, device=device)
+    scores = torch.full((B,), -1, dtype=torch.int32, device=device)
+    spare = torch.empty((6, B, W), dtype=torch.int32, device=device)
+    if n_seg:
+        ckpt[0] = initial_carry(B, W, device)
+    for s in range(n_seg):
+        out = ckpt[s + 1] if s + 1 < n_seg else spare
+        _, scores, _ = nw_align_segment(Q, T, qlens, tlens, ckpt[s], scores, t0=s * seg, seg=seg,
+                                        with_traceback=False, out=out, **pen)
+    ops = torch.zeros((B, n_seg * seg + 1), dtype=torch.uint8, device=device)
+    state = walk_state(qlens, tlens, band=band)
+    for s in reversed(range(n_seg)):
+        _, _, tb_seg = nw_align_segment(Q, T, qlens, tlens, ckpt[s], scores, t0=s * seg, seg=seg,
+                                        out=spare, **pen)
+        state = nw_walk_segment(tb_seg, state, ops, t0=s * seg, seg=seg, band=band)
+        del tb_seg  # stream-ordered: the next segment's traceback may reuse it
+    return scores, ops

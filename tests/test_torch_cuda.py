@@ -402,3 +402,141 @@ def test_layout_and_schedules_on_cuda(cuda, tmp_path):
     d_gpu = kmer_distance_matrix(codes, 16, "cuda")
     d_cpu = kmer_distance_matrix(codes, 16, "cpu")
     assert np.abs(d_gpu - d_cpu).max() <= 4e-6
+
+
+def _segment_batch(seg, seed, device):
+    """The boundary batch of tests/test_torch_long.py: pairs ending on
+    segment 1's first, last and second-to-last row and inside segment 2, and
+    a zero-length padding row."""
+    rng = np.random.default_rng(seed)
+    qs, ts = [], []
+    for k, total in enumerate((seg + 1, 2 * seg, 2 * seg - 1, 3 * seg - 37, 0)):
+        qlen = total // 2 + (3 if k % 2 else -4) if total else 0
+        tlen = total - qlen
+        q = rng.integers(0, 4, qlen).astype(np.uint8)
+        t = q.copy()
+        if tlen < qlen:
+            t = np.delete(t, np.arange(qlen // 3, qlen // 3 + qlen - tlen))
+        elif tlen > qlen:
+            t = np.insert(t, qlen // 2, rng.integers(0, 4, tlen - qlen).astype(np.uint8))
+        if t.size:
+            t[rng.integers(0, t.size, t.size // 40 + 1)] = rng.integers(0, 4, t.size // 40 + 1)
+        qs.append(q)
+        ts.append(t)
+    return _pack(qs, ts, device)[0]
+
+
+def _segments_equal_plain(args, band, seg, pen, plan=None):
+    """Chain the segment kernels over every segment (forward: the sweep,
+    full and score-only, from the kernel's own carry; backward: the walk
+    from the kernel's own cursor) and hold each launch to its plain version
+    on the same inputs.  Returns (scores, opcodes)."""
+    Q, T, ql, tl = args
+    B = Q.shape[0]
+    n_seg = -(-int((ql + tl).max()) // seg)
+    kw = dict(band=band, seg=seg, **pen)
+    carry = nw_cuda.initial_carry(B, band + 1, Q.device)
+    scores = torch.full((B,), -1, dtype=torch.int32, device=Q.device)
+    tbs = []
+    for s in range(n_seg):
+        if plan is None:
+            c_k, s_k, tb_k = nw_cuda.nw_align_segment(*args, carry, scores, t0=s * seg, **kw)
+            c_o, s_o, none = nw_cuda.nw_align_segment(*args, carry, scores, t0=s * seg,
+                                                      with_traceback=False, **kw)
+        else:
+            c_k, s_k, tb_k = nw_cuda.segment_launch(*args, carry, scores, plan, t0=s * seg, **kw)
+            c_o, s_o, none = nw_cuda.segment_launch(*args, carry, scores, plan, t0=s * seg,
+                                                    with_traceback=False, **kw)
+        torch.cuda.synchronize()
+        c_p, s_p, tb_p = nw_cuda.nw_align_segment_reference(*args, carry, scores, t0=s * seg, **kw)
+        assert torch.equal(c_k, c_p) and torch.equal(s_k, s_p) and torch.equal(tb_k, tb_p), s
+        assert none is None and torch.equal(c_o, c_p) and torch.equal(s_o, s_p), s
+        carry, scores = c_k, s_k
+        tbs.append(tb_k)
+    state = nw_cuda.walk_state(ql, tl, band=band)
+    ops = torch.zeros((B, n_seg * seg + 1), dtype=torch.uint8, device=Q.device)
+    ops_p = ops.clone()
+    for s in reversed(range(n_seg)):
+        st_k = nw_cuda.nw_walk_segment(tbs[s], state, ops, t0=s * seg, seg=seg, band=band)
+        torch.cuda.synchronize()
+        st_p = nw_cuda.nw_walk_segment_reference(tbs[s], state, ops_p, t0=s * seg, seg=seg, band=band)
+        assert torch.equal(st_k, st_p) and torch.equal(ops, ops_p), s
+        state = st_k
+    return scores, ops
+
+
+@pytest.mark.parametrize(
+    "seg,band,two_piece,route",
+    [
+        (256, 63, True, "regs"),
+        (256, 300, False, "regs"),  # K >= seg: a boundary in the corner phase
+        (512, 600, True, "regs"),
+        (512, 127, False, "regs"),
+        (2048, 767, True, "regs"),  # the long route's segment length
+        (256, 4200, True, "wide"),  # W 4201: above the register route
+        (256, 63, True, "scratch"),  # wide route, rows in global scratch
+        (256, 63, "big", "wide"),  # penalties outside [0, 2^16)
+    ],
+)
+def test_segment_kernels_equal_plain_versions(cuda, seg, band, two_piece, route):
+    """Kernel A's segment mode (full and score-only) and kernel B's, on the
+    boundary batch over every segment, bit-equal to their plain versions:
+    carries, scores, traceback rows, cursors and opcodes."""
+    args = _segment_batch(seg, seg + band, cuda)
+    if two_piece == "big":
+        pen = dict(mismatch=5, o1=70000, e1=2, o2=24, e2=1)
+    else:
+        pen = dict(mismatch=5, o1=8, e1=2, o2=24 if two_piece else -1, e2=1 if two_piece else -1)
+    B, W = args[0].shape[0], band + 1
+    plan = nw_cuda.plan_sweep(B, W, args[0].shape[1], args[1].shape[1], seg=seg)
+    assert plan.route == ("wide" if route == "wide" and two_piece != "big" else "regs")
+    scratch = nw_cuda.SweepPlan("wide", 0, 2, 1, 64, 0, 0, B) if route == "scratch" else None
+    before = dict(nw_cuda.LAUNCHES)
+    scores, ops = _segments_equal_plain(args, band, seg, pen, scratch)
+    n_seg = 3
+    for k in ("nw_sweep_segment", "nw_sweep_segment_score_only", "nw_walk_segment"):
+        assert nw_cuda.LAUNCHES[k] == before[k] + n_seg, k
+    assert (scores[:-1] >= 0).all() and int(scores[-1]) == -1
+    assert not ops[-1].any()
+
+
+def test_segment_walk_on_random_bytes_equals_plain(cuda):
+    """Random traceback bytes (choice codes that consume nothing, cursors
+    leaving the band): the walk kernel's cursors and opcodes equal the plain
+    version's segment by segment, and ended walks stay ended."""
+    rng = np.random.default_rng(4)
+    seg, band = 64, 20
+    ql = torch.tensor([150, 90, 37, 0, 120, 7, 300, 64, 65], dtype=torch.int32, device=cuda)
+    tl = torch.tensor([100, 99, 64, 0, 130, 3, 280, 64, 63], dtype=torch.int32, device=cuda)
+    n_seg = -(-int((ql + tl).max()) // seg)
+    state = nw_cuda.walk_state(ql, tl, band=band)
+    ops = torch.zeros((ql.numel(), n_seg * seg + 1), dtype=torch.uint8, device=cuda)
+    ops_p = ops.clone()
+    for s in reversed(range(n_seg)):
+        tb = torch.from_numpy(rng.integers(0, 128, (ql.numel(), seg, band + 1)).astype(np.uint8)).to(cuda)
+        st_k = nw_cuda.nw_walk_segment(tb, state, ops, t0=s * seg, seg=seg, band=band)
+        st_p = nw_cuda.nw_walk_segment_reference(tb, state, ops_p, t0=s * seg, seg=seg, band=band)
+        torch.cuda.synchronize()
+        assert torch.equal(st_k, st_p) and torch.equal(ops, ops_p), s
+        state = st_k
+
+
+def test_long_route_launches_and_equals_single_shot(cuda):
+    """nw_align_long on the card: n_seg launches of each segment kind per
+    pass, and the single-shot kernels' scores and opcodes."""
+    (Q, T, ql, tl), tmax = _pack(*_variants(np.random.default_rng(3), 9, 2600, 255, 0.0), cuda)
+    kw = dict(mismatch=5, o1=8, e1=2, o2=24, e2=1, band=255)
+    t_need = int((ql + tl).max())
+    seg = 1024
+    n_seg = -(-t_need // seg)
+    nw_cuda.reset_launch_counts()
+    scores, ops = nw_cuda.nw_align_long(Q, T, ql, tl, seg=seg, t_need=t_need, **kw)
+    torch.cuda.synchronize()
+    assert nw_cuda.LAUNCHES == {"nw_sweep": 0, "nw_sweep_score_only": 0, "nw_walk": 0,
+                                "nw_sweep_segment": n_seg, "nw_sweep_segment_score_only": n_seg,
+                                "nw_walk_segment": n_seg}
+    s_one, tb = nw_cuda.nw_align(Q, T, ql, tl, tmax=tmax, **kw)
+    ops_one = nw_cuda.nw_walk(tb, ql, tl, band=255, tmax=tmax)
+    assert torch.equal(scores, s_one)
+    assert torch.equal(ops[:, : t_need + 1], ops_one[:, : t_need + 1])
+    assert not ops[:, t_need + 1 :].any() and not ops_one[:, t_need + 1 :].any()
