@@ -75,7 +75,17 @@ Phases (any failure exits non-zero and prints no ok line):
      of the largest long chunk; the route against single-shot kernels A + B
      on that chunk; the times of each segment kind, of the route per chunk
      and of single-shot A + B;
-  7. prints {"kernels": [...]}, the nvidia-smi line, and last
+  7. the sweepga backend and --inversion-aware (see run_backends): the
+     headline corpus through ``--aligner sweepga --no-sort`` (its GFA must
+     have the JAX package's sha256, SWEEPGA_GFA_SHA256) and with the layout;
+     kernels A and B against their plain versions on that run's device gap
+     chunk; the orientation probe on a trio the sketch leaves undecided
+     (probe_trio; score-only, one-piece) against its plain version and the
+     JAX package's answer (PROBE_ORIENTATIONS); the headline corpus through
+     ``--inversion-aware --no-sort`` (INVERSION_GFA_SHA256), with the route
+     and time of the reverse pass's widest chunk, and kernels A and B
+     against their plain versions on its inversion window batch;
+  8. prints {"kernels": [...]}, the nvidia-smi line, and last
      {"ok": true, "device": {...}}.
 
 Bounds: the least time the card could take for the same work, the larger
@@ -247,6 +257,41 @@ def synth_locus(n_seqs=8, length=60_000, seed=13):
     return out
 
 
+def probe_trio(n=600, seed=0):
+    """A base and two copies (about 2% SNPs) with one half reverse-
+    complemented: rc(x) + y and rc(y) + x for base x + y.  Both orientations
+    of every pair share k-mers, so the sketch leaves all PROBE_PAIRS
+    undecided and choose_orientations' score-only probe decides them."""
+    rng = np.random.default_rng(seed)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    comp = bytes.maketrans(b"ACGT", b"TGCA")
+    a = bases[rng.integers(0, 4, size=n)].tobytes()
+    x, y = a[: n // 2], a[n // 2 :]
+
+    def snps(s):
+        s = bytearray(s)
+        for pos in rng.integers(0, len(s), size=len(s) // 50):
+            s[pos] = bases[rng.integers(0, 4)]
+        return bytes(s)
+
+    return [("a", a), ("b", snps(x.translate(comp)[::-1] + y)),
+            ("c", snps(y.translate(comp)[::-1] + x))]
+
+
+PROBE_PAIRS = [[0, 1], [0, 2], [1, 0], [2, 0]]
+# the JAX package's WfaAligner.choose_orientations(PROBE_PAIRS) on
+# probe_trio() (tests/test_torch_sweep.py recomputes it)
+PROBE_ORIENTATIONS = [False, True, False, True]
+
+# sha256 of the JAX package's --no-sort GFA of synth_hla() under
+# --aligner sweepga and under --inversion-aware (on the CPU;
+# scripts/jax_backend_graphs.py recomputes them)
+SWEEPGA_GFA_SHA256 = "142b8dd96b3035402896abd462a9af1a8571b47a4d7a7ce383a718a90a91cd6f"
+INVERSION_GFA_SHA256 = "9f89f67b9901ba468f6d570c5aeb3625e0ca47436c464caa63026ef92c244c7f"
+# the JAX package's inversion window batch on synth_hla() under
+# --inversion-aware: [B, Lq, band, tmax] of its one nw_align_device call
+INVERSION_BATCH_SHAPE = [8192, 1169, 101, 2302]
+
 # sha256 of the JAX package's --no-sort GFA of long_pair() written to a
 # FASTA (``python -m seqrush_tpu -s long.fa -o long.gfa --no-sort`` on the
 # CPU; tests/test_torch_long.py recomputes it)
@@ -282,6 +327,26 @@ def once_ms(fn):
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop), out
+
+
+def sweep_bounds(Q, T, ql, tl, W: int, tb_numel: int) -> tuple[float, float]:
+    """(bytes, operations) bounds in ms of one sweep launch; tb_numel 0 is
+    the score-only mode."""
+    cells = int((ql + tl).to(torch.int64).sum().item()) * W
+    sweep_bytes = Q.numel() + T.numel() + 8 * Q.shape[0] + 4 * Q.shape[0] + tb_numel
+    ops, mins = ((SWEEP_OPS_PER_CELL, SWEEP_MIN_OPS_PER_CELL) if tb_numel
+                 else (SCORE_ONLY_OPS_PER_CELL, SCORE_ONLY_MIN_OPS_PER_CELL))
+    ops_ms = cells * max(ops / ISSUE_OPS_PER_S, mins / ALU_OPS_PER_S) * 1e3
+    return sweep_bytes / HBM_BYTES_PER_S * 1e3, ops_ms
+
+
+def walk_bounds(ops: torch.Tensor) -> tuple[float, float]:
+    """(bytes, operations) bounds in ms of one walk launch that wrote ops:
+    a traceback byte read per step, the opcode rows written, the lengths
+    read; 25 instructions a step."""
+    steps = int((ops != 0).sum().item())
+    walk_bytes = steps + ops.numel() + 8 * ops.shape[0]
+    return walk_bytes / HBM_BYTES_PER_S * 1e3, steps * WALK_OPS_PER_STEP / ISSUE_OPS_PER_S * 1e3
 
 
 def ptxas_summary(log: str) -> list[str]:
@@ -632,15 +697,7 @@ def run(work: Path, name: str, smi: str, ptxas: list[str]) -> int:
     kernels = {}
     score_only = {}
 
-    def bounds(Q, T, ql, tl, W, tb_numel):
-        """(bytes, operations) bounds in ms of one sweep; tb_numel 0 is the
-        score-only mode."""
-        cells = int((ql + tl).to(torch.int64).sum().item()) * W
-        sweep_bytes = Q.numel() + T.numel() + 8 * Q.shape[0] + 4 * Q.shape[0] + tb_numel
-        ops, mins = ((SWEEP_OPS_PER_CELL, SWEEP_MIN_OPS_PER_CELL) if tb_numel
-                     else (SCORE_ONLY_OPS_PER_CELL, SCORE_ONLY_MIN_OPS_PER_CELL))
-        ops_ms = cells * max(ops / ISSUE_OPS_PER_S, mins / ALU_OPS_PER_S) * 1e3
-        return sweep_bytes / HBM_BYTES_PER_S * 1e3, ops_ms
+    bounds = sweep_bounds
 
     for label, d, n_jobs in (("largest", main_d, None), ("widest", wide_d, 7), ("window", win_d, 7)):
         band, tmax = d["band"], d["tmax"]
@@ -705,12 +762,10 @@ def run(work: Path, name: str, smi: str, ptxas: list[str]) -> int:
         walk_ms = cuda_ms(lambda: nw_cuda.nw_walk(tb, ql, tl, band=band, tmax=tmax), REPS)
         ops = nw_cuda.nw_walk(tb, ql, tl, band=band, tmax=tmax)
         steps = int((ops != 0).sum().item())
-        walk_bytes = steps + ops.numel() + 8 * B
         kernels[label] = {
             "shape": {"B": B, "W": W, "tmax": tmax},
             "sweep": (sweep_ms, *bounds(Q, T, ql, tl, W, tb.numel())),
-            "walk": (walk_ms, walk_bytes / HBM_BYTES_PER_S * 1e3,
-                     steps * WALK_OPS_PER_STEP / ISSUE_OPS_PER_S * 1e3),
+            "walk": (walk_ms, *walk_bounds(ops)),
             "sweep_occ": occ,
             "walk_occ": nw_cuda.walk_occupancy(),
             "wpp_ms": by_wpp,
@@ -754,6 +809,8 @@ def run(work: Path, name: str, smi: str, ptxas: list[str]) -> int:
     del Q, T, ql, tl, s_o, s_k, s_p
 
     long_out = run_long(work, smi, drive, shapes, ptxas)
+    sites = run_backends(work, smi, drive, shapes)
+    parity.extend(sites["parity"])
 
     big = kernels["largest"]
     out = []
@@ -776,6 +833,9 @@ def run(work: Path, name: str, smi: str, ptxas: list[str]) -> int:
                        "bound_ms": max(kernels[other][key][1:]), **kernels[other][f"{key}_occ"],
                        "warps_per_pair_ms": kernels[other]["wpp_ms"] if key == "sweep" else None}
                for other in ("widest", "window")},
+            # this slice's launch sites: the sweepga gap chunk and the
+            # inversion-aware window batch, each with its own path's launches
+            **{site: sites[site][key] for site in ("gap", "inversion")},
             "parity": parity, "tolerance": 0,
         })
     v = score_only["verify"]
@@ -787,7 +847,7 @@ def run(work: Path, name: str, smi: str, ptxas: list[str]) -> int:
         "ms": v["ms"], "plain_ms": v["plain_ms"], "bound_ms": max(v["bound"]),
         "bound_by": "bytes" if v["bound"][0] >= v["bound"][1] else "operations",
         "library_ms": None, **v["occ"], "shape": v["shape"], "full_mode_ms": v["full_mode_ms"],
-        "largest": score_only["largest"], "tolerance": 0,
+        "largest": score_only["largest"], "probe": sites["probe"], "tolerance": 0,
         "launches_path": "--wide-verify",
     })
     out.extend(long_out)
@@ -1084,6 +1144,240 @@ def run_long(work: Path, smi: str, drive, shapes, ptxas: list[str]) -> list[dict
     del carries, scores, ops, ops_long, ops_one, ops_w, mid_walk, tb_mid, tb_s
     torch.cuda.empty_cache()
     return out
+
+
+BACKEND_KERNELS = ("nw_sweep", "nw_walk")
+
+
+def run_backends(work: Path, smi: str, drive, shapes) -> dict:
+    """7. The sweepga backend and --inversion-aware on the headline corpus.
+
+    7a. ``--aligner sweepga --no-sort``: the JAX package's GFA
+        (SWEEPGA_GFA_SHA256), both kernels launched; then the same with the
+        layout (sorted graph isomorphic to the unsorted one, ids 1..N);
+    7b. kernels A and B against their plain versions on 7a's device gap
+        chunk (the inversion carrier's cores), with times and bounds;
+    7c. the orientation probe: ``--aligner sweepga --no-sort`` on probe_trio
+        must launch the score-only sweep; choose_orientations(PROBE_PAIRS)
+        on the card must be PROBE_ORIENTATIONS, and the probe's scores the
+        plain version's;
+    7d. ``--inversion-aware --no-sort``: the JAX package's GFA
+        (INVERSION_GFA_SHA256); each chunk's band and route, and the time
+        of the reverse pass's widest chunk (kernels A + B);
+    7e. kernels A and B against their plain versions on 7d's inversion
+        window batch, with times and bounds.
+    Returns the kernels line's entries of these launch sites ('gap',
+    'inversion' for kernels A and B, 'probe' for the score-only sweep) and
+    their parity records."""
+    from seqrush_tpu_torch.align.inversion import pack_inversion_batch
+    from seqrush_tpu_torch.align.pairs import all_ordered_pairs
+    from seqrush_tpu_torch.align.runner import RunnerConfig, WfaAligner, pack_probe
+    from seqrush_tpu_torch.align.sweep import SweepAligner, pack_gap_chunk
+    from seqrush_tpu_torch.graph.bigraph import parse_gfa
+    from seqrush_tpu_torch.ops import nw_cuda
+    from seqrush_tpu_torch.ops.wfa import Penalties
+    from seqrush_tpu_torch.pos import reverse_complement_codes
+    from seqrush_tpu_torch.scores import AlignmentScores
+    from seqrush_tpu_torch.sequences import make_sequence_set
+    from seqrush_tpu_torch.tools.isomorphic import isomorphic
+
+    dev = torch.device("cuda")
+    named = synth_hla()
+    fa = work / "hla25_backends.fa"
+    write_fasta(fa, named)
+    pairs = all_ordered_pairs(len(named))
+    n_pairs = len(pairs)
+    al = WfaAligner(make_sequence_set(named), RunnerConfig(scores=AlignmentScores.parse(SCORES)),
+                    device=dev)
+    pen = al._penalties()
+
+    def oriented(p, rc):
+        qi, tj = pairs[p]
+        return (al.rc_codes[qi] if rc else al.codes[qi]), al.codes[tj]
+
+    def on_card(arrays):
+        return tuple(torch.from_numpy(a).to(dev) for a in arrays)
+
+    def bound_entry(b):
+        return {"bound_ms": max(b), "bound_by": "bytes" if b[0] >= b[1] else "operations"}
+
+    def site(label, Q, T, ql, tl, band, tmax, launches):
+        """Kernels A and B on one launch site's inputs against their plain
+        versions (exact), then CUDA-event times of each."""
+        kw = dict(band=band, tmax=tmax, **pen)
+        s_k, tb_k = nw_cuda.nw_align(Q, T, ql, tl, **kw)
+        plain_a, (s_p, tb_p) = once_ms(lambda: nw_cuda.nw_align_reference(Q, T, ql, tl, **kw))
+        err_a = max(max_abs_err(s_k, s_p), max_abs_err(tb_k, tb_p))
+        del s_p, tb_p
+        ops_k = nw_cuda.nw_walk(tb_k, ql, tl, band=band, tmax=tmax)
+        plain_b, ops_p = once_ms(lambda: nw_cuda.nw_walk_reference(tb_k, ql, tl, band=band, tmax=tmax))
+        err_b = max_abs_err(ops_k, ops_p)
+        del ops_p
+        B, W = Q.shape[0], band + 1
+        print(f"parity {label}: B={B} W={W} tmax={tmax} Lq={Q.shape[1]} Lt={T.shape[1]} "
+              f"sweep max_abs_err={err_a} walk max_abs_err={err_b}")
+        if err_a or err_b:
+            raise AssertionError(f"kernel disagrees with its plain version ({label})")
+        a_ms = cuda_ms(lambda: nw_cuda.nw_align(Q, T, ql, tl, **kw), REPS)
+        b_ms = cuda_ms(lambda: nw_cuda.nw_walk(tb_k, ql, tl, band=band, tmax=tmax), REPS)
+        plan = nw_cuda.plan_sweep(B, W, Q.shape[1], T.shape[1])
+        a_b, b_b = sweep_bounds(Q, T, ql, tl, W, tb_k.numel()), walk_bounds(ops_k)
+        shape = {"B": B, "W": W, "tmax": tmax, "Lq": Q.shape[1], "Lt": T.shape[1]}
+        print(f"timing {label}: sweep {a_ms:.4f} ms (bound {max(a_b):.4f}, plain {plain_a:.1f}) walk "
+              f"{b_ms:.4f} ms (bound {max(b_b):.4f}, plain {plain_b:.1f}); {plan} | {smi}")
+        out = {
+            "sweep": {"shape": shape, "launches": launches["nw_sweep"], "ms": a_ms, "plain_ms": plain_a,
+                      **bound_entry(a_b), "max_abs_err": err_a, "route": plan.route,
+                      "lanes": plan.lanes, "warps_per_pair": plan.warps_per_pair},
+            "walk": {"shape": shape, "launches": launches["nw_walk"], "ms": b_ms, "plain_ms": plain_b,
+                     **bound_entry(b_b), "max_abs_err": err_b},
+        }
+        del s_k, tb_k, ops_k
+        torch.cuda.empty_cache()
+        return out, {"dispatch": label, "B": B, "W": W, "tmax": tmax, "sweep_err": err_a,
+                     "walk_err": err_b}
+
+    # 7a. --aligner sweepga, --no-sort and with the layout
+    gfa_ns, gfa_sorted = work / "hla25_sweepga_nosort.gfa", work / "hla25_sweepga.gfa"
+    rep, launches_sw, wall = drive(gfa_ns, "--aligner", "sweepga", "--no-sort",
+                                   kernels=BACKEND_KERNELS, fasta=fa)
+    st = rep["stats"]["aligner"]
+    digest = hashlib.sha256(gfa_ns.read_bytes()).hexdigest()
+    gaps = [d for d in st["dispatches"] if d["kind"] == "gap"]
+    counters = {k: st[k] for k in ("chains", "filtered_1to1", "host_windows", "run_overflows",
+                                   "dropped")}
+    print(f"--aligner sweepga --no-sort: total {wall:.2f} s; align phase "
+          f"{rep['phases_s']['align']:.4f} s = {rep['alignments_per_s']:.2f} alignments/s; "
+          f"{json.dumps(counters)}; device gap windows {sum(len(d['jobs']) for d in gaps)} in chunks "
+          f"{shapes(st, 'gap')} ([B, band, tmax, jobs]); launches {launches_sw}; graph "
+          f"{json.dumps(rep['graph'])}; GFA sha256 {digest} (JAX package's {SWEEPGA_GFA_SHA256}) | {smi}")
+    print("  phases_s " + json.dumps({k: round(v, 4) for k, v in rep["phases_s"].items()}))
+    if int(rep["counters"]["alignments"]) != n_pairs or rep["graph"]["paths"] != len(named):
+        raise AssertionError("the sweepga run did not align every pair into every path")
+    if digest != SWEEPGA_GFA_SHA256:
+        raise AssertionError("the sweepga --no-sort GFA is not the JAX package's")
+    rep_s, launches_s, wall_s = drive(gfa_sorted, "--aligner", "sweepga", kernels=BACKEND_KERNELS,
+                                      fasta=fa)
+    ph = rep_s["phases_s"]
+    print(f"--aligner sweepga (layout on): total {wall_s:.2f} s; align phase {ph['align']:.4f} s; "
+          f"layout {ph['layout']:.4f} s; launches {launches_s}; phases_s "
+          + json.dumps({k: round(v, 4) for k, v in ph.items()}))
+    g_sorted, g_ns = parse_gfa(gfa_sorted.read_text()), parse_gfa(gfa_ns.read_text())
+    same, why = isomorphic(g_sorted, g_ns)
+    if not same or sorted(g_sorted.nodes) != list(range(1, rep_s["graph"]["nodes"] + 1)):
+        raise AssertionError(f"the sorted sweepga graph is not the unsorted one renumbered: {why}")
+
+    # 7b. kernels A and B on the device gap chunk
+    d = max(gaps, key=lambda d: d["B"] * (d["band"] + 1) * d["tmax"])
+    jobs = []
+    for p, rc, q0, t0, nq, nt in d["jobs"]:
+        q, t = oriented(p, rc)
+        jobs.append((0, 0, q[q0 : q0 + nq], t[t0 : t0 + nt]))
+    Q, T, ql, tl, band, tmax = pack_gap_chunk(jobs)
+    if (Q.shape[0], band, tmax) != (d["B"], d["band"], d["tmax"]):
+        raise AssertionError("the rebuilt gap chunk has another shape")
+    gap_site, gap_par = site("gap", *on_card((Q, T, ql, tl)), band, tmax, launches_sw)
+
+    # 7c. the orientation probe
+    trio = probe_trio()
+    tfa = work / "trio.fa"
+    write_fasta(tfa, trio)
+    rep_t, launches_t, _wall_t = drive(work / "trio.gfa", "--aligner", "sweepga", "--no-sort",
+                                       kernels=("nw_sweep_score_only",), fasta=tfa)
+    tal = SweepAligner(make_sequence_set(trio), RunnerConfig(), device=dev)
+    probe_pairs = np.array(PROBE_PAIRS)
+    undecided = tal._orient_and_estimate(probe_pairs)[1]
+    got = tal.choose_orientations(probe_pairs).tolist()
+    (pd,) = [d for d in tal.stats["dispatches"] if d["kind"] == "probe"]
+    bq = [(tal.rc_codes if k % 2 else tal.codes)[PROBE_PAIRS[k // 2][0]] for (k,) in pd["jobs"]]
+    bt = [tal.codes[PROBE_PAIRS[k // 2][1]] for (k,) in pd["jobs"]]
+    Qn, Tn, qln, tln, pband, ptmax = pack_probe(bq, bt)
+    if (Qn.shape[0], pband, ptmax) != (pd["B"], pd["band"], pd["tmax"]):
+        raise AssertionError("the rebuilt probe chunk has another shape")
+    Q, T, ql, tl = on_card((Qn, Tn, qln, tln))
+    okw = dict(band=pband, tmax=ptmax, **Penalties(1, 1, 1).kernel_kwargs())
+    s_k, _ = nw_cuda.nw_align(Q, T, ql, tl, with_traceback=False, **okw)
+    plain_o, (s_p, _) = once_ms(lambda: nw_cuda.nw_align_reference(Q, T, ql, tl, with_traceback=False,
+                                                                   **okw))
+    err_o = max_abs_err(s_k, s_p)
+    o_ms = cuda_ms(lambda: nw_cuda.nw_align(Q, T, ql, tl, with_traceback=False, **okw), REPS)
+    o_b = sweep_bounds(Q, T, ql, tl, pband + 1, 0)
+    oplan = nw_cuda.plan_sweep(Q.shape[0], pband + 1, Q.shape[1], T.shape[1])
+    print(f"orientation probe (probe_trio, pairs {PROBE_PAIRS}): sketch-undecided "
+          f"{undecided.tolist()}; choose_orientations {got} (JAX package's {PROBE_ORIENTATIONS}); "
+          f"probe B={Q.shape[0]} W={pband + 1} tmax={ptmax} scores {s_k.tolist()} max_abs_err={err_o}; "
+          f"score-only {o_ms:.4f} ms (bound {max(o_b):.5f}, plain {plain_o:.1f}); trio CLI launches "
+          f"{launches_t}; {oplan} | {smi}")
+    if not undecided.all() or got != PROBE_ORIENTATIONS or err_o:
+        raise AssertionError("the orientation probe disagrees with the JAX package or its plain version")
+    probe = {"shape": {"B": Q.shape[0], "W": pband + 1, "tmax": ptmax, "Lq": Q.shape[1],
+                       "Lt": T.shape[1]},
+             "launches": launches_t["nw_sweep_score_only"], "ms": o_ms, "plain_ms": plain_o,
+             **bound_entry(o_b), "max_abs_err": err_o, "route": oplan.route,
+             "launches_path": "--aligner sweepga on probe_trio", "penalties": "one-piece 0,1,1,1"}
+    del Q, T, ql, tl, s_k, s_p
+
+    # 7d. --inversion-aware
+    gfa_inv = work / "hla25_inversion_nosort.gfa"
+    rep_i, launches_i, wall_i = drive(gfa_inv, "--inversion-aware", "--no-sort",
+                                      kernels=BACKEND_KERNELS, fasta=fa)
+    st_i = rep_i["stats"]["aligner"]
+    digest_i = hashlib.sha256(gfa_inv.read_bytes()).hexdigest()
+    (inv_d,) = [d for d in st_i["dispatches"] if d["kind"] == "inversion"]
+    routes = []
+    for cd in (d for d in st_i["dispatches"] if d["kind"] == "chunk"):
+        Qc, Tc, _qc, _tc, _tmax = al.pack_chunk([(p, bool(rc), cd["band"], *oriented(p, rc))
+                                                 for p, rc in cd["jobs"]])
+        plan = nw_cuda.plan_sweep(cd["B"], cd["band"] + 1, Qc.shape[1], Tc.shape[1])
+        routes.append([cd["B"], cd["band"], cd["tmax"], plan.route,
+                       "reverse" if all(rc for _p, rc in cd["jobs"]) else "forward"])
+    widest = max((cd for cd in st_i["dispatches"] if cd["kind"] == "chunk"
+                  and all(rc for _p, rc in cd["jobs"])), key=lambda cd: (cd["band"], cd["B"]))
+    Qw, Tw, qw, tw, wtmax = al.pack_chunk([(p, bool(rc), widest["band"], *oriented(p, rc))
+                                           for p, rc in widest["jobs"]])
+    Qw, Tw, qw, tw = on_card((Qw, Tw, qw, tw))
+    wkw = dict(band=widest["band"], tmax=wtmax, **pen)
+    widest_ms = cuda_ms(lambda: nw_cuda.nw_walk(nw_cuda.nw_align(Qw, Tw, qw, tw, **wkw)[1], qw, tw,
+                                                band=widest["band"], tmax=wtmax), REPS)
+    wplan = nw_cuda.plan_sweep(Qw.shape[0], widest["band"] + 1, Qw.shape[1], Tw.shape[1])
+    del Qw, Tw, qw, tw
+    torch.cuda.empty_cache()
+    counters = {k: st_i[k] for k in ("band_escalations", "anchored_pairs", "anchored_windows",
+                                     "host_windows", "anchored_fallbacks", "inversion_windows",
+                                     "inversion_patches", "cells_true", "cells_padded", "dropped")}
+    ph = rep_i["phases_s"]
+    print(f"--inversion-aware --no-sort: total {wall_i:.2f} s; {int(rep_i['counters']['alignments'])} "
+          f"alignments; align phase {ph['align']:.4f} s = {rep_i['alignments_per_s']:.2f} "
+          f"alignments/s; inversion_patch phase {ph['inversion_patch']:.4f} s; {json.dumps(counters)}; "
+          f"inversion window batch [B {inv_d['B']}, Lq {inv_d['Lq']}, band {inv_d['band']}, tmax "
+          f"{inv_d['tmax']}] of {len(inv_d['jobs'])} windows; launches {launches_i}; graph "
+          f"{json.dumps(rep_i['graph'])}; GFA sha256 {digest_i} (JAX package's "
+          f"{INVERSION_GFA_SHA256}) | {smi}")
+    print("  phases_s " + json.dumps({k: round(v, 4) for k, v in ph.items()}))
+    print(f"  chunks [B, band, tmax, route, pass] {json.dumps(routes)}; window chunks "
+          f"{shapes(st_i, 'window')}; reverse pass's widest chunk B={widest['B']} band="
+          f"{widest['band']} tmax={wtmax}: kernels A + B {widest_ms:.3f} ms on the {wplan.route} "
+          f"route | {smi}")
+    if int(rep_i["counters"]["alignments"]) != 2 * n_pairs or rep_i["graph"]["paths"] != len(named):
+        raise AssertionError("the inversion-aware run did not align every pair both ways")
+    if [inv_d["B"], inv_d["Lq"], inv_d["band"], inv_d["tmax"]] != INVERSION_BATCH_SHAPE:
+        raise AssertionError("the inversion window batch is not the JAX package's shape")
+    if digest_i != INVERSION_GFA_SHA256:
+        raise AssertionError("the --inversion-aware --no-sort GFA is not the JAX package's")
+
+    # 7e. kernels A and B on the inversion window batch
+    jobs = []
+    for qi, ti, qs, qe, ts, te in inv_d["jobs"]:
+        jobs.append((None, None, al.codes[qi][qs:qe],
+                     reverse_complement_codes(al.codes[ti][ts:te]).copy()))
+    Q, T, ql, tl, band, tmax = pack_inversion_batch(jobs)
+    if (Q.shape[0], Q.shape[1], band, tmax) != (inv_d["B"], inv_d["Lq"], inv_d["band"], inv_d["tmax"]):
+        raise AssertionError("the rebuilt inversion batch has another shape")
+    inv_site, inv_par = site("inversion", *on_card((Q, T, ql, tl)), band, tmax, launches_i)
+    inv_site["sweep"]["reverse_pass_widest_chunk"] = {
+        "B": widest["B"], "W": widest["band"] + 1, "tmax": wtmax, "route": wplan.route,
+        "sweep_and_walk_ms": widest_ms}
+    return {"gap": gap_site, "inversion": inv_site, "probe": probe, "parity": [gap_par, inv_par]}
 
 
 if __name__ == "__main__":

@@ -2,8 +2,9 @@
 hand-written CUDA kernels for Hopper.
 
 The PyTorch/CUDA port of ``seqrush_tpu``: FASTA in, all-pairs banded Gotoh
-alignment (a sweep kernel and a traceback-walk kernel), bidirected
-union-find, graph induction, compaction and GFA 1.0 out.  Entry points run
+alignment (a sweep kernel and a traceback-walk kernel; or the seed-and-extend
+sweepga backend, and the inversion-aware mode), bidirected union-find, graph
+induction, compaction, layout and GFA 1.0 out.  Entry points run
 on ``cuda`` unless the caller passes ``device="cpu"``, which runs the plain
 PyTorch versions of the kernels.
 """

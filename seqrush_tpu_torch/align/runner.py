@@ -30,6 +30,11 @@ that runs the sweep kernel and then the walk kernel per chunk:
   chunks queue behind them, and a job without a usable chain (or, under
   ``wide_verify``, with a stitch that is not optimal) goes back to the
   banded chunks.
+
+``choose_orientations`` is the orientation call of backends that align one
+orientation a pair (the sweepga backend): the sketch decides clear pairs,
+and the undecided ones are scored in both orientations by the score-only
+sweep with the orientation scores (one-piece penalties), in chunks of 64.
 """
 
 from __future__ import annotations
@@ -41,8 +46,9 @@ import numpy as np
 import torch
 
 from ..ops import anchors, nw, nw_cuda
+from ..ops.wfa import Penalties
 from ..pos import encode_bases, reverse_complement_codes
-from ..scores import AlignmentScores
+from ..scores import DEFAULT_ORIENTATION_SCORES, AlignmentScores
 from ..sequences import SequenceSet
 from ..utils import resolve_device
 from . import anchored
@@ -67,6 +73,8 @@ class AlignmentResult:
 @dataclass
 class RunnerConfig:
     scores: AlignmentScores = field(default_factory=AlignmentScores)
+    # penalties of choose_orientations' probe (a strict 4-tuple, one-piece)
+    orientation_scores: AlignmentScores = DEFAULT_ORIENTATION_SCORES
     max_divergence: float | None = None
     band_slack: int = 64  # minimum extra diagonals beyond the length difference
     # traceback-tensor budget per dispatch ([B, tmax, W] uint8).  Chunking
@@ -121,6 +129,37 @@ class RunnerConfig:
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def _next_pow2(x: int) -> int:
+    return 1 << max(0, (x - 1).bit_length())
+
+
+PROBE_CHUNK = 64  # orientation-probe pairs per score-only sweep
+
+
+def pack_probe(bq: list[np.ndarray], bt: list[np.ndarray]):
+    """Kernel inputs of one orientation-probe chunk: (Q [B, lq], T [B, lt]
+    uint8, qlens, tlens [B] int32, band, tmax) with B a power of two of at
+    least 8, lq and lt rounded to 256, tmax to 512, and the band
+    max(127, round_up(max |qlen - tlen| + 2, 128) - 1): both orientations of
+    a pair are banded alike, and only their order matters."""
+    B = max(_next_pow2(len(bq)), 8)
+    lq = _round_up(max(q.size for q in bq), 256)
+    lt = _round_up(max(t.size for t in bt), 256)
+    Q = np.full((B, lq), nw.QPAD, np.uint8)
+    T = np.full((B, lt), nw.TPAD, np.uint8)
+    qlens = np.zeros(B, np.int32)
+    tlens = np.zeros(B, np.int32)
+    for b, (q, t) in enumerate(zip(bq, bt)):
+        Q[b, : q.size] = q
+        T[b, : t.size] = t
+        qlens[b] = q.size
+        tlens[b] = t.size
+    diff = max(abs(int(q.size) - int(t.size)) for q, t in zip(bq, bt))
+    band = max(127, _round_up(diff + 2, 128) - 1)
+    tmax = _round_up(int((qlens + tlens).max()) + 1, 512)
+    return Q, T, qlens, tlens, band, tmax
 
 
 def _check_config(cfg: RunnerConfig) -> None:
@@ -185,7 +224,9 @@ class WfaAligner:
             # their segment length seg and count n_seg, the anchored route's
             # 'window' chunks, 'verify' sweeps), batch rows, band, tmax and
             # the jobs it carried ([pair index, reverse] for chunk, long and
-            # verify; see anchored._dispatch_window_chunk for windows)
+            # verify; see anchored._dispatch_window_chunk for windows, and
+            # choose_orientations' 'probe' sweeps, the sweepga backend's 'gap'
+            # chunks and the inversion-aware mode's 'inversion' batch)
             "dispatches": [],
         }
         # per-(sequence, orientation) minimizer cache of the anchored route
@@ -254,6 +295,54 @@ class WfaAligner:
             d_est = np.where(mixed, np.maximum(d_est, d_block), d_est)
         return is_rev, undecided, d_est
 
+    def choose_orientations(self, pairs: np.ndarray) -> np.ndarray:
+        """bool[P]: True where the query should be reverse-complemented.
+
+        Two-stage: the mash sketch comparison decides clear cases; the
+        undecided pairs are scored in both orientations by the score-only
+        sweep with the orientation scores (one-piece), and the lower score
+        wins (ties and unfinished probes keep forward)."""
+        osc = self.cfg.orientation_scores
+        out, undecided_mask, _ = self._orient_and_estimate(pairs)
+        out = out.copy()
+        undecided = [p for p in range(len(pairs)) if undecided_mask[p]]
+        if not undecided:
+            return out
+        qs, ts = [], []
+        for p in undecided:
+            i, j = pairs[p]
+            qs.append(self.codes[i])
+            ts.append(self.codes[j])
+            qs.append(self.rc_codes[i])
+            ts.append(self.codes[j])
+        pen = Penalties(osc.mismatch_penalty, osc.gap1_open, osc.gap1_extend)
+        scores = self._score_batches(qs, ts, pen)
+        fwd = scores[0::2]
+        rev = scores[1::2]
+        # unfinished probes (-1) rank worst
+        fwd = np.where(fwd < 0, np.iinfo(np.int32).max, fwd)
+        rev = np.where(rev < 0, np.iinfo(np.int32).max, rev)
+        for k, p in enumerate(undecided):
+            out[p] = rev[k] < fwd[k]
+        return out
+
+    def _score_batches(self, qs, ts, pen: Penalties) -> np.ndarray:
+        """Scores of the (qs[k], ts[k]) alignments from the score-only sweep,
+        in chunks of PROBE_CHUNK sorted by length (pack_probe's shapes)."""
+        out = np.full(len(qs), -1, dtype=np.int64)
+        idx = np.argsort([max(q.size, t.size) for q, t in zip(qs, ts)], kind="stable")
+        for lo in range(0, len(idx), PROBE_CHUNK):
+            sel = idx[lo : lo + PROBE_CHUNK]
+            Q, T, qlens, tlens, band, tmax = pack_probe([qs[k] for k in sel], [ts[k] for k in sel])
+            self.stats["dispatches"].append(
+                {"kind": "probe", "B": Q.shape[0], "band": band, "tmax": tmax,
+                 "jobs": [[int(k)] for k in sel]})
+            Qd, Td, qd, td = (torch.from_numpy(a).to(self.device) for a in (Q, T, qlens, tlens))
+            scores, _ = nw_cuda.nw_align(Qd, Td, qd, td, band=band, tmax=tmax,
+                                         with_traceback=False, **pen.kernel_kwargs())
+            out[sel] = scores.cpu().numpy()[: len(sel)]
+        return out
+
     def _sketch_orientation_distances(self, pairs: np.ndarray):
         """Mash distances (q fwd vs t, q RC vs t) for every pair."""
         from ..ops.kmer import mash_distance_batch, mash_sketches
@@ -305,15 +394,7 @@ class WfaAligner:
         return sc.gap1_extend, sc.gap1_open
 
     def _penalties(self) -> dict:
-        sc = self.cfg.scores
-        two = sc.has_two_piece
-        return dict(
-            mismatch=sc.mismatch_penalty,
-            o1=sc.gap1_open,
-            e1=sc.gap1_extend,
-            o2=sc.gap2_open if two else -1,
-            e2=sc.gap2_extend if two else -1,
-        )
+        return Penalties.from_scores(self.cfg.scores).kernel_kwargs()
 
     def _quantize_band(self, k: int, qlen: int, tlen: int) -> int:
         # lane width W = k+1 in multiples of 128; coarser 256 quanta above

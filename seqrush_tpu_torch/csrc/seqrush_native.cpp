@@ -1,13 +1,16 @@
-// Host library of seqrush_tpu_torch: the anchored wide route's colinear
-// anchor chaining and its exact window DP, as a plain C ABI loaded with
-// ctypes (seqrush_tpu_torch/native.py).
+// Host library of seqrush_tpu_torch: the colinear anchor chaining and the
+// exact window DP of the anchored wide route and the sweepga backend, and
+// the sweepga backend's record stitch, as a plain C ABI loaded with ctypes
+// (seqrush_tpu_torch/native.py).
 //
-// A copy of the route's part of the JAX package's csrc/seqrush_native.cpp:
+// A copy of those parts of the JAX package's csrc/seqrush_native.cpp:
 // chain_anchors, chain_to_runs_cpp and chain_pairs (bit-identical to
-// ops/anchors.py chain_anchors + chain_to_runs per pair), and window_dp_one
+// ops/anchors.py chain_anchors_multi + chain_to_runs per pair), window_dp_one
 // and window_dp (full-matrix two-piece Gotoh with the kernels' walk-order tie
-// preference).  The arithmetic is unchanged, so both libraries give the same
-// chains, scores and CIGARs; native.py compiles this file with
+// preference), and stitch_records (bit-identical to
+// align/sweep.py::SweepAligner._stitch_python).  The arithmetic is
+// unchanged, so both libraries give the same chains, scores, CIGARs and
+// records; native.py compiles this file with
 // -ffp-contract=off so that the chain score, a sum of doubles, is rounded
 // the same way on every host.
 
@@ -401,6 +404,81 @@ int64_t window_dp(const uint8_t* qbuf, const int64_t* qoffs,
     for (auto& th : threads) th.join();
   }
   return 0;
+}
+
+// Stitch chain runs + gap-fill CIGARs into per-record run-length CIGARs
+// (the sweepga backend's record assembly, align/sweep.py stage 3; the
+// plain Python version is SweepAligner._stitch_python).  Inputs:
+//   runs_q/runs_t/runs_len: all surviving records' exact-match runs,
+//     concatenated; rec_off [R+1] delimits records.
+//   gap table: gap g covers the inter-run gap AFTER global run index
+//     gap_ids[g] (sorted ascending); its run-length items are
+//     gap_ops/gap_lens[gap_off[g] .. gap_off[g+1]).  Ops: 0 '=', 1 'X',
+//     2 'I' (consumes query), 3 'D' (consumes target) — the window_dp
+//     convention.  Gaps not in the table fall back to pure I then D from
+//     the run deltas (align/sweep.py's "touching next run" branch).
+// Adjacent equal-op items merge at every append (sources are internally
+// run-length coalesced, so this equals the Python stitch's
+// boundary-merge).  Scores use the two-piece gap cost over the MERGED
+// items, matching align/sweep.py::_cigar_cost.
+// Outputs: out_ops/out_lens flat with out_off [R+1]; out_scores [R].
+// Caller capacity for out_ops/out_lens: rec_off[R] + gap_off[G] + 2*rec_off[R].
+// Returns total emitted items.
+int64_t stitch_records(const int64_t* runs_q, const int64_t* runs_t,
+                       const int64_t* runs_len, const int64_t* rec_off,
+                       int64_t R, const uint8_t* gap_ops,
+                       const int32_t* gap_lens, const int64_t* gap_off,
+                       const int64_t* gap_ids, int64_t G, int32_t mismatch,
+                       int32_t o1, int32_t e1, int32_t o2, int32_t e2,
+                       uint8_t* out_ops, int32_t* out_lens, int64_t* out_off,
+                       int64_t* out_scores) {
+  const bool two = o2 >= 0;
+  int64_t pos = 0;
+  int64_t gi = 0;
+  out_off[0] = 0;
+  for (int64_t r = 0; r < R; ++r) {
+    const int64_t first = pos;
+    auto emit = [&](int64_t n, uint8_t op) {
+      if (n <= 0) return;
+      if (pos > first && out_ops[pos - 1] == op) {
+        out_lens[pos - 1] += (int32_t)n;
+      } else {
+        out_ops[pos] = op;
+        out_lens[pos] = (int32_t)n;
+        ++pos;
+      }
+    };
+    for (int64_t i = rec_off[r]; i < rec_off[r + 1]; ++i) {
+      emit(runs_len[i], 0);
+      if (i + 1 < rec_off[r + 1]) {
+        while (gi < G && gap_ids[gi] < i) ++gi;
+        if (gi < G && gap_ids[gi] == i) {
+          for (int64_t j = gap_off[gi]; j < gap_off[gi + 1]; ++j)
+            emit(gap_lens[j], gap_ops[j]);
+        } else {
+          emit(runs_q[i + 1] - (runs_q[i] + runs_len[i]), 2);
+          emit(runs_t[i + 1] - (runs_t[i] + runs_len[i]), 3);
+        }
+      }
+    }
+    int64_t score = 0;
+    for (int64_t p = first; p < pos; ++p) {
+      const int64_t n = out_lens[p];
+      if (out_ops[p] == 1) {
+        score += n * (int64_t)mismatch;
+      } else if (out_ops[p] >= 2) {
+        int64_t g1 = (int64_t)o1 + n * (int64_t)e1;
+        if (two) {
+          const int64_t g2 = (int64_t)o2 + n * (int64_t)e2;
+          if (g2 < g1) g1 = g2;
+        }
+        score += g1;
+      }
+    }
+    out_scores[r] = score;
+    out_off[r + 1] = pos;
+  }
+  return pos;
 }
 
 }  // extern "C"

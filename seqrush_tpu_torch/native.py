@@ -1,6 +1,11 @@
 """ctypes loader for the port's host library (``csrc/seqrush_native.cpp``):
-the anchored wide route's anchor chaining (``chain_pairs_native``) and its
-exact host window DP (``window_dp_native``).
+the anchor chaining (``chain_pairs_native``) and the exact host window DP
+(``window_dp_native``) of the anchored wide route and the sweepga backend,
+and the sweepga backend's record stitch (``stitch_records_native``).
+
+Penalties come in one form, the dict of ``ops/wfa.py::Penalties.
+kernel_kwargs`` (mismatch, o1, e1, o2, e2; o2 < 0: one-piece), which the
+kernels take too.
 
 The library is compiled with ``g++`` at first use into
 ``build/seqrush_tpu_torch/`` at the repository root, under a file name that
@@ -77,6 +82,11 @@ def get_lib() -> ctypes.CDLL:
                 i32p, i64p, u8p, i32p, i64p,
             ]
             lib.window_dp.restype = i64
+            lib.stitch_records.argtypes = [
+                i64p, i64p, i64p, i64p, i64, u8p, i32p, i64p, i64p, i64,
+                i32, i32, i32, i32, i32, u8p, i32p, i64p, i64p,
+            ]
+            lib.stitch_records.restype = i64
             _lib = lib
         return _lib
 
@@ -124,16 +134,23 @@ def chain_pairs_native(
 _OP_CHARS = ("=", "X", "I", "D")
 
 
-def window_dp_native(qs: list[np.ndarray], ts: list[np.ndarray], pen: dict, threads: int = 8):
+def window_dp_native(qs: list[np.ndarray], ts: list[np.ndarray], pen: dict, threads: int = 8,
+                     flat: bool = False):
     """Batched exact two-piece-affine window DP on the host (C++, threaded).
 
     ``pen`` holds mismatch, o1, e1, o2, e2 (o2 < 0: one-piece).  Scores are
     the exact global optima; CIGARs follow the kernels' walk-order tie
     preference (diag, D1, I1, D2, I2).  Returns (scores [n] int64, items:
-    one run-length list of (length, op) per window)."""
+    one run-length list of (length, op) per window).  With ``flat=True`` the
+    items stay flat arrays, (scores, ops [uint8], lens [int32], counts [n],
+    item_offs [n+1]): window w's items are ops/lens[item_offs[w] ..
+    item_offs[w] + counts[w]), for stitch_records_native."""
     lib = get_lib()
     n = len(qs)
     if n == 0:
+        if flat:
+            return (np.zeros(0, np.int64), np.zeros(0, np.uint8), np.zeros(0, np.int32),
+                    np.zeros(0, np.int64), np.zeros(1, np.int64))
         return np.zeros(0, np.int64), []
     qoffs = np.zeros(n + 1, np.int64)
     toffs = np.zeros(n + 1, np.int64)
@@ -159,6 +176,8 @@ def window_dp_native(qs: list[np.ndarray], ts: list[np.ndarray], pen: dict, thre
         pen["mismatch"], pen["o1"], pen["e1"], pen["o2"], pen["e2"], threads,
         i32p(scores), _i64p(item_offs), u8p(ops), i32p(lens), _i64p(counts),
     )
+    if flat:
+        return scores.astype(np.int64), ops, lens, counts, item_offs
     # gather the used (op, len) entries flat, decode the ops in one take,
     # then slice per window
     total = int(counts.sum())
@@ -174,3 +193,51 @@ def window_dp_native(qs: list[np.ndarray], ts: list[np.ndarray], pen: dict, thre
     bounds = np.cumsum(counts).tolist()
     items = [pairs_flat[a:b] for a, b in zip([0] + bounds[:-1], bounds)]
     return scores.astype(np.int64), items
+
+
+def stitch_records_native(
+    runs_q: np.ndarray,
+    runs_t: np.ndarray,
+    runs_len: np.ndarray,
+    rec_off: np.ndarray,
+    gap_ops: np.ndarray,
+    gap_lens: np.ndarray,
+    gap_off: np.ndarray,
+    gap_ids: np.ndarray,
+    pen: dict,
+):
+    """Assemble per-record run-length CIGARs from chain runs and gap fills
+    in one C++ call (the sweepga backend's stage 3; bit-identical to
+    SweepAligner._stitch_python).  Record r owns the flat runs
+    [rec_off[r], rec_off[r+1]); gap g is the gap after flat run gap_ids[g]
+    (ascending), with items gap_ops/gap_lens[gap_off[g] .. gap_off[g+1]);
+    ops are 0 '=', 1 'X', 2 'I', 3 'D'.  ``pen`` as for window_dp_native.
+
+    Returns (ops [uint8], lens [int32], out_off [R+1], scores [R] int64)."""
+    lib = get_lib()
+    R = int(rec_off.size) - 1
+    nr = int(rec_off[-1])
+    G = int(gap_ids.size)
+    cap = 3 * max(nr, 1) + int(gap_off[-1]) + 8
+    runs_q = np.ascontiguousarray(runs_q, dtype=np.int64)
+    runs_t = np.ascontiguousarray(runs_t, dtype=np.int64)
+    runs_len = np.ascontiguousarray(runs_len, dtype=np.int64)
+    rec_off = np.ascontiguousarray(rec_off, dtype=np.int64)
+    gap_ops = np.ascontiguousarray(gap_ops, dtype=np.uint8)
+    gap_lens = np.ascontiguousarray(gap_lens, dtype=np.int32)
+    gap_off = np.ascontiguousarray(gap_off, dtype=np.int64)
+    gap_ids = np.ascontiguousarray(gap_ids, dtype=np.int64)
+    out_ops = np.zeros(cap, np.uint8)
+    out_lens = np.zeros(cap, np.int32)
+    out_off = np.zeros(R + 1, np.int64)
+    out_scores = np.zeros(max(R, 1), np.int64)
+    u8p = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+    i32p = lambda a: a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+    total = lib.stitch_records(
+        _i64p(runs_q), _i64p(runs_t), _i64p(runs_len), _i64p(rec_off), R,
+        u8p(gap_ops), i32p(gap_lens), _i64p(gap_off), _i64p(gap_ids), G,
+        pen["mismatch"], pen["o1"], pen["e1"], pen["o2"], pen["e2"],
+        u8p(out_ops), i32p(out_lens), _i64p(out_off), _i64p(out_scores),
+    )
+    total = int(total)
+    return out_ops[:total], out_lens[:total], out_off, out_scores[:R]

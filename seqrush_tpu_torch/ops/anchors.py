@@ -1,13 +1,17 @@
-"""Minimizer anchors and colinear chaining for the anchored wide route.
+"""Minimizer anchors and colinear chaining: the anchored wide route and the
+sweepga backend.
 
-A copy of the part of ``seqrush_tpu/ops/anchors.py`` the route uses:
-exact-match minimizer anchors between a pair (every k-mer is packed exactly
-into int64, 2 bits a base, so an anchor is an exact match by construction)
-and the colinear chaining DP over them.
+A copy of ``seqrush_tpu/ops/anchors.py``: exact-match minimizer anchors
+between a pair (every k-mer is packed exactly into int64, 2 bits a base, so
+an anchor is an exact match by construction), the colinear chaining DP over
+them, the extraction of several disjoint chains a pair (the sweepga
+backend's candidate mappings), and the merge of a chain into exact-match
+runs.
 
-``chain_anchors`` and ``chain_to_runs`` here are the plain Python version of
-the host library's ``chain_pairs`` (``native.chain_pairs_native``), which the
-route runs; the tests hold the two equal.
+``chain_anchors``, ``chain_anchors_multi`` and ``chain_to_runs`` here are the
+plain Python version of the host library's ``chain_pairs``
+(``native.chain_pairs_native``), which both users run; the tests hold the
+two equal.
 """
 
 from __future__ import annotations
@@ -52,6 +56,24 @@ def minimizers(codes: np.ndarray, k: int = 15, w: int = 10) -> tuple[np.ndarray,
         arg = np.argmin(stack, axis=1) + np.arange(m)
         sel = np.unique(arg)
     return pos[sel], vals[sel]
+
+
+def anchor_matches(
+    q_codes: np.ndarray,
+    t_codes: np.ndarray,
+    k: int = 15,
+    w: int = 10,
+    max_freq: int | None = None,
+) -> np.ndarray:
+    """[A, 2] (qpos, tpos) exact k-mer anchors between minimizer sets.
+
+    ``max_freq`` is the seed-frequency cutoff (the ``--frequency`` flag): a
+    query minimizer whose value occurs more than max_freq times in the
+    target's minimizer index is not used as a seed, so repeat k-mers do not
+    explode the anchor list or seed repeat-to-repeat chains."""
+    return anchor_matches_from_minimizers(
+        minimizers(q_codes, k, w), minimizers(t_codes, k, w), max_freq=max_freq
+    )
 
 
 def sort_minimizers(
@@ -142,15 +164,74 @@ def chain_anchors(
         chain.append(end)
         end = int(pred[end])
     chain.reverse()
-    return a[chain]
+    return _keep_increasing(a[chain])
+
+
+def _keep_increasing(out: np.ndarray) -> np.ndarray:
+    """Drop anchors overlapping their predecessor inconsistently.  Chains
+    from the DP are already strictly increasing on both axes (pred edges
+    require qj < qi and tj < ti), so the common case is a vectorized no-op
+    check; the sequential filter only runs when a violation exists."""
+    if out.shape[0] <= 1 or (
+        (np.diff(out[:, 0]) > 0).all() and (np.diff(out[:, 1]) > 0).all()
+    ):
+        return out
+    keep = [0]
+    for i in range(1, out.shape[0]):
+        if out[i, 0] > out[keep[-1], 0] and out[i, 1] > out[keep[-1], 1]:
+            keep.append(i)
+    return out[keep]
+
+
+def chain_anchors_multi(
+    anchors: np.ndarray,
+    k: int = 15,
+    max_chains: int = 16,
+    min_matched: int = 50,
+    max_gap: int = DEFAULT_MAX_GAP,
+    max_skew: int = DEFAULT_MAX_SKEW,
+) -> list[np.ndarray]:
+    """Extract up to ``max_chains`` disjoint colinear chains, best first.
+
+    After each best chain is extracted, anchors inside its query-AND-target
+    span are removed (same block), while anchors mapping the same query span
+    to a different target span (repeat copies) or vice versa survive to seed
+    secondary chains.  A chain whose exact-matched base count falls below
+    ``min_matched`` stops the extraction (it is kept only as the first)."""
+    chains: list[np.ndarray] = []
+    remaining = anchors
+    while remaining.shape[0] and len(chains) < max_chains:
+        chain = chain_anchors(remaining, k, max_gap=max_gap, max_skew=max_skew)
+        if chain.shape[0] == 0:
+            break
+        matched = sum(n for _q, _t, n in chain_to_runs(chain, k))
+        if matched < min_matched and chains:
+            break
+        chains.append(chain)
+        if matched < min_matched:
+            break
+        q0, q1 = int(chain[0, 0]), int(chain[-1, 0]) + k
+        t0, t1 = int(chain[0, 1]), int(chain[-1, 1]) + k
+        inside = (
+            (remaining[:, 0] >= q0)
+            & (remaining[:, 0] < q1)
+            & (remaining[:, 1] >= t0)
+            & (remaining[:, 1] < t1)
+        )
+        if not inside.any():
+            break  # chain removed nothing: avoid an endless loop
+        remaining = remaining[~inside]
+    return chains
 
 
 def chain_to_runs(chain: np.ndarray, k: int) -> list[tuple[int, int, int]]:
     """Merge chained anchors into maximal exact-match runs
     (q_start, t_start, len).  Colinear overlapping anchors coalesce;
     different-diagonal overlaps are trimmed so consecutive runs never overlap
-    on either sequence.  The chain must increase strictly on both axes, as
-    chain_anchors' chains do (a predecessor lies below and left)."""
+    on either sequence.
+
+    Vectorized for the strictly increasing chains chain_anchors emits; any
+    other chain goes to the sequential spec, chain_to_runs_spec."""
     chain = np.asarray(chain)
     n = chain.shape[0]
     if n == 0:
@@ -158,7 +239,7 @@ def chain_to_runs(chain: np.ndarray, k: int) -> list[tuple[int, int, int]]:
     q = chain[:, 0].astype(np.int64)
     t = chain[:, 1].astype(np.int64)
     if n > 1 and not ((np.diff(q) > 0).all() and (np.diff(t) > 0).all()):
-        raise ValueError("chain_to_runs needs a chain increasing on both axes")
+        return chain_to_runs_spec(chain, k)
     # coalescing groups: break at diagonal change or an on-diagonal gap.
     # Within a group, end = last anchor + k; starts may later be trimmed,
     # which never changes ends.  Strict increase bounds every trim at < k
@@ -182,3 +263,27 @@ def chain_to_runs(chain: np.ndarray, k: int) -> list[tuple[int, int, int]]:
     q0 = q0 + delta
     t0 = t0 + delta
     return list(zip(q0.tolist(), t0.tolist(), (end_q - q0).tolist()))
+
+
+def chain_to_runs_spec(chain: np.ndarray, k: int) -> list[tuple[int, int, int]]:
+    """Sequential reference semantics for chain_to_runs (any input)."""
+    runs: list[list[int]] = []
+    for qpos, tpos in chain:
+        qpos, tpos = int(qpos), int(tpos)
+        if runs:
+            q0, t0, ln = runs[-1]
+            # same diagonal and overlapping/adjacent -> extend
+            if qpos - q0 == tpos - t0 and qpos <= q0 + ln:
+                runs[-1][2] = max(ln, qpos + k - q0)
+                continue
+            # different diagonal: trim this run's start past the previous end
+            delta = max(q0 + ln - qpos, t0 + ln - tpos, 0)
+            if delta >= k:
+                continue  # fully shadowed by the previous run
+            if delta > 0:
+                qpos += delta
+                tpos += delta
+                runs.append([qpos, tpos, k - delta])
+                continue
+        runs.append([qpos, tpos, k])
+    return [tuple(r) for r in runs]

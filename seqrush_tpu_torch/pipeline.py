@@ -3,13 +3,15 @@
 The port of ``seqrush_tpu/pipeline.py``:
 
   load -> pre-unite F/R of every offset -> [PAF replay | batched banded
-  alignment of all pairs (sparsified) | iterative two-phase] -> bulk unite
-  on the device -> induce graph -> compact and renumber (unless
-  --no-compact) -> Ygs (unless --no-sort) -> validate that every path
-  reconstructs its input -> GFA 1.0.
+  alignment of all pairs (sparsified; --aligner sweepga: seed, chain, 1:1
+  filter and gap fill) | iterative two-phase | --inversion-aware: every
+  pair forward and reverse, then reverse-complement patches of the forward
+  alignments' divergent gaps] -> bulk unite on the device -> induce graph
+  -> compact and renumber (unless --no-compact) -> Ygs (unless --no-sort)
+  -> validate that every path reconstructs its input -> GFA 1.0.
 
-Inversion-aware, sweepga, mesh and multi-host modes are not ported yet and
-raise ``NotImplementedError`` naming their ROADMAP item.
+Mesh and multi-host modes are not ported yet and raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -48,8 +50,6 @@ ITER_DISPATCH = 250
 def unsupported_reason(args: Args) -> str | None:
     """Why this package cannot align under ``args`` yet, or None when it can."""
     checks = (
-        (args.inversion_aware, "inversion-aware mode is not ported yet (ROADMAP item 11)"),
-        (args.aligner != "allwave", "the sweepga backend is not ported yet (ROADMAP item 11)"),
         (bool(args.mesh_devices), "mesh alignment is not ported yet (ROADMAP item 12)"),
     )
     for bad, why in checks:
@@ -155,6 +155,7 @@ class SeqRushTorch:
             cfg_kw["memory_budget_bytes"] = args.memory_budget_bytes
         cfg = RunnerConfig(
             scores=AlignmentScores.parse(args.scores),
+            orientation_scores=AlignmentScores.parse_orientation(args.orientation_scores),
             max_divergence=args.max_divergence,
             band_slack=args.band_slack,
             verbose=args.verbose,
@@ -189,6 +190,11 @@ class SeqRushTorch:
         if args.iterative:
             with self.timer.phase("align"):
                 self._align_iterative(aligner, kdist, spars)
+        elif args.inversion_aware:
+            pairs = schedule_pairs(n, spars, seed=args.seed, kmer_distances=kdist)
+            if args.verbose:
+                print(f"Total sequence pairs: {len(pairs)} (sparsification: {spars.kind})")
+            self._align_inversion_aware(aligner, pairs, sparsified)
         else:
             pairs = schedule_pairs(n, spars, seed=args.seed, kmer_distances=kdist)
             if args.verbose:
@@ -204,6 +210,28 @@ class SeqRushTorch:
         with self.timer.phase("unite"):
             self._flush_unites()
         self.stats["aligner"] = aligner.stats
+
+    def _align_inversion_aware(self, aligner: WfaAligner, pairs, sparsified: bool) -> None:
+        """The reference's inversion-aware mode: every pair aligns forward
+        AND fully reverse-complemented, and the divergent gaps of the forward
+        alignments re-align as reverse-complement patches, accepted when
+        their score is under half the forward score."""
+        from .align.inversion import inversion_patch_alignments
+
+        P = len(pairs)
+        with self.timer.phase("align"):
+            res_f = aligner.align_pairs_oriented(pairs, np.zeros(P, bool))
+            res_r = aligner.align_pairs_oriented(pairs, np.ones(P, bool))
+        results = res_f + res_r
+        self.timer.count("alignments", len(results))
+        if not sparsified:
+            self._paf_out(results)
+        with self.timer.phase("unite"):
+            for res in results:
+                self._result_to_unites(res, self.args.min_match_length)
+        with self.timer.phase("inversion_patch"):
+            u, v = inversion_patch_alignments(res_f, aligner, self.args.min_match_length)
+        self._queue_unites(u, v)
 
     def _align_iterative(self, aligner: WfaAligner, kdist, spars) -> None:
         """Two-phase iterative alignment with stabilization detection

@@ -540,3 +540,135 @@ def test_long_route_launches_and_equals_single_shot(cuda):
     assert torch.equal(scores, s_one)
     assert torch.equal(ops[:, : t_need + 1], ops_one[:, : t_need + 1])
     assert not ops[:, t_need + 1 :].any() and not ops_one[:, t_need + 1 :].any()
+
+
+@pytest.mark.parametrize("osc", [(1, 1, 1), (2, 3, 1)])
+def test_orientation_probe_score_only_one_piece_band_127(cuda, osc):
+    """choose_orientations' probe shape: score-only, one-piece penalties
+    (the orientation scores), band 127, lengths rounded to 256 and tmax to
+    512, a batch of a power of two: scores equal the plain version's and the
+    full sweep's, and the choice equals the plain version's choice."""
+    from seqrush_tpu_torch.align.runner import RunnerConfig, WfaAligner, pack_probe
+    from seqrush_tpu_torch.scores import AlignmentScores
+    from seqrush_tpu_torch.sequences import make_sequence_set
+
+    import chip_smoke
+
+    named = chip_smoke.probe_trio()
+    seqs = make_sequence_set(named)
+    pairs = np.array(chip_smoke.PROBE_PAIRS)
+    cfg = RunnerConfig(orientation_scores=AlignmentScores(0, *osc, None, None))
+    al = WfaAligner(seqs, cfg, device=cuda)
+    qs, ts = [], []
+    for i, j in pairs:
+        qs += [al.codes[i], al.rc_codes[i]]
+        ts += [al.codes[j], al.codes[j]]
+    Q, T, ql, tl, band, tmax = pack_probe(qs, ts)
+    assert (Q.shape[0], band, tmax) == (8, 127, 1536)
+    Q, T, ql, tl = (torch.from_numpy(a).to(cuda) for a in (Q, T, ql, tl))
+    kw = dict(mismatch=osc[0], o1=osc[1], e1=osc[2], o2=-1, e2=-1, band=band, tmax=tmax)
+    before = nw_cuda.LAUNCHES["nw_sweep_score_only"]
+    s_k, none = nw_cuda.nw_align(Q, T, ql, tl, with_traceback=False, **kw)
+    torch.cuda.synchronize()
+    assert none is None and nw_cuda.LAUNCHES["nw_sweep_score_only"] == before + 1
+    s_p, _ = nw_cuda.nw_align_reference(Q, T, ql, tl, with_traceback=False, **kw)
+    s_f, _tb = nw_cuda.nw_align(Q, T, ql, tl, **kw)
+    assert torch.equal(s_k, s_p) and torch.equal(s_k, s_f) and (s_k >= 0).all()
+    cpu = WfaAligner(seqs, cfg, device="cpu").choose_orientations(pairs)
+    assert al.choose_orientations(pairs).tolist() == cpu.tolist()
+
+
+@pytest.mark.parametrize("sizes,diff", [((40, 100, 128), 70), ((500, 900, 1178), 20), ((3, 7, 60), 0)])
+def test_gap_chunk_shapes_equal_plain(cuda, sizes, diff):
+    """The sweepga gap chunk (pack_gap_chunk): B a power of two of at least
+    8 with padding rows, lengths rounded to 128, tmax to 256, and the band
+    capped at max(lq, lt) + 1 where the length difference is large.  Scores,
+    the traceback and the opcodes equal the plain versions exactly."""
+    from seqrush_tpu_torch.align.sweep import pack_gap_chunk
+
+    rng = np.random.default_rng(sum(sizes) + diff)
+    jobs = []
+    for k, n in enumerate(sizes * 2):
+        q = rng.integers(0, 4, n).astype(np.uint8)
+        t = q.copy()
+        t[rng.integers(0, n, max(n // 20, 1))] = rng.integers(0, 4, max(n // 20, 1))
+        if k % 2:
+            t = (3 - t[::-1]).copy()
+        t = t[: max(n - diff, 1)] if n == max(sizes) else t
+        jobs.append((0, k, q, t))
+    Q, T, ql, tl, band, tmax = pack_gap_chunk(jobs)
+    if diff >= 64:
+        assert band == max(Q.shape[1], T.shape[1]) + 1
+    assert Q.shape[0] == 8 and tmax % 256 == 0 and Q.shape[1] % 128 == 0
+    Q, T, ql, tl = (torch.from_numpy(a).to(cuda) for a in (Q, T, ql, tl))
+    kw = _penalties(True, band, tmax)
+    s_k, tb_k = nw_cuda.nw_align(Q, T, ql, tl, **kw)
+    ops_k = nw_cuda.nw_walk(tb_k, ql, tl, band=band, tmax=tmax)
+    torch.cuda.synchronize()
+    s_p, tb_p = nw_cuda.nw_align_reference(Q, T, ql, tl, **kw)
+    ops_p = nw_cuda.nw_walk_reference(tb_k, ql, tl, band=band, tmax=tmax)
+    assert torch.equal(s_k, s_p) and (s_k[: len(jobs)] >= 0).all()
+    assert torch.equal(tb_k, tb_p) and torch.equal(ops_k, ops_p)
+
+
+@pytest.mark.parametrize("n_win,two_piece", [(5, True), (11, True), (9, False)])
+def test_inversion_batch_unrounded_equals_plain(cuda, n_win, two_piece):
+    """The inversion-aware window batch (pack_inversion_batch): Q and T
+    widths lq + 1 and lt + 1, not rounded; tmax = max(qlen + tlen) + 1; the
+    band max(64, |diff| + 64) capped at max(lq, lt) + 1.  Kernel A and
+    kernel B equal their plain versions exactly."""
+    from types import SimpleNamespace
+
+    from seqrush_tpu_torch.align.inversion import pack_inversion_batch
+
+    rng = np.random.default_rng(n_win)
+    jobs = []
+    for k in range(n_win):
+        n = int(rng.integers(20, 300))
+        q = rng.integers(0, 4, n).astype(np.uint8)
+        t = (3 - q[::-1]).copy()
+        t[rng.integers(0, n, max(n // 25, 1))] = rng.integers(0, 4, max(n // 25, 1))
+        if k % 3 == 1:
+            t = t[: n - int(rng.integers(1, 40))]
+        if k % 3 == 2:
+            t = rng.integers(0, 4, n + 17).astype(np.uint8)
+        jobs.append((SimpleNamespace(score=0), None, q, t))
+    Q, T, ql, tl, band, tmax = pack_inversion_batch(jobs)
+    assert Q.shape[1] == max(j[2].size for j in jobs) + 1
+    assert tmax == int((ql + tl).max()) + 1
+    Q, T, ql, tl = (torch.from_numpy(a).to(cuda) for a in (Q, T, ql, tl))
+    kw = _penalties(two_piece, band, tmax)
+    s_k, tb_k = nw_cuda.nw_align(Q, T, ql, tl, **kw)
+    ops_k = nw_cuda.nw_walk(tb_k, ql, tl, band=band, tmax=tmax)
+    torch.cuda.synchronize()
+    s_p, tb_p = nw_cuda.nw_align_reference(Q, T, ql, tl, **kw)
+    ops_p = nw_cuda.nw_walk_reference(tb_k, ql, tl, band=band, tmax=tmax)
+    assert torch.equal(s_k, s_p) and (s_k[:n_win] >= 0).all()
+    assert torch.equal(tb_k, tb_p) and torch.equal(ops_k, ops_p)
+
+
+@pytest.mark.parametrize("flags", [("--aligner", "sweepga"), ("--aligner", "sweepga", "-f", "3"),
+                                   ("--inversion-aware",)])
+def test_backend_modes_cuda_equals_cpu(cuda, flags, tmp_path):
+    """--aligner sweepga and --inversion-aware: the same FASTA gives
+    byte-identical --no-sort GFA on cuda and on cpu."""
+    import chip_smoke
+
+    fa = tmp_path / "in.fa"
+    chip_smoke.write_fasta(fa, chip_smoke.synth_family(n_seqs=3, length=700, seed=5))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        gfa = tmp_path / f"{dev}.gfa"
+        assert cli.main(["-s", str(fa), "-o", str(gfa), "--no-sort", "--device", dev, *flags]) == 0
+        out[dev] = gfa.read_bytes()
+    assert out["cuda"] == out["cpu"]
+
+
+def test_fuzz_tool_runs_on_cuda(cuda):
+    """python -m seqrush_tpu_torch.tools.fuzz --device cuda --trials 2 (the
+    first trial is --inversion-aware) exits 0."""
+    from seqrush_tpu_torch.tools import fuzz
+
+    nw_cuda.reset_launch_counts()
+    assert fuzz.main(["--device", "cuda", "--trials", "2"]) == 0
+    assert nw_cuda.LAUNCHES["nw_sweep"] > 0 and nw_cuda.LAUNCHES["nw_walk"] > 0

@@ -248,3 +248,25 @@ def test_walk_prefetch_serves_short_gaps(seed, two_piece):
     tl = np.array([t.size for t in ts], np.int32)
     for cells in _walk(Q, T, ql, tl, 63, two_piece):
         assert _tile_loads(cells, R, C, 63) == 1
+
+
+def test_new_launch_sites_routes():
+    """The routes nw_align takes at this slice's launch shapes: the
+    orientation probe [8, W 128, 256-rounded lengths], the headline gap chunk
+    [64, W 128, Lq 1,280] and the inversion batch [8,192, W 102, Lq 1,169]
+    stay on the register route; gap or inversion windows whose sequences do
+    not fit the register route's shared memory (about 115 kb + 115 kb) take
+    the wide route, as any chunk does."""
+    probe = nw_cuda.plan_sweep(8, 128, 768, 768)
+    gap = nw_cuda.plan_sweep(64, 128, 1280, 1280)
+    inv = nw_cuda.plan_sweep(8192, 102, 1169, 1172)
+    for p, (B, W, Lq, Lt) in ((probe, (8, 128, 768, 768)), (gap, (64, 128, 1280, 1280)),
+                              (inv, (8192, 102, 1169, 1172))):
+        assert p.route == "regs"
+        _check_plan(p, B, W, Lq, Lt)
+    assert inv.lanes * 32 * inv.warps_per_pair >= 102
+    big = nw_cuda.plan_sweep(8, 128, 120_064, 120_064)
+    assert big.route == "wide" and big.blocks == 8
+    odd = nw_cuda.plan_sweep(8, 131, 130, 131)
+    assert odd.route == "regs"
+    _check_plan(odd, 8, 131, 130, 131)
