@@ -20,7 +20,9 @@ Phases (any failure exits non-zero and prints no ok line):
      union-find, graph, compaction, the Ygs layout (PG-SGD on the card,
      groom, final order) and the GFA write, which the golden invariant
      gates.  The kernels' launch counters are reset just before and read
-     just after each run.  Then the same run with ``--no-sort``.  The
+     just after each run; the chunks' walks fetch run tokens (kernel B's
+     runs mode, the default emit).  Then the same run with ``--no-sort``,
+     whose GFA must have the JAX package's sha256 (DEFAULT_GFA_SHA256).  The
      anchored route's counters and seconds, the align phase's rate and the
      dispatch shapes are printed.  The sorted graph must have node ids
      1..N, be isomorphic to the unsorted one, and have a layout RMSE no
@@ -85,7 +87,17 @@ Phases (any failure exits non-zero and prints no ok line):
      ``--inversion-aware --no-sort`` (INVERSION_GFA_SHA256), with the route
      and time of the reverse pass's widest chunk, and kernels A and B
      against their plain versions on its inversion window batch;
-  8. prints {"kernels": [...]}, the nvidia-smi line, and last
+  8. run tokens and the wavefront kernel (see run_phase8): 8a. kernel B's
+     runs mode against its plain version on the largest chunk, the window
+     chunk and the sweepga gap chunk (each at its own token budget) and on
+     a synthetic batch whose runs split and overflow; each mode's
+     run_overflows against the JAX package's (RUN_OVERFLOWS); all 600 pairs
+     through the runner with emit='auto' and 'ops', in turns, with equal
+     results; 8b. all 600 pairs through WfaAligner(kernel='wfa'): every
+     batch's kernel against its plain version (scores, whole history,
+     CIGARs), the score-only mode on one batch, and the sha256 of a subset's
+     records against the JAX package's (WFA_SUBSET_SHA256);
+  9. prints {"kernels": [...]}, the nvidia-smi line, and last
      {"ok": true, "device": {...}}.
 
 Bounds: the least time the card could take for the same work, the larger
@@ -122,7 +134,12 @@ cell it needs none of the instructions that build the byte:
   5  validity and INF clamp of the five states (5 m);
  = 24 instructions, 11 of them minima: again the issue rate bounds it.
 The walk needs one byte read and about 25 instructions per step it takes,
-at the issue rate, and writes the opcode rows.  A segment launch is charged
+at the issue rate, and writes the opcode rows (its runs mode: the token
+rows and the counts instead).  The wavefront kernel must write its history
+tensors whole and needs, per cell of each score step a pair takes
+(2 * band + 1 diagonals), about 40 instructions for the five wavefronts'
+loads, maxima, validity and stores (WFA_OPS_PER_CELL), at the issue rate;
+its serial score steps, one barrier each, are its real floor.  A segment launch is charged
 the same instructions for the cells its pairs need in its anti-diagonals,
 its traceback rows [B, seg, W] (full mode), the carry read and written (2 x
 24 bytes a lane) and its windows of the operands; a segment walk its steps,
@@ -152,6 +169,7 @@ SWEEP_MIN_OPS_PER_CELL = 11
 SCORE_ONLY_OPS_PER_CELL = 24
 SCORE_ONLY_MIN_OPS_PER_CELL = 11
 WALK_OPS_PER_STEP = 25
+WFA_OPS_PER_CELL = 40
 REPS = 3
 SCORES = "0,5,8,2,24,1"
 
@@ -297,6 +315,33 @@ INVERSION_BATCH_SHAPE = [8192, 1169, 101, 2302]
 # CPU; tests/test_torch_long.py recomputes it)
 LONG_PAIR_GFA_SHA256 = "03cb6fe066479f93204cdbd7d217313ead1d884d6d3c21c701361be623a63c7e"
 
+# sha256 of the JAX package's --no-sort GFA of synth_hla() in its default
+# mode, and each mode's run_overflows (scripts/jax_backend_graphs.py)
+DEFAULT_GFA_SHA256 = "04375057ac55ede9d276479e1507de91a425ebf174d0ad114cd6614f902abb71"
+RUN_OVERFLOWS = {"default": 0, "sweepga": 9, "inversion_aware": 0}
+# sha256 of the JAX package's kernel='wfa' records of wfa_subset()'s 30
+# ordered pairs (records_digest; scripts/jax_wfa_digest.py)
+WFA_SUBSET_SHA256 = "6b2116f6a42dd54fad60540aa01b306aacf32e230d75243374235d22175dcb12"
+
+
+def wfa_subset():
+    """The WFA digest's corpus: synth_hla()'s first five sequences and its
+    inversion carrier (30 ordered pairs)."""
+    named = synth_hla()
+    return named[:5] + [named[-1]]
+
+
+# RunnerConfig of the WFA phase (and of scripts/jax_wfa_digest.py)
+WFA_BAND_SLACK = 128
+
+
+def records_digest(results) -> str:
+    """sha256 of the sorted (query, target, reverse, score, CIGAR) records of
+    alignment results, one tab-separated line each."""
+    lines = sorted(f"{r.query_idx}\t{r.target_idx}\t{int(r.is_reverse)}\t{r.score}\t"
+                   f"{''.join(f'{n}{op}' for n, op in r.cigar)}\n" for r in results)
+    return hashlib.sha256("".join(lines).encode()).hexdigest()
+
 
 def write_fasta(path: Path, named) -> None:
     path.write_bytes(b"".join(b">%s\n%s\n" % (n.encode(), s) for n, s in named))
@@ -360,7 +405,9 @@ def ptxas_summary(log: str) -> list[str]:
             name, rest = m.group(2)[:n], m.group(2)[n:]
             t = re.match(r"ILi(\d+)ELb([01])ELb([01])E", rest)
             w = re.match(r"ILb([01])E", rest)
-            if t:
+            if name == "wfa_kernel" and w:
+                name += f"<{'two' if w.group(1) == '1' else 'one'}-piece>"
+            elif t:
                 name += (f"<{t.group(1)}, {'two' if t.group(2) == '1' else 'one'}-piece, "
                          f"{'traceback' if t.group(3) == '1' else 'score-only'}>")
             elif w:
@@ -439,7 +486,7 @@ def run(work: Path, name: str, smi: str, ptxas: list[str]) -> int:
     fa, gfa, prof = work / "hla25.fa", work / "hla25.gfa", work / "profile.json"
     gfa_ns = work / "hla25_nosort.gfa"
     write_fasta(fa, named)
-    path_kernels = ("nw_sweep", "nw_walk")
+    path_kernels = ("nw_sweep", "nw_walk_runs")
 
     def drive(out: Path, *flags: str, kernels=path_kernels, fasta=fa):
         """One CLI run on cuda with the launch counters reset just before and
@@ -514,12 +561,15 @@ def run(work: Path, name: str, smi: str, ptxas: list[str]) -> int:
           f"{rep_full['phases_s']['align']:.3f} s = {rep_full['alignments_per_s']:.1f} alignments/s; "
           f"launches {launches_full}; chunk dispatches {shapes(st_full, 'chunk')}; graph "
           f"{json.dumps(rep_full['graph'])} (default route {json.dumps(g)}); GFA byte-identical "
-          f"to the default --no-sort run: {same_bytes}; --no-sort GFA sha256 {json.dumps(digests)}")
+          f"to the default --no-sort run: {same_bytes}; --no-sort GFA sha256 {json.dumps(digests)} "
+          f"(the JAX package's default {DEFAULT_GFA_SHA256})")
     # the host window DP and the device walk may break an equal-score tie
     # differently (a gap slides inside a repeat), so the two routes' graphs
     # need not be equal; 5a holds every pair's score equal
     if int(rep_full["counters"]["alignments"]) != n_pairs or rep_full["graph"]["paths"] != len(named):
         raise AssertionError("the full-route run did not align every pair into every path")
+    if digests["default"] != DEFAULT_GFA_SHA256:
+        raise AssertionError("the default run's --no-sort GFA is not the JAX package's")
 
     # 3c. --wide-verify: the score-only sweep certifies every stitch
     gfa_v = work / "hla25_verify_nosort.gfa"
@@ -811,9 +861,22 @@ def run(work: Path, name: str, smi: str, ptxas: list[str]) -> int:
     long_out = run_long(work, smi, drive, shapes, ptxas)
     sites = run_backends(work, smi, drive, shapes)
     parity.extend(sites["parity"])
+    phase8 = run_phase8(smi, ptxas, {
+        "named": named, "pairs": pairs, "scores": scores, "pen": pen, "launches": launches,
+        "runs_sites": [("largest", inputs(main_d), main_d["band"], main_d["tmax"], nw.RUN_MAX),
+                       ("window", inputs(win_d), win_d["band"], win_d["tmax"], anchored.WIN_RUN_MAX),
+                       ("gap", sites["gap_inputs"][:4], *sites["gap_inputs"][4:], None)],
+        "run_overflows": {"default": st["run_overflows"], **sites["run_overflows"]},
+    })
 
     big = kernels["largest"]
     out = []
+    launches_of = {
+        "nw_sweep": (launches["nw_sweep"], "default run"),
+        # the default run's chunks take the runs walk; the opcode walk's
+        # launches are the inversion-aware run's (its inversion batch)
+        "nw_walk": (sites["inversion"]["walk"]["launches"], "--inversion-aware --no-sort"),
+    }
     for kname, key, src, replaces, idx in (
         ("nw_sweep", "sweep", "seqrush_tpu_torch/ops/csrc/nw_sweep.cu", "seqrush_tpu/ops/nw_pallas.py:38", 0),
         ("nw_walk", "walk", "seqrush_tpu_torch/ops/csrc/nw_walk.cu", "seqrush_tpu/ops/nw_pallas.py:194", 1),
@@ -821,7 +884,7 @@ def run(work: Path, name: str, smi: str, ptxas: list[str]) -> int:
         ms, b_ms, o_ms = big[key]
         out.append({
             "name": kname, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[kname],
+            "launches": launches_of[kname][0], "launches_path": launches_of[kname][1],
             "max_abs_err": max(p[f"{key}_err"] for p in parity),
             "ms": ms, "plain_ms": big["plain"][idx],
             "bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations",
@@ -851,6 +914,7 @@ def run(work: Path, name: str, smi: str, ptxas: list[str]) -> int:
         "launches_path": "--wide-verify",
     })
     out.extend(long_out)
+    out.extend(phase8)
     print(json.dumps({"kernels": out}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -1146,7 +1210,9 @@ def run_long(work: Path, smi: str, drive, shapes, ptxas: list[str]) -> list[dict
     return out
 
 
-BACKEND_KERNELS = ("nw_sweep", "nw_walk")
+# both modes' chunks fetch run tokens; the sweepga gap windows that overflow
+# GAP_RUN_MAX and the inversion batch take the opcode walk
+BACKEND_KERNELS = ("nw_sweep", "nw_walk_runs", "nw_walk")
 
 
 def run_backends(work: Path, smi: str, drive, shapes) -> dict:
@@ -1167,8 +1233,9 @@ def run_backends(work: Path, smi: str, drive, shapes) -> dict:
     7e. kernels A and B against their plain versions on 7d's inversion
         window batch, with times and bounds.
     Returns the kernels line's entries of these launch sites ('gap',
-    'inversion' for kernels A and B, 'probe' for the score-only sweep) and
-    their parity records."""
+    'inversion' for kernels A and B, 'probe' for the score-only sweep),
+    their parity records, the gap chunk's inputs on the card ('gap_inputs':
+    Q, T, qlens, tlens, band, tmax) and both modes' run_overflows."""
     from seqrush_tpu_torch.align.inversion import pack_inversion_batch
     from seqrush_tpu_torch.align.pairs import all_ordered_pairs
     from seqrush_tpu_torch.align.runner import RunnerConfig, WfaAligner, pack_probe
@@ -1276,7 +1343,8 @@ def run_backends(work: Path, smi: str, drive, shapes) -> dict:
     Q, T, ql, tl, band, tmax = pack_gap_chunk(jobs)
     if (Q.shape[0], band, tmax) != (d["B"], d["band"], d["tmax"]):
         raise AssertionError("the rebuilt gap chunk has another shape")
-    gap_site, gap_par = site("gap", *on_card((Q, T, ql, tl)), band, tmax, launches_sw)
+    gap_inputs = (*on_card((Q, T, ql, tl)), band, tmax)
+    gap_site, gap_par = site("gap", *gap_inputs, launches_sw)
 
     # 7c. the orientation probe
     trio = probe_trio()
@@ -1377,7 +1445,267 @@ def run_backends(work: Path, smi: str, drive, shapes) -> dict:
     inv_site["sweep"]["reverse_pass_widest_chunk"] = {
         "B": widest["B"], "W": widest["band"] + 1, "tmax": wtmax, "route": wplan.route,
         "sweep_and_walk_ms": widest_ms}
-    return {"gap": gap_site, "inversion": inv_site, "probe": probe, "parity": [gap_par, inv_par]}
+    return {"gap": gap_site, "inversion": inv_site, "probe": probe, "parity": [gap_par, inv_par],
+            "gap_inputs": gap_inputs, "launches_sweepga": launches_sw,
+            "run_overflows": {"sweepga": st["run_overflows"], "inversion_aware": st_i["run_overflows"]}}
+
+
+def run_phase8(smi: str, ptxas: list[str], ctx: dict) -> list[dict]:
+    """8. Run tokens (kernel B's runs mode) and the wavefront kernel.
+
+    8a. the runs mode against its plain version (tokens and counts, exact)
+        on the traceback of each launch site that takes it, at its own token
+        budget: the default run's largest chunk (RUN_MAX) and window chunk
+        (WIN_RUN_MAX), the sweepga gap chunk (GAP_RUN_MAX); and on a seeded
+        batch at run_len_max 8 and run_max 4, where runs split and lists
+        overflow; CUDA-event times beside the opcode walk's on the same
+        traceback; each mode's run_overflows against the JAX package's
+        (RUN_OVERFLOWS); all 600 pairs through the runner with emit 'auto'
+        (run tokens) and 'ops', in turns: equal results, the align seconds
+        and the collect seconds of each;
+    8b. all 600 pairs through WfaAligner(kernel='wfa', band_slack=
+        WFA_BAND_SLACK) on the card, launch counters reset just before and
+        read just after; every batch it launched rebuilt and run again
+        through the kernel and the plain version: scores and the whole
+        history tensors equal, and the plain version's backtrace equal to
+        the run's CIGARs; the score-only mode (keep_history=False) through
+        wfa_align_device on the first batch, its scores the full mode's;
+        CUDA-event times, score steps and bounds of each batch; the sha256
+        of wfa_subset()'s records against the JAX package's
+        (WFA_SUBSET_SHA256).
+    Returns the kernels line's entries of nw_walk_runs, wfa and
+    wfa_score_only."""
+    from seqrush_tpu_torch.align.runner import RunnerConfig, WfaAligner, _quantized_pack
+    from seqrush_tpu_torch.align.sweep import GAP_RUN_MAX
+    from seqrush_tpu_torch.ops import nw_cuda, wfa
+    from seqrush_tpu_torch.ops.wfa import Penalties
+    from seqrush_tpu_torch.sequences import make_sequence_set
+
+    dev = torch.device("cuda")
+    named, pairs, scores, pen = ctx["named"], ctx["pairs"], ctx["scores"], ctx["pen"]
+    n_pairs = len(pairs)
+
+    def bound(nbytes, n_ops):
+        b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, n_ops / ISSUE_OPS_PER_S * 1e3
+        return {"bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations"}
+
+    # 8a. the runs mode at each launch site
+    runs = {}
+    for label, (Q, T, ql, tl), band, tmax, run_max in ctx["runs_sites"]:
+        run_max = run_max or GAP_RUN_MAX
+        kw = dict(band=band, tmax=tmax, **pen)
+        _s, tb = nw_cuda.nw_align(Q, T, ql, tl, **kw)
+        tok, cnt = nw_cuda.nw_walk_runs(tb, ql, tl, band=band, tmax=tmax, run_max=run_max)
+        plain_ms, (tok_p, cnt_p) = once_ms(lambda: nw_cuda.nw_walk_runs_reference(
+            tb, ql, tl, band=band, tmax=tmax, run_max=run_max))
+        err = max(max_abs_err(tok, tok_p), max_abs_err(cnt, cnt_p))
+        ms = cuda_ms(lambda: nw_cuda.nw_walk_runs(tb, ql, tl, band=band, tmax=tmax, run_max=run_max),
+                     REPS)
+        ops_ms = cuda_ms(lambda: nw_cuda.nw_walk(tb, ql, tl, band=band, tmax=tmax), REPS)
+        steps = int((nw_cuda.nw_walk(tb, ql, tl, band=band, tmax=tmax) != 0).sum().item())
+        B = Q.shape[0]
+        b = bound(steps + 4 * tok.numel() + 4 * B + 8 * B, steps * WALK_OPS_PER_STEP)
+        runs[label] = {"shape": {"B": B, "W": band + 1, "tmax": tmax, "run_max": run_max},
+                       "ms": ms, "opcode_walk_ms": ops_ms, "plain_ms": plain_ms, **b,
+                       "max_abs_err": err, "overflowing_rows": int((cnt > run_max).sum()),
+                       "token_bytes": 4 * (tok.numel() + B), "opcode_bytes": B * (tmax + 1)}
+        print(f"runs walk {label}: B={B} W={band + 1} tmax={tmax} run_max={run_max} max_abs_err={err}; "
+              f"{ms:.4f} ms (opcode walk {ops_ms:.4f} ms, bound {b['bound_ms']:.5f}, plain "
+              f"{plain_ms:.1f}); rows over budget {runs[label]['overflowing_rows']}; copy back "
+              f"{runs[label]['token_bytes']} bytes of tokens for {runs[label]['opcode_bytes']} of "
+              f"opcodes | {smi}")
+        if err:
+            raise AssertionError(f"the runs walk disagrees with its plain version ({label})")
+        del tb, tok, cnt, tok_p, cnt_p
+        torch.cuda.empty_cache()
+
+    # a seeded batch whose runs split (at 8 steps) and overflow (past 4)
+    rng = np.random.default_rng(8)
+    qs, ts = [], []
+    for k in range(15):
+        q = rng.integers(0, 4, 600).astype(np.uint8)
+        t = q.copy()
+        t[rng.integers(0, 600, 12)] = rng.integers(0, 4, 12)
+        for _ in range(k % 4):
+            p = int(rng.integers(50, 500))
+            t = np.delete(t, np.arange(p, p + 1 + k))
+        qs.append(q)
+        ts.append(t)
+    Q = np.full((16, 768), 6, np.uint8)
+    T = np.full((16, 768), 7, np.uint8)
+    for b, (q, t) in enumerate(zip(qs, ts)):
+        Q[b, : q.size], T[b, : t.size] = q, t
+    ql = np.array([q.size for q in qs] + [0], np.int32)
+    tl = np.array([t.size for t in ts] + [0], np.int32)
+    Q, T, ql, tl = (torch.from_numpy(a).to(dev) for a in (Q, T, ql, tl))
+    _s, tb = nw_cuda.nw_align(Q, T, ql, tl, band=127, tmax=1536, **pen)
+    tok, cnt = nw_cuda.nw_walk_runs(tb, ql, tl, band=127, tmax=1536, run_max=4, run_len_max=8)
+    tok_p, cnt_p = nw_cuda.nw_walk_runs_reference(tb, ql, tl, band=127, tmax=1536, run_max=4,
+                                                  run_len_max=8)
+    err_syn = max(max_abs_err(tok, tok_p), max_abs_err(cnt, cnt_p))
+    split, over = bool(((tok >> 2) == 8).any()), int((cnt > 4).sum())
+    print(f"runs walk synthetic (B=16 W=128 tmax=1536, run_len_max 8, run_max 4): max_abs_err={err_syn}; "
+          f"runs split {split}; rows over budget {over}")
+    if err_syn or not split or not over:
+        raise AssertionError("the runs walk's split or overflow batch failed")
+    del tb
+
+    got = ctx["run_overflows"]
+    print(f"run_overflows by mode {json.dumps(got)} (the JAX package's {json.dumps(RUN_OVERFLOWS)})")
+    if got != RUN_OVERFLOWS:
+        raise AssertionError("run_overflows differ from the JAX package's")
+
+    # the align phase through the runner with run tokens and with opcodes
+    keys, secs, collect = {}, {"auto": [], "ops": []}, {"auto": [], "ops": []}
+    for emit in ("auto", "ops", "ops", "auto"):
+        al = WfaAligner(make_sequence_set(named), RunnerConfig(scores=scores, emit=emit), device=dev)
+        t0 = time.time()
+        res = al.align_pairs(pairs)
+        torch.cuda.synchronize()
+        secs[emit].append(round(time.time() - t0, 4))
+        collect[emit].append(round(al.stats["collect_s"], 4))
+        keys.setdefault(emit, sorted((r.query_idx, r.target_idx, r.is_reverse, r.score, r.cigar_string)
+                                     for r in res))
+    print(f"align phase through the runner ({n_pairs} pairs, in turns): seconds {json.dumps(secs)}; "
+          f"collect seconds {json.dumps(collect)}; results equal {keys['auto'] == keys['ops']} | {smi}")
+    if keys["auto"] != keys["ops"] or len(keys["auto"]) != n_pairs:
+        raise AssertionError("emit='auto' and emit='ops' gave different results")
+
+    # 8b. the wavefront route on the headline corpus
+    seqs = make_sequence_set(named)
+    wcfg = RunnerConfig(scores=scores, kernel="wfa", band_slack=WFA_BAND_SLACK)
+    wal = WfaAligner(seqs, wcfg, device=dev)
+    nw_cuda.reset_launch_counts()
+    t0 = time.time()
+    res = wal.align_pairs(pairs)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    wl = dict(nw_cuda.LAUNCHES)
+    batches = [d for d in wal.stats["dispatches"] if d["kind"] == "wfa"]
+    print(f"kernel='wfa' ({n_pairs} pairs, band_slack {WFA_BAND_SLACK}): {len(res)} aligned in {wall:.3f} s; "
+          f"escalations {wal.stats['escalations']}, dropped {wal.stats['dropped']}; launches {wl}; "
+          f"batches [B, band, smax, steps, jobs] "
+          f"{json.dumps([[d['B'], d['band'], d['smax'], d['steps'], len(d['jobs'])] for d in batches])}"
+          f" | {smi}")
+    if wl["wfa"] != len(batches) or len(res) != n_pairs or wal.stats["dropped"]:
+        raise AssertionError("the wavefront route did not align every pair through the kernel")
+    by_pair = {(r.query_idx, r.target_idx): r for r in res}
+    pobj = Penalties.from_scores(scores)
+    names = ("M", "I1", "D1", "I2", "D2")
+    per_batch, err_w, n_cigars = [], 0, 0
+    first = None
+    for d in batches:
+        qs, ts, caps = [], [], []
+        for p, rc in d["jobs"]:
+            qi, tj = pairs[p]
+            q, t = (wal.rc_codes[qi] if rc else wal.codes[qi]), wal.codes[tj]
+            qs.append(q)
+            ts.append(t)
+            caps.append(wal._pair_cap(q.size, t.size))
+        Q, T, ql, tl = _quantized_pack(qs, ts)
+        caps = np.minimum(np.array(caps + [0] * (len(ql) - len(caps)), np.int32), d["smax"])
+        args = [torch.from_numpy(a).to(dev) for a in (Q, T, ql, tl, caps)]
+        kw = dict(smax=d["smax"], band=d["band"], keep_history=True, **pen)
+        s_k, h_k = wfa.wfa_run(*args, **kw)
+        plain_ms, (s_p, h_p) = once_ms(lambda: wfa.wfa_align_reference(*args, **kw))
+        err = max([max_abs_err(s_k, s_p)] + [max_abs_err(a, b) for a, b in zip(h_k, h_p)])
+        sp = s_p.cpu().numpy()
+        top = int(sp.max(initial=-1)) + 1
+        hh = {k: h[: len(qs), :top].cpu().numpy() for k, h in zip(names, h_p)}
+        for b, (p, rc) in enumerate(d["jobs"]):
+            if sp[b] < 0:
+                continue
+            items = wfa.backtrace_pair({k: v[b] for k, v in hh.items()}, int(sp[b]), int(ql[b]),
+                                       int(tl[b]), d["band"], pobj)
+            r = by_pair[tuple(int(x) for x in pairs[p])]
+            n_cigars += 1
+            if (r.score, r.cigar, r.is_reverse) != (int(sp[b]), items, bool(rc)):
+                err = max(err, 1)
+        err_w = max(err_w, err)
+        del h_p, hh
+        ms = cuda_ms(lambda: wfa.wfa_run(*args, **kw), REPS)
+        nd = 2 * d["band"] + 1
+        stepped = [int(s) if s >= 0 else int(c) for s, c in zip(s_k.tolist(), caps.tolist())]
+        cells = sum(x + 1 for x in stepped) * nd
+        hist_bytes = sum(h.numel() * 2 for h in h_k)
+        b = bound(Q.size + T.size + 12 * len(ql) + hist_bytes, cells * WFA_OPS_PER_CELL)
+        entry = {"shape": {"B": len(ql), "band": d["band"], "smax": d["smax"], "Lq": Q.shape[1],
+                           "Lt": T.shape[1]},
+                 "steps": max(stepped), "ms": ms, "us_per_step": ms * 1e3 / max(1, max(stepped)),
+                 "plain_ms": plain_ms, **b, "max_abs_err": err}
+        per_batch.append(entry)
+        print(f"wfa batch B={len(ql)} band={d['band']} smax={d['smax']}: max_abs_err={err}; {ms:.4f} ms for "
+              f"{max(stepped)} score steps ({entry['us_per_step']:.3f} us a step; bound "
+              f"{b['bound_ms']:.4f} ms, {b['bound_by']}); plain {plain_ms:.1f} ms")
+        if err:
+            raise AssertionError("the wavefront kernel disagrees with its plain version")
+        if first is None:
+            first = (args, kw, s_k)
+        del h_k, s_k
+        torch.cuda.empty_cache()
+
+    # the score-only mode, called as the mesh step calls it, on the first batch
+    args, kw, s_full = first
+    kw0 = dict(kw, keep_history=False)
+    nw_cuda.reset_launch_counts()
+    s_o, none = wfa.wfa_align_device(*args, **kw0)
+    torch.cuda.synchronize()
+    launches_o = nw_cuda.LAUNCHES["wfa_score_only"]
+    _s, roll_k = wfa.wfa_run(*args, **kw0)
+    plain_o_ms, (s_op, roll_p) = once_ms(lambda: wfa.wfa_align_reference(*args, **kw0))
+    err_o = max([max_abs_err(s_o, s_full), max_abs_err(s_o, s_op)]
+                + [max_abs_err(a, b) for a, b in zip(roll_k, roll_p)])
+    o_ms = cuda_ms(lambda: wfa.wfa_align_device(*args, **kw0), REPS)
+    nd = 2 * kw["band"] + 1
+    stepped = [int(s) if s >= 0 else int(c) for s, c in zip(s_o.tolist(), args[4].tolist())]
+    b_o = bound(args[0].numel() + args[1].numel() + 12 * args[0].shape[0]
+                + sum(h.numel() * 2 for h in roll_k), sum(x + 1 for x in stepped) * nd * WFA_OPS_PER_CELL)
+    print(f"wfa score-only (first batch, keep_history=False): launches {launches_o}; scores equal the "
+          f"full mode's; max_abs_err={err_o}; {o_ms:.4f} ms (full mode {per_batch[0]['ms']:.4f}; bound "
+          f"{b_o['bound_ms']:.4f}, plain {plain_o_ms:.1f})")
+    if err_o or none != {} or launches_o != 1:
+        raise AssertionError("the score-only wavefront kernel disagrees")
+
+    # the JAX package's records of a subset
+    sub = wfa_subset()
+    sal = WfaAligner(make_sequence_set(sub), wcfg, device=dev)
+    sub_pairs = np.array([(i, j) for i in range(len(sub)) for j in range(len(sub)) if i != j])
+    digest = records_digest(sal.align_pairs(sub_pairs))
+    print(f"wfa subset ({len(sub)} sequences, {len(sub_pairs)} pairs): records sha256 {digest} (the JAX "
+          f"package's {WFA_SUBSET_SHA256})")
+    if digest != WFA_SUBSET_SHA256:
+        raise AssertionError("the wavefront route's subset records are not the JAX package's")
+
+    largest = runs["largest"]
+    carrier = max(per_batch, key=lambda e: e["steps"])
+    occ = wfa.wfa_occupancy(pobj.two_piece, carrier["shape"]["Lq"], carrier["shape"]["Lt"],
+                            carrier["shape"]["band"])
+    piece = "two-piece" if pobj.two_piece else "one-piece"
+    return [
+        {"name": "nw_walk_runs", "route": "cuda", "source": "seqrush_tpu_torch/ops/csrc/nw_walk.cu",
+         "replaces": "seqrush_tpu/ops/nw.py:1199 (_tb_scan_tbw, emit='runs'; XLA)",
+         "launches": ctx["launches"]["nw_walk_runs"], "launches_path": "default run",
+         "max_abs_err": max(max(e["max_abs_err"] for e in runs.values()), err_syn),
+         "ms": largest["ms"], "plain_ms": largest["plain_ms"], "bound_ms": largest["bound_ms"],
+         "bound_by": largest["bound_by"], "library_ms": None,
+         "regs_per_thread": ptxas_registers(ptxas, "nw_walk_runs_kernel"), "shape": largest["shape"],
+         "opcode_walk_ms": largest["opcode_walk_ms"],
+         **{k: v for k, v in runs.items() if k != "largest"}, "tolerance": 0},
+        {"name": "wfa", "route": "cuda", "source": "seqrush_tpu_torch/ops/csrc/wfa.cu",
+         "replaces": "seqrush_tpu/ops/wfa.py:232 (wfa_align_device; XLA)",
+         "launches": wl["wfa"], "launches_path": "WfaAligner(kernel='wfa'), 600 headline pairs",
+         "max_abs_err": err_w, "ms": carrier["ms"], "plain_ms": carrier["plain_ms"],
+         "bound_ms": carrier["bound_ms"], "bound_by": carrier["bound_by"], "library_ms": None,
+         "regs_per_thread": ptxas_registers(ptxas, f"wfa_kernel<{piece}>"), **occ,
+         "shape": carrier["shape"], "serial_score_steps": carrier["steps"], "batches": per_batch,
+         "cigars_checked": n_cigars, "route_wall_s": wall, "tolerance": 0},
+        {"name": "wfa_score_only", "route": "cuda", "source": "seqrush_tpu_torch/ops/csrc/wfa.cu",
+         "replaces": "seqrush_tpu/ops/wfa.py:232 (wfa_align_device, keep_history=False; XLA)",
+         "launches": launches_o, "launches_path": "wfa_align_device(keep_history=False), first batch",
+         "max_abs_err": err_o, "ms": o_ms, "plain_ms": plain_o_ms, **b_o, "library_ms": None,
+         "regs_per_thread": ptxas_registers(ptxas, f"wfa_kernel<{piece}>"),
+         "shape": per_batch[0]["shape"], "serial_score_steps": max(stepped), "tolerance": 0},
+    ]
 
 
 if __name__ == "__main__":

@@ -1,20 +1,22 @@
 #!/usr/bin/env python3
-"""The JAX package's graphs of the headline corpus under the sweepga backend
-and under --inversion-aware.
+"""The JAX package's graphs of the headline corpus in its default mode, under
+the sweepga backend and under --inversion-aware.
 
 Run from the repository root, on the CPU:
 
-    JAX_PLATFORMS=cpu python3 scripts/jax_backend_graphs.py [--only sweepga|inversion_aware]
+    JAX_PLATFORMS=cpu python3 scripts/jax_backend_graphs.py [--only default|sweepga|inversion_aware]
 
 Writes chip_smoke.py's headline corpus (25 synthetic HLA-like sequences of
 ~3.3 kb, one inversion carrier, all 600 ordered pairs) and runs the JAX
-package's CLI on it with ``--no-sort``: once with ``--aligner sweepga`` and
-once with ``--inversion-aware``.  Prints one JSON line per run with the
-graph's counts, the aligner's counters, the sha256 of the GFA file and,
-for --inversion-aware, the inversion window batch's [B, Lq, band, tmax];
-chip_smoke.py holds the port's runs on the card to these
-(SWEEPGA_GFA_SHA256, INVERSION_GFA_SHA256, INVERSION_BATCH_SHAPE).  The
-sweepga run takes about 10 s, the inversion-aware run a few minutes.
+package's CLI on it with ``--no-sort``: once with no mode flag, once with
+``--aligner sweepga`` and once with ``--inversion-aware``.  Prints one JSON
+line per run with the graph's counts, the aligner's counters (among them
+``run_overflows``, the walks whose run tokens overflowed and were re-run
+through opcodes), the sha256 of the GFA file and, for --inversion-aware,
+the inversion window batch's [B, Lq, band, tmax]; chip_smoke.py holds the
+port's runs on the card to these (SWEEPGA_GFA_SHA256, INVERSION_GFA_SHA256,
+INVERSION_BATCH_SHAPE, RUN_OVERFLOWS).  The default run takes under a
+minute, the sweepga run about 10 s, the inversion-aware run a few minutes.
 """
 
 from __future__ import annotations
@@ -32,7 +34,8 @@ sys.path.insert(0, str(ROOT))
 
 from chip_smoke import synth_hla, write_fasta  # noqa: E402
 
-RUNS = (("sweepga", ("--aligner", "sweepga")), ("inversion_aware", ("--inversion-aware",)))
+RUNS = (("default", ()), ("sweepga", ("--aligner", "sweepga")),
+        ("inversion_aware", ("--inversion-aware",)))
 KEYS = ("chains", "filtered_1to1", "host_windows", "run_overflows", "band_escalations",
         "anchored_pairs", "anchored_fallbacks", "cells_true", "cells_padded")
 

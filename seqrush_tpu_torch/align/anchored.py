@@ -41,6 +41,7 @@ import torch
 from ..ops import anchors as anchors_mod
 from ..ops import nw, nw_cuda
 from ..native import chain_pairs_native, window_dp_native
+from ..utils import to_host
 
 # windows larger than this run at full band in their own bucket; a pair
 # with a full-band window whose traceback would bust the memory budget
@@ -49,6 +50,9 @@ SMALL_WINDOW = 256
 # minimum chained exact-match coverage (fraction of min(qlen, tlen));
 # below it the chain is too sparse to trust as a global guide
 MIN_COVERAGE = 0.05
+# run-token budget of a window chunk's walk (windows have few runs); rows
+# that overflow it are re-aligned through the opcode walk at the same band
+WIN_RUN_MAX = 32
 
 
 @dataclass
@@ -388,7 +392,7 @@ def collect_windows(al, jobs, state, pen) -> list:
                     _dispatch_window_chunk(al, jobs, chunk, band, pen)
                 )
                 continue
-            _collect_window_chunk(al, jobs, inflight.pop(0), out, nxt)
+            _collect_window_chunk(al, jobs, inflight.pop(0), pen, out, nxt)
         if nxt:
             generations += 1
             if generations > 12:  # escalation terminates at full band
@@ -420,47 +424,45 @@ def pack_windows(jobs, chunk, band):
     return Q, T, qlens, tlens, band, tmax
 
 
+def _window_record(jobs, sel, B, band, tmax, emit):
+    return {"kind": "window", "B": B, "band": band, "tmax": tmax, "emit": emit,
+            # each window as [pair index, reverse, q start, t start, q length,
+            # t length] in the oriented pair's coordinates
+            "jobs": [[int(x) for x in jobs[j][2]] + [int(jobs[j][0].size), int(jobs[j][1].size)]
+                     for j in sel]}
+
+
 def _dispatch_window_chunk(al, jobs, chunk, band, pen):
-    """Launch the sweep and the walk for one window chunk; the scores and
-    opcodes start copying back to pinned memory without blocking."""
+    """Launch the sweep and the walk for one window chunk (run tokens of at
+    most WIN_RUN_MAX runs a window where tmax + 4 < 2^15 and emit is not
+    'ops', else opcodes); the scores and the walk's output start copying
+    back to pinned memory without blocking."""
     Q, T, qlens, tlens, band, tmax = pack_windows(jobs, chunk, band)
     B = Q.shape[0]
+    use_runs = nw.runs_fit(tmax) and al.cfg.emit != "ops"
     al.stats["cells_padded"] += B * (tmax + 2) * (band + 1)
-    al.stats["dispatches"].append(
-        {"kind": "window", "B": B, "band": band, "tmax": tmax,
-         # each window as [pair index, reverse, q start, t start, q length,
-         # t length] in the oriented pair's coordinates
-         "jobs": [[int(x) for x in jobs[j][2]] + [int(jobs[j][0].size), int(jobs[j][1].size)]
-                  for j, _bj in chunk]}
-    )
+    al.stats["dispatches"].append(_window_record(jobs, [j for j, _bj in chunk], B, band, tmax,
+                                                 "runs" if use_runs else "ops"))
     dev = al.device
     Qd, Td, qd, td = (torch.from_numpy(a).to(dev) for a in (Q, T, qlens, tlens))
     scores, tb = nw_cuda.nw_align(Qd, Td, qd, td, band=band, tmax=tmax, **pen)
-    ops = nw_cuda.nw_walk(tb, qd, td, band=band, tmax=tmax)
+    if use_runs:
+        out = nw_cuda.nw_walk_runs(tb, qd, td, band=band, tmax=tmax, run_max=WIN_RUN_MAX)
+    else:
+        out = (nw_cuda.nw_walk(tb, qd, td, band=band, tmax=tmax),)
     del tb  # stream-ordered: the allocator reuses it only after the walk
-    ready = None
-    if dev.type == "cuda":
-        scores_h = torch.empty(scores.shape, dtype=scores.dtype, pin_memory=True)
-        ops_h = torch.empty(ops.shape, dtype=ops.dtype, pin_memory=True)
-        scores_h.copy_(scores, non_blocking=True)
-        ops_h.copy_(ops, non_blocking=True)
-        ready = torch.cuda.Event()
-        ready.record()
-        scores, ops = scores_h, ops_h
-    return chunk, band, scores, ops, ready
+    scores, out, ready = to_host(scores, out)
+    return chunk, band, tmax, use_runs, scores, out, ready, (Q, T, qlens, tlens)
 
 
-def _collect_window_chunk(al, jobs, disp, out, nxt):
-    # The kernels emit one opcode per anti-diagonal, so every window decodes
-    # whole: the JAX package's run-token fetch, with its WIN_RUN_MAX overflow
-    # retry through opcodes, has no counterpart here.
-    chunk, band, scores, ops, ready = disp
+def _collect_window_chunk(al, jobs, disp, pen, out, nxt):
+    chunk, band, tmax, use_runs, scores, data, ready, packed = disp
     if ready is not None:
         ready.synchronize()
     scores = scores.numpy()
-    ops = ops.numpy()
+    data = [a.numpy() for a in data]
 
-    ok_rows, ok_jobs = [], []
+    ok_rows, ok_jobs, overflow = [], [], []
     for b, (j, _bj) in enumerate(chunk):
         qw, tw = jobs[j][0], jobs[j][1]
         s = int(scores[b])
@@ -473,14 +475,34 @@ def _collect_window_chunk(al, jobs, disp, out, nxt):
             nxt.append((j, k))
             continue
         al.stats["cells_true"] += (qw.size + tw.size + 1) * (band + 1)
+        if use_runs and data[1][b] > WIN_RUN_MAX:
+            al.stats["run_overflows"] += 1
+            overflow.append((b, j))
+            continue
         ok_rows.append(b)
         ok_jobs.append(j)
     if ok_rows:
-        items_all = nw.decode_batch(
-            ops[ok_rows],
-            [jobs[j][0] for j in ok_jobs], [jobs[j][1] for j in ok_jobs],
-        )
+        qs, ts = [jobs[j][0] for j in ok_jobs], [jobs[j][1] for j in ok_jobs]
+        if use_runs:
+            items_all = nw.decode_runs_batch(data[0][ok_rows], data[1][ok_rows], qs, ts)
+        else:
+            items_all = nw.decode_batch(data[0][ok_rows], qs, ts)
         for j, items in zip(ok_jobs, items_all):
+            out[j] = items
+    if overflow:
+        # a window whose walk has more than WIN_RUN_MAX runs: its rows alone,
+        # re-aligned through the opcode walk at the (certified) band
+        rows = [b for b, _j in overflow]
+        Q, T, qlens, tlens = (a[rows] for a in packed)
+        al.stats["dispatches"].append(_window_record(jobs, [j for _b, j in overflow], len(rows),
+                                                     band, tmax, "ops"))
+        Qd, Td, qd, td = (torch.from_numpy(a).to(al.device) for a in (Q, T, qlens, tlens))
+        _s, tb = nw_cuda.nw_align(Qd, Td, qd, td, band=band, tmax=tmax, **pen)
+        ops = nw_cuda.nw_walk(tb, qd, td, band=band, tmax=tmax)
+        del tb
+        items_all = nw.decode_batch(ops.cpu().numpy(), [jobs[j][0] for _b, j in overflow],
+                                    [jobs[j][1] for _b, j in overflow])
+        for (_b, j), items in zip(overflow, items_all):
             out[j] = items
 
 

@@ -160,7 +160,8 @@ def inversion_patch_alignments(results, aligner, min_match_length: int):
 
     Q, T, qlens, tlens, band, tmax = pack_inversion_batch(jobs)
     aligner.stats["dispatches"].append(
-        {"kind": "inversion", "B": Q.shape[0], "band": band, "tmax": tmax, "Lq": Q.shape[1],
+        {"kind": "inversion", "B": Q.shape[0], "band": band, "tmax": tmax, "emit": "ops",
+         "Lq": Q.shape[1],
          "Lt": T.shape[1], "jobs": [[int(res.query_idx), int(res.target_idx), gap.query_start,
                                      gap.query_end, gap.target_start, gap.target_end]
                                     for res, gap, _q, _t in jobs]})

@@ -11,9 +11,13 @@ that runs the sweep kernel and then the walk kernel per chunk:
   jobs sort by (band, length) into chunks cut at the traceback memory
   budget; every job of a chunk runs at the chunk's band;
 * per chunk: Q/T are packed on the host (QPAD/TPAD), the sweep kernel and
-  the walk kernel run on the device, and the opcodes [B, tmax + 1] come
-  back through a non-blocking copy into pinned memory.  Chunk k+1 is
-  dispatched before chunk k is collected;
+  the walk kernel run on the device, and the walk's output comes back
+  through a non-blocking copy into pinned memory: run tokens [B, RUN_MAX]
+  and their counts (``emit`` 'auto' or 'runs', wherever tmax + 4 < 2^15),
+  else opcodes [B, tmax + 1].  A pair whose walk has more than RUN_MAX runs
+  joins ``_runs_off_set`` and is retried, in a later round, in a chunk of
+  such pairs that takes the opcode walk.  Chunk k+1 is dispatched before
+  chunk k is collected;
 * a chunk of more than ``long_pair_threshold`` anti-diagonals (pairs of
   qlen + tlen above it) takes the long-pair route, ``nw_cuda.nw_align_long``:
   the same kernels in their segment modes, segments of 2,048 anti-diagonals
@@ -23,13 +27,20 @@ that runs the sweep kernel and then the walk kernel per chunk:
 * collect: the band certificate (a banded score S with half-width K is
   optimal iff S < 2*o_min + e_min*(2K + 2 - |diff|)), escalation of the
   uncertified jobs to the band their score demands, the divergence cap,
-  and one vectorized decode of the opcodes into CIGARs;
+  and one vectorized decode of the tokens or opcodes into CIGARs;
 * wide jobs on long pairs (the default ``wide_route='anchored'``) are split
   off first and aligned piecewise by ``align/anchored.py``: chaining and the
   host window DP run while the narrow chunks compute, its device window
   chunks queue behind them, and a job without a usable chain (or, under
   ``wide_verify``, with a stitch that is not optimal) goes back to the
   banded chunks.
+
+``kernel='wfa'`` takes another route: the sketch (and the score-only probe)
+orients each pair, and the pairs, sorted by length, run in batches through
+the wavefront kernel (``ops/wfa.py::wfa_align_device``) at a score budget
+that grows four-fold (``initial_smax`` first) until every pair finishes or
+passes its divergence cap; ``backtrace_pair`` reads each CIGAR from the
+wavefront history on the host.
 
 ``choose_orientations`` is the orientation call of backends that align one
 orientation a pair (the sweepga backend): the sketch decides clear pairs,
@@ -45,12 +56,12 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ..ops import anchors, nw, nw_cuda
+from ..ops import anchors, nw, nw_cuda, wfa
 from ..ops.wfa import Penalties
 from ..pos import encode_bases, reverse_complement_codes
 from ..scores import DEFAULT_ORIENTATION_SCORES, AlignmentScores
 from ..sequences import SequenceSet
-from ..utils import resolve_device
+from ..utils import resolve_device, to_host
 from . import anchored
 
 
@@ -77,6 +88,8 @@ class RunnerConfig:
     orientation_scores: AlignmentScores = DEFAULT_ORIENTATION_SCORES
     max_divergence: float | None = None
     band_slack: int = 64  # minimum extra diagonals beyond the length difference
+    # kernel='wfa': the first score budget of a batch (escalated x4)
+    initial_smax: int = 256
     # traceback-tensor budget per dispatch ([B, tmax, W] uint8).  Chunking
     # fixes each job's band, and the band can change tie-broken CIGARs, so
     # this stays at the JAX package's value until a measured change
@@ -84,14 +97,20 @@ class RunnerConfig:
     verbose: bool = False
     # cap pairs per chunk (0 = memory budget only)
     max_chunk_pairs: int = 0
+    # alignment kernel: 'nw' the banded Gotoh sweep and walk, 'wfa' the
+    # score-adaptive wavefront kernel
+    kernel: str = "nw"
+    # the walk's output: 'runs' fetches run tokens ([B, nw.RUN_MAX] int32)
+    # and decodes at run granularity, 'ops' fetches one opcode a step, 'auto'
+    # takes runs wherever tmax + 4 < 2^15 (pairs whose walk has more than
+    # RUN_MAX runs retry through opcodes)
+    emit: str = "auto"
     # the options below select code paths of the JAX package that this
     # package does not have yet; anything but the default raises
-    kernel: str = "nw"  # 'wfa': ROADMAP item 13
     dp_dtype: str = "int32"  # 'int16': item 13
     sweep: str = "antidiag"  # 'rows': item 13
     fold: bool | str = False  # item 13
     band_tiling: str = "off"  # item 13
-    emit: str = "auto"  # 'runs': item 13; 'auto' and 'ops' emit opcodes
     # host worker threads of the anchored route's window DP
     threads: int = 4
     # chunks of more anti-diagonals than this (pairs of qlen + tlen above it)
@@ -138,6 +157,25 @@ def _next_pow2(x: int) -> int:
 PROBE_CHUNK = 64  # orientation-probe pairs per score-only sweep
 
 
+def _quantized_pack(qs, ts):
+    """wfa.pack_batch at quantized shapes: lengths rounded up to 256 (plus
+    the EXTEND_CHUNK pad columns), the batch to a power of two with
+    zero-length pairs (which end at score 0)."""
+    B = _next_pow2(len(qs))
+    empty = np.zeros(0, dtype=np.uint8)
+    qs = list(qs) + [empty] * (B - len(qs))
+    ts = list(ts) + [empty] * (B - len(ts))
+    lq = _round_up(max((q.size for q in qs), default=1), 256)
+    lt = _round_up(max((t.size for t in ts), default=1), 256)
+    Q = np.stack([np.concatenate([q, np.full(lq + wfa.EXTEND_CHUNK - q.size, wfa.QPAD, np.uint8)])
+                  for q in qs])
+    T = np.stack([np.concatenate([t, np.full(lt + wfa.EXTEND_CHUNK - t.size, wfa.TPAD, np.uint8)])
+                  for t in ts])
+    qlens = np.array([q.size for q in qs], dtype=np.int32)
+    tlens = np.array([t.size for t in ts], dtype=np.int32)
+    return Q, T, qlens, tlens
+
+
 def pack_probe(bq: list[np.ndarray], bt: list[np.ndarray]):
     """Kernel inputs of one orientation-probe chunk: (Q [B, lq], T [B, lt]
     uint8, qlens, tlens [B] int32, band, tmax) with B a power of two of at
@@ -164,12 +202,10 @@ def pack_probe(bq: list[np.ndarray], bt: list[np.ndarray]):
 
 def _check_config(cfg: RunnerConfig) -> None:
     unported = (
-        ("kernel", cfg.kernel != "nw", 13),
         ("dp_dtype", cfg.dp_dtype != "int32", 13),
         ("sweep", cfg.sweep != "antidiag", 13),
         ("fold", cfg.fold is not False, 13),
         ("band_tiling", cfg.band_tiling != "off", 13),
-        ("emit", cfg.emit not in ("auto", "ops"), 13),
     )
     for name, bad, item in unported:
         if bad:
@@ -179,6 +215,10 @@ def _check_config(cfg: RunnerConfig) -> None:
             )
     if cfg.wide_route not in ("anchored", "full"):
         raise ValueError(f"wide_route must be 'anchored' or 'full', got {cfg.wide_route!r}")
+    if cfg.kernel not in ("nw", "wfa"):
+        raise ValueError(f"kernel must be 'nw' or 'wfa', got {cfg.kernel!r}")
+    if cfg.emit not in ("auto", "runs", "ops"):
+        raise ValueError(f"emit must be 'auto', 'runs' or 'ops', got {cfg.emit!r}")
 
 
 class WfaAligner:
@@ -203,6 +243,11 @@ class WfaAligner:
             "dropped": 0,
             "wall_s": 0.0,
             "band_escalations": 0,
+            # kernel='wfa': pairs re-run at a larger score budget
+            "escalations": 0,
+            # walks with more than RUN_MAX runs (nw.RUN_MAX, the window and
+            # gap chunks' own budgets), re-run through opcodes
+            "run_overflows": 0,
             "cells_padded": 0,  # B_padded * (tmax + 2) * W summed over dispatches
             "cells_true": 0,  # (qlen+tlen+1) * W summed over aligned jobs
             # host-side phase timers (collect includes the device wait)
@@ -226,7 +271,9 @@ class WfaAligner:
             # the jobs it carried ([pair index, reverse] for chunk, long and
             # verify; see anchored._dispatch_window_chunk for windows, and
             # choose_orientations' 'probe' sweeps, the sweepga backend's 'gap'
-            # chunks and the inversion-aware mode's 'inversion' batch)
+            # chunks, the inversion-aware mode's 'inversion' batch and
+            # kernel='wfa''s 'wfa' batches); the walk's output of each
+            # chunk, window and gap dispatch as emit: 'runs' or 'ops'
             "dispatches": [],
         }
         # per-(sequence, orientation) minimizer cache of the anchored route
@@ -236,6 +283,9 @@ class WfaAligner:
         # (pair_idx, rc) jobs already routed through the anchored route in
         # this call (a failed or suboptimal stitch must not loop back)
         self._anchored_tried: set[tuple[int, bool]] = set()
+        # (pair_idx, rc) jobs whose walk produced more than nw.RUN_MAX runs:
+        # they run in chunks of their own, through the opcode walk
+        self._runs_off_set: set[tuple[int, bool]] = set()
 
     def _minimizers(self, idx: int, rc: bool):
         key = (idx, rc)
@@ -366,7 +416,8 @@ class WfaAligner:
 
     def align_pairs_oriented(self, pairs, is_rev) -> list[AlignmentResult]:
         """Align every pair in a FORCED orientation, skipping the sketch's
-        orientation call (it still sizes the initial band)."""
+        orientation call (the banded kernel's sketch still sizes the
+        initial band)."""
         return self._align(pairs, np.asarray(is_rev, dtype=bool))
 
     def _align(self, pairs, forced_rev) -> list[AlignmentResult]:
@@ -374,7 +425,11 @@ class WfaAligner:
         pairs = np.asarray(pairs)
         if len(pairs) == 0:
             return []
-        results = self._align_pairs_nw(pairs, forced_rev)
+        if self.cfg.kernel == "wfa":
+            is_rev = self.choose_orientations(pairs) if forced_rev is None else forced_rev
+            results = self._align_pairs_wfa(pairs, is_rev)
+        else:
+            results = self._align_pairs_nw(pairs, forced_rev)
         self.stats["alignments"] += len(results)
         self.stats["wall_s"] += time.time() - t0
         if self.cfg.verbose:
@@ -384,6 +439,107 @@ class WfaAligner:
                 f"{self.stats['band_escalations']} band escalations)"
             )
         return results
+
+    # -- wavefront path (kernel='wfa') ------------------------------------------
+
+    def _align_pairs_wfa(self, pairs, is_rev) -> list[AlignmentResult]:
+        """Pairs sorted by their longer sequence, in batches at one score
+        budget; a pair that does not finish within the budget re-runs at
+        four times it, up to its divergence cap."""
+        maxlens = np.array([max(self.codes[i].size, self.codes[j].size) for i, j in pairs])
+        order = np.argsort(maxlens, kind="stable")
+        results = []
+        pending = [(int(p), int(self.cfg.initial_smax)) for p in order]
+        while pending:
+            batch, pending = self._take_batch(pending, pairs)
+            batch_results, retries = self._run_full_batch(batch, pairs, is_rev)
+            results.extend(batch_results)
+            self.stats["escalations"] += len(retries)
+            pending.extend(retries)
+        return results
+
+    def _take_batch(self, pending, pairs):
+        """Split off the (pair_idx, smax) jobs of the first job's smax that fit
+        the memory budget together: their history tensors and the extension
+        table the JAX package builds beside them, at the batch's widest band
+        and longest target (the batch, and so its band, are the JAX
+        package's, and the band can decide a tie-broken CIGAR)."""
+        first_smax = pending[0][1]
+        other = [job for job in pending if job[1] != first_smax]
+        batch = []
+        max_band = max_lt = 0
+        for job in pending:
+            if job[1] != first_smax:
+                continue
+            i, j = pairs[job[0]]
+            qlen, tlen = self.codes[i].size, self.codes[j].size
+            trial_band = max(max_band, self._band_for(qlen, tlen))
+            trial_lt = max(max_lt, tlen)
+            ndiag = 2 * trial_band + 1
+            hist_bytes = (len(batch) + 1) * 5 * (first_smax + 1) * ndiag * 2
+            ext_bytes = (len(batch) + 1) * ndiag * (trial_lt + 256) * 2 * 3
+            if batch and hist_bytes + ext_bytes > self.cfg.memory_budget_bytes:
+                other.append(job)
+            else:
+                batch.append(job)
+                max_band, max_lt = trial_band, trial_lt
+        return batch, other
+
+    def _band_for(self, qlen: int, tlen: int) -> int:
+        """Band half-width K of a pair: its length difference plus band_slack,
+        W = K + 1 rounded to a multiple of 128."""
+        diff = abs(tlen - qlen)
+        k = _round_up(diff + self.cfg.band_slack + 1, 128) - 1
+        return min(k, max(qlen, tlen) + 1)
+
+    def _run_full_batch(self, batch, pairs, is_rev):
+        """One wavefront launch over a batch at the batch's widest band, then
+        the host backtrace of every finished pair.  Returns (results,
+        retries): unfinished pairs under their cap re-run at smax * 4."""
+        if not batch:
+            return [], []
+        smax = batch[0][1]
+        qs, ts, caps, bands = [], [], [], []
+        for p, _ in batch:
+            i, j = pairs[p]
+            q = self.rc_codes[i] if is_rev[p] else self.codes[i]
+            t = self.codes[j]
+            qs.append(q)
+            ts.append(t)
+            caps.append(self._pair_cap(q.size, t.size))
+            bands.append(self._band_for(q.size, t.size))
+        band = max(bands)
+        Q, T, qlens, tlens = _quantized_pack(qs, ts)
+        caps = caps + [0] * (len(qlens) - len(caps))
+        smax_eff = min(smax, max(caps))
+        caps_eff = np.minimum(np.array(caps, dtype=np.int32), smax_eff)
+        entry = {"kind": "wfa", "B": Q.shape[0], "band": band, "smax": smax_eff,
+                 "jobs": [[p, int(is_rev[p])] for p, _ in batch]}
+        dev = self.device
+        Qd, Td, qd, td, cd = (torch.from_numpy(a).to(dev) for a in (Q, T, qlens, tlens, caps_eff))
+        pen = Penalties.from_scores(self.cfg.scores)
+        scores, hists = wfa.wfa_align_device(Qd, Td, qd, td, cd, smax=smax_eff, band=band,
+                                             keep_history=True, **pen.kernel_kwargs())
+        scores = scores.cpu().numpy()[: len(batch)]
+        # the backtrace reads no row past a pair's score
+        top = int(scores.max(initial=-1)) + 1
+        hists = {k: v[: len(batch), :top].cpu().numpy() for k, v in hists.items()}
+        entry["steps"] = int(max(s if s >= 0 else c for s, c in zip(scores, caps_eff)))
+        self.stats["dispatches"].append(entry)
+
+        results, retries = [], []
+        for b, (p, _) in enumerate(batch):
+            i, j = pairs[p]
+            if scores[b] < 0:
+                if smax_eff < caps[b]:
+                    retries.append((p, min(smax * 4, caps[b] + 1)))
+                else:
+                    self.stats["dropped"] += 1  # exceeded divergence cap
+                continue
+            items = wfa.backtrace_pair({k: v[b] for k, v in hists.items()}, int(scores[b]),
+                                       int(qlens[b]), int(tlens[b]), band, pen)
+            results.append(AlignmentResult(int(i), int(j), bool(is_rev[p]), int(scores[b]), items))
+        return results, retries
 
     # -- banded anti-diagonal Gotoh path --------------------------------------
 
@@ -674,9 +830,12 @@ class WfaAligner:
             done[(plan.p, plan.rc)] = AlignmentResult(int(qi), int(tj), plan.rc, score, items)
 
     def _make_nw_chunks(self, queue, pairs):
-        """Pack jobs into as few dispatches as possible: jobs sort by
-        (band, length) and chunks cut only at the traceback memory budget /
-        max_chunk_pairs; every job in a chunk runs at the chunk-max band.
+        """Pack jobs into as few dispatches as possible: jobs sort by (run
+        overflow, band, length) and chunks cut only at a change of run
+        overflow, the traceback memory budget and max_chunk_pairs; every job
+        in a chunk runs at the chunk-max band.  Jobs in _runs_off_set (their
+        walk overflowed RUN_MAX) form chunks of their own, which take the
+        opcode walk.
 
         Entries are (pair_idx, rc, band, q, t)."""
         entries = []
@@ -684,8 +843,9 @@ class WfaAligner:
             qi, tj = pairs[p]
             q = self.rc_codes[qi] if rc else self.codes[qi]
             t = self.codes[tj]
-            entries.append((band, q.size + t.size, p, rc, q, t))
-        entries.sort(key=lambda e: (e[0], e[1]))
+            roff = (p, rc) in self._runs_off_set
+            entries.append((roff, band, q.size + t.size, p, rc, q, t))
+        entries.sort(key=lambda e: (e[0], e[1], e[2]))
 
         chunks = []
         i = 0
@@ -693,7 +853,9 @@ class WfaAligner:
             chunk = []
             band = 0
             while i < len(entries):
-                bandj, _ln, p, rc, q, t = entries[i]
+                roff, bandj, _ln, p, rc, q, t = entries[i]
+                if chunk and roff != ((chunk[0][0], chunk[0][1]) in self._runs_off_set):
+                    break  # the walk's output is one per chunk: no mixing
                 trial_band = max(band, bandj)
                 trial_tmax = _round_up(q.size + t.size, 512)
                 B_pad = self._quantize_batch(len(chunk) + 1)
@@ -727,10 +889,25 @@ class WfaAligner:
             tlens[b] = t.size
         return Q, T, qlens, tlens, tmax
 
+    def _use_runs(self, chunk, tmax: int) -> bool:
+        """Run tokens for this chunk?  Chunks are homogeneous in run-overflow
+        membership (_make_nw_chunks keeps them apart)."""
+        if self.cfg.emit == "ops":
+            return False
+        if not nw.runs_fit(tmax):
+            if self.cfg.emit == "runs":
+                raise ValueError("emit='runs' requires tmax < 32k; use 'auto'")
+            return False
+        p, rc = chunk[0][0], chunk[0][1]
+        return (p, rc) not in self._runs_off_set
+
     def _dispatch_nw_chunk(self, chunk):
         """Launch the sweep and the walk for one chunk (through the long-pair
-        route above long_pair_threshold anti-diagonals); the opcodes and
-        scores start copying back without blocking the host."""
+        route above long_pair_threshold anti-diagonals); the walk's output
+        (run tokens and counts, or opcodes) and the scores start copying back
+        without blocking the host.  Returns (chunk, scores, payload, ready
+        event, qlens, tlens), payload ('runs', (tokens, counts)) or ('ops',
+        opcodes)."""
         band = chunk[0][2]
         Q, T, qlens, tlens, tmax = self.pack_chunk(chunk)
         B = Q.shape[0]
@@ -746,21 +923,19 @@ class WfaAligner:
             self.stats["long_pairs"] += len(chunk)
             scores, ops = nw_cuda.nw_align_long(Qd, Td, qd, td, band=band, seg=seg, t_need=t_need,
                                                 **self._penalties())
+            mode, out = "ops", (ops,)  # the segment walk emits opcodes
         else:
             scores, tb = nw_cuda.nw_align(Qd, Td, qd, td, band=band, tmax=tmax, **self._penalties())
-            ops = nw_cuda.nw_walk(tb, qd, td, band=band, tmax=tmax)
+            if self._use_runs(chunk, tmax):
+                mode = "runs"
+                out = nw_cuda.nw_walk_runs(tb, qd, td, band=band, tmax=tmax, run_max=nw.RUN_MAX)
+            else:
+                mode, out = "ops", (nw_cuda.nw_walk(tb, qd, td, band=band, tmax=tmax),)
             del tb  # stream-ordered: the allocator reuses it only after the walk
+        entry["emit"] = mode
         self.stats["dispatches"].append(entry)
-        ready = None
-        if dev.type == "cuda":
-            scores_h = torch.empty(scores.shape, dtype=scores.dtype, pin_memory=True)
-            ops_h = torch.empty(ops.shape, dtype=ops.dtype, pin_memory=True)
-            scores_h.copy_(scores, non_blocking=True)
-            ops_h.copy_(ops, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record()
-            scores, ops = scores_h, ops_h
-        return chunk, scores, ops, ready, qlens, tlens
+        scores, out, ready = to_host(scores, out)
+        return chunk, scores, (mode, out), ready, qlens, tlens
 
     def _collect_nw_chunk(self, dispatched, pairs):
         """Returns (done: {(pair_idx, rc): result-or-None}, retries).
@@ -768,11 +943,11 @@ class WfaAligner:
         A job is retried (not returned) when the band certificate fails; a
         None result means the pair exceeded the divergence cap with a
         certified-exact score."""
-        chunk, scores, ops, ready, qlens, tlens = dispatched
+        chunk, scores, (mode, out), ready, qlens, tlens = dispatched
         if ready is not None:
             ready.synchronize()
         scores = scores.numpy()
-        ops = ops.numpy()
+        data = [a.numpy() for a in out]
 
         done: dict[tuple[int, bool], AlignmentResult | None] = {}
         retries: list[tuple[tuple[int, bool, int], int]] = []
@@ -795,16 +970,24 @@ class WfaAligner:
             if score < 0 or score > self._pair_cap(qlen, tlen):
                 done[(p, rc)] = None  # certified-exact score exceeds the cap
                 continue
+            if mode == "runs" and int(data[1][b]) > nw.RUN_MAX:
+                # the run list was cut on the device: retry through the
+                # opcode walk (same band: the score is already certified)
+                self.stats["run_overflows"] += 1
+                self._runs_off_set.add((p, rc))
+                retries.append(((p, rc, bandj), score))
+                continue
             self.stats["cells_true"] += (qlen + tlen + 1) * (bandj + 1)
             decode_jobs.append((b, p, rc, q, t, score))
 
         if decode_jobs:
             rows = [b for b, *_ in decode_jobs]
-            items_all = nw.decode_batch(
-                ops[rows],
-                [q for _b, _p, _rc, q, _t, _s in decode_jobs],
-                [t for _b, _p, _rc, _q, t, _s in decode_jobs],
-            )
+            qs = [q for _b, _p, _rc, q, _t, _s in decode_jobs]
+            ts = [t for _b, _p, _rc, _q, t, _s in decode_jobs]
+            if mode == "runs":
+                items_all = nw.decode_runs_batch(data[0][rows], data[1][rows], qs, ts)
+            else:
+                items_all = nw.decode_batch(data[0][rows], qs, ts)
             for (b, p, rc, q, t, score), items in zip(decode_jobs, items_all):
                 qi, tj = pairs[p]
                 done[(p, rc)] = AlignmentResult(int(qi), int(tj), rc, score, items)

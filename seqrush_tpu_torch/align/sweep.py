@@ -16,14 +16,10 @@ filter of its PAF records):
 3. **Gap fill and stitch**: every inter-run gap of the surviving chains is
    aligned exactly, by the host C++ DP up to ``wide_host_window_cells``
    cells and above it by kernels A and B in chunks of up to 8,192 windows
-   (sorted by size); the host library's ``stitch_records`` then assembles
-   the records' CIGARs and scores.
-
-The JAX package fetches a gap chunk's walk as run tokens and re-aligns the
-rows whose run count overflows GAP_RUN_MAX through opcodes.  Kernel B emits
-opcodes, so every device gap chunk here takes the opcode path (the JAX
-package's own tests hold the two paths to the same records); the
-``run_overflows`` counter stays 0.
+   (sorted by size), the walk fetched as run tokens (at most GAP_RUN_MAX a
+   window; the windows that overflow are repacked into a chunk of their own
+   and re-aligned through the opcode walk); the host library's
+   ``stitch_records`` then assembles the records' CIGARs and scores.
 """
 
 from __future__ import annotations
@@ -43,6 +39,9 @@ from .runner import AlignmentResult, RunnerConfig, WfaAligner, _next_pow2, _roun
 MIN_BLOCK_LENGTH = 100  # sweepga FilterConfig.min_block_length
 OVERLAP_THRESHOLD = 0.95  # sweepga FilterConfig.overlap_threshold
 GAP_CHUNK = 8192  # device gap windows per dispatch
+# run-token budget of a gap chunk's walk: windows are tens of bases with a
+# handful of runs; rows that overflow it retry through the opcode walk
+GAP_RUN_MAX = 24
 _OP_CODE = {"=": 0, "X": 1, "I": 2, "D": 3}  # window_dp / stitch_records ops
 _OP_CHARS = ("=", "X", "I", "D")
 
@@ -152,7 +151,6 @@ class SweepAligner(WfaAligner):
         self.anchor_w = w
         self.stats.setdefault("chains", 0)
         self.stats.setdefault("filtered_1to1", 0)
-        self.stats.setdefault("run_overflows", 0)  # no run tokens here: stays 0
         # the tests force the plain Python stitch to hold the C++ one to it
         self.force_python_stitch = False
 
@@ -379,19 +377,53 @@ class SweepAligner(WfaAligner):
         for lo in range(0, len(jobs), GAP_CHUNK):
             self._fill_gap_chunk(jobs[lo : lo + GAP_CHUNK], pen, gap_cigars)
 
-    def _fill_gap_chunk(self, gap_jobs, pen: Penalties, gap_cigars) -> None:
-        """One device chunk of gap windows: kernel A with traceback, kernel
-        B, then the opcode decode (the JAX package's _fill_gap_opcodes at
-        the chunk's own shape)."""
+    def _gap_dispatch(self, gap_jobs, pen: Penalties, emit: str):
+        """Pack a gap chunk (pack_gap_chunk), record it and run kernel A:
+        (packed inputs on the device, band, tmax, traceback)."""
         Q, T, qlens, tlens, band, tmax = pack_gap_chunk(gap_jobs)
         self.stats["dispatches"].append(
-            {"kind": "gap", "B": Q.shape[0], "band": band, "tmax": tmax,
+            {"kind": "gap", "B": Q.shape[0], "band": band, "tmax": tmax, "emit": emit,
              # each window as [pair index, reverse, q start, t start, q length,
              # t length] in the oriented pair's coordinates
              "jobs": [[*map(int, j[4]), int(j[2].size), int(j[3].size)] for j in gap_jobs]})
         self.stats["cells_padded"] += Q.shape[0] * (tmax + 2) * (band + 1)
         Qd, Td, qd, td = (torch.from_numpy(a).to(self.device) for a in (Q, T, qlens, tlens))
         _scores, tb = nw_cuda.nw_align(Qd, Td, qd, td, band=band, tmax=tmax, **pen.kernel_kwargs())
+        return qd, td, band, tmax, tb
+
+    def _fill_gap_chunk(self, gap_jobs, pen: Penalties, gap_cigars) -> None:
+        """One device chunk of gap windows: kernel A with traceback, then
+        kernel B's runs mode and the run decode; the windows whose walk has
+        more than GAP_RUN_MAX runs go to _fill_gap_opcodes.  Past the tokens'
+        reach (tmax + 4 >= 2^15) or under emit='ops' the chunk takes the
+        opcode walk whole."""
+        tmax = _round_up(max(j[2].size + j[3].size for j in gap_jobs) + 1, 256)  # pack_gap_chunk's
+        if not nw.runs_fit(tmax) or self.cfg.emit == "ops":
+            self._fill_gap_opcodes(gap_jobs, pen, gap_cigars)
+            return
+        qd, td, band, tmax, tb = self._gap_dispatch(gap_jobs, pen, "runs")
+        tokens, counts = nw_cuda.nw_walk_runs(tb, qd, td, band=band, tmax=tmax, run_max=GAP_RUN_MAX)
+        del tb
+        n = len(gap_jobs)
+        tokens, counts = tokens[:n].cpu().numpy(), counts[:n].cpu().numpy()
+        ok = counts <= GAP_RUN_MAX
+        ok_jobs = [j for j, k in zip(gap_jobs, ok) if k]
+        if ok_jobs:
+            items_all = nw.decode_runs_batch(tokens[ok], counts[ok], [j[2] for j in ok_jobs],
+                                             [j[3] for j in ok_jobs])
+            for j, items in zip(ok_jobs, items_all):
+                gap_cigars[(j[0], j[1])] = items
+        overflow = [j for j, k in zip(gap_jobs, ok) if not k]
+        self.stats["run_overflows"] += len(overflow)
+        if overflow:
+            # repack only the overflowing windows: their own chunk's shape
+            # (and band) rather than the padded whole
+            self._fill_gap_opcodes(overflow, pen, gap_cigars)
+
+    def _fill_gap_opcodes(self, gap_jobs, pen: Penalties, gap_cigars) -> None:
+        """Gap windows through kernels A and B in their own chunk, the walk
+        emitting opcodes, and the opcode decode."""
+        qd, td, band, tmax, tb = self._gap_dispatch(gap_jobs, pen, "ops")
         ops = nw_cuda.nw_walk(tb, qd, td, band=band, tmax=tmax)
         del tb
         items_all = nw.decode_batch(ops[: len(gap_jobs)].cpu().numpy(), [j[2] for j in gap_jobs],

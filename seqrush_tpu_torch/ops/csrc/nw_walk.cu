@@ -35,6 +35,18 @@
 //   * gap steps go one at a time, with the cursor kept as its row and column
 //     in the tile and moved by the step's fixed offset, and every thread
 //     storing the same opcode, so the warp never diverges.
+// Runs mode (nw_walk_runs_kernel; the counterpart of the XLA program
+// seqrush_tpu/ops/nw.py::_tb_scan_tbw(emit="runs")): the same walk, the same
+// cursor and tiles, but instead of one opcode a column the warp keeps the
+// open run (op, length) and writes a token op | length << 2 (int32) when it
+// closes: on an op change, or when the run has run_len_max steps (the next
+// step of that op starts a new run, as the JAX scan's accumulator does).  A
+// diagonal ballot of n steps extends the open M run and splits it where the
+// cap falls.  Tokens land at index `count` of the pair's [run_max] row while
+// count < run_max, in walk order (the alignment's reverse); the count goes
+// on past run_max, and the open run is flushed last.  What bounds it is the
+// walk's own chain of steps; it writes run_max + 1 words a pair instead of
+// tmax + 1 bytes.
 // Segment mode (nw_walk_seg_kernel; replaces seqrush_tpu/ops/nw.py::
 // _tb_scan_segment, the reverse scan of nw_align_long): the traceback holds
 // only the rows [t_lo, t_hi] of one segment, and the cursor (anti-diagonal,
@@ -105,16 +117,53 @@ __device__ __forceinline__ void store_tile(uint8_t (*tile)[WALK_C], const uint32
   for (int rr = 0; rr < WALK_R; ++rr) tile[rr][x] = (uint8_t)col[rr];
 }
 
+// The run accumulator of the runs mode, the same in every thread of the
+// warp: n steps of op extend the open run (sym, len) up to run_len_max a
+// token; a run that closes is stored at index count of tok while count <
+// run_max, and counted either way.  Every thread stores the same word, so
+// the warp never diverges around the store.
+struct RunAcc {
+  int sym = 0, len = 0, count = 0;
+
+  __device__ __forceinline__ void close(int* tok, int run_max) {
+    if (len > 0) {
+      if (count < run_max) tok[count] = sym | (len << 2);
+      ++count;
+    }
+  }
+
+  __device__ __forceinline__ void add(int op, int n, int* tok, int run_max, int run_len_max) {
+    if (n == 1 && op == sym && len < run_len_max) {  // a gap step inside its run
+      ++len;
+      return;
+    }
+    while (n > 0) {
+      if (op == sym && len < run_len_max) {
+        const int take = min(n, run_len_max - len);
+        len += take;
+        n -= take;
+      } else {
+        close(tok, run_max);
+        sym = op;
+        len = 0;
+      }
+    }
+  }
+};
+
 // The walk of pair b.  Single-shot: from (qlen, tlen) over tb [B, tmax_pad,
-// W] into ops [B, tmax + 1].  Segment mode: from the cursor in state [4, B]
-// (cur_t, lane, mat, done) over tb [B, t_hi - t_lo + 1, W] (rows t_lo..t_hi)
-// into ops [B, ops_cols], and the cursor back into state.
-template <bool SEG>
+// W] into ops [B, tmax + 1], or (RUNS) run tokens into tok [B, run_max] and
+// the pair's run count into counts [B].  Segment mode: from the cursor in
+// state [4, B] (cur_t, lane, mat, done) over tb [B, t_hi - t_lo + 1, W]
+// (rows t_lo..t_hi) into ops [B, ops_cols], and the cursor back into state.
+template <bool SEG, bool RUNS>
 __device__ __forceinline__ void walk_body(const uint8_t* __restrict__ tb,
                                           const int* __restrict__ qlens,
                                           const int* __restrict__ tlens, uint8_t* __restrict__ ops,
                                           int B, int W, int tmax, int tmax_pad, int* state,
-                                          int t_lo, int t_hi, int ops_cols) {
+                                          int t_lo, int t_hi, int ops_cols, int* tokens = nullptr,
+                                          int* counts = nullptr, int run_max = 0,
+                                          int run_len_max = 0) {
   __shared__ uint8_t tiles[WALK_PAIRS_PER_BLOCK][2][WALK_R][WALK_C];
   const int warp = threadIdx.x >> 5;
   const int x = threadIdx.x & 31;
@@ -122,7 +171,9 @@ __device__ __forceinline__ void walk_body(const uint8_t* __restrict__ tb,
   if (b >= B) return;
   const int K = W - 1;
   const uint8_t* tbb = tb + (size_t)b * (SEG ? t_hi - t_lo + 1 : tmax_pad) * W;
-  uint8_t* out = ops + (size_t)b * (SEG ? ops_cols : tmax + 1);
+  uint8_t* out = RUNS ? nullptr : ops + (size_t)b * (SEG ? ops_cols : tmax + 1);
+  int* tok = RUNS ? tokens + (size_t)b * run_max : nullptr;
+  RunAcc acc;
   const int tmin = SEG ? t_lo : 1;  // the lowest anti-diagonal the walk may act on
 
   // the cursor: cell (i, j) on anti-diagonal td = i + j, lane i - i0(td)
@@ -187,7 +238,11 @@ __device__ __forceinline__ void walk_body(const uint8_t* __restrict__ tb,
       const unsigned run = __ballot_sync(FULL_MASK, take);
       const int n = run == FULL_MASK ? 32 : __ffs(~run) - 1;
       if (n > 0) {
-        if (x < n) out[td - 2 * x] = OP_M;
+        if (RUNS) {
+          acc.add(OP_M, n, tok, run_max, run_len_max);
+        } else if (x < n) {
+          out[td - 2 * x] = OP_M;
+        }
         uc -= corner_steps(td, K, n);
         ur += 2 * n;
         td -= 2 * n;
@@ -202,14 +257,19 @@ __device__ __forceinline__ void walk_body(const uint8_t* __restrict__ tb,
     // g: the state this step leaves: 0 the diagonal, 1 D1, 2 I1, 3 D2, 4 I2
     const int g = mat ? mat : (bb & 7);
     if (g > 4) {  // a choice code no state has: the step consumes nothing
-      out[td] = OP_NONE;
+      if (!RUNS) out[td] = OP_NONE;
       if (SEG) mat = ((bb >> 4) & 1) ? 0 : 4;  // the reference's state after such a step
       break;
     }
     const bool diag = g == 0;
     const bool del = g & 1;  // D1 or D2: the target advances alone
     // every thread stores the same byte: no divergence around the store
-    out[td] = (uint8_t)(diag ? OP_M : del ? OP_D : OP_I);
+    const int op = diag ? OP_M : del ? OP_D : OP_I;
+    if (RUNS) {
+      acc.add(op, 1, tok, run_max, run_len_max);
+    } else {
+      out[td] = (uint8_t)op;
+    }
     // the opened bit of D1, I1, D2, I2 is bit 5, 3, 6, 4
     const bool opened = (bb >> ((0x46350 >> (4 * g)) & 15)) & 1;
     mat = (diag || opened) ? 0 : g;
@@ -227,6 +287,10 @@ __device__ __forceinline__ void walk_body(const uint8_t* __restrict__ tb,
     td -= drow;
     if (td < tmin) break;
   }
+  if (RUNS) {
+    acc.close(tok, run_max);  // the open run: the alignment's first
+    counts[b] = acc.count;
+  }
   if (SEG && x == 0) {
     // the cursor after the last step: cell (i, j), whose anti-diagonal is
     // i + j (td is not moved by a step that ends the walk or consumes nothing)
@@ -243,7 +307,18 @@ __global__ void __launch_bounds__(32 * WALK_PAIRS_PER_BLOCK) nw_walk_kernel(
     const int* __restrict__ tlens,    // [B]
     uint8_t* __restrict__ ops,        // [B, tmax + 1] out, zero-filled
     int B, int W, int tmax, int tmax_pad) {
-  walk_body<false>(tb, qlens, tlens, ops, B, W, tmax, tmax_pad, nullptr, 0, 0, 0);
+  walk_body<false, false>(tb, qlens, tlens, ops, B, W, tmax, tmax_pad, nullptr, 0, 0, 0);
+}
+
+__global__ void __launch_bounds__(32 * WALK_PAIRS_PER_BLOCK) nw_walk_runs_kernel(
+    const uint8_t* __restrict__ tb,   // [B, tmax_pad, W]
+    const int* __restrict__ qlens,    // [B]
+    const int* __restrict__ tlens,    // [B]
+    int* __restrict__ tokens,         // [B, run_max] out, zero-filled
+    int* __restrict__ counts,         // [B] out, zero-filled
+    int B, int W, int tmax, int tmax_pad, int run_max, int run_len_max) {
+  walk_body<false, true>(tb, qlens, tlens, nullptr, B, W, tmax, tmax_pad, nullptr, 0, 0, 0, tokens,
+                         counts, run_max, run_len_max);
 }
 
 __global__ void __launch_bounds__(32 * WALK_PAIRS_PER_BLOCK) nw_walk_seg_kernel(
@@ -251,7 +326,7 @@ __global__ void __launch_bounds__(32 * WALK_PAIRS_PER_BLOCK) nw_walk_seg_kernel(
     int* __restrict__ state,          // [4, B] cursor in and out
     uint8_t* __restrict__ ops,        // [B, ops_cols] out (columns t_lo..t_hi)
     int B, int W, int t_lo, int t_hi, int ops_cols) {
-  walk_body<true>(tb, nullptr, nullptr, ops, B, W, 0, 0, state, t_lo, t_hi, ops_cols);
+  walk_body<true, false>(tb, nullptr, nullptr, ops, B, W, 0, 0, state, t_lo, t_hi, ops_cols);
 }
 
 extern "C" int nw_walk_launch(
@@ -262,6 +337,20 @@ extern "C" int nw_walk_launch(
   nw_walk_kernel<<<blocks, 32 * WALK_PAIRS_PER_BLOCK, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)tb, (const int*)qlens, (const int*)tlens, (uint8_t*)ops,
       B, W, tmax, tmax_pad);
+  return (int)cudaGetLastError();
+}
+
+// The runs mode: tokens [B, run_max] and counts [B] int32, both zero-filled
+// by the caller.  Returns the CUDA error code.
+extern "C" int nw_walk_runs_launch(
+    const void* tb, const void* qlens, const void* tlens, void* tokens, void* counts,
+    int B, int W, int tmax, int tmax_pad, int run_max, int run_len_max, void* stream) {
+  if (B <= 0) return (int)cudaSuccess;
+  if (run_max < 1 || run_len_max < 1) return (int)cudaErrorInvalidValue;
+  const int blocks = (B + WALK_PAIRS_PER_BLOCK - 1) / WALK_PAIRS_PER_BLOCK;
+  nw_walk_runs_kernel<<<blocks, 32 * WALK_PAIRS_PER_BLOCK, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)tb, (const int*)qlens, (const int*)tlens, (int*)tokens, (int*)counts,
+      B, W, tmax, tmax_pad, run_max, run_len_max);
   return (int)cudaGetLastError();
 }
 

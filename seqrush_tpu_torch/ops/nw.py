@@ -17,7 +17,11 @@ DP (penalties, match = 0):
 
 The walk emits one opcode per anti-diagonal (0 none, 1 M, 2 I, 3 D) at
 column td; ``decode_batch`` turns a batch of opcode rows into run-length
-CIGAR items with 'M' split into '=' / 'X' against the sequences.
+CIGAR items with 'M' split into '=' / 'X' against the sequences.  In its
+runs mode the walk emits run tokens instead (op | len << 2, int32, in walk
+order, which is reverse alignment order; at most run_max a pair, each run
+at most _RUN_LEN_MAX long) and a count of runs per pair;
+``decode_runs_batch`` turns them into the same items.
 """
 
 from __future__ import annotations
@@ -36,6 +40,21 @@ H_DIAG, H_D1, H_I1, H_D2, H_I2 = 0, 1, 2, 3, 4
 OP_NONE, OP_M, OP_I, OP_D = 0, 1, 2, 3
 
 TB_CHUNK = 128  # traceback rows are padded to a multiple of this
+
+# run tokens a pair may emit in the walk's runs mode.  M runs break only at
+# indels (mismatches stay inside M), so an accepted alignment has about
+# 2 * indel events + 1 runs; a pair with more is retried through opcodes
+# (the runner's _runs_off_set)
+RUN_MAX = 128
+# run lengths are capped at 14 bits a token (longer runs split into several
+# tokens; decode_runs_batch merges adjacent runs of one op)
+_RUN_LEN_MAX = (1 << 14) - 1
+
+
+def runs_fit(tmax: int) -> bool:
+    """Whether a dispatch of tmax anti-diagonals can emit run tokens (the
+    JAX package's token position field holds tmax + 4 < 2^15)."""
+    return tmax + 4 < 1 << 15
 
 
 def _i0_of(t: int, K: int) -> int:
@@ -179,4 +198,123 @@ def decode_batch(
         if v == 5:
             continue
         out[r].append((int(n), _SYM_CHARS[v]))
+    return out
+
+
+def decode_runs_batch(
+    tokens: np.ndarray,
+    counts: np.ndarray,
+    qs: list[np.ndarray],
+    ts: list[np.ndarray],
+) -> list[list[tuple[int, str]]]:
+    """Decode run tokens (nw_cuda.nw_walk_runs) into per-pair run-length CIGAR
+    item lists with 'M' split into '='/'X' — the decode_batch output
+    contract, at run granularity instead of step granularity.
+
+    Cursor positions are two [B, RUN_MAX] cumsums (walk order = from the
+    alignment's end, so starts come from suffix arithmetic), the M-run base
+    comparison is one flat gather over all M bases, and '='/'X' boundaries
+    fall out of one RLE with forced breaks at M-run starts.  Rows with
+    counts > RUN_MAX are truncated on device — callers must not pass them
+    here (the runner retries them through the opcode walk)."""
+    tokens = np.asarray(tokens)
+    counts = np.asarray(counts)
+    B, R = tokens.shape
+    if B == 0:
+        return []
+    syms = (tokens & 3).astype(np.int8)
+    lens = (tokens >> 2).astype(np.int64)
+    r_idx = np.arange(R, dtype=np.int64)[None, :]
+    valid = (r_idx < np.minimum(counts, R)[:, None]) & (lens > 0)
+    lens = np.where(valid, lens, 0)
+    is_m = valid & (syms == OP_M)
+    qc = np.where(valid & ((syms == OP_M) | (syms == OP_I)), lens, 0)
+    tc = np.where(valid & ((syms == OP_M) | (syms == OP_D)), lens, 0)
+    q_after = np.cumsum(qc, axis=1) - qc  # query bases consumed AFTER a run
+    t_after = np.cumsum(tc, axis=1) - tc
+    qlens = np.array([q.size for q in qs], dtype=np.int64)
+    tlens = np.array([t.size for t in ts], dtype=np.int64)
+    q0 = qlens[:, None] - q_after - qc  # run start (consuming runs only)
+    t0 = tlens[:, None] - t_after - tc
+
+    # one flat base comparison over every M base in the batch
+    bm, rm = np.nonzero(is_m)  # row-major: walk order within each row
+    n_mruns = bm.size
+    seg_bound = np.zeros(1, dtype=np.int64)
+    seg_lens = seg_eq = None
+    gmap = np.full((B, R), -1, dtype=np.int64)
+    if n_mruns:
+        gmap[bm, rm] = np.arange(n_mruns)
+        mlen = lens[bm, rm]
+        ends = np.cumsum(mlen)
+        starts_flat = ends - mlen
+        total = int(ends[-1])
+        offs = np.arange(total, dtype=np.int64) - np.repeat(starts_flat, mlen)
+        qi = np.repeat(q0[bm, rm], mlen) + offs
+        ti = np.repeat(t0[bm, rm], mlen) + offs
+        rowrep = np.repeat(bm, mlen)
+        Lq = max(1, int(qlens.max()))
+        Lt = max(1, int(tlens.max()))
+        # distinct pads: an out-of-range M base decodes as 'X', never '='
+        Qh = np.full((B, Lq), 254, np.uint8)
+        Th = np.full((B, Lt), 255, np.uint8)
+        for b, (q, t) in enumerate(zip(qs, ts)):
+            Qh[b, : q.size] = q
+            Th[b, : t.size] = t
+        eq = Qh[rowrep, np.clip(qi, 0, Lq - 1)] == Th[rowrep, np.clip(ti, 0, Lt - 1)]
+        change = np.empty(total, dtype=bool)
+        change[0] = True
+        change[1:] = eq[1:] != eq[:-1]
+        change[starts_flat] = True  # segment breaks at every M-run start
+        seg_starts = np.flatnonzero(change)
+        seg_lens = np.diff(np.append(seg_starts, total))
+        seg_eq = eq[seg_starts]
+        seg_mrun = np.searchsorted(ends, seg_starts, side="right")
+        seg_bound = np.searchsorted(seg_mrun, np.arange(n_mruns + 1))
+
+    # final assembly: a plain Python loop over pre-extracted lists (tolist()
+    # beats repeated numpy scalar indexing)
+    syms_l = syms.tolist()
+    lens_l = lens.tolist()
+    gmap_l = gmap.tolist()
+    cnt_l = np.minimum(counts, R).tolist()
+    seg_bound_l = seg_bound.tolist()
+    seg_lens_l = seg_lens.tolist() if seg_lens is not None else []
+    seg_eq_l = seg_eq.tolist() if seg_eq is not None else []
+    out: list[list[tuple[int, str]]] = []
+    for b in range(B):
+        items: list[tuple[int, str]] = []
+        append = items.append
+        sb = syms_l[b]
+        lb = lens_l[b]
+        gb = gmap_l[b]
+        last_n = 0
+        last_op = ""
+        for r in range(cnt_l[b] - 1, -1, -1):  # reverse walk = fwd order
+            n = lb[r]
+            if n <= 0:
+                continue
+            s = sb[r]
+            if s == OP_M:
+                g = gb[r]
+                for si in range(seg_bound_l[g], seg_bound_l[g + 1]):
+                    op = "=" if seg_eq_l[si] else "X"
+                    nn = seg_lens_l[si]
+                    if op == last_op:
+                        last_n += nn
+                    else:
+                        if last_n:
+                            append((last_n, last_op))
+                        last_n, last_op = nn, op
+            else:
+                op = "I" if s == OP_I else "D"
+                if op == last_op:
+                    last_n += n
+                else:
+                    if last_n:
+                        append((last_n, last_op))
+                    last_n, last_op = n, op
+        if last_n:
+            append((last_n, last_op))
+        out.append(items)
     return out

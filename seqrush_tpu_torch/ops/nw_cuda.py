@@ -10,6 +10,10 @@
 * ``nw_walk`` -- kernel B, the reverse traceback walk (``csrc/nw_walk.cu``;
   replaces ``nw_pallas.py::_walk_kernel``).  Returns opcodes [B, tmax + 1]
   uint8 (0 none, 1 M, 2 I, 3 D at column td).
+* ``nw_walk_runs`` -- kernel B's runs mode (the counterpart of the XLA
+  program ``seqrush_tpu/ops/nw.py::_tb_scan_tbw(emit="runs")``): the same
+  walk, emitting run tokens [B, run_max] int32 (op | len << 2, in walk
+  order) and the run counts [B] int32 instead of opcodes.
 * ``nw_align_segment`` / ``nw_walk_segment`` -- the segment modes of kernels
   A and B (``csrc/nw_sweep_seg.cu``, ``csrc/nw_walk.cu``; the counterparts of
   ``seqrush_tpu/ops/nw.py::_nw_segment`` and ``_tb_scan_segment``): one
@@ -22,7 +26,8 @@
   O(B * seg * W) whatever the pairs' length; the sweep runs twice.
 
 Each wrapper runs its plain PyTorch version (``nw_align_reference``,
-``nw_walk_reference``) when the tensors lie on the CPU, and launches its CUDA
+``nw_walk_reference``, ``nw_walk_runs_reference``) when the tensors lie on
+the CPU, and launches its CUDA
 kernel when they lie on a GPU; there is no fallback between the two.  The
 plain versions repeat the reference arithmetic step by step, including the
 bytes written at cells outside the pair's matrix, so the traceback tensor
@@ -40,9 +45,12 @@ root, one ``nvcc`` per source in parallel, and loaded with ctypes.  The file
 name carries a hash of the sources and flags, so an edit rebuilds.
 
 ``LAUNCHES`` counts kernel launches (not plain-version calls) per kernel,
-kernel A's score-only mode apart as ``nw_sweep_score_only``, and each segment
-mode apart (``nw_sweep_segment``, ``nw_sweep_segment_score_only``,
-``nw_walk_segment``).
+kernel A's score-only mode apart as ``nw_sweep_score_only``, kernel B's
+runs mode as ``nw_walk_runs``, and each segment mode apart
+(``nw_sweep_segment``, ``nw_sweep_segment_score_only``,
+``nw_walk_segment``); the wavefront kernel of ``ops/wfa.py`` counts its
+launches here too (``wfa``, ``wfa_score_only``), since one build makes one
+library of every source.
 """
 
 from __future__ import annotations
@@ -59,13 +67,15 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
+from . import nw
 from .nw import H_D1, H_D2, H_I1, H_I2, INF, OP_D, OP_I, OP_M, OP_NONE, QPAD, TPAD
 from .nw import _i0_of, tmax_pad_of
 
-LAUNCHES = {"nw_sweep": 0, "nw_sweep_score_only": 0, "nw_walk": 0, "nw_sweep_segment": 0,
-            "nw_sweep_segment_score_only": 0, "nw_walk_segment": 0}
+LAUNCHES = {"nw_sweep": 0, "nw_sweep_score_only": 0, "nw_walk": 0, "nw_walk_runs": 0,
+            "nw_sweep_segment": 0, "nw_sweep_segment_score_only": 0, "nw_walk_segment": 0,
+            "wfa": 0, "wfa_score_only": 0}
 
-_SOURCES = ("nw_sweep.cu", "nw_sweep_seg.cu", "nw_walk.cu")
+_SOURCES = ("nw_sweep.cu", "nw_sweep_seg.cu", "nw_walk.cu", "wfa.cu")
 _HEADERS = ("nw_sweep.cuh",)
 # anti-diagonals per segment of the long-pair route (the JAX package's default)
 LONG_SEG = 2048
@@ -181,10 +191,16 @@ def _library() -> ctypes.CDLL:
             lib.nw_sweep_segment_launch.restype = i32
             lib.nw_walk_launch.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
             lib.nw_walk_launch.restype = i32
+            lib.nw_walk_runs_launch.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
+            lib.nw_walk_runs_launch.restype = i32
             lib.nw_walk_segment_launch.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
             lib.nw_walk_segment_launch.restype = i32
             lib.nw_walk_occupancy.argtypes = [ptr] * 3
             lib.nw_walk_occupancy.restype = i32
+            lib.wfa_launch.argtypes = [ptr] * 11 + [i32] * 13 + [ptr]
+            lib.wfa_launch.restype = i32
+            lib.wfa_occupancy.argtypes = [i32] * 2 + [ptr] * 3
+            lib.wfa_occupancy.restype = i32
             _lib = lib
         return _lib
 
@@ -690,6 +706,92 @@ def nw_walk(tb, qlens, tlens, *, band, tmax):
         raise RuntimeError(f"nw_walk launch failed with CUDA error {err}")
     LAUNCHES["nw_walk"] += 1
     return ops
+
+
+def nw_walk_runs(tb, qlens, tlens, *, band, tmax, run_max, run_len_max=None):
+    """Kernel B's runs mode: the walk of nw_walk, emitted as run tokens.
+
+    Returns (tokens [B, run_max] int32, op | len << 2 in walk order, which
+    is the alignment's reverse, zero past each pair's runs; counts [B] int32,
+    every run of the pair, those past run_max too).  A run is at most
+    run_len_max steps (nw._RUN_LEN_MAX when None); a longer one splits, the
+    first token taking the first run_len_max steps of the walk.  Requires
+    tmax + 4 < 2^15, as the JAX package's run tokens do."""
+    device = tb.device
+    _check("tb", tb, torch.uint8, 3, device)
+    B = tb.shape[0]
+    _check_lengths(qlens, tlens, B, device)
+    W = band + 1
+    if tb.shape[2] != W or tb.shape[1] < tmax + 1:
+        raise ValueError(f"tb shape {tuple(tb.shape)} does not fit band {band}, tmax {tmax}")
+    run_len_max = nw._RUN_LEN_MAX if run_len_max is None else int(run_len_max)
+    if not nw.runs_fit(tmax):
+        raise ValueError(f"run tokens need tmax + 4 < 2^15, got tmax {tmax}")
+    if run_max < 1 or not 1 <= run_len_max <= nw._RUN_LEN_MAX:
+        raise ValueError(f"run_max must be >= 1 and run_len_max in [1, {nw._RUN_LEN_MAX}]")
+    if device.type == "cpu":
+        return nw_walk_runs_reference(tb, qlens, tlens, band=band, tmax=tmax, run_max=run_max,
+                                      run_len_max=run_len_max)
+    _require_cuda(device)
+    tokens = torch.zeros((B, run_max), dtype=torch.int32, device=device)
+    counts = torch.zeros(B, dtype=torch.int32, device=device)
+    if B == 0:
+        return tokens, counts
+    lib = _library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.nw_walk_runs_launch(
+            tb.data_ptr(), qlens.data_ptr(), tlens.data_ptr(), tokens.data_ptr(), counts.data_ptr(),
+            B, W, tmax, tb.shape[1], run_max, run_len_max, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"nw_walk runs launch failed with CUDA error {err}")
+    LAUNCHES["nw_walk_runs"] += 1
+    return tokens, counts
+
+
+def nw_walk_runs_reference(tb, qlens, tlens, *, band, tmax, run_max, run_len_max=None):
+    """Plain PyTorch version of kernel B's runs mode: nw_walk_reference's
+    opcodes, run-length encoded in walk order with runs capped at
+    run_len_max steps."""
+    run_len_max = nw._RUN_LEN_MAX if run_len_max is None else int(run_len_max)
+    ops = nw_walk_reference(tb, qlens, tlens, band=band, tmax=tmax)
+    return runs_of_opcodes(ops, run_max, run_len_max)
+
+
+def runs_of_opcodes(ops: torch.Tensor, run_max: int, run_len_max: int):
+    """Run tokens [B, run_max] int32 and run counts [B] int32 of opcode rows
+    [B, L] (ascending anti-diagonal order): the nonzero opcodes from the
+    last column down, cut where the op changes and every run_len_max steps
+    of one op."""
+    B, L = ops.shape
+    dev = ops.device
+    i64 = torch.int64
+    tokens = torch.zeros((B, run_max), dtype=torch.int32, device=dev)
+    counts = torch.zeros(B, dtype=torch.int32, device=dev)
+    flat = ops.flip(1).reshape(-1).to(i64)
+    keep = flat != 0
+    sym = flat[keep]
+    if not sym.numel():
+        return tokens, counts
+    row = torch.arange(B, device=dev).repeat_interleave(L)[keep]
+    start = torch.ones_like(sym, dtype=torch.bool)
+    start[1:] = (sym[1:] != sym[:-1]) | (row[1:] != row[:-1])
+    first = start.nonzero().squeeze(1)
+    lens = torch.diff(first, append=torch.tensor([sym.numel()], device=dev))
+    n_tok = (lens + run_len_max - 1) // run_len_max
+    run_of = torch.arange(first.numel(), device=dev).repeat_interleave(n_tok)
+    k = torch.arange(run_of.numel(), device=dev) - (torch.cumsum(n_tok, 0) - n_tok)[run_of]
+    last = k == n_tok[run_of] - 1
+    tlen = torch.where(last, lens[run_of] - run_len_max * (n_tok[run_of] - 1),
+                       torch.full_like(k, run_len_max))
+    trow = row[first][run_of]
+    tval = sym[first][run_of] | (tlen << 2)
+    per_row = torch.bincount(trow, minlength=B)
+    pos = torch.arange(trow.numel(), device=dev) - (torch.cumsum(per_row, 0) - per_row)[trow]
+    sel = pos < run_max
+    tokens[trow[sel], pos[sel]] = tval[sel].to(torch.int32)
+    return tokens, per_row.to(torch.int32)
 
 
 def _i0_tensor(t: torch.Tensor, K: int) -> torch.Tensor:

@@ -4,7 +4,8 @@
 counters for every pipeline phase into a structured report (``--profile``).
 ``resolve_device`` is the one place the port turns a ``device`` argument
 into a ``torch.device``: the default is ``cuda``, and asking for a GPU that
-is not there raises instead of falling back to the CPU.
+is not there raises instead of falling back to the CPU.  ``to_host`` starts
+a dispatch's outputs copying back from the card without blocking.
 """
 
 from __future__ import annotations
@@ -54,3 +55,19 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(device)!r}: use 'cuda' or 'cpu'")
     return dev
+
+
+def to_host(scores, arrays):
+    """Start copying a dispatch's scores and outputs back from the card into
+    pinned memory without blocking; returns (scores, arrays, ready event),
+    the event None (and the tensors as given) on the CPU."""
+    if scores.device.type != "cuda":
+        return scores, tuple(arrays), None
+    out = []
+    for a in (scores, *arrays):
+        h = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+        h.copy_(a, non_blocking=True)
+        out.append(h)
+    ready = torch.cuda.Event()
+    ready.record()
+    return out[0], tuple(out[1:]), ready

@@ -1,5 +1,5 @@
-"""Kernels A and B on the card against their plain versions, and the
-pipeline on cuda against cpu.  Marked ``cuda``; each test skips without a
+"""Kernels A and B (its runs mode too) and the wavefront kernel on the card
+against their plain versions, and the pipeline on cuda against cpu.  Marked ``cuda``; each test skips without a
 CUDA device.  This file imports nothing of JAX, so it runs where JAX is not
 installed:
 
@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from seqrush_tpu_torch import cli
-from seqrush_tpu_torch.ops import nw_cuda
+from seqrush_tpu_torch.ops import nw_cuda, wfa
 
 pytestmark = pytest.mark.cuda
 
@@ -533,8 +533,9 @@ def test_long_route_launches_and_equals_single_shot(cuda):
     scores, ops = nw_cuda.nw_align_long(Q, T, ql, tl, seg=seg, t_need=t_need, **kw)
     torch.cuda.synchronize()
     assert nw_cuda.LAUNCHES == {"nw_sweep": 0, "nw_sweep_score_only": 0, "nw_walk": 0,
-                                "nw_sweep_segment": n_seg, "nw_sweep_segment_score_only": n_seg,
-                                "nw_walk_segment": n_seg}
+                                "nw_walk_runs": 0, "nw_sweep_segment": n_seg,
+                                "nw_sweep_segment_score_only": n_seg, "nw_walk_segment": n_seg,
+                                "wfa": 0, "wfa_score_only": 0}
     s_one, tb = nw_cuda.nw_align(Q, T, ql, tl, tmax=tmax, **kw)
     ops_one = nw_cuda.nw_walk(tb, ql, tl, band=255, tmax=tmax)
     assert torch.equal(scores, s_one)
@@ -671,4 +672,107 @@ def test_fuzz_tool_runs_on_cuda(cuda):
 
     nw_cuda.reset_launch_counts()
     assert fuzz.main(["--device", "cuda", "--trials", "2"]) == 0
-    assert nw_cuda.LAUNCHES["nw_sweep"] > 0 and nw_cuda.LAUNCHES["nw_walk"] > 0
+    # the chunks' walks fetch run tokens (the default emit)
+    assert nw_cuda.LAUNCHES["nw_sweep"] > 0 and nw_cuda.LAUNCHES["nw_walk_runs"] > 0
+
+
+@pytest.mark.parametrize(
+    "kind,B,L,band,two_piece,run_max,run_len_max",
+    [
+        ("variants", 8, 300, 127, True, 128, (1 << 14) - 1),
+        ("variants", 8, 300, 127, True, 2, (1 << 14) - 1),  # counts past run_max
+        ("variants", 8, 300, 127, False, 32, 8),  # runs split at 8 steps
+        ("variants", 16, 1200, 383, True, 24, 1),  # every step its own token
+        ("variants", 8, 1500, 1535, True, 128, 40),  # diagonal ballots across the cap
+        ("ties", 9, 400, 127, True, 128, 7),
+        ("edges", 11, 300, 31, True, 16, 5),  # walks from outside the band
+    ],
+)
+def test_walk_runs_equal_plain(cuda, kind, B, L, band, two_piece, run_max, run_len_max):
+    """Kernel B's runs mode: tokens and counts exactly the plain version's
+    (the run-length encoding of the opcode walk, in walk order)."""
+    rng = np.random.default_rng(band + B + run_max)
+    make = {"variants": _variants, "ties": _ties, "edges": _edges}[kind]
+    (Q, T, ql, tl), tmax = _pack(*make(rng, B, L, band, 0.3 if band > 1000 else 0.0), cuda)
+    kw = _penalties(two_piece, band, tmax)
+    _s, tb = nw_cuda.nw_align(Q, T, ql, tl, **kw)
+    before = dict(nw_cuda.LAUNCHES)
+    tok, cnt = nw_cuda.nw_walk_runs(tb, ql, tl, band=band, tmax=tmax, run_max=run_max,
+                                    run_len_max=run_len_max)
+    torch.cuda.synchronize()
+    assert nw_cuda.LAUNCHES["nw_walk_runs"] == before["nw_walk_runs"] + 1
+    assert nw_cuda.LAUNCHES["nw_walk"] == before["nw_walk"]
+    tok_p, cnt_p = nw_cuda.nw_walk_runs_reference(tb, ql, tl, band=band, tmax=tmax, run_max=run_max,
+                                                  run_len_max=run_len_max)
+    assert torch.equal(tok, tok_p) and torch.equal(cnt, cnt_p)
+    assert int(cnt[-1]) == 0 and (tok >> 2).max() <= run_len_max
+    if run_max == 2:
+        assert (cnt > run_max).any()
+
+
+def _wfa_pairs(rng, n, L, n_snp, indel):
+    """n seeded pairs of length ~L with SNPs and an indel of up to `indel`
+    bases, an identical pair, and a zero-length row."""
+    qs, ts = [], []
+    for k in range(n):
+        q = rng.integers(0, 4, L).astype(np.uint8)
+        t = q.copy()
+        t[rng.integers(0, L, n_snp)] = rng.integers(0, 4, n_snp)
+        if indel and k % 2:
+            p = int(rng.integers(L // 4, L // 2))
+            t = np.delete(t, np.arange(p, p + 1 + k % indel))
+        elif indel:
+            t = np.insert(t, L // 2, rng.integers(0, 4, 1 + k % indel).astype(np.uint8))
+        qs.append(q)
+        ts.append(t)
+    return qs + [qs[0], np.zeros(0, np.uint8)], ts + [qs[0].copy(), np.zeros(0, np.uint8)]
+
+
+@pytest.mark.parametrize(
+    "n,L,n_snp,indel,band,smax,two_piece,keep",
+    [
+        (6, 600, 8, 30, 63, 300, True, True),
+        (6, 600, 8, 30, 63, 300, True, False),  # score-only: the rolling rows
+        (6, 600, 8, 12, 63, 300, False, True),  # one-piece
+        (5, 800, 10, 40, 600, 400, True, True),  # 1,201 diagonals: threads stride
+        (3, 400, 8, 9, 48, 100, True, True),  # a cap stops a pair unfinished
+        # rows padded to 120,000 columns: too wide for shared memory (the
+        # pairs stay short: offsets past 32,767 saturate the int16 history)
+        (2, 3000, 15, 20, 31, 200, True, True),
+    ],
+)
+def test_wfa_kernel_equals_plain(cuda, n, L, n_snp, indel, band, smax, two_piece, keep):
+    """The wavefront kernel: scores and the whole history tensors (every row
+    a pair stepped, NULL16 past its end) exactly the plain version's."""
+    rng = np.random.default_rng(L + band + int(keep))
+    qs, ts = _wfa_pairs(rng, n, L, n_snp, indel)
+    Q, T, ql, tl = wfa.pack_batch(qs, ts)
+    if L == 3000:
+        Q = np.pad(Q, ((0, 0), (0, 120_000 - Q.shape[1])), constant_values=wfa.QPAD)
+        T = np.pad(T, ((0, 0), (0, 120_000 - T.shape[1])), constant_values=wfa.TPAD)
+    caps = np.full(len(qs), smax, np.int32)
+    if smax == 100:
+        caps[0] = 20
+    args = [torch.from_numpy(a).to(cuda) for a in (Q, T, ql, tl, caps)]
+    kw = dict(mismatch=5, o1=8, e1=2, o2=24 if two_piece else -1, e2=1 if two_piece else -1,
+              smax=smax, band=band, keep_history=keep)
+    staged = wfa.wfa_plan(Q.shape[1], T.shape[1], band)[1] > 0
+    assert staged == (L != 3000)
+    before = dict(nw_cuda.LAUNCHES)
+    s_k, h_k = wfa.wfa_run(*args, **kw)
+    torch.cuda.synchronize()
+    name = "wfa" if keep else "wfa_score_only"
+    assert nw_cuda.LAUNCHES[name] == before[name] + 1
+    s_p, h_p = wfa.wfa_align_reference(*args, **kw)
+    assert torch.equal(s_k, s_p)
+    assert int(s_k[-1]) == 0 and int(s_k[-2]) == 0  # the zero-length and identical pairs
+    assert (s_k[:-2] > 0).sum() >= 1
+    if smax == 100:
+        assert int(s_k[0]) == -1
+    for a, b in zip(h_k, h_p):
+        assert torch.equal(a, b)
+    # the public entry point: the history by name, or none in score-only mode
+    s_d, named = wfa.wfa_align_device(*args, **kw)
+    assert torch.equal(s_d, s_k) and (sorted(named) if keep else named) == (
+        sorted(["M", "I1", "D1", "I2", "D2"][: 5 if two_piece else 3]) if keep else {})
+

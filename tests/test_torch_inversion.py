@@ -184,6 +184,7 @@ def test_inversion_batch_shapes_and_patches_equal_jax(monkeypatch):
     assert Q.shape[1] == max(j[2].size for j in jobs) + 1  # not rounded
     (d,) = [d for d in pal.stats["dispatches"] if d["kind"] == "inversion"]
     assert (d["B"], d["band"], d["tmax"], d["Lq"]) == (Q.shape[0], mine[4], mine[5], Q.shape[1])
+    assert d["emit"] == "ops"  # the JAX package walks this batch on the host, per step
     assert 0 < pal.stats["inversion_patches"] <= pal.stats["inversion_windows"] == len(jobs)
 
 

@@ -4,6 +4,7 @@
   can dispatch: within the card's limits (1,024 threads, 232,448 bytes of
   shared memory a block), and every pair and every lane covered exactly
   once.
+* Which launch sites fetch kernel B's run tokens and which its opcodes.
 * The walk kernel's tile (ops/csrc/nw_walk.cu): on seeded pairs run through
   the plain versions, the walk's cursor moves by at most one lane per
   anti-diagonal, so a tile of R rows x 2R lanes centred on the cursor serves
@@ -15,9 +16,11 @@ import numpy as np
 import pytest
 import torch
 
-from seqrush_tpu_torch.align.runner import WfaAligner
-from seqrush_tpu_torch.ops import nw_cuda
+from seqrush_tpu_torch.align import anchored, sweep
+from seqrush_tpu_torch.align.runner import RunnerConfig, WfaAligner
+from seqrush_tpu_torch.ops import nw, nw_cuda
 from seqrush_tpu_torch.ops.nw import OP_D, OP_I, OP_M, _i0_of
+from seqrush_tpu_torch.sequences import make_sequence_set
 
 MAX_THREADS = 1024
 MAX_SMEM = 232448
@@ -270,3 +273,43 @@ def test_new_launch_sites_routes():
     odd = nw_cuda.plan_sweep(8, 131, 130, 131)
     assert odd.route == "regs"
     _check_plan(odd, 8, 131, 130, 131)
+
+
+def _two_seqs(n=300):
+    rng = np.random.default_rng(6)
+    base = rng.integers(0, 4, n)
+    alt = base.copy()
+    alt[rng.integers(0, n, 6)] = rng.integers(0, 4, 6)
+    return make_sequence_set([("a", bytes(b"ACGT"[k] for k in base)),
+                              ("b", bytes(b"ACGT"[k] for k in alt))])
+
+
+def test_walk_output_by_launch_site():
+    """Run tokens where they fit (tmax + 4 < 2^15) at the runner's chunks
+    (RUN_MAX tokens a pair), the anchored route's window chunks (WIN_RUN_MAX)
+    and the sweepga gap chunks (GAP_RUN_MAX), the JAX package's budgets;
+    opcodes for emit='ops', for chunks of pairs whose runs overflowed, for
+    the long route's segment walk and for the inversion batch
+    (tests/test_torch_inversion.py)."""
+    assert (nw.RUN_MAX, anchored.WIN_RUN_MAX, sweep.GAP_RUN_MAX) == (128, 32, 24)
+    assert nw.runs_fit(32763) and not nw.runs_fit(32764)
+    seqs = _two_seqs()
+    chunk = [(0, False, 127, None, None)]
+    auto = WfaAligner(seqs, RunnerConfig(), device="cpu")
+    assert auto._use_runs(chunk, 7168) and not auto._use_runs(chunk, 32764)
+    auto._runs_off_set.add((0, False))
+    assert not auto._use_runs(chunk, 7168)
+    assert not WfaAligner(seqs, RunnerConfig(emit="ops"), device="cpu")._use_runs(chunk, 7168)
+    forced = WfaAligner(seqs, RunnerConfig(emit="runs"), device="cpu")
+    assert forced._use_runs(chunk, 7168)
+    with pytest.raises(ValueError, match="32k"):
+        forced._use_runs(chunk, 32764)
+    # a dispatch record per site: a chunk, then the same pair on the long route
+    pairs = np.array([[0, 1]])
+    auto = WfaAligner(seqs, RunnerConfig(), device="cpu")
+    auto.align_pairs(pairs)
+    longr = WfaAligner(seqs, RunnerConfig(long_pair_threshold=512), device="cpu")
+    longr.align_pairs(pairs)
+    assert [(d["kind"], d["emit"]) for d in auto.stats["dispatches"]] == [("chunk", "runs")]
+    assert [(d["kind"], d["emit"]) for d in longr.stats["dispatches"]] == [("long", "ops")]
+

@@ -104,10 +104,7 @@ def test_runner_forced_orientation_and_divergence_cap():
 
 @pytest.mark.parametrize(
     "option",
-    [
-        dict(kernel="wfa"), dict(dp_dtype="int16"), dict(sweep="rows"),
-        dict(fold=True), dict(band_tiling="auto"), dict(emit="runs"),
-    ],
+    [dict(dp_dtype="int16"), dict(sweep="rows"), dict(fold=True), dict(band_tiling="auto")],
 )
 def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP item 13"):

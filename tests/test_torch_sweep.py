@@ -294,10 +294,9 @@ def _indel_pair(seed, n=700, n_snp=10, cut=(300, 330)):
 @pytest.mark.parametrize("emit", ["auto", "ops"])
 def test_gap_fill_device_path_matches_jax(emit):
     """With wide_host_window_cells=0 every gap window takes the device path
-    (kernel A, kernel B, the opcode decode): the port's records equal the
-    JAX package's under the same setting, whichever emission the JAX gap
-    fill uses (run tokens or opcodes), and equal the host-DP records in
-    score."""
+    (kernel A, kernel B, the run-token or opcode decode): the port's records
+    equal the JAX package's under the same setting and emission, and equal
+    the host-DP records in score."""
     named = _indel_pair(90)
     jal = JaxSweepAligner(jax_seqs(named), JaxRunnerConfig(emit=emit, wide_host_window_cells=0))
     pal = SweepAligner(make_sequence_set(named), RunnerConfig(emit=emit, wide_host_window_cells=0),
