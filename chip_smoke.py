@@ -97,7 +97,17 @@ Phases (any failure exits non-zero and prints no ok line):
      batch's kernel against its plain version (scores, whole history,
      CIGARs), the score-only mode on one batch, and the sha256 of a subset's
      records against the JAX package's (WFA_SUBSET_SHA256);
-  9. prints {"kernels": [...]}, the nvidia-smi line, and last
+  9. dp_dtype='int16', sweep='rows' and fold (see run_phase9): all 600
+     pairs through WfaAligner under each option of VARIANTS, in turns with
+     the default (the runner's seconds), each option's kernels launched,
+     every score the default run's, the records' sha256 and the counters
+     the JAX package's (VARIANT_DIGESTS; the fold options on wfa_subset());
+     kernel A's int16 and snapshot modes, kernel B's start mode and the
+     row-major kernels C and D against their plain versions on every chunk
+     those runs launched them on, timed on the first such run's largest
+     chunk, with the fold's combine timed between its kernels; and
+     int16 retries forced with a lowered INT16_CUTOFF;
+ 10. prints {"kernels": [...]}, the nvidia-smi line, and last
      {"ok": true, "device": {...}}.
 
 Bounds: the least time the card could take for the same work, the larger
@@ -139,7 +149,24 @@ rows and the counts instead).  The wavefront kernel must write its history
 tensors whole and needs, per cell of each score step a pair takes
 (2 * band + 1 diagonals), about 40 instructions for the five wavefronts'
 loads, maxima, validity and stores (WFA_OPS_PER_CELL), at the issue rate;
-its serial score steps, one barrier each, are its real floor.  A segment launch is charged
+its serial score steps, one barrier each, are its real floor.  The
+row-major sweep (kernel C) must write its traceback [B, R + 1, 2K + 1] whole
+and needs, per cell of the rows each pair has (qlen + 1 rows x 2K + 1
+lanes), about 35 instructions, 10 of them minima (ROWS_OPS_PER_CELL): the
+two I candidates and their minima and opened bits, the substitution and the
+gap-free choice, the two closed-form D states (the lane ramp, the running
+prefix minimum, the open, the clamp and the opened compare each) and the
+override, and the byte; its row walk (kernel D) is charged as the
+anti-diagonal walk is, a step a row.  The snapshot mode adds its SNAP,
+DIAGA and DIAGB stores to the sweep's bytes and is charged the cells the
+fold needs of it, each row's anti-diagonals up to t_snap + 1 (the combine
+reads nothing later).  The int16 mode is charged half the sweep's 37
+instructions and 11 minima a cell: its values fit 16-bit lanes, and the
+packed s16x2 forms (__viaddmin_s16x2 adds and clamps with the int16 wrap,
+__vimin3_s16x2 and __vibmin_s16x2 take minima and their compare bits) do
+two lanes an instruction at the same rates; the keys of H's choice need 19
+bits and would not pack as keys, so this is a floor below what a packed
+kernel could reach.  A segment launch is charged
 the same instructions for the cells its pairs need in its anti-diagonals,
 its traceback rows [B, seg, W] (full mode), the carry read and written (2 x
 24 bytes a lane) and its windows of the operands; a segment walk its steps,
@@ -334,6 +361,42 @@ def wfa_subset():
 # RunnerConfig of the WFA phase (and of scripts/jax_wfa_digest.py)
 WFA_BAND_SLACK = 128
 
+# phase 9's RunnerConfig options (and scripts/jax_variant_digest.py's); the
+# fold runs are held to the JAX package on wfa_subset()'s 30 pairs, since the
+# JAX package's fold combine builds [5, B, W, W] arrays (about 7 GB for the
+# headline's largest chunk on the CPU), the others on all 600 pairs
+VARIANTS = {
+    "int16": {"dp_dtype": "int16"},
+    "rows": {"sweep": "rows"},
+    "fold": {"fold": True},
+    "fold_full": {"fold": True, "wide_route": "full"},
+    "rows_int16": {"sweep": "rows", "dp_dtype": "int16"},
+    "fold_int16": {"fold": True, "dp_dtype": "int16"},
+}
+VARIANT_ON_SUBSET = ("fold", "fold_full", "fold_int16")
+VARIANT_COUNTERS = ("int16_retries", "gap_overflows", "run_overflows", "band_escalations")
+# the JAX package's records sha256 and counters of each (scripts/
+# jax_variant_digest.py; int16 and rows_int16 give the same records as
+# int32, fold and fold_int16 too: no score reaches INT16_CUTOFF)
+_NO_COUNTS = {"int16_retries": 0, "gap_overflows": 0, "run_overflows": 0, "band_escalations": 0}
+VARIANT_DIGESTS = {
+    "int16": ("d4967907b16f98b3d4cb9795d1e90ec258d32d68b807d4ff50fcd86d69fd3381", _NO_COUNTS),
+    "rows": ("5ac600448e35fc7431d162610e020b53b32ebf74b6c30686579dd2fd89b3ed31", _NO_COUNTS),
+    "fold": ("5f79b69ec40e25304bbca8acbb290ba65c6863261d8dbc4ba38e3d40b473a63d", _NO_COUNTS),
+    "fold_full": ("c4c2091a6143312748a8f8eb4192febf193e69925fab63a79ec2b7a372ecd640", _NO_COUNTS),
+    "rows_int16": ("5ac600448e35fc7431d162610e020b53b32ebf74b6c30686579dd2fd89b3ed31", _NO_COUNTS),
+    "fold_int16": ("5f79b69ec40e25304bbca8acbb290ba65c6863261d8dbc4ba38e3d40b473a63d", _NO_COUNTS),
+}
+# the kernels each option's run must launch (nw_cuda.LAUNCHES keys)
+VARIANT_KERNELS = {
+    "int16": ("nw_sweep_int16", "nw_walk_runs"),
+    "rows": ("nw_rows_sweep", "nw_rows_walk"),
+    "fold": ("nw_sweep_snapshot", "nw_walk_start"),
+    "fold_full": ("nw_sweep_snapshot", "nw_walk_start"),
+    "rows_int16": ("nw_rows_sweep", "nw_rows_walk"),
+    "fold_int16": ("nw_sweep_snapshot", "nw_walk_start"),
+}
+
 
 def records_digest(results) -> str:
     """sha256 of the sorted (query, target, reverse, score, CIGAR) records of
@@ -405,7 +468,19 @@ def ptxas_summary(log: str) -> list[str]:
             name, rest = m.group(2)[:n], m.group(2)[n:]
             t = re.match(r"ILi(\d+)ELb([01])ELb([01])E", rest)
             w = re.match(r"ILb([01])E", rest)
-            if name == "wfa_kernel" and w:
+            rows = re.match(r"ILi(\d+)ELb([01])ELi(\d+)E", rest)
+            snap = re.match(r"ILi(\d+)ELb([01])EE", rest)
+            wide = re.match(r"ILb([01])ELb([01])ELb([01])E", rest)
+            if rows:
+                name += (f"<{rows.group(1)}, {'two' if rows.group(2) == '1' else 'one'}-piece, "
+                         f"{rows.group(3)} threads>")
+            elif snap:
+                name += f"<{snap.group(1)}, {'two' if snap.group(2) == '1' else 'one'}-piece>"
+            elif wide:
+                name += (f"<{'traceback' if wide.group(1) == '1' else 'score-only'}, "
+                         f"{'int16' if wide.group(2) == '1' else 'int32'}"
+                         f"{', snapshot' if wide.group(3) == '1' else ''}>")
+            elif name == "wfa_kernel" and w:
                 name += f"<{'two' if w.group(1) == '1' else 'one'}-piece>"
             elif t:
                 name += (f"<{t.group(1)}, {'two' if t.group(2) == '1' else 'one'}-piece, "
@@ -915,6 +990,7 @@ def run(work: Path, name: str, smi: str, ptxas: list[str]) -> int:
     })
     out.extend(long_out)
     out.extend(phase8)
+    out.extend(run_phase9(smi, ptxas, {"named": named, "pairs": pairs, "scores": scores, "pen": pen}))
     print(json.dumps({"kernels": out}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -1706,6 +1782,311 @@ def run_phase8(smi: str, ptxas: list[str], ctx: dict) -> list[dict]:
          "regs_per_thread": ptxas_registers(ptxas, f"wfa_kernel<{piece}>"),
          "shape": per_batch[0]["shape"], "serial_score_steps": max(stepped), "tolerance": 0},
     ]
+
+
+ROWS_OPS_PER_CELL = 35
+ROWS_MIN_OPS_PER_CELL = 10
+# the int16 mode as if every instruction of the int32 count ran on two lanes
+# of a register (the s16x2 forms)
+INT16_OPS_PER_CELL = SWEEP_OPS_PER_CELL / 2
+INT16_MIN_OPS_PER_CELL = SWEEP_MIN_OPS_PER_CELL / 2
+
+
+def run_phase9(smi: str, ptxas: list[str], ctx: dict) -> list[dict]:
+    """9. dp_dtype='int16', sweep='rows' and fold on the card.
+
+    9a. the headline's 600 pairs through WfaAligner under each option of
+        VARIANTS, launch counters reset just before each run and read just
+        after (the option's kernels, VARIANT_KERNELS, must have launched),
+        in two rounds in turns with the default configuration (the runner's
+        seconds of each); every pair's score must equal the default run's
+        (each option is DP-exact).  The records' sha256 and the counters of
+        VARIANT_COUNTERS must equal the JAX package's (VARIANT_DIGESTS): on
+        the 600 pairs, and for the fold options on wfa_subset()'s 30 pairs,
+        run again for that.
+    9b. each new kernel and mode against its plain version on the card, on
+        9a's own dispatch inputs, exactly, on every distinct chunk that ran
+        it: kernel A's int16 mode on the int16 run's chunks (scores, whole
+        traceback); kernel A's snapshot mode on the chunks of the fold,
+        fold_full and fold_int16 runs (scores, traceback, SNAP, DIAGA,
+        DIAGB) and kernel B's start mode from the combine's cursors there;
+        kernels C and D on the rows and rows_int16 runs' chunks (scores,
+        whole row-major traceback, steps, gap list, counts).  Timed on the
+        largest chunk of the int16, fold and rows runs: CUDA-event medians
+        of REPS runs after a warm-up, the plain versions once; the
+        combine's time and torch launches beside the fold.
+    9c. the int16 run again with the port's nw.INT16_CUTOFF lowered to 300:
+        int16_retries > 0, every score the int16 run's.
+    Returns the kernels line's entries of the five new kernels and modes."""
+    from seqrush_tpu_torch.align.runner import RunnerConfig, WfaAligner
+    from seqrush_tpu_torch.ops import nw, nw_cuda
+    from seqrush_tpu_torch.sequences import make_sequence_set
+
+    dev = torch.device("cuda")
+    named, pairs, scores = ctx["named"], ctx["pairs"], ctx["scores"]
+    n_pairs = len(pairs)
+    seqs = make_sequence_set(named)
+
+    def bound(nbytes, n_ops, n_min=0):
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        o_ms = max(n_ops / ISSUE_OPS_PER_S, n_min / ALU_OPS_PER_S) * 1e3
+        return {"bound_ms": max(b_ms, o_ms), "bound_by": "bytes" if b_ms >= o_ms else "operations"}
+
+    def run_cfg(name, cfg, pairs_=pairs, seqs_=seqs):
+        al = WfaAligner(seqs_, RunnerConfig(scores=scores, **cfg), device=dev)
+        nw_cuda.reset_launch_counts()
+        t0 = time.time()
+        res = al.align_pairs(pairs_)
+        torch.cuda.synchronize()
+        return al, res, time.time() - t0, dict(nw_cuda.LAUNCHES)
+
+    # 9a. each option on the 600 pairs, in turns with the default
+    order = ["default", *VARIANTS]
+    secs = {k: [] for k in order}
+    runs = {}
+    for rnd, names in enumerate((order, order[::-1])):
+        for name in names:
+            al, res, wall, launches = run_cfg(name, VARIANTS.get(name, {}))
+            secs[name].append(round(wall, 4))
+            if rnd == 0:
+                runs[name] = (al, res, launches)
+    default_scores = {(r.query_idx, r.target_idx): r.score for r in runs["default"][1]}
+    for name in VARIANTS:
+        al, res, launches = runs[name]
+        missing = [k for k in VARIANT_KERNELS[name] if launches[k] <= 0]
+        got = {(r.query_idx, r.target_idx): r.score for r in res}
+        sub = ""
+        if name in VARIANT_ON_SUBSET:
+            sub_named = wfa_subset()
+            m = len(sub_named)
+            sub_pairs = np.array([(i, j) for i in range(m) for j in range(m) if i != j])
+            al_d, res_d, _w, _l = run_cfg(name, VARIANTS[name], sub_pairs, make_sequence_set(sub_named))
+            sub = " (wfa_subset(), 30 pairs)"
+        else:
+            al_d, res_d = al, res
+        digest = records_digest(res_d)
+        counters = {k: al_d.stats[k] for k in VARIANT_COUNTERS}
+        want_digest, want_counters = VARIANT_DIGESTS[name]
+        kinds = sorted({(d["B"], d["band"], d.get("band_eff", d["band"]), d["fold"], d["rows"], d["int16"],
+                         d["emit"]) for d in al.stats["dispatches"] if d["kind"] == "chunk"})
+        print(f"option {name} {json.dumps(VARIANTS[name])}: {len(res)} aligned; launches "
+              f"{json.dumps({k: launches[k] for k in VARIANT_KERNELS[name]})}; scores equal the default run's "
+              f"{got == default_scores}; records{sub} sha256 {digest} (the JAX package's {want_digest}); "
+              f"counters {json.dumps(counters)} (the JAX package's {json.dumps(want_counters)}); chunks "
+              f"[B, band, band_eff, fold, rows, int16, emit] {json.dumps(kinds)}")
+        if (missing or len(res) != n_pairs or got != default_scores or digest != want_digest
+                or counters != want_counters):
+            raise AssertionError(f"option {name} failed: missing launches {missing}, or records, "
+                                 "counters or scores differ")
+    print(f"runner seconds in turns ({n_pairs} pairs; default first and last) {json.dumps(secs)} | {smi}")
+
+    # 9b. every chunk each new kernel ran in 9a against its plain version; the
+    # primary run's largest chunk of each also timed
+    seen = set()
+
+    def chunks_of(tag, names, key):
+        """(name, rank, al, d, chunk, host arrays, tmax) of each distinct chunk
+        dispatch of the named 9a runs that key selects, each run's largest
+        first (rank 0)."""
+        for name in names:
+            al = runs[name][0]
+            ds = sorted((d for d in al.stats["dispatches"] if d["kind"] == "chunk" and key(d)),
+                        key=lambda d: -(d["B"] * d["tmax"] * d["band"]))
+            for rank, d in enumerate(ds):
+                sig = (tag, d["band"], d["int16"], tuple(tuple(j) for j in d["jobs"]))
+                if sig in seen:
+                    continue
+                seen.add(sig)
+                chunk = []
+                for p, rc in d["jobs"]:
+                    qi, tj = pairs[p]
+                    chunk.append((p, bool(rc), d["band"], False, (al.rc_codes[qi] if rc else al.codes[qi]),
+                                  al.codes[tj]))
+                Q, T, ql, tl, tmax = al.pack_chunk(chunk)
+                yield name, rank, al, d, chunk, (Q, T, ql, tl), tmax
+
+    pen = ctx["pen"]
+    out = {}
+    checked = {k: [] for k in ("nw_sweep_int16", "nw_sweep_snapshot", "nw_walk_start", "nw_rows_sweep",
+                               "nw_rows_walk")}
+
+    # kernel A, int16 mode: every int16 chunk of the int16 run
+    for name, rank, al, d, _chunk, arrays, tmax in chunks_of("int16", ("int16",), lambda d: d["int16"]):
+        Q, T, ql, tl = (torch.from_numpy(a).to(dev) for a in arrays)
+        W = d["band"] + 1
+        kw = dict(band=d["band"], tmax=tmax, int16=True, **pen)
+        s_k, tb_k = nw_cuda.nw_align(Q, T, ql, tl, **kw)
+        plain_ms, (s_p, tb_p) = once_ms(lambda: nw_cuda.nw_align_reference(Q, T, ql, tl, **kw))
+        err = max(max_abs_err(s_k, s_p), max_abs_err(tb_k, tb_p))
+        del tb_p
+        checked["nw_sweep_int16"].append([Q.shape[0], W, tmax, err])
+        print(f"kernel A int16 mode, {name} chunk [B {Q.shape[0]}, W {W}, tmax {tmax}]: max_abs_err={err}")
+        if err:
+            raise AssertionError("kernel A's int16 mode disagrees with its plain version")
+        if rank == 0:
+            ms = cuda_ms(lambda: nw_cuda.nw_align(Q, T, ql, tl, **kw), REPS)
+            int32_ms = cuda_ms(lambda: nw_cuda.nw_align(Q, T, ql, tl, **dict(kw, int16=False)), REPS)
+            cells = int((ql + tl).to(torch.int64).sum().item()) * W
+            b = bound(Q.numel() + T.numel() + 12 * Q.shape[0] + tb_k.numel(), cells * INT16_OPS_PER_CELL,
+                      cells * INT16_MIN_OPS_PER_CELL)
+            b32 = bound(Q.numel() + T.numel() + 12 * Q.shape[0] + tb_k.numel(), cells * SWEEP_OPS_PER_CELL,
+                        cells * SWEEP_MIN_OPS_PER_CELL)
+            plan = nw_cuda.plan_sweep(Q.shape[0], W, Q.shape[1], T.shape[1])
+            out["nw_sweep_int16"] = {
+                "shape": {"B": Q.shape[0], "W": W, "tmax": tmax}, "ms": ms, "plain_ms": plain_ms,
+                "int32_ms": int32_ms, **b, "int32_bound_ms": b32["bound_ms"], "max_abs_err": err,
+                "launches": runs["int16"][2]["nw_sweep_int16"], "launches_path": "dp_dtype='int16'",
+                "ptxas": ptxas_registers(ptxas, f"nw_sweep_regs<{plan.lanes}, two-piece, traceback>")}
+            print(f"  timed: {ms:.4f} ms (int32 mode {int32_ms:.4f}; bound {b['bound_ms']:.4f} at the packed "
+                  f"s16x2 rate, the int32 mode's {b32['bound_ms']:.4f}; plain {plain_ms:.1f}) | {smi}")
+        del tb_k
+        torch.cuda.empty_cache()
+
+    # kernel A snapshot mode, the combine, kernel B start mode: every fold chunk
+    for name, rank, al, d, chunk, arrays, _tmax in chunks_of("fold", ("fold", "fold_full", "fold_int16"),
+                                                             lambda d: d["fold"]):
+        Qr, Tr = al.pack_fold_rows(chunk, arrays[0], arrays[1])
+        Q, T, Qr, Tr, ql, tl = (torch.from_numpy(a).to(dev) for a in (arrays[0], arrays[1], Qr, Tr, *arrays[2:]))
+        band, tmax_half, int16 = d["band_eff"], d["tmax_half"], d["int16"]
+        Q2, T2 = torch.cat([Q, Qr]), torch.cat([T, Tr])
+        ql2, tl2 = torch.cat([ql, ql]), torch.cat([tl, tl])
+        fin = ql + tl
+        tm = torch.div(fin + 1, 2, rounding_mode="floor")
+        t_snap = torch.cat([tm, fin - tm]).to(torch.int32)
+        kw = dict(band=band, tmax=tmax_half, t_snap=t_snap, int16=int16, **pen)
+        s_k, tb_k, snaps_k = nw_cuda.nw_align(Q2, T2, ql2, tl2, **kw)
+        plain_ms, (s_p, tb_p, snaps_p) = once_ms(lambda: nw_cuda.nw_align_reference(Q2, T2, ql2, tl2, **kw))
+        err = max([max_abs_err(s_k, s_p), max_abs_err(tb_k, tb_p)]
+                  + [max_abs_err(a, b) for a, b in zip(snaps_k, snaps_p)])
+        del tb_p, snaps_p
+        SNAP, DIAGA, DIAGB = snaps_k
+        combine = dict(o1=pen["o1"], o2=pen["o2"], band=band)
+        fold_s, state, cross_m = nw_cuda.fold_combine(SNAP, DIAGA, DIAGB, ql, tl, **combine)
+        ops_k = nw_cuda.nw_walk_start(tb_k, state, band=band, tmax=tmax_half)
+        plain_w_ms, ops_p = once_ms(lambda: nw_cuda.nw_walk_start_reference(tb_k, state, band=band,
+                                                                            tmax=tmax_half))
+        err_w = max_abs_err(ops_k, ops_p)
+        n_rows, W = Q2.shape[0], band + 1
+        checked["nw_sweep_snapshot"].append([n_rows, W, tmax_half, int(int16), err])
+        checked["nw_walk_start"].append([n_rows, W, tmax_half, int(int16), err_w])
+        print(f"kernel A snapshot mode and kernel B start mode, {name} chunk [{n_rows} rows, W {W}, tmax_half "
+              f"{tmax_half}, int16 {int16}]: max_abs_err={err} / {err_w}")
+        if err or err_w:
+            raise AssertionError("kernel A's snapshot mode or kernel B's start mode disagrees with its plain version")
+        if name == "fold" and rank == 0:
+            ms = cuda_ms(lambda: nw_cuda.nw_align(Q2, T2, ql2, tl2, **kw), REPS)
+            plain_sweep_ms = cuda_ms(lambda: nw_cuda.nw_align(Q2, T2, ql2, tl2, **dict(kw, t_snap=None)), REPS)
+            # the half sweeps need the anti-diagonals up to t_snap + 1 (DIAGB) of each row
+            cells = int(torch.clamp(t_snap.to(torch.int64) + 1, max=tmax_half).sum().item()) * W
+            b = bound(Q2.numel() + T2.numel() + 12 * n_rows + tb_k.numel() + 4 * n_rows + 8 * 4 * n_rows * W,
+                      cells * SWEEP_OPS_PER_CELL, cells * SWEEP_MIN_OPS_PER_CELL)
+            plan = nw_cuda.plan_sweep(n_rows, W, Q2.shape[1], T2.shape[1])
+            out["nw_sweep_snapshot"] = {
+                "shape": {"B": n_rows, "W": W, "tmax": tmax_half}, "ms": ms, "plain_ms": plain_ms,
+                "no_snapshot_ms": plain_sweep_ms, **b, "max_abs_err": err,
+                "launches": runs["fold"][2]["nw_sweep_snapshot"], "launches_path": "fold=True",
+                "ptxas": ptxas_registers(ptxas, f"nw_sweep_regs_snap<{plan.lanes}, two-piece>"),
+                "lanes_per_thread": plan.lanes}
+            print(f"  snapshot sweep timed: {ms:.4f} ms (without snapshots {plain_sweep_ms:.4f}; bound "
+                  f"{b['bound_ms']:.4f} for the {cells} cells up to t_snap + 1; plain {plain_ms:.1f}; "
+                  f"{out['nw_sweep_snapshot']['ptxas']} registers at {plan.lanes} lanes) | {smi}")
+            combine_ms = cuda_ms(lambda: nw_cuda.fold_combine(SNAP, DIAGA, DIAGB, ql, tl, **combine), REPS)
+            try:  # the combine's device launches, from the profiler where it traces the card
+                with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    nw_cuda.fold_combine(SNAP, DIAGA, DIAGB, ql, tl, **combine)
+                    torch.cuda.synchronize()
+                combine_launches = sum(e.count for e in prof.key_averages() if e.device_type.name == "CUDA") or None
+            except Exception as exc:  # noqa: BLE001 - a measurement that is not there is reported as such
+                print(f"  the profiler did not count the combine's launches: {exc!r}")
+                combine_launches = None
+            ms_w = cuda_ms(lambda: nw_cuda.nw_walk_start(tb_k, state, band=band, tmax=tmax_half), REPS)
+            wb_b, wb_o = walk_bounds(ops_k)
+            wb = {"bound_ms": max(wb_b, wb_o), "bound_by": "bytes" if wb_b >= wb_o else "operations"}
+            out["nw_walk_start"] = {
+                "shape": {"B": n_rows, "W": W, "tmax": tmax_half}, "ms": ms_w, "plain_ms": plain_w_ms, **wb,
+                "max_abs_err": err_w, "launches": runs["fold"][2]["nw_walk_start"], "launches_path": "fold=True",
+                "combine_ms": combine_ms, "combine_cuda_launches": combine_launches,
+                "ptxas": ptxas_registers(ptxas, "nw_walk_seg_kernel")}
+            print(f"  start walk timed: {ms_w:.4f} ms (bound {wb['bound_ms']:.5f}; plain {plain_w_ms:.1f}); the "
+                  f"combine between them {combine_ms:.4f} ms in {combine_launches} CUDA launches | {smi}")
+        del tb_k, snaps_k, SNAP, DIAGA, DIAGB
+        torch.cuda.empty_cache()
+
+    # kernels C and D: every rows chunk
+    for name, rank, al, d, _chunk, arrays, _tmax in chunks_of("rows", ("rows", "rows_int16"), lambda d: d["rows"]):
+        Q, T, ql, tl = (torch.from_numpy(a).to(dev) for a in arrays)
+        kw = dict(band=d["band"], int16=d["int16"], **pen)
+        s_k, tb_k = nw_cuda.nw_align_rows(Q, T, ql, tl, **kw)
+        plain_c_ms, (s_p, tb_p) = once_ms(lambda: nw_cuda.nw_align_rows_reference(Q, T, ql, tl, **kw))
+        err_c = max(max_abs_err(s_k, s_p), max_abs_err(tb_k, tb_p))
+        del tb_p
+        walk_k = nw_cuda.nw_walk_rows(tb_k, ql, tl, band=d["band"])
+        plain_d_ms, walk_p = once_ms(lambda: nw_cuda.nw_walk_rows_reference(tb_k, ql, tl, band=d["band"]))
+        err_d = max(max_abs_err(a, b) for a, b in zip(walk_k, walk_p))
+        Wr = 2 * d["band"] + 1
+        S, threads = nw_cuda.rows_plan(Wr)
+        checked["nw_rows_sweep"].append([Q.shape[0], Wr, S, threads, int(d["int16"]), err_c])
+        checked["nw_rows_walk"].append([Q.shape[0], Wr, int(d["int16"]), err_d])
+        print(f"kernels C and D, {name} chunk [B {Q.shape[0]}, R {Q.shape[1]}, Wr {Wr}, {S} lanes x {threads} "
+              f"threads, int16 {d['int16']}]: max_abs_err {err_c} / {err_d}")
+        if err_c or err_d:
+            raise AssertionError("kernel C or D disagrees with its plain version")
+        if name == "rows" and rank == 0:
+            ms_c = cuda_ms(lambda: nw_cuda.nw_align_rows(Q, T, ql, tl, **kw), REPS)
+            ms_d = cuda_ms(lambda: nw_cuda.nw_walk_rows(tb_k, ql, tl, band=d["band"]), REPS)
+            cells = int((ql.to(torch.int64) + 1).sum().item()) * Wr
+            b_c = bound(Q.numel() + T.numel() + 12 * Q.shape[0] + tb_k.numel(), cells * ROWS_OPS_PER_CELL,
+                        cells * ROWS_MIN_OPS_PER_CELL)
+            steps = int((ql.to(torch.int64) + 1).sum().item())
+            b_d = bound(2 * steps + walk_k[0].numel() + 4 * walk_k[1].numel() + 12 * Q.shape[0],
+                        steps * WALK_OPS_PER_STEP)
+            shape = {"B": Q.shape[0], "R": Q.shape[1], "Wr": Wr, "lanes_per_thread": S, "threads": threads}
+            out["nw_rows_sweep"] = {
+                "shape": shape, "ms": ms_c, "plain_ms": plain_c_ms, **b_c, "max_abs_err": err_c,
+                "launches": runs["rows"][2]["nw_rows_sweep"], "launches_path": "sweep='rows'",
+                "ptxas": [line for line in ptxas if line.startswith("nw_rows_sweep_kernel")]}
+            out["nw_rows_walk"] = {
+                "shape": shape, "ms": ms_d, "plain_ms": plain_d_ms, **b_d, "max_abs_err": err_d,
+                "launches": runs["rows"][2]["nw_rows_walk"], "launches_path": "sweep='rows'",
+                "gap_lists_over_gap_max": int((walk_k[3] > nw.GAP_MAX).sum()),
+                "ptxas": ptxas_registers(ptxas, "nw_rows_walk_kernel")}
+            print(f"  timed: sweep {ms_c:.4f} ms (bound {b_c['bound_ms']:.4f}, plain {plain_c_ms:.1f}); walk "
+                  f"{ms_d:.4f} ms (bound {b_d['bound_ms']:.5f}, plain {plain_d_ms:.1f}) | {smi}")
+        del tb_k, walk_k, walk_p
+        torch.cuda.empty_cache()
+    print(f"9b chunks held to their plain versions {json.dumps(checked)}")
+    for k, v in out.items():
+        v["chunks_checked"] = checked[k]
+
+    # 9c. int16 retries on the card
+    saved = nw.INT16_CUTOFF
+    nw.INT16_CUTOFF = 300
+    try:
+        al_r, res_r, wall_r, launches_r = run_cfg("int16", VARIANTS["int16"])
+    finally:
+        nw.INT16_CUTOFF = saved
+    retries = al_r.stats["int16_retries"]
+    int16_scores = {(r.query_idx, r.target_idx): r.score for r in runs["int16"][1]}
+    same = {(r.query_idx, r.target_idx): r.score for r in res_r} == int16_scores
+    int32_chunks = sum(1 for d in al_r.stats["dispatches"] if d["kind"] == "chunk" and not d["int16"])
+    print(f"int16 with INT16_CUTOFF 300: int16_retries {retries} in {int32_chunks} int32 chunks; scores equal "
+          f"the int16 run's {same}; records equal {records_digest(res_r) == records_digest(runs['int16'][1])}; "
+          f"launches {json.dumps({k: launches_r[k] for k in ('nw_sweep_int16', 'nw_sweep')})}; {wall_r:.3f} s")
+    if retries <= 0 or not same or launches_r["nw_sweep"] <= 0:
+        raise AssertionError("the forced int16 retries did not re-run in int32")
+
+    src = {"nw_sweep_int16": "seqrush_tpu_torch/ops/csrc/nw_sweep.cu",
+           "nw_sweep_snapshot": "seqrush_tpu_torch/ops/csrc/nw_sweep_snap.cu",
+           "nw_walk_start": "seqrush_tpu_torch/ops/csrc/nw_walk.cu",
+           "nw_rows_sweep": "seqrush_tpu_torch/ops/csrc/nw_rows.cu",
+           "nw_rows_walk": "seqrush_tpu_torch/ops/csrc/nw_rows.cu"}
+    replaces = {"nw_sweep_int16": "seqrush_tpu/ops/nw.py:275 (_sweep_v3, dtype=int16; XLA)",
+                "nw_sweep_snapshot": "seqrush_tpu/ops/nw.py:275 (_sweep_v3, t_snap; XLA; nw_align_fold :1678)",
+                "nw_walk_start": "seqrush_tpu/ops/nw.py:1199 (_tb_scan_tbw, start; XLA)",
+                "nw_rows_sweep": "seqrush_tpu/ops/nw.py:1877 (_sweep_rows; XLA)",
+                "nw_rows_walk": "seqrush_tpu/ops/nw.py:2021 (_tb_rows_scan; XLA)"}
+    return [{"name": k, "route": "cuda", "source": src[k], "replaces": replaces[k], "library_ms": None,
+             **v, "tolerance": 0} for k, v in out.items()]
 
 
 if __name__ == "__main__":

@@ -61,6 +61,8 @@ class WidePlan:
     rc: bool
     q: np.ndarray
     t: np.ndarray
+    # the job's force32 (set by the runner), which a verify retry keeps
+    f32: bool = False
     # parts: ("items", [(n, op), ...]) resolved on host, or ("win", job_idx)
     parts: list = field(default_factory=list)
 
@@ -70,7 +72,7 @@ def chain_jobs(al, wide_jobs, pairs) -> list:
     (chain_pairs, bit-identical to chain_anchors + chain_to_runs per job).
     Returns a per-job list of run-tuple lists (possibly empty)."""
     anchors = []
-    for p, rc, _b in wide_jobs:
+    for p, rc, *_ in wide_jobs:
         qi, tj = pairs[p]
         anchors.append(
             anchors_mod.anchor_matches_from_minimizers(
@@ -119,7 +121,7 @@ def flank_trim_jobs(al, wide_jobs, pairs, runs_per_job):
     qoff = np.zeros(n_jobs + 1, np.int64)
     toff = np.zeros(n_jobs + 1, np.int64)
     gq0l, gq1l, gt0l, gt1l, jobl = [], [], [], [], []
-    for w, ((p, rc, _b), runs) in enumerate(zip(wide_jobs, runs_per_job)):
+    for w, ((p, rc, *_), runs) in enumerate(zip(wide_jobs, runs_per_job)):
         qi, tj = pairs[p]
         q = al.rc_codes[qi] if rc else al.codes[qi]
         t = al.codes[tj]
@@ -196,7 +198,7 @@ def build_plan(al, job, pairs, window_jobs: list, runs, flanks) -> WidePlan | No
     appended to the shared ``window_jobs`` list (batched across all plans)
     as (q window, t window, (p, rc, q0, t0)).  Returns None when no usable
     chain exists (the caller falls back to the full wide route)."""
-    p, rc, _band = job
+    p, rc, *_ = job
     qi, tj = pairs[p]
     q = al.rc_codes[qi] if rc else al.codes[qi]
     t = al.codes[tj]

@@ -28,6 +28,18 @@ that runs the sweep kernel and then the walk kernel per chunk:
   optimal iff S < 2*o_min + e_min*(2K + 2 - |diff|)), escalation of the
   uncertified jobs to the band their score demands, the divergence cap,
   and one vectorized decode of the tokens or opcodes into CIGARs;
+* three options change a chunk's kernels as in the JAX package:
+  ``dp_dtype`` 'int16' or 'auto' runs the sweep's saturating int16 DP (a
+  score at or above nw.INT16_CUTOFF re-runs in int32 and counts
+  ``int16_retries``; jobs carry that force32 flag, and chunks never mix
+  it); ``sweep='rows'`` runs the row-major sweep and walk
+  (``nw_cuda.nw_align_rows`` / ``nw_walk_rows``; a pair whose gap list
+  passes nw.GAP_MAX joins ``_v3_set``, retries on the anti-diagonal
+  kernels at the same band and counts ``gap_overflows``; the anchored route
+  is off); ``fold`` True, or 'auto' for chunks of at most fold_max_batch
+  padded rows, runs the bidirectional fold (``nw_cuda.nw_align_fold``) at
+  the band widened by the chunk's largest length difference.  Rows take
+  precedence over the fold; long chunks take neither and stay int32;
 * wide jobs on long pairs (the default ``wide_route='anchored'``) are split
   off first and aligned piecewise by ``align/anchored.py``: chaining and the
   host window DP run while the narrow chunks compute, its device window
@@ -105,11 +117,19 @@ class RunnerConfig:
     # takes runs wherever tmax + 4 < 2^15 (pairs whose walk has more than
     # RUN_MAX runs retry through opcodes)
     emit: str = "auto"
-    # the options below select code paths of the JAX package that this
-    # package does not have yet; anything but the default raises
-    dp_dtype: str = "int32"  # 'int16': item 13
-    sweep: str = "antidiag"  # 'rows': item 13
-    fold: bool | str = False  # item 13
+    # the sweep's DP: 'int32' (exact), 'int16' or 'auto' (saturating int16;
+    # a score at or above nw.INT16_CUTOFF re-runs in int32)
+    dp_dtype: str = "int32"
+    # 'antidiag' the anti-diagonal sweep and walk, 'rows' the row-major ones
+    # (half the serial steps; pairs whose gap list overflows nw.GAP_MAX retry
+    # on the anti-diagonal kernels)
+    sweep: str = "antidiag"
+    # the bidirectional fold (each pair as a forward and a backward row
+    # meeting at the middle anti-diagonal): True for every chunk, 'auto' for
+    # chunks of at most fold_max_batch padded rows
+    fold: bool | str = False
+    fold_max_batch: int = 128
+    # band tiling is not ported yet; anything but 'off' raises
     band_tiling: str = "off"  # item 13
     # host worker threads of the anchored route's window DP
     threads: int = 4
@@ -201,18 +221,16 @@ def pack_probe(bq: list[np.ndarray], bt: list[np.ndarray]):
 
 
 def _check_config(cfg: RunnerConfig) -> None:
-    unported = (
-        ("dp_dtype", cfg.dp_dtype != "int32", 13),
-        ("sweep", cfg.sweep != "antidiag", 13),
-        ("fold", cfg.fold is not False, 13),
-        ("band_tiling", cfg.band_tiling != "off", 13),
-    )
-    for name, bad, item in unported:
-        if bad:
-            raise NotImplementedError(
-                f"RunnerConfig.{name}={getattr(cfg, name)!r} is not ported yet "
-                f"(ROADMAP item {item})"
-            )
+    if cfg.band_tiling != "off":
+        raise NotImplementedError(
+            f"RunnerConfig.band_tiling={cfg.band_tiling!r} is not ported yet (ROADMAP item 13)"
+        )
+    if cfg.dp_dtype not in ("int32", "int16", "auto"):
+        raise ValueError(f"dp_dtype must be 'int32', 'int16' or 'auto', got {cfg.dp_dtype!r}")
+    if cfg.sweep not in ("antidiag", "rows"):
+        raise ValueError(f"sweep must be 'antidiag' or 'rows', got {cfg.sweep!r}")
+    if cfg.fold not in (False, True, "auto"):
+        raise ValueError(f"fold must be False, True or 'auto', got {cfg.fold!r}")
     if cfg.wide_route not in ("anchored", "full"):
         raise ValueError(f"wide_route must be 'anchored' or 'full', got {cfg.wide_route!r}")
     if cfg.kernel not in ("nw", "wfa"):
@@ -248,6 +266,11 @@ class WfaAligner:
             # walks with more than RUN_MAX runs (nw.RUN_MAX, the window and
             # gap chunks' own budgets), re-run through opcodes
             "run_overflows": 0,
+            # int16 scores at or above nw.INT16_CUTOFF, re-run in int32
+            "int16_retries": 0,
+            # row-major walks whose gap list overflowed nw.GAP_MAX, re-run on
+            # the anti-diagonal kernels
+            "gap_overflows": 0,
             "cells_padded": 0,  # B_padded * (tmax + 2) * W summed over dispatches
             "cells_true": 0,  # (qlen+tlen+1) * W summed over aligned jobs
             # host-side phase timers (collect includes the device wait)
@@ -273,7 +296,8 @@ class WfaAligner:
             # choose_orientations' 'probe' sweeps, the sweepga backend's 'gap'
             # chunks, the inversion-aware mode's 'inversion' batch and
             # kernel='wfa''s 'wfa' batches); the walk's output of each
-            # chunk, window and gap dispatch as emit: 'runs' or 'ops'
+            # chunk, window and gap dispatch as emit: 'runs' or 'ops' ('rowtok'
+            # for a row-major chunk); a chunk's fold, rows and int16 flags
             "dispatches": [],
         }
         # per-(sequence, orientation) minimizer cache of the anchored route
@@ -286,6 +310,9 @@ class WfaAligner:
         # (pair_idx, rc) jobs whose walk produced more than nw.RUN_MAX runs:
         # they run in chunks of their own, through the opcode walk
         self._runs_off_set: set[tuple[int, bool]] = set()
+        # (pair_idx, rc) jobs whose row-major gap list overflowed nw.GAP_MAX:
+        # they run in chunks of their own, on the anti-diagonal kernels
+        self._v3_set: set[tuple[int, bool]] = set()
 
     def _minimizers(self, idx: int, rc: bool):
         key = (idx, rc)
@@ -595,10 +622,12 @@ class WfaAligner:
                 return b
         return _round_up(n, 64)
 
-    def _initial_jobs(self, pairs, forced_rev=None) -> list[tuple[int, bool, int]]:
-        """First-round jobs (pair_idx, rc, band).  Sketch-undecided pairs
-        enter in both orientations at a probe band: the orientation call is
-        relative, and the winner escalates from its own score."""
+    def _initial_jobs(self, pairs, forced_rev=None) -> list[tuple[int, bool, int, bool]]:
+        """First-round jobs (pair_idx, rc, band, force32).  Sketch-undecided
+        pairs enter in both orientations at a probe band: the orientation
+        call is relative, and the winner escalates from its own score.
+        force32 (the int32 DP whatever dp_dtype says) starts as
+        dp_dtype == 'int32'; an int16 retry sets it."""
         if forced_rev is not None:
             d_fwd, d_rc = self._sketch_orientation_distances(pairs)
             is_rev = forced_rev
@@ -618,7 +647,7 @@ class WfaAligner:
             else:
                 orients = (bool(is_rev[p]),)
             for rc in orients:
-                jobs.append((p, rc, band0))
+                jobs.append((p, rc, band0, self.cfg.dp_dtype == "int32"))
         return jobs
 
     def _align_pairs_nw(self, pairs, forced_rev=None) -> list[AlignmentResult]:
@@ -643,7 +672,7 @@ class WfaAligner:
                     # so only very wide bands and long pairs stay anchored
                     keep, back = [], []
                     for job in anchored_jobs:
-                        p, _rc, band = job
+                        p, _rc, band, _f32 = job
                         qi, tj = pairs[p]
                         big = band > 2 * self.cfg.wide_band_threshold + 1 or (
                             self.codes[qi].size + self.codes[tj].size
@@ -718,23 +747,23 @@ class WfaAligner:
                 cur = best_known.get(p)
                 if cur is None or (s, rc) < cur:
                     best_known[p] = (s, rc)
-        for (p, rc, _band), s in retries_scored:
+        for (p, rc, _band, _f32), s in retries_scored:
             cur = best_known.get(p)
             if cur is None or (s, rc) < cur:
                 best_known[p] = (s, rc)
         out = []
-        for (p, rc, band), s in retries_scored:
+        for (p, rc, band, f32), s in retries_scored:
             cur = best_known.get(p)
             if cur is not None and (cur[0], cur[1]) < (s, rc):
                 continue  # the other orientation already scores better
-            out.append((p, rc, band))
+            out.append((p, rc, band, f32))
         return out
 
     def _wants_anchored(self, job, pairs) -> bool:
         """Route this job through the anchored route?  A wide band on a long
         pair, not tried before in this call, and under wide_verify a pair
-        the single-shot verify sweep can take."""
-        p, rc, band = job
+        the single-shot verify sweep can take; never under sweep='rows'."""
+        p, rc, band, _f32 = job
         if (p, rc) in self._anchored_tried:
             return False
         qi, tj = pairs[p]
@@ -743,6 +772,7 @@ class WfaAligner:
             band > self.cfg.wide_band_threshold
             and max(qlen, tlen) >= self.cfg.wide_min_len
             and (not self.cfg.wide_verify or qlen + tlen <= self.cfg.long_pair_threshold)
+            and self.cfg.sweep != "rows"
         )
 
     def _align_anchored_start(self, wide_jobs, pairs, pen):
@@ -759,6 +789,7 @@ class WfaAligner:
                 self.stats["anchored_fallbacks"] += 1
                 fallbacks.append(job)
             else:
+                plan.f32 = job[3]
                 plans.append(plan)
         dispatched = anchored.dispatch_windows(self, window_jobs, pen)
         self.stats["anchored_windows"] += len(window_jobs)
@@ -818,7 +849,7 @@ class WfaAligner:
                 else:
                     # the optimum beats the stitch: re-run the full wide
                     # route at band_v (already certified for s_v)
-                    retries_scored.append(((plan.p, plan.rc, band_v), s_v))
+                    retries_scored.append(((plan.p, plan.rc, band_v, plan.f32), s_v))
         return done, fallbacks, retries_scored
 
     def _finish_anchored(self, plan, items, score, pairs, done):
@@ -830,22 +861,24 @@ class WfaAligner:
             done[(plan.p, plan.rc)] = AlignmentResult(int(qi), int(tj), plan.rc, score, items)
 
     def _make_nw_chunks(self, queue, pairs):
-        """Pack jobs into as few dispatches as possible: jobs sort by (run
-        overflow, band, length) and chunks cut only at a change of run
-        overflow, the traceback memory budget and max_chunk_pairs; every job
-        in a chunk runs at the chunk-max band.  Jobs in _runs_off_set (their
-        walk overflowed RUN_MAX) form chunks of their own, which take the
-        opcode walk.
+        """Pack jobs into as few dispatches as possible: jobs sort by
+        (force32, row-major overflow, run overflow, band, length) and chunks
+        cut only at a change of the first three, the traceback memory budget
+        and max_chunk_pairs; every job in a chunk runs at the chunk-max band.
+        The DP's type, the kernels (_v3_set: pairs whose row-major gap list
+        overflowed) and the walk's output (_runs_off_set: walks that
+        overflowed RUN_MAX, which take the opcode walk) are one per chunk.
 
-        Entries are (pair_idx, rc, band, q, t)."""
+        Entries are (pair_idx, rc, band, force32, q, t)."""
         entries = []
-        for p, rc, band in queue:
+        for p, rc, band, force32 in queue:
             qi, tj = pairs[p]
             q = self.rc_codes[qi] if rc else self.codes[qi]
             t = self.codes[tj]
+            v3 = (p, rc) in self._v3_set
             roff = (p, rc) in self._runs_off_set
-            entries.append((roff, band, q.size + t.size, p, rc, q, t))
-        entries.sort(key=lambda e: (e[0], e[1], e[2]))
+            entries.append((force32, v3, roff, band, q.size + t.size, p, rc, q, t))
+        entries.sort(key=lambda e: (e[0], e[1], e[2], e[3], e[4]))
 
         chunks = []
         i = 0
@@ -853,9 +886,11 @@ class WfaAligner:
             chunk = []
             band = 0
             while i < len(entries):
-                roff, bandj, _ln, p, rc, q, t = entries[i]
-                if chunk and roff != ((chunk[0][0], chunk[0][1]) in self._runs_off_set):
-                    break  # the walk's output is one per chunk: no mixing
+                f32, v3, roff, bandj, _ln, p, rc, q, t = entries[i]
+                first = (chunk[0][0], chunk[0][1]) if chunk else None
+                if chunk and (f32 != chunk[0][2] or v3 != (first in self._v3_set)
+                              or roff != (first in self._runs_off_set)):
+                    break  # dtype, kernels and the walk's output: one per chunk
                 trial_band = max(band, bandj)
                 trial_tmax = _round_up(q.size + t.size, 512)
                 B_pad = self._quantize_batch(len(chunk) + 1)
@@ -864,10 +899,10 @@ class WfaAligner:
                     break
                 if self.cfg.max_chunk_pairs and len(chunk) >= self.cfg.max_chunk_pairs:
                     break
-                chunk.append((p, rc, q, t))
+                chunk.append((p, rc, f32, q, t))
                 band = trial_band
                 i += 1
-            chunks.append([(p, rc, band, q, t) for (p, rc, q, t) in chunk])
+            chunks.append([(p, rc, band, f32, q, t) for (p, rc, f32, q, t) in chunk])
         return chunks
 
     def pack_chunk(self, chunk):
@@ -889,6 +924,20 @@ class WfaAligner:
             tlens[b] = t.size
         return Q, T, qlens, tlens, tmax
 
+    def pack_fold_rows(self, chunk, Q, T):
+        """The fold's backward rows of a packed chunk: each row of Q and T
+        with its first qlen / tlen bases reversed (not complemented)."""
+        Qr, Tr = Q.copy(), T.copy()
+        for b, (*_, q, t) in enumerate(chunk):
+            Qr[b, : q.size] = q[::-1]
+            Tr[b, : t.size] = t[::-1]
+        return Qr, Tr
+
+    def _use_rows(self, chunk) -> bool:
+        """Row-major kernels for this chunk?  Chunks are homogeneous in
+        _v3_set membership (_make_nw_chunks keeps them apart)."""
+        return self.cfg.sweep == "rows" and (chunk[0][0], chunk[0][1]) not in self._v3_set
+
     def _use_runs(self, chunk, tmax: int) -> bool:
         """Run tokens for this chunk?  Chunks are homogeneous in run-overflow
         membership (_make_nw_chunks keeps them apart)."""
@@ -903,58 +952,98 @@ class WfaAligner:
 
     def _dispatch_nw_chunk(self, chunk):
         """Launch the sweep and the walk for one chunk (through the long-pair
-        route above long_pair_threshold anti-diagonals); the walk's output
-        (run tokens and counts, or opcodes) and the scores start copying back
-        without blocking the host.  Returns (chunk, scores, payload, ready
-        event, qlens, tlens), payload ('runs', (tokens, counts)) or ('ops',
-        opcodes)."""
+        route above long_pair_threshold anti-diagonals, the row-major
+        kernels under sweep='rows', the fold where it applies); the walk's
+        output and the scores start copying back without blocking the host.
+        Returns (chunk, scores, payload, ready event, qlens, tlens,
+        used_int16), payload ('runs', (tokens, counts)), ('ops', (opcodes,)),
+        ('fold', (half-walk opcodes, cross_m)) or ('rowtok', (steps, grows,
+        gvals, gcount))."""
         band = chunk[0][2]
+        force32 = chunk[0][3]
         Q, T, qlens, tlens, tmax = self.pack_chunk(chunk)
         B = Q.shape[0]
-        self.stats["cells_padded"] += B * (tmax + 2) * (band + 1)
+        long = tmax > self.cfg.long_pair_threshold
+        use_int16 = self.cfg.dp_dtype in ("int16", "auto") and not force32 and not long
+        rows = not long and self._use_rows(chunk)
+        fold = (not long and not rows
+                and (self.cfg.fold is True
+                     or (self.cfg.fold == "auto" and B <= self.cfg.fold_max_batch)))
         entry = {"kind": "chunk", "B": B, "band": band, "tmax": tmax,
-                 "jobs": [[int(p), int(rc)] for p, rc, *_ in chunk]}
+                 "jobs": [[int(p), int(rc)] for p, rc, *_ in chunk],
+                 "fold": fold, "rows": rows, "int16": use_int16}
         dev = self.device
         Qd, Td, qd, td = (torch.from_numpy(a).to(dev) for a in (Q, T, qlens, tlens))
-        if tmax > self.cfg.long_pair_threshold:
+        pen = self._penalties()
+        if not fold:
+            self.stats["cells_padded"] += B * (tmax + 2) * (band + 1)
+        if long:
             seg = nw_cuda.LONG_SEG
             t_need = int((qlens + tlens).max())
             entry.update(kind="long", seg=seg, n_seg=-(-t_need // seg))
             self.stats["long_pairs"] += len(chunk)
             scores, ops = nw_cuda.nw_align_long(Qd, Td, qd, td, band=band, seg=seg, t_need=t_need,
-                                                **self._penalties())
+                                                **pen)
             mode, out = "ops", (ops,)  # the segment walk emits opcodes
+        elif rows:
+            scores, tb = nw_cuda.nw_align_rows(Qd, Td, qd, td, band=band, int16=use_int16, **pen)
+            mode, out = "rowtok", nw_cuda.nw_walk_rows(tb, qd, td, band=band)
+            del tb
+        elif fold:
+            # the fold region must cover the certified band: widen it by the
+            # chunk's largest length difference; the trip count halves
+            maxdiff = max(abs(q.size - t.size) for *_, q, t in chunk)
+            maxlen = max(max(q.size, t.size) for *_, q, t in chunk)
+            band_eff = self._quantize_band(band + maxdiff, maxlen, maxlen)
+            tmax_half = _round_up(tmax // 2 + 2, 256)
+            self.stats["cells_padded"] += 2 * B * (tmax_half + 2) * (band_eff + 1)
+            entry.update(band_eff=band_eff, tmax_half=tmax_half)
+            Qr, Tr = (torch.from_numpy(a).to(dev) for a in self.pack_fold_rows(chunk, Q, T))
+            scores, ops2, cross_m = nw_cuda.nw_align_fold(Qd, Td, Qr, Tr, qd, td, band=band_eff,
+                                                          tmax_half=tmax_half, int16=use_int16,
+                                                          **pen)
+            mode, out = "fold", (ops2, cross_m)  # the fold's walk emits opcodes
         else:
-            scores, tb = nw_cuda.nw_align(Qd, Td, qd, td, band=band, tmax=tmax, **self._penalties())
+            scores, tb = nw_cuda.nw_align(Qd, Td, qd, td, band=band, tmax=tmax, int16=use_int16,
+                                          **pen)
             if self._use_runs(chunk, tmax):
                 mode = "runs"
                 out = nw_cuda.nw_walk_runs(tb, qd, td, band=band, tmax=tmax, run_max=nw.RUN_MAX)
             else:
                 mode, out = "ops", (nw_cuda.nw_walk(tb, qd, td, band=band, tmax=tmax),)
             del tb  # stream-ordered: the allocator reuses it only after the walk
-        entry["emit"] = mode
+        entry["emit"] = "ops" if mode == "fold" else mode
         self.stats["dispatches"].append(entry)
         scores, out, ready = to_host(scores, out)
-        return chunk, scores, (mode, out), ready, qlens, tlens
+        return chunk, scores, (mode, out), ready, qlens, tlens, use_int16
 
     def _collect_nw_chunk(self, dispatched, pairs):
         """Returns (done: {(pair_idx, rc): result-or-None}, retries).
 
-        A job is retried (not returned) when the band certificate fails; a
-        None result means the pair exceeded the divergence cap with a
-        certified-exact score."""
-        chunk, scores, (mode, out), ready, qlens, tlens = dispatched
+        A job is retried (not returned) when its int16 score saturated, when
+        the band certificate fails, or when its row-major gap list or its run
+        list overflowed; a None result means the pair exceeded the
+        divergence cap with a certified-exact score."""
+        chunk, scores, (mode, out), ready, qlens, tlens, used_int16 = dispatched
         if ready is not None:
             ready.synchronize()
         scores = scores.numpy()
         data = [a.numpy() for a in out]
+        if mode == "fold":
+            # forward ops ++ [M at the crossing] ++ reversed backward ops
+            data = [nw.merge_fold_ops(data[0], data[1])]
+            mode = "ops"
 
         done: dict[tuple[int, bool], AlignmentResult | None] = {}
-        retries: list[tuple[tuple[int, bool, int], int]] = []
+        retries: list[tuple[tuple[int, bool, int, bool], int]] = []
         decode_jobs = []
-        for b, (p, rc, bandj, q, t) in enumerate(chunk):
+        for b, (p, rc, bandj, force32, q, t) in enumerate(chunk):
             qlen, tlen = int(qlens[b]), int(tlens[b])
             score = int(scores[b])
+            if used_int16 and score >= nw.INT16_CUTOFF:
+                self.stats["int16_retries"] += 1
+                retries.append(((p, rc, bandj, True), score))
+                continue
             exact = bandj >= max(qlen, tlen) or (
                 0 <= score < self._cert_bound(bandj, qlen, tlen)
             )
@@ -962,7 +1051,7 @@ class WfaAligner:
                 self.stats["band_escalations"] += 1
                 retries.append(
                     (
-                        (p, rc, self._escalated_band(max(score, 0), bandj, qlen, tlen)),
+                        (p, rc, self._escalated_band(max(score, 0), bandj, qlen, tlen), force32),
                         score if score >= 0 else np.iinfo(np.int32).max,
                     )
                 )
@@ -970,12 +1059,19 @@ class WfaAligner:
             if score < 0 or score > self._pair_cap(qlen, tlen):
                 done[(p, rc)] = None  # certified-exact score exceeds the cap
                 continue
+            if mode == "rowtok" and int(data[3][b]) > nw.GAP_MAX:
+                # the gap list was cut on the device: retry on the
+                # anti-diagonal kernels (same band: the score is certified)
+                self.stats["gap_overflows"] += 1
+                self._v3_set.add((p, rc))
+                retries.append(((p, rc, bandj, force32), score))
+                continue
             if mode == "runs" and int(data[1][b]) > nw.RUN_MAX:
                 # the run list was cut on the device: retry through the
                 # opcode walk (same band: the score is already certified)
                 self.stats["run_overflows"] += 1
                 self._runs_off_set.add((p, rc))
-                retries.append(((p, rc, bandj), score))
+                retries.append(((p, rc, bandj, force32), score))
                 continue
             self.stats["cells_true"] += (qlen + tlen + 1) * (bandj + 1)
             decode_jobs.append((b, p, rc, q, t, score))
@@ -986,6 +1082,13 @@ class WfaAligner:
             ts = [t for _b, _p, _rc, _q, t, _s in decode_jobs]
             if mode == "runs":
                 items_all = nw.decode_runs_batch(data[0][rows], data[1][rows], qs, ts)
+            elif mode == "rowtok":
+                steps, grows, gvals, gcount = data
+                items_all = [
+                    nw.resolve_matches(nw.decode_rowtokens(steps[b], grows[b], gvals[b],
+                                                           int(gcount[b]), q.size), q, t)
+                    for b, q, t in zip(rows, qs, ts)
+                ]
             else:
                 items_all = nw.decode_batch(data[0][rows], qs, ts)
             for (b, p, rc, q, t, score), items in zip(decode_jobs, items_all):

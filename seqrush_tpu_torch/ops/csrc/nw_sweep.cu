@@ -1,6 +1,26 @@
 // Kernel A, single-shot: anti-diagonals 1..tmax of every pair of a dispatch.
 // The device code and the design note are in nw_sweep.cuh; the segment mode
 // is instantiated in nw_sweep_seg.cu.
+//
+// Two more modes:
+//   * int16 (Pen::i16 on the register route, the I16 flag of the wide one;
+//     replaces the int16 path of the XLA program
+//     seqrush_tpu/ops/nw.py::_sweep_v3(dtype=int16)): every state saturates
+//     at NW_INF16 = 30000 (NW_INF16 off the matrix) and an empty pair scores
+//     0.  The values stay in int32 registers.  The JAX package adds in
+//     int16, so an add past 32,767 wraps there: the register route takes
+//     only penalties whose adds to 30000 cannot wrap (its keys need values
+//     >= 0), and the wide route sign-extends the low 16 bits of every add,
+//     which is the JAX arithmetic whatever the penalties;
+//   * snapshot (SnapArgs; _sweep_v3(t_snap=...), the bidirectional fold):
+//     at t == t_snap[b] the carry (H(t), H(t-1), I1, D1, I2, D2) goes to
+//     SNAP and the clamped diagonal candidate h_diag + sub at t_snap and
+//     t_snap + 1 to DIAGA and DIAGB, as stores predicated on the step.  Its
+//     register-route kernels are instantiated in nw_sweep_snap.cu, the wide
+//     route's below (its SNAP flag).
+// The wide route takes both as template flags, so its int32 kernels without
+// snapshots carry none of either mode's code or registers.
+// The bound is the sweep's.
 
 #include "nw_sweep.cuh"
 
@@ -18,8 +38,9 @@ nw_sweep_regs(const uint8_t* __restrict__ Q,  // [B, Lq] query codes, QPAD-padde
                                       p, wpp, ppb, pair_bytes, none);
 }
 
-// Wide route, single-shot (see the header's design note).
-template <bool TB>
+// Wide route, single-shot (see the header's design note).  I16: the int16
+// mode; SNAP: the snapshot mode (TB only).
+template <bool TB, bool I16, bool SNAP>
 __global__ void __launch_bounds__(1024) nw_sweep_wide(
     const uint8_t* __restrict__ Q,      // [B, Lq] query codes, QPAD-padded
     const uint8_t* __restrict__ T,      // [B, Lt] target codes, TPAD-padded
@@ -29,7 +50,7 @@ __global__ void __launch_bounds__(1024) nw_sweep_wide(
     uint8_t* __restrict__ tb,           // [B, tmax_pad, W] out (TB only)
     int* __restrict__ gscratch,         // [B, 11, W] or null (shared memory)
     int Lq, int Lt, int W, int tmax, int tmax_pad,
-    int mismatch, int o1, int e1, int o2, int e2) {
+    int mismatch, int o1, int e1, int o2, int e2, SnapArgs sn) {
   extern __shared__ int rows_smem[];
   const int b = blockIdx.x;
   int* rows = gscratch ? gscratch + (size_t)b * NW_ROWS * W : rows_smem;
@@ -47,22 +68,30 @@ __global__ void __launch_bounds__(1024) nw_sweep_wide(
   const uint8_t* q = Q + (size_t)b * Lq;
   const uint8_t* tg = T + (size_t)b * Lt;
   uint8_t* tbb = TB ? tb + (size_t)b * tmax_pad * W : nullptr;
+  const int neg = I16 ? NW_INF16 : NW_INF;
+  const int mis = I16 ? (int)(int16_t)mismatch : mismatch;
+  const size_t plane = (size_t)gridDim.x * W;
+  const int t_snap = SNAP ? sn.t_snap[b] : -2;
+  int* snap = SNAP ? sn.snap + (size_t)b * W : nullptr;
 
   // state at t = 0 (H[0], gap slot 0) and t = -1 (H[2]); traceback row 0
   // and the padding rows past tmax are never computed: they are zero
   for (int l = threadIdx.x; l < W; l += blockDim.x) {
-    H[0][l] = l == 0 ? 0 : NW_INF;
-    H[2][l] = NW_INF;
-    I1[0][l] = NW_INF;
-    D1[0][l] = NW_INF;
-    I2[0][l] = NW_INF;
-    D2[0][l] = NW_INF;
+    H[0][l] = l == 0 ? 0 : neg;
+    H[2][l] = neg;
+    I1[0][l] = neg;
+    D1[0][l] = neg;
+    I2[0][l] = neg;
+    D2[0][l] = neg;
     if (TB) {
       tbb[l] = 0;
       for (int t = tmax + 1; t < tmax_pad; ++t) tbb[(size_t)t * W + l] = 0;
     }
   }
-  if (threadIdx.x == 0) scores[b] = -1;
+  if (threadIdx.x == 0) {
+    scores[b] = (I16 && t_final == 0) ? 0 : -1;
+    if (SNAP && t_snap == 0) snap[0] = 0;  // the initial state: neg but H's origin
+  }
   __syncthreads();
 
   for (int t = 1; t <= tmax; ++t) {
@@ -81,43 +110,43 @@ __global__ void __launch_bounds__(1024) nw_sweep_wide(
     uint8_t* tbrow = TB ? tbb + (size_t)t * W : nullptr;
 
     for (int l = threadIdx.x; l < W; l += blockDim.x) {
-      const int h_up = framed(h1, l, dp - 1, W);
-      const int h_left = framed(h1, l, dp, W);
-      const int h_diag = framed(h2, l, dpp - 1, W);
-      const int i1_up = framed(I1[rs], l, dp - 1, W);
-      const int d1_left = framed(D1[rs], l, dp, W);
+      const int h_up = framed(h1, l, dp - 1, W, neg);
+      const int h_left = framed(h1, l, dp, W, neg);
+      const int h_diag = framed(h2, l, dpp - 1, W, neg);
+      const int i1_up = framed(I1[rs], l, dp - 1, W, neg);
+      const int d1_left = framed(D1[rs], l, dp, W, neg);
 
       const int x = qs + l;
       const int qc = (x >= 1 && x <= Lq) ? (int)q[x - 1] : NW_QPAD;
       const int y = ts + l;
       const int tc = (y >= W && y < W + Lt) ? (int)tg[Lt - 1 - (y - W)] : NW_TPAD;
-      const int sub = qc == tc ? 0 : mismatch;
+      const int sub = qc == tc ? 0 : mis;
 
-      int a = h_up + (o1 + e1);
-      int c = i1_up + e1;
+      int a = add16(h_up, o1 + e1, I16);
+      int c = add16(i1_up, e1, I16);
       int I1n = min(a, c);
       const bool i1o = a <= c;
-      a = h_left + (o1 + e1);
-      c = d1_left + e1;
+      a = add16(h_left, o1 + e1, I16);
+      c = add16(d1_left, e1, I16);
       int D1n = min(a, c);
       const bool d1o = a <= c;
-      int I2n = NW_INF, D2n = NW_INF;
+      int I2n = neg, D2n = neg;
       bool i2o = false, d2o = false;
       if (two) {
-        const int i2_up = framed(I2[rs], l, dp - 1, W);
-        const int d2_left = framed(D2[rs], l, dp, W);
-        a = h_up + (o2 + e2);
-        c = i2_up + e2;
+        const int i2_up = framed(I2[rs], l, dp - 1, W, neg);
+        const int d2_left = framed(D2[rs], l, dp, W, neg);
+        a = add16(h_up, o2 + e2, I16);
+        c = add16(i2_up, e2, I16);
         I2n = min(a, c);
         i2o = a <= c;
-        a = h_left + (o2 + e2);
-        c = d2_left + e2;
+        a = add16(h_left, o2 + e2, I16);
+        c = add16(d2_left, e2, I16);
         D2n = min(a, c);
         d2o = a <= c;
       }
 
       // strict '<' in the order D1, I1, D2, I2: ties keep the earlier choice
-      int Hn = h_diag + sub;
+      int Hn = add16(h_diag, sub, I16);
       int choice = 0;
       if (D1n < Hn) { Hn = D1n; choice = 1; }
       if (I1n < Hn) { Hn = I1n; choice = 2; }
@@ -127,15 +156,31 @@ __global__ void __launch_bounds__(1024) nw_sweep_wide(
       const int i = i0 + l;
       const int j = t - i;
       const bool valid = i >= 0 && i <= qlen && j >= 0 && j <= tlen;
-      Hn = valid ? min(Hn, NW_INF) : NW_INF;
+      Hn = valid ? min(Hn, neg) : neg;
       hw[l] = Hn;
-      I1[ws][l] = valid ? min(I1n, NW_INF) : NW_INF;
-      D1[ws][l] = valid ? min(D1n, NW_INF) : NW_INF;
+      I1[ws][l] = valid ? min(I1n, neg) : neg;
+      D1[ws][l] = valid ? min(D1n, neg) : neg;
       if (two) {
-        I2[ws][l] = valid ? min(I2n, NW_INF) : NW_INF;
-        D2[ws][l] = valid ? min(D2n, NW_INF) : NW_INF;
+        I2[ws][l] = valid ? min(I2n, neg) : neg;
+        D2[ws][l] = valid ? min(D2n, neg) : neg;
       }
       if (t == t_final && l == qlen - i0 && Hn < NW_INF) scores[b] = Hn;
+      if (SNAP) {
+        // the fold's captures: the carry at t_snap, the clamped diagonal
+        // candidate at t_snap and t_snap + 1
+        const int hd = valid ? min(add16(h_diag, sub, I16), neg) : neg;
+        if (t == t_snap) {
+          snap[l] = Hn;
+          snap[plane + l] = h1[l];
+          snap[2 * plane + l] = valid ? min(I1n, neg) : neg;
+          snap[3 * plane + l] = valid ? min(D1n, neg) : neg;
+          snap[4 * plane + l] = valid ? min(I2n, neg) : neg;
+          snap[5 * plane + l] = valid ? min(D2n, neg) : neg;
+          sn.diaga[(size_t)b * W + l] = hd;
+        } else if (t == t_snap + 1) {
+          sn.diagb[(size_t)b * W + l] = hd;
+        }
+      }
 
       if (TB)
         tbrow[l] = (uint8_t)(choice | ((int)i1o << 3) | ((int)i2o << 4) |
@@ -161,6 +206,20 @@ static cudaError_t launch_regs(const void* Q, const void* T, const void* qlens, 
   return cudaGetLastError();
 }
 
+template <bool TB, bool I16, bool SNAP>
+static cudaError_t launch_wide(const void* Q, const void* T, const void* qlens, const void* tlens,
+                               void* scores, void* tb, void* scratch, int B, int Lq, int Lt, int W,
+                               int tmax, int tmax_pad, int mismatch, int o1, int e1, int o2, int e2,
+                               SnapArgs sn, int threads, cudaStream_t stream) {
+  const size_t smem = dynamic_smem(0, W, 1, 0, scratch != nullptr);
+  const cudaError_t err = allow_smem((const void*)nw_sweep_wide<TB, I16, SNAP>, smem);
+  if (err != cudaSuccess) return err;
+  nw_sweep_wide<TB, I16, SNAP><<<B, threads, smem, stream>>>(
+      (const uint8_t*)Q, (const uint8_t*)T, (const int*)qlens, (const int*)tlens, (int*)scores,
+      (uint8_t*)tb, (int*)scratch, Lq, Lt, W, tmax, tmax_pad, mismatch, o1, e1, o2, e2, sn);
+  return cudaGetLastError();
+}
+
 template <bool TWO, bool TB>
 static const void* regs_kernel(int S) {
   switch (S) {
@@ -174,32 +233,41 @@ static const void* regs_kernel(int S) {
 
 // lanes: S of the register route, or 0 for the wide route (its rows then go
 // to scratch, a [B, 11, W] int32 buffer, or to shared memory where scratch is
-// null).  A null tb selects the score-only mode.  Returns the CUDA error code.
+// null).  A null tb selects the score-only mode.  A non-null snap selects the
+// snapshot mode (t_snap [B], snap [6, B, W], diaga and diagb [B, W], filled
+// with the DP's +infinity by the caller); int16 the int16 mode.  Returns the
+// CUDA error code.
 extern "C" int nw_sweep_launch(const void* Q, const void* T, const void* qlens, const void* tlens,
-                               void* scores, void* tb, void* scratch, int B, int Lq, int Lt, int W,
+                               void* scores, void* tb, void* scratch, const void* t_snap,
+                               void* snap, void* diaga, void* diagb, int B, int Lq, int Lt, int W,
                                int tmax, int tmax_pad, int mismatch, int o1, int e1, int o2,
-                               int e2, int lanes, int wpp, int ppb, int pair_bytes,
+                               int e2, int int16, int lanes, int wpp, int ppb, int pair_bytes,
                                int wide_threads, void* stream) {
   if (B <= 0) return (int)cudaSuccess;
   const bool two = o2 >= 0;
   const bool with_tb = tb != nullptr;
-  const Pen p{mismatch, o1 + e1, e1, o2 + e2, e2};
+  if (snap != nullptr && !with_tb) return (int)cudaErrorInvalidValue;
+  Pen p{mismatch, o1 + e1, e1, o2 + e2, e2};
+  p.neg = int16 ? NW_INF16 : NW_INF;
+  p.i16 = int16 != 0;
+  const SnapArgs sn{(const int*)t_snap, (int*)snap, (int*)diaga, (int*)diagb};
   cudaStream_t st = (cudaStream_t)stream;
   if (lanes == 0) {
-    const size_t smem = dynamic_smem(0, W, 1, 0, scratch != nullptr);
-    const void* fn = with_tb ? (const void*)nw_sweep_wide<true> : (const void*)nw_sweep_wide<false>;
-    const cudaError_t err = allow_smem(fn, smem);
-    if (err != cudaSuccess) return (int)err;
-    if (with_tb)
-      nw_sweep_wide<true><<<B, wide_threads, smem, st>>>(
-          (const uint8_t*)Q, (const uint8_t*)T, (const int*)qlens, (const int*)tlens, (int*)scores,
-          (uint8_t*)tb, (int*)scratch, Lq, Lt, W, tmax, tmax_pad, mismatch, o1, e1, o2, e2);
-    else
-      nw_sweep_wide<false><<<B, wide_threads, smem, st>>>(
-          (const uint8_t*)Q, (const uint8_t*)T, (const int*)qlens, (const int*)tlens, (int*)scores,
-          nullptr, (int*)scratch, Lq, Lt, W, tmax, tmax_pad, mismatch, o1, e1, o2, e2);
-    return (int)cudaGetLastError();
+#define NW_WIDE(TBV, I16V, SNAPV)                                                                 \
+  launch_wide<TBV, I16V, SNAPV>(Q, T, qlens, tlens, scores, tb, scratch, B, Lq, Lt, W, tmax,      \
+                                tmax_pad, mismatch, o1, e1, o2, e2, sn, wide_threads, st)
+    const cudaError_t err = snap != nullptr ? (int16 ? NW_WIDE(true, true, true)
+                                                     : NW_WIDE(true, false, true))
+                            : with_tb       ? (int16 ? NW_WIDE(true, true, false)
+                                                     : NW_WIDE(true, false, false))
+                                            : (int16 ? NW_WIDE(false, true, false)
+                                                     : NW_WIDE(false, false, false));
+#undef NW_WIDE
+    return (int)err;
   }
+  if (snap != nullptr)
+    return (int)nw_sweep_snap_regs_launch(Q, T, qlens, tlens, scores, tb, B, Lq, Lt, W, tmax,
+                                          tmax_pad, p, two, lanes, wpp, ppb, pair_bytes, sn, st);
 #define NW_LAUNCH_TB(SV, TWOV)                                                                    \
   (with_tb ? launch_regs<SV, TWOV, true>(Q, T, qlens, tlens, scores, tb, B, Lq, Lt, W, tmax,      \
                                          tmax_pad, p, wpp, ppb, pair_bytes, st)                  \
@@ -228,7 +296,8 @@ extern "C" int nw_sweep_occupancy(int lanes, int two, int with_tb, int W, int pp
                                   int* smem_bytes) {
   const void* fn;
   if (lanes == 0)
-    fn = with_tb ? (const void*)nw_sweep_wide<true> : (const void*)nw_sweep_wide<false>;
+    fn = with_tb ? (const void*)nw_sweep_wide<true, false, false>
+                 : (const void*)nw_sweep_wide<false, false, false>;
   else if (two)
     fn = with_tb ? regs_kernel<true, true>(lanes) : regs_kernel<true, false>(lanes);
   else

@@ -85,13 +85,30 @@
 #include <stdint.h>
 
 #define NW_INF (1 << 28)
+#define NW_INF16 30000
 #define NW_QPAD 6
 #define NW_TPAD 7
 #define NW_ROWS 11
 #define FULL_MASK 0xffffffffu
 
+// neg: the DP's +infinity, NW_INF or, in the int16 mode, NW_INF16; i16: the
+// int16 mode (see the design note).
 struct Pen {
   int mis, oe1, e1, oe2, e2;
+  int neg = NW_INF;
+  bool i16 = false;
+};
+
+// The fold's snapshot mode (nw_align's t_snap): per pair the anti-diagonal
+// t_snap[b] and the outputs SNAP [6, B, W] and DIAGA, DIAGB [B, W] int32,
+// which the wrapper fills with neg; snap is null when the mode is off.  On
+// the register route the mode is a template flag (nw_sweep_snap.cu), so the
+// other instantiations carry none of it.
+struct SnapArgs {
+  const int* t_snap;
+  int* snap;
+  int* diaga;
+  int* diagb;
 };
 
 // Segment mode's arguments: the carry in and out ([6, B, W] int32 each),
@@ -111,9 +128,9 @@ __device__ __forceinline__ int i0_of(int t, int K) {
 
 __device__ __forceinline__ int round16(int x) { return (x + 15) & ~15; }
 
-// One cell from its framed neighbours, where every input is in [0, INF] and
+// One cell from its framed neighbours, where every input is in [0, neg] and
 // every penalty in [0, 2^16) (see the design note).  `off` is 0 on a valid
-// cell and INF on an invalid one; the new states come back clamped and INF
+// cell and neg on an invalid one; the new states come back clamped and neg
 // off the matrix, ready to store.  __vibmin_s32(a, b, &pred) returns
 // min(a, b) and sets pred = (a <= b): the opened bits are that predicate
 // ('<=' keeps the opening on a tie).  With one-piece penalties I2/D2 are INF
@@ -128,7 +145,7 @@ __device__ __forceinline__ uint32_t cell_keyed(int h_up, int h_left, int h_diag,
   uint32_t byte = op ? 8u : 0u;
   const int d1 = __vibmin_s32(h_left + p.oe1, d1_left + p.e1, &op);
   byte |= op ? 32u : 0u;
-  int i2 = NW_INF, d2 = NW_INF;
+  int i2 = p.neg, d2 = p.neg;
   if (TWO) {
     i2 = __vibmin_s32(h_up + p.oe2, i2_up + p.e2, &op);
     byte |= op ? 16u : 0u;
@@ -139,12 +156,12 @@ __device__ __forceinline__ uint32_t cell_keyed(int h_up, int h_left, int h_diag,
   const uint32_t k01 = __vimin3_u32((uint32_t)(h_diag + sub) << 3, ((uint32_t)d1 << 3) | 1u,
                                     ((uint32_t)i1 << 3) | 2u);
   const uint32_t key = __vimin3_u32(k01, ((uint32_t)d2 << 3) | 3u, ((uint32_t)i2 << 3) | 4u);
-  Hn = __viaddmin_s32((int)(key >> 3), off, NW_INF);
-  I1n = __viaddmin_s32(i1, off, NW_INF);
-  D1n = __viaddmin_s32(d1, off, NW_INF);
+  Hn = __viaddmin_s32((int)(key >> 3), off, p.neg);
+  I1n = __viaddmin_s32(i1, off, p.neg);
+  D1n = __viaddmin_s32(d1, off, p.neg);
   if (TWO) {
-    I2n = __viaddmin_s32(i2, off, NW_INF);
-    D2n = __viaddmin_s32(d2, off, NW_INF);
+    I2n = __viaddmin_s32(i2, off, p.neg);
+    D2n = __viaddmin_s32(d2, off, p.neg);
   }
   return byte | (key & 7u);
 }
@@ -169,6 +186,14 @@ struct Pair {
   int* score;
   int* slots;         // warp-edge slots [2][wpp][6]
   int s0, K, W, Lq, Lt, qlen, tlen, t_final, walign, lane, wip, wpp, pib;
+  int neg;            // the DP's +infinity (Pen::neg)
+  // snapshot mode: the pair's SNAP row 0 (planes `plane` apart), DIAGA and
+  // DIAGB rows, and its t_snap
+  int* snap;
+  int* diaga;
+  int* diagb;
+  size_t plane;
+  int t_snap;
   // segment mode only: the padded-operand index of Qs[0] and Ts[0], and
   // the anti-diagonal of tbb's row 0
   int qb, tb0, row0;
@@ -201,13 +226,13 @@ __device__ __forceinline__ void sweep_step(Strip<S>& s, const Edges& e, const Pe
     const int h_diag = DPP ? s.h2[k] : (k ? s.h2[k - 1] : e.hl2);
     const int i1_up = DP ? s.i1[k] : (k ? s.i1[k - 1] : e.i1l);
     const int d1_left = DP ? (k < S - 1 ? s.d1[k + 1] : e.d1r) : s.d1[k];
-    int i2_up = NW_INF, d2_left = NW_INF;
+    int i2_up = p.neg, d2_left = p.neg;
     if (TWO) {
       i2_up = DP ? s.i2[k] : (k ? s.i2[k - 1] : e.i2l);
       d2_left = DP ? (k < S - 1 ? s.d2[k + 1] : e.d2r) : s.d2[k];
     }
     const int sub = s.qw[k] == s.tw[k] ? 0 : p.mis;
-    const int off = (uint32_t)(k - vlo) <= vspan ? 0 : NW_INF;
+    const int off = (uint32_t)(k - vlo) <= vspan ? 0 : p.neg;
     const uint32_t byte = cell_keyed<TWO>(h_up, h_left, h_diag, i1_up, d1_left, i2_up, d2_left,
                                           sub, off, p, nh[k], ni1[k], nd1[k], ni2[k], nd2[k]);
     words[k >> 2] |= byte << (8 * (k & 3));
@@ -234,24 +259,24 @@ __device__ __forceinline__ void exchange(const Strip<S>& s, Edges& e, const Pair
   int il = __shfl_up_sync(FULL_MASK, s.i1[S - 1], 1);
   int hr = __shfl_down_sync(FULL_MASK, s.h1[0], 1);
   int dr = __shfl_down_sync(FULL_MASK, s.d1[0], 1);
-  int i2l = NW_INF, d2r = NW_INF;
+  int i2l = pr.neg, d2r = pr.neg;
   if (TWO) {
     i2l = __shfl_up_sync(FULL_MASK, s.i2[S - 1], 1);
     d2r = __shfl_down_sync(FULL_MASK, s.d2[0], 1);
   }
-  if (pr.lane == 0) hl = il = i2l = NW_INF;
-  if (pr.lane == 31) hr = dr = d2r = NW_INF;
+  if (pr.lane == 0) hl = il = i2l = pr.neg;
+  if (pr.lane == 31) hr = dr = d2r = pr.neg;
   if (pr.wpp > 1) {
     int* sl = pr.slots + (parity * pr.wpp + pr.wip) * 6;
     if (pr.lane == 31) {
       sl[0] = s.h1[S - 1];
       sl[1] = s.i1[S - 1];
-      sl[2] = TWO ? s.i2[S - 1] : NW_INF;
+      sl[2] = TWO ? s.i2[S - 1] : pr.neg;
     }
     if (pr.lane == 0) {
       sl[3] = s.h1[0];
       sl[4] = s.d1[0];
-      sl[5] = TWO ? s.d2[0] : NW_INF;
+      sl[5] = TWO ? s.d2[0] : pr.neg;
     }
     bar_pair(pr.pib, pr.wpp * 32);
     if (pr.lane == 0 && pr.wip > 0) {
@@ -350,10 +375,42 @@ __device__ __forceinline__ void slide_windows(Strip<S>& s, const Pair& pr, int t
   ts = nts;
 }
 
+// Snapshot mode: the clamped diagonal candidate h_diag + sub of anti-
+// diagonal t's lanes (before its step) into row `out` of DIAGA or DIAGB.
+template <int S, int DPP>
+__device__ __forceinline__ void snap_diag(const Strip<S>& s, const Edges& e, const Pair& pr,
+                                          const Pen& p, int vlo, uint32_t vspan, int* out) {
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    const int h_diag = DPP ? s.h2[k] : (k ? s.h2[k - 1] : e.hl2);
+    const int sub = s.qw[k] == s.tw[k] ? 0 : p.mis;
+    const int off = (uint32_t)(k - vlo) <= vspan ? 0 : p.neg;
+    if (pr.s0 + k < pr.W) out[pr.s0 + k] = __viaddmin_s32(h_diag + sub, off, p.neg);
+  }
+}
+
+// Snapshot mode: the strip's carry after anti-diagonal t_snap into SNAP.
+template <int S, bool TWO>
+__device__ __forceinline__ void snap_carry(const Strip<S>& s, const Pair& pr) {
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    const int l = pr.s0 + k;
+    if (l < pr.W) {
+      pr.snap[l] = s.h1[k];
+      pr.snap[pr.plane + l] = s.h2[k];
+      pr.snap[2 * pr.plane + l] = s.i1[k];
+      pr.snap[3 * pr.plane + l] = s.d1[k];
+      pr.snap[4 * pr.plane + l] = TWO ? s.i2[k] : pr.neg;
+      pr.snap[5 * pr.plane + l] = TWO ? s.d2[k] : pr.neg;
+    }
+  }
+}
+
 // Anti-diagonal t (>= 2) of the recurrence: slide the windows, step, store
 // the traceback row (TB), take the score at t_final, exchange the edges.
-// In segment mode the score is taken only where none was before.
-template <int S, bool TWO, bool TB, bool SEG, int DP, int DPP>
+// In segment mode the score is taken only where none was before.  In the
+// snapshot mode the captures of t_snap and t_snap + 1 are predicated stores.
+template <int S, bool TWO, bool TB, bool SEG, bool SNAP, int DP, int DPP>
 __device__ __forceinline__ void advance(Strip<S>& s, Edges& e, const Pair& pr, const Pen& p,
                                         int t, int& qs, int& ts) {
   if (t > 1) slide_windows<S, SEG>(s, pr, t, qs, ts);
@@ -367,14 +424,18 @@ __device__ __forceinline__ void advance(Strip<S>& s, Edges& e, const Pair& pr, c
     vlo = -(1 << 30);
     vspan = 0;
   }
+  if (SNAP && (unsigned)(t - pr.t_snap) <= 1u)
+    snap_diag<S, DPP>(s, e, pr, p, vlo, vspan, t == pr.t_snap ? pr.diaga : pr.diagb);
   uint32_t words[(S + 3) / 4];
   sweep_step<S, TWO, DP, DPP>(s, e, p, vlo, vspan, words);
   if (TB) store_row<S>(pr.tbb + (size_t)(SEG ? t - pr.row0 : t) * pr.W, pr.s0, pr.W, pr.walign, words);
+  if (SNAP && t == pr.t_snap) snap_carry<S, TWO>(s, pr);
   if (t == pr.t_final) {
     const int fl = pr.qlen - i0 - pr.s0;
 #pragma unroll
     for (int k = 0; k < S; ++k)
-      if (k == fl && s.h1[k] < NW_INF && (!SEG || *pr.score < 0)) *pr.score = s.h1[k];
+      if (k == fl && pr.s0 + k < pr.W && s.h1[k] < NW_INF && (!SEG || *pr.score < 0))
+        *pr.score = s.h1[k];
   }
   exchange<S, TWO>(s, e, pr, t & 1);
 }
@@ -382,7 +443,7 @@ __device__ __forceinline__ void advance(Strip<S>& s, Edges& e, const Pair& pr, c
 // The register route's kernel body: anti-diagonals 1..tmax of every pair
 // from the initial rows, or in segment mode [sa.t_lo, sa.t_hi] from the
 // carry (see the design note).
-template <int S, bool TWO, bool TB, bool SEG>
+template <int S, bool TWO, bool TB, bool SEG, bool SNAP = false>
 __device__ __forceinline__ void sweep_regs_body(
     const uint8_t* __restrict__ Q,  // [B, Lq] query codes, QPAD-padded
     const uint8_t* __restrict__ T,  // [B, Lt] target codes, TPAD-padded
@@ -390,7 +451,7 @@ __device__ __forceinline__ void sweep_regs_body(
     int* __restrict__ scores,        // [B] out
     uint8_t* __restrict__ tb,        // [B, tmax_pad, W] ([B, seg, W] in segment mode) out (TB only)
     int B, int Lq, int Lt, int W, int tmax, int tmax_pad, const Pen& p, int wpp, int ppb,
-    int pair_bytes, const SegArgs sa) {
+    int pair_bytes, const SegArgs sa, const SnapArgs sn = SnapArgs{}) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -436,7 +497,9 @@ __device__ __forceinline__ void sweep_regs_body(
       for (int x = r; x < Lq + 1 + L; x += tpp) Qs[x] = (x >= 1 && x <= Lq) ? q[x - 1] : NW_QPAD;
       for (int y = r; y < Lt + W + L; y += tpp)
         Ts[y] = (y >= W && y < W + Lt) ? tg[Lt - 1 - (y - W)] : NW_TPAD;
-      if (r == 0) scores[b] = -1;
+      // the int16 mode reads an empty pair's score at the origin, as the
+      // JAX package's int16 sweep does
+      if (r == 0) scores[b] = (p.i16 && qlens[b] + tlens[b] == 0) ? 0 : -1;
     }
   }
   __syncthreads();
@@ -461,6 +524,14 @@ __device__ __forceinline__ void sweep_regs_body(
   pr.wip = wip;
   pr.wpp = wpp;
   pr.pib = pib;
+  pr.neg = p.neg;
+  pr.plane = (size_t)B * W;
+  if (SNAP) {
+    pr.snap = sn.snap + (size_t)b * W;
+    pr.diaga = sn.diaga + (size_t)b * W;
+    pr.diagb = sn.diagb + (size_t)b * W;
+    pr.t_snap = sn.t_snap[b];
+  }
   if (SEG) {
     pr.qb = qb;
     pr.tb0 = tb0;
@@ -509,13 +580,15 @@ __device__ __forceinline__ void sweep_regs_body(
     // state at t = 0 (H row 0 is 0 at lane 0) and t = -1
 #pragma unroll
     for (int k = 0; k < S; ++k) {
-      s.h1[k] = (pr.s0 + k == 0) ? 0 : NW_INF;
-      s.h2[k] = NW_INF;
-      s.i1[k] = s.d1[k] = s.i2[k] = s.d2[k] = NW_INF;
+      s.h1[k] = (pr.s0 + k == 0) ? 0 : p.neg;
+      s.h2[k] = p.neg;
+      s.i1[k] = s.d1[k] = s.i2[k] = s.d2[k] = p.neg;
     }
-    e.hl1 = NW_INF;
+    e.hl1 = p.neg;
     exchange<S, TWO>(s, e, pr, 0);
-    e.hl2 = NW_INF;  // H(-1)
+    e.hl2 = p.neg;  // H(-1)
+    // t_snap == 0 snapshots the initial state: neg but H's origin
+    if (SNAP && pr.t_snap == 0 && pr.s0 == 0) pr.snap[0] = 0;
   }
 
   // window starts into the padded operands, clamped as a dynamic slice is
@@ -530,15 +603,15 @@ __device__ __forceinline__ void sweep_regs_body(
   const int t_end = SEG ? sa.t_hi : tmax;
   const int last = min(t_end, (TB || SEG) ? pr.t_final + 2 : pr.t_final);
   int t = t_first;
-  for (; t <= last && t <= K; ++t) advance<S, TWO, TB, SEG, 0, 0>(s, e, pr, p, t, qs, ts);
+  for (; t <= last && t <= K; ++t) advance<S, TWO, TB, SEG, SNAP, 0, 0>(s, e, pr, p, t, qs, ts);
   // a segment may start where (t - K) is even
   if (SEG && t <= last && ((t - K) & 1) == 0)
-    advance<S, TWO, TB, SEG, 0, 1>(s, e, pr, p, t++, qs, ts);
+    advance<S, TWO, TB, SEG, SNAP, 0, 1>(s, e, pr, p, t++, qs, ts);
   for (; t + 1 <= last; t += 2) {  // (t - K) is odd here
-    advance<S, TWO, TB, SEG, 1, 1>(s, e, pr, p, t, qs, ts);
-    advance<S, TWO, TB, SEG, 0, 1>(s, e, pr, p, t + 1, qs, ts);
+    advance<S, TWO, TB, SEG, SNAP, 1, 1>(s, e, pr, p, t, qs, ts);
+    advance<S, TWO, TB, SEG, SNAP, 0, 1>(s, e, pr, p, t + 1, qs, ts);
   }
-  if (t <= last) advance<S, TWO, TB, SEG, 1, 1>(s, e, pr, p, t++, qs, ts);
+  if (t <= last) advance<S, TWO, TB, SEG, SNAP, 1, 1>(s, e, pr, p, t++, qs, ts);
 
   if (SEG) {
     int* c = sa.carry_out + (size_t)b * W;
@@ -561,10 +634,9 @@ __device__ __forceinline__ void sweep_regs_body(
   uint32_t cheap_eq, cheap_ne;
   {
     int a, c, d, f, g;
-    cheap_eq = cell_keyed<TWO>(NW_INF, NW_INF, NW_INF, NW_INF, NW_INF, NW_INF, NW_INF, 0, NW_INF, p,
-                               a, c, d, f, g);
-    cheap_ne = cell_keyed<TWO>(NW_INF, NW_INF, NW_INF, NW_INF, NW_INF, NW_INF, NW_INF, p.mis,
-                               NW_INF, p, a, c, d, f, g);
+    const int n = p.neg;
+    cheap_eq = cell_keyed<TWO>(n, n, n, n, n, n, n, 0, n, p, a, c, d, f, g);
+    cheap_ne = cell_keyed<TWO>(n, n, n, n, n, n, n, p.mis, n, p, a, c, d, f, g);
   }
   for (; t <= t_end; ++t) {
     if (t > 1) slide_windows<S, SEG>(s, pr, t, qs, ts);
@@ -583,10 +655,17 @@ __device__ __forceinline__ void sweep_regs_body(
 // in dynamic shared memory, or in a global scratch [B, 11, W] where 11 rows
 // do not fit, one block barrier per anti-diagonal.
 
-// lane l of a row framed by a lane shift delta in {-1, 0, 1}, INF outside
-__device__ __forceinline__ int framed(const int* row, int l, int delta, int W) {
+// lane l of a row framed by a lane shift delta in {-1, 0, 1}, neg outside
+__device__ __forceinline__ int framed(const int* row, int l, int delta, int W, int neg = NW_INF) {
   const int k = l + delta;
-  return (k >= 0 && k < W) ? row[k] : NW_INF;
+  return (k >= 0 && k < W) ? row[k] : neg;
+}
+
+// an add of the int16 mode on the wide route: the low 16 bits, sign-extended
+// (the JAX package's int16 adds wrap)
+__device__ __forceinline__ int add16(int a, int b, bool i16) {
+  const int x = a + b;
+  return i16 ? (int)(int16_t)x : x;
 }
 
 // ---------------------------------------------------------------------------
@@ -602,3 +681,11 @@ static cudaError_t allow_smem(const void* fn, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
+
+// The register route's snapshot-mode launch (nw_sweep_snap.cu), called by
+// nw_sweep_launch: lanes S, the traceback always.
+cudaError_t nw_sweep_snap_regs_launch(const void* Q, const void* T, const void* qlens,
+                                      const void* tlens, void* scores, void* tb, int B, int Lq,
+                                      int Lt, int W, int tmax, int tmax_pad, Pen p, bool two,
+                                      int lanes, int wpp, int ppb, int pair_bytes, SnapArgs sn,
+                                      cudaStream_t stream);

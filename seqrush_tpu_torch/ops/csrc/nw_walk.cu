@@ -55,6 +55,12 @@
 // leaves it (td < t_lo), and stores the cursor; a walk that ended (done, or
 // a step that consumed nothing) stays ended.  Tiles read no row below t_lo
 // (they hold zeros there) and the diagonal ballot takes no step from one.
+// Start mode (replaces the start= argument of seqrush_tpu/ops/nw.py::
+// _tb_scan_tbw, the bidirectional fold's half-walks): the segment kernel over
+// a single-shot traceback [B, tmax_pad, W] as one segment of anti-diagonals
+// [1, tmax] (its rows from tb + W, pairs tmax_pad rows apart), from the
+// cursors the fold's combine chose (any anti-diagonal, lane and gap state);
+// the opcodes land in [B, tmax + 1] as the single-shot walk's do.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -154,8 +160,9 @@ struct RunAcc {
 // The walk of pair b.  Single-shot: from (qlen, tlen) over tb [B, tmax_pad,
 // W] into ops [B, tmax + 1], or (RUNS) run tokens into tok [B, run_max] and
 // the pair's run count into counts [B].  Segment mode: from the cursor in
-// state [4, B] (cur_t, lane, mat, done) over tb [B, t_hi - t_lo + 1, W]
-// (rows t_lo..t_hi) into ops [B, ops_cols], and the cursor back into state.
+// state [4, B] (cur_t, lane, mat, done) over the rows t_lo..t_hi of tb (row
+// 0 is t_lo; pairs tmax_pad rows apart) into ops [B, ops_cols], and the
+// cursor back into state.
 template <bool SEG, bool RUNS>
 __device__ __forceinline__ void walk_body(const uint8_t* __restrict__ tb,
                                           const int* __restrict__ qlens,
@@ -170,7 +177,7 @@ __device__ __forceinline__ void walk_body(const uint8_t* __restrict__ tb,
   const int b = blockIdx.x * WALK_PAIRS_PER_BLOCK + warp;
   if (b >= B) return;
   const int K = W - 1;
-  const uint8_t* tbb = tb + (size_t)b * (SEG ? t_hi - t_lo + 1 : tmax_pad) * W;
+  const uint8_t* tbb = tb + (size_t)b * tmax_pad * W;
   uint8_t* out = RUNS ? nullptr : ops + (size_t)b * (SEG ? ops_cols : tmax + 1);
   int* tok = RUNS ? tokens + (size_t)b * run_max : nullptr;
   RunAcc acc;
@@ -322,11 +329,12 @@ __global__ void __launch_bounds__(32 * WALK_PAIRS_PER_BLOCK) nw_walk_runs_kernel
 }
 
 __global__ void __launch_bounds__(32 * WALK_PAIRS_PER_BLOCK) nw_walk_seg_kernel(
-    const uint8_t* __restrict__ tb,   // [B, t_hi - t_lo + 1, W]
+    const uint8_t* __restrict__ tb,   // row t_lo of pair 0; pairs pair_rows rows apart
     int* __restrict__ state,          // [4, B] cursor in and out
     uint8_t* __restrict__ ops,        // [B, ops_cols] out (columns t_lo..t_hi)
-    int B, int W, int t_lo, int t_hi, int ops_cols) {
-  walk_body<true, false>(tb, nullptr, nullptr, ops, B, W, 0, 0, state, t_lo, t_hi, ops_cols);
+    int B, int W, int t_lo, int t_hi, int ops_cols, int pair_rows) {
+  walk_body<true, false>(tb, nullptr, nullptr, ops, B, W, 0, pair_rows, state, t_lo, t_hi,
+                         ops_cols);
 }
 
 extern "C" int nw_walk_launch(
@@ -354,16 +362,21 @@ extern "C" int nw_walk_runs_launch(
   return (int)cudaGetLastError();
 }
 
-// One segment's walk: anti-diagonals [t_lo, t_hi] of tb [B, t_hi - t_lo + 1,
-// W], the cursor carry state [4, B] int32 (updated in place), opcodes into
-// columns t_lo..t_hi of ops [B, ops_cols].  Returns the CUDA error code.
+// One segment's walk: anti-diagonals [t_lo, t_hi] of the traceback rows at
+// tb (row t_lo of pair 0; each pair's rows pair_rows >= t_hi - t_lo + 1 rows
+// after the last pair's: a segment's [B, seg, W], or rows 1..tmax of a
+// single-shot [B, tmax_pad, W] from its row 1 in the start mode), the cursor
+// carry state [4, B] int32 (updated in place), opcodes into columns
+// t_lo..t_hi of ops [B, ops_cols].  Returns the CUDA error code.
 extern "C" int nw_walk_segment_launch(const void* tb, void* state, void* ops, int B, int W,
-                                      int t_lo, int t_hi, int ops_cols, void* stream) {
+                                      int t_lo, int t_hi, int ops_cols, int pair_rows,
+                                      void* stream) {
   if (B <= 0) return (int)cudaSuccess;
-  if (t_hi < t_lo || t_lo < 1 || ops_cols <= t_hi) return (int)cudaErrorInvalidValue;
+  if (t_hi < t_lo || t_lo < 1 || ops_cols <= t_hi || pair_rows < t_hi - t_lo + 1)
+    return (int)cudaErrorInvalidValue;
   const int blocks = (B + WALK_PAIRS_PER_BLOCK - 1) / WALK_PAIRS_PER_BLOCK;
   nw_walk_seg_kernel<<<blocks, 32 * WALK_PAIRS_PER_BLOCK, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)tb, (int*)state, (uint8_t*)ops, B, W, t_lo, t_hi, ops_cols);
+      (const uint8_t*)tb, (int*)state, (uint8_t*)ops, B, W, t_lo, t_hi, ops_cols, pair_rows);
   return (int)cudaGetLastError();
 }
 

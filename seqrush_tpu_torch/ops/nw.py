@@ -21,7 +21,9 @@ CIGAR items with 'M' split into '=' / 'X' against the sequences.  In its
 runs mode the walk emits run tokens instead (op | len << 2, int32, in walk
 order, which is reverse alignment order; at most run_max a pair, each run
 at most _RUN_LEN_MAX long) and a count of runs per pair;
-``decode_runs_batch`` turns them into the same items.
+``decode_runs_batch`` turns them into the same items.  The row-major walk's
+steps and gap list decode with ``decode_rowtokens``, and the fold's two
+half-walks merge into one opcode row with ``merge_fold_ops``.
 """
 
 from __future__ import annotations
@@ -49,6 +51,21 @@ RUN_MAX = 128
 # run lengths are capped at 14 bits a token (longer runs split into several
 # tokens; decode_runs_batch merges adjacent runs of one op)
 _RUN_LEN_MAX = (1 << 14) - 1
+
+
+# the int16 DP: every state saturates at INF16 (+infinity of that mode), so a
+# score at or above INT16_CUTOFF is unreliable and the runner re-runs the
+# pair in int32
+INF16 = 30000
+INT16_CUTOFF = 28000
+
+# the row-major walk's compacted gap list: D-runs a pair may report; a pair
+# with more retries on the anti-diagonal kernels (the runner's _v3_set)
+GAP_MAX = 160
+
+# the bidirectional fold's crossing terms, in tie order: M from tm - 1 (E2),
+# M from tm (E3), then D1, I1, D2, I2
+_FOLD_E2, _FOLD_E3, _FOLD_D1, _FOLD_I1, _FOLD_D2, _FOLD_I2 = range(6)
 
 
 def runs_fit(tmax: int) -> bool:
@@ -111,6 +128,65 @@ def unpack_opcodes(packed: np.ndarray, length: int) -> np.ndarray:
     for k in range(4):
         out[:, :, k] = (packed >> (2 * k)) & 3
     return out.reshape(B, -1)[:, :length]
+
+
+def merge_fold_ops(ops2: np.ndarray, cross_m: np.ndarray) -> np.ndarray:
+    """Host merge of the fold's half-walk opcode rows: [2B, L] -> [B, 2L + 1].
+
+    Row b's merged stream is forward ops ++ [OP_M if cross_m[b]] ++
+    reverse(backward ops).  Positions carry no meaning downstream
+    (decode_batch drops OP_NONE), only order does."""
+    ops2 = np.asarray(ops2)
+    B2, L = ops2.shape
+    B = B2 // 2
+    out = np.zeros((B, 2 * L + 1), np.uint8)
+    out[:, :L] = ops2[:B]
+    out[:, L] = np.where(np.asarray(cross_m), OP_M, OP_NONE).astype(np.uint8)
+    out[:, L + 1 :] = ops2[B:, ::-1]
+    return out
+
+
+def decode_rowtokens(
+    steps_row: np.ndarray, grows: np.ndarray, gvals: np.ndarray, gcount: int, qlen: int,
+) -> list[tuple[int, str]]:
+    """The row-major walk's output as run-length items with 'M' placeholders
+    (resolve with resolve_matches, as decode_opcodes' items).  steps_row[r]
+    (r in 1..qlen) is the M/I op of row r; gap g at row r inserts g 'D's
+    after row r's step (before everything for r = 0)."""
+    items: list[tuple[int, str]] = []
+    steps = np.asarray(steps_row)
+    syms = np.array([0, ord("M"), ord("I"), 0], dtype=np.uint8)
+
+    def emit_steps(lo, hi):
+        if hi < lo:
+            return
+        seg = syms[steps[lo : hi + 1]]
+        if seg.size == 0:
+            return
+        change = np.empty(seg.size, dtype=bool)
+        change[0] = True
+        change[1:] = seg[1:] != seg[:-1]
+        starts = np.nonzero(change)[0]
+        ends = np.append(starts[1:], seg.size)
+        for s, e in zip(starts, ends):
+            if seg[s]:
+                items.append((int(e - s), chr(seg[s])))
+
+    pos = 1
+    for k in range(int(gcount)):
+        r = int(grows[k])
+        g = int(gvals[k])
+        if r < 0:
+            break
+        if r >= pos:
+            emit_steps(pos, min(r, qlen))
+            pos = r + 1
+        if items and items[-1][1] == "D":
+            items[-1] = (items[-1][0] + g, "D")
+        else:
+            items.append((g, "D"))
+    emit_steps(pos, qlen)
+    return items
 
 
 def decode_opcodes(op_row: np.ndarray) -> list[tuple[int, str]]:

@@ -1,4 +1,4 @@
-"""Kernels A and B of the alignment path, for Hopper, with their plain versions.
+"""Kernels A to D of the alignment path, for Hopper, with their plain versions.
 
 * ``nw_align`` -- kernel A, the banded two-piece Gotoh sweep
   (``csrc/nw_sweep.cu``, device code in ``csrc/nw_sweep.cuh``; replaces
@@ -6,7 +6,9 @@
   Returns scores [B] int32 and the packed traceback [B, tmax_pad, W] uint8,
   or, with ``with_traceback=False`` (the score-only mode of the anchored
   route's verify sweep), the scores alone and None: no traceback tensor is
-  allocated and the kernel stores none.
+  allocated and the kernel stores none.  ``int16=True`` runs the saturating
+  int16 DP of ``seqrush_tpu/ops/nw.py::_sweep_v3(dtype=int16)``;
+  ``t_snap`` the fold's snapshot mode (``_sweep_v3(t_snap=...)``).
 * ``nw_walk`` -- kernel B, the reverse traceback walk (``csrc/nw_walk.cu``;
   replaces ``nw_pallas.py::_walk_kernel``).  Returns opcodes [B, tmax + 1]
   uint8 (0 none, 1 M, 2 I, 3 D at column td).
@@ -24,10 +26,20 @@
   the DP rows at each segment start, then per segment from the last a full
   segment sweep from its checkpoint and a segment walk.  Memory is
   O(B * seg * W) whatever the pairs' length; the sweep runs twice.
+* ``nw_walk_start`` -- kernel B's start mode (``_tb_scan_tbw(start=...)``):
+  the segment mode's walk over a whole traceback from given cursors.
+* ``nw_align_fold`` -- the bidirectional fold (``nw.nw_align_fold``):
+  kernel A's snapshot mode on the forward and the reversed rows, the join
+  of the halves in plain torch on the device (``fold_combine``), kernel B's
+  start mode on both halves.
+* ``nw_align_rows`` / ``nw_walk_rows`` -- kernels C and D, the row-major
+  sweep and walk (``csrc/nw_rows.cu``; the counterparts of ``nw._sweep_rows``
+  and ``nw._tb_rows_scan``).
 
 Each wrapper runs its plain PyTorch version (``nw_align_reference``,
-``nw_walk_reference``, ``nw_walk_runs_reference``) when the tensors lie on
-the CPU, and launches its CUDA
+``nw_walk_reference``, ``nw_walk_runs_reference``, ``nw_walk_start_reference``,
+``nw_align_rows_reference``, ``nw_walk_rows_reference``) when the tensors lie
+on the CPU, and launches its CUDA
 kernel when they lie on a GPU; there is no fallback between the two.  The
 plain versions repeat the reference arithmetic step by step, including the
 bytes written at cells outside the pair's matrix, so the traceback tensor
@@ -45,10 +57,12 @@ root, one ``nvcc`` per source in parallel, and loaded with ctypes.  The file
 name carries a hash of the sources and flags, so an edit rebuilds.
 
 ``LAUNCHES`` counts kernel launches (not plain-version calls) per kernel,
-kernel A's score-only mode apart as ``nw_sweep_score_only``, kernel B's
-runs mode as ``nw_walk_runs``, and each segment mode apart
-(``nw_sweep_segment``, ``nw_sweep_segment_score_only``,
-``nw_walk_segment``); the wavefront kernel of ``ops/wfa.py`` counts its
+kernel A's score-only mode apart as ``nw_sweep_score_only``, its int16 and
+snapshot modes as ``nw_sweep_int16`` and ``nw_sweep_snapshot``, kernel B's
+runs and start modes as ``nw_walk_runs`` and ``nw_walk_start``, each segment
+mode apart (``nw_sweep_segment``, ``nw_sweep_segment_score_only``,
+``nw_walk_segment``), and kernels C and D as ``nw_rows_sweep`` and
+``nw_rows_walk``; the wavefront kernel of ``ops/wfa.py`` counts its
 launches here too (``wfa``, ``wfa_score_only``), since one build makes one
 library of every source.
 """
@@ -64,6 +78,7 @@ import threading
 from dataclasses import dataclass
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -73,9 +88,10 @@ from .nw import _i0_of, tmax_pad_of
 
 LAUNCHES = {"nw_sweep": 0, "nw_sweep_score_only": 0, "nw_walk": 0, "nw_walk_runs": 0,
             "nw_sweep_segment": 0, "nw_sweep_segment_score_only": 0, "nw_walk_segment": 0,
-            "wfa": 0, "wfa_score_only": 0}
+            "wfa": 0, "wfa_score_only": 0, "nw_sweep_int16": 0, "nw_sweep_snapshot": 0,
+            "nw_walk_start": 0, "nw_rows_sweep": 0, "nw_rows_walk": 0}
 
-_SOURCES = ("nw_sweep.cu", "nw_sweep_seg.cu", "nw_walk.cu", "wfa.cu")
+_SOURCES = ("nw_sweep.cu", "nw_sweep_seg.cu", "nw_sweep_snap.cu", "nw_walk.cu", "wfa.cu", "nw_rows.cu")
 _HEADERS = ("nw_sweep.cuh",)
 # anti-diagonals per segment of the long-pair route (the JAX package's default)
 LONG_SEG = 2048
@@ -183,7 +199,7 @@ def _library() -> ctypes.CDLL:
             path, _log = build()
             lib = ctypes.CDLL(str(path))
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.nw_sweep_launch.argtypes = [ptr] * 7 + [i32] * 16 + [ptr]
+            lib.nw_sweep_launch.argtypes = [ptr] * 11 + [i32] * 17 + [ptr]
             lib.nw_sweep_launch.restype = i32
             lib.nw_sweep_occupancy.argtypes = [i32] * 8 + [ptr] * 3
             lib.nw_sweep_occupancy.restype = i32
@@ -193,8 +209,12 @@ def _library() -> ctypes.CDLL:
             lib.nw_walk_launch.restype = i32
             lib.nw_walk_runs_launch.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
             lib.nw_walk_runs_launch.restype = i32
-            lib.nw_walk_segment_launch.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
+            lib.nw_walk_segment_launch.argtypes = [ptr] * 3 + [i32] * 6 + [ptr]
             lib.nw_walk_segment_launch.restype = i32
+            lib.nw_rows_sweep_launch.argtypes = [ptr] * 6 + [i32] * 12 + [ptr]
+            lib.nw_rows_sweep_launch.restype = i32
+            lib.nw_rows_walk_launch.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
+            lib.nw_rows_walk_launch.restype = i32
             lib.nw_walk_occupancy.argtypes = [ptr] * 3
             lib.nw_walk_occupancy.restype = i32
             lib.wfa_launch.argtypes = [ptr] * 11 + [i32] * 13 + [ptr]
@@ -269,12 +289,18 @@ def pair_smem_bytes(Lq: int, Lt: int, W: int, lanes: int, wpp: int, seg: int | N
     return _round16(Lq + 1 + L) + _round16(Lt + W + L) + 2 * wpp * 6 * 4
 
 
-def register_route_penalties(mismatch: int, o1: int, e1: int, o2: int, e2: int) -> bool:
+def register_route_penalties(mismatch: int, o1: int, e1: int, o2: int, e2: int,
+                             int16: bool = False) -> bool:
     """Whether the register route's arithmetic holds for these penalties:
     every penalty it uses in [0, 2^16), so every DP value stays in
-    [0, INF + 2^17] (csrc/nw_sweep.cuh).  Others take the wide route."""
+    [0, INF + 2^17] (csrc/nw_sweep.cuh); in the int16 mode every value it
+    adds to a state at most 32,767 - INF16, so no add wraps and every value
+    stays in [0, 32,767].  Others take the wide route."""
     used = (mismatch, o1, e1) + ((o2, e2) if o2 >= 0 else ())
-    return all(0 <= int(v) < _REG_PENALTY_LIMIT for v in used)
+    if not all(0 <= int(v) < _REG_PENALTY_LIMIT for v in used):
+        return False
+    adds = (mismatch, o1 + e1, e1) + ((o2 + e2, e2) if o2 >= 0 else ())
+    return not int16 or max(adds) <= 32767 - nw.INF16
 
 
 def wide_plan(B: int, W: int) -> SweepPlan:
@@ -351,14 +377,23 @@ WALK_TILE = (64, 32)  # rows x lanes of the walk's shared-memory tile
 # -- kernel A: the sweep -------------------------------------------------------
 
 
-def nw_align(Q, T, qlens, tlens, *, mismatch, o1, e1, o2, e2, band, tmax, with_traceback=True):
+def nw_align(Q, T, qlens, tlens, *, mismatch, o1, e1, o2, e2, band, tmax, with_traceback=True,
+             int16=False, t_snap=None):
     """Banded Gotoh sweep over a batch of pairs.
 
     Q [B, Lq] / T [B, Lt] uint8 base codes padded with QPAD/TPAD; qlens,
     tlens [B] int32; o2 < 0 selects one-piece penalties.  Returns (scores
     [B] int32, -1 where the final cell was not reached; tb [B, tmax_pad, W]
     uint8 with rows 0 and > tmax zero, or None when with_traceback is
-    False)."""
+    False).
+
+    int16: the saturating int16 DP of nw._sweep_v3(dtype=int16) (see
+    _sweep_reference); a score at or above nw.INT16_CUTOFF is unreliable.
+    t_snap [B] int32 (the fold's snapshot mode, with a traceback): also
+    returns (SNAP [6, B, W], DIAGA [B, W], DIAGB [B, W]) int32, the carry
+    (H(t), H(t - 1), I1, D1, I2, D2) at t == t_snap[b] and the clamped
+    diagonal candidate at t_snap and t_snap + 1 (INF, or INF16, where a
+    capture falls past tmax)."""
     device = Q.device
     _check("Q", Q, torch.uint8, 2, device)
     _check("T", T, torch.uint8, 2, device)
@@ -368,31 +403,42 @@ def nw_align(Q, T, qlens, tlens, *, mismatch, o1, e1, o2, e2, band, tmax, with_t
     _check_lengths(qlens, tlens, B, device)
     if band < 0 or tmax < 0:
         raise ValueError("band and tmax must be >= 0")
+    if t_snap is not None:
+        _check("t_snap", t_snap, torch.int32, 1, device)
+        if t_snap.shape[0] != B or not with_traceback:
+            raise ValueError("t_snap needs [B] entries and a traceback")
     kw = dict(mismatch=mismatch, o1=o1, e1=e1, o2=o2, e2=e2, band=band, tmax=tmax,
-              with_traceback=with_traceback)
+              with_traceback=with_traceback, int16=int16, t_snap=t_snap)
     if device.type == "cpu":
         return nw_align_reference(Q, T, qlens, tlens, **kw)
     _require_cuda(device)
     plan = plan_sweep(B, band + 1, Q.shape[1], T.shape[1])
-    if not register_route_penalties(mismatch, o1, e1, o2, e2):
+    if not register_route_penalties(mismatch, o1, e1, o2, e2, int16):
         plan = wide_plan(B, band + 1)
     return sweep_launch(Q, T, qlens, tlens, plan, **kw)
 
 
 def sweep_launch(Q, T, qlens, tlens, plan: SweepPlan, *, mismatch, o1, e1, o2, e2, band, tmax,
-                 with_traceback=True):
+                 with_traceback=True, int16=False, t_snap=None):
     """Launch kernel A on checked CUDA tensors with a given plan (nw_align's
     plan, or another one to compare launch shapes)."""
-    if plan.route == "regs" and not register_route_penalties(mismatch, o1, e1, o2, e2):
-        raise ValueError("the register route takes penalties in [0, 2^16) only")
+    if plan.route == "regs" and not register_route_penalties(mismatch, o1, e1, o2, e2, int16):
+        raise ValueError("the register route takes penalties in [0, 2^16) only "
+                         "(in int16, those whose adds cannot wrap)")
     device = Q.device
     B, Lq = Q.shape
     W = band + 1
     tmax_pad = tmax_pad_of(tmax)
+    neg = nw.INF16 if int16 else INF
     scores = torch.empty(B, dtype=torch.int32, device=device)
     tb = torch.empty((B, tmax_pad, W), dtype=torch.uint8, device=device) if with_traceback else None
+    snaps = None
+    if t_snap is not None:
+        snaps = (torch.full((6, B, W), neg, dtype=torch.int32, device=device),
+                 torch.full((B, W), neg, dtype=torch.int32, device=device),
+                 torch.full((B, W), neg, dtype=torch.int32, device=device))
     if B == 0:
-        return scores, tb
+        return (scores, tb) if snaps is None else (scores, tb, snaps)
     scratch = None
     if plan.route == "wide" and not plan.smem_bytes:
         scratch = torch.empty(B * _SWEEP_ROWS * W, dtype=torch.int32, device=device)
@@ -403,14 +449,18 @@ def sweep_launch(Q, T, qlens, tlens, plan: SweepPlan, *, mismatch, o1, e1, o2, e
             Q.data_ptr(), T.data_ptr(), qlens.data_ptr(), tlens.data_ptr(),
             scores.data_ptr(), tb.data_ptr() if tb is not None else None,
             scratch.data_ptr() if scratch is not None else None,
-            B, Lq, T.shape[1], W, tmax, tmax_pad, mismatch, o1, e1, o2, e2,
+            t_snap.data_ptr() if snaps else None, snaps[0].data_ptr() if snaps else None,
+            snaps[1].data_ptr() if snaps else None, snaps[2].data_ptr() if snaps else None,
+            B, Lq, T.shape[1], W, tmax, tmax_pad, mismatch, o1, e1, o2, e2, int(int16),
             plan.lanes, plan.warps_per_pair, plan.pairs_per_block, plan.pair_bytes,
             plan.threads, stream,
         )
     if err != 0:
         raise RuntimeError(f"nw_sweep launch failed with CUDA error {err}")
-    LAUNCHES["nw_sweep" if with_traceback else "nw_sweep_score_only"] += 1
-    return scores, tb
+    key = ("nw_sweep_score_only" if not with_traceback else "nw_sweep_snapshot" if snaps
+           else "nw_sweep_int16" if int16 else "nw_sweep")
+    LAUNCHES[key] += 1
+    return (scores, tb) if snaps is None else (scores, tb, snaps)
 
 
 def sweep_occupancy(plan: SweepPlan, W: int, two_piece: bool, with_traceback: bool = True) -> dict:
@@ -449,21 +499,36 @@ def _frame(x: torch.Tensor, delta: int, inf_col: torch.Tensor) -> torch.Tensor:
     return torch.cat([x[:, 1:], inf_col], dim=1)
 
 
-def initial_carry(B: int, W: int, device) -> torch.Tensor:
+def initial_carry(B: int, W: int, device, neg: int = INF) -> torch.Tensor:
     """The DP rows before anti-diagonal 1 as a carry [6, B, W] int32: H at
-    t = 0 (0 at lane 0), H at t = -1 and the gap states at t = 0, all INF."""
-    carry = torch.full((6, B, W), INF, dtype=torch.int32, device=device)
+    t = 0 (0 at lane 0), H at t = -1 and the gap states at t = 0, all neg
+    (INF, or INF16 in the int16 mode)."""
+    carry = torch.full((6, B, W), neg, dtype=torch.int32, device=device)
     carry[0, :, 0] = 0
     return carry
 
 
+def _wrap16(x: torch.Tensor) -> torch.Tensor:
+    """x as the int16 add of the JAX package's int16 sweep gives it: the low
+    16 bits, sign-extended."""
+    return ((x + 32768) & 0xFFFF) - 32768
+
+
 def _sweep_reference(Q, T, qlens, tlens, rows, scores, t_lo, t_hi, tb, tb_row0, *,
-                     mismatch, o1, e1, o2, e2, band):
+                     mismatch, o1, e1, o2, e2, band, int16=False, snap=None):
     """Anti-diagonals t_lo..t_hi of the recurrence, one [B, W] step each, the
     arithmetic of nw_pallas._kernel and nw._nw_segment.  rows = (H at
     t_lo - 1, H at t_lo - 2, I1, D1, I2, D2 at t_lo - 1); a pair's score is
     taken at its final cell where it has none yet (-1); row t goes to
-    tb[:, t - tb_row0] when tb is given.  Returns (rows at t_hi, scores)."""
+    tb[:, t - tb_row0] when tb is given.  Returns (rows at t_hi, scores).
+
+    int16: the arithmetic of nw._sweep_v3(dtype=int16): every add wraps to
+    16 bits, every state and the diagonal candidate saturate at INF16
+    (INF16 off the matrix), and a score is taken wherever the final lane
+    lies in the band.  snap = (t_snap [B], SNAP [6, B, W], DIAGA, DIAGB
+    [B, W] int32): the carry at t == t_snap[b] and the clamped diagonal
+    candidate h_diag + sub at t_snap and t_snap + 1 are stored into them
+    (nw._sweep_v3(t_snap=...)'s captures)."""
     B, Lq = Q.shape
     Lt = T.shape[1]
     K = band
@@ -471,6 +536,10 @@ def _sweep_reference(Q, T, qlens, tlens, rows, scores, t_lo, t_hi, tb, tb_row0, 
     dev = Q.device
     two = o2 >= 0
     i32 = torch.int32
+    neg = nw.INF16 if int16 else INF
+
+    def add(a, b):
+        return _wrap16(a + b) if int16 else a + b
 
     Qi = F.pad(Q.to(i32), (1, W), value=QPAD)  # [B, Lq + 1 + W]
     Trev = F.pad(T.flip(1).to(i32), (W, W), value=TPAD)  # [B, Lt + 2W]
@@ -479,11 +548,15 @@ def _sweep_reference(Q, T, qlens, tlens, rows, scores, t_lo, t_hi, tb, tb_row0, 
     tl = tlens.to(i32)[:, None]
     t_final = (qlens + tlens).to(i32)
     h1, h2, i1r, d1r, i2r, d2r = rows
-    inf_row = torch.full((B, W), INF, dtype=i32, device=dev)
+    inf_row = torch.full((B, W), neg, dtype=i32, device=dev)
     false_row = torch.zeros((B, W), dtype=torch.bool, device=dev)
-    inf_col = torch.full((B, 1), INF, dtype=i32, device=dev)
+    inf_col = torch.full((B, 1), neg, dtype=i32, device=dev)
     # the anti-diagonals where some pair's final cell lies
     finals = set(t_final.tolist())
+    if snap is not None:
+        t_snap, SNAP, DIAGA, DIAGB = snap
+        snap_ts = set(t_snap.tolist()) | set((t_snap + 1).tolist())
+    mis = int(np.int16(mismatch)) if int16 else mismatch
 
     for t in range(t_lo, t_hi + 1):
         i0 = _i0_of(t, K)
@@ -497,26 +570,27 @@ def _sweep_reference(Q, T, qlens, tlens, rows, scores, t_lo, t_hi, tb, tb_row0, 
 
         qs = min(i0, Lq + 1)
         ts = min(max(Lt - t + i0 + W, 0), Lt + W)
-        sub = (Qi[:, qs : qs + W] != Trev[:, ts : ts + W]).to(i32) * mismatch
+        sub = (Qi[:, qs : qs + W] != Trev[:, ts : ts + W]).to(i32) * mis
 
         # a gap state is min(open, extend); its opened bit is open <= extend
-        up_open, left_open = h_up + (o1 + e1), h_left + (o1 + e1)
-        ext = i1_up + e1
+        up_open, left_open = add(h_up, o1 + e1), add(h_left, o1 + e1)
+        ext = add(i1_up, e1)
         I1n, i1_opened = torch.minimum(up_open, ext), up_open <= ext
-        ext = d1_left + e1
+        ext = add(d1_left, e1)
         D1n, d1_opened = torch.minimum(left_open, ext), left_open <= ext
         if two:
-            up_open, left_open = h_up + (o2 + e2), h_left + (o2 + e2)
-            ext = _frame(i2r, dp - 1, inf_col) + e2
+            up_open, left_open = add(h_up, o2 + e2), add(h_left, o2 + e2)
+            ext = add(_frame(i2r, dp - 1, inf_col), e2)
             I2n, i2_opened = torch.minimum(up_open, ext), up_open <= ext
-            ext = _frame(d2r, dp, inf_col) + e2
+            ext = add(_frame(d2r, dp, inf_col), e2)
             D2n, d2_opened = torch.minimum(left_open, ext), left_open <= ext
         else:
             I2n, D2n = inf_row, inf_row
             i2_opened, d2_opened = false_row, false_row
 
         # strict '<' in the order D1, I1, D2, I2: a tie keeps the earlier choice
-        Hn = h_diag + sub
+        Hdiag = add(h_diag, sub)
+        Hn = Hdiag
         choice = torch.zeros((B, W), dtype=torch.uint8, device=dev)
         for cand, tag in ((D1n, H_D1), (I1n, H_I1), (D2n, H_D2), (I2n, H_I2)):
             choice.masked_fill_(cand < Hn, tag)
@@ -525,17 +599,25 @@ def _sweep_reference(Q, T, qlens, tlens, rows, scores, t_lo, t_hi, tb, tb_row0, 
         i = i0 + lanes
         j = t - i
         invalid = ~((i >= 0) & (i <= ql) & (j >= 0) & (j <= tl))
-        Hn = Hn.clamp_(max=INF).masked_fill_(invalid, INF)
-        I1n = I1n.clamp_(max=INF).masked_fill_(invalid, INF)
-        D1n = D1n.clamp_(max=INF).masked_fill_(invalid, INF)
+        Hn = Hn.clamp(max=neg).masked_fill_(invalid, neg)
+        I1n = I1n.clamp(max=neg).masked_fill_(invalid, neg)
+        D1n = D1n.clamp(max=neg).masked_fill_(invalid, neg)
         if two:
-            I2n = I2n.clamp_(max=INF).masked_fill_(invalid, INF)
-            D2n = D2n.clamp_(max=INF).masked_fill_(invalid, INF)
+            I2n = I2n.clamp(max=neg).masked_fill_(invalid, neg)
+            D2n = D2n.clamp(max=neg).masked_fill_(invalid, neg)
 
         if t in finals:
             at_final = (t_final[:, None] == t) & (lanes == (ql - i0))
             fin_val = torch.where(at_final, Hn, INF).amin(dim=1)
             scores = torch.where((t_final == t) & (scores < 0) & (fin_val < INF), fin_val, scores)
+
+        if snap is not None and t in snap_ts:
+            hd = Hdiag.clamp(max=neg).masked_fill_(invalid, neg)
+            hit = (t_snap == t)[:, None]
+            for k, x in enumerate((Hn, h1, I1n, D1n, I2n, D2n)):
+                SNAP[k] = torch.where(hit, x, SNAP[k])
+            DIAGA.copy_(torch.where(hit, hd, DIAGA))
+            DIAGB.copy_(torch.where((t_snap + 1 == t)[:, None], hd, DIAGB))
 
         if tb is not None:
             tb[:, t - tb_row0, :] = (
@@ -555,20 +637,34 @@ def _sweep_reference(Q, T, qlens, tlens, rows, scores, t_lo, t_hi, tb, tb_row0, 
 
 
 def nw_align_reference(Q, T, qlens, tlens, *, mismatch, o1, e1, o2, e2, band, tmax,
-                       with_traceback=True):
+                       with_traceback=True, int16=False, t_snap=None):
     """Plain PyTorch version of kernel A: one [B, W] step per anti-diagonal,
     the same arithmetic as nw_pallas._kernel (the traceback None when
-    with_traceback is False)."""
+    with_traceback is False).  int16 and t_snap: nw_align's modes."""
     B = Q.shape[0]
     W = band + 1
     dev = Q.device
+    neg = nw.INF16 if int16 else INF
     scores = torch.full((B,), -1, dtype=torch.int32, device=dev)
+    if int16:
+        # the int16 sweep reads its scores from a row that starts at the origin
+        scores = torch.where(qlens + tlens == 0, 0, scores).to(torch.int32)
     tb = torch.zeros((B, tmax_pad_of(tmax), W), dtype=torch.uint8, device=dev) if with_traceback else None
     # without a traceback nothing past the last pair's final anti-diagonal is needed
     t_last = tmax if with_traceback else min(tmax, int((qlens + tlens).max()) if B else 0)
+    carry = initial_carry(B, W, dev, neg)
+    snap = None
+    if t_snap is not None:
+        t_snap = t_snap.to(torch.int32)
+        SNAP = torch.where((t_snap == 0)[None, :, None], carry, neg)
+        snap = (t_snap, SNAP, torch.full((B, W), neg, dtype=torch.int32, device=dev),
+                torch.full((B, W), neg, dtype=torch.int32, device=dev))
+        t_last = tmax
     _rows, scores = _sweep_reference(
-        Q, T, qlens, tlens, tuple(initial_carry(B, W, dev)), scores, 1, t_last, tb, 0,
-        mismatch=mismatch, o1=o1, e1=e1, o2=o2, e2=e2, band=band)
+        Q, T, qlens, tlens, tuple(carry), scores, 1, t_last, tb, 0,
+        mismatch=mismatch, o1=o1, e1=e1, o2=o2, e2=e2, band=band, int16=int16, snap=snap)
+    if snap is not None:
+        return scores, tb, snap[1:]
     return scores, tb
 
 
@@ -899,7 +995,7 @@ def nw_walk_segment(tb_seg, state, ops, *, t0, seg, band):
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.nw_walk_segment_launch(tb_seg.data_ptr(), out.data_ptr(), ops.data_ptr(),
-                                         B, band + 1, t0 + 1, t0 + seg, ops.shape[1], stream)
+                                         B, band + 1, t0 + 1, t0 + seg, ops.shape[1], seg, stream)
     if err != 0:
         raise RuntimeError(f"nw_walk segment launch failed with CUDA error {err}")
     LAUNCHES["nw_walk_segment"] += 1
@@ -958,3 +1054,439 @@ def nw_align_long(Q, T, qlens, tlens, *, mismatch, o1, e1, o2, e2, band, seg=LON
         state = nw_walk_segment(tb_seg, state, ops, t0=s * seg, seg=seg, band=band)
         del tb_seg  # stream-ordered: the next segment's traceback may reuse it
     return scores, ops
+
+
+# -- kernel B, start mode ----------------------------------------------------------
+
+
+def nw_walk_start(tb, state, *, band, tmax):
+    """Kernel B from given cursors: the walk of nw_walk over tb [B, tmax_pad,
+    W] (nw_align's), each row starting at state [4, B] int32 (anti-diagonal,
+    lane, material 0 H / 1 D1 / 2 I1 / 3 D2 / 4 I2, done) instead of its
+    final cell; a row whose anti-diagonal is 0 or above tmax takes no step.
+    Returns opcodes [B, tmax + 1] uint8 (the counterpart of
+    nw._tb_scan_tbw(start=...), the fold's half-walks).  It runs the segment
+    mode's kernel over the traceback's rows 1..tmax as one segment."""
+    device = tb.device
+    _check("tb", tb, torch.uint8, 3, device)
+    B = tb.shape[0]
+    _check("state", state, torch.int32, 2, device)
+    W = band + 1
+    if tb.shape[2] != W or tb.shape[1] < tmax + 1 or tuple(state.shape) != (4, B):
+        raise ValueError(f"tb {tuple(tb.shape)} / state {tuple(state.shape)} do not fit band "
+                         f"{band}, tmax {tmax}")
+    if device.type == "cpu":
+        return nw_walk_start_reference(tb, state, band=band, tmax=tmax)
+    _require_cuda(device)
+    ops = torch.zeros((B, tmax + 1), dtype=torch.uint8, device=device)
+    if B == 0 or tmax < 1:
+        return ops
+    cursor = state.clone()
+    lib = _library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        # row 1 of pair 0 is the segment's first row; pairs tmax_pad rows apart
+        err = lib.nw_walk_segment_launch(tb.data_ptr() + W, cursor.data_ptr(), ops.data_ptr(),
+                                         B, W, 1, tmax, tmax + 1, tb.shape[1], stream)
+    if err != 0:
+        raise RuntimeError(f"nw_walk start launch failed with CUDA error {err}")
+    LAUNCHES["nw_walk_start"] += 1
+    return ops
+
+
+def nw_walk_start_reference(tb, state, *, band, tmax):
+    """Plain PyTorch version of kernel B's start mode: nw_walk_reference's
+    scan from the given cursors (those above tmax never act)."""
+    B = tb.shape[0]
+    ops = torch.zeros((B, tmax + 1), dtype=torch.uint8, device=tb.device)
+    st = state.to(torch.int64).clone()
+    st[3] = (st[3] != 0) | (st[0] <= 0)
+    live = st[0][(st[3] == 0) & (st[0] <= tmax)]
+    top = int(live.max()) if live.numel() else 0
+    _walk_rows(tb, 0, st, ops, top, 1, band)
+    return ops
+
+
+# -- the bidirectional fold ----------------------------------------------------------
+
+
+def fold_combine(SNAP, DIAGA, DIAGB, qlens, tlens, *, o1, o2, band):
+    """The fold's join of its half sweeps (nw.nw_align_fold's combine, in
+    plain PyTorch on the tensors' device): every edge that crosses the seam
+    between the forward rows' anti-diagonal tm = ceil(fin / 2) and the
+    backward rows' tmb = fin - tm, priced from the snapshots, the best lane
+    and term in the JAX package's tie order (the first minimum), and where
+    each half-walk starts.
+
+    SNAP [6, 2B, W], DIAGA, DIAGB [2B, W] int32 (nw_align's snapshot mode
+    on the forward rows and then the reversed rows); qlens, tlens [B].
+    Returns (scores [B] int32, state [4, 2B] int32 for nw_walk_start,
+    cross_m [B] bool: an M joins the two halves)."""
+    B = qlens.shape[0]
+    K = band
+    W = K + 1
+    dev = SNAP.device
+    i32 = torch.int32
+    ql = qlens.to(i32)
+    fin = ql + tlens.to(i32)
+    tm = torch.div(fin + 1, 2, rounding_mode="floor")
+    tmb = fin - tm
+    Sf = SNAP[:, :B]
+    Gb = SNAP[2:, B:]
+    DA = DIAGA[B:]
+    DB = DIAGB[B:]
+    i0_tm, i0_tm1 = _i0_tensor(tm, K), _i0_tensor(tm - 1, K)
+    i0_b, i0_b1 = _i0_tensor(tmb, K), _i0_tensor(tmb + 1, K)
+    # the backward lane of forward lane l is sh - l
+    sh1 = ql - i0_tm - i0_b
+    sh2 = ql - i0_tm1 - i0_b1
+    lf = torch.arange(W, dtype=i32, device=dev)
+
+    def align_bwd(Y, sh):
+        lb = sh[:, None] - lf[None, :]
+        in_range = (lb >= 0) & (lb < W)
+        idx = lb.clamp(0, W - 1).to(torch.int64)
+        out = torch.gather(Y, 2, idx[None].expand(Y.shape[0], -1, -1))
+        return torch.where(in_range[None], out, INF)
+
+    A1 = align_bwd(torch.cat([Gb, DA[None]]), sh1)  # I1b, D1b, I2b, D2b, DA
+    A2 = align_bwd(DB[None], sh2)[0]
+    big = torch.full((B, W), 2 * INF, dtype=i32, device=dev)
+    two = o2 >= 0
+    tv = torch.stack([
+        Sf[1] + A2,
+        Sf[0] + A1[4],
+        torch.minimum(Sf[0], Sf[3] - o1) + A1[1],
+        torch.minimum(Sf[0], Sf[2] - o1) + A1[0],
+        torch.minimum(Sf[0], Sf[5] - o2) + A1[3] if two else big,
+        torch.minimum(Sf[0], Sf[4] - o2) + A1[2] if two else big,
+    ])  # [6, B, W]
+    val_best = tv.amin(dim=2)
+    lane_best = torch.where(tv == val_best[:, :, None], lf, W).amin(dim=2)
+    total = val_best.amin(dim=0)
+    terms = torch.arange(6, dtype=i32, device=dev)[:, None]
+    term = torch.where(val_best == total[None], terms, 6).amin(dim=0)
+    lane = lane_best.gather(0, term[None].to(torch.int64))[0]
+    finished = total < INF
+    scores = torch.where(fin == 0, 0, torch.where(finished, total, -1)).to(i32)
+
+    def at_lane(X):
+        return X.gather(1, lane[:, None].to(torch.int64))[:, 0]
+
+    h_u = at_lane(Sf[0])
+    gap_vals = torch.stack([at_lane(Sf[3]) - o1, at_lane(Sf[2]) - o1,
+                            at_lane(Sf[5]) - o2, at_lane(Sf[4]) - o2])  # D1, I1, D2, I2
+    is_e1 = term >= nw._FOLD_D1
+    g_idx = (term - 2).clamp(0, 3)
+    g_val = gap_vals.gather(0, g_idx[None].to(torch.int64))[0]
+    g_code = g_idx + 1  # walk materials: 1 D1, 2 I1, 3 D2, 4 I2
+    e2 = term == nw._FOLD_E2
+    fwd_mat = torch.where(is_e1 & (g_val < h_u), g_code, 0)
+    fwd_t0 = torch.where(e2, tm - 1, tm)
+    i_u = torch.where(e2, i0_tm1, i0_tm) + lane
+    ip_u = ql - i_u
+    bwd_t0 = torch.where(is_e1, tmb, torch.where(e2, tmb - 1, tmb - 2))
+    bwd_l0 = torch.where(is_e1, ip_u - i0_b, (ip_u - 1) - _i0_tensor(bwd_t0.clamp(min=0), K))
+    bwd_mat = torch.where(is_e1, g_code, 0)
+    cross_m = ~is_e1 & finished & (fin > 0)
+    # inert starts for unfinished and empty rows (their ops are not read)
+    live = finished & (fin > 0)
+    fwd_t0 = torch.where(live, fwd_t0, 0)
+    bwd_t0 = torch.where(live, bwd_t0.clamp(min=0), 0)
+    cur_t0 = torch.cat([fwd_t0, bwd_t0])
+    state = torch.stack([cur_t0.to(i32), torch.cat([lane, bwd_l0]).clamp(0, W - 1).to(i32),
+                         torch.cat([fwd_mat, bwd_mat]).to(i32), (cur_t0 <= 0).to(i32)])
+    return scores, state.contiguous(), cross_m
+
+
+def nw_align_fold(Qf, Tf, Qr, Tr, qlens, tlens, *, mismatch, o1, e1, o2, e2, band, tmax_half,
+                  int16=False):
+    """Bidirectional fold (nw.nw_align_fold's contract): each pair runs as a
+    forward row (q, t) and a backward row (the same sequences reversed, not
+    complemented) of one sweep of tmax_half anti-diagonals in its snapshot
+    mode, the halves join in fold_combine, and the walk's start mode walks
+    both halves back from the crossing.
+
+    Qf/Tf [B, L] uint8 padded with QPAD/TPAD, Qr/Tr the rows with their first
+    qlen/tlen bases reversed; band must already include the chunk's largest
+    |qlen - tlen|; tmax_half >= max(qlen + tlen) // 2 + 2.  Returns (scores
+    [B] int32, opcodes [2B, tmax_half + 1] uint8, rows b and B + b the
+    forward and backward half-walks of pair b, cross_m [B] bool); merge
+    with nw.merge_fold_ops."""
+    ql2 = torch.cat([qlens, qlens])
+    tl2 = torch.cat([tlens, tlens])
+    fin = qlens + tlens
+    tm = torch.div(fin + 1, 2, rounding_mode="floor")
+    t_snap = torch.cat([tm, fin - tm]).to(torch.int32)
+    pen = dict(mismatch=mismatch, o1=o1, e1=e1, o2=o2, e2=e2)
+    _s, tb, (SNAP, DIAGA, DIAGB) = nw_align(torch.cat([Qf, Qr]), torch.cat([Tf, Tr]), ql2, tl2,
+                                            band=band, tmax=tmax_half, int16=int16, t_snap=t_snap,
+                                            **pen)
+    scores, state, cross_m = fold_combine(SNAP, DIAGA, DIAGB, qlens, tlens, o1=o1, o2=o2, band=band)
+    ops = nw_walk_start(tb, state, band=band, tmax=tmax_half)
+    return scores, ops, cross_m
+
+
+# -- kernels C and D: the row-major sweep and walk ---------------------------------------
+
+
+def rows_width(band: int) -> int:
+    """Lanes of the row-major sweep: Wr = 2 * band + 1 (row i covers the
+    columns j in [i - band, i + band])."""
+    return 2 * band + 1
+
+
+# lanes per thread kernel C is built for; it takes the fewest that keep a
+# pair's block at ROWS_THREADS threads or below, and 16 lanes on up to
+# ROWS_MAX_THREADS threads for the widest bands
+ROWS_LANES = (4, 8, 16)
+ROWS_THREADS = 512
+ROWS_MAX_THREADS = 1024
+# slots of kernel D's gap ring in shared memory, per pair; the gap list
+# (min(gap_max, R + 1) entries) must fit it
+ROWS_WALK_RING = 256
+
+
+def rows_plan(Wr: int) -> tuple[int, int]:
+    """(lanes per thread, threads per block) of kernel C for Wr lanes: one
+    block a pair, thread r owning lanes [r * S, r * S + S)."""
+    for S in ROWS_LANES:
+        threads = -(-(-(-Wr // S)) // 32) * 32
+        if threads <= ROWS_THREADS:
+            return S, threads
+    threads = -(-(-(-Wr // 16)) // 32) * 32
+    if threads <= ROWS_MAX_THREADS:
+        return 16, threads
+    raise ValueError(f"the row-major sweep takes at most {16 * ROWS_MAX_THREADS} lanes, got {Wr}")
+
+
+def nw_align_rows(Q, T, qlens, tlens, *, mismatch, o1, e1, o2, e2, band, int16=False):
+    """Kernel C, the row-major sweep (``csrc/nw_rows.cu``; the counterpart of
+    the XLA program ``seqrush_tpu/ops/nw.py::_sweep_rows``): one step per
+    query row over Wr = 2 * band + 1 lanes, the within-row gaps in closed
+    form (an exclusive min-scan over the lanes).
+
+    Q [B, R] / T [B, Lt] uint8 padded with QPAD/TPAD (R query rows).
+    Returns (scores [B] int32, -1 where the final lane is off the band;
+    tb [B, R + 1, Wr] uint8 in the row-major byte layout: bits 0-1 the
+    gap-free choice (0 diagonal, 1 I1, 2 I2), bits 2-3 the D override (0,
+    1 D1, 2 D2), bits 4-7 I1, I2, D1, D2 opened)."""
+    device = Q.device
+    _check("Q", Q, torch.uint8, 2, device)
+    _check("T", T, torch.uint8, 2, device)
+    B, R = Q.shape
+    if T.shape[0] != B:
+        raise ValueError("Q and T must have the same batch size")
+    _check_lengths(qlens, tlens, B, device)
+    if band < 0:
+        raise ValueError("band must be >= 0")
+    kw = dict(mismatch=mismatch, o1=o1, e1=e1, o2=o2, e2=e2, band=band, int16=int16)
+    if device.type == "cpu":
+        return nw_align_rows_reference(Q, T, qlens, tlens, **kw)
+    _require_cuda(device)
+    Wr = rows_width(band)
+    S, threads = rows_plan(Wr)
+    scores = torch.empty(B, dtype=torch.int32, device=device)
+    tb = torch.empty((B, R + 1, Wr), dtype=torch.uint8, device=device)
+    if B == 0:
+        return scores, tb
+    lib = _library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.nw_rows_sweep_launch(
+            Q.data_ptr(), T.data_ptr(), qlens.data_ptr(), tlens.data_ptr(), scores.data_ptr(),
+            tb.data_ptr(), B, R, T.shape[1], band, mismatch, o1, e1, o2, e2, int(int16), S,
+            threads, stream)
+    if err != 0:
+        raise RuntimeError(f"nw_rows sweep launch failed with CUDA error {err}")
+    LAUNCHES["nw_rows_sweep"] += 1
+    return scores, tb
+
+
+def nw_align_rows_reference(Q, T, qlens, tlens, *, mismatch, o1, e1, o2, e2, band, int16=False):
+    """Plain PyTorch version of kernel C: nw._sweep_rows step by step (in
+    int16, its adds wrapped to 16 bits and its clamps at INF16)."""
+    B, R = Q.shape
+    K = band
+    Wr = rows_width(K)
+    dev = Q.device
+    two = o2 >= 0
+    i32 = torch.int32
+    neg = nw.INF16 if int16 else INF
+    BIG = 1 << 30
+
+    def add(a, b):
+        return _wrap16(a + b) if int16 else a + b
+
+    Tp = F.pad(T.to(i32), (K + 1, K + R + 2), value=TPAD)
+    Qp = F.pad(Q.to(i32), (1, 1), value=QPAD)
+    lanes = torch.arange(Wr, dtype=i32, device=dev)[None, :]
+    ramp1 = lanes * e1
+    ramp2 = lanes * e2 if two else None
+    big_col = torch.full((B, 1), BIG, dtype=i32, device=dev)
+    neg_col = torch.full((B, 1), neg, dtype=i32, device=dev)
+    neg_row = torch.full((B, Wr), neg, dtype=i32, device=dev)
+    false_row = torch.zeros((B, Wr), dtype=torch.bool, device=dev)
+    mis = int(np.int16(mismatch)) if int16 else mismatch
+
+    def shift_right(x, col):
+        return torch.cat([col, x[:, :-1]], dim=1)
+
+    def d_pass(Ht, ramp, o):
+        A = Ht - ramp
+        P = shift_right(torch.cummin(A, dim=1).values, big_col)  # exclusive prefix minimum
+        opened = shift_right(A, big_col) <= shift_right(P, big_col)
+        return torch.minimum(P + (ramp + o), torch.full_like(P, neg)), opened
+
+    def d_choice(Ht):
+        D1, d1o = d_pass(Ht, ramp1, o1)
+        D2, d2o = d_pass(Ht, ramp2, o2) if two else (neg_row, false_row)
+        Hn = Ht
+        dtag = torch.zeros((B, Wr), dtype=i32, device=dev)
+        for cand, tag in ((D1, 1), (D2, 2)):
+            better = cand < Hn
+            Hn = torch.where(better, cand, Hn)
+            dtag = torch.where(better, tag, dtag)
+        return Hn, (dtag << 2) | (d1o.to(i32) << 6) | (d2o.to(i32) << 7)
+
+    tb = torch.zeros((B, R + 1, Wr), dtype=torch.uint8, device=dev)
+    Ht0 = neg_row.clone()
+    Ht0[:, K] = 0
+    H, byte0 = d_choice(Ht0)
+    tb[:, 0] = byte0.to(torch.uint8)
+    I1, I2 = neg_row, neg_row
+    FIN = torch.where((qlens == 0)[:, None], H, neg_row)
+    for r in range(1, R + 1):
+        H_up, I1_up, I2_up = (torch.cat([x[:, 1:], neg_col], dim=1) for x in (H, I1, I2))
+        up_open, ext = add(H_up, o1 + e1), add(I1_up, e1)
+        I1n, i1o = torch.minimum(up_open, ext), up_open <= ext
+        if two:
+            up_open, ext = add(H_up, o2 + e2), add(I2_up, e2)
+            I2n, i2o = torch.minimum(up_open, ext), up_open <= ext
+        else:
+            I2n, i2o = neg_row, false_row
+        sub = (Qp[:, r : r + 1] != Tp[:, r : r + Wr]).to(i32) * mis
+        Ht = add(H, sub)
+        if int16:
+            Ht, I1n, I2n = (x.clamp(max=neg) for x in (Ht, I1n, I2n))
+        httag = torch.zeros((B, Wr), dtype=i32, device=dev)
+        for cand, tag in ((I1n, 1), (I2n, 2)):
+            better = cand < Ht
+            Ht = torch.where(better, cand, Ht)
+            httag = torch.where(better, tag, httag)
+        H, dbyte = d_choice(Ht)
+        tb[:, r] = (httag | dbyte | (i1o.to(i32) << 4) | (i2o.to(i32) << 5)).to(torch.uint8)
+        I1, I2 = I1n, I2n
+        FIN = torch.where((qlens == r)[:, None], H, FIN)
+    fin_lane = (tlens - qlens + K).to(torch.int64)
+    ok = (fin_lane >= 0) & (fin_lane < Wr)
+    fin_val = FIN.gather(1, fin_lane.clamp(0, Wr - 1)[:, None])[:, 0]
+    scores = torch.where(ok & (fin_val < INF), fin_val, -1).to(i32)
+    return scores, tb
+
+
+def nw_walk_rows(tb, qlens, tlens, *, band, gap_max=None):
+    """Kernel D, the row-major walk (``csrc/nw_rows.cu``; the counterpart of
+    the XLA program ``seqrush_tpu/ops/nw.py::_tb_rows_scan``): one query row
+    a step from row qlen down, a whole D-run resolved in the row it ends in.
+
+    tb [B, R + 1, Wr] uint8 (nw_align_rows').  Returns (steps [B, R + 1]
+    uint8, OP_M / OP_I at each row the walk steps from; grows, gvals
+    [B, G] int16 with G = min(gap_max, R + 1), the rows and lengths of the
+    pair's D-runs at its G lowest rows, ascending, padded with -1 and 0;
+    gcount [B] int32, every D-run of the pair, those past G too).
+    gap_max defaults to nw.GAP_MAX."""
+    device = tb.device
+    _check("tb", tb, torch.uint8, 3, device)
+    B = tb.shape[0]
+    _check_lengths(qlens, tlens, B, device)
+    gap_max = nw.GAP_MAX if gap_max is None else int(gap_max)
+    if tb.shape[2] != rows_width(band) or gap_max < 1:
+        raise ValueError(f"tb shape {tuple(tb.shape)} does not fit band {band} (or gap_max < 1)")
+    if device.type == "cpu":
+        return nw_walk_rows_reference(tb, qlens, tlens, band=band, gap_max=gap_max)
+    _require_cuda(device)
+    R = tb.shape[1] - 1
+    G = min(gap_max, R + 1)
+    steps = torch.zeros((B, R + 1), dtype=torch.uint8, device=device)
+    grows = torch.empty((B, G), dtype=torch.int16, device=device)
+    gvals = torch.empty((B, G), dtype=torch.int16, device=device)
+    gcount = torch.empty(B, dtype=torch.int32, device=device)
+    if B == 0:
+        return steps, grows, gvals, gcount
+    lib = _library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.nw_rows_walk_launch(tb.data_ptr(), qlens.data_ptr(), tlens.data_ptr(),
+                                      steps.data_ptr(), grows.data_ptr(), gvals.data_ptr(),
+                                      gcount.data_ptr(), B, R, band, G, ROWS_WALK_RING, stream)
+    if err != 0:
+        raise RuntimeError(f"nw_rows walk launch failed with CUDA error {err}")
+    LAUNCHES["nw_rows_walk"] += 1
+    return steps, grows, gvals, gcount
+
+
+
+def nw_walk_rows_reference(tb, qlens, tlens, *, band, gap_max=None):
+    """Plain PyTorch version of kernel D: nw._tb_rows_scan's scan over every
+    row, acting on the pairs whose cursor is in it, and its top_k
+    compaction of the gap list (the gaps of the lowest rows, ascending)."""
+    gap_max = nw.GAP_MAX if gap_max is None else int(gap_max)
+    B, R1, Wr = tb.shape
+    R = R1 - 1
+    K = band
+    dev = tb.device
+    i64 = torch.int64
+    lanes = torch.arange(Wr, dtype=i64, device=dev)[None, :]
+    rows = torch.arange(B, device=dev)
+    ql, tl = qlens.to(i64), tlens.to(i64)
+    cur_i = ql.clone()
+    cur_l = (tl - ql + K).clamp(0, Wr - 1)
+    st = torch.zeros(B, dtype=i64, device=dev)
+    done = (ql == 0) & (tl == 0)
+    steps = torch.zeros((B, R + 1), dtype=torch.uint8, device=dev)
+    gaps = torch.zeros((B, R + 1), dtype=i64, device=dev)
+
+    def pick(row, l):
+        ok = (l >= 0) & (l < Wr)
+        return torch.where(ok, row[rows, l.clamp(0, Wr - 1)], 0)
+
+    top = int(ql.max()) if B else -1
+    for r in range(min(top, R), -1, -1):
+        active = ~done & (cur_i == r)
+        if not bool(active.any()):
+            continue
+        row = tb[:, r].to(i64)
+        b1 = pick(row, cur_l)
+        in_h = st == 0
+        dtag = torch.where(in_h, (b1 >> 2) & 3, 0)
+        has_run = dtag > 0
+        openbit = (row >> (5 + dtag)[:, None]) & 1
+        mask = (openbit > 0) & (lanes <= cur_l[:, None]) & has_run[:, None]
+        l0 = torch.where(mask, lanes, -1).amax(dim=1)
+        glen = torch.where(has_run & (l0 >= 0), cur_l - l0 + 1, 0)
+        step_lane = torch.where(has_run, l0 - 1, cur_l)
+        b2 = pick(row, step_lane)
+        ht = torch.where(in_h, b2 & 3, st)
+        is_i = ht > 0
+        iopen = (torch.where(in_h, b2, b1) >> (3 + ht)) & 1
+        terminal = active & (r == 0)
+        op = torch.where(is_i, OP_I, OP_M)
+        steps[:, r] = torch.where(active & ~terminal, op, OP_NONE).to(torch.uint8)
+        gaps[:, r] = torch.where(active, glen, 0)
+        ni = cur_i - 1
+        nl = step_lane + is_i.to(i64)
+        nst = torch.where(is_i & (iopen == 0), ht, 0)
+        ndone = terminal | ((ni == 0) & (nl == K))
+        cur_i = torch.where(active, ni, cur_i)
+        cur_l = torch.where(active, nl, cur_l)
+        st = torch.where(active, nst, st)
+        done = done | (active & ndone)
+    G = min(gap_max, R + 1)
+    has_gap = gaps > 0
+    key = torch.where(has_gap, (R + 1) - torch.arange(R + 1, device=dev)[None, :], 0)
+    _vals, gpos = torch.topk(key, G, dim=1)
+    valid = has_gap.gather(1, gpos)
+    grows = torch.where(valid, gpos, -1).to(torch.int16)
+    gvals = torch.where(valid, gaps.gather(1, gpos), 0).to(torch.int16)
+    return steps, grows, gvals, has_gap.sum(dim=1).to(torch.int32)

@@ -1,5 +1,6 @@
-"""Kernels A and B (its runs mode too) and the wavefront kernel on the card
-against their plain versions, and the pipeline on cuda against cpu.  Marked ``cuda``; each test skips without a
+"""Kernels A and B (their runs, int16, snapshot and start modes too), the
+row-major kernels C and D and the wavefront kernel on the card against their
+plain versions, and the pipeline on cuda against cpu.  Marked ``cuda``; each test skips without a
 CUDA device.  This file imports nothing of JAX, so it runs where JAX is not
 installed:
 
@@ -535,7 +536,9 @@ def test_long_route_launches_and_equals_single_shot(cuda):
     assert nw_cuda.LAUNCHES == {"nw_sweep": 0, "nw_sweep_score_only": 0, "nw_walk": 0,
                                 "nw_walk_runs": 0, "nw_sweep_segment": n_seg,
                                 "nw_sweep_segment_score_only": n_seg, "nw_walk_segment": n_seg,
-                                "wfa": 0, "wfa_score_only": 0}
+                                "wfa": 0, "wfa_score_only": 0, "nw_sweep_int16": 0,
+                                "nw_sweep_snapshot": 0, "nw_walk_start": 0, "nw_rows_sweep": 0,
+                                "nw_rows_walk": 0}
     s_one, tb = nw_cuda.nw_align(Q, T, ql, tl, tmax=tmax, **kw)
     ops_one = nw_cuda.nw_walk(tb, ql, tl, band=255, tmax=tmax)
     assert torch.equal(scores, s_one)
@@ -776,3 +779,205 @@ def test_wfa_kernel_equals_plain(cuda, n, L, n_snp, indel, band, smax, two_piece
     assert torch.equal(s_d, s_k) and (sorted(named) if keep else named) == (
         sorted(["M", "I1", "D1", "I2", "D2"][: 5 if two_piece else 3]) if keep else {})
 
+
+
+# -- kernel A's int16 and snapshot modes, kernel B's start mode, kernels C and D
+
+
+@pytest.mark.parametrize(
+    "band,pen,route",
+    [
+        (127, (5, 8, 2, 24, 1), "regs"),
+        (511, (5, 8, 2, 24, 1), "regs"),
+        (100, (5, 8, 2, -1, -1), "regs"),  # one-piece, W not a multiple of 4
+        (1535, (5, 8, 2, 24, 1), "regs"),
+        (4096, (5, 8, 2, 24, 1), "wide"),  # the first wide-route band
+        (127, (5, 8, 2, 3000, 1), "wide"),  # adds past 32,767 wrap: the wide route
+        (255, (2800, 8, 2, 24, 1), "wide"),
+    ],
+)
+def test_int16_sweep_equals_plain(cuda, band, pen, route):
+    """Kernel A's int16 mode: scores and the whole traceback exactly the
+    plain version's, on both routes, with penalties whose int16 adds wrap."""
+    rng = np.random.default_rng(band + pen[3])
+    (Q, T, ql, tl), tmax = _pack(*_variants(rng, 9, 700, band, 0.3 if band > 1000 else 0.0), cuda)
+    kw = dict(zip(("mismatch", "o1", "e1", "o2", "e2"), pen), band=band, tmax=tmax)
+    regs = nw_cuda.register_route_penalties(*pen, int16=True) and band + 1 <= nw_cuda.REG_MAX_W
+    assert regs == (route == "regs")
+    before = nw_cuda.LAUNCHES["nw_sweep_int16"]
+    s_k, tb_k = nw_cuda.nw_align(Q, T, ql, tl, int16=True, **kw)
+    torch.cuda.synchronize()
+    assert nw_cuda.LAUNCHES["nw_sweep_int16"] == before + 1
+    s_p, tb_p = nw_cuda.nw_align_reference(Q, T, ql, tl, int16=True, **kw)
+    assert torch.equal(s_k, s_p) and int(s_k[-1]) == 0
+    assert torch.equal(tb_k, tb_p)
+
+
+@pytest.mark.parametrize("band,pen", [(255, (5, 8, 2, 24, 1)), (255, (2800, 8, 2, 24, 1)),
+                                      (4096, (5, 8, 2, 24, 1))])
+def test_int16_score_only_equals_plain(cuda, band, pen):
+    """Kernel A's int16 mode without a traceback (the wide route's own
+    instantiation where the penalties wrap or W passes REG_MAX_W): the full
+    mode's and the plain version's scores."""
+    rng = np.random.default_rng(band + pen[0])
+    (Q, T, ql, tl), tmax = _pack(*_variants(rng, 6, 500, band, 0.0), cuda)
+    kw = dict(zip(("mismatch", "o1", "e1", "o2", "e2"), pen), band=band, tmax=tmax, int16=True)
+    s_k, tb_k = nw_cuda.nw_align(Q, T, ql, tl, with_traceback=False, **kw)
+    torch.cuda.synchronize()
+    assert tb_k is None
+    s_p, _ = nw_cuda.nw_align_reference(Q, T, ql, tl, with_traceback=False, **kw)
+    s_full, _ = nw_cuda.nw_align(Q, T, ql, tl, **kw)
+    assert torch.equal(s_k, s_p) and torch.equal(s_k, s_full)
+
+
+@pytest.mark.parametrize(
+    "band,two_piece,int16,plan",
+    [
+        (127, True, False, None),
+        (767, True, True, None),
+        (100, False, False, None),
+        (1791, True, False, None),
+        (511, True, True, "wide"),
+        (511, False, False, "scratch"),
+        (4096, True, True, None),  # W 4097: the wide route
+    ],
+)
+def test_snapshot_sweep_equals_plain(cuda, band, two_piece, int16, plan):
+    """Kernel A's snapshot mode: SNAP, DIAGA and DIAGB (and the scores and
+    traceback) exactly the plain version's, with t_snap 0, in the middle,
+    at tmax - 1 and past a pair's end."""
+    rng = np.random.default_rng(band + 3)
+    (Q, T, ql, tl), tmax = _pack(*_variants(rng, 10, 600, band, 0.0), cuda)
+    kw = _penalties(two_piece, band, tmax)
+    fin = (ql + tl).cpu().numpy()
+    t_snap = np.array([(f + 1) // 2 for f in fin], np.int32)
+    t_snap[0], t_snap[1], t_snap[2] = 0, tmax - 1, min(int(fin[2]) + 5, tmax - 1)
+    t_snap = torch.from_numpy(t_snap).to(cuda)
+    if plan is None:
+        out_k = nw_cuda.nw_align(Q, T, ql, tl, int16=int16, t_snap=t_snap, **kw)
+    else:
+        B, W = Q.shape[0], band + 1
+        p = nw_cuda.wide_plan(B, W) if plan == "wide" else nw_cuda.SweepPlan("wide", 0, W // 32, 1, W, 0, 0, B)
+        out_k = nw_cuda.sweep_launch(Q, T, ql, tl, p, int16=int16, t_snap=t_snap, **kw)
+    torch.cuda.synchronize()
+    out_p = nw_cuda.nw_align_reference(Q, T, ql, tl, int16=int16, t_snap=t_snap, **kw)
+    assert torch.equal(out_k[0], out_p[0]) and torch.equal(out_k[1], out_p[1])
+    for a, b in zip(out_k[2], out_p[2]):
+        assert torch.equal(a, b)
+
+
+def _fold_inputs(rng, B, L, band, device):
+    qs, ts = _variants(rng, B, L, band, 0.0)
+    qs[0], ts[0] = qs[0][:1], ts[0][:2]  # a tiny pair
+    if B > 3:
+        ts[2] = ts[2][:-1]  # an odd qlen + tlen beside even ones
+    (Q, T, ql, tl), tmax = _pack(qs, ts, device)
+    Qr, Tr = Q.clone(), T.clone()
+    for b, (q, t) in enumerate(zip(qs, ts)):
+        Qr[b, : q.size] = torch.from_numpy(q[::-1].copy()).to(device)
+        Tr[b, : t.size] = torch.from_numpy(t[::-1].copy()).to(device)
+    diff = max(abs(q.size - t.size) for q, t in zip(qs, ts))
+    return (Q, T, Qr, Tr, ql, tl), band + diff, -(-(tmax // 2 + 2) // 256) * 256
+
+
+@pytest.mark.parametrize("B,L,band,two_piece,int16", [(9, 600, 127, True, False),
+                                                      (9, 600, 127, True, True),
+                                                      (6, 900, 255, False, False),
+                                                      (5, 1500, 1535, True, False)])
+def test_fold_equals_plain(cuda, B, L, band, two_piece, int16):
+    """The fold on the card (the snapshot sweep, the combine on the device,
+    the start-mode walk) gives the plain versions' scores, half-walk
+    opcodes and crossings, and each kernel launches once."""
+    rng = np.random.default_rng(L + band)
+    args, band_eff, tmax_half = _fold_inputs(rng, B, L, band, cuda)
+    pen = _penalties(two_piece, band_eff, 0)
+    pen.pop("tmax")
+    pen.pop("band")
+    before = dict(nw_cuda.LAUNCHES)
+    s_k, ops_k, cm_k = nw_cuda.nw_align_fold(*args, band=band_eff, tmax_half=tmax_half, int16=int16, **pen)
+    torch.cuda.synchronize()
+    assert nw_cuda.LAUNCHES["nw_sweep_snapshot"] == before["nw_sweep_snapshot"] + 1
+    assert nw_cuda.LAUNCHES["nw_walk_start"] == before["nw_walk_start"] + 1
+    cpu = [a.cpu() for a in args]
+    s_p, ops_p, cm_p = nw_cuda.nw_align_fold(*cpu, band=band_eff, tmax_half=tmax_half, int16=int16, **pen)
+    assert torch.equal(s_k.cpu(), s_p) and torch.equal(ops_k.cpu(), ops_p) and torch.equal(cm_k.cpu(), cm_p)
+    assert (s_k[:-1] > 0).all() and int(s_k[-1]) == 0
+
+
+def test_walk_start_on_random_cursors_equals_plain(cuda):
+    """Kernel B's start mode from arbitrary cursors (every material, lanes at
+    the band's edges, anti-diagonals 0 and past tmax) over a real traceback."""
+    rng = np.random.default_rng(21)
+    band = 255
+    (Q, T, ql, tl), tmax = _pack(*_variants(rng, 24, 500, band, 0.0), cuda)
+    kw = _penalties(True, band, tmax)
+    _s, tb = nw_cuda.nw_align(Q, T, ql, tl, **kw)
+    B = Q.shape[0]
+    cur = rng.integers(0, tmax + 3, B)
+    cur[0], cur[1] = 0, tmax
+    lane = rng.integers(0, band + 1, B)
+    lane[2], lane[3] = 0, band
+    mat = rng.integers(0, 5, B)
+    state = torch.from_numpy(np.stack([cur, lane, mat, cur <= 0]).astype(np.int32)).to(cuda)
+    ops_k = nw_cuda.nw_walk_start(tb, state, band=band, tmax=tmax)
+    torch.cuda.synchronize()
+    ops_p = nw_cuda.nw_walk_start_reference(tb, state, band=band, tmax=tmax)
+    assert torch.equal(ops_k, ops_p)
+
+
+@pytest.mark.parametrize(
+    "B,L,band,two_piece,int16,pen2",
+    [
+        (8, 300, 63, True, False, None),
+        (8, 300, 63, True, True, None),
+        (8, 600, 511, False, False, None),  # Wr 1023: 4 lanes, 256 threads
+        (6, 800, 1535, True, False, None),  # Wr 3071: 8 lanes
+        (4, 700, 4095, True, True, None),  # Wr 8191: 16 lanes, 512 threads
+        (3, 500, 5000, True, False, None),  # Wr 10001: 16 lanes, 640 threads
+        (8, 300, 127, True, True, 3000),  # int16 adds that wrap
+    ],
+)
+def test_rows_kernels_equal_plain(cuda, B, L, band, two_piece, int16, pen2):
+    """Kernels C and D: scores, the whole row-major traceback, the steps,
+    the gap list and its count exactly the plain versions'."""
+    rng = np.random.default_rng(band + B)
+    qs, ts = _variants(rng, B, L, band, 0.0)
+    (Q, T, ql, tl), _tmax = _pack(qs, ts, cuda)
+    kw = dict(mismatch=5, o1=8, e1=2, o2=(pen2 or 24) if two_piece else -1,
+              e2=1 if two_piece else -1, band=band)
+    before = dict(nw_cuda.LAUNCHES)
+    s_k, tb_k = nw_cuda.nw_align_rows(Q, T, ql, tl, int16=int16, **kw)
+    walk_k = nw_cuda.nw_walk_rows(tb_k, ql, tl, band=band)
+    torch.cuda.synchronize()
+    assert nw_cuda.LAUNCHES["nw_rows_sweep"] == before["nw_rows_sweep"] + 1
+    assert nw_cuda.LAUNCHES["nw_rows_walk"] == before["nw_rows_walk"] + 1
+    s_p, tb_p = nw_cuda.nw_align_rows_reference(Q, T, ql, tl, int16=int16, **kw)
+    assert torch.equal(s_k, s_p) and torch.equal(tb_k, tb_p)
+    walk_p = nw_cuda.nw_walk_rows_reference(tb_k, ql, tl, band=band)
+    for a, b in zip(walk_k, walk_p):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("gap_max", [1, 3, 160])
+def test_rows_walk_gap_caps_equal_plain(cuda, gap_max):
+    """Kernel D with more D-runs than the gap list holds: the gaps of the
+    lowest rows, ascending, and the full count, as the plain version's."""
+    rng = np.random.default_rng(gap_max)
+    qs, ts = [], []
+    for k in range(7):
+        q = rng.integers(0, 4, 1500).astype(np.uint8)
+        t = q.copy()
+        # inserted target bases: D-runs of the walk, up to 187 of them
+        for p in np.sort(rng.choice(np.arange(5, 1495), 5 + 150 * (k % 3), replace=False))[::-1]:
+            t = np.insert(t, p, rng.integers(0, 4, 1 + k % 2).astype(np.uint8))
+        qs.append(q)
+        ts.append(t)
+    (Q, T, ql, tl), _tmax = _pack(qs + [np.zeros(0, np.uint8)], ts + [np.zeros(0, np.uint8)], cuda)
+    band = 639
+    _s, tb = nw_cuda.nw_align_rows(Q, T, ql, tl, mismatch=5, o1=8, e1=2, o2=24, e2=1, band=band)
+    walk_k = nw_cuda.nw_walk_rows(tb, ql, tl, band=band, gap_max=gap_max)
+    torch.cuda.synchronize()
+    walk_p = nw_cuda.nw_walk_rows_reference(tb, ql, tl, band=band, gap_max=gap_max)
+    for a, b in zip(walk_k, walk_p):
+        assert torch.equal(a, b)
+    assert (walk_k[3] > gap_max).any()

@@ -102,10 +102,7 @@ def test_runner_forced_orientation_and_divergence_cap():
     assert port.stats["dropped"] == 2
 
 
-@pytest.mark.parametrize(
-    "option",
-    [dict(dp_dtype="int16"), dict(sweep="rows"), dict(fold=True), dict(band_tiling="auto")],
-)
+@pytest.mark.parametrize("option", [dict(band_tiling="auto")])
 def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
         WfaAligner(make_sequence_set(_nw_corpus()), RunnerConfig(**option), device="cpu")
