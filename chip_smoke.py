@@ -97,8 +97,8 @@ Phases (any failure exits non-zero and prints no ok line):
      batch's kernel against its plain version (scores, whole history,
      CIGARs), the score-only mode on one batch, and the sha256 of a subset's
      records against the JAX package's (WFA_SUBSET_SHA256);
-  9. dp_dtype='int16', sweep='rows' and fold (see run_phase9): all 600
-     pairs through WfaAligner under each option of VARIANTS, in turns with
+  9. dp_dtype='int16', sweep='rows', fold and band_tiling (see run_phase9):
+     all 600 pairs through WfaAligner under each option of VARIANTS, in turns with
      the default (the runner's seconds), each option's kernels launched,
      every score the default run's, the records' sha256 and the counters
      the JAX package's (VARIANT_DIGESTS; the fold options on wfa_subset());
@@ -107,7 +107,14 @@ Phases (any failure exits non-zero and prints no ok line):
      those runs launched them on, timed on the first such run's largest
      chunk, with the fold's combine timed between its kernels; and
      int16 retries forced with a lowered INT16_CUTOFF;
- 10. prints {"kernels": [...]}, the nvidia-smi line, and last
+ 10. band_tiling='auto' (see run_phase10): the 600 pairs on the full wide
+     route untiled and tiled, in turns (the runner's seconds), the tiled
+     records equal to the untiled ones; kernel A's tiled mode and kernel B's
+     tiled runs mode against their plain versions on every tiled chunk of
+     phase 9's tiled and tiled_int16 runs; on the merged chunk the tiled
+     sweep and walk timed against the same pairs split as the untiled
+     runner splits them; the phase's wall time;
+ 11. prints {"kernels": [...]}, the nvidia-smi line, and last
      {"ok": true, "device": {...}}.
 
 Bounds: the least time the card could take for the same work, the larger
@@ -143,7 +150,10 @@ cell it needs none of the instructions that build the byte:
   2  the cell's validity;
   5  validity and INF clamp of the five states (5 m);
  = 24 instructions, 11 of them minima: again the issue rate bounds it.
-The walk needs one byte read and about 25 instructions per step it takes,
+The fold's combine (plain torch) is charged the 12 [B, W] int32 planes it
+reads, what it writes and 55 instructions a forward lane
+(COMBINE_OPS_PER_LANE).  The walk needs one byte read and about 25
+instructions per step it takes,
 at the issue rate, and writes the opcode rows (its runs mode: the token
 rows and the counts instead).  The wavefront kernel must write its history
 tensors whole and needs, per cell of each score step a pair takes
@@ -160,7 +170,9 @@ override, and the byte; its row walk (kernel D) is charged as the
 anti-diagonal walk is, a step a row.  The snapshot mode adds its SNAP,
 DIAGA and DIAGB stores to the sweep's bytes and is charged the cells the
 fold needs of it, each row's anti-diagonals up to t_snap + 1 (the combine
-reads nothing later).  The int16 mode is charged half the sweep's 37
+reads nothing later).  The tiled mode is charged the sweep's instructions
+for each pair's cells at its own lanes (W, or n_tiles * W for a wide pair)
+and its whole tile-row traceback.  The int16 mode is charged half the sweep's 37
 instructions and 11 minima a cell: its values fit 16-bit lanes, and the
 packed s16x2 forms (__viaddmin_s16x2 adds and clamps with the int16 wrap,
 __vimin3_s16x2 and __vibmin_s16x2 take minima and their compare bits) do
@@ -364,7 +376,8 @@ WFA_BAND_SLACK = 128
 # phase 9's RunnerConfig options (and scripts/jax_variant_digest.py's); the
 # fold runs are held to the JAX package on wfa_subset()'s 30 pairs, since the
 # JAX package's fold combine builds [5, B, W, W] arrays (about 7 GB for the
-# headline's largest chunk on the CPU), the others on all 600 pairs
+# headline's largest chunk on the CPU), the others on all 600 pairs (band
+# tiling's JAX run peaks at 5.7 GB)
 VARIANTS = {
     "int16": {"dp_dtype": "int16"},
     "rows": {"sweep": "rows"},
@@ -372,13 +385,18 @@ VARIANTS = {
     "fold_full": {"fold": True, "wide_route": "full"},
     "rows_int16": {"sweep": "rows", "dp_dtype": "int16"},
     "fold_int16": {"fold": True, "dp_dtype": "int16"},
+    "tiled": {"band_tiling": "auto", "wide_route": "full"},
+    "tiled_int16": {"band_tiling": "auto", "wide_route": "full", "dp_dtype": "int16"},
 }
 VARIANT_ON_SUBSET = ("fold", "fold_full", "fold_int16")
-VARIANT_COUNTERS = ("int16_retries", "gap_overflows", "run_overflows", "band_escalations")
+VARIANT_COUNTERS = ("int16_retries", "gap_overflows", "run_overflows", "band_escalations", "tiled_chunks",
+                    "tiled_rows")
 # the JAX package's records sha256 and counters of each (scripts/
 # jax_variant_digest.py; int16 and rows_int16 give the same records as
-# int32, fold and fold_int16 too: no score reaches INT16_CUTOFF)
-_NO_COUNTS = {"int16_retries": 0, "gap_overflows": 0, "run_overflows": 0, "band_escalations": 0}
+# int32, fold and fold_int16 too, tiled and tiled_int16 too: no score
+# reaches INT16_CUTOFF)
+_NO_COUNTS = {"int16_retries": 0, "gap_overflows": 0, "run_overflows": 0, "band_escalations": 0,
+              "tiled_chunks": 0, "tiled_rows": 0}
 VARIANT_DIGESTS = {
     "int16": ("d4967907b16f98b3d4cb9795d1e90ec258d32d68b807d4ff50fcd86d69fd3381", _NO_COUNTS),
     "rows": ("5ac600448e35fc7431d162610e020b53b32ebf74b6c30686579dd2fd89b3ed31", _NO_COUNTS),
@@ -386,6 +404,11 @@ VARIANT_DIGESTS = {
     "fold_full": ("c4c2091a6143312748a8f8eb4192febf193e69925fab63a79ec2b7a372ecd640", _NO_COUNTS),
     "rows_int16": ("5ac600448e35fc7431d162610e020b53b32ebf74b6c30686579dd2fd89b3ed31", _NO_COUNTS),
     "fold_int16": ("5f79b69ec40e25304bbca8acbb290ba65c6863261d8dbc4ba38e3d40b473a63d", _NO_COUNTS),
+    # one tiled chunk: the 48 wide pairs' 96 extra rows (peak 5.7 GB on the CPU)
+    "tiled": ("c449a45cece4f593aec8d9b58c861b7eb1fde2a317d889256e1e008be83b0de8",
+              {**_NO_COUNTS, "tiled_chunks": 1, "tiled_rows": 96}),
+    "tiled_int16": ("c449a45cece4f593aec8d9b58c861b7eb1fde2a317d889256e1e008be83b0de8",
+                    {**_NO_COUNTS, "tiled_chunks": 1, "tiled_rows": 96}),
 }
 # the kernels each option's run must launch (nw_cuda.LAUNCHES keys)
 VARIANT_KERNELS = {
@@ -395,6 +418,8 @@ VARIANT_KERNELS = {
     "fold_full": ("nw_sweep_snapshot", "nw_walk_start"),
     "rows_int16": ("nw_rows_sweep", "nw_rows_walk"),
     "fold_int16": ("nw_sweep_snapshot", "nw_walk_start"),
+    "tiled": ("nw_sweep_tiled", "nw_walk_runs_tiled"),
+    "tiled_int16": ("nw_sweep_tiled", "nw_walk_runs_tiled"),
 }
 
 
@@ -437,10 +462,12 @@ def once_ms(fn):
     return start.elapsed_time(stop), out
 
 
-def sweep_bounds(Q, T, ql, tl, W: int, tb_numel: int) -> tuple[float, float]:
+def sweep_bounds(Q, T, ql, tl, W, tb_numel: int) -> tuple[float, float]:
     """(bytes, operations) bounds in ms of one sweep launch; tb_numel 0 is
-    the score-only mode."""
-    cells = int((ql + tl).to(torch.int64).sum().item()) * W
+    the score-only mode.  W: the lanes of every pair, or a [B] tensor of each
+    row's (a tiled launch: each pair's lanes on its first row, 0 on its
+    other tile rows)."""
+    cells = int(((ql + tl).to(torch.int64) * W).sum().item())
     sweep_bytes = Q.numel() + T.numel() + 8 * Q.shape[0] + 4 * Q.shape[0] + tb_numel
     ops, mins = ((SWEEP_OPS_PER_CELL, SWEEP_MIN_OPS_PER_CELL) if tb_numel
                  else (SCORE_ONLY_OPS_PER_CELL, SCORE_ONLY_MIN_OPS_PER_CELL))
@@ -480,6 +507,8 @@ def ptxas_summary(log: str) -> list[str]:
                 name += (f"<{'traceback' if wide.group(1) == '1' else 'score-only'}, "
                          f"{'int16' if wide.group(2) == '1' else 'int32'}"
                          f"{', snapshot' if wide.group(3) == '1' else ''}>")
+            elif name == "nw_sweep_tiled_wide" and w:
+                name += f"<{'int16' if w.group(1) == '1' else 'int32'}>"
             elif name == "wfa_kernel" and w:
                 name += f"<{'two' if w.group(1) == '1' else 'one'}-piece>"
             elif t:
@@ -990,7 +1019,9 @@ def run(work: Path, name: str, smi: str, ptxas: list[str]) -> int:
     })
     out.extend(long_out)
     out.extend(phase8)
-    out.extend(run_phase9(smi, ptxas, {"named": named, "pairs": pairs, "scores": scores, "pen": pen}))
+    ctx9 = {"named": named, "pairs": pairs, "scores": scores, "pen": pen}
+    out.extend(run_phase9(smi, ptxas, ctx9))
+    out.extend(run_phase10(smi, ptxas, ctx9))
     print(json.dumps({"kernels": out}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -1786,6 +1817,11 @@ def run_phase8(smi: str, ptxas: list[str], ctx: dict) -> list[dict]:
 
 ROWS_OPS_PER_CELL = 35
 ROWS_MIN_OPS_PER_CELL = 10
+# the fold's combine, per forward lane of a pair: the backward lanes'
+# index, range test and six gathers and selects (17), the six terms' adds and
+# minima (14), the per-term minimum over the lanes (6), and the first lane
+# reaching it (compare, select, minimum: 18)
+COMBINE_OPS_PER_LANE = 55
 # the int16 mode as if every instruction of the int32 count ran on two lanes
 # of a register (the s16x2 forms)
 INT16_OPS_PER_CELL = SWEEP_OPS_PER_CELL / 2
@@ -1817,7 +1853,8 @@ def run_phase9(smi: str, ptxas: list[str], ctx: dict) -> list[dict]:
         combine's time and torch launches beside the fold.
     9c. the int16 run again with the port's nw.INT16_CUTOFF lowered to 300:
         int16_retries > 0, every score the int16 run's.
-    Returns the kernels line's entries of the five new kernels and modes."""
+    Returns the kernels line's entries of the five new kernels and modes;
+    9a's runs go into ctx['runs'] for phase 10."""
     from seqrush_tpu_torch.align.runner import RunnerConfig, WfaAligner
     from seqrush_tpu_torch.ops import nw, nw_cuda
     from seqrush_tpu_torch.sequences import make_sequence_set
@@ -1850,6 +1887,7 @@ def run_phase9(smi: str, ptxas: list[str], ctx: dict) -> list[dict]:
             secs[name].append(round(wall, 4))
             if rnd == 0:
                 runs[name] = (al, res, launches)
+    ctx["runs"] = runs
     default_scores = {(r.query_idx, r.target_idx): r.score for r in runs["default"][1]}
     for name in VARIANTS:
         al, res, launches = runs[name]
@@ -1999,6 +2037,13 @@ def run_phase9(smi: str, ptxas: list[str], ctx: dict) -> list[dict]:
             except Exception as exc:  # noqa: BLE001 - a measurement that is not there is reported as such
                 print(f"  the profiler did not count the combine's launches: {exc!r}")
                 combine_launches = None
+            # the combine reads 12 [B, W] int32 planes (the forward rows' six
+            # snapshot planes, the backward rows' four gap planes, DIAGA and
+            # DIAGB) and the lengths, and writes the scores, the cursors
+            # [4, 2B] and cross_m
+            n_pairs = ql.shape[0]
+            cb = bound(12 * n_pairs * W * 4 + 8 * n_pairs + 4 * n_pairs + 32 * n_pairs + n_pairs,
+                       n_pairs * W * COMBINE_OPS_PER_LANE)
             ms_w = cuda_ms(lambda: nw_cuda.nw_walk_start(tb_k, state, band=band, tmax=tmax_half), REPS)
             wb_b, wb_o = walk_bounds(ops_k)
             wb = {"bound_ms": max(wb_b, wb_o), "bound_by": "bytes" if wb_b >= wb_o else "operations"}
@@ -2006,9 +2051,11 @@ def run_phase9(smi: str, ptxas: list[str], ctx: dict) -> list[dict]:
                 "shape": {"B": n_rows, "W": W, "tmax": tmax_half}, "ms": ms_w, "plain_ms": plain_w_ms, **wb,
                 "max_abs_err": err_w, "launches": runs["fold"][2]["nw_walk_start"], "launches_path": "fold=True",
                 "combine_ms": combine_ms, "combine_cuda_launches": combine_launches,
+                "combine_bound_ms": cb["bound_ms"], "combine_bound_by": cb["bound_by"],
                 "ptxas": ptxas_registers(ptxas, "nw_walk_seg_kernel")}
             print(f"  start walk timed: {ms_w:.4f} ms (bound {wb['bound_ms']:.5f}; plain {plain_w_ms:.1f}); the "
-                  f"combine between them {combine_ms:.4f} ms in {combine_launches} CUDA launches | {smi}")
+                  f"combine between them {combine_ms:.4f} ms in {combine_launches} CUDA launches (bound "
+                  f"{cb['bound_ms']:.5f}, {cb['bound_by']}) | {smi}")
         del tb_k, snaps_k, SNAP, DIAGA, DIAGB
         torch.cuda.empty_cache()
 
@@ -2087,6 +2134,169 @@ def run_phase9(smi: str, ptxas: list[str], ctx: dict) -> list[dict]:
                 "nw_rows_walk": "seqrush_tpu/ops/nw.py:2021 (_tb_rows_scan; XLA)"}
     return [{"name": k, "route": "cuda", "source": src[k], "replaces": replaces[k], "library_ms": None,
              **v, "tolerance": 0} for k, v in out.items()]
+
+
+
+def run_phase10(smi: str, ptxas: list[str], ctx: dict) -> list[dict]:
+    """10. band_tiling='auto' on the card.
+
+    10a. the headline's 600 pairs through WfaAligner with wide_route='full',
+         untiled and tiled (VARIANTS['tiled']), in turns (untiled, tiled,
+         tiled, untiled; the runner's seconds of each): the tiled run must
+         launch both tiled modes in at least one tiled chunk, and its records
+         must equal the untiled run's (each pair at its own band either way).
+    10b. kernel A's tiled mode and kernel B's tiled runs mode against their
+         plain versions on every distinct tiled chunk of phase 9's tiled and
+         tiled_int16 runs (scores, the whole tile-row traceback, tokens,
+         counts), exactly.  On the tiled run's first chunk, CUDA-event
+         medians of the tiled sweep and walk, and of the same pairs split as
+         the untiled runner splits them (the narrow jobs at their band, the
+         wide ones at theirs: sweep and runs walk of each), the two in turns
+         (split, tiled, tiled, split); the plain versions once.
+    Returns the kernels line's entries of the two tiled modes."""
+    from seqrush_tpu_torch.align.runner import RunnerConfig, WfaAligner, _TiledChunk
+    from seqrush_tpu_torch.ops import nw, nw_cuda
+    from seqrush_tpu_torch.sequences import make_sequence_set
+
+    t_phase = time.time()
+    dev = torch.device("cuda")
+    named, pairs, scores, pen, runs = ctx["named"], ctx["pairs"], ctx["scores"], ctx["pen"], ctx["runs"]
+    seqs = make_sequence_set(named)
+
+    def bound(nbytes, n_ops_ms):
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        return {"bound_ms": max(b_ms, n_ops_ms), "bound_by": "bytes" if b_ms >= n_ops_ms else "operations"}
+
+    # 10a. the runner, untiled and tiled, in turns
+    secs = {"untiled": [], "tiled": []}
+    host = {"untiled": [], "tiled": []}  # the runner's host timers of each run
+    got = {}
+    for name in ("untiled", "tiled", "tiled", "untiled"):
+        cfg = VARIANTS["tiled"] if name == "tiled" else {"wide_route": "full"}
+        al = WfaAligner(seqs, RunnerConfig(scores=scores, **cfg), device=dev)
+        nw_cuda.reset_launch_counts()
+        t0 = time.time()
+        res = al.align_pairs(pairs)
+        torch.cuda.synchronize()
+        secs[name].append(round(time.time() - t0, 4))
+        host[name].append({k: round(al.stats[k], 4) for k in ("orient_s", "dispatch_s", "collect_s")})
+        got.setdefault(name, (al, records_digest(res), dict(nw_cuda.LAUNCHES)))
+    al_t, digest_t, launches_t = got["tiled"]
+    shapes = [[d["B"], d["band"], d["band_wide"], d["n_tiles"], d["n_wide"], d["tmax"]]
+              for d in al_t.stats["dispatches"] if d["kind"] == "tiled"]
+    print(f"band tiling, 600 pairs, wide_route='full': tiled_chunks {al_t.stats['tiled_chunks']}, tiled_rows "
+          f"{al_t.stats['tiled_rows']}, tiled chunks [B, band, band_wide, n_tiles, n_wide, tmax] "
+          f"{json.dumps(shapes)}; launches {json.dumps({k: launches_t[k] for k in VARIANT_KERNELS['tiled']})}; "
+          f"records equal the untiled run's {digest_t == got['untiled'][1]}; runner seconds in turns "
+          f"{json.dumps(secs)}, their orient/dispatch/collect seconds {json.dumps(host)} | {smi}")
+    if (digest_t != got["untiled"][1] or al_t.stats["tiled_chunks"] < 1
+            or min(launches_t[k] for k in VARIANT_KERNELS["tiled"]) < 1):
+        raise AssertionError("the tiled run did not launch its kernels or differs from the untiled run")
+
+    # 10b. every distinct tiled chunk against the plain versions; the first timed
+    seen, checked, out = set(), [], {}
+    for name in ("tiled", "tiled_int16"):
+        al = runs[name][0]
+        for d in (d for d in al.stats["dispatches"] if d["kind"] == "tiled"):
+            sig = (d["band"], d["n_tiles"], d["int16"], tuple(tuple(j) for j in d["jobs"]))
+            if sig in seen:
+                continue
+            seen.add(sig)
+            n_narrow = len(d["jobs"]) - d["n_wide"]
+            entries = []
+            for k, (p, rc) in enumerate(d["jobs"]):
+                qi, tj = pairs[p]
+                entries.append((p, bool(rc), d["band"] if k < n_narrow else d["band_wide"], not d["int16"],
+                                al.rc_codes[qi] if rc else al.codes[qi], al.codes[tj]))
+            chunk = _TiledChunk(entries, d["band"], d["band_wide"], d["n_tiles"])
+            Q, T, ql, tl, tile, wide, _rowmap, tmax = al.pack_tiled_chunk(chunk)
+            Qd, Td, qd, td = (torch.from_numpy(a).to(dev) for a in (Q, T, ql, tl))
+            lay = dict(band=d["band"], n_tiles=d["n_tiles"], tmax=tmax)
+            kw = dict(int16=d["int16"], **lay, **pen)
+            s_k, tb_k = nw_cuda.nw_align_tiled(Qd, Td, qd, td, tile, wide, **kw)
+            plain_ms, (s_p, tb_p) = once_ms(lambda: nw_cuda.nw_align_tiled_reference(Qd, Td, qd, td, tile, wide,
+                                                                                      **kw))
+            err = max(max_abs_err(s_k, s_p), max_abs_err(tb_k, tb_p))
+            del tb_p
+            wk = dict(run_max=nw.RUN_MAX, **lay)
+            tok_k, cnt_k = nw_cuda.nw_walk_runs_tiled(tb_k, qd, td, tile, wide, **wk)
+            plain_w_ms, (tok_p, cnt_p) = once_ms(
+                lambda: nw_cuda.nw_walk_runs_tiled_reference(tb_k, qd, td, tile, wide, **wk))
+            err_w = max(max_abs_err(tok_k, tok_p), max_abs_err(cnt_k, cnt_p))
+            W = d["band"] + 1
+            plan = nw_cuda.plan_sweep_tiled(n_narrow, d["n_wide"], W, d["n_tiles"], Q.shape[1], T.shape[1])
+            checked.append([name, Q.shape[0], W, d["n_tiles"], d["n_wide"], tmax, int(d["int16"]), plan.route,
+                            plan.lanes, err, err_w])
+            print(f"tiled kernels, {name} chunk [{Q.shape[0]} rows, W {W}, {d['n_tiles']} tiles, {d['n_wide']} wide "
+                  f"pairs, tmax {tmax}, int16 {d['int16']}; {plan.route} route, {plan.lanes} lanes x "
+                  f"{plan.threads} threads]: max_abs_err {err} / {err_w}")
+            if err or err_w:
+                raise AssertionError("a tiled kernel disagrees with its plain version")
+            if name == "tiled" and not out:
+                first = torch.from_numpy(tile == 0).to(dev)
+                lanes = torch.from_numpy(np.where(tile == 0, np.where(wide, d["n_tiles"] * W, W), 0)).to(dev)
+                narrow = [e for e in chunk if e[2] == d["band"]]
+                wides = [e for e in chunk if e[2] != d["band"]]
+                split = []  # the untiled runner's two launches of the same pairs
+                for part in (narrow, wides):
+                    Qs, Ts, qs_, ts_, tmax_s = al.pack_chunk(part)
+                    split.append((*(torch.from_numpy(a).to(dev) for a in (Qs, Ts, qs_, ts_)), part[0][2], tmax_s))
+
+                def run_tiled():
+                    _s, tb = nw_cuda.nw_align_tiled(Qd, Td, qd, td, tile, wide, **kw)
+                    nw_cuda.nw_walk_runs_tiled(tb, qd, td, tile, wide, **wk)
+
+                def run_split():
+                    for Qs, Ts, qs_, ts_, band_s, tmax_s in split:
+                        _s, tb = nw_cuda.nw_align(Qs, Ts, qs_, ts_, band=band_s, tmax=tmax_s, **pen)
+                        nw_cuda.nw_walk_runs(tb, qs_, ts_, band=band_s, tmax=tmax_s, run_max=nw.RUN_MAX)
+
+                turns = {"split": [], "tiled": []}
+                for which in ("split", "tiled", "tiled", "split"):
+                    turns[which].append(cuda_ms(run_tiled if which == "tiled" else run_split, REPS))
+                ms = cuda_ms(lambda: nw_cuda.nw_align_tiled(Qd, Td, qd, td, tile, wide, **kw), REPS)
+                ms_w = cuda_ms(lambda: nw_cuda.nw_walk_runs_tiled(tb_k, qd, td, tile, wide, **wk), REPS)
+                split_parts = []  # [B, W, sweep ms, runs walk ms] of each untiled launch
+                for Qs, Ts, qs_, ts_, band_s, tmax_s in split:
+                    _s, tb_s = nw_cuda.nw_align(Qs, Ts, qs_, ts_, band=band_s, tmax=tmax_s, **pen)
+                    split_parts.append([int(Qs.shape[0]), band_s + 1, cuda_ms(
+                        lambda: nw_cuda.nw_align(Qs, Ts, qs_, ts_, band=band_s, tmax=tmax_s, **pen), REPS), cuda_ms(
+                        lambda: nw_cuda.nw_walk_runs(tb_s, qs_, ts_, band=band_s, tmax=tmax_s, run_max=nw.RUN_MAX),
+                        REPS)])
+                    del tb_s
+                sb, so = sweep_bounds(Qd, Td, qd, td, lanes, tb_k.numel())
+                steps = int(((tok_k >> 2) * (tok_k > 0)).sum().item())
+                B = Qd.shape[0]
+                wb = bound(steps + 4 * tok_k.numel() + 12 * B, steps * WALK_OPS_PER_STEP / ISSUE_OPS_PER_S * 1e3)
+                shape = {"B": B, "W": W, "n_tiles": d["n_tiles"], "n_wide": d["n_wide"], "tmax": tmax,
+                         "lanes_per_thread": plan.lanes, "threads": plan.threads, "route": plan.route}
+                common = {"shape": shape, "launches_path": "band_tiling='auto', wide_route='full'",
+                          "sweep_walk_ms_in_turns": turns}
+                out["nw_sweep_tiled"] = {
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": max(sb, so),
+                    "bound_by": "bytes" if sb >= so else "operations", "max_abs_err": err,
+                    "launches": launches_t["nw_sweep_tiled"], "split_ms": split_parts,
+                    "ptxas": ptxas_registers(ptxas, f"nw_sweep_tiled_regs<{plan.lanes}, two-piece>"), **common}
+                out["nw_walk_runs_tiled"] = {
+                    "ms": ms_w, "plain_ms": plain_w_ms, **wb, "max_abs_err": err_w,
+                    "launches": launches_t["nw_walk_runs_tiled"],
+                    "ptxas": ptxas_registers(ptxas, "nw_walk_runs_tiled_kernel"), **common}
+                print(f"  timed: tiled sweep {ms:.4f} ms (bound {max(sb, so):.4f}; plain {plain_ms:.1f}), tiled walk "
+                      f"{ms_w:.4f} ms (bound {wb['bound_ms']:.5f}; plain {plain_w_ms:.1f}); the same pairs split "
+                      f"[B, W, sweep ms, walk ms] {json.dumps(split_parts)}; sweep + walk in turns (split, tiled, tiled, "
+                      f"split) {json.dumps(turns)} | {smi}")
+            del tb_k, tok_k, cnt_k, tok_p, cnt_p
+            torch.cuda.empty_cache()
+    print(f"10b tiled chunks held to their plain versions [run, rows, W, tiles, wide, tmax, int16, route, lanes, "
+          f"err sweep, err walk] {json.dumps(checked)}; phase 10 wall {time.time() - t_phase:.1f} s")
+    for v in out.values():
+        v["chunks_checked"] = checked
+    replaces = {"nw_sweep_tiled": "seqrush_tpu/ops/nw.py:2232 (_sweep_tiled; XLA; nw_align_with_runs_tiled :2664)",
+                "nw_walk_runs_tiled": "seqrush_tpu/ops/nw.py:2531 (_tb_scan_tiled; XLA)"}
+    src = {"nw_sweep_tiled": "seqrush_tpu_torch/ops/csrc/nw_sweep_tiled.cu",
+           "nw_walk_runs_tiled": "seqrush_tpu_torch/ops/csrc/nw_walk.cu"}
+    return [{"name": k, "route": "cuda", "source": src[k], "replaces": replaces[k], "library_ms": None, **v,
+             "tolerance": 0} for k, v in out.items()]
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The JAX package's alignments of the headline corpus under the RunnerConfig
-options of chip_smoke.py's phase 9 (int16, rows, fold and two of their
-combinations).
+options of chip_smoke.py's phase 9 (int16, rows, fold, band tiling on the
+full wide route, and their combinations with int16).
 
 Run from the repository root, on the CPU:
 
@@ -13,7 +13,7 @@ chip_smoke.wfa_subset() (30 pairs) for the options in VARIANT_ON_SUBSET,
 with the JAX package's WfaAligner (scoring 0,5,8,2,24,1) and prints one JSON
 line: the sha256 of the sorted (query, target, reverse, score, CIGAR)
 records (chip_smoke.records_digest), the counters of VARIANT_COUNTERS, the
-seconds and the peak resident memory.  chip_smoke.py holds the port's runs
+seconds and the peak resident memory (5.7 GB for the band-tiling options).  chip_smoke.py holds the port's runs
 on the card to these (VARIANT_DIGESTS).
 """
 

@@ -28,7 +28,7 @@ that runs the sweep kernel and then the walk kernel per chunk:
   optimal iff S < 2*o_min + e_min*(2K + 2 - |diff|)), escalation of the
   uncertified jobs to the band their score demands, the divergence cap,
   and one vectorized decode of the tokens or opcodes into CIGARs;
-* three options change a chunk's kernels as in the JAX package:
+* four options change a chunk's kernels as in the JAX package:
   ``dp_dtype`` 'int16' or 'auto' runs the sweep's saturating int16 DP (a
   score at or above nw.INT16_CUTOFF re-runs in int32 and counts
   ``int16_retries``; jobs carry that force32 flag, and chunks never mix
@@ -40,6 +40,11 @@ that runs the sweep kernel and then the walk kernel per chunk:
   padded rows, runs the bidirectional fold (``nw_cuda.nw_align_fold``) at
   the band widened by the chunk's largest length difference.  Rows take
   precedence over the fold; long chunks take neither and stay int32;
+  ``band_tiling='auto'`` merges a wide band's chunks into the narrow chunk
+  before them (``_plan_band_tiling``): each wide pair takes n_tiles
+  consecutive rows of the narrow width, and one launch of kernels A and B's
+  tiled modes (``nw_cuda.nw_align_tiled`` / ``nw_walk_runs_tiled``) runs
+  every pair at its own band, so the results are the untiled ones;
 * wide jobs on long pairs (the default ``wide_route='anchored'``) are split
   off first and aligned piecewise by ``align/anchored.py``: chaining and the
   host window DP run while the narrow chunks compute, its device window
@@ -129,8 +134,12 @@ class RunnerConfig:
     # chunks of at most fold_max_batch padded rows
     fold: bool | str = False
     fold_max_batch: int = 128
-    # band tiling is not ported yet; anything but 'off' raises
-    band_tiling: str = "off"  # item 13
+    # 'auto' merges a wide band's chunks into the narrow chunk before them,
+    # each wide pair as (band_wide + 1) / (band + 1) rows of the narrow
+    # width, one tiled launch instead of two (same results); 'off'
+    band_tiling: str = "off"
+    # most tile rows a wide pair may take (wider jobs keep their own chunk)
+    band_tiling_max_tiles: int = 4
     # host worker threads of the anchored route's window DP
     threads: int = 4
     # chunks of more anti-diagonals than this (pairs of qlen + tlen above it)
@@ -164,6 +173,19 @@ class RunnerConfig:
     # when the whole anchored window workload has at most this many cells,
     # every window runs on the host.  0: off
     wide_host_total_cells: int = 0
+
+
+class _TiledChunk(list):
+    """A chunk whose wide entries run band-tiled (RunnerConfig.band_tiling):
+    entries as a plain chunk's (p, rc, band, f32, q, t), the narrow ones at
+    base_band, the wide ones at wide_band = n_tiles * (base_band + 1) - 1;
+    the dispatch gives each wide entry n_tiles consecutive rows."""
+
+    def __init__(self, entries, base_band: int, wide_band: int, n_tiles: int):
+        super().__init__(entries)
+        self.base_band = base_band
+        self.wide_band = wide_band
+        self.n_tiles = n_tiles
 
 
 def _round_up(x: int, m: int) -> int:
@@ -221,10 +243,8 @@ def pack_probe(bq: list[np.ndarray], bt: list[np.ndarray]):
 
 
 def _check_config(cfg: RunnerConfig) -> None:
-    if cfg.band_tiling != "off":
-        raise NotImplementedError(
-            f"RunnerConfig.band_tiling={cfg.band_tiling!r} is not ported yet (ROADMAP item 13)"
-        )
+    if cfg.band_tiling not in ("off", "auto"):
+        raise ValueError(f"band_tiling must be 'off' or 'auto', got {cfg.band_tiling!r}")
     if cfg.dp_dtype not in ("int32", "int16", "auto"):
         raise ValueError(f"dp_dtype must be 'int32', 'int16' or 'auto', got {cfg.dp_dtype!r}")
     if cfg.sweep not in ("antidiag", "rows"):
@@ -272,6 +292,8 @@ class WfaAligner:
             # the anti-diagonal kernels
             "gap_overflows": 0,
             "cells_padded": 0,  # B_padded * (tmax + 2) * W summed over dispatches
+            "tiled_chunks": 0,  # band-tiled merged dispatches
+            "tiled_rows": 0,  # extra rows spent on wide pairs' tiles
             "cells_true": 0,  # (qlen+tlen+1) * W summed over aligned jobs
             # host-side phase timers (collect includes the device wait)
             "orient_s": 0.0,
@@ -290,12 +312,13 @@ class WfaAligner:
             "long_pairs": 0,
             # one entry per dispatch: its kind ('chunk', 'long' chunks with
             # their segment length seg and count n_seg, the anchored route's
-            # 'window' chunks, 'verify' sweeps), batch rows, band, tmax and
-            # the jobs it carried ([pair index, reverse] for chunk, long and
-            # verify; see anchored._dispatch_window_chunk for windows, and
-            # choose_orientations' 'probe' sweeps, the sweepga backend's 'gap'
-            # chunks, the inversion-aware mode's 'inversion' batch and
-            # kernel='wfa''s 'wfa' batches); the walk's output of each
+            # 'window' chunks, 'verify' sweeps, band-tiled 'tiled' chunks with
+            # band_wide, n_tiles and their n_wide wide jobs last), batch rows,
+            # band, tmax and the jobs it carried ([pair index, reverse] for
+            # chunk, tiled, long and verify; see anchored._dispatch_window_chunk
+            # for windows, and choose_orientations' 'probe' sweeps, the
+            # sweepga backend's 'gap' chunks, the inversion-aware mode's
+            # 'inversion' batch and kernel='wfa''s 'wfa' batches); the walk's output of each
             # chunk, window and gap dispatch as emit: 'runs' or 'ops' ('rowtok'
             # for a row-major chunk); a chunk's fold, rows and int16 flags
             "dispatches": [],
@@ -681,7 +704,7 @@ class WfaAligner:
                         (keep if big else back).append(job)
                     anchored_jobs = keep
                     queue.extend(back)
-            chunks = self._make_nw_chunks(queue, pairs)
+            chunks = self._plan_band_tiling(self._make_nw_chunks(queue, pairs))
             retries_scored = []  # (job, banded_score)
             a_fallbacks: list = []
             # pipeline: dispatch chunk k+1 (device work) before the host
@@ -905,6 +928,120 @@ class WfaAligner:
             chunks.append([(p, rc, band, f32, q, t) for (p, rc, f32, q, t) in chunk])
         return chunks
 
+    def _plan_band_tiling(self, chunks):
+        """Merge wide-band chunks into the narrow chunk before them as band
+        tiles (RunnerConfig.band_tiling; the JAX package's planner).
+
+        _make_nw_chunks sorts entries by (dtype, kernels, walk output, band),
+        so a band's chunks follow each other.  The wide pairs of the chunks
+        after a narrow one of the same class ride it as n_tiles consecutive
+        rows each, one launch instead of two, at the cost of n_tiles - 1
+        extra rows a wide pair.  Merge conditions: no fold, no row-major
+        sweep, run tokens; W even; n_tiles in [2, band_tiling_max_tiles]; the
+        merged chunk not long, its tokens in range and its traceback under
+        the memory budget; the tile rows not outnumbering the pairs."""
+        cfg = self.cfg
+        if (cfg.band_tiling == "off" or len(chunks) < 2 or cfg.fold is not False
+                or cfg.sweep == "rows" or cfg.emit == "ops"):
+            return chunks
+
+        def klass(chunk):
+            p, rc, _band, f32, _q, _t = chunk[0]
+            return f32, (p, rc) in self._v3_set, (p, rc) in self._runs_off_set
+
+        out = []
+        i = 0
+        while i < len(chunks):
+            base = chunks[i]
+            W = base[0][2] + 1 if base else 0
+            if isinstance(base, _TiledChunk) or not base or W % 2 or klass(base)[1] or klass(base)[2]:
+                out.append(base)
+                i += 1
+                continue
+            narrow = list(base)
+            wides: list = []
+            n_tiles = 1
+            j = i + 1
+            while j < len(chunks):
+                cand = chunks[j]
+                if (not cand or isinstance(cand, _TiledChunk) or klass(cand) != klass(base)
+                        or cand[0][2] <= base[0][2]):
+                    break
+                R = max(n_tiles, -(-(cand[0][2] + 1) // W))
+                if R < 2 or R > cfg.band_tiling_max_tiles:
+                    break
+                trial_wides = wides + list(cand)
+                n_narrow, n_wide = len(narrow), len(trial_wides)
+                tmax = _round_up(max(q.size + t.size for *_, q, t in narrow + trial_wides), 512)
+                if (tmax > cfg.long_pair_threshold or tmax + 4 >= (1 << 15)
+                        or self._quantize_batch(n_narrow + R * n_wide) * (tmax + 2) * W
+                        > cfg.memory_budget_bytes
+                        or (R - 1) * n_wide > n_narrow + n_wide):
+                    break  # tile rows would bust memory or dominate the batch
+                wides = trial_wides
+                n_tiles = R
+                j += 1
+            if n_tiles > 1:
+                bandw = n_tiles * W - 1
+                entries = narrow + [(p, rc, bandw, f32, q, t) for (p, rc, _b, f32, q, t) in wides]
+                out.append(_TiledChunk(entries, W - 1, bandw, n_tiles))
+                i = j
+            else:
+                out.append(base)
+                i += 1
+        return out
+
+    def pack_tiled_chunk(self, chunk: _TiledChunk):
+        """Host-packed inputs of a band-tiled chunk: (Q, T, qlens, tlens as
+        pack_chunk's, one row per narrow entry and n_tiles per wide one, each
+        row holding its pair; tile [B] int32 and wide [B] bool, the row
+        layout of nw_cuda.tiled_rows; rowmap [len(chunk)], each entry's first
+        row; tmax).  Rows past the entries' are zero-length narrow padding."""
+        rowmap = np.zeros(len(chunk), np.int64)
+        rows, tiles = [], []
+        for e, entry in enumerate(chunk):
+            n = chunk.n_tiles if entry[2] > chunk.base_band else 1
+            rowmap[e] = len(rows)
+            rows += [entry] * n
+            tiles += range(n)
+        Q, T, qlens, tlens, tmax = self.pack_chunk(rows)
+        tile = np.zeros(Q.shape[0], np.int32)
+        tile[: len(tiles)] = tiles
+        wide = np.zeros(Q.shape[0], bool)
+        wide[: len(rows)] = [entry[2] > chunk.base_band for entry in rows]
+        return Q, T, qlens, tlens, tile, wide, rowmap, tmax
+
+    def _dispatch_nw_chunk_tiled(self, chunk: _TiledChunk):
+        """Launch the tiled sweep and walk for a band-tiled chunk: one row per
+        narrow entry, n_tiles per wide one.  Returns _dispatch_nw_chunk's
+        tuple for a 'runs' chunk, each entry's outputs taken from its first
+        row, so collect proceeds as for any runs chunk (its run overflows
+        join _runs_off_set, its band certificate is each entry's own)."""
+        band = chunk.base_band
+        force32 = chunk[0][3]
+        use_int16 = self.cfg.dp_dtype in ("int16", "auto") and not force32
+        Q, T, qlens, tlens, tile, wide, rowmap, tmax = self.pack_tiled_chunk(chunk)
+        B = Q.shape[0]
+        n_wide = int(wide.sum()) // chunk.n_tiles
+        self.stats["tiled_chunks"] += 1
+        self.stats["tiled_rows"] += (chunk.n_tiles - 1) * n_wide
+        self.stats["cells_padded"] += B * (tmax + 2) * (band + 1)
+        self.stats["dispatches"].append(
+            {"kind": "tiled", "B": B, "band": band, "band_wide": chunk.wide_band, "n_tiles": chunk.n_tiles,
+             "n_wide": n_wide, "tmax": tmax,
+             "jobs": [[int(p), int(rc)] for p, rc, *_ in chunk], "fold": False, "rows": False,
+             "int16": use_int16, "emit": "runs"})
+        dev = self.device
+        Qd, Td, qd, td = (torch.from_numpy(a).to(dev) for a in (Q, T, qlens, tlens))
+        lay = dict(band=band, n_tiles=chunk.n_tiles, tmax=tmax)
+        scores, tb = nw_cuda.nw_align_tiled(Qd, Td, qd, td, tile, wide, int16=use_int16, **lay,
+                                            **self._penalties())
+        tokens, counts = nw_cuda.nw_walk_runs_tiled(tb, qd, td, tile, wide, run_max=nw.RUN_MAX, **lay)
+        del tb  # stream-ordered: the allocator reuses it only after the walk
+        first = torch.from_numpy(rowmap).to(dev)
+        scores, out, ready = to_host(scores[first], (tokens[first], counts[first]))
+        return chunk, scores, ("runs", out), ready, qlens[rowmap], tlens[rowmap], use_int16
+
     def pack_chunk(self, chunk):
         """Host-packed kernel inputs of a chunk: (Q [B, lq], T [B, lt] uint8
         padded with QPAD/TPAD, qlens [B], tlens [B] int32, tmax).  Rows past
@@ -958,7 +1095,9 @@ class WfaAligner:
         Returns (chunk, scores, payload, ready event, qlens, tlens,
         used_int16), payload ('runs', (tokens, counts)), ('ops', (opcodes,)),
         ('fold', (half-walk opcodes, cross_m)) or ('rowtok', (steps, grows,
-        gvals, gcount))."""
+        gvals, gcount)).  A band-tiled chunk takes _dispatch_nw_chunk_tiled."""
+        if isinstance(chunk, _TiledChunk):
+            return self._dispatch_nw_chunk_tiled(chunk)
         band = chunk[0][2]
         force32 = chunk[0][3]
         Q, T, qlens, tlens, tmax = self.pack_chunk(chunk)

@@ -197,17 +197,31 @@ struct Pair {
   // segment mode only: the padded-operand index of Qs[0] and Ts[0], and
   // the anti-diagonal of tbb's row 0
   int qb, tb0, row0;
+  // tiled mode only (nw_sweep_tiled.cu): the tile-row width tw (W is the
+  // pair's lanes, n_tiles * tw for a wide pair), the bytes from one tile
+  // row to the next (tmax_pad * tw), the offset of the tile row that holds
+  // the strip's first lane and that lane in it, and whether the strip
+  // crosses a tile row's end
+  int tw, tc0;
+  size_t tstride, trow;
+  bool split;
 };
 
-// Barrier over the warps of pair `pib` of the block (at most two multi-warp
-// pairs a block).  The ids are immediates so that a block reserves three
-// barriers (0 for __syncthreads, 1, 2), not all sixteen: the SM's barriers
-// would otherwise cap its resident blocks at four.
+// Barrier over the warps of pair `pib` of the block (at most NPAIRS
+// multi-warp pairs a block: two, or four in the tiled mode).  The ids are
+// immediates so that a block reserves NPAIRS + 1 barriers (0 for
+// __syncthreads), not all sixteen: the SM's barriers would otherwise cap its
+// resident blocks at four.
+template <int NPAIRS = 2>
 __device__ __forceinline__ void bar_pair(int pib, int count) {
   if (pib == 0)
     asm volatile("bar.sync 1, %0;" ::"r"(count) : "memory");
-  else
+  else if (NPAIRS <= 2 || pib == 1)
     asm volatile("bar.sync 2, %0;" ::"r"(count) : "memory");
+  else if (NPAIRS <= 3 || pib == 2)
+    asm volatile("bar.sync 3, %0;" ::"r"(count) : "memory");
+  else
+    asm volatile("bar.sync 4, %0;" ::"r"(count) : "memory");
 }
 
 // One anti-diagonal of the recurrence over the thread's S lanes.  DP/DPP:
@@ -252,7 +266,7 @@ __device__ __forceinline__ void sweep_step(Strip<S>& s, const Edges& e, const Pe
 
 // Exchange the strip edges of the rows just computed (and of the initial
 // rows) with the neighbouring threads.
-template <int S, bool TWO>
+template <int S, bool TWO, int NPAIRS = 2>
 __device__ __forceinline__ void exchange(const Strip<S>& s, Edges& e, const Pair& pr, int parity) {
   e.hl2 = e.hl1;
   int hl = __shfl_up_sync(FULL_MASK, s.h1[S - 1], 1);
@@ -278,7 +292,7 @@ __device__ __forceinline__ void exchange(const Strip<S>& s, Edges& e, const Pair
       sl[4] = s.d1[0];
       sl[5] = TWO ? s.d2[0] : pr.neg;
     }
-    bar_pair(pr.pib, pr.wpp * 32);
+    bar_pair<NPAIRS>(pr.pib, pr.wpp * 32);
     if (pr.lane == 0 && pr.wip > 0) {
       hl = sl[-6 + 0];
       il = sl[-6 + 1];
@@ -327,6 +341,28 @@ __device__ __forceinline__ void store_row(uint8_t* row, int s0, int W, int walig
 #pragma unroll
   for (int k = 0; k < S; ++k)
     if (s0 + k < W) row[s0 + k] = (uint8_t)(words[k >> 2] >> (8 * (k & 3)));
+}
+
+// Tiled mode: store the thread's S bytes of traceback row t into the pair's
+// tile rows (lane l at tile row l / tw, lane l % tw): as store_row into the
+// strip's tile row, byte by byte where the strip crosses a tile row's end.
+template <int S>
+__device__ __forceinline__ void store_row_tiled(const Pair& pr, int t,
+                                                const uint32_t (&words)[(S + 3) / 4]) {
+  if (pr.s0 >= pr.W) return;
+  if (!pr.split) {
+    store_row<S>(pr.tbb + pr.trow + (size_t)t * pr.tw, pr.tc0, pr.tw, pr.walign, words);
+    return;
+  }
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    const int l = pr.s0 + k;
+    if (l < pr.W) {
+      const int tile = l / pr.tw;
+      pr.tbb[tile * pr.tstride + (size_t)t * pr.tw + (l - tile * pr.tw)] =
+          (uint8_t)(words[k >> 2] >> (8 * (k & 3)));
+    }
+  }
 }
 
 // shared-memory layout of one pair: padded query, padded reversed target,
@@ -410,7 +446,9 @@ __device__ __forceinline__ void snap_carry(const Strip<S>& s, const Pair& pr) {
 // the traceback row (TB), take the score at t_final, exchange the edges.
 // In segment mode the score is taken only where none was before.  In the
 // snapshot mode the captures of t_snap and t_snap + 1 are predicated stores.
-template <int S, bool TWO, bool TB, bool SEG, bool SNAP, int DP, int DPP>
+// In the tiled mode the row goes into the pair's tile rows and a block holds
+// up to four multi-warp pairs.
+template <int S, bool TWO, bool TB, bool SEG, bool SNAP, int DP, int DPP, bool TILED = false>
 __device__ __forceinline__ void advance(Strip<S>& s, Edges& e, const Pair& pr, const Pen& p,
                                         int t, int& qs, int& ts) {
   if (t > 1) slide_windows<S, SEG>(s, pr, t, qs, ts);
@@ -428,7 +466,8 @@ __device__ __forceinline__ void advance(Strip<S>& s, Edges& e, const Pair& pr, c
     snap_diag<S, DPP>(s, e, pr, p, vlo, vspan, t == pr.t_snap ? pr.diaga : pr.diagb);
   uint32_t words[(S + 3) / 4];
   sweep_step<S, TWO, DP, DPP>(s, e, p, vlo, vspan, words);
-  if (TB) store_row<S>(pr.tbb + (size_t)(SEG ? t - pr.row0 : t) * pr.W, pr.s0, pr.W, pr.walign, words);
+  if (TB && TILED) store_row_tiled<S>(pr, t, words);
+  else if (TB) store_row<S>(pr.tbb + (size_t)(SEG ? t - pr.row0 : t) * pr.W, pr.s0, pr.W, pr.walign, words);
   if (SNAP && t == pr.t_snap) snap_carry<S, TWO>(s, pr);
   if (t == pr.t_final) {
     const int fl = pr.qlen - i0 - pr.s0;
@@ -437,7 +476,7 @@ __device__ __forceinline__ void advance(Strip<S>& s, Edges& e, const Pair& pr, c
       if (k == fl && pr.s0 + k < pr.W && s.h1[k] < NW_INF && (!SEG || *pr.score < 0))
         *pr.score = s.h1[k];
   }
-  exchange<S, TWO>(s, e, pr, t & 1);
+  exchange<S, TWO, TILED ? 4 : 2>(s, e, pr, t & 1);
 }
 
 // The register route's kernel body: anti-diagonals 1..tmax of every pair

@@ -61,6 +61,17 @@
 // [1, tmax] (its rows from tb + W, pairs tmax_pad rows apart), from the
 // cursors the fold's combine chose (any anti-diagonal, lane and gap state);
 // the opcodes land in [B, tmax + 1] as the single-shot walk's do.
+// Tiled runs mode (nw_walk_runs_tiled_kernel; replaces the XLA program
+// seqrush_tpu/ops/nw.py::_tb_scan_tiled): the runs mode over kernel A's
+// tiled traceback, one warp a pair as everywhere else.  The JAX walk runs
+// the n_tiles rows of a wide pair in lockstep and passes the owner tile's
+// byte to the others by masked rolls, a layout forced by its batch-row
+// vectors; here each pair is walked once at its own band (K_w for a wide
+// pair), and only the tile loader knows the layout: lane l of the pair is
+// row first + l / W, lane l % W.  A 32-lane window may straddle two tile
+// rows (W not a multiple of 32); each thread loads its own lane's column, so
+// it reads from whichever tile row holds it.  Tokens and the count land on
+// the pair's first row.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -103,16 +114,25 @@ __device__ __forceinline__ int corner_steps(int td, int K, int n) {
 // one byte per 32-bit register: nothing reads the registers until the tile
 // is stored, so the loads stay in flight while the walk goes on.
 // In segment mode tbb's row 0 is anti-diagonal rlo, and rows below it read 0.
-template <bool SEG>
+// In the tiled mode the pair's W lanes lie in tile rows of tw lanes,
+// tstride bytes apart.
+template <bool SEG, bool TILED = false>
 __device__ __forceinline__ void load_tile(uint32_t (&col)[WALK_R], const uint8_t* __restrict__ tbb,
-                                          int top, int c0, int x, int W, int rlo) {
+                                          int top, int c0, int x, int W, int rlo, int tw = 0,
+                                          size_t tstride = 0) {
   const int l = c0 + x;
   const bool in_band = l >= 0 && l < W;
+  const uint8_t* colp = tbb;  // the tiled mode's column: its tile row, lane l % tw
+  if (TILED && in_band) {
+    const int tile = l / tw;
+    colp = tbb + tile * tstride + (l - tile * tw);
+  }
 #pragma unroll
   for (int rr = 0; rr < WALK_R; ++rr) {
     const int row = top - rr;
     col[rr] = (in_band && row >= (SEG ? rlo : 0))
-                  ? (uint32_t)__ldg(tbb + (size_t)(SEG ? row - rlo : row) * W + l)
+                  ? (uint32_t)__ldg(TILED ? colp + (size_t)row * tw
+                                          : tbb + (size_t)(SEG ? row - rlo : row) * W + l)
                   : 0u;
   }
 }
@@ -162,22 +182,28 @@ struct RunAcc {
 // the pair's run count into counts [B].  Segment mode: from the cursor in
 // state [4, B] (cur_t, lane, mat, done) over the rows t_lo..t_hi of tb (row
 // 0 is t_lo; pairs tmax_pad rows apart) into ops [B, ops_cols], and the
-// cursor back into state.
-template <bool SEG, bool RUNS>
+// cursor back into state.  Tiled (runs mode only): B pairs whose first rows
+// are order[], the first n_wide of n_tiles * W lanes, in tile rows of W.
+template <bool SEG, bool RUNS, bool TILED = false>
 __device__ __forceinline__ void walk_body(const uint8_t* __restrict__ tb,
                                           const int* __restrict__ qlens,
                                           const int* __restrict__ tlens, uint8_t* __restrict__ ops,
                                           int B, int W, int tmax, int tmax_pad, int* state,
                                           int t_lo, int t_hi, int ops_cols, int* tokens = nullptr,
                                           int* counts = nullptr, int run_max = 0,
-                                          int run_len_max = 0) {
+                                          int run_len_max = 0, const int* order = nullptr,
+                                          int n_wide = 0, int n_tiles = 1) {
   __shared__ uint8_t tiles[WALK_PAIRS_PER_BLOCK][2][WALK_R][WALK_C];
   const int warp = threadIdx.x >> 5;
   const int x = threadIdx.x & 31;
-  const int b = blockIdx.x * WALK_PAIRS_PER_BLOCK + warp;
-  if (b >= B) return;
+  const int slot = blockIdx.x * WALK_PAIRS_PER_BLOCK + warp;
+  if (slot >= B) return;
+  const int b = TILED ? order[slot] : slot;
+  const int tw = W;  // the tiled mode's tile-row width
+  if (TILED && slot < n_wide) W *= n_tiles;  // the pair's lanes
   const int K = W - 1;
-  const uint8_t* tbb = tb + (size_t)b * tmax_pad * W;
+  const uint8_t* tbb = tb + (size_t)b * tmax_pad * tw;
+  const size_t tstride = (size_t)tmax_pad * tw;
   uint8_t* out = RUNS ? nullptr : ops + (size_t)b * (SEG ? ops_cols : tmax + 1);
   int* tok = RUNS ? tokens + (size_t)b * run_max : nullptr;
   RunAcc acc;
@@ -215,7 +241,7 @@ __device__ __forceinline__ void walk_body(const uint8_t* __restrict__ tb,
       if ((unsigned)(ntop - td) >= WALK_R || (unsigned)(lane - nc0) >= WALK_C) {
         ntop = td;  // the prefetched tile misses the cursor: load one around it
         nc0 = lane - min(corner_drift(td, K) / 2 + WALK_C / 2, WALK_C - 1);
-        load_tile<SEG>(next, tbb, ntop, nc0, x, W, t_lo);
+        load_tile<SEG, TILED>(next, tbb, ntop, nc0, x, W, t_lo, tw, tstride);
       }
       __syncwarp();  // every thread has finished reading the buffer replaced now
       uint8_t* t = spare;
@@ -229,7 +255,7 @@ __device__ __forceinline__ void walk_body(const uint8_t* __restrict__ tb,
       uc = lane - c0;
       ntop = top - WALK_R;  // prefetch the rows below
       nc0 = lane - corner_drift(td, K) - corner_drift(ntop, K) / 2 - WALK_C / 2;
-      load_tile<SEG>(next, tbb, ntop, nc0, x, W, t_lo);
+      load_tile<SEG, TILED>(next, tbb, ntop, nc0, x, W, t_lo, tw, tstride);
     }
     if (mat == 0) {
       // thread x looks x diagonal steps ahead.  A step there is taken if the
@@ -328,6 +354,19 @@ __global__ void __launch_bounds__(32 * WALK_PAIRS_PER_BLOCK) nw_walk_runs_kernel
                          counts, run_max, run_len_max);
 }
 
+__global__ void __launch_bounds__(32 * WALK_PAIRS_PER_BLOCK) nw_walk_runs_tiled_kernel(
+    const uint8_t* __restrict__ tb,   // [B, tmax_pad, W] in tile rows
+    const int* __restrict__ qlens,    // [B] per row
+    const int* __restrict__ tlens,    // [B] per row
+    const int* __restrict__ order,    // [n_pairs] first rows: wide, then narrow
+    int* __restrict__ tokens,         // [B, run_max] out, zero-filled
+    int* __restrict__ counts,         // [B] out, zero-filled
+    int n_pairs, int n_wide, int n_tiles, int W, int tmax, int tmax_pad, int run_max,
+    int run_len_max) {
+  walk_body<false, true, true>(tb, qlens, tlens, nullptr, n_pairs, W, tmax, tmax_pad, nullptr, 0, 0,
+                               0, tokens, counts, run_max, run_len_max, order, n_wide, n_tiles);
+}
+
 __global__ void __launch_bounds__(32 * WALK_PAIRS_PER_BLOCK) nw_walk_seg_kernel(
     const uint8_t* __restrict__ tb,   // row t_lo of pair 0; pairs pair_rows rows apart
     int* __restrict__ state,          // [4, B] cursor in and out
@@ -359,6 +398,23 @@ extern "C" int nw_walk_runs_launch(
   nw_walk_runs_kernel<<<blocks, 32 * WALK_PAIRS_PER_BLOCK, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)tb, (const int*)qlens, (const int*)tlens, (int*)tokens, (int*)counts,
       B, W, tmax, tmax_pad, run_max, run_len_max);
+  return (int)cudaGetLastError();
+}
+
+// The tiled runs mode over kernel A's tiled traceback: order [n_pairs] int32
+// first rows, the n_wide wide pairs (n_tiles * W lanes in n_tiles rows)
+// first; tokens [B, run_max] and counts [B] zero-filled by the caller, each
+// pair's on its first row.  Returns the CUDA error code.
+extern "C" int nw_walk_runs_tiled_launch(const void* tb, const void* qlens, const void* tlens,
+                                         const void* order, void* tokens, void* counts, int n_pairs,
+                                         int n_wide, int n_tiles, int W, int tmax, int tmax_pad,
+                                         int run_max, int run_len_max, void* stream) {
+  if (n_pairs <= 0) return (int)cudaSuccess;
+  if (run_max < 1 || run_len_max < 1 || n_tiles < 1) return (int)cudaErrorInvalidValue;
+  const int blocks = (n_pairs + WALK_PAIRS_PER_BLOCK - 1) / WALK_PAIRS_PER_BLOCK;
+  nw_walk_runs_tiled_kernel<<<blocks, 32 * WALK_PAIRS_PER_BLOCK, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)tb, (const int*)qlens, (const int*)tlens, (const int*)order, (int*)tokens,
+      (int*)counts, n_pairs, n_wide, n_tiles, W, tmax, tmax_pad, run_max, run_len_max);
   return (int)cudaGetLastError();
 }
 

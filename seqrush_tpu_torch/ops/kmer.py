@@ -2,8 +2,8 @@
 
 The port of ``seqrush_tpu/ops/kmer.py``:
 
-* bottom-k MinHash (mash) sketches and distances, for orientation calls and
-  band sizing (host numpy);
+* bottom-k MinHash (mash) sketches and distances (one pair, or a batch),
+  for orientation calls and band sizing (host numpy);
 * bucketed k-mer count sketches and their cosine distance matrix, one
   float32 matrix product on the run's device, which the tree, auto and
   connectivity pair schedules and the iterative mode read;
@@ -59,6 +59,21 @@ def mash_sketches(
         h = np.unique(_kmer_codes(codes, k))
         out.append(h[: min(sketch_size, h.size)])  # np.unique sorts
     return out
+
+
+def mash_distance(a: np.ndarray, b: np.ndarray, k: int = 15, sketch_size: int = 512) -> float:
+    """Mash distance d = -ln(2j / (1 + j)) / k of two bottom-k sketches, j
+    the bottom-k merge estimate |A & B & bottom-s(A | B)| / s; 1.0 where a
+    sketch is empty or nothing is shared."""
+    if a.size == 0 or b.size == 0:
+        return 1.0
+    union = np.union1d(a, b)[:sketch_size]
+    inter = np.intersect1d(a, b, assume_unique=True)
+    shared = np.searchsorted(union, inter, side="right") - np.searchsorted(union, inter, side="left")
+    j = float(shared.sum()) / max(union.size, 1)
+    if j <= 0.0:
+        return 1.0
+    return min(max(-np.log(2.0 * j / (1.0 + j)) / k, 0.0), 1.0)
 
 
 def mash_distance_batch(

@@ -89,9 +89,11 @@ from .nw import _i0_of, tmax_pad_of
 LAUNCHES = {"nw_sweep": 0, "nw_sweep_score_only": 0, "nw_walk": 0, "nw_walk_runs": 0,
             "nw_sweep_segment": 0, "nw_sweep_segment_score_only": 0, "nw_walk_segment": 0,
             "wfa": 0, "wfa_score_only": 0, "nw_sweep_int16": 0, "nw_sweep_snapshot": 0,
-            "nw_walk_start": 0, "nw_rows_sweep": 0, "nw_rows_walk": 0}
+            "nw_walk_start": 0, "nw_rows_sweep": 0, "nw_rows_walk": 0, "nw_sweep_tiled": 0,
+            "nw_walk_runs_tiled": 0}
 
-_SOURCES = ("nw_sweep.cu", "nw_sweep_seg.cu", "nw_sweep_snap.cu", "nw_walk.cu", "wfa.cu", "nw_rows.cu")
+_SOURCES = ("nw_sweep.cu", "nw_sweep_seg.cu", "nw_sweep_snap.cu", "nw_sweep_tiled.cu", "nw_walk.cu", "wfa.cu",
+            "nw_rows.cu")
 _HEADERS = ("nw_sweep.cuh",)
 # anti-diagonals per segment of the long-pair route (the JAX package's default)
 LONG_SEG = 2048
@@ -217,6 +219,10 @@ def _library() -> ctypes.CDLL:
             lib.nw_rows_walk_launch.restype = i32
             lib.nw_walk_occupancy.argtypes = [ptr] * 3
             lib.nw_walk_occupancy.restype = i32
+            lib.nw_sweep_tiled_launch.argtypes = [ptr] * 8 + [i32] * 19 + [ptr]
+            lib.nw_sweep_tiled_launch.restype = i32
+            lib.nw_walk_runs_tiled_launch.argtypes = [ptr] * 6 + [i32] * 8 + [ptr]
+            lib.nw_walk_runs_tiled_launch.restype = i32
             lib.wfa_launch.argtypes = [ptr] * 11 + [i32] * 13 + [ptr]
             lib.wfa_launch.restype = i32
             lib.wfa_occupancy.argtypes = [i32] * 2 + [ptr] * 3
@@ -1490,3 +1496,258 @@ def nw_walk_rows_reference(tb, qlens, tlens, *, band, gap_max=None):
     grows = torch.where(valid, gpos, -1).to(torch.int16)
     gvals = torch.where(valid, gaps.gather(1, gpos), 0).to(torch.int16)
     return steps, grows, gvals, has_gap.sum(dim=1).to(torch.int32)
+
+
+# -- band tiling: kernels A and B over tile rows ------------------------------------
+
+
+@dataclass(frozen=True)
+class TiledPlan:
+    """How kernel A's tiled mode covers a dispatch of n_wide wide and n_narrow
+    narrow pairs.  Register route: blocks of n_tiles * warps_per_pair warps,
+    the first n_wide blocks one wide pair each (all its warps), the others
+    n_tiles narrow pairs each (warps_per_pair warps a pair); pair_bytes is a
+    narrow pair's shared memory, smem_bytes the block's.  Wide route (lanes
+    0): one block of `threads` threads a pair, its DP rows in smem_bytes of
+    shared memory, or in a global scratch where smem_bytes is 0."""
+
+    route: str  # "regs" or "wide"
+    lanes: int
+    warps_per_pair: int
+    threads: int
+    pair_bytes: int
+    smem_bytes: int
+    blocks: int
+
+
+def plan_sweep_tiled(n_narrow: int, n_wide: int, W: int, n_tiles: int, Lq: int, Lt: int) -> TiledPlan:
+    """Kernel A's tiled launch: on the register route, the strip whose blocks
+    fit (n_tiles narrow pairs or one wide pair of n_tiles * W lanes, within
+    the strip's launch bound and the shared memory) at the least _sweep_cost
+    of the busiest SM sub-partition; the wide route where none fits or
+    n_tiles * W exceeds REG_MAX_W."""
+    R = n_tiles
+    Ww = R * W
+    best = None
+    if Ww <= REG_MAX_W:
+        for s in sorted(SWEEP_LANES, reverse=True):
+            wpp = -(-W // (32 * s))
+            threads = 32 * wpp * R
+            pair_bytes = pair_smem_bytes(Lq, Lt, W, s, wpp)
+            smem = max(R * pair_bytes, pair_smem_bytes(Lq, Lt, Ww, s, wpp * R))
+            if threads > _MAX_THREADS[s] or smem > _SMEM_OPTIN_BYTES:
+                continue
+            plan = TiledPlan("regs", s, wpp, threads, pair_bytes, smem, n_wide + -(-n_narrow // R))
+            warps_per_sm = -(-plan.blocks // _H100_SMS) * R * wpp
+            cost = -(-warps_per_sm // _SMSPS_PER_SM) * (s + STEP_OVERHEAD_LANES)
+            if best is None or cost < best[0]:
+                best = (cost, plan)
+    return best[1] if best is not None else wide_plan_tiled(n_narrow + n_wide, Ww)
+
+
+def wide_plan_tiled(n_pairs: int, Ww: int) -> TiledPlan:
+    """Kernel A's tiled mode on the wide route: one block a pair, threads for
+    the wide pairs' Ww lanes, the 11 DP rows of Ww int32 in shared memory
+    while they fit, else in a global scratch."""
+    rows = _SWEEP_ROWS * Ww * 4
+    return TiledPlan("wide", 0, 0, min(1024, -(-Ww // 32) * 32), 0,
+                     rows if rows <= _SMEM_OPTIN_BYTES else 0, n_pairs)
+
+
+def tiled_rows(tile, wide, n_tiles: int, band: int, B: int) -> tuple[np.ndarray, np.ndarray]:
+    """Check a tiled dispatch's row layout and return (wide_first,
+    narrow_first), the first rows of its wide and its narrow pairs, int32.
+
+    tile [B] int32 and wide [B] bool are host arrays: a narrow row is a pair
+    at `band` (tile 0); a wide pair at n_tiles * (band + 1) - 1 takes
+    n_tiles consecutive rows with tiles 0 .. n_tiles - 1, its lane l in row
+    first + l // W at lane l % W.  As the JAX package's tiled kernel, this
+    needs W = band + 1 even and n_tiles >= 2."""
+    W = band + 1
+    if W % 2 or n_tiles < 2:
+        raise ValueError(f"band tiling needs W even and n_tiles > 1, got W={W}, n_tiles={n_tiles}")
+    tile = np.asarray(tile, dtype=np.int64)
+    wide = np.asarray(wide, dtype=bool)
+    if tile.shape != (B,) or wide.shape != (B,):
+        raise ValueError(f"tile and wide must have {B} entries")
+    if (tile[~wide] != 0).any() or (tile < 0).any() or (tile >= n_tiles).any():
+        raise ValueError("narrow rows must be tile 0 and wide rows tiles 0 .. n_tiles - 1")
+    wide_first = np.flatnonzero(wide & (tile == 0))
+    rows = wide_first[:, None] + np.arange(n_tiles)[None, :]  # each wide pair's rows
+    if ((rows >= B).any() or wide.sum() != rows.size
+            or (tile[rows] != np.arange(n_tiles)).any()):  # rows < B here (the first test)
+        raise ValueError("each wide pair must take n_tiles consecutive rows, tiles 0 .. n_tiles - 1")
+    return wide_first.astype(np.int32), np.flatnonzero(~wide).astype(np.int32)
+
+
+def _tiled_order(tile, wide, n_tiles, band, B, device) -> tuple[torch.Tensor, int]:
+    """The kernels' pair list on `device`: the wide pairs' first rows, then
+    the narrow ones; and the number of wide pairs."""
+    wide_first, narrow_first = tiled_rows(tile, wide, n_tiles, band, B)
+    order = torch.from_numpy(np.concatenate([wide_first, narrow_first])).to(device)
+    return order, int(wide_first.size)
+
+
+def nw_align_tiled(Q, T, qlens, tlens, tile, wide, *, mismatch, o1, e1, o2, e2, band, n_tiles, tmax,
+                   int16=False):
+    """Kernel A's tiled mode (``csrc/nw_sweep_tiled.cu``; the counterpart of the
+    XLA program ``seqrush_tpu/ops/nw.py::_sweep_tiled``): one launch over a
+    chunk whose narrow pairs run at `band` and whose wide pairs run at
+    n_tiles * (band + 1) - 1, each as the untiled sweep at its own band.
+
+    Q [B, Lq] / T [B, Lt] uint8, qlens, tlens [B] int32 per row (a wide
+    pair's sequences are read from its first row); tile, wide: the row
+    layout (host arrays, tiled_rows).  Returns (scores [B] int32 on each
+    pair's first row, -1 on the other tile rows; tb [B, tmax_pad, W] uint8
+    in the tile-row layout: a wide pair's lane l of anti-diagonal t at
+    [first + l // W, t, l % W])."""
+    device = Q.device
+    _check("Q", Q, torch.uint8, 2, device)
+    _check("T", T, torch.uint8, 2, device)
+    B = Q.shape[0]
+    if T.shape[0] != B:
+        raise ValueError("Q and T must have the same batch size")
+    _check_lengths(qlens, tlens, B, device)
+    kw = dict(mismatch=mismatch, o1=o1, e1=e1, o2=o2, e2=e2, band=band, n_tiles=n_tiles, tmax=tmax,
+              int16=int16)
+    if device.type == "cpu":
+        return nw_align_tiled_reference(Q, T, qlens, tlens, tile, wide, **kw)
+    _require_cuda(device)
+    order, n_wide = _tiled_order(tile, wide, n_tiles, band, B, device)
+    W = band + 1
+    plan = plan_sweep_tiled(order.numel() - n_wide, n_wide, W, n_tiles, Q.shape[1], T.shape[1])
+    if not register_route_penalties(mismatch, o1, e1, o2, e2, int16):
+        plan = wide_plan_tiled(order.numel(), n_tiles * W)
+    return sweep_tiled_launch(Q, T, qlens, tlens, order, n_wide, plan, **kw)
+
+
+def sweep_tiled_launch(Q, T, qlens, tlens, order, n_wide: int, plan: TiledPlan, *, mismatch, o1, e1, o2,
+                       e2, band, n_tiles, tmax, int16=False):
+    """Launch kernel A's tiled mode on checked CUDA tensors: order [n_pairs]
+    int32 holds the wide pairs' first rows, then the narrow pairs'
+    (_tiled_order); plan is plan_sweep_tiled's, or another to compare."""
+    if plan.route == "regs" and not register_route_penalties(mismatch, o1, e1, o2, e2, int16):
+        raise ValueError("the register route takes penalties in [0, 2^16) only "
+                         "(in int16, those whose adds cannot wrap)")
+    device = Q.device
+    B, Lq = Q.shape
+    W = band + 1
+    tmax_pad = tmax_pad_of(tmax)
+    scores = torch.empty(B, dtype=torch.int32, device=device)
+    tb = torch.empty((B, tmax_pad, W), dtype=torch.uint8, device=device)
+    n_pairs = order.numel()
+    if n_pairs == 0:
+        return scores, tb
+    scratch = None
+    if plan.route == "wide" and not plan.smem_bytes:
+        scratch = torch.empty(n_pairs * _SWEEP_ROWS * n_tiles * W, dtype=torch.int32, device=device)
+    lib = _library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.nw_sweep_tiled_launch(
+            Q.data_ptr(), T.data_ptr(), qlens.data_ptr(), tlens.data_ptr(), scores.data_ptr(),
+            tb.data_ptr(), order.data_ptr(), scratch.data_ptr() if scratch is not None else None,
+            n_pairs, n_wide, n_tiles, Lq, T.shape[1], W, tmax, tmax_pad, mismatch, o1, e1, o2, e2,
+            int(int16), plan.lanes, plan.warps_per_pair, plan.pair_bytes, plan.threads, plan.smem_bytes,
+            stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"nw_sweep tiled launch failed with CUDA error {err}")
+    LAUNCHES["nw_sweep_tiled"] += 1
+    return scores, tb
+
+
+def _tile_index(first: np.ndarray, n_tiles: int, device) -> torch.Tensor:
+    """Rows [n, n_tiles] of the wide pairs whose first rows are `first`."""
+    return torch.from_numpy(first.astype(np.int64)[:, None] + np.arange(n_tiles)).to(device)
+
+
+def nw_align_tiled_reference(Q, T, qlens, tlens, tile, wide, *, mismatch, o1, e1, o2, e2, band,
+                             n_tiles, tmax, int16=False):
+    """Plain PyTorch version of kernel A's tiled mode: nw_align_reference on
+    the narrow rows at `band` and on the wide pairs' first rows at
+    n_tiles * (band + 1) - 1, the wide tracebacks laid into their tile
+    rows (the same function: the tiled sweep is each pair's untiled one)."""
+    B = Q.shape[0]
+    W = band + 1
+    dev = Q.device
+    wide_first, narrow_first = tiled_rows(tile, wide, n_tiles, band, B)
+    tp = tmax_pad_of(tmax)
+    scores = torch.full((B,), -1, dtype=torch.int32, device=dev)
+    tb = torch.zeros((B, tp, W), dtype=torch.uint8, device=dev)
+    pen = dict(mismatch=mismatch, o1=o1, e1=e1, o2=o2, e2=e2, tmax=tmax, int16=int16)
+    for rows, k in ((narrow_first, band), (wide_first, n_tiles * W - 1)):
+        if not rows.size:
+            continue
+        idx = torch.from_numpy(rows.astype(np.int64)).to(dev)
+        s, t = nw_align_reference(Q[idx], T[idx], qlens[idx], tlens[idx], band=k, **pen)
+        scores[idx] = s
+        if k == band:
+            tb[idx] = t
+        else:  # [n, tp, R * W] -> the tile rows [n, R, tp, W]
+            tb[_tile_index(rows, n_tiles, dev)] = t.view(-1, tp, n_tiles, W).permute(0, 2, 1, 3)
+    return scores, tb
+
+
+def nw_walk_runs_tiled(tb, qlens, tlens, tile, wide, *, band, n_tiles, tmax, run_max, run_len_max=None):
+    """Kernel B's tiled runs mode (``csrc/nw_walk.cu``; the counterpart of the
+    XLA program ``seqrush_tpu/ops/nw.py::_tb_scan_tiled``): nw_walk_runs over
+    nw_align_tiled's traceback, each pair walked once at its own band from
+    its tile rows.  Returns (tokens [B, run_max], counts [B]) int32 on each
+    pair's first row, zero on the other tile rows."""
+    device = tb.device
+    _check("tb", tb, torch.uint8, 3, device)
+    B = tb.shape[0]
+    _check_lengths(qlens, tlens, B, device)
+    W = band + 1
+    if tb.shape[2] != W or tb.shape[1] < tmax + 1:
+        raise ValueError(f"tb shape {tuple(tb.shape)} does not fit band {band}, tmax {tmax}")
+    run_len_max = nw._RUN_LEN_MAX if run_len_max is None else int(run_len_max)
+    if not nw.runs_fit(tmax):
+        raise ValueError(f"run tokens need tmax + 4 < 2^15, got tmax {tmax}")
+    if run_max < 1 or not 1 <= run_len_max <= nw._RUN_LEN_MAX:
+        raise ValueError(f"run_max must be >= 1 and run_len_max in [1, {nw._RUN_LEN_MAX}]")
+    kw = dict(band=band, n_tiles=n_tiles, tmax=tmax, run_max=run_max, run_len_max=run_len_max)
+    if device.type == "cpu":
+        return nw_walk_runs_tiled_reference(tb, qlens, tlens, tile, wide, **kw)
+    _require_cuda(device)
+    order, n_wide = _tiled_order(tile, wide, n_tiles, band, B, device)
+    tokens = torch.zeros((B, run_max), dtype=torch.int32, device=device)
+    counts = torch.zeros(B, dtype=torch.int32, device=device)
+    if order.numel() == 0:
+        return tokens, counts
+    lib = _library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.nw_walk_runs_tiled_launch(
+            tb.data_ptr(), qlens.data_ptr(), tlens.data_ptr(), order.data_ptr(), tokens.data_ptr(),
+            counts.data_ptr(), order.numel(), n_wide, n_tiles, W, tmax, tb.shape[1], run_max, run_len_max,
+            stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"nw_walk tiled runs launch failed with CUDA error {err}")
+    LAUNCHES["nw_walk_runs_tiled"] += 1
+    return tokens, counts
+
+
+def nw_walk_runs_tiled_reference(tb, qlens, tlens, tile, wide, *, band, n_tiles, tmax, run_max,
+                                 run_len_max=None):
+    """Plain PyTorch version of kernel B's tiled runs mode:
+    nw_walk_runs_reference on the narrow rows at `band` and on each wide
+    pair's tile rows put back side by side, at n_tiles * (band + 1) - 1."""
+    B, tp, W = tb.shape
+    dev = tb.device
+    wide_first, narrow_first = tiled_rows(tile, wide, n_tiles, band, B)
+    tokens = torch.zeros((B, run_max), dtype=torch.int32, device=dev)
+    counts = torch.zeros(B, dtype=torch.int32, device=dev)
+    kw = dict(tmax=tmax, run_max=run_max, run_len_max=run_len_max)
+    for rows, k in ((narrow_first, band), (wide_first, n_tiles * W - 1)):
+        if not rows.size:
+            continue
+        idx = torch.from_numpy(rows.astype(np.int64)).to(dev)
+        if k == band:
+            tbk = tb[idx]
+        else:  # the tile rows [n, R, tp, W] -> [n, tp, R * W]
+            tbk = tb[_tile_index(rows, n_tiles, dev)].permute(0, 2, 1, 3).reshape(-1, tp, n_tiles * W)
+        tokens[idx], counts[idx] = nw_walk_runs_reference(tbk, qlens[idx], tlens[idx], band=k, **kw)
+    return tokens, counts

@@ -11,6 +11,10 @@ deterministic operations (the counterparts of ``seqrush_tpu/ops/unionfind.py``):
 * ``compress(parent)`` -- ``parent = parent[parent]`` until a fixpoint;
   afterwards ``parent[i]`` is the representative of i.
 
+``find``, ``count_components``, ``BidirectedUnionFind`` (the reference's
+stateful API over those bulk operations) and ``match_region_pairs`` are the
+rest of the JAX module's surface.
+
 Capacity is ``2 * total_length + 2`` so raw Pos values (offset << 1 | orient)
 index directly.  Each loop reads one flag back to the host per round.
 """
@@ -78,3 +82,88 @@ def count_components_fast(parent, n_valid: int) -> int:
         return int((parent[:n_valid] == np.arange(n_valid, dtype=parent.dtype)).sum())
     p = parent[:n_valid]
     return int((p == torch.arange(n_valid, dtype=p.dtype, device=p.device)).sum())
+
+
+def find(parent: torch.Tensor, pos) -> torch.Tensor:
+    """Representatives of pos for any (possibly uncompressed) parent array."""
+    r = _as_index(pos, parent.device)
+    while True:
+        r2 = parent[r].long()
+        if torch.equal(r2, r):
+            return r2.to(torch.int32)
+        r = r2
+
+
+def count_components(parent: torch.Tensor, total_length: int | None = None) -> int:
+    """Number of distinct components over forward positions (the even slots,
+    the first total_length of them when given)."""
+    roots = compress(parent)[::2]
+    if total_length is not None:
+        roots = roots[:total_length]
+    return int(torch.unique(roots).numel())
+
+
+class BidirectedUnionFind:
+    """The reference's stateful union-find API over the bulk operations: a
+    parent array of 2 * max_offset + 2 slots on `device`, always compressed
+    after a unite."""
+
+    def __init__(self, max_offset: int, device: str | torch.device = "cuda"):
+        self.capacity = (max_offset << 1) + 2
+        self.parent = create(self.capacity, device)
+
+    def unite_batch(self, u, v) -> None:
+        self.parent = unite_edges(self.parent, u, v)
+
+    def roots(self) -> np.ndarray:
+        return self.parent.cpu().numpy()
+
+    def unite(self, pos1: int, pos2: int) -> None:
+        if pos1 != pos2:
+            self.unite_batch(np.array([pos1]), np.array([pos2]))
+
+    def find(self, pos: int) -> int:
+        return int(self.parent[pos])
+
+    def same(self, pos1: int, pos2: int) -> bool:
+        return pos1 == pos2 or int(self.parent[pos1]) == int(self.parent[pos2])
+
+    def pre_unite_orientations(self, total_length: int) -> None:
+        """Unite (i, F) with (i, R) for every offset."""
+        i = np.arange(total_length, dtype=np.int64)
+        self.unite_batch(i << 1, (i << 1) | 1)
+
+    def unite_matching_region(self, seq1_offset: int, seq2_offset: int, seq1_local_start: int,
+                              seq2_local_start: int, match_length: int, seq1_is_rc: bool,
+                              seq1_len: int) -> None:
+        """Unite one match run, the query possibly reverse-complemented."""
+        self.unite_batch(*match_region_pairs(seq1_offset, seq2_offset, seq1_local_start, seq2_local_start,
+                                             match_length, seq1_is_rc, seq1_len))
+
+    def unite_matching_region_seq2_rc(self, seq1_offset: int, seq2_offset: int, seq1_local_start: int,
+                                      seq2_local_start: int, match_length: int, seq2_is_rc: bool,
+                                      seq2_len: int) -> None:
+        """Unite one match run, the target possibly reverse-complemented."""
+        i = np.arange(match_length, dtype=np.int64)
+        pos1 = (np.int64(seq1_offset + seq1_local_start) + i) << 1
+        if seq2_is_rc:
+            rc_pos = np.int64(seq2_len - 1) - (np.int64(seq2_local_start) + i)
+            pos2 = ((np.int64(seq2_offset) + rc_pos) << 1) | 1
+        else:
+            pos2 = (np.int64(seq2_offset + seq2_local_start) + i) << 1
+        self.unite_batch(pos1, pos2)
+
+
+def match_region_pairs(seq1_offset: int, seq2_offset: int, seq1_local_start: int, seq2_local_start: int,
+                       match_length: int, seq1_is_rc: bool, seq1_len: int) -> tuple[np.ndarray, np.ndarray]:
+    """One match run as per-base Pos pairs: forward (q_off + qs + i, F) with
+    (t_off + ts + i, F); with the query reverse-complemented, its RC-local
+    base maps back to fwd = len - 1 - rc: (q_off + len - 1 - (qs + i), R)."""
+    i = np.arange(match_length, dtype=np.int64)
+    pos2 = (np.int64(seq2_offset + seq2_local_start) + i) << 1
+    if seq1_is_rc:
+        fwd_local = np.int64(seq1_len - 1) - (np.int64(seq1_local_start) + i)
+        pos1 = ((np.int64(seq1_offset) + fwd_local) << 1) | 1
+    else:
+        pos1 = (np.int64(seq1_offset + seq1_local_start) + i) << 1
+    return pos1, pos2

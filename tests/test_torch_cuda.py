@@ -1,4 +1,4 @@
-"""Kernels A and B (their runs, int16, snapshot and start modes too), the
+"""Kernels A and B (their runs, int16, snapshot, start and tiled modes too), the
 row-major kernels C and D and the wavefront kernel on the card against their
 plain versions, and the pipeline on cuda against cpu.  Marked ``cuda``; each test skips without a
 CUDA device.  This file imports nothing of JAX, so it runs where JAX is not
@@ -538,7 +538,7 @@ def test_long_route_launches_and_equals_single_shot(cuda):
                                 "nw_sweep_segment_score_only": n_seg, "nw_walk_segment": n_seg,
                                 "wfa": 0, "wfa_score_only": 0, "nw_sweep_int16": 0,
                                 "nw_sweep_snapshot": 0, "nw_walk_start": 0, "nw_rows_sweep": 0,
-                                "nw_rows_walk": 0}
+                                "nw_rows_walk": 0, "nw_sweep_tiled": 0, "nw_walk_runs_tiled": 0}
     s_one, tb = nw_cuda.nw_align(Q, T, ql, tl, tmax=tmax, **kw)
     ops_one = nw_cuda.nw_walk(tb, ql, tl, band=255, tmax=tmax)
     assert torch.equal(scores, s_one)
@@ -981,3 +981,121 @@ def test_rows_walk_gap_caps_equal_plain(cuda, gap_max):
     for a, b in zip(walk_k, walk_p):
         assert torch.equal(a, b)
     assert (walk_k[3] > gap_max).any()
+
+
+# -- band tiling: kernel A's tiled mode and kernel B's tiled runs mode
+
+
+def _tiled_batch(rng, band, R, n_narrow, n_wide, L):
+    """n_narrow variant pairs and n_wide inversion-carrying ones of length
+    ~L in the tiled row layout (narrow rows, then R rows a wide pair, wide
+    rows holding their pair), plus a zero-length padding row."""
+    qs, ts = _variants(rng, n_narrow + n_wide + 1, L, band, 0.3)
+    qs, ts = qs[:-1], ts[:-1]
+    order = list(range(0, n_narrow + n_wide, 2)) + list(range(1, n_narrow + n_wide, 2))
+    narrow, wide = order[:n_narrow], order[n_narrow:]  # the inversion carriers are odd
+    rows = [(k, 0) for k in narrow] + [(k, r) for k in wide for r in range(R)] + [(None, 0)]
+    rq = [qs[k] if k is not None else np.zeros(0, np.uint8) for k, _r in rows]
+    rt = [ts[k] if k is not None else np.zeros(0, np.uint8) for k, _r in rows]
+    tile = np.array([r for _k, r in rows], np.int32)
+    is_wide = np.array([k in wide for k, _r in rows])
+    return rq, rt, tile, is_wide
+
+
+@pytest.mark.parametrize(
+    "band,R,int16,pen",
+    [
+        (63, 2, False, (5, 8, 2, 24, 1)),
+        (63, 3, True, (5, 8, 2, 24, 1)),
+        (63, 4, False, (5, 8, 2, -1, -1)),  # one-piece
+        (101, 2, True, (5, 8, 2, 24, 1)),  # W 102: strips and walk windows cross tile rows
+        (101, 3, False, (5, 8, 2, 24, 1)),
+        (101, 4, True, (5, 8, 2, 24, 1)),
+        (511, 3, False, (5, 8, 2, 24, 1)),  # the headline's merge: 512 and 1536 lanes
+        (101, 3, True, (5, 8, 2, 3000, 1)),  # int16 adds that wrap: the wide route
+        (1099, 4, True, (5, 8, 2, 24, 1)),  # 4400 lanes: the wide route
+    ],
+)
+def test_tiled_kernels_equal_plain(cuda, band, R, int16, pen):
+    """Kernel A's tiled mode (scores, the whole tile-row traceback) and
+    kernel B's tiled runs mode (tokens, counts) exactly their plain
+    versions', each launched once."""
+    rng = np.random.default_rng(band * 10 + R)
+    L = 3 * (band + 1) if band < 500 else 1400
+    qs, ts, tile, is_wide = _tiled_batch(rng, band, R, 5, 3, L)
+    (Q, T, ql, tl), tmax = _pack(qs, ts, cuda)
+    kw = dict(zip(("mismatch", "o1", "e1", "o2", "e2"), pen), band=band, n_tiles=R, tmax=tmax, int16=int16)
+    before = dict(nw_cuda.LAUNCHES)
+    s_k, tb_k = nw_cuda.nw_align_tiled(Q, T, ql, tl, tile, is_wide, **kw)
+    lay = dict(band=band, n_tiles=R, tmax=tmax, run_max=64)
+    tok_k, cnt_k = nw_cuda.nw_walk_runs_tiled(tb_k, ql, tl, tile, is_wide, **lay)
+    torch.cuda.synchronize()
+    assert nw_cuda.LAUNCHES["nw_sweep_tiled"] == before["nw_sweep_tiled"] + 1
+    assert nw_cuda.LAUNCHES["nw_walk_runs_tiled"] == before["nw_walk_runs_tiled"] + 1
+    s_p, tb_p = nw_cuda.nw_align_tiled_reference(Q, T, ql, tl, tile, is_wide, **kw)
+    assert torch.equal(s_k, s_p)
+    assert torch.equal(tb_k, tb_p)
+    tok_p, cnt_p = nw_cuda.nw_walk_runs_tiled_reference(tb_k, ql, tl, tile, is_wide, **lay)
+    assert torch.equal(tok_k, tok_p) and torch.equal(cnt_k, cnt_p)
+    first = torch.from_numpy((tile == 0) & (np.arange(len(tile)) < len(tile) - 1)).to(cuda)
+    assert bool((cnt_k[first] > 0).all())
+    # int16 adds past 32,767 wrap, as the JAX package's do: negative scores there
+    assert bool((s_k[first] >= 0).all()) == (not int16 or pen[3] < 3000)
+
+
+@pytest.mark.parametrize("lanes", [8, 12, 16])
+def test_tiled_sweep_every_strip_equals_plain(cuda, lanes):
+    """Kernel A's tiled mode at each lanes-per-thread shape that fits the
+    headline's merge (W 512, 3 tiles; 4 lanes would need 384 threads, over
+    that strip's 128-thread bound), against the plain version."""
+    rng = np.random.default_rng(lanes)
+    band, R = 511, 3
+    qs, ts, tile, is_wide = _tiled_batch(rng, band, R, 4, 2, 1200)
+    (Q, T, ql, tl), tmax = _pack(qs, ts, cuda)
+    wpp = -(-(band + 1) // (32 * lanes))
+    threads = 32 * wpp * R
+    assert threads <= nw_cuda._MAX_THREADS[lanes]
+    pair_bytes = nw_cuda.pair_smem_bytes(Q.shape[1], T.shape[1], band + 1, lanes, wpp)
+    smem = max(R * pair_bytes, nw_cuda.pair_smem_bytes(Q.shape[1], T.shape[1], R * (band + 1), lanes, wpp * R))
+    order, n_wide = nw_cuda._tiled_order(tile, is_wide, R, band, len(tile), cuda)
+    plan = nw_cuda.TiledPlan("regs", lanes, wpp, threads, pair_bytes, smem, 0)
+    kw = dict(mismatch=5, o1=8, e1=2, o2=24, e2=1, band=band, n_tiles=R, tmax=tmax)
+    s_k, tb_k = nw_cuda.sweep_tiled_launch(Q, T, ql, tl, order, n_wide, plan, **kw)
+    torch.cuda.synchronize()
+    s_p, tb_p = nw_cuda.nw_align_tiled_reference(Q, T, ql, tl, tile, is_wide, **kw)
+    assert torch.equal(s_k, s_p) and torch.equal(tb_k, tb_p)
+
+
+def test_tiled_runner_equals_untiled(cuda):
+    """WfaAligner(band_tiling='auto') on the card: at least one tiled chunk,
+    the records of the untiled run."""
+    from seqrush_tpu_torch.align.pairs import all_ordered_pairs
+    from seqrush_tpu_torch.align.runner import RunnerConfig, WfaAligner
+    from seqrush_tpu_torch.scores import AlignmentScores
+    from seqrush_tpu_torch.sequences import make_sequence_set
+
+    # tests/test_tiled.py's _bench_like_seqs(): 2% SNPs, the last one inverted
+    rng = np.random.default_rng(7)
+    base = rng.integers(0, 4, 900).astype(np.uint8)
+    codes = [base]
+    for k in range(1, 8):
+        s = base.copy()
+        for p in rng.integers(0, 900, 18):
+            s[p] = rng.integers(0, 4)
+        if k == 7:
+            s[300:600] = (3 - s[300:600])[::-1]
+        codes.append(s)
+    named = [(f"s{k}", np.frombuffer(b"ACGT", np.uint8)[c].tobytes()) for k, c in enumerate(codes)]
+    pairs = all_ordered_pairs(8)
+
+    def run(tiling):
+        cfg = RunnerConfig(scores=AlignmentScores.parse("0,5,8,2,24,1"), band_tiling=tiling,
+                           memory_budget_bytes=int(70e6))
+        al = WfaAligner(make_sequence_set(named), cfg, device="cuda")
+        res = al.align_pairs(pairs)
+        return al, [(r.query_idx, r.target_idx, r.is_reverse, r.score, r.cigar_string) for r in res]
+
+    on, res_on = run("auto")
+    off, res_off = run("off")
+    assert on.stats["tiled_chunks"] >= 1 and off.stats["tiled_chunks"] == 0
+    assert res_on == res_off

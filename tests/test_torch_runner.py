@@ -102,7 +102,13 @@ def test_runner_forced_orientation_and_divergence_cap():
     assert port.stats["dropped"] == 2
 
 
-@pytest.mark.parametrize("option", [dict(band_tiling="auto")])
-def test_unported_options_raise(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-        WfaAligner(make_sequence_set(_nw_corpus()), RunnerConfig(**option), device="cpu")
+@pytest.mark.parametrize("value", ["off", "auto", "on"])
+def test_band_tiling_values(value):
+    """band_tiling takes 'off' and 'auto' (tests/test_torch_tiled.py runs it);
+    anything else raises, as the port's other options do."""
+    cfg = RunnerConfig(band_tiling=value)
+    if value == "on":
+        with pytest.raises(ValueError, match="band_tiling"):
+            WfaAligner(make_sequence_set(_nw_corpus()), cfg, device="cpu")
+    else:
+        assert WfaAligner(make_sequence_set(_nw_corpus()), cfg, device="cpu").cfg.band_tiling == value
