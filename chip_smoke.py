@@ -114,7 +114,15 @@ Phases (any failure exits non-zero and prints no ok line):
      phase 9's tiled and tiled_int16 runs; on the merged chunk the tiled
      sweep and walk timed against the same pairs split as the untiled
      runner splits them; the phase's wall time;
- 11. prints {"kernels": [...]}, the nvidia-smi line, and last
+ 11. the mesh paths on the one card, D shards placed by Mesh([cuda:0] * D)
+     (see run_phase11): a ~24 kb pair with an 8 kb translocation, over the
+     default memory budget, through the band-sharded route (kernel A's
+     sharded mode) against the run without a mesh, the sharded mode against
+     its plain version and timed for D = 1, 2, 4, 8; the 600 pairs under
+     meshes of 1, 2 and 4 shards (records equal); the sharded align + unite
+     step for D = 1, 2, 4, 8; two processes joined by gloo on the headline
+     FASTA with --no-sort (DEFAULT_GFA_SHA256 on both);
+ 12. prints {"kernels": [...]}, the nvidia-smi line, and last
      {"ok": true, "device": {...}}.
 
 Bounds: the least time the card could take for the same work, the larger
@@ -182,7 +190,12 @@ kernel could reach.  A segment launch is charged
 the same instructions for the cells its pairs need in its anti-diagonals,
 its traceback rows [B, seg, W] (full mode), the carry read and written (2 x
 24 bytes a lane) and its windows of the operands; a segment walk its steps,
-its opcode columns [B, seg] and the cursor.
+its opcode columns [B, seg] and the cursor.  The sharded mode (the JAX
+package's unclamped recurrence, no validity) needs per cell the sweep's
+instructions without the validity and the five clamps: 30 instructions, 6
+of them minima (SHARD_OPS_PER_CELL), at the issue rate, and writes its
+strips whole; its handover of one column a step is latency, which no bound
+of bytes or instructions sees.
 """
 
 from __future__ import annotations
@@ -509,6 +522,10 @@ def ptxas_summary(log: str) -> list[str]:
                          f"{', snapshot' if wide.group(3) == '1' else ''}>")
             elif name == "nw_sweep_tiled_wide" and w:
                 name += f"<{'int16' if w.group(1) == '1' else 'int32'}>"
+            elif name == "nw_sweep_shard" and re.match(r"ILb([01])ELb([01])E", rest):
+                sh = re.match(r"ILb([01])ELb([01])E", rest)
+                name += (f"<{'two' if sh.group(1) == '1' else 'one'}-piece, "
+                         f"{'system' if sh.group(2) == '1' else 'device'} scope>")
             elif name == "wfa_kernel" and w:
                 name += f"<{'two' if w.group(1) == '1' else 'one'}-piece>"
             elif t:
@@ -1022,6 +1039,7 @@ def run(work: Path, name: str, smi: str, ptxas: list[str]) -> int:
     ctx9 = {"named": named, "pairs": pairs, "scores": scores, "pen": pen}
     out.extend(run_phase9(smi, ptxas, ctx9))
     out.extend(run_phase10(smi, ptxas, ctx9))
+    out.extend(run_phase11(work, smi, ptxas, ctx9))
     print(json.dumps({"kernels": out}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -2297,6 +2315,317 @@ def run_phase10(smi: str, ptxas: list[str], ctx: dict) -> list[dict]:
            "nw_walk_runs_tiled": "seqrush_tpu_torch/ops/csrc/nw_walk.cu"}
     return [{"name": k, "route": "cuda", "source": src[k], "replaces": replaces[k], "library_ms": None, **v,
              "tolerance": 0} for k, v in out.items()]
+
+SHARD_OPS_PER_CELL = 30
+SHARD_MIN_OPS_PER_CELL = 6
+SHARD_PHASE_LIMIT_S = 480  # phase 11's wall-clock limit: a hang fails the run
+MESH_SIZES = (1, 2, 4, 8)
+
+
+def translocation_pair(seed=23, flank=4000, block=8000, snp_rate=0.005):
+    """Two ~24 kb haplotypes that differ by a balanced translocation of an
+    8 kb block (q = A X B C, t = A B X C, |A| = |C| = 4 kb, |X| = |B| = 8
+    kb) and 0.5% SNPs on t: the optimal path leaves the main diagonal by 8
+    kb, so its certified band is wide and its traceback exceeds the default
+    2.6e9-byte budget (phase 11a)."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    A, X, B, C = (acgt[rng.integers(0, 4, n)] for n in (flank, block, block, flank))
+    q = np.concatenate([A, X, B, C])
+    t = np.concatenate([A, B, X, C])
+    hit = rng.random(t.size) < snp_rate
+    t[hit] = acgt[rng.integers(0, 4, int(hit.sum()))]
+    return [("hapA", q.tobytes()), ("hapB", t.tobytes())]
+
+
+def cigar_cost(items, q: np.ndarray, t: np.ndarray, pen: dict) -> int:
+    """The cost of CIGAR items under two-piece penalties; fails unless the
+    CIGAR consumes both sequences and its '=' / 'X' runs are right."""
+    qi = ti = cost = 0
+
+    def gap(n):
+        return min(pen["o1"] + n * pen["e1"], pen["o2"] + n * pen["e2"])
+
+    for n, op in items:
+        if op in "=X":
+            if not np.all((q[qi : qi + n] == t[ti : ti + n]) == (op == "=")):
+                raise AssertionError(f"a {op} run does not match the bases at q {qi}, t {ti}")
+            cost += n * pen["mismatch"] * (op == "X")
+            qi, ti = qi + n, ti + n
+        elif op == "I":
+            cost, qi = cost + gap(n), qi + n
+        elif op == "D":
+            cost, ti = cost + gap(n), ti + n
+        else:
+            raise AssertionError(f"bad op {op}")
+    if qi != q.size or ti != t.size:
+        raise AssertionError(f"the CIGAR consumes {qi}/{q.size} and {ti}/{t.size} bases")
+    return cost
+
+
+def run_phase11(work: Path, smi: str, ptxas: list[str], ctx: dict) -> list[dict]:
+    """11. The mesh paths on the one card, shards placed by Mesh([cuda:0] * D).
+
+    11a. translocation_pair() through WfaAligner(wide_route='full') without a
+         mesh and under Mesh([cuda:0] * 2), the launch counters reset just
+         before and read just after the mesh run: the pair's job exceeds the
+         default memory budget, so under the mesh it takes the band-sharded
+         route (band_sharded >= 1, nw_sweep_sharded launched); its score
+         equals the no-mesh run's, its CIGAR is valid and costs the score,
+         and equals the CIGAR of kernel A single-shot at the route's band
+         walked on the host (traceback_pair), and the no-mesh run's where
+         that run's band is the same.  Kernel A's sharded mode against its
+         plain version on the card: at the route's shape (D = 2, the plain
+         version once) and on a 4 kb piece of the two haplotypes at band
+         2,047 for D = 2, 4 and 8 (with a zero-length row), exactly.
+         CUDA-event medians of the sharded sweep at the full pair for D = 1,
+         2, 4 and 8 at one band, its microseconds per anti-diagonal and its
+         bound, and of kernel A single-shot at that band;
+    11b. the headline's 600 pairs through WfaAligner without a mesh and under
+         Mesh([cuda:0] * D), D = 1, 2, 4, in turns (none, 1, 2, 4, 4, 2, 1,
+         none): the records' sha256 equal, every chunk split D ways; the
+         runner's seconds of each;
+    11c. parallel.mesh.distributed_align_unite on B = 256 pairs (one SNP
+         each, tests/test_multidevice.py's workload at L 256) for D = 1, 2,
+         4, 8: scores and parent arrays equal across D, the wavefront
+         kernel's score-only mode launched; the step's seconds;
+    11d. two processes on cuda:0 joined by gloo (parallel/distributed.py,
+         tests/torch_multihost_worker.py) on the headline FASTA with
+         --no-sort: both GFA files must have DEFAULT_GFA_SHA256; the wall
+         time.
+    A watchdog ends the run (exit 3) if the phase passes SHARD_PHASE_LIMIT_S.
+    Returns the kernels line's entry of nw_sweep_sharded."""
+    import os
+    import threading
+
+    from seqrush_tpu_torch.align.runner import RunnerConfig, WfaAligner
+    from seqrush_tpu_torch.ops import nw, nw_cuda, wfa
+    from seqrush_tpu_torch.ops import unionfind as uf
+    from seqrush_tpu_torch.parallel.bandshard import band_for_mesh
+    from seqrush_tpu_torch.parallel.mesh import Mesh, distributed_align_unite
+    from seqrush_tpu_torch.sequences import make_sequence_set
+
+    def expire():
+        print(f"chip_smoke: phase 11 passed its {SHARD_PHASE_LIMIT_S} s limit", file=sys.stderr, flush=True)
+        os._exit(3)
+
+    watchdog = threading.Timer(SHARD_PHASE_LIMIT_S, expire)
+    watchdog.daemon = True
+    watchdog.start()
+    t_phase = time.time()
+    dev = torch.device("cuda", 0)
+    named, pairs, scores, pen = ctx["named"], ctx["pairs"], ctx["scores"], ctx["pen"]
+
+    def shard_bounds(Q, T, ql, tl, W, tb_numel):
+        cells = int(((ql + tl).to(torch.int64) * W).sum().item())
+        nbytes = Q.numel() + T.numel() + 8 * Q.shape[0] + 4 * Q.shape[0] + tb_numel
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        o_ms = cells * max(SHARD_OPS_PER_CELL / ISSUE_OPS_PER_S, SHARD_MIN_OPS_PER_CELL / ALU_OPS_PER_S) * 1e3
+        return b_ms, o_ms
+
+    # 11a. the band-sharded route
+    tr = translocation_pair()
+    seqs_tr = make_sequence_set(tr)
+    one = np.array([[0, 1]])
+    cfg = dict(scores=scores, wide_route="full")
+    t0 = time.time()
+    al_plain = WfaAligner(seqs_tr, RunnerConfig(**cfg), device=dev)
+    (r_plain,) = al_plain.align_pairs(one)
+    torch.cuda.synchronize()
+    plain_s = time.time() - t0
+    plain_bands = [d["band"] for d in al_plain.stats["dispatches"]]
+    nw_cuda.reset_launch_counts()
+    t0 = time.time()
+    al_mesh = WfaAligner(seqs_tr, RunnerConfig(mesh=Mesh([dev] * 2), **cfg), device=dev)
+    (r_mesh,) = al_mesh.align_pairs(one)
+    torch.cuda.synchronize()
+    mesh_s = time.time() - t0
+    launches_mesh = dict(nw_cuda.LAUNCHES)
+    shard_d = [d for d in al_mesh.stats["dispatches"] if d["kind"] == "band_shard"]
+    q, t = al_mesh.codes[0], al_mesh.codes[1]
+    cost = cigar_cost(r_mesh.cigar, q, t, pen)
+    print(f"band-shard route, 2 x {q.size} bp translocation pair, wide_route='full': without a mesh "
+          f"score {r_plain.score} at bands {plain_bands} in {plain_s:.3f} s; under Mesh([cuda:0] * 2) score "
+          f"{r_mesh.score} (CIGAR cost {cost}), band_sharded {al_mesh.stats['band_sharded']}, band escalations "
+          f"{al_mesh.stats['band_escalations']}, dispatches {json.dumps([[d['kind'], d['B'], d['band'], d['tmax']] for d in al_mesh.stats['dispatches']])} "
+          f"in {mesh_s:.3f} s; launches {json.dumps({k: v for k, v in launches_mesh.items() if v})}")
+    if al_mesh.stats["band_sharded"] < 1 or launches_mesh["nw_sweep_sharded"] < 1 or not shard_d:
+        raise AssertionError("the over-budget pair did not take the band-sharded route")
+    if r_mesh.score != r_plain.score or cost != r_mesh.score or r_mesh.is_reverse != r_plain.is_reverse:
+        raise AssertionError("the band-sharded route's score differs from the run without a mesh")
+    band = shard_d[-1]["band"]
+    tmax = shard_d[-1]["tmax"]
+    same_band = plain_bands[-1] == band
+    print(f"  CIGAR equal to the no-mesh run's {r_mesh.cigar == r_plain.cigar} (its last band {plain_bands[-1]}, "
+          f"the route's {band})")
+    if same_band and r_mesh.cigar != r_plain.cigar:
+        raise AssertionError("at the same band the band-sharded route's CIGAR differs from the no-mesh run's")
+
+    Qf, Tf = (torch.from_numpy(x[None, :].copy()).to(dev) for x in (q, t))
+    qlf, tlf = (torch.tensor([x.size], dtype=torch.int32, device=dev) for x in (q, t))
+    kw = dict(band=band, tmax=tmax, **pen)
+    # the route's shape against the plain version (once: its step loop is slow)
+    s_k, strips_k = nw_cuda.nw_align_sharded([dev] * 2, Qf, Tf, qlf, tlf, **kw)
+    plain_ms, (s_p, strips_p) = once_ms(
+        lambda: nw_cuda.nw_align_sharded_reference(Qf, Tf, qlf, tlf, n_shards=2, **kw))
+    err_full = max([max_abs_err(s_k, s_p)] + [max_abs_err(a, b) for a, b in zip(strips_k, strips_p)])
+    del strips_p
+    # kernel A single-shot at the route's band: its walk gives the route's CIGAR
+    s_a, tb_a = nw_cuda.nw_align(Qf, Tf, qlf, tlf, **kw)
+    items = nw.resolve_matches(nw.traceback_pair(tb_a[0].cpu().numpy(), q.size, t.size, band), q, t)
+    del tb_a
+    print(f"  sharded mode at the route's shape [B 1, W {band + 1}, 2 shards, tmax {tmax}]: max_abs_err "
+          f"{err_full} against the plain version ({plain_ms:.1f} ms); kernel A single-shot score {int(s_a[0])}, "
+          f"its CIGAR equal to the route's {items == r_mesh.cigar}")
+    if err_full or int(s_a[0]) != r_mesh.score or items != r_mesh.cigar:
+        raise AssertionError("the sharded mode disagrees with its plain version or with kernel A")
+
+    # a 4 kb piece at band 2,047, D = 2, 4, 8, against the plain version
+    lo, hi = 2000, 6000
+    piece = [(q[lo:hi], t[lo:hi]), (np.zeros(0, np.uint8), np.zeros(0, np.uint8))]
+    Qp = torch.full((2, hi - lo), nw.QPAD, dtype=torch.uint8)
+    Tp = torch.full((2, hi - lo), nw.TPAD, dtype=torch.uint8)
+    Qp[0], Tp[0] = torch.from_numpy(piece[0][0].copy()), torch.from_numpy(piece[0][1].copy())
+    Qp, Tp = Qp.to(dev), Tp.to(dev)
+    qlp = torch.tensor([hi - lo, 0], dtype=torch.int32, device=dev)
+    tlp = qlp.clone()
+    kwp = dict(band=2047, tmax=8192, **pen)
+    piece_checked = []
+    for D in (2, 4, 8):
+        s_k, st_k = nw_cuda.nw_align_sharded([dev] * D, Qp, Tp, qlp, tlp, **kwp)
+        p_ms, (s_p, st_p) = once_ms(lambda: nw_cuda.nw_align_sharded_reference(Qp, Tp, qlp, tlp, n_shards=D, **kwp))
+        err = max([max_abs_err(s_k, s_p)] + [max_abs_err(a, b) for a, b in zip(st_k, st_p)])
+        piece_checked.append({"D": D, "max_abs_err": err, "scores": s_k.tolist(), "plain_ms": p_ms,
+                              "ms": cuda_ms(lambda: nw_cuda.nw_align_sharded([dev] * D, Qp, Tp, qlp, tlp, **kwp),
+                                            REPS)})
+        if err:
+            raise AssertionError(f"the sharded mode disagrees with its plain version at D = {D} on the piece")
+    print(f"  4 kb piece [B 2, W 2048, tmax 8192] against the plain version: {json.dumps(piece_checked)}")
+
+    # the full pair at one band for every D, and kernel A single-shot there
+    band8 = band_for_mesh(band, 8)
+    kw8 = dict(band=band8, tmax=tmax, **pen)
+    t_total = nw_cuda.sharded_rows(band8, tmax)
+    per_d = {}
+    for D in MESH_SIZES:
+        threads, smem = nw_cuda.shard_plan(band8, D)
+        ms = cuda_ms(lambda: nw_cuda.nw_align_sharded([dev] * D, Qf, Tf, qlf, tlf, **kw8), REPS)
+        b_ms, o_ms = shard_bounds(Qf, Tf, qlf, tlf, band8 + 1, (t_total + 1) * (band8 + 1))
+        per_d[D] = {"ms": ms, "us_per_antidiagonal": ms * 1e3 / t_total, "bound_ms": max(b_ms, o_ms),
+                    "bound_by": "bytes" if b_ms >= o_ms else "operations", "threads": threads,
+                    "rows_in": "shared memory" if smem else "scratch"}
+    a_ms = cuda_ms(lambda: nw_cuda.nw_align(Qf, Tf, qlf, tlf, **kw8), REPS)
+    sb, so = sweep_bounds(Qf, Tf, qlf, tlf, band8 + 1, nw.tmax_pad_of(tmax) * (band8 + 1))
+    print(f"  sharded sweep at the full pair [B 1, W {band8 + 1}, tmax {tmax}, {t_total} anti-diagonals] by "
+          f"shards: {json.dumps(per_d)}; kernel A single-shot {a_ms:.4f} ms (bound {max(sb, so):.4f}) | {smi}")
+
+    # route's shape, timed (D = 2 at the route's band)
+    ms_route = cuda_ms(lambda: nw_cuda.nw_align_sharded([dev] * 2, Qf, Tf, qlf, tlf, **kw), REPS)
+    rb, ro = shard_bounds(Qf, Tf, qlf, tlf, band + 1, (nw_cuda.sharded_rows(band, tmax) + 1) * (band + 1))
+    torch.cuda.empty_cache()
+
+    # 11b. batch sharding of the headline's 600 pairs
+    seqs = make_sequence_set(named)
+    secs, digests, splits = {}, {}, {}
+    for D in (None, 1, 2, 4, 4, 2, 1, None):  # in turns
+        mesh = None if D is None else Mesh([dev] * D)
+        al = WfaAligner(seqs, RunnerConfig(scores=scores, mesh=mesh), device=dev)
+        nw_cuda.reset_launch_counts()
+        t0 = time.time()
+        res = al.align_pairs(pairs)
+        torch.cuda.synchronize()
+        key = "none" if D is None else str(D)
+        secs.setdefault(key, []).append(round(time.time() - t0, 4))
+        digests.setdefault(key, set()).add(records_digest(res))
+        chunks = [d for d in al.stats["dispatches"] if d["kind"] == "chunk"]
+        splits[key] = sorted({d.get("mesh", 0) for d in chunks})
+        if D is not None and (splits[key] != [D] or nw_cuda.LAUNCHES["nw_sweep"] < D):
+            raise AssertionError(f"the {D}-shard run did not split its chunks {D} ways")
+    print(f"batch sharding, 600 pairs: records sha256 {json.dumps({k: sorted(v) for k, v in digests.items()})}; "
+          f"chunk splits {json.dumps(splits)}; runner seconds in turns {json.dumps(secs)} | {smi}")
+    if len(set().union(*digests.values())) != 1:
+        raise AssertionError("a mesh run's records differ from the run without a mesh")
+
+    # 11c. the sharded align + unite step
+    rng = np.random.default_rng(0)
+    B, L = 256, 256
+    base = rng.integers(0, 4, size=L, dtype=np.uint8)
+    qs, ts = [], []
+    for k in range(B):
+        tt = base.copy()
+        tt[(13 * k + 7) % L] = (tt[(13 * k + 7) % L] + 1) % 4
+        qs.append(base.copy())
+        ts.append(tt)
+    Q, T, qlens, tlens = wfa.pack_batch(qs, ts)
+    caps = np.full(B, 256, dtype=np.int32)
+    qoffs = np.arange(B, dtype=np.int64) * L
+    toffs = qoffs + B * L
+    pen_w = wfa.Penalties(pen["mismatch"], pen["o1"], pen["e1"], pen["o2"], pen["e2"])
+    step_out, step_s = [], {}
+    for D in MESH_SIZES:
+        nw_cuda.reset_launch_counts()
+        t0 = time.time()
+        s, par = distributed_align_unite(Mesh([dev] * D), uf.create(4 * B * L + 2, dev), Q, T, qlens, tlens, caps,
+                                         qoffs, toffs, pen_w, smax=256, band=32)
+        torch.cuda.synchronize()
+        step_s[D] = round(time.time() - t0, 4)
+        if nw_cuda.LAUNCHES["wfa_score_only"] != D:
+            raise AssertionError(f"the align + unite step launched {nw_cuda.LAUNCHES['wfa_score_only']} score-only "
+                                 f"wavefront kernels on {D} shards")
+        step_out.append((s.cpu(), par.cpu()))
+    same = all(torch.equal(a[0], step_out[0][0]) and torch.equal(a[1], step_out[0][1]) for a in step_out)
+    print(f"distributed_align_unite, B {B}, L {L}: scores {sorted(set(step_out[0][0].tolist()))}, equal across "
+          f"D = 1, 2, 4, 8 {same}; seconds {json.dumps(step_s)}")
+    if not same or not bool((step_out[0][0] == pen["mismatch"]).all()):
+        raise AssertionError("the align + unite step differs across shard counts")
+
+    # 11d. two processes on the one card
+    import socket
+
+    root = Path(__file__).resolve().parent
+    fa, out = work / "hla25.fa", work / "mh.gfa"
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    cmd = [sys.executable, str(root / "tests" / "torch_multihost_worker.py"), f"127.0.0.1:{port}", "2"]
+    t0 = time.time()
+    procs = [subprocess.Popen([*cmd, str(pid), "--", "-s", str(fa), "-o", str(out), "--no-sort", "-v"],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for pid in (0, 1)]
+    logs = []
+    try:
+        for pr in procs:
+            logs.append(pr.communicate(timeout=300)[0])
+    finally:
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+    mh_s = time.time() - t0
+    shas = [hashlib.sha256(Path(f).read_bytes()).hexdigest() if Path(f).exists() else None
+            for f in (out, f"{out}.host1")]
+    stripes = [ln for log in logs for ln in log.splitlines() if "[multihost]" in ln]
+    print(f"two processes on cuda:0 (gloo), headline --no-sort: {mh_s:.2f} s wall; {stripes}; GFA sha256 {shas}")
+    if any(pr.returncode != 0 for pr in procs) or shas != [DEFAULT_GFA_SHA256] * 2:
+        print("\n".join(log[-3000:] for log in logs), file=sys.stderr)
+        raise AssertionError("the two-process run failed or its GFA files differ from the JAX package's")
+    watchdog.cancel()
+    print(f"phase 11 wall {time.time() - t_phase:.1f} s")
+    return [{
+        "name": "nw_sweep_sharded", "route": "cuda", "source": "seqrush_tpu_torch/ops/csrc/nw_sweep_shard.cu",
+        "replaces": "seqrush_tpu/parallel/bandshard.py:64 (_build_sharded_sweep; XLA)",
+        "launches": launches_mesh["nw_sweep_sharded"],
+        "launches_path": "translocation_pair() through WfaAligner(wide_route='full', mesh=Mesh([cuda:0] * 2))",
+        "max_abs_err": max([err_full] + [c["max_abs_err"] for c in piece_checked]),
+        "ms": ms_route, "plain_ms": plain_ms, "bound_ms": max(rb, ro),
+        "bound_by": "bytes" if rb >= ro else "operations", "library_ms": None,
+        "shape": {"B": 1, "W": band + 1, "shards": 2, "tmax": tmax},
+        "us_per_antidiagonal": ms_route * 1e3 / nw_cuda.sharded_rows(band, tmax),
+        "by_shards_full_pair": {"W": band8 + 1, **{str(k): v for k, v in per_d.items()}},
+        "kernel_a_single_shot_ms": a_ms, "kernel_a_bound_ms": max(sb, so),
+        "piece_4kb": piece_checked,
+        "ptxas": ptxas_registers(ptxas, "nw_sweep_shard<two-piece, device scope>"),
+        "tolerance": 0,
+    }]
 
 
 if __name__ == "__main__":

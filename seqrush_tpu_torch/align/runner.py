@@ -45,6 +45,13 @@ that runs the sweep kernel and then the walk kernel per chunk:
   consecutive rows of the narrow width, and one launch of kernels A and B's
   tiled modes (``nw_cuda.nw_align_tiled`` / ``nw_walk_runs_tiled``) runs
   every pair at its own band, so the results are the untiled ones;
+* ``mesh`` (a ``parallel.mesh.Mesh``): each chunk's rows, padded to a
+  multiple of the mesh size, split into one slice a device, each through
+  the chunk's kernels (no fold, no band tiling, and no long-pair route: a
+  long chunk runs single-shot); a job whose traceback alone exceeds the
+  memory budget aligns with its band split by lanes over the mesh
+  (``parallel/bandshard.py``, counted in ``band_sharded``), and an
+  undecided pair that large takes the sketch's orientation alone;
 * wide jobs on long pairs (the default ``wide_route='anchored'``) are split
   off first and aligned piecewise by ``align/anchored.py``: chaining and the
   host window DP run while the narrow chunks compute, its device window
@@ -173,6 +180,10 @@ class RunnerConfig:
     # when the whole anchored window workload has at most this many cells,
     # every window runs on the host.  0: off
     wide_host_total_cells: int = 0
+    # a parallel.mesh.Mesh: each chunk's rows split over its devices (no
+    # fold, no band tiling, no long-pair route), and a job whose traceback
+    # alone exceeds memory_budget_bytes aligned with its band split over them
+    mesh: object = None
 
 
 class _TiledChunk(list):
@@ -310,6 +321,8 @@ class WfaAligner:
             "anchored_s": 0.0,
             # jobs aligned through the segmented long-pair route
             "long_pairs": 0,
+            # jobs aligned with their band split over the mesh (over budget)
+            "band_sharded": 0,
             # one entry per dispatch: its kind ('chunk', 'long' chunks with
             # their segment length seg and count n_seg, the anchored route's
             # 'window' chunks, 'verify' sweeps, band-tiled 'tiled' chunks with
@@ -320,7 +333,9 @@ class WfaAligner:
             # sweepga backend's 'gap' chunks, the inversion-aware mode's
             # 'inversion' batch and kernel='wfa''s 'wfa' batches); the walk's output of each
             # chunk, window and gap dispatch as emit: 'runs' or 'ops' ('rowtok'
-            # for a row-major chunk); a chunk's fold, rows and int16 flags
+            # for a row-major chunk); a chunk's fold, rows and int16 flags;
+            # under a mesh each chunk's mesh size, and a 'band_shard' entry
+            # per band-sharded sweep of an over-budget job
             "dispatches": [],
         }
         # per-(sequence, orientation) minimizer cache of the anchored route
@@ -667,6 +682,15 @@ class WfaAligner:
                 diff = abs(qlen - tlen)
                 band0 = min(band0, self._quantize_band(diff + 255, qlen, tlen))
                 orients = (False, True)
+                if self.cfg.mesh is not None and self._needs_band_shard((p, False, band0, True), pairs):
+                    # a pair too big even for the probe band does not race
+                    # both orientations through band-sharded escalation:
+                    # it takes the sketch's better orientation
+                    if forced_rev is None:
+                        d_fwd, d_rc = self._sketch_orientation_distances(pairs[p : p + 1])
+                        orients = (bool(d_rc[0] < d_fwd[0]),)
+                    else:
+                        orients = (bool(is_rev[p]),)
             else:
                 orients = (bool(is_rev[p]),)
             for rc in orients:
@@ -704,6 +728,17 @@ class WfaAligner:
                         (keep if big else back).append(job)
                     anchored_jobs = keep
                     queue.extend(back)
+            if self.cfg.mesh is not None:
+                # a job whose traceback alone exceeds the budget aligns with
+                # its band split over the mesh
+                local = []
+                for job in queue:
+                    if self._needs_band_shard(job, pairs):
+                        key, res = self._align_job_bandsharded(job, pairs, pen)
+                        attempts[key] = res
+                    else:
+                        local.append(job)
+                queue = local
             chunks = self._plan_band_tiling(self._make_nw_chunks(queue, pairs))
             retries_scored = []  # (job, banded_score)
             a_fallbacks: list = []
@@ -883,6 +918,44 @@ class WfaAligner:
         else:
             done[(plan.p, plan.rc)] = AlignmentResult(int(qi), int(tj), plan.rc, score, items)
 
+    def _needs_band_shard(self, job, pairs) -> bool:
+        """Whether this job alone busts the per-dispatch traceback budget
+        (the cap _make_nw_chunks cuts chunks at; without a mesh a lone
+        over-budget job dispatches anyway)."""
+        p, _rc, band, _f32 = job
+        qi, tj = pairs[p]
+        qlen, tlen = self.codes[qi].size, self.codes[tj].size
+        tmax = _round_up(qlen + tlen, 512)
+        return self._quantize_batch(1) * (tmax + 2) * (band + 1) > self.cfg.memory_budget_bytes
+
+    def _align_job_bandsharded(self, job, pairs, pen):
+        """Align one over-budget job with its band split by lanes over the
+        mesh (parallel/bandshard.py), certified and escalated as a chunk's
+        jobs are.  Returns ((pair_idx, rc), result or None)."""
+        from ..parallel import bandshard
+
+        p, rc, band, _f32 = job
+        qi, tj = pairs[p]
+        q = self.rc_codes[qi] if rc else self.codes[qi]
+        t = self.codes[tj]
+        qlen, tlen = q.size, t.size
+        full = max(qlen, tlen)
+        while True:
+            b = bandshard.band_for_mesh(min(band, full), self.cfg.mesh.size)
+            self.stats["dispatches"].append(
+                {"kind": "band_shard", "B": 1, "band": b, "tmax": _round_up(qlen + tlen, 512),
+                 "jobs": [[int(p), int(rc)]], "mesh": self.cfg.mesh.size})
+            score, items = bandshard.align_codes_sharded(self.cfg.mesh, q, t, band=b, **pen)
+            if b >= full or score < self._cert_bound(b, qlen, tlen):
+                break
+            self.stats["band_escalations"] += 1
+            band = self._escalated_band(score, b, qlen, tlen)
+        self.stats["band_sharded"] += 1
+        self.stats["cells_true"] += (qlen + tlen + 1) * (b + 1)
+        if score > self._pair_cap(qlen, tlen):
+            return (p, rc), None  # certified-exact score exceeds the cap
+        return (p, rc), AlignmentResult(int(qi), int(tj), rc, score, items)
+
     def _make_nw_chunks(self, queue, pairs):
         """Pack jobs into as few dispatches as possible: jobs sort by
         (force32, row-major overflow, run overflow, band, length) and chunks
@@ -939,9 +1012,9 @@ class WfaAligner:
         extra rows a wide pair.  Merge conditions: no fold, no row-major
         sweep, run tokens; W even; n_tiles in [2, band_tiling_max_tiles]; the
         merged chunk not long, its tokens in range and its traceback under
-        the memory budget; the tile rows not outnumbering the pairs."""
+        the memory budget; the tile rows not outnumbering the pairs; no mesh."""
         cfg = self.cfg
-        if (cfg.band_tiling == "off" or len(chunks) < 2 or cfg.fold is not False
+        if (cfg.band_tiling == "off" or len(chunks) < 2 or cfg.mesh is not None or cfg.fold is not False
                 or cfg.sweep == "rows" or cfg.emit == "ops"):
             return chunks
 
@@ -1095,9 +1168,12 @@ class WfaAligner:
         Returns (chunk, scores, payload, ready event, qlens, tlens,
         used_int16), payload ('runs', (tokens, counts)), ('ops', (opcodes,)),
         ('fold', (half-walk opcodes, cross_m)) or ('rowtok', (steps, grows,
-        gvals, gcount)).  A band-tiled chunk takes _dispatch_nw_chunk_tiled."""
+        gvals, gcount)).  A band-tiled chunk takes _dispatch_nw_chunk_tiled,
+        a chunk under a mesh _dispatch_nw_chunk_mesh."""
         if isinstance(chunk, _TiledChunk):
             return self._dispatch_nw_chunk_tiled(chunk)
+        if self.cfg.mesh is not None:
+            return self._dispatch_nw_chunk_mesh(chunk)
         band = chunk[0][2]
         force32 = chunk[0][3]
         Q, T, qlens, tlens, tmax = self.pack_chunk(chunk)
@@ -1153,6 +1229,53 @@ class WfaAligner:
             del tb  # stream-ordered: the allocator reuses it only after the walk
         entry["emit"] = "ops" if mode == "fold" else mode
         self.stats["dispatches"].append(entry)
+        scores, out, ready = to_host(scores, out)
+        return chunk, scores, (mode, out), ready, qlens, tlens, use_int16
+
+    def _dispatch_nw_chunk_mesh(self, chunk):
+        """A chunk under a mesh: its rows padded with zero-length rows to a
+        multiple of the mesh size and split into equal row slices, slice i
+        through the chunk's kernels on device i (the row-major ones under
+        sweep='rows', else the sweep and the runs or opcode walk), the
+        outputs gathered in row order on the first device.  No fold and no
+        long-pair route: a long chunk runs single-shot, in int16 where
+        dp_dtype asks for it.  Returns _dispatch_nw_chunk's tuple."""
+        from ..parallel.mesh import shard_batch
+
+        mesh = self.cfg.mesh
+        band, force32 = chunk[0][2], chunk[0][3]
+        Q, T, qlens, tlens, tmax = self.pack_chunk(chunk)
+        B = Q.shape[0]
+        use_int16 = self.cfg.dp_dtype in ("int16", "auto") and not force32
+        rows = self._use_rows(chunk)
+        mode = "rowtok" if rows else "runs" if self._use_runs(chunk, tmax) else "ops"
+        self.stats["cells_padded"] += B * (tmax + 2) * (band + 1)
+        pad = -B % mesh.size
+        Q = np.concatenate([Q, np.full((pad, Q.shape[1]), nw.QPAD, np.uint8)])
+        T = np.concatenate([T, np.full((pad, T.shape[1]), nw.TPAD, np.uint8)])
+        qlens = np.concatenate([qlens, np.zeros(pad, np.int32)])
+        tlens = np.concatenate([tlens, np.zeros(pad, np.int32)])
+        pen = self._penalties()
+        parts = []
+        for Qd, Td, qd, td in shard_batch(mesh, Q, T, qlens, tlens):
+            if rows:
+                scores, tb = nw_cuda.nw_align_rows(Qd, Td, qd, td, band=band, int16=use_int16, **pen)
+                out = nw_cuda.nw_walk_rows(tb, qd, td, band=band)
+            else:
+                scores, tb = nw_cuda.nw_align(Qd, Td, qd, td, band=band, tmax=tmax, int16=use_int16, **pen)
+                if mode == "runs":
+                    out = nw_cuda.nw_walk_runs(tb, qd, td, band=band, tmax=tmax, run_max=nw.RUN_MAX)
+                else:
+                    out = (nw_cuda.nw_walk(tb, qd, td, band=band, tmax=tmax),)
+            del tb
+            parts.append((scores, out))
+        first = mesh.devices[0]
+        scores = torch.cat([s.to(first) for s, _ in parts])
+        out = tuple(torch.cat([o[k].to(first) for _s, o in parts]) for k in range(len(parts[0][1])))
+        self.stats["dispatches"].append(
+            {"kind": "chunk", "B": B, "band": band, "tmax": tmax,
+             "jobs": [[int(p), int(rc)] for p, rc, *_ in chunk], "fold": False, "rows": rows,
+             "int16": use_int16, "emit": mode, "mesh": mesh.size})
         scores, out, ready = to_host(scores, out)
         return chunk, scores, (mode, out), ready, qlens, tlens, use_int16
 

@@ -3,8 +3,8 @@
 
   python -m seqrush_tpu_torch -s in.fa -o out.gfa
 
-Flags whose code paths are not ported yet are accepted and raise
-``NotImplementedError`` naming their ROADMAP item.
+``--mesh-devices N`` needs N devices of ``--device``'s kind (N CUDA
+devices on ``cuda``; on ``cpu`` N shards of the CPU).
 """
 
 from __future__ import annotations
@@ -82,7 +82,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--inversion-aware", action="store_true", dest="inversion_aware")
     p.add_argument(
         "--mesh-devices", type=int, default=None, dest="mesh_devices",
-        help="shard alignment batches over N local devices",
+        help="shard alignment batches over N local devices (cuda:0..N-1; "
+        "on --device cpu, N shards of the CPU)",
     )
     p.add_argument(
         "--save-checkpoint", default=None, dest="save_checkpoint", metavar="NPY",

@@ -3,8 +3,6 @@
 Mirrors the reference ``Args`` struct (reference src/seqrush.rs:17-152)
 including hidden and deprecated flags, so scripts written against seqrush
 translate directly.  Copied from seqrush_tpu/config.py, plus ``device``.
-Flags whose code paths are not ported yet are accepted here and raise
-``NotImplementedError`` in the pipeline (see ROADMAP.md).
 """
 
 from __future__ import annotations

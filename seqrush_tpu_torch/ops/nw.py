@@ -24,6 +24,8 @@ at most _RUN_LEN_MAX long) and a count of runs per pair;
 ``decode_runs_batch`` turns them into the same items.  The row-major walk's
 steps and gap list decode with ``decode_rowtokens``, and the fold's two
 half-walks merge into one opcode row with ``merge_fold_ops``.
+``traceback_pair`` walks one pair's whole traceback [T + 1, W] on the host
+(the band-sharded route's strips, gathered).
 """
 
 from __future__ import annotations
@@ -82,6 +84,60 @@ def _i0_of(t: int, K: int) -> int:
 def tmax_pad_of(tmax: int) -> int:
     """Rows of the traceback tensor: tmax + 1 rounded up to TB_CHUNK."""
     return ((tmax + 1 + TB_CHUNK - 1) // TB_CHUNK) * TB_CHUNK
+
+
+def traceback_pair(tb: np.ndarray, qlen: int, tlen: int, band: int) -> list[tuple[int, str]]:
+    """Decode one pair's packed traceback [T + 1, W] (anti-diagonal major)
+    into run-length CIGAR items, 'M' for a diagonal step (resolve_matches
+    splits it into '=' / 'X')."""
+    K = band
+    W = K + 1
+    ops: list[str] = []
+    i, j = qlen, tlen
+    state = "H"
+    while i > 0 or j > 0:
+        t = i + j
+        lane = i - _i0_of(t, K)
+        if not 0 <= lane < W:
+            # an out-of-band walk means a corrupted traceback
+            raise AssertionError(f"traceback escaped the band at t={t} (lane {lane}, W={W})")
+        b = int(tb[t, lane])
+        if state == "H":
+            choice = b & 7
+            if choice == H_DIAG:
+                ops.append("M")
+                i -= 1
+                j -= 1
+            elif choice == H_D1:
+                state = "D1"
+            elif choice == H_I1:
+                state = "I1"
+            elif choice == H_D2:
+                state = "D2"
+            elif choice == H_I2:
+                state = "I2"
+            else:
+                raise AssertionError("invalid traceback cell")
+        elif state in ("I1", "I2"):
+            opened = bool(b & (8 if state == "I1" else 16))
+            ops.append("I")
+            i -= 1
+            if opened:
+                state = "H"
+        else:  # D1 / D2
+            opened = bool(b & (32 if state == "D1" else 64))
+            ops.append("D")
+            j -= 1
+            if opened:
+                state = "H"
+    ops.reverse()
+    out: list[tuple[int, str]] = []
+    for op in ops:
+        if out and out[-1][1] == op:
+            out[-1] = (out[-1][0] + 1, op)
+        else:
+            out.append((1, op))
+    return out
 
 
 def resolve_matches(

@@ -35,10 +35,16 @@
 * ``nw_align_rows`` / ``nw_walk_rows`` -- kernels C and D, the row-major
   sweep and walk (``csrc/nw_rows.cu``; the counterparts of ``nw._sweep_rows``
   and ``nw._tb_rows_scan``).
+* ``nw_align_sharded`` -- kernel A's sharded mode (``csrc/nw_sweep_shard.cu``;
+  the counterpart of the XLA program ``seqrush_tpu/parallel/bandshard.py::
+  _build_sharded_sweep``): one pair's band split by lanes over D shards,
+  each anti-diagonal's shifted-in column handed over from the neighbour
+  shard; returns the scores and one traceback strip per shard.
 
 Each wrapper runs its plain PyTorch version (``nw_align_reference``,
 ``nw_walk_reference``, ``nw_walk_runs_reference``, ``nw_walk_start_reference``,
-``nw_align_rows_reference``, ``nw_walk_rows_reference``) when the tensors lie
+``nw_align_rows_reference``, ``nw_walk_rows_reference``,
+``nw_align_sharded_reference``) when the tensors lie
 on the CPU, and launches its CUDA
 kernel when they lie on a GPU; there is no fallback between the two.  The
 plain versions repeat the reference arithmetic step by step, including the
@@ -61,7 +67,8 @@ kernel A's score-only mode apart as ``nw_sweep_score_only``, its int16 and
 snapshot modes as ``nw_sweep_int16`` and ``nw_sweep_snapshot``, kernel B's
 runs and start modes as ``nw_walk_runs`` and ``nw_walk_start``, each segment
 mode apart (``nw_sweep_segment``, ``nw_sweep_segment_score_only``,
-``nw_walk_segment``), and kernels C and D as ``nw_rows_sweep`` and
+``nw_walk_segment``), the sharded mode as ``nw_sweep_sharded`` (one a
+device's launch), and kernels C and D as ``nw_rows_sweep`` and
 ``nw_rows_walk``; the wavefront kernel of ``ops/wfa.py`` counts its
 launches here too (``wfa``, ``wfa_score_only``), since one build makes one
 library of every source.
@@ -90,10 +97,10 @@ LAUNCHES = {"nw_sweep": 0, "nw_sweep_score_only": 0, "nw_walk": 0, "nw_walk_runs
             "nw_sweep_segment": 0, "nw_sweep_segment_score_only": 0, "nw_walk_segment": 0,
             "wfa": 0, "wfa_score_only": 0, "nw_sweep_int16": 0, "nw_sweep_snapshot": 0,
             "nw_walk_start": 0, "nw_rows_sweep": 0, "nw_rows_walk": 0, "nw_sweep_tiled": 0,
-            "nw_walk_runs_tiled": 0}
+            "nw_walk_runs_tiled": 0, "nw_sweep_sharded": 0}
 
 _SOURCES = ("nw_sweep.cu", "nw_sweep_seg.cu", "nw_sweep_snap.cu", "nw_sweep_tiled.cu", "nw_walk.cu", "wfa.cu",
-            "nw_rows.cu")
+            "nw_rows.cu", "nw_sweep_shard.cu")
 _HEADERS = ("nw_sweep.cuh",)
 # anti-diagonals per segment of the long-pair route (the JAX package's default)
 LONG_SEG = 2048
@@ -227,6 +234,12 @@ def _library() -> ctypes.CDLL:
             lib.wfa_launch.restype = i32
             lib.wfa_occupancy.argtypes = [i32] * 2 + [ptr] * 3
             lib.wfa_occupancy.restype = i32
+            lib.nw_sweep_shard_launch.argtypes = [ptr] * 8 + [i32] * 17 + [ptr]
+            lib.nw_sweep_shard_launch.restype = i32
+            lib.nw_sweep_shard_capacity.argtypes = [i32] * 4 + [ptr] * 2
+            lib.nw_sweep_shard_capacity.restype = i32
+            lib.nw_sweep_shard_peer.argtypes = [i32] * 2
+            lib.nw_sweep_shard_peer.restype = i32
             _lib = lib
         return _lib
 
@@ -1751,3 +1764,281 @@ def nw_walk_runs_tiled_reference(tb, qlens, tlens, tile, wide, *, band, n_tiles,
             tbk = tb[_tile_index(rows, n_tiles, dev)].permute(0, 2, 1, 3).reshape(-1, tp, n_tiles * W)
         tokens[idx], counts[idx] = nw_walk_runs_reference(tbk, qlens[idx], tlens[idx], band=k, **kw)
     return tokens, counts
+
+
+# -- kernel A, sharded mode: one pair's band split by lanes over shards --------------
+
+
+def sharded_rows(band: int, tmax: int) -> int:
+    """Anti-diagonals the sharded sweep computes: TA = min(K, tmax) of the
+    first phase, then macro-steps of two up to tmax, so tmax + 1 when
+    tmax - TA is odd (seqrush_tpu/parallel/bandshard.py's T_total)."""
+    ta = min(band, tmax)
+    return ta + 2 * max(0, -(-(tmax - ta) // 2))
+
+
+def _check_sharded(Q, T, qlens, tlens, n_shards: int, band: int, tmax: int) -> None:
+    device = Q.device
+    _check("Q", Q, torch.uint8, 2, device)
+    _check("T", T, torch.uint8, 2, device)
+    B = Q.shape[0]
+    if T.shape[0] != B:
+        raise ValueError("Q and T must have the same batch size")
+    _check_lengths(qlens, tlens, B, device)
+    if band < 0 or tmax < 0:
+        raise ValueError("band and tmax must be >= 0")
+    if n_shards < 1 or (band + 1) % n_shards:
+        raise ValueError(f"{n_shards} shards must divide the band width {band + 1}")
+
+
+def nw_align_sharded(devices, Q, T, qlens, tlens, *, mismatch, o1, e1, o2, e2, band, tmax):
+    """The int32 sweep of one band split by lanes over len(devices) shards.
+
+    Shard d holds lanes [d * Wl, (d + 1) * Wl) of W = band + 1 (Wl = W / D)
+    on devices[d]; per anti-diagonal a shard takes one column of the six DP
+    rows from its left or right neighbour (INF at the band's edges).  The
+    arithmetic is the JAX package's lane-sharded sweep
+    (seqrush_tpu/parallel/bandshard.py::_build_sharded_sweep): the int32
+    recurrence without clamps or validity masks, so off-matrix cells hold
+    whatever it computes there.  Q [B, Lq], T [B, Lt] uint8 (QPAD / TPAD
+    padded), qlens, tlens [B] int32, replicated: given on the first device.
+
+    Returns (scores [B] int32 on devices[0], -1 for a pair not finished
+    within sharded_rows(band, tmax) anti-diagonals; strips, one [B,
+    sharded_rows + 1, Wl] uint8 tensor per shard on its device, row 0
+    zero).  On CPU tensors (every device 'cpu') the plain version; on CUDA
+    tensors kernel A's sharded mode (csrc/nw_sweep_shard.cu): one block per
+    (pair, shard), the columns handed over through global memory with
+    flags.  The shards of one device must be consecutive; distinct devices
+    need peer access."""
+    devices = [torch.device(d) for d in devices]
+    D = len(devices)
+    _check_sharded(Q, T, qlens, tlens, D, band, tmax)
+    kw = dict(mismatch=mismatch, o1=o1, e1=e1, o2=o2, e2=e2, band=band, tmax=tmax)
+    if Q.device.type == "cpu":
+        if any(d.type != "cpu" for d in devices):
+            raise ValueError("CPU tensors need a mesh of CPU devices")
+        return nw_align_sharded_reference(Q, T, qlens, tlens, n_shards=D, **kw)
+    _require_cuda(Q.device)
+    if any(d.type != "cuda" for d in devices):
+        raise ValueError("CUDA tensors need a mesh of CUDA devices")
+    devices = [d if d.index is not None else torch.device("cuda", torch.cuda.current_device()) for d in devices]
+    return _sharded_launch(devices, Q, T, qlens, tlens, **kw)
+
+
+SHARD_RING_INTS = 2 * 2 * 6  # per pair: 2 slots x (first, last lane) x 6 DP rows
+
+
+def shard_plan(band: int, n_shards: int) -> tuple[int, int]:
+    """(threads per block, dynamic shared memory bytes) of the sharded mode:
+    one block per (pair, shard), lane l of the shard's Wl on thread l %
+    threads, its 11 DP rows of Wl + 2 int32 (a halo lane each side) in
+    shared memory while they fit, else in a global scratch (0 bytes)."""
+    Wl = (band + 1) // n_shards
+    threads = min(1024, -(-Wl // 32) * 32)
+    rows = _SWEEP_ROWS * (Wl + 2) * 4
+    return threads, (rows if rows <= _SMEM_OPTIN_BYTES else 0)
+
+
+def shard_capacity(device, band: int, n_shards: int, two_piece: bool) -> int:
+    """Blocks of the sharded mode that can be resident at once on one device
+    (blocks an SM times SMs, from the CUDA runtime; needs the card).  Every
+    block of a launch waits on its neighbours, so a launch may not exceed it."""
+    threads, smem = shard_plan(band, n_shards)
+    per_sm, sms = ctypes.c_int(), ctypes.c_int()
+    device = torch.device(device)
+    # the library sets the thread's current device; torch restores its own on exit
+    with torch.cuda.device(device):
+        err = _library().nw_sweep_shard_capacity(torch.cuda.current_device(), int(two_piece), threads, smem,
+                                                 ctypes.byref(per_sm), ctypes.byref(sms))
+    if err != 0:
+        raise RuntimeError(f"nw_sweep_shard occupancy query failed with CUDA error {err}")
+    return per_sm.value * sms.value
+
+
+def _sharded_launch(devices, Q, T, qlens, tlens, *, mismatch, o1, e1, o2, e2, band, tmax):
+    D = len(devices)
+    B, Lq = Q.shape
+    Lt = T.shape[1]
+    W = band + 1
+    Wl = W // D
+    t_total = sharded_rows(band, tmax)
+    two = o2 >= 0
+    # the shards of each device, which must be consecutive (one launch a device)
+    groups: dict[torch.device, list[int]] = {}
+    for d, dev in enumerate(devices):
+        groups.setdefault(dev, []).append(d)
+    for dev, ds in groups.items():
+        if ds != list(range(ds[0], ds[-1] + 1)):
+            raise ValueError(f"the shards of {dev} must be consecutive, got {ds}")
+    if len(groups) > 1:
+        for a in groups:
+            for b in groups:
+                if a != b and not torch.cuda.can_device_access_peer(a, b):
+                    raise RuntimeError(f"{a} cannot access {b}'s memory: the sharded sweep needs peer access")
+    threads, smem = shard_plan(band, D)
+    for dev, ds in groups.items():
+        cap = shard_capacity(dev, band, D, two)
+        if len(ds) * B > cap:
+            raise RuntimeError(f"the sharded sweep needs {len(ds)} x {B} co-resident blocks on {dev}, which holds "
+                               f"{cap} ({threads} threads, {smem} bytes of shared memory a block)")
+    lib = _library()
+    # the handover of every shard: rings [n_local, B, 24] and flags [n_local, B]
+    # on the writer's device, zeroed before any launch starts
+    rings, flags, state = {}, {}, {}
+    for dev, ds in groups.items():
+        rings[dev] = torch.zeros((len(ds), B, SHARD_RING_INTS), dtype=torch.int32, device=dev)
+        flags[dev] = torch.zeros((len(ds), B), dtype=torch.int32, device=dev)
+    ring_ptrs, flag_ptrs = [], []
+    for d, dev in enumerate(devices):
+        k = d - groups[dev][0]
+        ring_ptrs.append(rings[dev][k].data_ptr())
+        flag_ptrs.append(flags[dev][k].data_ptr())
+    for dev, ds in groups.items():
+        inputs = [x if x.device == dev else x.to(dev) for x in (Q, T, qlens, tlens)]
+        table = torch.tensor(ring_ptrs + flag_ptrs, dtype=torch.int64, device=dev)
+        strips = torch.empty((len(ds), B, t_total + 1, Wl), dtype=torch.uint8, device=dev)
+        scores = torch.full((B,), -1, dtype=torch.int32, device=dev)
+        scratch = (torch.empty(len(ds) * B * _SWEEP_ROWS * (Wl + 2), dtype=torch.int32, device=dev)
+                   if not smem else None)
+        state[dev] = (inputs, table, strips, scores, scratch)
+    if len(groups) > 1:
+        for dev in groups:
+            for other in groups:
+                with torch.cuda.device(dev):
+                    err = lib.nw_sweep_shard_peer(dev.index, other.index) if other != dev else 0
+                if err != 0:
+                    raise RuntimeError(f"enabling {dev}'s access to {other} failed with CUDA error {err}")
+        for dev in groups:
+            torch.cuda.synchronize(dev)  # every flag is zero before any block runs
+    for dev, ds in groups.items():
+        (Qd, Td, qd, td), table, strips, scores, scratch = state[dev]
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.nw_sweep_shard_launch(
+                Qd.data_ptr(), Td.data_ptr(), qd.data_ptr(), td.data_ptr(), scores.data_ptr(),
+                strips.data_ptr(), scratch.data_ptr() if scratch is not None else None, table.data_ptr(),
+                dev.index, int(len(groups) > 1), B, Lq, Lt, W, D, ds[0], len(ds), t_total,
+                mismatch, o1, e1, o2, e2, threads, smem, stream)
+        if err != 0:
+            raise RuntimeError(f"nw_sweep_shard launch failed with CUDA error {err}")
+        LAUNCHES["nw_sweep_sharded"] += 1
+    first = devices[0]
+    scores = state[first][3]
+    for dev in groups:
+        if dev != first:
+            other = state[dev][3].to(first)
+            scores = torch.where(other >= 0, other, scores)
+    out = []
+    for d, dev in enumerate(devices):
+        out.append(state[dev][2][d - groups[dev][0]])
+    return scores, out
+
+
+def nw_align_sharded_reference(Q, T, qlens, tlens, *, n_shards, mismatch, o1, e1, o2, e2, band, tmax):
+    """Plain PyTorch version of the sharded mode, a lockstep port of the JAX
+    program's per-shard function: every anti-diagonal, one step of every
+    shard (the shards stacked on a leading axis), with the shifted-in
+    column taken from the neighbour shard's edge lane (INF at the band's
+    edges).  Same contract as nw_align_sharded, every strip on Q's device."""
+    D = n_shards
+    _check_sharded(Q, T, qlens, tlens, D, band, tmax)
+    K = band
+    W = K + 1
+    Wl = W // D
+    B, Lq = Q.shape
+    Lt = T.shape[1]
+    dev = Q.device
+    i32 = torch.int32
+    two = o2 >= 0
+    t_total = sharded_rows(band, tmax)
+    ql = qlens.to(i32)
+    fin_t = ql + tlens.to(i32)
+
+    Qp = F.pad(Q.to(i32), (1, W), value=QPAD)  # [B, Lq + 1 + W]
+    Trev = F.pad(T.flip(1).to(i32), (W, W), value=TPAD)  # [B, Lt + 2W]
+    lanes_g = torch.arange(W, dtype=i32, device=dev).view(D, 1, Wl)  # global lane ids
+    inf = torch.full((D, B, Wl), INF, dtype=i32, device=dev)
+    H0 = torch.where(lanes_g == 0, 0, inf)
+    S = torch.stack([H0, inf, inf, inf, inf, inf])  # [6, D, B, Wl]
+    FIN = torch.where((fin_t == 0)[None, :, None], H0, inf)
+    edge = torch.full((6, 1, B, 1), INF, dtype=i32, device=dev)
+
+    def sr6(S):
+        # lane l reads lane l - 1: shard d's first lane from shard d - 1's last
+        col = torch.cat([edge, S[:, :-1, :, -1:]], dim=1)
+        return torch.cat([col, S[..., :-1]], dim=3)
+
+    def sl6(S):
+        # lane l reads lane l + 1: shard d's last lane from shard d + 1's first
+        col = torch.cat([S[:, 1:, :, :1], edge], dim=1)
+        return torch.cat([S[..., 1:], col], dim=3)
+
+    def shards(x):  # [B, W] -> [D, B, Wl]
+        return x.view(B, D, Wl).transpose(0, 1)
+
+    def qwin_at(i0):
+        start = min(max(i0, 0), Lq + 1)
+        return shards(Qp[:, start : start + W])
+
+    def twin_at(t, i0):
+        start = min(max(Lt - t + i0 + W, 0), Lt + W)
+        return shards(Trev[:, start : start + W])
+
+    false = torch.zeros((D, B, Wl), dtype=torch.bool, device=dev)
+
+    def compute_row(deps, sub):
+        h_up, h_left, h_diag, i1_up, d1_left, i2_up, d2_left = deps
+        a, c = h_up + (o1 + e1), i1_up + e1
+        I1n, i1_opened = torch.minimum(a, c), a <= c
+        a, c = h_left + (o1 + e1), d1_left + e1
+        D1n, d1_opened = torch.minimum(a, c), a <= c
+        if two:
+            a, c = h_up + (o2 + e2), i2_up + e2
+            I2n, i2_opened = torch.minimum(a, c), a <= c
+            a, c = h_left + (o2 + e2), d2_left + e2
+            D2n, d2_opened = torch.minimum(a, c), a <= c
+        else:
+            I2n, D2n, i2_opened, d2_opened = inf, inf, false, false
+        # strict '<' in the order D1, I1, D2, I2: a tie keeps the earlier choice
+        Hn = h_diag + sub
+        choice = torch.zeros((D, B, Wl), dtype=torch.uint8, device=dev)
+        for cand, tag in ((D1n, H_D1), (I1n, H_I1), (D2n, H_D2), (I2n, H_I2)):
+            choice.masked_fill_(cand < Hn, tag)
+            Hn = torch.minimum(Hn, cand)
+        packed = (choice | (i1_opened.to(torch.uint8) << 3) | (i2_opened.to(torch.uint8) << 4)
+                  | (d1_opened.to(torch.uint8) << 5) | (d2_opened.to(torch.uint8) << 6))
+        return Hn, I1n, D1n, I2n, D2n, packed
+
+    tb = torch.zeros((D, B, t_total + 1, Wl), dtype=torch.uint8, device=dev)
+
+    def step(S, FIN, t, deps, qwin, i0):
+        sub = (qwin != twin_at(t, i0)).to(i32) * mismatch
+        Hn, I1n, D1n, I2n, D2n, packed = compute_row(deps, sub)
+        tb[:, :, t, :] = packed
+        FIN = torch.where((fin_t == t)[None, :, None], Hn, FIN)
+        return torch.stack([Hn, S[0], I1n, D1n, I2n, D2n]), FIN
+
+    # phase A: t in [1, TA], i0 = 0
+    ta = min(K, tmax)
+    qwin_a = qwin_at(0)
+    for t in range(1, ta + 1):
+        R = sr6(S)
+        S, FIN = step(S, FIN, t, (R[0], S[0], R[1], R[2], S[3], R[4], S[5]), qwin_a, 0)
+    # phase B: macro-steps of a dp = 1 row (from the right) and a dp = 0 row
+    for m in range(max(0, -(-(tmax - ta) // 2))):
+        t1 = ta + 1 + 2 * m
+        i0 = (t1 - K + 1) // 2
+        qwin = qwin_at(i0)
+        L = sl6(S)
+        S, FIN = step(S, FIN, t1, (S[0], L[0], S[1], S[2], L[3], S[4], L[5]), qwin, i0)
+        R = sr6(S)
+        S, FIN = step(S, FIN, t1 + 1, (R[0], S[0], S[1], R[2], S[3], R[4], S[5]), qwin, i0)
+
+    # each pair's score sits at its final lane, in exactly one shard
+    i0_fin = torch.clamp(torch.div(fin_t - K + 1, 2, rounding_mode="floor"), min=0)
+    fin_lane = ql - i0_fin
+    fin_val = torch.where(lanes_g == fin_lane[None, :, None], FIN, INF).amin(dim=(0, 2))
+    finished = (fin_t <= t_total) & (fin_val < INF)
+    scores = torch.where(finished, fin_val, -1).to(i32)
+    return scores, list(tb.unbind(0))

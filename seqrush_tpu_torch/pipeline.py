@@ -10,8 +10,13 @@ The port of ``seqrush_tpu/pipeline.py``:
   -> compact and renumber (unless --no-compact) -> Ygs (unless --no-sort)
   -> validate that every path reconstructs its input -> GFA 1.0.
 
-Mesh and multi-host modes are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP item.
+``--mesh-devices N`` splits each alignment chunk's rows over N devices
+(and aligns a pair whose traceback alone exceeds the memory budget with its
+band split over them).  Several processes joined by torch.distributed
+(``parallel/distributed.py::initialize``) each align a contiguous stripe
+of the pair list; the unite edges are gathered at points every process
+reaches, so every process builds the same graph; process 0 writes the GFA
+(and the PAF's first part), process k writes ``<output>.hostk``.
 """
 
 from __future__ import annotations
@@ -33,6 +38,8 @@ from .graph.bigraph import BidirectedGraph
 from .graph.builder import build_bidirected_graph
 from .io.paf import alignment_to_paf, parse_paf_line
 from .ops import unionfind as uf
+from .parallel.distributed import allgather_edge_lists, host_stripe, process_count, process_index
+from .parallel.mesh import make_mesh
 from .scores import AlignmentScores
 from .sequences import SequenceSet, load_fasta
 from .utils import PhaseTimer, resolve_device
@@ -45,17 +52,6 @@ from .utils import PhaseTimer, resolve_device
 CHECK_INTERVAL = 10
 STABILITY_THRESHOLD = 10
 ITER_DISPATCH = 250
-
-
-def unsupported_reason(args: Args) -> str | None:
-    """Why this package cannot align under ``args`` yet, or None when it can."""
-    checks = (
-        (bool(args.mesh_devices), "mesh alignment is not ported yet (ROADMAP item 12)"),
-    )
-    for bad, why in checks:
-        if bad:
-            return why
-    return None
 
 
 class SeqRushTorch:
@@ -88,19 +84,25 @@ class SeqRushTorch:
             self._edge_u.append(u)
             self._edge_v.append(v)
             self._edge_queued += int(u.size)
-        # flush periodically to bound host memory
-        if self._edge_queued > 50_000_000:
+        # flush periodically to bound host memory.  With several processes a
+        # flush is a collective, so it happens only at points every process
+        # reaches, never because one process's buffer grew
+        if process_count() == 1 and self._edge_queued > 50_000_000:
             self._flush_unites()
 
     def _flush_unites(self) -> None:
-        """One device unite over every queued edge."""
-        if not self._edge_u:
+        """One device unite over every queued edge; with several processes
+        over every process's edges (each process contributes its stripe's,
+        an empty list too, and applies the same unite)."""
+        if process_count() == 1 and not self._edge_u:
             return
-        u = np.concatenate(self._edge_u)
-        v = np.concatenate(self._edge_v)
+        u = np.concatenate(self._edge_u) if self._edge_u else np.zeros(0, np.int64)
+        v = np.concatenate(self._edge_v) if self._edge_v else np.zeros(0, np.int64)
         self._edge_u, self._edge_v = [], []
         self._edge_queued = 0
-        self.parent = uf.unite_edges(self.parent, u, v)
+        u, v = allgather_edge_lists(u, v)
+        if u.size:
+            self.parent = uf.unite_edges(self.parent, u, v)
 
     def _result_to_unites(self, res, min_match_length: int) -> None:
         """Match runs of one alignment -> queued Pos pairs."""
@@ -143,9 +145,6 @@ class SeqRushTorch:
 
     def align_and_unite(self) -> None:
         args = self.args
-        why = unsupported_reason(args)
-        if why is not None:
-            raise NotImplementedError(why)
         if args.paf:
             self._align_from_paf(args.paf)
             return
@@ -153,6 +152,7 @@ class SeqRushTorch:
         cfg_kw = {}
         if args.memory_budget_bytes is not None:
             cfg_kw["memory_budget_bytes"] = args.memory_budget_bytes
+        mesh = make_mesh(args.mesh_devices, self.device) if args.mesh_devices else None
         cfg = RunnerConfig(
             scores=AlignmentScores.parse(args.scores),
             orientation_scores=AlignmentScores.parse_orientation(args.orientation_scores),
@@ -164,6 +164,7 @@ class SeqRushTorch:
             frequency=args.frequency,
             wide_route=args.wide_route,
             wide_verify=args.wide_verify,
+            mesh=mesh,
             **cfg_kw,
         )
         aligner = aligner_cls(self.seqs, cfg, device=self.device)
@@ -190,26 +191,38 @@ class SeqRushTorch:
         if args.iterative:
             with self.timer.phase("align"):
                 self._align_iterative(aligner, kdist, spars)
-        elif args.inversion_aware:
-            pairs = schedule_pairs(n, spars, seed=args.seed, kmer_distances=kdist)
-            if args.verbose:
-                print(f"Total sequence pairs: {len(pairs)} (sparsification: {spars.kind})")
-            self._align_inversion_aware(aligner, pairs, sparsified)
         else:
             pairs = schedule_pairs(n, spars, seed=args.seed, kmer_distances=kdist)
             if args.verbose:
                 print(f"Total sequence pairs: {len(pairs)} (sparsification: {spars.kind})")
-            with self.timer.phase("align"):
-                results = aligner.align_pairs(pairs)
-            self.timer.count("alignments", len(results))
-            if not sparsified:
-                self._paf_out(results)
-            with self.timer.phase("unite"):
-                for res in results:
-                    self._result_to_unites(res, args.min_match_length)
+            pairs = self._host_stripe_pairs(pairs)
+            if args.inversion_aware:
+                self._align_inversion_aware(aligner, pairs, sparsified)
+            else:
+                with self.timer.phase("align"):
+                    results = aligner.align_pairs(pairs)
+                self.timer.count("alignments", len(results))
+                if not sparsified:
+                    self._paf_out(results)
+                with self.timer.phase("unite"):
+                    for res in results:
+                        self._result_to_unites(res, args.min_match_length)
         with self.timer.phase("unite"):
             self._flush_unites()
         self.stats["aligner"] = aligner.stats
+
+    def _host_stripe_pairs(self, pairs: np.ndarray) -> np.ndarray:
+        """With several processes, this process's contiguous stripe of the
+        pair list (the flush in _flush_unites gathers every stripe's
+        edges)."""
+        pc = process_count()
+        if pc <= 1:
+            return pairs
+        stripe = host_stripe(len(pairs), process_index(), pc)
+        if self.args.verbose:
+            print(f"[multihost] process {process_index()}/{pc} aligns pairs "
+                  f"[{stripe.start}:{stripe.stop}) of {len(pairs)}")
+        return pairs[stripe]
 
     def _align_inversion_aware(self, aligner: WfaAligner, pairs, sparsified: bool) -> None:
         """The reference's inversion-aware mode: every pair aligns forward
@@ -308,7 +321,11 @@ class SeqRushTorch:
     def _paf_out(self, results) -> None:
         if not self.args.output_alignments:
             return
-        with open(self.args.output_alignments, "w") as fh:
+        path = self.args.output_alignments
+        if process_count() > 1:
+            # each process records its own stripe: concatenate the parts
+            path = f"{path}.host{process_index()}"
+        with open(path, "w") as fh:
             for res in results:
                 rec = alignment_to_paf(res, self.seqs)
                 if self.args.validate_paf:
@@ -445,7 +462,12 @@ class SeqRushTorch:
         if errors:
             raise RuntimeError("Path validation failed!\n" + "\n".join(errors))
 
-        with self.timer.phase("write"), open(args.output, "w") as fh:
+        out_path = args.output
+        if process_count() > 1 and process_index() != 0:
+            # every process holds the same graph: process 0 writes the
+            # canonical file, the others a .hostN twin
+            out_path = f"{args.output}.host{process_index()}"
+        with self.timer.phase("write"), open(out_path, "w") as fh:
             graph.write_gfa(fh)
         self.stats["write_wall_s"] = time.time() - t0
         if args.verbose:
@@ -504,9 +526,6 @@ def _runs_of(cigar_items):
 
 def run_seqrush(args: Args) -> BidirectedGraph:
     """Top-level entry point: FASTA in, GFA out."""
-    why = unsupported_reason(args)
-    if why is not None:
-        raise NotImplementedError(why)
     seqs = load_fasta(args.sequences)
     if args.verbose:
         print(f"Loaded {len(seqs)} sequences")

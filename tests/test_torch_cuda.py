@@ -538,7 +538,8 @@ def test_long_route_launches_and_equals_single_shot(cuda):
                                 "nw_sweep_segment_score_only": n_seg, "nw_walk_segment": n_seg,
                                 "wfa": 0, "wfa_score_only": 0, "nw_sweep_int16": 0,
                                 "nw_sweep_snapshot": 0, "nw_walk_start": 0, "nw_rows_sweep": 0,
-                                "nw_rows_walk": 0, "nw_sweep_tiled": 0, "nw_walk_runs_tiled": 0}
+                                "nw_rows_walk": 0, "nw_sweep_tiled": 0, "nw_walk_runs_tiled": 0,
+                                "nw_sweep_sharded": 0}
     s_one, tb = nw_cuda.nw_align(Q, T, ql, tl, tmax=tmax, **kw)
     ops_one = nw_cuda.nw_walk(tb, ql, tl, band=255, tmax=tmax)
     assert torch.equal(scores, s_one)
@@ -1099,3 +1100,98 @@ def test_tiled_runner_equals_untiled(cuda):
     off, res_off = run("off")
     assert on.stats["tiled_chunks"] >= 1 and off.stats["tiled_chunks"] == 0
     assert res_on == res_off
+
+
+def _sharded_case(rng, n_pairs, L, band):
+    """n_pairs variant pairs of length ~L (SNPs and an indel, the last pair
+    holding a 2*L/5 translocation) plus one zero-length row, QPAD / TPAD
+    packed on the card; tmax with an odd tmax - band."""
+    qs, ts = [], []
+    for k in range(n_pairs):
+        q = rng.integers(0, 4, L).astype(np.uint8)
+        t = q.copy()
+        t[rng.integers(0, L, L // 40)] = rng.integers(0, 4, L // 40)
+        t = np.delete(t, np.arange(L // 3, L // 3 + 5 + k))
+        if k == n_pairs - 1:
+            a, b = L // 5, 3 * L // 5
+            t = np.concatenate([t[:a], t[b:], t[a:b]])
+        qs.append(q)
+        ts.append(t)
+    qs.append(np.zeros(0, np.uint8))
+    ts.append(np.zeros(0, np.uint8))
+    (Q, T, ql, tl), _tmax = _pack(qs, ts, torch.device("cuda"))
+    tmax = int((ql + tl).max())
+    tmax += (tmax - band) % 2 == 0
+    return Q, T, ql, tl, tmax
+
+
+@pytest.mark.parametrize("D", [1, 2, 4, 8])
+@pytest.mark.parametrize("band,two_piece", [(255, True), (1023, True), (511, False)])
+def test_sharded_sweep_equals_plain(cuda, D, band, two_piece):
+    """Kernel A's sharded mode, D shards on one card (Mesh([cuda:0] * D)):
+    scores and every strip equal the plain version's."""
+    Q, T, ql, tl, tmax = _sharded_case(np.random.default_rng(D + band), 3, 700, band)
+    kw = dict(mismatch=5, o1=8, e1=2, o2=24 if two_piece else -1, e2=1 if two_piece else -1, band=band, tmax=tmax)
+    before = nw_cuda.LAUNCHES["nw_sweep_sharded"]
+    s_k, strips_k = nw_cuda.nw_align_sharded([cuda] * D, Q, T, ql, tl, **kw)
+    torch.cuda.synchronize()
+    assert nw_cuda.LAUNCHES["nw_sweep_sharded"] == before + 1
+    s_p, strips_p = nw_cuda.nw_align_sharded_reference(Q, T, ql, tl, n_shards=D, **kw)
+    assert torch.equal(s_k, s_p)
+    assert int(s_k[-1]) == 0 and (s_k[:-1] > 0).all()
+    for a, b in zip(strips_k, strips_p):
+        assert torch.equal(a, b)
+
+
+def test_sharded_sweep_scratch_rows_equal_plain(cuda):
+    """A shard too wide for its rows in shared memory (Wl 6,144) keeps them
+    in the global scratch."""
+    band = 6143
+    assert nw_cuda.shard_plan(band, 1)[1] == 0
+    Q, T, ql, tl, tmax = _sharded_case(np.random.default_rng(1), 1, 3000, band)
+    kw = dict(mismatch=5, o1=8, e1=2, o2=24, e2=1, band=band, tmax=tmax)
+    s_k, (strip_k,) = nw_cuda.nw_align_sharded([cuda], Q, T, ql, tl, **kw)
+    s_p, (strip_p,) = nw_cuda.nw_align_sharded_reference(Q, T, ql, tl, n_shards=1, **kw)
+    assert torch.equal(s_k, s_p) and torch.equal(strip_k, strip_p)
+
+
+def test_sharded_sweep_distinct_devices_equal_plain(cuda):
+    """Shards on two cards (peer access, system-scope flags): the strips of
+    the plain version, each on its card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    devs = [torch.device("cuda", 0)] * 2 + [torch.device("cuda", 1)] * 2
+    Q, T, ql, tl, tmax = _sharded_case(np.random.default_rng(2), 3, 700, 1023)
+    kw = dict(mismatch=5, o1=8, e1=2, o2=24, e2=1, band=1023, tmax=tmax)
+    s_k, strips_k = nw_cuda.nw_align_sharded(devs, Q, T, ql, tl, **kw)
+    s_p, strips_p = nw_cuda.nw_align_sharded_reference(Q, T, ql, tl, n_shards=4, **kw)
+    assert torch.equal(s_k, s_p)
+    for a, b, dev in zip(strips_k, strips_p, devs):
+        assert a.device == dev and torch.equal(a.cpu(), b.cpu())
+
+
+def test_mesh_runner_and_band_shard_on_card(cuda):
+    """WfaAligner under Mesh([cuda:0] * 2): the records of the run without a
+    mesh, and an over-budget pair through the band-sharded route with the
+    score of the run without a mesh."""
+    from seqrush_tpu_torch.align.pairs import all_ordered_pairs
+    from seqrush_tpu_torch.align.runner import RunnerConfig, WfaAligner
+    from seqrush_tpu_torch.parallel.mesh import Mesh
+    from seqrush_tpu_torch.sequences import make_sequence_set
+
+    rng = np.random.default_rng(5)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    A, B, C, X = (acgt[rng.integers(0, 4, n)].tobytes() for n in (250, 300, 250, 400))
+    named = [("q", A + X + B + C), ("t", A + B + X + C), ("u", A + X + B + C[:200])]
+    pairs = all_ordered_pairs(3)
+
+    def run(mesh):
+        al = WfaAligner(make_sequence_set(named), RunnerConfig(mesh=mesh, memory_budget_bytes=4_000_000,
+                                                               wide_route="full"), device="cuda")
+        res = al.align_pairs(pairs)
+        return al, [(r.query_idx, r.target_idx, r.is_reverse, r.score) for r in res]
+
+    plain, rec_plain = run(None)
+    meshed, rec_mesh = run(Mesh([cuda] * 2))
+    assert meshed.stats["band_sharded"] >= 1 and plain.stats["band_sharded"] == 0
+    assert rec_mesh == rec_plain

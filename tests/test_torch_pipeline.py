@@ -286,10 +286,11 @@ def test_frequency_reaches_runner_config(tmp_path, monkeypatch):
     ],
 )
 def test_unported_modes_raise(flags, item, tmp_path):
+    """The modes the port once raised NotImplementedError for (their ROADMAP
+    item) now run: the call writes the GFA the run without the flag writes."""
     fa = tmp_path / "in.fa"
     fa.write_bytes(b">a\nACGTACGTAC\n>b\nACGTACGAAC\n")
-    kw = dict(sequences=str(fa), output=str(tmp_path / "o.gfa"), no_sort=True, device="cpu")
-    kw.update(flags)
-    with pytest.raises(NotImplementedError, match=item):
-        run_seqrush(Args(**kw))
-    assert not (tmp_path / "o.gfa").exists()
+    kw = dict(sequences=str(fa), no_sort=True, device="cpu")
+    run_seqrush(Args(output=str(tmp_path / "plain.gfa"), **kw))
+    run_seqrush(Args(output=str(tmp_path / "o.gfa"), **flags, **kw))
+    assert (tmp_path / "o.gfa").read_bytes() == (tmp_path / "plain.gfa").read_bytes(), item
