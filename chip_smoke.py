@@ -122,7 +122,20 @@ Phases (any failure exits non-zero and prints no ok line):
      meshes of 1, 2 and 4 shards (records equal); the sharded align + unite
      step for D = 1, 2, 4, 8; two processes joined by gloo on the headline
      FASTA with --no-sort (DEFAULT_GFA_SHA256 on both);
- 12. prints {"kernels": [...]}, the nvidia-smi line, and last
+ 12. the host library (seqrush_tpu_torch/csrc/seqrush_native.cpp) at the
+     sizes users run (see run_phase12): the C++ FASTA parser against the
+     Python loop on the headline, the locus and a 1,000 x 3.3 kb FASTA (equal
+     records), and fasta_faults() through --no-sort (the JAX package's GFA
+     or golden-check error, FASTA_FAULTS_JAX); in a fresh process the
+     default headline run's pre_unite split into the CUDA context and its
+     unite, the Python match-run loop's seconds, and the flush through the
+     host library against the device unite on the same edges (headline and
+     locus, equal parents, DEFAULT_GFA_SHA256); kernel='wfa' with the C++
+     and the Python backtrace (equal records, WFA_SUBSET_SHA256); the
+     translocation pair's host walk in C++ and Python (equal items); the
+     sweepga align phase (SWEEPGA_GFA_SHA256) and chain_anchors' DP in C++
+     and Python (equal chains);
+ 13. prints {"kernels": [...]}, the nvidia-smi line, and last
      {"ok": true, "device": {...}}.
 
 Bounds: the least time the card could take for the same work, the larger
@@ -385,6 +398,46 @@ def wfa_subset():
 
 # RunnerConfig of the WFA phase (and of scripts/jax_wfa_digest.py)
 WFA_BAND_SLACK = 128
+
+
+def fasta_faults() -> dict[str, bytes]:
+    """Three FASTA files (their bytes) that the C++ parser reads as the JAX
+    package does and a Python loop of whitespace-stripped lines would not:
+    'blank_names', headers with blanks after '>' (every name reads as '',
+    so the --no-sort run fails the golden check); 'vertical_tab', a \x0b
+    at the end of a sequence line and a \x0c at the start of another (each
+    read as a base); 'long_header', headers of 70,000 bytes after '>'
+    (the name ends at the 65,535-byte fgets buffer, and the line's other
+    4,466 bytes are read as bases).  Three records of a seeded 300 bp base
+    with one SNP each."""
+    rng = np.random.default_rng(5)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    base = acgt[rng.integers(0, 4, 300)].tobytes()
+
+    def snp(pos):
+        s = bytearray(base)
+        s[pos] = ord("A") if s[pos] != ord("A") else ord("C")
+        return bytes(s)
+
+    recs = (base, snp(50), snp(200))
+    filler = acgt[rng.integers(0, 4, 70_000)].tobytes()
+    return {
+        "blank_names": b"".join(h + s + b"\n" for h, s in zip((b">  s0 d\n", b">\tseqA\n", b">   \n"), recs)),
+        "vertical_tab": (b">s0\n" + base[:150] + b"\x0b\n" + base[150:] + b"\n>s1\n\x0c" + recs[1]
+                         + b"\n>s2\n" + recs[2] + b"\n"),
+        "long_header": b"".join(b">r%d_" % k + filler[:70_000 - 3] + b"\n" + s + b"\n"
+                                for k, s in enumerate(recs)),
+    }
+
+
+# what the JAX package's ``--no-sort`` run gives on each of fasta_faults()
+# (on the CPU; scripts/jax_fasta_faults.py recomputes them): the GFA's
+# sha256, or the sha256 of the golden check's RuntimeError message
+FASTA_FAULTS_JAX = {
+    "blank_names": ("error", "43956d3c5554ad1dc0c5e1cf2ef1e350b5cc0b1a3756b0b4b14059f72ae34b56"),
+    "vertical_tab": ("gfa", "7b2dcc4e586cb5fe64cba0a31d2914894ee0466f4ef94e93ad16c1eab917a00d"),
+    "long_header": ("gfa", "60fe4bf17d814e8cc678a513608fd2dc59ee343100d9855dd692e319291c9b54"),
+}
 
 # phase 9's RunnerConfig options (and scripts/jax_variant_digest.py's); the
 # fold runs are held to the JAX package on wfa_subset()'s 30 pairs, since the
@@ -1040,6 +1093,8 @@ def run(work: Path, name: str, smi: str, ptxas: list[str]) -> int:
     out.extend(run_phase9(smi, ptxas, ctx9))
     out.extend(run_phase10(smi, ptxas, ctx9))
     out.extend(run_phase11(work, smi, ptxas, ctx9))
+    ctx9["wfa_kernel_ms"] = sum(b["ms"] for e in phase8 if e["name"] == "wfa" for b in e["batches"])
+    run_phase12(work, smi, drive, ctx9)
     print(json.dumps({"kernels": out}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -2388,7 +2443,10 @@ def run_phase11(work: Path, smi: str, ptxas: list[str], ctx: dict) -> list[dict]
     11c. parallel.mesh.distributed_align_unite on B = 256 pairs (one SNP
          each, tests/test_multidevice.py's workload at L 256) for D = 1, 2,
          4, 8: scores and parent arrays equal across D, the wavefront
-         kernel's score-only mode launched; the step's seconds;
+         kernel's score-only mode launched; the step's seconds and its
+         bound (inputs read once, outputs written once, the wavefront's
+         cells at WFA_OPS_PER_CELL); the step's wavefront through the
+         kernel's score-only mode and its plain version, timed;
     11d. two processes on cuda:0 joined by gloo (parallel/distributed.py,
          tests/torch_multihost_worker.py) on the headline FASTA with
          --no-sort: both GFA files must have DEFAULT_GFA_SHA256; the wall
@@ -2472,8 +2530,11 @@ def run_phase11(work: Path, smi: str, ptxas: list[str], ctx: dict) -> list[dict]
     del strips_p
     # kernel A single-shot at the route's band: its walk gives the route's CIGAR
     s_a, tb_a = nw_cuda.nw_align(Qf, Tf, qlf, tlf, **kw)
-    items = nw.resolve_matches(nw.traceback_pair(tb_a[0].cpu().numpy(), q.size, t.size, band), q, t)
+    tb_host = tb_a[0].cpu().numpy()
+    walked = nw.traceback_pair(tb_host, q.size, t.size, band)
+    items = nw.resolve_matches(walked, q, t)
     del tb_a
+    ctx["translocation_walk"] = (tb_host, q.size, t.size, band, walked)  # timed in phase 12d
     print(f"  sharded mode at the route's shape [B 1, W {band + 1}, 2 shards, tmax {tmax}]: max_abs_err "
           f"{err_full} against the plain version ({plain_ms:.1f} ms); kernel A single-shot score {int(s_a[0])}, "
           f"its CIGAR equal to the route's {items == r_mesh.cigar}")
@@ -2574,8 +2635,22 @@ def run_phase11(work: Path, smi: str, ptxas: list[str], ctx: dict) -> list[dict]
                                  f"wavefront kernels on {D} shards")
         step_out.append((s.cpu(), par.cpu()))
     same = all(torch.equal(a[0], step_out[0][0]) and torch.equal(a[1], step_out[0][1]) for a in step_out)
+    # the step's bound: its inputs read once (Q, T, lengths, caps, offsets,
+    # the parent) and its outputs written once (scores, the parent); the
+    # wavefront's cells of each pair's score steps at WFA_OPS_PER_CELL
+    n_slots = 4 * B * L + 2
+    step_bytes = Q.size + T.size + 12 * B + 16 * B + 2 * 4 * n_slots + 4 * B
+    step_ops = sum(int(x) + 1 for x in step_out[0][0].tolist()) * (2 * 32 + 1) * WFA_OPS_PER_CELL
+    sb_ms, so_ms = step_bytes / HBM_BYTES_PER_S * 1e3, step_ops / ISSUE_OPS_PER_S * 1e3
+    # the step's wavefront alone: the kernel's score-only mode and its plain version
+    w_args = [torch.from_numpy(a).to(dev) for a in (Q, T, qlens, tlens, caps)]
+    w_kw = dict(smax=256, band=32, keep_history=False, **pen)
+    w_ms = cuda_ms(lambda: wfa.wfa_align_device(*w_args, **w_kw), REPS)
+    w_plain_ms, _ = once_ms(lambda: wfa.wfa_align_reference(*w_args, **w_kw))
     print(f"distributed_align_unite, B {B}, L {L}: scores {sorted(set(step_out[0][0].tolist()))}, equal across "
-          f"D = 1, 2, 4, 8 {same}; seconds {json.dumps(step_s)}")
+          f"D = 1, 2, 4, 8 {same}; seconds {json.dumps(step_s)}; bound {max(sb_ms, so_ms):.6f} ms "
+          f"({'bytes' if sb_ms >= so_ms else 'operations'}; {step_bytes} bytes, {step_ops} operations); its "
+          f"wavefront (score-only kernel) {w_ms:.4f} ms, plain version {w_plain_ms:.1f} ms")
     if not same or not bool((step_out[0][0] == pen["mismatch"]).all()):
         raise AssertionError("the align + unite step differs across shard counts")
 
@@ -2628,5 +2703,291 @@ def run_phase11(work: Path, smi: str, ptxas: list[str], ctx: dict) -> list[dict]
     }]
 
 
+def in_turns(a: str, b: str) -> tuple[str, ...]:
+    """Phase 12's order of runs: three of each variant, in turns."""
+    return (a, b, b, a, a, b)
+
+
+def unite_split(runs: list[tuple[str, str, str]]) -> dict:
+    """12b's measurements, in a fresh process (``python3 chip_smoke.py
+    --unite-split TAG FASTA GFA ...``): each FASTA through the CLI on the
+    card with --no-sort, in order, timing the pre-unite's first device
+    tensor (the CUDA context, on the process's first run) and its unite
+    apart, summing SeqRushTorch._result_to_unites, timing the flush's device
+    unite and keeping the largest flush's parent and edges; then that flush
+    through the host library (the parent to the host as int32,
+    uf_unite_bulk and full compression, back to the card) against the
+    pipeline's device unite (unionfind.unite_edges), three times each in
+    turns, the parents equal.  Returns a dict by tag; the GFA's sha256 is
+    in it."""
+    from seqrush_tpu_torch import cli, pipeline
+    from seqrush_tpu_torch.native import uf_unite_bulk_native as host_unite
+    from seqrush_tpu_torch.ops import unionfind as uf
+
+    dev = torch.device("cuda")
+    create, unite_edges = uf.create, uf.unite_edges
+    to_unites = pipeline.SeqRushTorch._result_to_unites
+    flush = pipeline.SeqRushTorch._flush_unites
+    t: dict = {}
+    flushes: list = []
+    in_flush = [False]
+
+    def timed(fn, key):
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            t[key] = t.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return wrapper
+
+    pre_unite_unite = timed(unite_edges, "pre_unite_unite_s")
+    flush_unite = timed(unite_edges, "flush_device_s")
+
+    def capturing_unite(parent, u, v):
+        if not in_flush[0]:
+            return pre_unite_unite(parent, u, v)
+        flushes.append((parent.to("cpu", torch.int32, copy=True).numpy(), np.asarray(u), np.asarray(v)))
+        return flush_unite(parent, u, v)
+
+    def flagged_flush(self):
+        in_flush[0] = True
+        try:
+            flush(self)
+        finally:
+            in_flush[0] = False
+
+    uf.create, uf.unite_edges = timed(create, "create_s"), capturing_unite
+    pipeline.SeqRushTorch._result_to_unites = timed(to_unites, "result_to_unites_s")
+    pipeline.SeqRushTorch._flush_unites = flagged_flush
+    out = {}
+    try:
+        for tag, fasta, gfa in runs:
+            t.clear()
+            flushes.clear()
+            prof = Path(gfa + ".json")
+            t0 = time.time()
+            if cli.main(["-s", fasta, "-o", gfa, "--no-sort", "--profile", str(prof)]) != 0:
+                raise RuntimeError(f"the {tag} run failed")
+            rep = json.loads(prof.read_text())
+            parent0, u, v = max(flushes, key=lambda f: f[1].size)
+            out[tag] = {"wall_s": time.time() - t0, "phases_s": rep["phases_s"], **t,
+                        "flushes": len(flushes), "edges": int(u.size), "parent_slots": int(parent0.size),
+                        "gfa_sha256": hashlib.sha256(Path(gfa).read_bytes()).hexdigest()}
+            p_dev = torch.from_numpy(parent0).to(dev)
+            secs = {"cpp": [], "device": []}
+            split = {"to_host": [], "cpp": [], "to_card": []}
+            got = {}
+            for mode in in_turns("cpp", "device"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if mode == "cpp":
+                    par = p_dev.to("cpu", torch.int32, copy=True).numpy()
+                    t1 = time.perf_counter()
+                    host_unite(par, u, v)
+                    t2 = time.perf_counter()
+                    res = torch.from_numpy(par).to(dev)
+                    torch.cuda.synchronize()
+                    t3 = time.perf_counter()
+                    for key, dt in zip(split, (t1 - t0, t2 - t1, t3 - t2)):
+                        split[key].append(dt)
+                else:
+                    res = unite_edges(p_dev, u, v)
+                    torch.cuda.synchronize()
+                secs[mode].append(time.perf_counter() - t0)
+                if mode in got and not torch.equal(got[mode], res):
+                    raise AssertionError(f"two {mode} unites of the {tag} flush differ")
+                got[mode] = res
+            out[tag]["flush_in_turns_s"] = secs
+            out[tag]["cpp_flush_split_s"] = split
+            out[tag]["parents_equal"] = bool(torch.equal(got["cpp"], got["device"]))
+    finally:
+        uf.create, uf.unite_edges = create, unite_edges
+        pipeline.SeqRushTorch._result_to_unites = to_unites
+        pipeline.SeqRushTorch._flush_unites = flush
+    return out
+
+
+def run_phase12(work: Path, smi: str, drive, ctx: dict) -> None:
+    """12. The host library's parser, unite and walks at the sizes users run.
+
+    12a. the FASTA parser: the headline FASTA, the 8 x 60 kb locus FASTA and a
+         1,000 x 3.3 kb one (synth_hla(n_seqs=1000)) through load_fasta (the
+         C++ parser) and load_fasta_python (the plain loop), three times
+         each in turns: equal records, the seconds of each; then each of
+         fasta_faults() through the CLI on the card with --no-sort: its GFA's
+         sha256, or the golden check's RuntimeError, equal to the JAX
+         package's (FASTA_FAULTS_JAX);
+    12b. the unite, in a fresh process (unite_split): the default headline
+         run's pre_unite split into the CUDA context and its unite, the
+         Python seconds of _result_to_unites, the flush through the host
+         library against the device unite on the same edges of the
+         headline and of the locus, in turns, equal parents; the headline
+         GFA must have DEFAULT_GFA_SHA256, the locus's the bytes of phase
+         6's --no-sort run;
+    12c. the 600 pairs through kernel='wfa' with the C++ backtrace and with
+         the Python specification (native.backtrace_native patched to
+         return None), three times each in turns: equal records, the
+         route's wall and the backtrace's own seconds; wfa_subset()'s
+         records against WFA_SUBSET_SHA256;
+    12d. the translocation pair's host walk (phase 11a's kernel A traceback
+         at the route's band) through the C++ walk and the Python
+         specification: equal items, the seconds of each;
+    12e. the sweepga backend's align phase with --no-sort (its GFA must keep
+         SWEEPGA_GFA_SHA256), and chain_anchors' DP through the C++ and the
+         Python lookback on the anchors of the headline's pairs (0, j):
+         equal chains, the seconds of each."""
+    from seqrush_tpu_torch import cli, native
+    from seqrush_tpu_torch.align.runner import RunnerConfig, WfaAligner
+    from seqrush_tpu_torch.ops import anchors, nw, wfa
+    from seqrush_tpu_torch.pos import encode_bases
+    from seqrush_tpu_torch.sequences import load_fasta, load_fasta_python, make_sequence_set
+
+    t_phase = time.time()
+    named, pairs, scores = ctx["named"], ctx["pairs"], ctx["scores"]
+
+    def records(seqs):
+        return [(s.id, s.data.tobytes()) for s in seqs.sequences]
+
+    # 12a. the parser
+    big = work / "hla1000.fa"
+    write_fasta(big, synth_hla(n_seqs=1000))
+    parse = {}
+    for tag, fa in (("headline", work / "hla25.fa"), ("locus", work / "locus.fa"), ("hla1000", big)):
+        secs, got = {"cpp": [], "python": []}, {}
+        for mode in in_turns("cpp", "python"):
+            t0 = time.perf_counter()
+            seqs = (load_fasta if mode == "cpp" else load_fasta_python)(fa)
+            secs[mode].append(time.perf_counter() - t0)
+            got[mode] = records(seqs)
+        if got["cpp"] != got["python"]:
+            raise AssertionError(f"the C++ parser and the Python loop read {fa.name} differently")
+        parse[tag] = {"bytes": fa.stat().st_size, "records": len(got["cpp"]), **secs}
+    print(f"FASTA parse, C++ against the Python loop, seconds in turns: {json.dumps(parse)} | {smi}")
+    faults = {}
+    for tag, data in fasta_faults().items():
+        fa, gfa = work / f"fault_{tag}.fa", work / f"fault_{tag}.gfa"
+        fa.write_bytes(data)
+        try:
+            if cli.main(["-s", str(fa), "-o", str(gfa), "--no-sort"]) != 0:
+                raise RuntimeError(f"the {tag} run returned non-zero")
+            faults[tag] = ("gfa", hashlib.sha256(gfa.read_bytes()).hexdigest())
+        except RuntimeError as exc:
+            faults[tag] = ("error", hashlib.sha256(str(exc).encode()).hexdigest())
+    print(f"FASTA fault inputs --no-sort on the card: {json.dumps(faults)}; equal to the JAX package's "
+          f"{faults == {k: tuple(v) for k, v in FASTA_FAULTS_JAX.items()}}")
+    if faults != {k: tuple(v) for k, v in FASTA_FAULTS_JAX.items()}:
+        raise AssertionError("a FASTA fault input does not give the JAX package's result")
+
+    # 12b. the unite, in a fresh process
+    runs = [("headline", str(work / "hla25.fa"), str(work / "split_hla25.gfa")),
+            ("locus", str(work / "locus.fa"), str(work / "split_locus.gfa"))]
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--unite-split",
+                           *[x for r in runs for x in r]], capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        print(proc.stdout[-3000:], proc.stderr[-3000:], file=sys.stderr)
+        raise AssertionError("the unite-split process failed")
+    split = json.loads(proc.stdout.strip().splitlines()[-1])
+    for tag, r in split.items():
+        print(f"unite split, {tag} --no-sort (fresh process): " + json.dumps(r) + f" | {smi}")
+    if split["headline"]["gfa_sha256"] != DEFAULT_GFA_SHA256:
+        raise AssertionError("the unite-split process's headline GFA is not the JAX package's")
+    if Path(runs[1][2]).read_bytes() != (work / "locus_nosort.gfa").read_bytes():
+        raise AssertionError("the unite-split process's locus GFA differs from phase 6's")
+    if not all(r["parents_equal"] for r in split.values()):
+        raise AssertionError("the host and the device unite gave different parents")
+
+    # 12c. the wavefront route with the C++ and the Python backtrace
+    seqs = make_sequence_set(named)
+    wcfg = RunnerConfig(scores=scores, kernel="wfa", band_slack=WFA_BAND_SLACK)
+    backtrace, bt_native = wfa.backtrace_pair, native.backtrace_native
+    bt_s = [0.0]
+
+    def timed_backtrace(*a, **k):
+        t0 = time.perf_counter()
+        items = backtrace(*a, **k)
+        bt_s[0] += time.perf_counter() - t0
+        return items
+
+    wall, own, digests = {"cpp": [], "python": []}, {"cpp": [], "python": []}, {}
+    wfa.backtrace_pair = timed_backtrace
+    try:
+        for mode in in_turns("cpp", "python"):
+            native.backtrace_native = bt_native if mode == "cpp" else (lambda *a, **k: None)
+            bt_s[0] = 0.0
+            al = WfaAligner(seqs, wcfg, device="cuda")
+            t0 = time.perf_counter()
+            res = al.align_pairs(pairs)
+            torch.cuda.synchronize()
+            wall[mode].append(time.perf_counter() - t0)
+            own[mode].append(bt_s[0])
+            digests.setdefault(mode, set()).add(records_digest(res))
+    finally:
+        wfa.backtrace_pair, native.backtrace_native = backtrace, bt_native
+    sub = wfa_subset()
+    sub_pairs = np.array([(i, j) for i in range(len(sub)) for j in range(len(sub)) if i != j])
+    sub_digest = records_digest(WfaAligner(make_sequence_set(sub), wcfg, device="cuda").align_pairs(sub_pairs))
+    kernel_ms = ctx["wfa_kernel_ms"]
+    print(f"kernel='wfa' route, {len(pairs)} pairs, C++ against Python backtrace in turns: wall s "
+          f"{json.dumps(wall)}; backtrace s {json.dumps(own)}; its launches' kernel time (phase 8b) "
+          f"{kernel_ms:.3f} ms; records equal {len(set().union(*digests.values())) == 1}; subset sha256 "
+          f"{sub_digest} | {smi}")
+    if len(set().union(*digests.values())) != 1 or sub_digest != WFA_SUBSET_SHA256:
+        raise AssertionError("the C++ and the Python backtrace disagree, or the subset is not the JAX package's")
+
+    # 12d. the translocation pair's host walk
+    tb, qlen, tlen, band, walked = ctx["translocation_walk"]
+    walk_secs, items = {"cpp": [], "python": []}, {}
+    nw_native = native.nw_traceback_native
+    try:
+        for mode in in_turns("cpp", "python"):
+            native.nw_traceback_native = nw_native if mode == "cpp" else (lambda *a, **k: None)
+            t0 = time.perf_counter()
+            items[mode] = nw.traceback_pair(tb, qlen, tlen, band)
+            walk_secs[mode].append(time.perf_counter() - t0)
+    finally:
+        native.nw_traceback_native = nw_native
+    steps = sum(n for n, _ in items["cpp"])
+    print(f"translocation pair host walk [{tb.shape[0]} x {tb.shape[1]} traceback, {steps} steps], C++ "
+          f"against Python, seconds in turns: {json.dumps(walk_secs)}; items equal "
+          f"{items['cpp'] == items['python'] == walked} | {smi}")
+    if not items["cpp"] == items["python"] == walked:
+        raise AssertionError("the C++ and the Python host walk disagree")
+    del tb
+    ctx.pop("translocation_walk")
+
+    # 12e. the sweepga align phase, and chain_anchors' DP
+    gfa_sw = work / "split_sweepga_nosort.gfa"
+    rep, _launches, wall_sw = drive(gfa_sw, "--aligner", "sweepga", "--no-sort", kernels=BACKEND_KERNELS,
+                                    fasta=work / "hla25.fa")
+    digest = hashlib.sha256(gfa_sw.read_bytes()).hexdigest()
+    codes = [encode_bases(s) for _, s in named]
+    sets = []
+    for j in range(1, len(codes)):
+        a = anchors.anchor_matches(codes[0], codes[j])
+        sets.append(a[np.lexsort((a[:, 1], a[:, 0]))])
+    chain_secs, chains = {"cpp": [], "python": []}, {}
+    for mode in in_turns("cpp", "python"):
+        t0 = time.perf_counter()
+        if mode == "cpp":
+            chains[mode] = [list(native.chain_anchors_native(a, 15, anchors.DEFAULT_MAX_GAP,
+                                                             anchors.DEFAULT_MAX_SKEW)) for a in sets]
+        else:
+            chains[mode] = [anchors._chain_indices_python(a, 15, anchors.DEFAULT_MAX_GAP, anchors.DEFAULT_MAX_SKEW)
+                            for a in sets]
+        chain_secs[mode].append(time.perf_counter() - t0)
+    print(f"--aligner sweepga --no-sort: align phase {rep['phases_s']['align']:.4f} s, total {wall_sw:.2f} s, "
+          f"GFA sha256 {digest}; chain_anchors over {len(sets)} pairs ({sum(a.shape[0] for a in sets)} "
+          f"anchors), C++ against the Python lookback, seconds in turns {json.dumps(chain_secs)}; chains "
+          f"equal {chains['cpp'] == chains['python']} | {smi}")
+    if digest != SWEEPGA_GFA_SHA256 or chains["cpp"] != chains["python"]:
+        raise AssertionError("the sweepga GFA is not the JAX package's, or the chaining DPs disagree")
+    print(f"phase 12 wall {time.time() - t_phase:.1f} s")
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--unite-split"]:
+        rest = sys.argv[2:]
+        print(json.dumps(unite_split([tuple(rest[i : i + 3]) for i in range(0, len(rest), 3)])))
+        sys.exit(0)
     sys.exit(main())

@@ -13,7 +13,7 @@ __version__ = "0.1.0"
 
 from .config import Args  # noqa: F401
 from .scores import AlignmentScores  # noqa: F401
-from .sequences import Sequence, SequenceSet, load_fasta, make_sequence_set  # noqa: F401
+from .sequences import Sequence, SequenceSet, load_fasta, load_fasta_str, make_sequence_set  # noqa: F401
 
 
 def run_seqrush(args):

@@ -35,6 +35,10 @@ def parse_cigar(cigar: str | bytes) -> list[tuple[int, str]]:
     return [(int(n), op.decode()) for n, op in _CIGAR_RE.findall(cigar)]
 
 
+def cigar_to_string(items: list[tuple[int, str]]) -> str:
+    return "".join(f"{n}{op}" for n, op in items)
+
+
 def match_runs_from_cigar(
     items: list[tuple[int, str]],
     query: np.ndarray,

@@ -1,25 +1,294 @@
-// Host library of seqrush_tpu_torch: the colinear anchor chaining and the
-// exact window DP of the anchored wide route and the sweepga backend, and
-// the sweepga backend's record stitch, as a plain C ABI loaded with ctypes
-// (seqrush_tpu_torch/native.py).
+// Host library of seqrush_tpu_torch, as a plain C ABI loaded with ctypes
+// (seqrush_tpu_torch/native.py): the FASTA parser (fasta_stat, fasta_parse),
+// the bulk union-find of the pipeline's unite (uf_unite_bulk, uf_compress),
+// the wavefront route's backtrace (wfa_backtrace), the host walk of a packed
+// banded traceback (nw_traceback), the colinear anchor chaining
+// (chain_anchors, and chain_pairs over many pairs with their run merging),
+// the exact window DP of the anchored wide route and the sweepga backend
+// (window_dp), and the sweepga backend's record stitch (stitch_records).
 //
-// A copy of those parts of the JAX package's csrc/seqrush_native.cpp:
-// chain_anchors, chain_to_runs_cpp and chain_pairs (bit-identical to
-// ops/anchors.py chain_anchors_multi + chain_to_runs per pair), window_dp_one
-// and window_dp (full-matrix two-piece Gotoh with the kernels' walk-order tie
-// preference), and stitch_records (bit-identical to
-// align/sweep.py::SweepAligner._stitch_python).  The arithmetic is
-// unchanged, so both libraries give the same chains, scores, CIGARs and
-// records; native.py compiles this file with
-// -ffp-contract=off so that the chain score, a sum of doubles, is rounded
-// the same way on every host.
+// A copy of the JAX package's csrc/seqrush_native.cpp, function for
+// function: the parser's quirks (lines read through a 65,536-byte fgets
+// buffer, only '\r' '\n' stripped at a line's end and only space and tab
+// around a sequence line, a name ending at the first space or tab after
+// '>') are kept, so both packages read every FASTA file the same way; the
+// union-find roots every component at its minimum element, as the device
+// unite does; the backtraces keep the Python specifications' tie order
+// (ops/wfa.py::backtrace_pair, ops/nw.py::traceback_pair); chain_pairs is
+// bit-identical to ops/anchors.py chain_anchors_multi + chain_to_runs per
+// pair, window_dp is a full-matrix two-piece Gotoh with the kernels'
+// walk-order tie preference, and stitch_records is bit-identical to
+// align/sweep.py::SweepAligner._stitch_python.  The arithmetic is
+// unchanged, so both libraries give the same records, scores, CIGARs and
+// parents; native.py compiles this file with -ffp-contract=off so that the
+// chain score, a sum of doubles, is rounded the same way on every host.
 
 #include <cstdint>
+#include <cstdio>
 #include <cstring>
+#include <string>
 #include <thread>
 #include <vector>
 
-namespace {
+extern "C" {
+
+// ---------------------------------------------------------------------------
+// FASTA
+// ---------------------------------------------------------------------------
+
+// First pass: count records and sizes so the caller can allocate numpy
+// buffers. Returns 0 on success, -1 on IO error.
+int64_t fasta_stat(const char* path, int64_t* n_seqs, int64_t* total_len,
+                   int64_t* names_len) {
+  FILE* f = fopen(path, "rb");
+  if (!f) return -1;
+  *n_seqs = 0;
+  *total_len = 0;
+  *names_len = 0;
+  std::string line;
+  char buf[1 << 16];
+  while (fgets(buf, sizeof buf, f)) {
+    size_t n = strlen(buf);
+    while (n && (buf[n - 1] == '\n' || buf[n - 1] == '\r')) --n;
+    if (n == 0) continue;
+    if (buf[0] == '>') {
+      ++*n_seqs;
+      size_t e = 1;
+      while (e < n && buf[e] != ' ' && buf[e] != '\t') ++e;
+      *names_len += (int64_t)(e - 1);
+    } else if (*n_seqs > 0) {
+      size_t s = 0, e = n;
+      while (s < e && (buf[s] == ' ' || buf[s] == '\t')) ++s;
+      while (e > s && (buf[e - 1] == ' ' || buf[e - 1] == '\t')) --e;
+      *total_len += (int64_t)(e - s);
+    }
+  }
+  fclose(f);
+  return 0;
+}
+
+// Second pass: fill caller buffers.
+//   names:      concatenated id bytes          [names_len]
+//   name_offs:  per-seq id end offsets         [n_seqs]
+//   data:       concatenated sequence bytes    [total_len]
+//   seq_offs:   per-seq sequence end offsets   [n_seqs]
+int64_t fasta_parse(const char* path, char* names, int64_t* name_offs,
+                    uint8_t* data, int64_t* seq_offs) {
+  FILE* f = fopen(path, "rb");
+  if (!f) return -1;
+  int64_t seq_i = -1, npos = 0, dpos = 0;
+  char buf[1 << 16];
+  while (fgets(buf, sizeof buf, f)) {
+    size_t n = strlen(buf);
+    while (n && (buf[n - 1] == '\n' || buf[n - 1] == '\r')) --n;
+    if (n == 0) continue;
+    if (buf[0] == '>') {
+      if (seq_i >= 0) seq_offs[seq_i] = dpos;
+      ++seq_i;
+      size_t e = 1;
+      while (e < n && buf[e] != ' ' && buf[e] != '\t') ++e;
+      memcpy(names + npos, buf + 1, e - 1);
+      npos += (int64_t)(e - 1);
+      name_offs[seq_i] = npos;
+    } else if (seq_i >= 0) {
+      size_t s = 0, e = n;
+      while (s < e && (buf[s] == ' ' || buf[s] == '\t')) ++s;
+      while (e > s && (buf[e - 1] == ' ' || buf[e - 1] == '\t')) --e;
+      memcpy(data + dpos, buf + s, e - s);
+      dpos += (int64_t)(e - s);
+    }
+  }
+  if (seq_i >= 0) seq_offs[seq_i] = dpos;
+  fclose(f);
+  return seq_i + 1;
+}
+
+// ---------------------------------------------------------------------------
+// Union-find (host): deterministic min-element roots
+// ---------------------------------------------------------------------------
+
+static int32_t uf_find(int32_t* parent, int32_t x) {
+  while (parent[x] != x) {
+    parent[x] = parent[parent[x]];  // path halving
+    x = parent[x];
+  }
+  return x;
+}
+
+void uf_unite_bulk(int32_t* parent, int64_t n, const int32_t* u,
+                   const int32_t* v, int64_t m) {
+  for (int64_t i = 0; i < m; ++i) {
+    if (u[i] < 0 || u[i] >= n || v[i] < 0 || v[i] >= n) continue;  // defensive
+    int32_t ru = uf_find(parent, u[i]);
+    int32_t rv = uf_find(parent, v[i]);
+    if (ru == rv) continue;
+    if (ru < rv)
+      parent[rv] = ru;  // min root wins -> deterministic representatives
+    else
+      parent[ru] = rv;
+  }
+}
+
+void uf_compress(int32_t* parent, int64_t n) {
+  for (int64_t i = 0; i < n; ++i) parent[i] = uf_find(parent, (int32_t)i);
+}
+
+// ---------------------------------------------------------------------------
+// WFA backtrace from device wavefront histories
+// ---------------------------------------------------------------------------
+
+static const int16_t NULL16 = -32768;
+
+static inline int32_t hget(const int16_t* H, int64_t srows, int64_t ndiag,
+                           int64_t s, int64_t d) {
+  if (!H || s < 0 || d < 0 || d >= ndiag || s >= srows) return INT32_MIN;
+  int16_t v = H[s * ndiag + d];
+  return v <= NULL16 ? INT32_MIN : (int32_t)v;
+}
+
+// Recovers CIGAR ops ('=', 'X', 'I', 'D'), one byte per op step, written
+// back-to-front semantics resolved internally: out_ops receives the ops in
+// FORWARD order. Returns the number of ops, or -1 on inconsistency.
+int64_t wfa_backtrace(const int16_t* HM, const int16_t* HI1, const int16_t* HD1,
+                      const int16_t* HI2, const int16_t* HD2, int64_t srows,
+                      int64_t ndiag, int32_t score, int32_t qlen, int32_t tlen,
+                      int32_t band, int32_t x, int32_t o1, int32_t e1,
+                      int32_t o2, int32_t e2, uint8_t* out_ops) {
+  const bool two = (HI2 != nullptr) && (o2 >= 0);
+  std::vector<uint8_t> rev;
+  rev.reserve((size_t)(qlen + tlen));
+  int64_t s = score;
+  int64_t d = (int64_t)(tlen - qlen) + band;
+  int32_t off = tlen;
+  // matrix: 0=M 1=D1 2=I1 3=D2 4=I2
+  int mat = 0;
+
+  while (true) {
+    if (mat == 0) {
+      if (s == 0) {
+        for (int32_t i = 0; i < off; ++i) rev.push_back('=');
+        break;
+      }
+      int32_t cm = hget(HM, srows, ndiag, s - x, d);
+      int32_t cand[5];
+      cand[0] = cm == INT32_MIN ? INT32_MIN : cm + 1;           // X
+      cand[1] = hget(HD1, srows, ndiag, s, d);                  // D1
+      cand[2] = hget(HI1, srows, ndiag, s, d);                  // I1
+      cand[3] = two ? hget(HD2, srows, ndiag, s, d) : INT32_MIN; // D2
+      cand[4] = two ? hget(HI2, srows, ndiag, s, d) : INT32_MIN; // I2
+      int32_t best = INT32_MIN;
+      for (int k = 0; k < 5; ++k)
+        if (cand[k] > best) best = cand[k];
+      if (best == INT32_MIN || off < best) return -1;
+      for (int32_t i = 0; i < off - best; ++i) rev.push_back('=');
+      off = best;
+      int choice = 0;
+      for (int k = 0; k < 5; ++k)
+        if (cand[k] == best) {
+          choice = k;
+          break;
+        }
+      if (choice == 0) {
+        rev.push_back('X');
+        s -= x;
+        off -= 1;
+      } else {
+        mat = choice;
+      }
+    } else if (mat == 1 || mat == 3) {  // D1 / D2
+      int32_t o = (mat == 1) ? o1 : o2, e = (mat == 1) ? e1 : e2;
+      const int16_t* HD = (mat == 1) ? HD1 : HD2;
+      rev.push_back('D');
+      int32_t prev = off - 1;
+      int32_t mp = hget(HM, srows, ndiag, s - o - e, d - 1);
+      if (mp != INT32_MIN && mp == prev) {
+        s -= o + e;
+        d -= 1;
+        off = prev;
+        mat = 0;
+      } else {
+        int32_t dp = hget(HD, srows, ndiag, s - e, d - 1);
+        if (dp == INT32_MIN || dp != prev) return -1;
+        s -= e;
+        d -= 1;
+        off = prev;
+      }
+    } else {  // I1 / I2
+      int32_t o = (mat == 2) ? o1 : o2, e = (mat == 2) ? e1 : e2;
+      const int16_t* HI = (mat == 2) ? HI1 : HI2;
+      rev.push_back('I');
+      int32_t mp = hget(HM, srows, ndiag, s - o - e, d + 1);
+      if (mp != INT32_MIN && mp == off) {
+        s -= o + e;
+        d += 1;
+        mat = 0;
+      } else {
+        int32_t ip = hget(HI, srows, ndiag, s - e, d + 1);
+        if (ip == INT32_MIN || ip != off) return -1;
+        s -= e;
+        d += 1;
+      }
+    }
+  }
+  int64_t n = (int64_t)rev.size();
+  for (int64_t i = 0; i < n; ++i) out_ops[i] = rev[(size_t)(n - 1 - i)];
+  return n;
+}
+
+// ---------------------------------------------------------------------------
+// Banded anti-diagonal Gotoh traceback (ops/nw.py packed bytes)
+// ---------------------------------------------------------------------------
+
+// tb: uint8 [tmax+1, W] packed rows; emits ops ('M','I','D') forward order.
+// Returns op count or -1 on inconsistency.  'M' cells are split into '='/'X'
+// on the python side against the sequences.
+int64_t nw_traceback(const uint8_t* tb, int64_t tmax_rows, int64_t W,
+                     int32_t qlen, int32_t tlen, int32_t band,
+                     uint8_t* out_ops) {
+  std::vector<uint8_t> rev;
+  rev.reserve((size_t)(qlen + tlen));
+  int64_t i = qlen, j = tlen;
+  int state = 0;  // 0=H 1=D1 2=I1 3=D2 4=I2
+  while (i > 0 || j > 0) {
+    int64_t t = i + j;
+    int64_t i0 = (t - band + 1) / 2;
+    if (i0 < 0) i0 = 0;
+    int64_t l = i - i0;
+    if (t < 0 || t >= tmax_rows || l < 0 || l >= W) return -1;
+    uint8_t b = tb[t * W + l];
+    if (state == 0) {
+      int choice = b & 7;
+      if (choice == 0) {
+        rev.push_back('M');
+        --i;
+        --j;
+      } else if (choice == 1) {
+        state = 1;
+      } else if (choice == 2) {
+        state = 2;
+      } else if (choice == 3) {
+        state = 3;
+      } else if (choice == 4) {
+        state = 4;
+      } else {
+        return -1;
+      }
+    } else if (state == 2 || state == 4) {  // I1 / I2
+      bool opened = b & (state == 2 ? 8 : 16);
+      rev.push_back('I');
+      --i;
+      if (opened) state = 0;
+    } else {  // D1 / D2
+      bool opened = b & (state == 1 ? 32 : 64);
+      rev.push_back('D');
+      --j;
+      if (opened) state = 0;
+    }
+  }
+  int64_t n = (int64_t)rev.size();
+  for (int64_t k = 0; k < n; ++k) out_ops[k] = rev[(size_t)(n - 1 - k)];
+  return n;
+}
 
 // Colinear anchor-chaining DP: 64-anchor lookback, weight
 // f[j] + k - 0.05*skew - 0.01*max(dq, dt), first-max argmax, strict
@@ -69,6 +338,10 @@ int64_t chain_anchors(const int64_t* qs, const int64_t* ts, int64_t n,
   for (int64_t c = 0; c < m; ++c) out_idx[c] = chain[(size_t)(m - 1 - c)];
   return m;
 }
+
+}  // extern "C"
+
+namespace {
 
 // chain_to_runs (ops/anchors.py chain_to_runs_spec, bit-identical): merge
 // chained anchors into maximal exact-match runs; colinear overlaps

@@ -11,12 +11,16 @@ runs.
 ``chain_anchors``, ``chain_anchors_multi`` and ``chain_to_runs`` here are the
 plain Python version of the host library's ``chain_pairs``
 (``native.chain_pairs_native``), which both users run; the tests hold the
-two equal.
+two equal.  ``chain_anchors`` itself runs its DP in the host library's C++
+``chain_anchors`` first, as the JAX package does; the Python lookback below
+it is the specification.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from .. import native
 
 # colinear-chaining defaults (minimap2-style), shared by chain_anchors and
 # the route's chain_pairs call
@@ -136,6 +140,15 @@ def chain_anchors(
         return anchors
     order = np.lexsort((anchors[:, 1], anchors[:, 0]))
     a = anchors[order]
+    idx = native.chain_anchors_native(a, k, max_gap, max_skew)
+    if idx is None:
+        idx = _chain_indices_python(a, k, max_gap, max_skew)
+    return _keep_increasing(a[idx])
+
+
+def _chain_indices_python(a: np.ndarray, k: int, max_gap: int, max_skew: int) -> list[int]:
+    """The chaining DP's specification over (q, t)-sorted anchors: the best
+    chain's row indices, ascending."""
     n = a.shape[0]
     f = np.full(n, float(k))
     pred = np.full(n, -1, dtype=np.int64)
@@ -164,7 +177,7 @@ def chain_anchors(
         chain.append(end)
         end = int(pred[end])
     chain.reverse()
-    return _keep_increasing(a[chain])
+    return chain
 
 
 def _keep_increasing(out: np.ndarray) -> np.ndarray:

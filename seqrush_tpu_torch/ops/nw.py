@@ -32,6 +32,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import native
+
 INF = 2**28  # +infinity of the int32 DP; INF + o2 + e2 stays below 2^31
 QPAD = 6  # query pad code (codes 0..5 are real bases)
 TPAD = 7  # target pad code, distinct so pads never match
@@ -89,7 +91,13 @@ def tmax_pad_of(tmax: int) -> int:
 def traceback_pair(tb: np.ndarray, qlen: int, tlen: int, band: int) -> list[tuple[int, str]]:
     """Decode one pair's packed traceback [T + 1, W] (anti-diagonal major)
     into run-length CIGAR items, 'M' for a diagonal step (resolve_matches
-    splits it into '=' / 'X')."""
+    splits it into '=' / 'X').  The host library's C++ walk runs first, as
+    in the JAX package; the Python body below is the specification, run
+    when the C++ walk leaves the band or meets an invalid cell (it then
+    raises)."""
+    items = native.nw_traceback_native(tb, qlen, tlen, band)
+    if items is not None:
+        return items
     K = band
     W = K + 1
     ops: list[str] = []

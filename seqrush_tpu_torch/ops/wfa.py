@@ -36,6 +36,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import native
 from . import nw_cuda
 
 NULL = -(2**30)  # the null offset of a wavefront cell
@@ -354,7 +355,16 @@ def backtrace_pair(
     from one pair's history ([rows, NDIAG] int16 arrays by name, rows
     0..score at least).
 
-    Ops: '=' match, 'X' mismatch, 'I' consume-query, 'D' consume-target."""
+    Ops: '=' match, 'X' mismatch, 'I' consume-query, 'D' consume-target.
+    The host library's C++ backtrace runs first, as in the JAX package; the
+    Python body below is the specification, run when the C++ reports an
+    inconsistent history."""
+    items = native.backtrace_native(
+        hist, int(score), int(qlen), int(tlen), int(band), pen.mismatch, pen.gap1_open, pen.gap1_extend,
+        pen.gap2_open if pen.two_piece else -1, pen.gap2_extend if pen.two_piece else -1,
+    )
+    if items is not None:
+        return items
     HM = hist["M"].astype(np.int32)
     HI1 = hist["I1"].astype(np.int32)
     HD1 = hist["D1"].astype(np.int32)

@@ -93,7 +93,11 @@ class SeqRushTorch:
     def _flush_unites(self) -> None:
         """One device unite over every queued edge; with several processes
         over every process's edges (each process contributes its stripe's,
-        an empty list too, and applies the same unite)."""
+        an empty list too, and applies the same unite).  The JAX package
+        unites on the host, where its parent lives; here the parent lives on
+        the run's device, and the host library's uf_unite_bulk_native (the
+        same parents) is slower once the copies are counted (chip_smoke.py
+        phase 12b times both on the same edges)."""
         if process_count() == 1 and not self._edge_u:
             return
         u = np.concatenate(self._edge_u) if self._edge_u else np.zeros(0, np.int64)

@@ -7,14 +7,22 @@ each sequence assigned a global ``offset`` into the concatenated base space.
 Array-first difference: besides the per-sequence byte views we keep a single
 contiguous ``concat`` uint8 array, so graph induction and the union-find
 address all bases through one dense address space.
+
+``load_fasta`` reads a file with the host library's C++ parser, as the JAX
+package does wherever its library builds; the Python loop below it is the
+plain version, taken only when the C++ call itself raises (an unreadable
+path, a name that is not UTF-8).  A library that does not build raises.
 """
 
 from __future__ import annotations
 
+import io
 import os
 from dataclasses import dataclass, field
 
 import numpy as np
+
+from .native import get_lib, parse_fasta_native
 
 
 @dataclass
@@ -76,6 +84,18 @@ def make_sequence_set(named_seqs: list[tuple[str, bytes]]) -> SequenceSet:
 
 def load_fasta(path: str | os.PathLike) -> SequenceSet:
     """Parse FASTA into a SequenceSet (reference seqrush.rs:1801-1837)."""
+    get_lib()  # a failed build raises here, not in the fallback below
+    try:
+        return make_sequence_set(parse_fasta_native(os.fspath(path)))
+    except (OSError, UnicodeDecodeError):
+        pass  # an unreadable path or a name that is not UTF-8: the loop decides, as in the JAX package
+    return load_fasta_python(path)
+
+
+def load_fasta_python(path: str | os.PathLike) -> SequenceSet:
+    """The plain version of load_fasta: a Python loop that strips every
+    whitespace byte and keeps the first whitespace-separated word of a
+    header."""
     named: list[tuple[str, bytes]] = []
     current_id: str | None = None
     chunks: list[bytes] = []
@@ -92,4 +112,23 @@ def load_fasta(path: str | os.PathLike) -> SequenceSet:
                 chunks.append(line)
     if current_id is not None:
         named.append((current_id, b"".join(chunks)))
+    return make_sequence_set(named)
+
+
+def load_fasta_str(text: str) -> SequenceSet:
+    """Parse FASTA text (the JAX package's ``load_fasta_str``)."""
+    named: list[tuple[str, bytes]] = []
+    current_id: str | None = None
+    chunks: list[str] = []
+    for raw in io.StringIO(text):
+        line = raw.strip()
+        if line.startswith(">"):
+            if current_id is not None:
+                named.append((current_id, "".join(chunks).encode()))
+                chunks = []
+            current_id = line[1:].split()[0] if len(line) > 1 else ""
+        elif current_id is not None:
+            chunks.append(line)
+    if current_id is not None:
+        named.append((current_id, "".join(chunks).encode()))
     return make_sequence_set(named)
