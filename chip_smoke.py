@@ -72,11 +72,19 @@ Phases (any failure exits non-zero and prints no ok line):
      run_long): the 110 kb pair of tests/test_zoo_extended.py through
      ``--no-sort``, whose GFA must have the JAX package's sha256
      (LONG_PAIR_GFA_SHA256); an 8 x 60 kb locus through the default run and
-     ``--no-sort``, every pair on the long route; each segment kernel
+     ``--no-sort`` (whose GFA must have the JAX package's sha256,
+     LOCUS_GFA_SHA256), every pair on the long route; each segment kernel
      against its plain version on the first, a middle and the last segment
-     of the largest long chunk; the route against single-shot kernels A + B
-     on that chunk; the times of each segment kind, of the route per chunk
-     and of single-shot A + B;
+     of the largest long chunk, and the route's launch shapes at the main
+     path's shapes against theirs (the forward run and the grouped
+     recompute of LONG_RUN segments on the first, a middle and the last
+     group, into the chunk's whole traceback at the group's rows; the group
+     walk over every segment); the route at G = n_seg and at G = 1 against
+     single-shot kernels A + B on that chunk; the times of each segment
+     kind and launch shape, of the route per chunk by G with the recompute
+     overlapping the forward pass and without, of single-shot A + B, and
+     of the locus's long chunks in series and at once (a stream each; equal
+     results);
   7. the sweepga backend and --inversion-aware (see run_backends): the
      headline corpus through ``--aligner sweepga --no-sort`` (its GFA must
      have the JAX package's sha256, SWEEPGA_GFA_SHA256) and with the layout;
@@ -379,6 +387,9 @@ INVERSION_BATCH_SHAPE = [8192, 1169, 101, 2302]
 # FASTA (``python -m seqrush_tpu -s long.fa -o long.gfa --no-sort`` on the
 # CPU; tests/test_torch_long.py recomputes it)
 LONG_PAIR_GFA_SHA256 = "03cb6fe066479f93204cdbd7d217313ead1d884d6d3c21c701361be623a63c7e"
+# sha256 of the JAX package's --no-sort GFA of synth_locus() (on the CPU;
+# scripts/jax_locus_graph.py recomputes it, in about 80 s)
+LOCUS_GFA_SHA256 = "ebfbd7a951b46899061c3f74b7ff76b3a8ffd7f3f29129df995c0eec744eb1ad"
 
 # sha256 of the JAX package's --no-sort GFA of synth_hla() in its default
 # mode, and each mode's run_overflows (scripts/jax_backend_graphs.py)
@@ -1101,7 +1112,7 @@ def run(work: Path, name: str, smi: str, ptxas: list[str]) -> int:
                                              "count": torch.cuda.device_count()}}))
     return 0
 
-LONG_KERNELS = ("nw_sweep_segment", "nw_sweep_segment_score_only", "nw_walk_segment")
+LONG_KERNELS = ("nw_sweep_segment_score_only", "nw_sweep_segment_group", "nw_walk_segment_group")
 
 
 def ptxas_registers(ptxas: list[str], kernel: str) -> int | None:
@@ -1124,10 +1135,20 @@ def run_long(work: Path, smi: str, drive, shapes, ptxas: list[str]) -> list[dict
         anchored; the sorted graph's checks of phase 3;
     6c. on the largest long chunk: each segment kernel against its plain
         version on the first, a middle and the last segment (exact); the
-        route's scores and opcodes against single-shot kernels A + B;
-        CUDA-event times of each segment launch kind (on the middle
-        segment), the route per chunk and single-shot A + B.
-    Returns the kernels line's entries of the three segment modes."""
+        forward pass in one launch against the chained launches; at the main
+        path's shapes the middle forward run of LONG_RUN segments, the
+        grouped recompute of the first, a middle and the last group (into
+        the chunk's whole traceback at the group's rows, the rows outside
+        untouched) and the group walk over every segment against their plain
+        versions, and every segment's rows of the grouped traceback against
+        the per-segment launch's; the route at G = n_seg (the runner's
+        budget) and at G = 1 (its launches counted alone) against
+        single-shot kernels A + B; CUDA-event times of each launch shape, of
+        the route per chunk by G with the overlap on and off, of single-shot
+        A + B, and of the locus's long chunks in series and at once (their
+        scores and opcodes equal), with the peak memory at once and whether
+        either chunk retries the other's jobs.
+    Returns the kernels line's entries of the five segment launch kinds."""
     from seqrush_tpu_torch.align.pairs import all_ordered_pairs
     from seqrush_tpu_torch.align.runner import RunnerConfig, WfaAligner
     from seqrush_tpu_torch.graph.bigraph import parse_gfa
@@ -1187,6 +1208,10 @@ def run_long(work: Path, smi: str, drive, shapes, ptxas: list[str]) -> list[dict
             raise AssertionError("the locus graph lacks a path")
     if rep_ns["graph"] != g:
         raise AssertionError("the locus's --no-sort run built another graph")
+    digest_ns = hashlib.sha256(lgfa_ns.read_bytes()).hexdigest()
+    print(f"  locus --no-sort GFA sha256 {digest_ns} (JAX package's {LOCUS_GFA_SHA256})")
+    if digest_ns != LOCUS_GFA_SHA256:
+        raise AssertionError("the locus's --no-sort GFA is not the JAX package's")
     sorted_g, unsorted_g = parse_gfa(lgfa.read_text()), parse_gfa(lgfa_ns.read_text())
     if sorted(sorted_g.nodes) != list(range(1, g["nodes"] + 1)):
         raise AssertionError("the locus's sorted graph's node ids are not 1..N")
@@ -1237,7 +1262,15 @@ def run_long(work: Path, smi: str, drive, shapes, ptxas: list[str]) -> list[dict
     if (B, tmax) != (d["B"], d["tmax"]) or n_seg != -(-t_need // seg):
         raise AssertionError("the rebuilt long chunk has another shape")
 
-    # the forward pass, keeping every checkpoint
+    # the main path's launch shapes at G = n_seg: forward runs and recompute
+    # groups of LONG_RUN segments from 0, LONG_RUN, ..., the last one shorter,
+    # each group into the chunk's traceback [B, n_seg * seg, W] from its rows on
+    runs = [(a, min(nw_cuda.LONG_RUN, n_seg - a)) for a in range(0, n_seg, nw_cuda.LONG_RUN)]
+    g_picks = sorted({runs[0], runs[len(runs) // 2], runs[-1]})
+    mid_g, R = runs[len(runs) // 2]
+
+    # the forward pass as chained single-segment launches, keeping every
+    # checkpoint
     carries = [nw_cuda.initial_carry(B, W, dev)]
     scores = [torch.full((B,), -1, dtype=torch.int32, device=dev)]
     for s in range(n_seg):
@@ -1247,7 +1280,7 @@ def run_long(work: Path, smi: str, drive, shapes, ptxas: list[str]) -> list[dict
         scores.append(sc)
     picks = sorted({0, n_seg // 2, n_seg - 1})
     mid = n_seg // 2
-    err = {"sweep": 0, "score_only": 0, "walk": 0}
+    err = {"sweep": 0, "score_only": 0, "walk": 0, "group": 0, "group_walk": 0, "run": 0}
     plain = {}
     for s in picks:
         c_k, s_k, tb_k = nw_cuda.nw_align_segment(Q, T, ql, tl, carries[s], scores[s], t0=s * seg, **kw)
@@ -1262,12 +1295,57 @@ def run_long(work: Path, smi: str, drive, shapes, ptxas: list[str]) -> list[dict
         if s == mid:
             plain["sweep"], plain["score_only"] = ms_p, ms_o
         del c_k, s_k, tb_k, c_p, s_p, tb_p, c_o, s_o
-    # the reverse pass, each picked segment's walk against the plain version
+
+    # the forward pass in one launch: every checkpoint and the scores of the
+    # chained launches; the middle forward run of the main path against its
+    # plain version
+    ckpt = torch.stack(carries[:n_seg])
+    run_ckpt = torch.empty_like(ckpt)
+    run_ckpt[0] = carries[0]
+    s_run = nw_cuda.nw_align_segment_run(Q, T, ql, tl, run_ckpt, scores[0], s0=0, n_run=n_seg,
+                                         **kw)
+    err["run"] = max(max_abs_err(run_ckpt, ckpt), max_abs_err(s_run, scores[-1]))
+    ck_k, ck_p = run_ckpt.clone(), run_ckpt.clone()
+    s_k = nw_cuda.nw_align_segment_run(Q, T, ql, tl, ck_k, scores[mid_g], s0=mid_g, n_run=R, **kw)
+    plain["run"], s_p = once_ms(lambda: nw_cuda.nw_align_segment_run_reference(
+        Q, T, ql, tl, ck_p, scores[mid_g], s0=mid_g, n_run=R, **kw))
+    err["run"] = max(err["run"], max_abs_err(ck_k, ck_p), max_abs_err(s_k, s_p),
+                     max_abs_err(ck_k, ckpt))
+    del ck_k, ck_p, s_k, s_p
+
+    # the grouped recompute on the main path's first, a middle and its last
+    # group, each into the whole traceback at its rows (filled with 0xA5
+    # before: the rows outside the group stay so) against its plain version
+    tb_all = torch.empty((B, n_seg * seg, W), dtype=torch.uint8, device=dev)
+    for s0, g in g_picks:
+        rows = slice(s0 * seg, (s0 + g) * seg)
+        tb_all.fill_(0xA5)
+        s_g, _ = nw_cuda.nw_align_segment_group(Q, T, ql, tl, ckpt, s0=s0, G=g, tb=tb_all,
+                                                row0=rows.start, **kw)
+        tb_gp = torch.empty((B, g * seg, W), dtype=torch.uint8, device=dev)
+        ms_g, s_gp = once_ms(lambda: nw_cuda.nw_align_segment_group_reference(
+            Q, T, ql, tl, ckpt, s0=s0, G=g, tb=tb_gp, **kw))
+        outside = int(tb_all[:, : rows.start].ne(0xA5).any().item()
+                      or tb_all[:, rows.stop :].ne(0xA5).any().item())
+        err["group"] = max(err["group"], max_abs_err(s_g, s_gp), max_abs_err(tb_all[:, rows], tb_gp),
+                           outside)
+        if s0 == mid_g:
+            plain["group"] = ms_g
+        del s_g, tb_gp, s_gp
+    # the whole traceback as the main path writes it, group after group
+    for s0, g in runs:
+        nw_cuda.nw_align_segment_group(Q, T, ql, tl, ckpt, s0=s0, G=g, tb=tb_all, row0=s0 * seg,
+                                       **kw)
+
+    # the reverse pass a segment a launch: every segment's traceback against
+    # the grouped one's rows, each picked segment's walk against the plain
+    # version
     state = nw_cuda.walk_state(ql, tl, band=band)
     ops = torch.zeros((B, n_seg * seg + 1), dtype=torch.uint8, device=dev)
     mid_walk = None
     for s in reversed(range(n_seg)):
         _, _, tb_s = nw_cuda.nw_align_segment(Q, T, ql, tl, carries[s], scores[s], t0=s * seg, **kw)
+        err["group"] = max(err["group"], max_abs_err(tb_s, tb_all[:, s * seg : (s + 1) * seg]))
         st_in = state
         if s in picks:
             ops_p = ops.clone()
@@ -1281,43 +1359,102 @@ def run_long(work: Path, smi: str, drive, shapes, ptxas: list[str]) -> list[dict
             del ops_p, st_p
         else:
             state = nw_cuda.nw_walk_segment(tb_s, st_in, ops, t0=s * seg, seg=seg, band=band)
+
+    # the group walk over every segment in one launch (the main path's)
+    # against its plain version and the per-segment walk
+    st0 = nw_cuda.walk_state(ql, tl, band=band)
+    ops_all, ops_allp = torch.zeros_like(ops), torch.zeros_like(ops)
+    st_g = nw_cuda.nw_walk_segment_group(tb_all, st0, ops_all, s0=0, G=n_seg, seg=seg, band=band)
+    plain["group_walk"], st_gp = once_ms(lambda: nw_cuda.nw_walk_segment_group_reference(
+        tb_all, st0, ops_allp, s0=0, G=n_seg, seg=seg, band=band))
+    err["group_walk"] = max(max_abs_err(st_g, st_gp), max_abs_err(ops_all, ops_allp),
+                            max_abs_err(st_g, state), max_abs_err(ops_all, ops))
+    del ops_allp, st_gp, st_g
     print(f"long parity (largest long chunk B={B} W={W} tmax={tmax} seg={seg} n_seg={n_seg}, "
-          f"segments {picks}): max_abs_err {json.dumps(err)}")
+          f"segments {picks}; groups [s0, G] {json.dumps(g_picks)} into [B, {n_seg * seg}, W] at "
+          f"row s0 * seg, every segment's rows against the per-segment launch; the group walk over "
+          f"all {n_seg}): max_abs_err {json.dumps(err)}")
     if any(err.values()):
         raise AssertionError("a segment kernel disagrees with its plain version")
 
-    # the route in one call against the chained launches and single-shot A + B
+    # the route at G = n_seg (the runner's budget) and at G = 1 against the
+    # chained launches and single-shot A + B; G = 1's launches counted alone
+    budget_g1 = B * seg * W  # one segment's traceback: G = 1
+    if nw_cuda.long_group_size(B, W, seg, n_seg, nw_cuda.LONG_BUDGET) != n_seg:
+        raise AssertionError("the largest long chunk's traceback does not fit the budget whole")
     s_long, ops_long = nw_cuda.nw_align_long(Q, T, ql, tl, t_need=t_need, **kw)
+    nw_cuda.reset_launch_counts()
+    s_g1, ops_g1 = nw_cuda.nw_align_long(Q, T, ql, tl, t_need=t_need, memory_budget=budget_g1, **kw)
+    torch.cuda.synchronize()
+    launches_g1 = {k: v for k, v in nw_cuda.LAUNCHES.items() if v}
     s_one, tb_one = nw_cuda.nw_align(Q, T, ql, tl, band=band, tmax=tmax, **pen)
     ops_one = nw_cuda.nw_walk(tb_one, ql, tl, band=band, tmax=tmax)
     del tb_one
     err_route = max(max_abs_err(s_long, scores[-1]), max_abs_err(ops_long, ops),
+                    max_abs_err(s_g1, s_long), max_abs_err(ops_g1, ops_long),
                     max_abs_err(s_long, s_one),
                     max_abs_err(ops_long[:, : t_need + 1], ops_one[:, : t_need + 1]),
                     int(ops_long[:, t_need + 1 :].any().item()), int(ops_one[:, t_need + 1 :].any().item()))
-    print(f"long route vs single-shot A + B on that chunk: max_abs_err {err_route} "
-          f"(scores {int((s_long >= 0).sum())} of {B} rows, {int((ops_long != 0).sum())} walk steps)")
+    print(f"long route (G = {n_seg} and G = 1) vs single-shot A + B on that chunk: max_abs_err "
+          f"{err_route} (scores {int((s_long >= 0).sum())} of {B} rows, "
+          f"{int((ops_long != 0).sum())} walk steps); G = 1's launches {json.dumps(launches_g1)}")
     if err_route:
         raise AssertionError("the long route disagrees with single-shot kernels A + B")
+    want_g1 = {"nw_sweep_segment_score_only": 1, "nw_sweep_segment_group": n_seg,
+               "nw_walk_segment_group": n_seg}
+    if launches_g1 != want_g1:
+        raise AssertionError(f"the route at G = 1 launched {launches_g1}, not {want_g1}")
+    del s_g1, ops_g1
 
-    # times: each segment kind on the middle segment, the route, single-shot A + B
+    # times: each launch shape of the G = 1 route and of the main path on
+    # the middle segment or group, the forward pass whole and in its runs,
+    # the route by G with overlap on and off, single-shot A + B
     spare = torch.empty_like(carries[0])
+    tb_mid, st_mid = mid_walk
+    ops_w = torch.zeros_like(ops)
     ms = {
         "score_only": cuda_ms(lambda: nw_cuda.nw_align_segment(
             Q, T, ql, tl, carries[mid], scores[mid], t0=mid * seg, with_traceback=False, out=spare,
             **kw), REPS),
-        "sweep": cuda_ms(lambda: nw_cuda.nw_align_segment(
-            Q, T, ql, tl, carries[mid], scores[mid], t0=mid * seg, out=spare, **kw), REPS),
+        # a segment's recompute and walk as the route makes them at G = 1
+        "sweep": cuda_ms(lambda: nw_cuda.nw_align_segment_group(
+            Q, T, ql, tl, ckpt, s0=mid, G=1, tb=tb_mid, **kw), REPS),
+        "walk": cuda_ms(lambda: nw_cuda.nw_walk_segment_group(
+            tb_mid, st_mid, ops_w, s0=mid, G=1, seg=seg, band=band), REPS),
+        "run": cuda_ms(lambda: nw_cuda.nw_align_segment_run(
+            Q, T, ql, tl, run_ckpt, scores[mid_g], s0=mid_g, n_run=R, **kw), REPS),
+        "group": cuda_ms(lambda: nw_cuda.nw_align_segment_group(
+            Q, T, ql, tl, ckpt, s0=mid_g, G=R, tb=tb_all, row0=mid_g * seg, **kw), REPS),
+        "group_walk": cuda_ms(lambda: nw_cuda.nw_walk_segment_group(
+            tb_all, st0, ops_w, s0=0, G=n_seg, seg=seg, band=band), REPS),
     }
-    tb_mid, st_mid = mid_walk
-    ops_w = torch.zeros_like(ops)
-    ms["walk"] = cuda_ms(lambda: nw_cuda.nw_walk_segment(tb_mid, st_mid, ops_w, t0=mid * seg,
-                                                          seg=seg, band=band), REPS)
-    route_ms = cuda_ms(lambda: nw_cuda.nw_align_long(Q, T, ql, tl, t_need=t_need, **kw), REPS)
+    fwd_ms = cuda_ms(lambda: nw_cuda.nw_align_segment_run(
+        Q, T, ql, tl, run_ckpt, scores[0], s0=0, n_run=n_seg, **kw), REPS)
+    runs_ms = cuda_ms(lambda: [nw_cuda.nw_align_segment_run(
+        Q, T, ql, tl, run_ckpt, scores[0], s0=a, n_run=r, **kw) for a, r in runs], REPS)
+    group_all_ms = cuda_ms(lambda: nw_cuda.nw_align_segment_group(
+        Q, T, ql, tl, ckpt, s0=0, G=n_seg, tb=tb_all, **kw), REPS)
+
+    def in_turns():
+        """The route at G = n_seg without the overlap: the forward pass in
+        one launch, the recompute of every segment in one, the group walk."""
+        ck = torch.empty_like(ckpt)
+        ck[0] = carries[0]
+        nw_cuda.nw_align_segment_run(Q, T, ql, tl, ck, scores[0], s0=0, n_run=n_seg, **kw)
+        nw_cuda.nw_align_segment_group(Q, T, ql, tl, ck, s0=0, G=n_seg, tb=tb_all, **kw)
+        return nw_cuda.nw_walk_segment_group(tb_all, st0, torch.zeros_like(ops), s0=0, G=n_seg,
+                                             seg=seg, band=band)
+
+    route_by_g = {f"G={g_name} overlap on": cuda_ms(
+        lambda: nw_cuda.nw_align_long(Q, T, ql, tl, t_need=t_need, memory_budget=bud, **kw), REPS)
+        for g_name, bud in ((1, budget_g1), (2, 2 * budget_g1), (n_seg, nw_cuda.LONG_BUDGET))}
+    route_by_g[f"G={n_seg} overlap off"] = cuda_ms(in_turns, REPS)
+    route_ms = route_by_g[f"G={n_seg} overlap on"]
     single_ms = cuda_ms(lambda: nw_cuda.nw_walk(nw_cuda.nw_align(Q, T, ql, tl, band=band, tmax=tmax,
                                                                   **pen)[1],
                                                  ql, tl, band=band, tmax=tmax), REPS)
     steps_mid = int((ops[:, mid * seg + 1 : (mid + 1) * seg + 1] != 0).sum().item())
+    steps_all = int((ops_all != 0).sum().item())
     # other segment lengths: the same scores and opcodes, and their time
     by_seg = {}
     for sg in (1024, 4096):
@@ -1329,13 +1466,72 @@ def run_long(work: Path, smi: str, drive, shapes, ptxas: list[str]) -> list[dict
                                                             t_need=t_need, **pen), REPS)
     by_seg[seg] = route_ms
 
-    # bounds of the middle segment: its needed cells (the rows each pair's
-    # matrix has in it) at 37 (24 score-only) instructions each; the full
-    # mode writes [B, seg, W] traceback bytes; both read and write the carry
+    # the locus's long chunks in series and at once (a stream each, as the
+    # runner dispatches them): equal scores and opcodes, their times, and the
+    # peak device memory at once
+    chunk_in = [long_inputs(dd) for dd in longs]
+    chunk_streams = [torch.cuda.Stream() for _ in longs]  # kept, as the runner keeps its own
+
+    def all_chunks(at_once):
+        main = torch.cuda.current_stream()
+        outs, streams = [], []
+        for (Qc, Tc, qc, tc, _), dd, own in zip(chunk_in, longs, chunk_streams):
+            st = own if at_once else main
+            st.wait_stream(main)
+            with torch.cuda.stream(st):
+                outs.append(nw_cuda.nw_align_long(Qc, Tc, qc, tc, band=dd["band"], seg=dd["seg"],
+                                                  t_need=int((qc + tc).max()), **pen))
+            streams.append(st)
+        for st in streams:
+            main.wait_stream(st)
+        for x in (x for o in outs for x in o):
+            x.record_stream(main)
+        return outs
+
+    outs_series, outs_once = all_chunks(False), all_chunks(True)
+    err_once = max(max_abs_err(a, b) for o1, o2 in zip(outs_series, outs_once) for a, b in zip(o1, o2))
+    del outs_series, outs_once
+    if err_once:
+        raise AssertionError("the locus's long chunks at once disagree with the chunks in series")
+    chunks_ms = {"series": cuda_ms(lambda: all_chunks(False), REPS),
+                 "at_once": cuda_ms(lambda: all_chunks(True), REPS)}
+    # the memory the chunks hold at once: their tracebacks and checkpoints as
+    # reckoned, and what the allocator reserved anew for them (a freed block
+    # waits for its streams' work before it is reused, so the allocated
+    # peak undercounts it)
+    live = sum(dd["B"] * dd["n_seg"] * dd["seg"] * (dd["band"] + 1) * (1 + 24 / dd["seg"])
+               for dd in longs)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_reserved()
+    all_chunks(True)
+    torch.cuda.synchronize()
+    peak_at_once = torch.cuda.max_memory_reserved() - base_mem
+    retry = [sorted(map(tuple, dd["jobs"])) for dd in longs]
+    firsts = all(not set(retry[k]) & set(retry[j]) for k in range(len(retry)) for j in range(k))
+    print(f"locus long chunks {json.dumps([[dd['B'], dd['band'], dd['n_seg'], dd['group']] for dd in longs])}"
+          f" ([B, band, n_seg, G]): at once equal to in series (scores and opcodes, max_abs_err "
+          f"{err_once}); jobs disjoint (no chunk a band-escalation retry of another): "
+          f"{firsts}; band_escalations {st['band_escalations']}; route in series "
+          f"{chunks_ms['series']:.3f} ms, at once {chunks_ms['at_once']:.3f} ms; memory at once: "
+          f"reserved anew {peak_at_once / 1e9:.3f} GB, tracebacks and checkpoints {live / 1e9:.3f} GB "
+          f"(budget {nw_cuda.LONG_BUDGET / 1e9:.1f} GB a chunk) | {smi}")
+
+    # bounds.  A segment: its needed cells (the rows each pair's matrix has
+    # in it) at 37 (24 score-only) instructions each; the full mode writes
+    # [B, seg, W] traceback bytes; both read and write the carry.  A forward
+    # run and a recompute group of R segments: the same over their segments
+    # (the run writes each carry; the group reads each checkpoint); the
+    # group walk over every segment: its steps and opcode columns.
     t_final = (ql + tl).to(torch.int64)
-    rows = (torch.clamp(torch.minimum(t_final, torch.tensor((mid + 1) * seg, device=dev))
-                        - mid * seg, min=0)).sum().item()
-    cells = int(rows) * W
+
+    def needed_cells(a, b):  # the cells of anti-diagonals a * seg + 1 .. b * seg
+        return int((torch.clamp(t_final, max=b * seg)
+                    - torch.clamp(t_final, max=a * seg)).sum().item()) * W
+
+    cells = needed_cells(mid, mid + 1)
+    cells_run = needed_cells(mid_g, mid_g + R)
     carry_bytes = 2 * 24 * B * W
     win_bytes = B * (seg // 2 + seg + 2 * W)
 
@@ -1345,47 +1541,83 @@ def run_long(work: Path, smi: str, drive, shapes, ptxas: list[str]) -> list[dict
         return max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations"
 
     bounds = {
-        "sweep": bound(B * seg * W + carry_bytes + win_bytes, cells * SWEEP_OPS_PER_CELL,
+        "sweep": bound(B * seg * W + carry_bytes // 2 + win_bytes, cells * SWEEP_OPS_PER_CELL,
                        cells * SWEEP_MIN_OPS_PER_CELL),
         "score_only": bound(carry_bytes + win_bytes, cells * SCORE_ONLY_OPS_PER_CELL,
                             cells * SCORE_ONLY_MIN_OPS_PER_CELL),
         "walk": bound(steps_mid + B * seg + 2 * 16 * B, steps_mid * WALK_OPS_PER_STEP, 0),
+        "run": bound(R * (carry_bytes // 2 + win_bytes) + carry_bytes // 2,
+                     cells_run * SCORE_ONLY_OPS_PER_CELL, cells_run * SCORE_ONLY_MIN_OPS_PER_CELL),
+        "group": bound(R * (B * seg * W + carry_bytes // 2 + win_bytes),
+                       cells_run * SWEEP_OPS_PER_CELL, cells_run * SWEEP_MIN_OPS_PER_CELL),
+        "group_walk": bound(steps_all + B * n_seg * seg + 2 * 16 * B, steps_all * WALK_OPS_PER_STEP, 0),
     }
     plan = nw_cuda.plan_sweep(B, W, Q.shape[1], T.shape[1], seg=seg)
+    plan_g = nw_cuda.plan_sweep(B, W, Q.shape[1], T.shape[1], seg=seg, groups=R)
     piece = "two-piece" if two else "one-piece"
     regs = {
         "sweep": ptxas_registers(ptxas, f"nw_sweep_regs_seg<{plan.lanes}, {piece}, traceback>"),
         "score_only": ptxas_registers(ptxas, f"nw_sweep_regs_seg<{plan.lanes}, {piece}, score-only>"),
         "walk": ptxas_registers(ptxas, "nw_walk_seg_kernel"),
+        "run": ptxas_registers(ptxas, f"nw_sweep_regs_seg<{plan.lanes}, {piece}, score-only>"),
+        "group": ptxas_registers(ptxas, f"nw_sweep_regs_seg<{plan_g.lanes}, {piece}, traceback>"),
+        "group_walk": ptxas_registers(ptxas, "nw_walk_seg_kernel"),
     }
-    print(f"timing long (B={B} W={W} seg={seg} n_seg={n_seg}, middle segment {mid}): segment "
-          f"score-only {ms['score_only']:.4f} ms, with traceback {ms['sweep']:.4f} ms, walk "
-          f"{ms['walk']:.4f} ms ({steps_mid} steps); route per chunk {route_ms:.3f} ms; "
-          f"single-shot A + B {single_ms:.3f} ms; route by segment length {json.dumps(by_seg)} "
-          f"ms; bounds {json.dumps(bounds)}; plain "
-          f"{json.dumps(plain)}; {plan}; registers {json.dumps(regs)} | {smi}")
+    print(f"timing long (B={B} W={W} seg={seg} n_seg={n_seg}, middle segment {mid}, middle group "
+          f"{mid_g}..{mid_g + R - 1}): segment score-only {ms['score_only']:.4f} ms, recompute at "
+          f"G = 1 {ms['sweep']:.4f} ms, walk at G = 1 {ms['walk']:.4f} ms ({steps_mid} steps); "
+          f"forward run of {R} segments {ms['run']:.4f} ms, the forward pass in one launch "
+          f"{fwd_ms:.3f} ms, in runs of {nw_cuda.LONG_RUN} {runs_ms:.3f} ms; grouped recompute of "
+          f"{R} segments {ms['group']:.4f} ms, of all {n_seg} {group_all_ms:.3f} ms; group walk of "
+          f"all {n_seg} {ms['group_walk']:.3f} ms ({steps_all} steps); route per chunk by G "
+          f"{json.dumps(route_by_g)} ms; single-shot A + B {single_ms:.3f} ms; route by segment "
+          f"length {json.dumps(by_seg)} ms; bounds {json.dumps(bounds)}; plain {json.dumps(plain)}; "
+          f"{plan}; group {plan_g}; registers {json.dumps(regs)} | {smi}")
 
     shape = {"B": B, "W": W, "tmax": tmax, "seg": seg, "n_seg": n_seg, "segment": mid}
+    common = {"route_per_chunk_ms": route_ms, "route_ms_by_group": route_by_g,
+              "route_ms_by_seg": by_seg, "route_ms_by_chunk": chunk_ms,
+              "locus_long_chunks_ms": chunks_ms, "single_shot_per_chunk_ms": single_ms,
+              "locus_at_once_reserved_bytes": peak_at_once, "locus_at_once_live_bytes": live,
+              "forward_pass_ms": fwd_ms, "forward_runs_ms": runs_ms,
+              "group_all_segments_ms": group_all_ms, "tolerance": 0}
+    main_path = "8 x 60 kb locus, default run"
+    g1_path = f"nw_align_long at G = 1 (budget {budget_g1} B), the largest long chunk"
     out = []
-    for kname, key, src, replaces in (
+    # at G = 1 the route recomputes and walks a segment a launch through the
+    # group wrappers (their counters), the kernels of nw_align_segment and
+    # nw_walk_segment at one segment's shape
+    for kname, key, src, replaces, n_launch, path, per_chunk, shp in (
         ("nw_sweep_segment", "sweep", "seqrush_tpu_torch/ops/csrc/nw_sweep_seg.cu",
-         "seqrush_tpu/ops/nw_pallas.py:38"),
-        ("nw_sweep_segment_score_only", "score_only", "seqrush_tpu_torch/ops/csrc/nw_sweep_seg.cu",
-         "seqrush_tpu/ops/nw_pallas.py:38"),
+         "seqrush_tpu/ops/nw_pallas.py:38", launches_g1["nw_sweep_segment_group"], g1_path, n_seg,
+         shape),
+        ("nw_sweep_segment_score_only", "run", "seqrush_tpu_torch/ops/csrc/nw_sweep_seg.cu",
+         "seqrush_tpu/ops/nw_pallas.py:38", launches["nw_sweep_segment_score_only"], main_path,
+         len(runs), {**shape, "segment": f"{mid_g}..{mid_g + R - 1}, one run"}),
         ("nw_walk_segment", "walk", "seqrush_tpu_torch/ops/csrc/nw_walk.cu",
-         "seqrush_tpu/ops/nw_pallas.py:194"),
+         "seqrush_tpu/ops/nw_pallas.py:194", launches_g1["nw_walk_segment_group"], g1_path, n_seg,
+         shape),
+        ("nw_sweep_segment_group", "group", "seqrush_tpu_torch/ops/csrc/nw_sweep_seg.cu",
+         "seqrush_tpu/ops/nw_pallas.py:38", launches["nw_sweep_segment_group"], main_path,
+         len(runs), {**shape, "segment": f"{mid_g}..{mid_g + R - 1}, one group"}),
+        ("nw_walk_segment_group", "group_walk", "seqrush_tpu_torch/ops/csrc/nw_walk.cu",
+         "seqrush_tpu/ops/nw_pallas.py:194", launches["nw_walk_segment_group"], main_path, 1,
+         {**shape, "segment": f"all {n_seg}, one launch"}),
     ):
         out.append({
             "name": kname, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[kname], "max_abs_err": err[key], "ms": ms[key],
+            "launches": n_launch, "max_abs_err": err[key], "ms": ms[key],
             "plain_ms": plain[key], "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
-            "library_ms": None, "regs_per_thread": regs[key], "shape": shape,
-            "launches_per_chunk": n_seg, "route_per_chunk_ms": route_ms,
-            "route_ms_by_seg": by_seg, "route_ms_by_chunk": chunk_ms,
-            "single_shot_per_chunk_ms": single_ms, "tolerance": 0,
-            "launches_path": "8 x 60 kb locus, default run",
+            "library_ms": None, "regs_per_thread": regs[key], "shape": shp,
+            "launches_per_chunk": per_chunk, "launches_path": path, **common,
         })
-    del carries, scores, ops, ops_long, ops_one, ops_w, mid_walk, tb_mid, tb_s
+    for e in (out[0], out[2]):
+        e["launches_counter"] = {"nw_sweep_segment": "nw_sweep_segment_group",
+                                 "nw_walk_segment": "nw_walk_segment_group"}[e["name"]] + " (G = 1)"
+    out[1]["segment_ms"] = ms["score_only"]  # one segment's score-only launch, as before
+    out[1]["segment_max_abs_err"] = err["score_only"]
+    del carries, scores, ops, ops_all, ops_long, ops_one, ops_w, mid_walk, tb_mid, tb_s, ckpt
+    del run_ckpt, tb_all
     torch.cuda.empty_cache()
     return out
 
@@ -2551,6 +2783,9 @@ def run_phase11(work: Path, smi: str, ptxas: list[str], ctx: dict) -> list[dict]
     qlp = torch.tensor([hi - lo, 0], dtype=torch.int32, device=dev)
     tlp = qlp.clone()
     kwp = dict(band=2047, tmax=8192, **pen)
+    # the piece's bound, as the full pair's: its cells and its strips' rows
+    pb, po = shard_bounds(Qp, Tp, qlp, tlp, 2048, (nw_cuda.sharded_rows(2047, 8192) + 1) * 2048)
+    piece_bound = {"bound_ms": max(pb, po), "bound_by": "bytes" if pb >= po else "operations"}
     piece_checked = []
     for D in (2, 4, 8):
         s_k, st_k = nw_cuda.nw_align_sharded([dev] * D, Qp, Tp, qlp, tlp, **kwp)
@@ -2558,7 +2793,7 @@ def run_phase11(work: Path, smi: str, ptxas: list[str], ctx: dict) -> list[dict]
         err = max([max_abs_err(s_k, s_p)] + [max_abs_err(a, b) for a, b in zip(st_k, st_p)])
         piece_checked.append({"D": D, "max_abs_err": err, "scores": s_k.tolist(), "plain_ms": p_ms,
                               "ms": cuda_ms(lambda: nw_cuda.nw_align_sharded([dev] * D, Qp, Tp, qlp, tlp, **kwp),
-                                            REPS)})
+                                            REPS), **piece_bound})
         if err:
             raise AssertionError(f"the sharded mode disagrees with its plain version at D = {D} on the piece")
     print(f"  4 kb piece [B 2, W 2048, tmax 8192] against the plain version: {json.dumps(piece_checked)}")

@@ -21,9 +21,12 @@ that runs the sweep kernel and then the walk kernel per chunk:
 * a chunk of more than ``long_pair_threshold`` anti-diagonals (pairs of
   qlen + tlen above it) takes the long-pair route, ``nw_cuda.nw_align_long``:
   the same kernels in their segment modes, segments of 2,048 anti-diagonals
-  with the DP rows and the walk's cursor carried across, so its device
-  memory does not grow with the pairs' length.  It returns opcodes like a
-  chunk's and is collected the same way;
+  with the DP rows and the walk's cursor carried across, the traceback
+  recomputed a group of segments at a time under ``memory_budget_bytes``,
+  so its device memory does not grow with the pairs' length.  Its launches
+  go on a stream of the chunk's own, so two long chunks dispatched back to
+  back run at once.  It returns opcodes like a chunk's and is collected the
+  same way;
 * collect: the band certificate (a banded score S with half-width K is
   optimal iff S < 2*o_min + e_min*(2K + 2 - |diff|)), escalation of the
   uncertified jobs to the band their score demands, the divergence cap,
@@ -74,6 +77,7 @@ sweep with the orientation scores (one-piece penalties), in chunks of 64.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass, field
 
@@ -114,9 +118,10 @@ class RunnerConfig:
     band_slack: int = 64  # minimum extra diagonals beyond the length difference
     # kernel='wfa': the first score budget of a batch (escalated x4)
     initial_smax: int = 256
-    # traceback-tensor budget per dispatch ([B, tmax, W] uint8).  Chunking
-    # fixes each job's band, and the band can change tie-broken CIGARs, so
-    # this stays at the JAX package's value until a measured change
+    # traceback-tensor budget per dispatch ([B, tmax, W] uint8; a long
+    # chunk's recompute group, [B, G * seg, W]).  Chunking fixes each job's
+    # band, and the band can change tie-broken CIGARs, so this stays at the
+    # JAX package's value until a measured change
     memory_budget_bytes: int = int(2.6e9)
     verbose: bool = False
     # cap pairs per chunk (0 = memory budget only)
@@ -184,6 +189,20 @@ class RunnerConfig:
     # fold, no band tiling, no long-pair route), and a job whose traceback
     # alone exceeds memory_budget_bytes aligned with its band split over them
     mesh: object = None
+
+
+@contextlib.contextmanager
+def _own_stream(stream, *inputs):
+    """Run the block on `stream` (None on the CPU: nothing changes), after
+    the current stream's work so far; the inputs are recorded on it."""
+    if stream is None:
+        yield
+        return
+    stream.wait_stream(torch.cuda.current_stream(stream.device))
+    for x in inputs:
+        x.record_stream(stream)
+    with torch.cuda.stream(stream):
+        yield
 
 
 class _TiledChunk(list):
@@ -287,6 +306,8 @@ class WfaAligner:
         self.codes = [encode_bases(s.data) for s in seqs.sequences]
         self.rc_codes = [reverse_complement_codes(c).copy() for c in self.codes]
         self._mash: tuple[list, list] | None = None
+        self._long_streams: list | None = None  # made at the first long chunk on the card
+        self._long_turn = 0
         self.stats = {
             "alignments": 0,
             "dropped": 0,
@@ -1195,11 +1216,20 @@ class WfaAligner:
         if long:
             seg = nw_cuda.LONG_SEG
             t_need = int((qlens + tlens).max())
-            entry.update(kind="long", seg=seg, n_seg=-(-t_need // seg))
+            n_seg = -(-t_need // seg)
+            budget = self.cfg.memory_budget_bytes
+            entry.update(kind="long", seg=seg, n_seg=n_seg, emit="ops",
+                         group=nw_cuda.long_group_size(B, band + 1, seg, n_seg, budget))
             self.stats["long_pairs"] += len(chunk)
-            scores, ops = nw_cuda.nw_align_long(Qd, Td, qd, td, band=band, seg=seg, t_need=t_need,
-                                                **pen)
-            mode, out = "ops", (ops,)  # the segment walk emits opcodes
+            self.stats["dispatches"].append(entry)
+            # a stream of the chunk's own, so that a long chunk dispatched
+            # next runs beside it; the collect waits on its event
+            with _own_stream(self._long_stream(), Qd, Td, qd, td):
+                scores, ops = nw_cuda.nw_align_long(Qd, Td, qd, td, band=band, seg=seg,
+                                                    t_need=t_need, memory_budget=budget, **pen)
+                # the segment walk emits opcodes
+                scores, out, ready = to_host(scores, (ops,))
+            return chunk, scores, ("ops", out), ready, qlens, tlens, use_int16
         elif rows:
             scores, tb = nw_cuda.nw_align_rows(Qd, Td, qd, td, band=band, int16=use_int16, **pen)
             mode, out = "rowtok", nw_cuda.nw_walk_rows(tb, qd, td, band=band)
@@ -1231,6 +1261,18 @@ class WfaAligner:
         self.stats["dispatches"].append(entry)
         scores, out, ready = to_host(scores, out)
         return chunk, scores, (mode, out), ready, qlens, tlens, use_int16
+
+    def _long_stream(self):
+        """The stream of the next long chunk on the card (None on the CPU):
+        two kept streams in turn, as at most two chunks are in flight (chunk
+        k + 1 is dispatched before chunk k is collected), so the allocator
+        reuses each stream's blocks from chunk to chunk."""
+        if self.device.type != "cuda":
+            return None
+        if self._long_streams is None:
+            self._long_streams = [torch.cuda.Stream(self.device) for _ in range(2)]
+        self._long_turn ^= 1
+        return self._long_streams[self._long_turn]
 
     def _dispatch_nw_chunk_mesh(self, chunk):
         """A chunk under a mesh: its rows padded with zero-length rows to a

@@ -60,18 +60,26 @@
 // the scores alone.  Its instantiations are separate, so the full mode's
 // code and register budget do not change.
 // Segment mode (SEG = true; replaces seqrush_tpu/ops/nw.py::_nw_segment, the
-// step of nw_align_long): anti-diagonals [t_lo, t_hi] only, starting from a
-// carry of the six DP rows [6, B, W] int32 (H at t_lo - 1 and t_lo - 2, I1,
-// D1, I2, D2 at t_lo - 1) and storing the carry at t_hi, with the traceback
-// rows in a [B, t_hi - t_lo + 1, W] tensor (none in score-only mode).  A
-// thread loads its strip and its edge neighbours straight from the carry and
-// enters the step loop in the phase of t_lo.  Only the segment's windows of
-// the query and the reversed target are staged (at most seg / 2 + 1 + L and
-// seg + L bytes), so the shared memory of a pair does not grow with its
-// length and a pair of any length stays on the register route.  Both modes
-// run the recurrence to t_final + 2, where every state is INF, so the strips
-// then hold the carry of any later row.  Its instantiations are separate
-// kernels (nw_sweep_regs_seg, nw_sweep_wide_seg).
+// step of nw_align_long): a run of n_run segments of seg anti-diagonals in
+// turn, starting from a carry of the six DP rows [6, B, W] int32 (H at
+// t_lo - 1 and t_lo - 2, I1, D1, I2, D2 at t_lo - 1) and storing the carry
+// after each segment as the step loop passes it, with the traceback rows in
+// a [B, tb_rows, W] tensor (none in score-only mode).  A thread loads its
+// strip and its edge neighbours straight from the carry and enters the step
+// loop in the phase of t_lo.  Only one segment's windows of the query and
+// the reversed target are staged (at most seg / 2 + 1 + L and seg + L
+// bytes), restaged between two segments of a run behind a barrier over the
+// pair's warps, so the shared memory of a pair does not grow with its
+// length and a pair of any length stays on the register route.  The grid's
+// second dimension is the group: grid row y sweeps its own run from the
+// carry y * n_run segments on, into its own rows of the traceback, so one
+// launch recomputes a group of segments from their checkpoints at once (the
+// long route's reverse pass: pair x segment blocks, whose serial chains hide
+// each other's latency where one segment's pairs leave most SMs idle).  The
+// forward pass is one grid row whose run crosses the segment boundaries.
+// Both modes run the recurrence to t_final + 2, where every state is INF, so
+// the strips then hold the carry of any later row.  Its instantiations are
+// separate kernels (nw_sweep_regs_seg, nw_sweep_wide_seg).
 // Bands too wide for registers, and penalties outside [0, 2^16), take the
 // wide route (nw_sweep_wide in nw_sweep.cu, nw_sweep_wide_seg in
 // nw_sweep_seg.cu), the port's first design kept as it was: one block per
@@ -111,13 +119,19 @@ struct SnapArgs {
   int* diagb;
 };
 
-// Segment mode's arguments: the carry in and out ([6, B, W] int32 each),
-// the scores before the segment, and its anti-diagonals [t_lo, t_hi].
+// Segment mode's arguments.  Grid row y sweeps the n_run segments of seg
+// anti-diagonals from t_lo + y * n_run * seg on, from the carry at carry_in
+// + y * n_run * cstride ([6, B, W] int32), storing the carry after its k-th
+// segment at carry_out + (y * n_run + k) * cstride while k < n_out
+// (carry_out may be null), and its rows from traceback row y * n_run * seg
+// on (tb_rows rows a pair).  scores_in: the scores before the run, or null
+// where the caller has filled the scores with -1.
 struct SegArgs {
   const int* carry_in;
   int* carry_out;
   const int* scores_in;
-  int t_lo, t_hi;
+  int t_lo, seg, n_run, n_out, tb_rows;
+  size_t cstride;
 };
 
 __device__ __forceinline__ int i0_of(int t, int K) {
@@ -374,6 +388,28 @@ __device__ __forceinline__ int pair_t_bytes(int Lt, int W, int L) { return round
 __device__ __forceinline__ int seg_q_bytes(int seg, int L) { return round16(seg / 2 + 1 + L); }
 __device__ __forceinline__ int seg_t_bytes(int seg, int L) { return round16(seg + L); }
 
+// Segment mode: stage the windows of the pair's query q and reversed target
+// tg that anti-diagonals [a, a + seg - 1] read, thread r of tpp; qb and tb0
+// get their first bytes' padded-operand indices (the window starts at a and
+// at a + seg - 1, clamped as a dynamic slice is).
+__device__ __forceinline__ void stage_windows(const uint8_t* q, const uint8_t* tg, int Lq, int Lt,
+                                              int W, int L, int a, int seg, int r, int tpp,
+                                              uint8_t* Qs, uint8_t* Ts, int& qb, int& tb0) {
+  const int e = a + seg - 1;
+  qb = min(i0_of(a, W - 1), Lq + 1);
+  tb0 = max(0, min(Lt - e + i0_of(e, W - 1) + W, Lt + W));
+  const int qn = min(i0_of(e, W - 1), Lq + 1) - qb + L;
+  const int tn = max(0, min(Lt - a + i0_of(a, W - 1) + W, Lt + W)) - tb0 + L;
+  for (int x = r; x < qn; x += tpp) {
+    const int xa = qb + x;
+    Qs[x] = (xa >= 1 && xa <= Lq) ? q[xa - 1] : NW_QPAD;
+  }
+  for (int y = r; y < tn; y += tpp) {
+    const int ya = tb0 + y;
+    Ts[y] = (ya >= W && ya < W + Lt) ? tg[Lt - 1 - (ya - W)] : NW_TPAD;
+  }
+}
+
 template <int S, bool SEG>
 __device__ __forceinline__ void load_windows(Strip<S>& s, const Pair& pr, int qs, int ts) {
   const int qo = SEG ? qs - pr.qb : qs;
@@ -479,16 +515,69 @@ __device__ __forceinline__ void advance(Strip<S>& s, Edges& e, const Pair& pr, c
   exchange<S, TWO, TILED ? 4 : 2>(s, e, pr, t & 1);
 }
 
+// Anti-diagonals [a, hi] of the recurrence in the phases of the shifts: up
+// to K (0, 0), then (1, 1) and (0, 1) in turn, two an iteration.  Returns
+// the anti-diagonal after the last one swept (a when hi < a).
+template <int S, bool TWO, bool TB, bool SEG, bool SNAP>
+__device__ __forceinline__ int sweep_span(Strip<S>& s, Edges& e, const Pair& pr, const Pen& p, int a,
+                                          int hi, int& qs, int& ts) {
+  const int K = pr.K;
+  int t = a;
+  for (; t <= hi && t <= K; ++t) advance<S, TWO, TB, SEG, SNAP, 0, 0>(s, e, pr, p, t, qs, ts);
+  // a segment may start where (t - K) is even
+  if (SEG && t <= hi && ((t - K) & 1) == 0)
+    advance<S, TWO, TB, SEG, SNAP, 0, 1>(s, e, pr, p, t++, qs, ts);
+  for (; t + 1 <= hi; t += 2) {  // (t - K) is odd here
+    advance<S, TWO, TB, SEG, SNAP, 1, 1>(s, e, pr, p, t, qs, ts);
+    advance<S, TWO, TB, SEG, SNAP, 0, 1>(s, e, pr, p, t + 1, qs, ts);
+  }
+  if (t <= hi) advance<S, TWO, TB, SEG, SNAP, 1, 1>(s, e, pr, p, t++, qs, ts);
+  return t;
+}
+
+// Traceback rows [t, t_end] past t_final + 2, where every input is INF: each
+// byte is one of two constants chosen by the base comparison.
+template <int S, bool TWO, bool SEG>
+__device__ __forceinline__ void cheap_rows(Strip<S>& s, const Pair& pr, const Pen& p, int t,
+                                           int t_end, int& qs, int& ts) {
+  uint32_t cheap_eq, cheap_ne;
+  {
+    int a, c, d, f, g;
+    const int n = p.neg;
+    cheap_eq = cell_keyed<TWO>(n, n, n, n, n, n, n, 0, n, p, a, c, d, f, g);
+    cheap_ne = cell_keyed<TWO>(n, n, n, n, n, n, n, p.mis, n, p, a, c, d, f, g);
+  }
+  constexpr int NWORD = (S + 3) / 4;
+  for (; t <= t_end; ++t) {
+    if (t > 1) slide_windows<S, SEG>(s, pr, t, qs, ts);
+    uint32_t words[NWORD];
+#pragma unroll
+    for (int w = 0; w < NWORD; ++w) words[w] = 0;
+#pragma unroll
+    for (int k = 0; k < S; ++k)
+      words[k >> 2] |= (s.qw[k] == s.tw[k] ? cheap_eq : cheap_ne) << (8 * (k & 3));
+    store_row<S>(pr.tbb + (size_t)(SEG ? t - pr.row0 : t) * pr.W, pr.s0, pr.W, pr.walign, words);
+  }
+}
+
+// Barrier over the warps of one pair (segment mode's restaging).
+__device__ __forceinline__ void pair_sync(const Pair& pr) {
+  if (pr.wpp == 1)
+    __syncwarp();
+  else
+    bar_pair<2>(pr.pib, pr.wpp * 32);
+}
+
 // The register route's kernel body: anti-diagonals 1..tmax of every pair
-// from the initial rows, or in segment mode [sa.t_lo, sa.t_hi] from the
-// carry (see the design note).
+// from the initial rows, or in segment mode grid row blockIdx.y's run of
+// segments from its carry (see the design note).
 template <int S, bool TWO, bool TB, bool SEG, bool SNAP = false>
 __device__ __forceinline__ void sweep_regs_body(
     const uint8_t* __restrict__ Q,  // [B, Lq] query codes, QPAD-padded
     const uint8_t* __restrict__ T,  // [B, Lt] target codes, TPAD-padded
     const int* __restrict__ qlens, const int* __restrict__ tlens,
     int* __restrict__ scores,        // [B] out
-    uint8_t* __restrict__ tb,        // [B, tmax_pad, W] ([B, seg, W] in segment mode) out (TB only)
+    uint8_t* __restrict__ tb,        // [B, tmax_pad, W] ([B, tb_rows, W] in segment mode) out (TB only)
     int B, int Lq, int Lt, int W, int tmax, int tmax_pad, const Pen& p, int wpp, int ppb,
     int pair_bytes, const SegArgs sa, const SnapArgs sn = SnapArgs{}) {
   extern __shared__ __align__(16) uint8_t smem[];
@@ -500,38 +589,27 @@ __device__ __forceinline__ void sweep_regs_body(
   const int tpp = wpp * 32;
   const int r = wip * 32 + lane;
   const int L = S * tpp;  // lanes covered, >= W
-  const int seg = SEG ? sa.t_hi - sa.t_lo + 1 : 0;
+  const int seg = SEG ? sa.seg : 0;
+  // segment mode: grid row gy's first anti-diagonal and the carries, rows
+  // and segments before it
+  const int gy = SEG ? (int)blockIdx.y : 0;
+  const int before = SEG ? gy * sa.n_run : 0;
+  const int t_first = SEG ? sa.t_lo + before * seg : 1;
 
   uint8_t* Qs = smem + (size_t)pib * pair_bytes;
   uint8_t* Ts = Qs + (SEG ? seg_q_bytes(seg, L) : pair_q_bytes(Lq, L));
-
-  // segment mode: the padded-operand indices of the staged windows' first
-  // bytes (the window starts at t_lo and at t_hi, clamped as a dynamic slice is)
-  int qb = 0, tb0 = 0;
-  if (SEG) {
-    qb = min(i0_of(sa.t_lo, W - 1), Lq + 1);
-    tb0 = max(0, min(Lt - sa.t_hi + i0_of(sa.t_hi, W - 1) + W, Lt + W));
-  }
+  const uint8_t* q = Q + (size_t)b * Lq;
+  const uint8_t* tg = T + (size_t)b * Lt;
 
   // stage [QPAD] + q + [QPAD]* and [TPAD]*W + reverse(t) + [TPAD]* (in
-  // segment mode the segment's windows of them); the score starts at -1 (in
-  // segment mode at its value before the segment) before the barrier orders
-  // it ahead of the final write
+  // segment mode the first segment's windows of them); the score starts at
+  // -1 (in segment mode at its value before the run, or as the caller filled
+  // it) before the barrier orders it ahead of the final write
+  int qb = 0, tb0 = 0;
   if (b < B) {
-    const uint8_t* q = Q + (size_t)b * Lq;
-    const uint8_t* tg = T + (size_t)b * Lt;
     if (SEG) {
-      const int qn = min(i0_of(sa.t_hi, W - 1), Lq + 1) - qb + L;
-      const int tn = max(0, min(Lt - sa.t_lo + i0_of(sa.t_lo, W - 1) + W, Lt + W)) - tb0 + L;
-      for (int x = r; x < qn; x += tpp) {
-        const int xa = qb + x;
-        Qs[x] = (xa >= 1 && xa <= Lq) ? q[xa - 1] : NW_QPAD;
-      }
-      for (int y = r; y < tn; y += tpp) {
-        const int ya = tb0 + y;
-        Ts[y] = (ya >= W && ya < W + Lt) ? tg[Lt - 1 - (ya - W)] : NW_TPAD;
-      }
-      if (r == 0) scores[b] = sa.scores_in[b];
+      stage_windows(q, tg, Lq, Lt, W, L, t_first, seg, r, tpp, Qs, Ts, qb, tb0);
+      if (r == 0 && sa.scores_in) scores[b] = sa.scores_in[b];
     } else {
       for (int x = r; x < Lq + 1 + L; x += tpp) Qs[x] = (x >= 1 && x <= Lq) ? q[x - 1] : NW_QPAD;
       for (int y = r; y < Lt + W + L; y += tpp)
@@ -547,7 +625,8 @@ __device__ __forceinline__ void sweep_regs_body(
   Pair pr;
   pr.Qs = Qs;
   pr.Ts = Ts;
-  pr.tbb = TB ? tb + (size_t)b * (SEG ? seg : tmax_pad) * W : nullptr;
+  pr.tbb = TB ? tb + ((size_t)b * (SEG ? sa.tb_rows : tmax_pad) + (size_t)before * seg) * W
+              : nullptr;
   pr.score = scores + b;
   pr.slots = reinterpret_cast<int*>(Ts + (SEG ? seg_t_bytes(seg, L) : pair_t_bytes(Lt, W, L)));
   pr.s0 = r * S;
@@ -574,7 +653,7 @@ __device__ __forceinline__ void sweep_regs_body(
   if (SEG) {
     pr.qb = qb;
     pr.tb0 = tb0;
-    pr.row0 = sa.t_lo;
+    pr.row0 = t_first;
   }
   const int K = pr.K;
   constexpr int NWORD = (S + 3) / 4;
@@ -594,7 +673,7 @@ __device__ __forceinline__ void sweep_regs_body(
   const size_t plane = (size_t)B * W;  // one row of the carry
   if (SEG) {
     // the strip and its edge neighbours from the carry (lanes >= W are INF)
-    const int* c = sa.carry_in + (size_t)b * W;
+    const int* c = sa.carry_in + (size_t)before * sa.cstride + (size_t)b * W;
 #pragma unroll
     for (int k = 0; k < S; ++k) {
       const int l = pr.s0 + k;
@@ -630,63 +709,54 @@ __device__ __forceinline__ void sweep_regs_body(
     if (SNAP && pr.t_snap == 0 && pr.s0 == 0) pr.snap[0] = 0;
   }
 
-  // window starts into the padded operands, clamped as a dynamic slice is
-  const int t_first = SEG ? sa.t_lo : 1;
-  int qs = min(i0_of(t_first, K), Lq + 1);
-  int ts = max(0, min(Lt - t_first + i0_of(t_first, K) + W, Lt + W));
-  load_windows<S, SEG>(s, pr, qs, ts);
-
   // from t_final + 3 on every input is INF (the states are INF past t_final);
   // without a traceback nothing past t_final is needed, except in segment
-  // mode, whose carry at t_hi then equals the strips
-  const int t_end = SEG ? sa.t_hi : tmax;
-  const int last = min(t_end, (TB || SEG) ? pr.t_final + 2 : pr.t_final);
-  int t = t_first;
-  for (; t <= last && t <= K; ++t) advance<S, TWO, TB, SEG, SNAP, 0, 0>(s, e, pr, p, t, qs, ts);
-  // a segment may start where (t - K) is even
-  if (SEG && t <= last && ((t - K) & 1) == 0)
-    advance<S, TWO, TB, SEG, SNAP, 0, 1>(s, e, pr, p, t++, qs, ts);
-  for (; t + 1 <= last; t += 2) {  // (t - K) is odd here
-    advance<S, TWO, TB, SEG, SNAP, 1, 1>(s, e, pr, p, t, qs, ts);
-    advance<S, TWO, TB, SEG, SNAP, 0, 1>(s, e, pr, p, t + 1, qs, ts);
-  }
-  if (t <= last) advance<S, TWO, TB, SEG, SNAP, 1, 1>(s, e, pr, p, t++, qs, ts);
+  // mode, whose carries then equal the strips
+  const int last = (TB || SEG) ? pr.t_final + 2 : pr.t_final;
 
   if (SEG) {
-    int* c = sa.carry_out + (size_t)b * W;
+    for (int k = 0; k < sa.n_run; ++k) {
+      const int a = t_first + k * seg;
+      const int t_end = a + seg - 1;
+      // the segment's windows, into the last one's buffers once every
+      // thread of the pair is done with them (a pair past its end reads
+      // them only for the traceback's constant rows)
+      const bool reads = TB || a <= last;
+      if (k > 0 && reads) {
+        pair_sync(pr);
+        stage_windows(q, tg, Lq, Lt, W, L, a, seg, r, tpp, Qs, Ts, pr.qb, pr.tb0);
+        pair_sync(pr);
+      }
+      int qs = min(i0_of(a, K), Lq + 1);
+      int ts = max(0, min(Lt - a + i0_of(a, K) + W, Lt + W));
+      if (reads) load_windows<S, SEG>(s, pr, qs, ts);
+      const int t = sweep_span<S, TWO, TB, SEG, SNAP>(s, e, pr, p, a, min(t_end, last), qs, ts);
+      if (TB) cheap_rows<S, TWO, SEG>(s, pr, p, t, t_end, qs, ts);
+      if (k < sa.n_out) {
+        int* c = sa.carry_out + (size_t)(before + k) * sa.cstride + (size_t)b * W;
 #pragma unroll
-    for (int k = 0; k < S; ++k) {
-      const int l = pr.s0 + k;
-      if (l < W) {
-        c[l] = s.h1[k];
-        c[plane + l] = s.h2[k];
-        c[2 * plane + l] = s.i1[k];
-        c[3 * plane + l] = s.d1[k];
-        c[4 * plane + l] = TWO ? s.i2[k] : NW_INF;
-        c[5 * plane + l] = TWO ? s.d2[k] : NW_INF;
+        for (int j = 0; j < S; ++j) {
+          const int l = pr.s0 + j;
+          if (l < W) {
+            c[l] = s.h1[j];
+            c[plane + l] = s.h2[j];
+            c[2 * plane + l] = s.i1[j];
+            c[3 * plane + l] = s.d1[j];
+            c[4 * plane + l] = TWO ? s.i2[j] : NW_INF;
+            c[5 * plane + l] = TWO ? s.d2[j] : NW_INF;
+          }
+        }
       }
     }
+    return;
   }
-  if (!TB) return;
 
-  // the all-INF bytes, for a matching and a mismatching base pair
-  uint32_t cheap_eq, cheap_ne;
-  {
-    int a, c, d, f, g;
-    const int n = p.neg;
-    cheap_eq = cell_keyed<TWO>(n, n, n, n, n, n, n, 0, n, p, a, c, d, f, g);
-    cheap_ne = cell_keyed<TWO>(n, n, n, n, n, n, n, p.mis, n, p, a, c, d, f, g);
-  }
-  for (; t <= t_end; ++t) {
-    if (t > 1) slide_windows<S, SEG>(s, pr, t, qs, ts);
-    uint32_t words[NWORD];
-#pragma unroll
-    for (int w = 0; w < NWORD; ++w) words[w] = 0;
-#pragma unroll
-    for (int k = 0; k < S; ++k)
-      words[k >> 2] |= (s.qw[k] == s.tw[k] ? cheap_eq : cheap_ne) << (8 * (k & 3));
-    store_row<S>(pr.tbb + (size_t)(SEG ? t - pr.row0 : t) * W, pr.s0, W, pr.walign, words);
-  }
+  // window starts into the padded operands, clamped as a dynamic slice is
+  int qs = min(i0_of(1, K), Lq + 1);
+  int ts = max(0, min(Lt - 1 + i0_of(1, K) + W, Lt + W));
+  load_windows<S, SEG>(s, pr, qs, ts);
+  const int t = sweep_span<S, TWO, TB, SEG, SNAP>(s, e, pr, p, 1, min(tmax, last), qs, ts);
+  if (TB) cheap_rows<S, TWO, SEG>(s, pr, p, t, tmax, qs, ts);
 }
 
 // ---------------------------------------------------------------------------

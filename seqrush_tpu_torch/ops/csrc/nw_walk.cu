@@ -55,6 +55,10 @@
 // leaves it (td < t_lo), and stores the cursor; a walk that ended (done, or
 // a step that consumed nothing) stays ended.  Tiles read no row below t_lo
 // (they hold zeros there) and the diagonal ballot takes no step from one.
+// The long route's group walk is this kernel over a group's G * seg rows
+// (kernel A's grouped recompute, [B, G * seg, W]) as one segment: the
+// cursor crosses the group's segment boundaries inside the kernel, and a
+// chunk takes one walk launch a group instead of one a segment.
 // Start mode (replaces the start= argument of seqrush_tpu/ops/nw.py::
 // _tb_scan_tbw, the bidirectional fold's half-walks): the segment kernel over
 // a single-shot traceback [B, tmax_pad, W] as one segment of anti-diagonals

@@ -21,11 +21,19 @@
   ``seqrush_tpu/ops/nw.py::_nw_segment`` and ``_tb_scan_segment``): one
   segment of anti-diagonals [t0 + 1, t0 + seg] from a carried state, the DP
   rows [6, B, W] forwards and the walk's cursor [4, B] backwards.
+* ``nw_align_segment_run`` / ``nw_align_segment_group`` /
+  ``nw_walk_segment_group`` -- the long route's launch shapes of those
+  modes: a run of segments in one score-only launch that stores each
+  segment's checkpoint as it passes; a group of G segments recomputed from
+  their checkpoints in one launch (a grid of pair x segment blocks) into
+  one traceback [B, G * seg, W]; and one walk over a group's rows.
 * ``nw_align_long`` -- the long-pair route (``seqrush_tpu/ops/nw.py::
-  nw_align_long``): a score-only forward pass of segments that checkpoints
-  the DP rows at each segment start, then per segment from the last a full
-  segment sweep from its checkpoint and a segment walk.  Memory is
-  O(B * seg * W) whatever the pairs' length; the sweep runs twice.
+  nw_align_long``): the forward pass checkpoints the DP rows at each
+  segment start; the reverse pass recomputes the traceback a group of G
+  segments at a time, G the most whose traceback fits the memory budget,
+  and walks each group in one launch.  Where the whole traceback fits, the
+  recompute of the segments already checkpointed runs on a second stream
+  while the forward pass goes on.
 * ``nw_walk_start`` -- kernel B's start mode (``_tb_scan_tbw(start=...)``):
   the segment mode's walk over a whole traceback from given cursors.
 * ``nw_align_fold`` -- the bidirectional fold (``nw.nw_align_fold``):
@@ -66,8 +74,10 @@ name carries a hash of the sources and flags, so an edit rebuilds.
 kernel A's score-only mode apart as ``nw_sweep_score_only``, its int16 and
 snapshot modes as ``nw_sweep_int16`` and ``nw_sweep_snapshot``, kernel B's
 runs and start modes as ``nw_walk_runs`` and ``nw_walk_start``, each segment
-mode apart (``nw_sweep_segment``, ``nw_sweep_segment_score_only``,
-``nw_walk_segment``), the sharded mode as ``nw_sweep_sharded`` (one a
+mode apart (``nw_sweep_segment``, ``nw_sweep_segment_score_only`` (a
+forward run's launch too), ``nw_walk_segment``, and the group launches
+``nw_sweep_segment_group``, ``nw_walk_segment_group``, which the long route
+makes at every G, 1 included), the sharded mode as ``nw_sweep_sharded`` (one a
 device's launch), and kernels C and D as ``nw_rows_sweep`` and
 ``nw_rows_walk``; the wavefront kernel of ``ops/wfa.py`` counts its
 launches here too (``wfa``, ``wfa_score_only``), since one build makes one
@@ -95,6 +105,7 @@ from .nw import _i0_of, tmax_pad_of
 
 LAUNCHES = {"nw_sweep": 0, "nw_sweep_score_only": 0, "nw_walk": 0, "nw_walk_runs": 0,
             "nw_sweep_segment": 0, "nw_sweep_segment_score_only": 0, "nw_walk_segment": 0,
+            "nw_sweep_segment_group": 0, "nw_walk_segment_group": 0,
             "wfa": 0, "wfa_score_only": 0, "nw_sweep_int16": 0, "nw_sweep_snapshot": 0,
             "nw_walk_start": 0, "nw_rows_sweep": 0, "nw_rows_walk": 0, "nw_sweep_tiled": 0,
             "nw_walk_runs_tiled": 0, "nw_sweep_sharded": 0}
@@ -104,6 +115,11 @@ _SOURCES = ("nw_sweep.cu", "nw_sweep_seg.cu", "nw_sweep_snap.cu", "nw_sweep_tile
 _HEADERS = ("nw_sweep.cuh",)
 # anti-diagonals per segment of the long-pair route (the JAX package's default)
 LONG_SEG = 2048
+# the long route's traceback budget (RunnerConfig.memory_budget_bytes' default)
+LONG_BUDGET = int(2.6e9)
+# segments a forward launch sweeps while the recompute of the ones before
+# it overlaps it on a second stream
+LONG_RUN = 8
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -127,6 +143,8 @@ _H100_SMS = 132
 
 _lib: ctypes.CDLL | None = None
 _lib_lock = threading.Lock()
+# the long route's recompute stream of each calling stream
+_long_streams: dict = {}
 
 
 def reset_launch_counts() -> None:
@@ -212,7 +230,7 @@ def _library() -> ctypes.CDLL:
             lib.nw_sweep_launch.restype = i32
             lib.nw_sweep_occupancy.argtypes = [i32] * 8 + [ptr] * 3
             lib.nw_sweep_occupancy.restype = i32
-            lib.nw_sweep_segment_launch.argtypes = [ptr] * 10 + [i32] * 16 + [ptr]
+            lib.nw_sweep_segment_launch.argtypes = [ptr] * 10 + [i32] * 20 + [ptr]
             lib.nw_sweep_segment_launch.restype = i32
             lib.nw_walk_launch.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
             lib.nw_walk_launch.restype = i32
@@ -291,6 +309,7 @@ class SweepPlan:
     pair_bytes: int  # shared memory of one pair
     smem_bytes: int  # dynamic shared memory per block
     blocks: int
+    groups: int = 1  # grid rows (segment mode: the segments of a group)
 
 
 def _round16(x: int) -> int:
@@ -322,23 +341,25 @@ def register_route_penalties(mismatch: int, o1: int, e1: int, o2: int, e2: int,
     return not int16 or max(adds) <= 32767 - nw.INF16
 
 
-def wide_plan(B: int, W: int) -> SweepPlan:
-    """One block per pair, lane l on thread l % threads, its 11 DP rows of W
-    int32 in shared memory while they fit, else in a global scratch."""
+def wide_plan(B: int, W: int, groups: int = 1) -> SweepPlan:
+    """One block per pair (and grid row), lane l on thread l % threads, its
+    11 DP rows of W int32 in shared memory while they fit, else in a global
+    scratch."""
     threads = min(1024, -(-W // 32) * 32)
     rows = _SWEEP_ROWS * W * 4
     return SweepPlan("wide", 0, threads // 32, 1, threads, 0,
-                     rows if rows <= _SMEM_OPTIN_BYTES else 0, B)
+                     rows if rows <= _SMEM_OPTIN_BYTES else 0, B, groups)
 
 
-def _regs_plan(B: int, W: int, Lq: int, Lt: int, lanes: int, wpp: int, seg: int | None) -> SweepPlan:
+def _regs_plan(B: int, W: int, Lq: int, Lt: int, lanes: int, wpp: int, seg: int | None,
+               groups: int = 1) -> SweepPlan:
     pair_bytes = pair_smem_bytes(Lq, Lt, W, lanes, wpp, seg)
     ppb = max(1, _SMSPS_PER_SM // wpp)
     ppb = min(ppb, _MAX_THREADS[lanes] // (32 * wpp), _SMEM_OPTIN_BYTES // pair_bytes, max(B, 1))
     if wpp > 1:
         ppb = min(ppb, _MAX_PAIR_BARRIERS)
     return SweepPlan("regs", lanes, wpp, ppb, 32 * wpp * ppb, pair_bytes, pair_bytes * ppb,
-                     -(-B // ppb))
+                     -(-B // ppb), groups)
 
 
 def _sweep_cost(plan: SweepPlan) -> int:
@@ -348,15 +369,17 @@ def _sweep_cost(plan: SweepPlan) -> int:
     sub-partition is given, whether its warps are resident at once or run
     in waves.  On the card its pick was the fastest strip at 10 of 12 bands
     of the runner's ladder and within 6.5% at the other two (PERF.md)."""
-    warps_per_sm = -(-plan.blocks // _H100_SMS) * plan.pairs_per_block * plan.warps_per_pair
+    warps_per_sm = (-(-plan.blocks * plan.groups // _H100_SMS) * plan.pairs_per_block
+                    * plan.warps_per_pair)
     return -(-warps_per_sm // _SMSPS_PER_SM) * (plan.lanes + STEP_OVERHEAD_LANES)
 
 
 def plan_sweep(B: int, W: int, Lq: int, Lt: int, *, warps_per_pair: int | None = None,
-               seg: int | None = None) -> SweepPlan:
+               seg: int | None = None, groups: int = 1) -> SweepPlan:
     """Route, lanes per thread, warps per pair, pairs per block and shared
-    memory of one sweep launch (of one segment of seg anti-diagonals when
-    seg is given: its shared memory does not depend on Lq and Lt).
+    memory of one sweep launch (of segments of seg anti-diagonals when seg
+    is given: its shared memory does not depend on Lq and Lt; `groups` grid
+    rows of them, a group's segments, whose blocks the cost counts).
 
     By default the cheapest strip by _sweep_cost, each strip at as many
     warps as W needs (ties keep more lanes per thread); `warps_per_pair`
@@ -367,7 +390,7 @@ def plan_sweep(B: int, W: int, Lq: int, Lt: int, *, warps_per_pair: int | None =
     if B < 0 or W < 1:
         raise ValueError(f"bad dispatch B={B}, W={W}")
     if W > REG_MAX_W:
-        return wide_plan(B, W)
+        return wide_plan(B, W, groups)
     if warps_per_pair is not None:
         wpp = int(warps_per_pair)
         lanes = next((s for s in SWEEP_LANES
@@ -375,18 +398,18 @@ def plan_sweep(B: int, W: int, Lq: int, Lt: int, *, warps_per_pair: int | None =
         if wpp < 1 or lanes is None or lanes * 32 * (wpp - 1) >= W:
             raise ValueError(f"{warps_per_pair} warps per pair cannot cover W={W}")
         if pair_smem_bytes(Lq, Lt, W, lanes, wpp, seg) > _SMEM_OPTIN_BYTES:
-            return wide_plan(B, W)
-        return _regs_plan(B, W, Lq, Lt, lanes, wpp, seg)
+            return wide_plan(B, W, groups)
+        return _regs_plan(B, W, Lq, Lt, lanes, wpp, seg, groups)
     best = None
     for s in sorted(SWEEP_LANES, reverse=True):
         wpp = -(-W // (32 * s))
         if 32 * wpp > _MAX_THREADS[s] or pair_smem_bytes(Lq, Lt, W, s, wpp, seg) > _SMEM_OPTIN_BYTES:
             continue
-        plan = _regs_plan(B, W, Lq, Lt, s, wpp, seg)
+        plan = _regs_plan(B, W, Lq, Lt, s, wpp, seg, groups)
         cost = _sweep_cost(plan)
         if best is None or cost < best[0]:
             best = (cost, plan)
-    return best[1] if best is not None else wide_plan(B, W)
+    return best[1] if best is not None else wide_plan(B, W, groups)
 
 
 WALK_PAIRS_PER_BLOCK = 4  # one warp per pair (csrc/nw_walk.cu)
@@ -699,12 +722,13 @@ def _check_segment(Q, T, qlens, tlens, carry, scores, band, t0, seg):
         raise ValueError("Q and T must have the same batch size")
     _check_lengths(qlens, tlens, B, device)
     _check("carry", carry, torch.int32, 3, device)
-    _check("scores", scores, torch.int32, 1, device)
+    if scores is not None:  # None: a group's, which start at -1
+        _check("scores", scores, torch.int32, 1, device)
     if band < 0 or t0 < 0 or seg < 1:
         raise ValueError("band and t0 must be >= 0 and seg >= 1")
-    if tuple(carry.shape) != (6, B, band + 1) or scores.shape[0] != B:
+    if tuple(carry.shape) != (6, B, band + 1) or (scores is not None and scores.shape[0] != B):
         raise ValueError(f"carry must be [6, {B}, {band + 1}] and scores [{B}], got "
-                         f"{tuple(carry.shape)} and {tuple(scores.shape)}")
+                         f"{tuple(carry.shape)} and {None if scores is None else tuple(scores.shape)}")
 
 
 def nw_align_segment(Q, T, qlens, tlens, carry, scores, *, t0, seg, mismatch, o1, e1, o2, e2,
@@ -744,35 +768,51 @@ def segment_launch(Q, T, qlens, tlens, carry, scores, plan: SweepPlan, *, t0, se
                    e1, o2, e2, band, with_traceback=True, out=None):
     """Launch kernel A's segment mode on checked CUDA tensors with a given
     plan (plan_sweep(..., seg=seg), or another one to compare shapes)."""
-    if plan.route == "regs" and not register_route_penalties(mismatch, o1, e1, o2, e2):
-        raise ValueError("the register route takes penalties in [0, 2^16) only")
-    device = Q.device
-    B, Lq = Q.shape
-    W = band + 1
+    B = Q.shape[0]
     carry_out = out if out is not None else torch.empty_like(carry)
     scores_out = torch.empty_like(scores)
-    tb = torch.empty((B, seg, W), dtype=torch.uint8, device=device) if with_traceback else None
+    tb = (torch.empty((B, seg, band + 1), dtype=torch.uint8, device=Q.device)
+          if with_traceback else None)
+    _seg_launch(Q, T, qlens, tlens, carry, carry_out, scores, scores_out, tb, 0, plan, t_lo=t0 + 1,
+                seg=seg, n_run=1, n_out=1, mismatch=mismatch, o1=o1, e1=e1, o2=o2, e2=e2,
+                band=band)
+    LAUNCHES["nw_sweep_segment" if with_traceback else "nw_sweep_segment_score_only"] += 1
+    return carry_out, scores_out, tb
+
+
+def _seg_launch(Q, T, qlens, tlens, ckpt_in, ckpt_out, scores_in, scores, tb, row0, plan: SweepPlan,
+                *, t_lo, seg, n_run, n_out, mismatch, o1, e1, o2, e2, band):
+    """One launch of kernel A's segment mode (csrc/nw_sweep_seg.cu's
+    nw_sweep_segment_launch): plan.groups grid rows, each a run of n_run
+    segments from t_lo + y * n_run * seg on; ckpt_in and ckpt_out are
+    carries [6, B, W] (views into a checkpoint tensor, the carries after
+    them following), tb [B, rows, W] or None, written from row row0 on.
+    Raises if the launch fails."""
+    if plan.route == "regs" and not register_route_penalties(mismatch, o1, e1, o2, e2):
+        raise ValueError("the register route takes penalties in [0, 2^16) only")
+    B, Lq = Q.shape
+    W = band + 1
     if B == 0:
-        return carry_out, scores_out, tb
+        return
     scratch = None
     if plan.route == "wide" and not plan.smem_bytes:
-        scratch = torch.empty(B * _SWEEP_ROWS * W, dtype=torch.int32, device=device)
+        scratch = torch.empty(plan.groups * B * _SWEEP_ROWS * W, dtype=torch.int32, device=Q.device)
     lib = _library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(Q.device):
+        stream = torch.cuda.current_stream(Q.device).cuda_stream
         err = lib.nw_sweep_segment_launch(
-            Q.data_ptr(), T.data_ptr(), qlens.data_ptr(), tlens.data_ptr(), carry.data_ptr(),
-            carry_out.data_ptr(), scores.data_ptr(), scores_out.data_ptr(),
-            tb.data_ptr() if tb is not None else None,
+            Q.data_ptr(), T.data_ptr(), qlens.data_ptr(), tlens.data_ptr(), ckpt_in.data_ptr(),
+            ckpt_out.data_ptr() if ckpt_out is not None else None,
+            scores_in.data_ptr() if scores_in is not None else None, scores.data_ptr(),
+            tb.data_ptr() + row0 * W if tb is not None else None,
             scratch.data_ptr() if scratch is not None else None,
-            B, Lq, T.shape[1], W, t0 + 1, t0 + seg, mismatch, o1, e1, o2, e2,
+            B, Lq, T.shape[1], W, t_lo, seg, n_run, n_out, plan.groups,
+            tb.shape[1] if tb is not None else 0, mismatch, o1, e1, o2, e2,
             plan.lanes, plan.warps_per_pair, plan.pairs_per_block, plan.pair_bytes,
             plan.threads, stream,
         )
     if err != 0:
         raise RuntimeError(f"nw_sweep segment launch failed with CUDA error {err}")
-    LAUNCHES["nw_sweep_segment" if with_traceback else "nw_sweep_segment_score_only"] += 1
-    return carry_out, scores_out, tb
 
 
 def nw_align_segment_reference(Q, T, qlens, tlens, carry, scores, *, t0, seg, mismatch, o1, e1,
@@ -788,6 +828,108 @@ def nw_align_segment_reference(Q, T, qlens, tlens, carry, scores, *, t0, seg, mi
         Q, T, qlens, tlens, tuple(carry.unbind(0)), scores, t0 + 1, t0 + seg, tb, t0 + 1,
         mismatch=mismatch, o1=o1, e1=e1, o2=o2, e2=e2, band=band)
     return torch.stack(rows), scores, tb
+
+
+def _check_ckpt(Q, ckpt, s0: int, n: int, band: int) -> None:
+    _check("ckpt", ckpt, torch.int32, 4, Q.device)
+    if tuple(ckpt.shape[1:]) != (6, Q.shape[0], band + 1) or s0 < 0 or n < 1 or s0 + n > ckpt.shape[0]:
+        raise ValueError(f"ckpt {tuple(ckpt.shape)} does not hold segments {s0}..{s0 + n - 1} "
+                         f"of [6, {Q.shape[0]}, {band + 1}] carries")
+
+
+def _segment_plan(B, W, Lq, Lt, seg, groups, pen):
+    plan = plan_sweep(B, W, Lq, Lt, seg=seg, groups=groups)
+    if not register_route_penalties(**pen):
+        plan = wide_plan(B, W, groups)
+    return plan
+
+
+def nw_align_segment_run(Q, T, qlens, tlens, ckpt, scores, *, s0, n_run, seg, mismatch, o1, e1, o2,
+                         e2, band):
+    """Kernel A, score-only, over segments s0 .. s0 + n_run - 1 in one launch
+    (the long route's forward pass): from the carry ckpt[s0] (ckpt [n_seg,
+    6, B, W] int32), storing the carry after segment s into ckpt[s + 1] for
+    every s + 1 < n_seg as the sweep passes it.  scores [B] int32 are the
+    scores before the run; returns the scores after it."""
+    _check_ckpt(Q, ckpt, s0, n_run, band)
+    _check_segment(Q, T, qlens, tlens, ckpt[s0], scores, band, s0 * seg, seg)
+    pen = dict(mismatch=mismatch, o1=o1, e1=e1, o2=o2, e2=e2)
+    n_out = min(n_run, ckpt.shape[0] - 1 - s0)
+    if Q.device.type == "cpu":
+        return nw_align_segment_run_reference(Q, T, qlens, tlens, ckpt, scores, s0=s0, n_run=n_run,
+                                              seg=seg, band=band, **pen)
+    _require_cuda(Q.device)
+    B, W = Q.shape[0], band + 1
+    plan = _segment_plan(B, W, Q.shape[1], T.shape[1], seg, 1, pen)
+    out = torch.empty_like(scores)
+    _seg_launch(Q, T, qlens, tlens, ckpt[s0], ckpt[s0 + 1] if n_out else None, scores, out, None,
+                0, plan, t_lo=s0 * seg + 1, seg=seg, n_run=n_run, n_out=n_out, band=band, **pen)
+    LAUNCHES["nw_sweep_segment_score_only"] += 1
+    return out
+
+
+def nw_align_segment_run_reference(Q, T, qlens, tlens, ckpt, scores, *, s0, n_run, seg, mismatch,
+                                   o1, e1, o2, e2, band):
+    """Plain PyTorch version of a forward run: nw_align_segment_reference,
+    score-only, segment after segment, each carry stored into ckpt."""
+    carry = ckpt[s0]
+    for s in range(s0, s0 + n_run):
+        carry, scores, _ = nw_align_segment_reference(
+            Q, T, qlens, tlens, carry, scores, t0=s * seg, seg=seg, mismatch=mismatch, o1=o1,
+            e1=e1, o2=o2, e2=e2, band=band, with_traceback=False)
+        if s + 1 < ckpt.shape[0]:
+            ckpt[s + 1] = carry
+    return scores
+
+
+def nw_align_segment_group(Q, T, qlens, tlens, ckpt, *, s0, G, seg, mismatch, o1, e1, o2, e2, band,
+                           tb=None, row0=0):
+    """Kernel A over a group of G segments s0 .. s0 + G - 1 in one launch,
+    each from its checkpoint ckpt[s] ([n_seg, 6, B, W] int32, the forward
+    pass's): a grid of pair x segment blocks, since each segment's recompute
+    depends on its checkpoint alone.  Returns (scores [B] int32, set where
+    a pair's final cell lies in the group, -1 elsewhere; the traceback
+    [B, G * seg, W] uint8 of rows s0 * seg + 1 .. (s0 + G) * seg, in tb
+    from row row0 on when tb [B, rows, W] is given).  Its bytes and scores
+    are those of G nw_align_segment launches chained from scores -1."""
+    _check_ckpt(Q, ckpt, s0, G, band)
+    _check_segment(Q, T, qlens, tlens, ckpt[s0], None, band, s0 * seg, seg)
+    B, W = Q.shape[0], band + 1
+    if tb is None:
+        tb = torch.empty((B, G * seg, W), dtype=torch.uint8, device=Q.device)
+        row0 = 0
+    else:
+        _check("tb", tb, torch.uint8, 3, Q.device)
+        if tb.shape[0] != B or tb.shape[2] != W or row0 < 0 or row0 + G * seg > tb.shape[1]:
+            raise ValueError(f"tb {tuple(tb.shape)} cannot hold rows {row0}..{row0 + G * seg - 1}")
+    pen = dict(mismatch=mismatch, o1=o1, e1=e1, o2=o2, e2=e2)
+    if Q.device.type == "cpu":
+        scores = nw_align_segment_group_reference(Q, T, qlens, tlens, ckpt, s0=s0, G=G, seg=seg,
+                                                  band=band, tb=tb, row0=row0, **pen)
+        return scores, tb
+    _require_cuda(Q.device)
+    plan = _segment_plan(B, W, Q.shape[1], T.shape[1], seg, G, pen)
+    scores = torch.full((B,), -1, dtype=torch.int32, device=Q.device)
+    _seg_launch(Q, T, qlens, tlens, ckpt[s0], None, None, scores, tb, row0, plan, t_lo=s0 * seg + 1,
+                seg=seg, n_run=1, n_out=0, band=band, **pen)
+    LAUNCHES["nw_sweep_segment_group"] += 1
+    return scores, tb
+
+
+def nw_align_segment_group_reference(Q, T, qlens, tlens, ckpt, *, s0, G, seg, mismatch, o1, e1, o2,
+                                     e2, band, tb, row0=0):
+    """Plain PyTorch version of the grouped recompute:
+    nw_align_segment_reference over the group's segments, each from its
+    checkpoint, the scores chained from -1; the rows into tb from row0 on.
+    Returns the scores."""
+    scores = torch.full((Q.shape[0],), -1, dtype=torch.int32, device=Q.device)
+    for k in range(G):
+        s = s0 + k
+        _, scores, tb_s = nw_align_segment_reference(
+            Q, T, qlens, tlens, ckpt[s], scores, t0=s * seg, seg=seg, mismatch=mismatch, o1=o1,
+            e1=e1, o2=o2, e2=e2, band=band)
+        tb[:, row0 + k * seg : row0 + (k + 1) * seg] = tb_s
+    return scores
 
 
 # -- kernel B: the walk --------------------------------------------------------
@@ -1033,11 +1175,64 @@ def nw_walk_segment_reference(tb_seg, state, ops, *, t0, seg, band):
     return st.to(torch.int32)
 
 
+def nw_walk_segment_group(tb_grp, state, ops, *, s0, G, seg, band):
+    """Kernel B over a group's rows in one launch: rows s0 * seg + 1 ..
+    (s0 + G) * seg of the traceback, tb_grp [B, G * seg, W] uint8
+    (nw_align_segment_group's), from the cursor state [4, B] int32, the
+    cursor carried inside the kernel across the group's segments.  Writes
+    the opcodes into those columns of ops [B, L] uint8 (zero-filled, L >
+    (s0 + G) * seg) and returns the cursor where it leaves the group: what
+    G nw_walk_segment launches from the last segment down give."""
+    device = tb_grp.device
+    _check("tb_grp", tb_grp, torch.uint8, 3, device)
+    B = tb_grp.shape[0]
+    _check("state", state, torch.int32, 2, device)
+    _check("ops", ops, torch.uint8, 2, device)
+    t0, rows = s0 * seg, G * seg
+    if s0 < 0 or G < 1 or seg < 1 or tuple(tb_grp.shape) != (B, rows, band + 1):
+        raise ValueError(f"tb_grp shape {tuple(tb_grp.shape)} does not fit band {band}, {G} "
+                         f"segments of {seg}")
+    if tuple(state.shape) != (4, B) or ops.shape[0] != B or ops.shape[1] <= t0 + rows:
+        raise ValueError(f"state must be [4, {B}] and ops [{B}, > {t0 + rows}], got "
+                         f"{tuple(state.shape)} and {tuple(ops.shape)}")
+    if device.type == "cpu":
+        return nw_walk_segment_group_reference(tb_grp, state, ops, s0=s0, G=G, seg=seg, band=band)
+    _require_cuda(device)
+    out = state.clone()
+    if B == 0:
+        return out
+    lib = _library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.nw_walk_segment_launch(tb_grp.data_ptr(), out.data_ptr(), ops.data_ptr(),
+                                         B, band + 1, t0 + 1, t0 + rows, ops.shape[1], rows, stream)
+    if err != 0:
+        raise RuntimeError(f"nw_walk group launch failed with CUDA error {err}")
+    LAUNCHES["nw_walk_segment_group"] += 1
+    return out
+
+
+def nw_walk_segment_group_reference(tb_grp, state, ops, *, s0, G, seg, band):
+    """Plain PyTorch version of the group walk: nw_walk_segment_reference
+    over the group's segments from the last down, the cursor carried."""
+    for k in reversed(range(G)):
+        state = nw_walk_segment_reference(tb_grp[:, k * seg : (k + 1) * seg], state, ops,
+                                          t0=(s0 + k) * seg, seg=seg, band=band)
+    return state
+
+
 # -- the long-pair route -----------------------------------------------------------
 
 
+def long_group_size(B: int, W: int, seg: int, n_seg: int, budget: int) -> int:
+    """G: the most segments whose traceback B * G * seg * W bytes fits the
+    budget, at least 1 and at most n_seg."""
+    per = B * seg * W
+    return max(1, min(n_seg, int(budget) // per if per else n_seg))
+
+
 def nw_align_long(Q, T, qlens, tlens, *, mismatch, o1, e1, o2, e2, band, seg=LONG_SEG,
-                  t_need=None):
+                  t_need=None, memory_budget=LONG_BUDGET):
     """Banded alignment of pairs of any length through segments of seg
     anti-diagonals (nw.nw_align_long's contract).
 
@@ -1045,10 +1240,20 @@ def nw_align_long(Q, T, qlens, tlens, *, mismatch, o1, e1, o2, e2, band, seg=LON
     ascending anti-diagonal order, as nw_walk's), on the tensors' device with
     no host synchronisation.  n_seg = ceil(t_need / seg), t_need the largest
     qlen + tlen (computed from the lengths when not given, which reads them
-    back).  The forward pass sweeps every segment score-only and keeps only
-    the DP rows at each segment start, [n_seg, 6, B, W] int32; the reverse
-    pass recomputes each segment's traceback from its checkpoint, from the
-    last segment down, and walks it with the cursor carried across."""
+    back).  The forward pass sweeps the segments score-only and keeps only
+    the DP rows at each segment start, [n_seg, 6, B, W] int32.  The reverse
+    pass recomputes the traceback a group of G segments at a time from their
+    checkpoints, G = long_group_size(B, W, seg, n_seg, memory_budget), from
+    the last group down, and walks each group in one launch.
+
+    * G = n_seg on the card: the forward pass runs LONG_RUN segments a
+      launch on the current stream, and after each launch the recompute of
+      its segments runs on a second stream (an event orders it), into one
+      traceback [B, n_seg * seg, W]; the walk follows there, and the
+      current stream waits for it.
+    * G < n_seg (and on the CPU): the forward pass in one launch, then the
+      groups in turn; G = 1 (a budget below two segments' traceback)
+      recomputes and walks one segment a launch."""
     B = Q.shape[0]
     W = band + 1
     device = Q.device
@@ -1056,22 +1261,47 @@ def nw_align_long(Q, T, qlens, tlens, *, mismatch, o1, e1, o2, e2, band, seg=LON
     if t_need is None:
         t_need = int((qlens + tlens).max()) if B else 0
     n_seg = -(-int(t_need) // seg)
+    G = long_group_size(B, W, seg, n_seg, memory_budget)
     ckpt = torch.empty((n_seg, 6, B, W), dtype=torch.int32, device=device)
     scores = torch.full((B,), -1, dtype=torch.int32, device=device)
-    spare = torch.empty((6, B, W), dtype=torch.int32, device=device)
-    if n_seg:
-        ckpt[0] = initial_carry(B, W, device)
-    for s in range(n_seg):
-        out = ckpt[s + 1] if s + 1 < n_seg else spare
-        _, scores, _ = nw_align_segment(Q, T, qlens, tlens, ckpt[s], scores, t0=s * seg, seg=seg,
-                                        with_traceback=False, out=out, **pen)
     ops = torch.zeros((B, n_seg * seg + 1), dtype=torch.uint8, device=device)
     state = walk_state(qlens, tlens, band=band)
-    for s in reversed(range(n_seg)):
-        _, _, tb_seg = nw_align_segment(Q, T, qlens, tlens, ckpt[s], scores, t0=s * seg, seg=seg,
-                                        out=spare, **pen)
-        state = nw_walk_segment(tb_seg, state, ops, t0=s * seg, seg=seg, band=band)
-        del tb_seg  # stream-ordered: the next segment's traceback may reuse it
+    if not n_seg:
+        return scores, ops
+    ckpt[0] = initial_carry(B, W, device)
+    if G == n_seg and device.type == "cuda":
+        # the recompute's stream is kept per calling stream, so the
+        # allocator's blocks recorded on it come back to the caller's pool
+        main = torch.cuda.current_stream(device)
+        key = (device, main.cuda_stream)
+        if key not in _long_streams:
+            _long_streams[key] = torch.cuda.Stream(device)
+        side = _long_streams[key]
+        side.wait_stream(main)  # the first checkpoint, ops and the cursors
+        tb = torch.empty((B, n_seg * seg, W), dtype=torch.uint8, device=device)
+        for x in (Q, T, qlens, tlens, ckpt, ops, state, tb):
+            x.record_stream(side)
+        for s0 in range(0, n_seg, LONG_RUN):
+            n_run = min(LONG_RUN, n_seg - s0)
+            scores = nw_align_segment_run(Q, T, qlens, tlens, ckpt, scores, s0=s0, n_run=n_run,
+                                          seg=seg, **pen)
+            done = torch.cuda.Event()
+            done.record(main)
+            side.wait_event(done)
+            with torch.cuda.stream(side):
+                nw_align_segment_group(Q, T, qlens, tlens, ckpt, s0=s0, G=n_run, seg=seg, tb=tb,
+                                       row0=s0 * seg, **pen)
+        with torch.cuda.stream(side):
+            state = nw_walk_segment_group(tb, state, ops, s0=0, G=n_seg, seg=seg, band=band)
+        main.wait_stream(side)
+        return scores, ops
+    scores = nw_align_segment_run(Q, T, qlens, tlens, ckpt, scores, s0=0, n_run=n_seg, seg=seg,
+                                  **pen)
+    for s0 in reversed(range(0, n_seg, G)):
+        g = min(G, n_seg - s0)
+        _, tb = nw_align_segment_group(Q, T, qlens, tlens, ckpt, s0=s0, G=g, seg=seg, **pen)
+        state = nw_walk_segment_group(tb, state, ops, s0=s0, G=g, seg=seg, band=band)
+        del tb  # stream-ordered: the next group's traceback may reuse it
     return scores, ops
 
 

@@ -522,29 +522,108 @@ def test_segment_walk_on_random_bytes_equals_plain(cuda):
         state = st_k
 
 
-def test_long_route_launches_and_equals_single_shot(cuda):
-    """nw_align_long on the card: n_seg launches of each segment kind per
-    pass, and the single-shot kernels' scores and opcodes."""
+def _long_launches(n_fwd, n_grp, n_gwalk, n_seg_tb, n_seg_walk):
+    return {"nw_sweep": 0, "nw_sweep_score_only": 0, "nw_walk": 0, "nw_walk_runs": 0,
+            "nw_sweep_segment": n_seg_tb, "nw_sweep_segment_score_only": n_fwd,
+            "nw_walk_segment": n_seg_walk, "nw_sweep_segment_group": n_grp,
+            "nw_walk_segment_group": n_gwalk, "wfa": 0, "wfa_score_only": 0,
+            "nw_sweep_int16": 0, "nw_sweep_snapshot": 0, "nw_walk_start": 0, "nw_rows_sweep": 0,
+            "nw_rows_walk": 0, "nw_sweep_tiled": 0, "nw_walk_runs_tiled": 0,
+            "nw_sweep_sharded": 0}
+
+
+@pytest.mark.parametrize("G", ["all", 2, 1])
+def test_long_route_launches_and_equals_single_shot(cuda, G):
+    """nw_align_long on the card at G = n_seg (the recompute overlapping the
+    forward pass), 2 and 1: the launches of each shape (LONG_RUN segments a
+    forward launch while it overlaps, else one; a grouped recompute and a
+    group walk a group, at G = 1 a segment each), and the single-shot
+    kernels' scores and opcodes."""
     (Q, T, ql, tl), tmax = _pack(*_variants(np.random.default_rng(3), 9, 2600, 255, 0.0), cuda)
     kw = dict(mismatch=5, o1=8, e1=2, o2=24, e2=1, band=255)
     t_need = int((ql + tl).max())
     seg = 1024
     n_seg = -(-t_need // seg)
+    B, W = Q.shape[0], 256
+    g = n_seg if G == "all" else G
+    budget = g * B * seg * W
     nw_cuda.reset_launch_counts()
-    scores, ops = nw_cuda.nw_align_long(Q, T, ql, tl, seg=seg, t_need=t_need, **kw)
+    scores, ops = nw_cuda.nw_align_long(Q, T, ql, tl, seg=seg, t_need=t_need, memory_budget=budget,
+                                        **kw)
     torch.cuda.synchronize()
-    assert nw_cuda.LAUNCHES == {"nw_sweep": 0, "nw_sweep_score_only": 0, "nw_walk": 0,
-                                "nw_walk_runs": 0, "nw_sweep_segment": n_seg,
-                                "nw_sweep_segment_score_only": n_seg, "nw_walk_segment": n_seg,
-                                "wfa": 0, "wfa_score_only": 0, "nw_sweep_int16": 0,
-                                "nw_sweep_snapshot": 0, "nw_walk_start": 0, "nw_rows_sweep": 0,
-                                "nw_rows_walk": 0, "nw_sweep_tiled": 0, "nw_walk_runs_tiled": 0,
-                                "nw_sweep_sharded": 0}
+    runs = -(-n_seg // nw_cuda.LONG_RUN)
+    want = {"all": _long_launches(runs, runs, 1, 0, 0),
+            2: _long_launches(1, -(-n_seg // 2), -(-n_seg // 2), 0, 0),
+            1: _long_launches(1, n_seg, n_seg, 0, 0)}[G]
+    assert nw_cuda.LAUNCHES == want
     s_one, tb = nw_cuda.nw_align(Q, T, ql, tl, tmax=tmax, **kw)
     ops_one = nw_cuda.nw_walk(tb, ql, tl, band=255, tmax=tmax)
     assert torch.equal(scores, s_one)
     assert torch.equal(ops[:, : t_need + 1], ops_one[:, : t_need + 1])
     assert not ops[:, t_need + 1 :].any() and not ops_one[:, t_need + 1 :].any()
+
+
+@pytest.mark.parametrize(
+    "seg,band,two_piece,route",
+    [
+        (256, 63, True, "regs"),
+        (256, 300, False, "regs"),  # K >= seg: a boundary in the corner phase
+        (2048, 767, True, "regs"),  # the long route's segment length
+        (256, 4200, True, "wide"),  # W 4201: above the register route
+        (256, 63, True, "scratch"),  # wide route, rows in global scratch
+    ],
+)
+def test_segment_group_kernels_equal_plain_versions(cuda, seg, band, two_piece, route):
+    """The long route's launch shapes on the boundary batch, each against
+    its plain version on the same inputs: a forward run over every segment
+    in one launch (checkpoints and scores), the grouped recompute of all
+    segments and of the last two (traceback bytes and scores; the last two
+    also into a traceback of every segment's rows from their first row on,
+    as the route's overlap writes them, rows outside left untouched), and
+    the group walk over them (cursors and opcodes)."""
+    args = _segment_batch(seg, seg + band, cuda)
+    pen = dict(mismatch=5, o1=8, e1=2, o2=24 if two_piece else -1, e2=1 if two_piece else -1)
+    B, W = args[0].shape[0], band + 1
+    n_seg = 3
+    kw = dict(seg=seg, band=band, **pen)
+    ckpt = torch.empty((n_seg, 6, B, W), dtype=torch.int32, device=cuda)
+    ckpt[0] = nw_cuda.initial_carry(B, W, cuda)
+    ckpt_p = ckpt.clone()
+    s_init = torch.full((B,), -1, dtype=torch.int32, device=cuda)
+    if route == "scratch":
+        real = nw_cuda._segment_plan
+        nw_cuda._segment_plan = lambda B, W, Lq, Lt, seg, groups, pen: nw_cuda.SweepPlan(
+            "wide", 0, 2, 1, 64, 0, 0, B, groups)
+    try:
+        scores = nw_cuda.nw_align_segment_run(*args, ckpt, s_init, s0=0, n_run=n_seg, **kw)
+        torch.cuda.synchronize()
+        s_p = nw_cuda.nw_align_segment_run_reference(*args, ckpt_p, s_init, s0=0, n_run=n_seg, **kw)
+        assert torch.equal(scores, s_p) and torch.equal(ckpt, ckpt_p)
+        assert (scores[:-1] >= 0).all() and int(scores[-1]) == -1
+        for s0, g in ((0, n_seg), (1, 2)):
+            s_k, tb_k = nw_cuda.nw_align_segment_group(*args, ckpt, s0=s0, G=g, **kw)
+            torch.cuda.synchronize()
+            tb_p = torch.zeros_like(tb_k)
+            s_p = nw_cuda.nw_align_segment_group_reference(*args, ckpt, s0=s0, G=g, tb=tb_p, **kw)
+            assert torch.equal(s_k, s_p) and torch.equal(tb_k, tb_p), s0
+            tb_all = torch.full((B, n_seg * seg, W), 0xA5, dtype=torch.uint8, device=cuda)
+            s_a, _ = nw_cuda.nw_align_segment_group(*args, ckpt, s0=s0, G=g, tb=tb_all,
+                                                    row0=s0 * seg, **kw)
+            torch.cuda.synchronize()
+            rows = slice(s0 * seg, (s0 + g) * seg)
+            assert torch.equal(s_a, s_p) and torch.equal(tb_all[:, rows], tb_p), s0
+            assert (tb_all[:, : s0 * seg] == 0xA5).all() and (tb_all[:, rows.stop :] == 0xA5).all()
+            state = nw_cuda.walk_state(args[2], args[3], band=band)
+            ops = torch.zeros((B, n_seg * seg + 1), dtype=torch.uint8, device=cuda)
+            ops_p = ops.clone()
+            st_k = nw_cuda.nw_walk_segment_group(tb_k, state, ops, s0=s0, G=g, seg=seg, band=band)
+            torch.cuda.synchronize()
+            st_p = nw_cuda.nw_walk_segment_group_reference(tb_p, state, ops_p, s0=s0, G=g, seg=seg,
+                                                           band=band)
+            assert torch.equal(st_k, st_p) and torch.equal(ops, ops_p), s0
+    finally:
+        if route == "scratch":
+            nw_cuda._segment_plan = real
 
 
 @pytest.mark.parametrize("osc", [(1, 1, 1), (2, 3, 1)])

@@ -331,3 +331,170 @@ def test_segment_wrappers_check_arguments():
         nw_cuda.nw_walk_segment(tb, st, ops[:, :16].contiguous(), t0=0, seg=16, band=15)
     with pytest.raises(ValueError):
         nw_cuda.nw_walk_segment(tb, st.to(torch.int64), ops, t0=0, seg=16, band=15)
+
+
+# -- the grouped launch shapes (forward runs, grouped recompute, group walk) --
+
+GROUP_CASES = [(seg, two_piece, G) for seg in (256, 2048) for two_piece in (False, True)
+               for G in (1, 2, "all")]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_chain(seg, band, two_piece):
+    """The boundary batch at seg and _nw_segment chained over it (cached:
+    each case's JAX reference is shared by its group sizes)."""
+    Q, T, ql, tl = _boundary_batch(seg, seed=seg + band + 1)
+    return (Q, T, ql, tl), _jax_segments(Q, T, ql, tl, band, seg, two_piece)
+
+
+def _groups(n_seg, G):
+    G = n_seg if G == "all" else G
+    return [(s0, min(G, n_seg - s0)) for s0 in range(0, n_seg, G)]
+
+
+@pytest.mark.parametrize("seg,two_piece,G", GROUP_CASES)
+def test_segment_groups_equal_nw_segment(seg, two_piece, G):
+    """The forward runs (nw_align_segment_run, plain version) of G segments
+    a launch fill the checkpoints with _nw_segment's carries and end with
+    its scores; the grouped recompute (nw_align_segment_group) from those
+    checkpoints gives every segment's traceback rows and, per group, the
+    scores of the pairs that end in it; the group walk
+    (nw_walk_segment_group) from the last group down gives
+    _tb_scan_segment's cursor at each group's lower edge and its opcodes.
+    G = 1, 2 and n_seg; one-piece and two-piece; seg 256 and 2,048."""
+    band = 63
+    (Q, T, ql, tl), ref = _jax_chain(seg, band, two_piece)
+    n_seg = len(ref)
+    assert n_seg == 3
+    args = [torch.from_numpy(a) for a in (Q, T, ql, tl)]
+    B, W = Q.shape[0], band + 1
+    kw = dict(seg=seg, band=band, **_pen(two_piece))
+    groups = _groups(n_seg, G)
+    ckpt = torch.empty((n_seg, 6, B, W), dtype=torch.int32)
+    ckpt[0] = nw_cuda.initial_carry(B, W, "cpu")
+    scores = torch.full((B,), -1, dtype=torch.int32)
+    for s0, g in groups:
+        scores = nw_cuda.nw_align_segment_run(*args, ckpt, scores, s0=s0, n_run=g, **kw)
+        assert (scores.numpy() == ref[s0 + g - 1][3]).all(), s0
+    for s, (c_in, *_rest) in enumerate(ref):
+        assert (ckpt[s].numpy() == c_in).all(), s
+    tbs = {}
+    for s0, g in groups:
+        s_g, tb = nw_cuda.nw_align_segment_group(*args, ckpt, s0=s0, G=g, **kw)
+        assert tb.shape == (B, g * seg, W)
+        s_before, s_after = ref[s0][1], ref[s0 + g - 1][3]
+        assert (s_g.numpy() == np.where(s_before < 0, s_after, -1)).all(), s0
+        for k in range(g):
+            assert (tb[:, k * seg : (k + 1) * seg].numpy() == ref[s0 + k][4]).all(), (s0, k)
+        tbs[s0] = tb
+    walk = _jax_walk([r[4] for r in ref], ql, tl, band, seg)
+    state = nw_cuda.walk_state(args[2], args[3], band=band)
+    ops = torch.zeros((B, n_seg * seg + 1), dtype=torch.uint8)
+    for s0, g in reversed(groups):
+        assert (state.numpy() == walk[s0 + g - 1][0]).all(), s0
+        state = nw_cuda.nw_walk_segment_group(tbs[s0], state, ops, s0=s0, G=g, seg=seg, band=band)
+        assert (state.numpy() == walk[s0][1]).all(), s0
+    for s in range(n_seg):
+        assert (ops.numpy()[:, s * seg + 1 : (s + 1) * seg + 1] == walk[s][2]).all(), s
+    assert state[3].tolist() == [1] * B and not ops[:, 0].any()
+
+
+def test_group_walk_on_random_bytes():
+    """Random traceback bytes (walks that end without reaching (0, 0),
+    cursors leaving the band) through the group walk, in groups of 2 and
+    all at once: _tb_scan_segment's cursors and opcodes."""
+    rng = np.random.default_rng(4)
+    seg, band = 64, 20
+    ql = np.array([150, 90, 37, 0, 120, 7], np.int32)
+    tl = np.array([100, 99, 64, 0, 130, 3], np.int32)
+    n_seg = -(-int((ql + tl).max()) // seg)
+    tbs = [rng.integers(0, 128, (ql.size, seg, band + 1)).astype(np.uint8) for _ in range(n_seg)]
+    walk = _jax_walk(tbs, ql, tl, band, seg)
+    for G in (2, "all"):
+        state = nw_cuda.walk_state(torch.from_numpy(ql), torch.from_numpy(tl), band=band)
+        ops = torch.zeros((ql.size, n_seg * seg + 1), dtype=torch.uint8)
+        for s0, g in reversed(_groups(n_seg, G)):
+            tb = torch.from_numpy(np.concatenate(tbs[s0 : s0 + g], axis=1))
+            state = nw_cuda.nw_walk_segment_group(tb, state, ops, s0=s0, G=g, seg=seg, band=band)
+            assert (state.numpy() == walk[s0][1]).all(), (G, s0)
+        for s in range(n_seg):
+            assert (ops.numpy()[:, s * seg + 1 : (s + 1) * seg + 1] == walk[s][2]).all(), (G, s)
+        assert int(state[3].sum()) < ql.size
+
+
+@pytest.mark.parametrize("G", [1, 2, "all"])
+def test_long_route_groups_equal_jax_and_single_shot(G):
+    """nw_align_long with a memory budget that gives G = 1, 2 and n_seg
+    (cpu) equals nw.nw_align_long (scores and per-pair items) and the port's
+    single-shot nw_align + nw_walk (scores, opcodes and items), with
+    tolerance 0; the route of every group size gives the same opcodes."""
+    Q, T, ql, tl = _boundary_batch(384, seed=9)
+    band, seg = 127, 256
+    B, W = Q.shape[0], band + 1
+    t_need = int((ql + tl).max())
+    n_seg = -(-t_need // seg)
+    assert n_seg == 5
+    g = n_seg if G == "all" else G
+    budget = g * B * seg * W + (B * seg * W - 1)  # just under g + 1 segments
+    assert nw_cuda.long_group_size(B, W, seg, n_seg, budget) == g
+    s_ref, items_ref = jnw.nw_align_long(Q, T, ql, tl, Penalties(5, 8, 2, 24, 1), band=band, seg=seg)
+    args = [torch.from_numpy(a) for a in (Q, T, ql, tl)]
+    before = dict(nw_cuda.LAUNCHES)
+    scores, ops = nw_cuda.nw_align_long(*args, band=band, seg=seg, memory_budget=budget,
+                                        **_pen(True))
+    assert ops.shape == (B, n_seg * seg + 1)
+    assert (scores.numpy() == np.asarray(s_ref)).all()
+    assert _items(ops) == items_ref
+    s_one, tb = nw_cuda.nw_align(*args, band=band, tmax=t_need, **_pen(True))
+    ops_one = nw_cuda.nw_walk(tb, args[2], args[3], band=band, tmax=t_need)
+    assert torch.equal(scores, s_one)
+    assert torch.equal(ops[:, : t_need + 1], ops_one) and not ops[:, t_need + 1 :].any()
+    assert nw_cuda.LAUNCHES == before  # the cpu runs no kernel
+
+
+def test_long_group_size_rule():
+    """G is the most segments whose traceback B * G * seg * W fits the
+    budget, at least 1 (a budget below one segment keeps the per-segment
+    route) and at most n_seg; the runner's default budget gives the 8 x 60
+    kb locus's chunks and the 110 kb pair G = n_seg."""
+    per = 48 * 2048 * 384
+    assert nw_cuda.long_group_size(48, 384, 2048, 59, 59 * per) == 59
+    assert nw_cuda.long_group_size(48, 384, 2048, 59, 59 * per - 1) == 58
+    assert nw_cuda.long_group_size(48, 384, 2048, 59, 2 * per) == 2
+    assert nw_cuda.long_group_size(48, 384, 2048, 59, 2 * per - 1) == 1
+    assert nw_cuda.long_group_size(48, 384, 2048, 59, 1) == 1
+    assert nw_cuda.long_group_size(48, 384, 2048, 59, 10**15) == 59
+    assert nw_cuda.long_group_size(0, 384, 2048, 3, 1) == 3
+    default = RunnerConfig().memory_budget_bytes
+    assert default == nw_cuda.LONG_BUDGET == int(2.6e9)
+    for B, W, n_seg in ((48, 384, 59), (16, 512, 59), (8, 256, 54)):
+        assert nw_cuda.long_group_size(B, W, 2048, n_seg, default) == n_seg
+    # the plan's cost counts the group's blocks: its strip is picked for B x G
+    one = nw_cuda.plan_sweep(48, 384, 0, 0, seg=2048)
+    grp = nw_cuda.plan_sweep(48, 384, 0, 0, seg=2048, groups=59)
+    assert grp.groups == 59 and one.groups == 1
+    assert nw_cuda._sweep_cost(grp) >= nw_cuda._sweep_cost(one)
+    for p in (one, grp):
+        assert p.route == "regs" and p.smem_bytes <= 232448
+
+
+def test_runner_long_route_records_group():
+    """A long chunk's dispatch record carries its group size, the runner's
+    memory_budget_bytes passed down: every segment at the default budget,
+    and what long_group_size gives for a budget of one segment and a half."""
+    named = _long_corpus()
+    pairs = np.array([[0, 1], [2, 0]], dtype=np.int32)
+    for budget in (None, "1.5 segments"):
+        cfg = RunnerConfig(scores=AlignmentScores.parse(SCORES), long_pair_threshold=1024)
+        if budget:
+            cfg.memory_budget_bytes = 3 * 2 * nw_cuda.LONG_SEG * 2 * 64 // 2
+        port = WfaAligner(make_sequence_set(named), cfg, device="cpu")
+        port.align_pairs(pairs)
+        longs = port.stats["dispatches"]
+        assert longs and all(d["kind"] == "long" and d["emit"] == "ops" for d in longs)
+        for d in longs:
+            want = nw_cuda.long_group_size(d["B"], d["band"] + 1, d["seg"], d["n_seg"],
+                                           cfg.memory_budget_bytes)
+            assert d["group"] == want == (d["n_seg"] if budget is None else want), d
+        if budget is None:
+            assert {d["group"] for d in longs} == {2}  # qlen + tlen 2,992-3,000: 2 segments
