@@ -586,10 +586,6 @@ def ptxas_summary(log: str) -> list[str]:
                          f"{', snapshot' if wide.group(3) == '1' else ''}>")
             elif name == "nw_sweep_tiled_wide" and w:
                 name += f"<{'int16' if w.group(1) == '1' else 'int32'}>"
-            elif name == "nw_sweep_shard" and re.match(r"ILb([01])ELb([01])E", rest):
-                sh = re.match(r"ILb([01])ELb([01])E", rest)
-                name += (f"<{'two' if sh.group(1) == '1' else 'one'}-piece, "
-                         f"{'system' if sh.group(2) == '1' else 'device'} scope>")
             elif name == "wfa_kernel" and w:
                 name += f"<{'two' if w.group(1) == '1' else 'one'}-piece>"
             elif t:
@@ -2625,6 +2621,12 @@ def translocation_pair(seed=23, flank=4000, block=8000, snp_rate=0.005):
     return [("hapA", q.tobytes()), ("hapB", t.tobytes())]
 
 
+def sharded_err(out, ref) -> int:
+    """Largest difference of one sharded run's (scores, strips) from another's."""
+    (s, strips), (s_ref, strips_ref) = out, ref
+    return max([max_abs_err(s, s_ref)] + [max_abs_err(a, b) for a, b in zip(strips, strips_ref)])
+
+
 def cigar_cost(items, q: np.ndarray, t: np.ndarray, pen: dict) -> int:
     """The cost of CIGAR items under two-piece penalties; fails unless the
     CIGAR consumes both sequences and its '=' / 'X' runs are right."""
@@ -2664,10 +2666,14 @@ def run_phase11(work: Path, smi: str, ptxas: list[str], ctx: dict) -> list[dict]
          that run's band is the same.  Kernel A's sharded mode against its
          plain version on the card: at the route's shape (D = 2, the plain
          version once) and on a 4 kb piece of the two haplotypes at band
-         2,047 for D = 2, 4 and 8 (with a zero-length row), exactly.
-         CUDA-event medians of the sharded sweep at the full pair for D = 1,
-         2, 4 and 8 at one band, its microseconds per anti-diagonal and its
-         bound, and of kernel A single-shot at that band;
+         2,047 for D = 2, 4 and 8 (with a zero-length row), exactly, each
+         at the planner's pick and at every cluster size it takes there
+         (nw_align_sharded_at).  CUDA-event medians of the sharded sweep at
+         the route's shape (the pick and every cluster size) and at the
+         full pair for D = 1, 2, 4 and 8 at one band, its
+         microseconds per anti-diagonal, the planner's pick (cluster size,
+         lanes a thread, threads) and its bound, the kernels' ptxas lines,
+         and kernel A single-shot at that band;
     11b. the headline's 600 pairs through WfaAligner without a mesh and under
          Mesh([cuda:0] * D), D = 1, 2, 4, in turns (none, 1, 2, 4, 4, 2, 1,
          none): the records' sha256 equal, every chunk split D ways; the
@@ -2687,6 +2693,7 @@ def run_phase11(work: Path, smi: str, ptxas: list[str], ctx: dict) -> list[dict]
     Returns the kernels line's entry of nw_sweep_sharded."""
     import os
     import threading
+    from dataclasses import asdict
 
     from seqrush_tpu_torch.align.runner import RunnerConfig, WfaAligner
     from seqrush_tpu_torch.ops import nw, nw_cuda, wfa
@@ -2754,12 +2761,14 @@ def run_phase11(work: Path, smi: str, ptxas: list[str], ctx: dict) -> list[dict]
     Qf, Tf = (torch.from_numpy(x[None, :].copy()).to(dev) for x in (q, t))
     qlf, tlf = (torch.tensor([x.size], dtype=torch.int32, device=dev) for x in (q, t))
     kw = dict(band=band, tmax=tmax, **pen)
-    # the route's shape against the plain version (once: its step loop is slow)
-    s_k, strips_k = nw_cuda.nw_align_sharded([dev] * 2, Qf, Tf, qlf, tlf, **kw)
-    plain_ms, (s_p, strips_p) = once_ms(
-        lambda: nw_cuda.nw_align_sharded_reference(Qf, Tf, qlf, tlf, n_shards=2, **kw))
-    err_full = max([max_abs_err(s_k, s_p)] + [max_abs_err(a, b) for a, b in zip(strips_k, strips_p)])
-    del strips_p
+    # the route's shape against the plain version (once: its step loop is
+    # slow), the planner's launch and every cluster size it takes there
+    plain_ms, ref = once_ms(lambda: nw_cuda.nw_align_sharded_reference(Qf, Tf, qlf, tlf, n_shards=2, **kw))
+    err_full = sharded_err(nw_cuda.nw_align_sharded([dev] * 2, Qf, Tf, qlf, tlf, **kw), ref)
+    route_clusters = {cs: sharded_err(nw_cuda.nw_align_sharded_at([dev] * 2, Qf, Tf, qlf, tlf, cluster=cs, **kw), ref)
+                      for cs in nw_cuda.shard_cluster_sizes(band, 2, 2)}
+    err_full = max([err_full, *route_clusters.values()])
+    del ref
     # kernel A single-shot at the route's band: its walk gives the route's CIGAR
     s_a, tb_a = nw_cuda.nw_align(Qf, Tf, qlf, tlf, **kw)
     tb_host = tb_a[0].cpu().numpy()
@@ -2768,8 +2777,8 @@ def run_phase11(work: Path, smi: str, ptxas: list[str], ctx: dict) -> list[dict]
     del tb_a
     ctx["translocation_walk"] = (tb_host, q.size, t.size, band, walked)  # timed in phase 12d
     print(f"  sharded mode at the route's shape [B 1, W {band + 1}, 2 shards, tmax {tmax}]: max_abs_err "
-          f"{err_full} against the plain version ({plain_ms:.1f} ms); kernel A single-shot score {int(s_a[0])}, "
-          f"its CIGAR equal to the route's {items == r_mesh.cigar}")
+          f"{err_full} against the plain version ({plain_ms:.1f} ms), by cluster size {json.dumps(route_clusters)}; "
+          f"kernel A single-shot score {int(s_a[0])}, its CIGAR equal to the route's {items == r_mesh.cigar}")
     if err_full or int(s_a[0]) != r_mesh.score or items != r_mesh.cigar:
         raise AssertionError("the sharded mode disagrees with its plain version or with kernel A")
 
@@ -2789,9 +2798,13 @@ def run_phase11(work: Path, smi: str, ptxas: list[str], ctx: dict) -> list[dict]
     piece_checked = []
     for D in (2, 4, 8):
         s_k, st_k = nw_cuda.nw_align_sharded([dev] * D, Qp, Tp, qlp, tlp, **kwp)
-        p_ms, (s_p, st_p) = once_ms(lambda: nw_cuda.nw_align_sharded_reference(Qp, Tp, qlp, tlp, n_shards=D, **kwp))
-        err = max([max_abs_err(s_k, s_p)] + [max_abs_err(a, b) for a, b in zip(st_k, st_p)])
-        piece_checked.append({"D": D, "max_abs_err": err, "scores": s_k.tolist(), "plain_ms": p_ms,
+        p_ms, ref = once_ms(lambda: nw_cuda.nw_align_sharded_reference(Qp, Tp, qlp, tlp, n_shards=D, **kwp))
+        by_cluster = {cs: sharded_err(nw_cuda.nw_align_sharded_at([dev] * D, Qp, Tp, qlp, tlp, cluster=cs, **kwp), ref)
+                      for cs in nw_cuda.shard_cluster_sizes(2047, D, D)}
+        err = max([sharded_err((s_k, st_k), ref), *by_cluster.values()])
+        piece_checked.append({"D": D, "max_abs_err": err, "max_abs_err_by_cluster": by_cluster,
+                              "scores": s_k.tolist(), "plain_ms": p_ms,
+                              "plan": asdict(nw_cuda.pick_shard_plan(dev, 2047, D, D, 2, True)),
                               "ms": cuda_ms(lambda: nw_cuda.nw_align_sharded([dev] * D, Qp, Tp, qlp, tlp, **kwp),
                                             REPS), **piece_bound})
         if err:
@@ -2804,20 +2817,28 @@ def run_phase11(work: Path, smi: str, ptxas: list[str], ctx: dict) -> list[dict]
     t_total = nw_cuda.sharded_rows(band8, tmax)
     per_d = {}
     for D in MESH_SIZES:
-        threads, smem = nw_cuda.shard_plan(band8, D)
         ms = cuda_ms(lambda: nw_cuda.nw_align_sharded([dev] * D, Qf, Tf, qlf, tlf, **kw8), REPS)
         b_ms, o_ms = shard_bounds(Qf, Tf, qlf, tlf, band8 + 1, (t_total + 1) * (band8 + 1))
         per_d[D] = {"ms": ms, "us_per_antidiagonal": ms * 1e3 / t_total, "bound_ms": max(b_ms, o_ms),
-                    "bound_by": "bytes" if b_ms >= o_ms else "operations", "threads": threads,
-                    "rows_in": "shared memory" if smem else "scratch"}
+                    "bound_by": "bytes" if b_ms >= o_ms else "operations",
+                    "plan": asdict(nw_cuda.pick_shard_plan(dev, band8, D, D, 1, True))}
     a_ms = cuda_ms(lambda: nw_cuda.nw_align(Qf, Tf, qlf, tlf, **kw8), REPS)
     sb, so = sweep_bounds(Qf, Tf, qlf, tlf, band8 + 1, nw.tmax_pad_of(tmax) * (band8 + 1))
     print(f"  sharded sweep at the full pair [B 1, W {band8 + 1}, tmax {tmax}, {t_total} anti-diagonals] by "
           f"shards: {json.dumps(per_d)}; kernel A single-shot {a_ms:.4f} ms (bound {max(sb, so):.4f}) | {smi}")
 
-    # route's shape, timed (D = 2 at the route's band)
+    # route's shape, timed (D = 2 at the route's band): the planner's launch
+    # and every cluster size
+    route_rows = nw_cuda.sharded_rows(band, tmax)
+    route_pick = nw_cuda.pick_shard_plan(dev, band, 2, 2, 1, True)
     ms_route = cuda_ms(lambda: nw_cuda.nw_align_sharded([dev] * 2, Qf, Tf, qlf, tlf, **kw), REPS)
-    rb, ro = shard_bounds(Qf, Tf, qlf, tlf, band + 1, (nw_cuda.sharded_rows(band, tmax) + 1) * (band + 1))
+    route_by_cluster = {cs: cuda_ms(lambda: nw_cuda.nw_align_sharded_at([dev] * 2, Qf, Tf, qlf, tlf, cluster=cs, **kw),
+                                    REPS) for cs in route_clusters}
+    rb, ro = shard_bounds(Qf, Tf, qlf, tlf, band + 1, (route_rows + 1) * (band + 1))
+    shard_ptxas = [x for x in ptxas if x.startswith("nw_sweep_cluster")]
+    print(f"  route's shape timed: {ms_route:.4f} ms, {ms_route * 1e3 / route_rows:.4f} us an anti-diagonal "
+          f"(plan {json.dumps(asdict(route_pick))}); by cluster size {json.dumps(route_by_cluster)}; bound "
+          f"{max(rb, ro):.4f} ms; ptxas {json.dumps(shard_ptxas)} | {smi}")
     torch.cuda.empty_cache()
 
     # 11b. batch sharding of the headline's 600 pairs
@@ -2929,11 +2950,14 @@ def run_phase11(work: Path, smi: str, ptxas: list[str], ctx: dict) -> list[dict]
         "ms": ms_route, "plain_ms": plain_ms, "bound_ms": max(rb, ro),
         "bound_by": "bytes" if rb >= ro else "operations", "library_ms": None,
         "shape": {"B": 1, "W": band + 1, "shards": 2, "tmax": tmax},
-        "us_per_antidiagonal": ms_route * 1e3 / nw_cuda.sharded_rows(band, tmax),
+        "plan": asdict(route_pick),
+        "us_per_antidiagonal": ms_route * 1e3 / route_rows,
+        "ms_by_cluster": route_by_cluster,
+        "max_abs_err_by_cluster": route_clusters,
         "by_shards_full_pair": {"W": band8 + 1, **{str(k): v for k, v in per_d.items()}},
         "kernel_a_single_shot_ms": a_ms, "kernel_a_bound_ms": max(sb, so),
         "piece_4kb": piece_checked,
-        "ptxas": ptxas_registers(ptxas, "nw_sweep_shard<two-piece, device scope>"),
+        "ptxas": ptxas_registers(ptxas, f"nw_sweep_cluster<{route_pick.lanes}, two-piece>"),
         "tolerance": 0,
     }]
 

@@ -47,7 +47,9 @@
   the counterpart of the XLA program ``seqrush_tpu/parallel/bandshard.py::
   _build_sharded_sweep``): one pair's band split by lanes over D shards,
   each anti-diagonal's shifted-in column handed over from the neighbour
-  shard; returns the scores and one traceback strip per shard.
+  shard, a pair's band on a thread-block cluster (``pick_shard_plan``;
+  ``nw_align_sharded_at`` at a given cluster size); returns the scores and
+  one traceback strip per shard.
 
 Each wrapper runs its plain PyTorch version (``nw_align_reference``,
 ``nw_walk_reference``, ``nw_walk_runs_reference``, ``nw_walk_start_reference``,
@@ -252,9 +254,9 @@ def _library() -> ctypes.CDLL:
             lib.wfa_launch.restype = i32
             lib.wfa_occupancy.argtypes = [i32] * 2 + [ptr] * 3
             lib.wfa_occupancy.restype = i32
-            lib.nw_sweep_shard_launch.argtypes = [ptr] * 8 + [i32] * 17 + [ptr]
+            lib.nw_sweep_shard_launch.argtypes = [ptr] * 7 + [i32] * 24 + [ptr]
             lib.nw_sweep_shard_launch.restype = i32
-            lib.nw_sweep_shard_capacity.argtypes = [i32] * 4 + [ptr] * 2
+            lib.nw_sweep_shard_capacity.argtypes = [i32] * 6 + [ptr]
             lib.nw_sweep_shard_capacity.restype = i32
             lib.nw_sweep_shard_peer.argtypes = [i32] * 2
             lib.nw_sweep_shard_peer.restype = i32
@@ -2025,8 +2027,8 @@ def nw_align_sharded(devices, Q, T, qlens, tlens, *, mismatch, o1, e1, o2, e2, b
     """The int32 sweep of one band split by lanes over len(devices) shards.
 
     Shard d holds lanes [d * Wl, (d + 1) * Wl) of W = band + 1 (Wl = W / D)
-    on devices[d]; per anti-diagonal a shard takes one column of the six DP
-    rows from its left or right neighbour (INF at the band's edges).  The
+    on devices[d]; per anti-diagonal a shard takes one column of the DP rows
+    from its left or right neighbour (INF at the band's edges).  The
     arithmetic is the JAX package's lane-sharded sweep
     (seqrush_tpu/parallel/bandshard.py::_build_sharded_sweep): the int32
     recurrence without clamps or validity masks, so off-matrix cells hold
@@ -2037,13 +2039,25 @@ def nw_align_sharded(devices, Q, T, qlens, tlens, *, mismatch, o1, e1, o2, e2, b
     within sharded_rows(band, tmax) anti-diagonals; strips, one [B,
     sharded_rows + 1, Wl] uint8 tensor per shard on its device, row 0
     zero).  On CPU tensors (every device 'cpu') the plain version; on CUDA
-    tensors kernel A's sharded mode (csrc/nw_sweep_shard.cu): one block per
-    (pair, shard), the columns handed over through global memory with
-    flags.  The shards of one device must be consecutive; distinct devices
-    need peer access."""
+    tensors kernel A's sharded mode (csrc/nw_sweep_shard.cu): a pair's
+    lanes in the registers of thread-block clusters (pick_shard_plan), the
+    columns handed over through distributed shared memory inside a cluster
+    and through global memory with flags between clusters.  The shards of
+    one device must be consecutive; distinct devices need peer access."""
+    return nw_align_sharded_at(devices, Q, T, qlens, tlens, cluster=None, mismatch=mismatch, o1=o1, e1=e1,
+                               o2=o2, e2=e2, band=band, tmax=tmax)
+
+
+def nw_align_sharded_at(devices, Q, T, qlens, tlens, *, cluster, mismatch, o1, e1, o2, e2, band, tmax):
+    """nw_align_sharded with `cluster` CTAs a cluster on every device (None:
+    the planner's pick, pick_shard_plan), so that every cluster size the
+    planner can pick is held to the plain version.  On CPU tensors the
+    plain version, whatever `cluster`."""
     devices = [torch.device(d) for d in devices]
     D = len(devices)
     _check_sharded(Q, T, qlens, tlens, D, band, tmax)
+    if cluster is not None and cluster not in SHARD_CLUSTERS:
+        raise ValueError(f"cluster must be one of {SHARD_CLUSTERS}, got {cluster}")
     kw = dict(mismatch=mismatch, o1=o1, e1=e1, o2=o2, e2=e2, band=band, tmax=tmax)
     if Q.device.type == "cpu":
         if any(d.type != "cpu" for d in devices):
@@ -2053,40 +2067,129 @@ def nw_align_sharded(devices, Q, T, qlens, tlens, *, mismatch, o1, e1, o2, e2, b
     if any(d.type != "cuda" for d in devices):
         raise ValueError("CUDA tensors need a mesh of CUDA devices")
     devices = [d if d.index is not None else torch.device("cuda", torch.cuda.current_device()) for d in devices]
-    return _sharded_launch(devices, Q, T, qlens, tlens, **kw)
+    return _sharded_launch(devices, Q, T, qlens, tlens, cluster=cluster, **kw)
 
 
-SHARD_RING_INTS = 2 * 2 * 6  # per pair: 2 slots x (first, last lane) x 6 DP rows
+# threads a CTA of the sharded mode at most (kMaxThreads in csrc/nw_sweep_shard.cu)
+_SHARD_MAX_THREADS = 512
+SHARD_CLUSTERS = (1, 2, 4, 8, 16)  # CTAs a cluster (above 8: non-portable)
+SHARD_TILE = 128  # anti-diagonals a tile of staged bases (kTile)
+_SHARD_STAGE = 7  # a thread's share of a tile's new bases, at most (kStage)
+SHARD_REC_INTS = 8  # a cluster end's record: two slots of three values, the flag, a pad
+# dynamic shared memory a CTA asks for at least: over half an SM's 228 KB,
+# so one CTA holds an SM and a cluster's CTAs spread over as many SMs
+SHARD_SPREAD_SMEM = 120 * 1024
 
 
-def shard_plan(band: int, n_shards: int) -> tuple[int, int]:
-    """(threads per block, dynamic shared memory bytes) of the sharded mode:
-    one block per (pair, shard), lane l of the shard's Wl on thread l %
-    threads, its 11 DP rows of Wl + 2 int32 (a halo lane each side) in
-    shared memory while they fit, else in a global scratch (0 bytes)."""
+@dataclass(frozen=True)
+class ShardPlan:
+    """How kernel A's sharded mode covers one device's n_local shards of a
+    pair: ctas_per_shard CTAs a shard, CTA c owning units [c * U // C,
+    (c + 1) * U // C) of the shard's U = Wl / lanes units of `lanes` lanes
+    (thread r of the CTA the r-th unit; threads past the CTA's units are
+    ghosts); `cluster` consecutive CTAs of the device's n_local *
+    ctas_per_shard form a cluster, `clusters` of them a pair.  qring and
+    tring are the bytes of the staged-base rings."""
+
+    lanes: int
+    ctas_per_shard: int
+    cluster: int
+    clusters: int
+    threads: int
+    qring: int
+    tring: int
+    smem_bytes: int
+
+
+def _pow2_at_least(x: int) -> int:
+    return 1 << max(0, (x - 1).bit_length())
+
+
+def shard_lanes(Wl: int) -> int:
+    """Lanes a thread: the widest of 4, 2, 1 that divides the shard's Wl, so
+    no thread's lanes straddle two shards and its row store is aligned.  A
+    step's chain is a thread's lanes one after the other: 4 lanes on more
+    warps ran faster than 8 on fewer (PERF.md, PR 13)."""
+    return next(s for s in (4, 2, 1) if Wl % s == 0)
+
+
+def shard_plan(band: int, n_shards: int, n_local: int, cluster: int) -> ShardPlan:
+    """The sharded mode's launch for n_local of n_shards shards on one device
+    at `cluster` CTAs a cluster (pure; raises ValueError where that size
+    leaves a CTA without a lane).  The cluster takes G consecutive shards,
+    G the largest power of two that divides n_local and is at most
+    `cluster`, each in cluster / G CTAs; a shard too wide for that many CTAs
+    of _SHARD_MAX_THREADS threads takes twice as many, in more clusters."""
+    if cluster not in SHARD_CLUSTERS:
+        raise ValueError(f"cluster must be one of {SHARD_CLUSTERS}, got {cluster}")
+    if n_local < 1 or n_shards < n_local or (band + 1) % n_shards:
+        raise ValueError(f"{n_local} of {n_shards} shards of a band of {band + 1} lanes")
     Wl = (band + 1) // n_shards
-    threads = min(1024, -(-Wl // 32) * 32)
-    rows = _SWEEP_ROWS * (Wl + 2) * 4
-    return threads, (rows if rows <= _SMEM_OPTIN_BYTES else 0)
+    S = shard_lanes(Wl)
+    U = Wl // S
+    G = 1
+    while G * 2 <= cluster and n_local % (G * 2) == 0:
+        G *= 2
+    C = cluster // G
+    while C * _SHARD_MAX_THREADS < U:
+        C *= 2
+    if C > U:
+        raise ValueError(f"{cluster} CTAs a cluster leave a CTA of a {Wl}-lane shard without a lane")
+    threads = -(-(-(-U // C)) // 32) * 32  # the most units a CTA owns, in warps
+    span = threads * S
+    qring = _pow2_at_least(span + SHARD_TILE + 2)
+    tring = _pow2_at_least(span + 2 * SHARD_TILE + 1)
+    need = 96 + 48 * (threads // 32) + qring + tring  # mbarriers, CTA slots, warp slots, rings
+    return ShardPlan(lanes=S, ctas_per_shard=C, cluster=cluster, clusters=n_local * C // cluster,
+                     threads=threads, qring=qring, tring=tring, smem_bytes=max(need, SHARD_SPREAD_SMEM))
 
 
-def shard_capacity(device, band: int, n_shards: int, two_piece: bool) -> int:
-    """Blocks of the sharded mode that can be resident at once on one device
-    (blocks an SM times SMs, from the CUDA runtime; needs the card).  Every
-    block of a launch waits on its neighbours, so a launch may not exceed it."""
-    threads, smem = shard_plan(band, n_shards)
-    per_sm, sms = ctypes.c_int(), ctypes.c_int()
+def shard_cluster_sizes(band: int, n_shards: int, n_local: int) -> tuple[int, ...]:
+    """The cluster sizes shard_plan takes at this shape, smallest first."""
+    out = []
+    for cs in SHARD_CLUSTERS:
+        try:
+            shard_plan(band, n_shards, n_local, cs)
+        except ValueError:
+            continue
+        out.append(cs)
+    return tuple(out)
+
+
+def shard_capacity(device, plan: ShardPlan, two_piece: bool) -> int:
+    """Clusters of the sharded mode at `plan` that can be resident at once on
+    one device (cudaOccupancyMaxActiveClusters; needs the card).  Every
+    cluster of a pair spins on its neighbours, so a launch may not exceed it."""
+    clusters = ctypes.c_int()
     device = torch.device(device)
     # the library sets the thread's current device; torch restores its own on exit
     with torch.cuda.device(device):
-        err = _library().nw_sweep_shard_capacity(torch.cuda.current_device(), int(two_piece), threads, smem,
-                                                 ctypes.byref(per_sm), ctypes.byref(sms))
+        err = _library().nw_sweep_shard_capacity(torch.cuda.current_device(), int(two_piece), plan.lanes,
+                                                 plan.cluster, plan.threads, plan.smem_bytes,
+                                                 ctypes.byref(clusters))
     if err != 0:
         raise RuntimeError(f"nw_sweep_shard occupancy query failed with CUDA error {err}")
-    return per_sm.value * sms.value
+    return clusters.value
 
 
-def _sharded_launch(devices, Q, T, qlens, tlens, *, mismatch, o1, e1, o2, e2, band, tmax):
+def pick_shard_plan(device, band: int, n_shards: int, n_local: int, B: int, two_piece: bool,
+                    cluster: int | None = None) -> ShardPlan:
+    """The plan of the largest cluster size (or of `cluster`) whose B x
+    clusters clusters are all resident at once on `device`; raises
+    RuntimeError where none is (needs the card)."""
+    sizes = (cluster,) if cluster is not None else shard_cluster_sizes(band, n_shards, n_local)[::-1]
+    held = {}
+    for cs in sizes:
+        plan = shard_plan(band, n_shards, n_local, cs)
+        held[cs] = shard_capacity(device, plan, two_piece)
+        if B * plan.clusters <= held[cs]:
+            return plan
+    raise RuntimeError(f"the sharded sweep of {B} pairs finds no cluster size whose clusters are all resident "
+                       f"on {device}: resident clusters by size {held} ({n_local} of {n_shards} shards, band "
+                       f"{band + 1})")
+
+
+def _sharded_launch(devices, Q, T, qlens, tlens, *, cluster, mismatch, o1, e1, o2, e2, band, tmax):
     D = len(devices)
     B, Lq = Q.shape
     Lt = T.shape[1]
@@ -2106,32 +2209,23 @@ def _sharded_launch(devices, Q, T, qlens, tlens, *, mismatch, o1, e1, o2, e2, ba
             for b in groups:
                 if a != b and not torch.cuda.can_device_access_peer(a, b):
                     raise RuntimeError(f"{a} cannot access {b}'s memory: the sharded sweep needs peer access")
-    threads, smem = shard_plan(band, D)
-    for dev, ds in groups.items():
-        cap = shard_capacity(dev, band, D, two)
-        if len(ds) * B > cap:
-            raise RuntimeError(f"the sharded sweep needs {len(ds)} x {B} co-resident blocks on {dev}, which holds "
-                               f"{cap} ({threads} threads, {smem} bytes of shared memory a block)")
+    plans = {dev: pick_shard_plan(dev, band, D, len(ds), B, two, cluster) for dev, ds in groups.items()}
     lib = _library()
-    # the handover of every shard: rings [n_local, B, 24] and flags [n_local, B]
-    # on the writer's device, zeroed before any launch starts
-    rings, flags, state = {}, {}, {}
-    for dev, ds in groups.items():
-        rings[dev] = torch.zeros((len(ds), B, SHARD_RING_INTS), dtype=torch.int32, device=dev)
-        flags[dev] = torch.zeros((len(ds), B), dtype=torch.int32, device=dev)
-    ring_ptrs, flag_ptrs = [], []
-    for d, dev in enumerate(devices):
-        k = d - groups[dev][0]
-        ring_ptrs.append(rings[dev][k].data_ptr())
-        flag_ptrs.append(flags[dev][k].data_ptr())
+    # the band's clusters in lane order; each cluster's two end records
+    # [B, SHARD_REC_INTS] live on its device, zeroed before any launch starts
+    gc_base, recs, ptrs = {}, {}, []
+    for dev in groups:
+        gc_base[dev] = len(ptrs) // 2
+        recs[dev] = torch.zeros((plans[dev].clusters, 2, B, SHARD_REC_INTS), dtype=torch.int32, device=dev)
+        for m in range(plans[dev].clusters):
+            ptrs += [recs[dev][m, 0].data_ptr(), recs[dev][m, 1].data_ptr()]
+    state = {}
     for dev, ds in groups.items():
         inputs = [x if x.device == dev else x.to(dev) for x in (Q, T, qlens, tlens)]
-        table = torch.tensor(ring_ptrs + flag_ptrs, dtype=torch.int64, device=dev)
+        table = torch.tensor(ptrs, dtype=torch.int64, device=dev)
         strips = torch.empty((len(ds), B, t_total + 1, Wl), dtype=torch.uint8, device=dev)
         scores = torch.full((B,), -1, dtype=torch.int32, device=dev)
-        scratch = (torch.empty(len(ds) * B * _SWEEP_ROWS * (Wl + 2), dtype=torch.int32, device=dev)
-                   if not smem else None)
-        state[dev] = (inputs, table, strips, scores, scratch)
+        state[dev] = (inputs, table, strips, scores)
     if len(groups) > 1:
         for dev in groups:
             for other in groups:
@@ -2142,14 +2236,15 @@ def _sharded_launch(devices, Q, T, qlens, tlens, *, mismatch, o1, e1, o2, e2, ba
         for dev in groups:
             torch.cuda.synchronize(dev)  # every flag is zero before any block runs
     for dev, ds in groups.items():
-        (Qd, Td, qd, td), table, strips, scores, scratch = state[dev]
+        (Qd, Td, qd, td), table, strips, scores = state[dev]
+        p = plans[dev]
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.nw_sweep_shard_launch(
-                Qd.data_ptr(), Td.data_ptr(), qd.data_ptr(), td.data_ptr(), scores.data_ptr(),
-                strips.data_ptr(), scratch.data_ptr() if scratch is not None else None, table.data_ptr(),
-                dev.index, int(len(groups) > 1), B, Lq, Lt, W, D, ds[0], len(ds), t_total,
-                mismatch, o1, e1, o2, e2, threads, smem, stream)
+                Qd.data_ptr(), Td.data_ptr(), qd.data_ptr(), td.data_ptr(), scores.data_ptr(), strips.data_ptr(),
+                table.data_ptr(), dev.index, int(len(groups) > 1), B, Lq, Lt, W, D, ds[0], t_total,
+                mismatch, o1, e1, o2, e2, p.lanes, p.ctas_per_shard, p.cluster, p.clusters, gc_base[dev],
+                len(ptrs) // 2, p.threads, p.smem_bytes, p.qring, p.tring, stream)
         if err != 0:
             raise RuntimeError(f"nw_sweep_shard launch failed with CUDA error {err}")
         LAUNCHES["nw_sweep_sharded"] += 1

@@ -1204,11 +1204,22 @@ def _sharded_case(rng, n_pairs, L, band):
     return Q, T, ql, tl, tmax
 
 
-@pytest.mark.parametrize("D", [1, 2, 4, 8])
-@pytest.mark.parametrize("band,two_piece", [(255, True), (1023, True), (511, False)])
+def _sharded_equal(s_k, strips_k, s_p, strips_p) -> bool:
+    return torch.equal(s_k, s_p) and all(torch.equal(a, b) for a, b in zip(strips_k, strips_p))
+
+
+@pytest.mark.parametrize("D,band,two_piece", [
+    *((D, band, two) for D in (1, 2, 4, 8) for band, two in ((255, True), (1023, True), (511, False))),
+    (1, 279, True),    # Wl 280: 4 lanes a thread, CTAs of 4 and 5 units, a warp each
+    (2, 699, True),    # Wl 350: 2 lanes a thread
+    (3, 104, False),   # Wl 35: one lane a thread, three shards on one card
+])
 def test_sharded_sweep_equals_plain(cuda, D, band, two_piece):
-    """Kernel A's sharded mode, D shards on one card (Mesh([cuda:0] * D)):
-    scores and every strip equal the plain version's."""
+    """Kernel A's sharded mode, D shards on one card (Mesh([cuda:0] * D)),
+    four rows (three pairs and an empty one): scores and every strip equal
+    the plain version's at the planner's pick and at every cluster size the
+    planner takes (16 CTAs a cluster: D x CTAs a shard = 16); a cluster size
+    whose clusters cannot all be resident raises."""
     Q, T, ql, tl, tmax = _sharded_case(np.random.default_rng(D + band), 3, 700, band)
     kw = dict(mismatch=5, o1=8, e1=2, o2=24 if two_piece else -1, e2=1 if two_piece else -1, band=band, tmax=tmax)
     before = nw_cuda.LAUNCHES["nw_sweep_sharded"]
@@ -1216,22 +1227,32 @@ def test_sharded_sweep_equals_plain(cuda, D, band, two_piece):
     torch.cuda.synchronize()
     assert nw_cuda.LAUNCHES["nw_sweep_sharded"] == before + 1
     s_p, strips_p = nw_cuda.nw_align_sharded_reference(Q, T, ql, tl, n_shards=D, **kw)
-    assert torch.equal(s_k, s_p)
+    assert _sharded_equal(s_k, strips_k, s_p, strips_p)
     assert int(s_k[-1]) == 0 and (s_k[:-1] > 0).all()
-    for a, b in zip(strips_k, strips_p):
-        assert torch.equal(a, b)
+    sizes = nw_cuda.shard_cluster_sizes(band, D, D)
+    assert 16 in sizes
+    for cs in sizes:
+        plan = nw_cuda.shard_plan(band, D, D, cs)
+        if Q.shape[0] * plan.clusters > nw_cuda.shard_capacity(cuda, plan, two_piece):
+            with pytest.raises(RuntimeError, match="resident"):
+                nw_cuda.nw_align_sharded_at([cuda] * D, Q, T, ql, tl, cluster=cs, **kw)
+            continue
+        assert _sharded_equal(*nw_cuda.nw_align_sharded_at([cuda] * D, Q, T, ql, tl, cluster=cs, **kw),
+                              s_p, strips_p), cs
 
 
 def test_sharded_sweep_scratch_rows_equal_plain(cuda):
-    """A shard too wide for its rows in shared memory (Wl 6,144) keeps them
-    in the global scratch."""
+    """A shard too wide for one CTA (Wl 6,144, whose DP rows once went to a
+    global scratch): at the planner's pick, and at one CTA a cluster, where
+    four clusters of one pair hand their columns over through global memory
+    with flags."""
     band = 6143
-    assert nw_cuda.shard_plan(band, 1)[1] == 0
+    assert nw_cuda.shard_plan(band, 1, 1, 1).clusters > 1
     Q, T, ql, tl, tmax = _sharded_case(np.random.default_rng(1), 1, 3000, band)
     kw = dict(mismatch=5, o1=8, e1=2, o2=24, e2=1, band=band, tmax=tmax)
-    s_k, (strip_k,) = nw_cuda.nw_align_sharded([cuda], Q, T, ql, tl, **kw)
-    s_p, (strip_p,) = nw_cuda.nw_align_sharded_reference(Q, T, ql, tl, n_shards=1, **kw)
-    assert torch.equal(s_k, s_p) and torch.equal(strip_k, strip_p)
+    s_p, strips_p = nw_cuda.nw_align_sharded_reference(Q, T, ql, tl, n_shards=1, **kw)
+    assert _sharded_equal(*nw_cuda.nw_align_sharded([cuda], Q, T, ql, tl, **kw), s_p, strips_p)
+    assert _sharded_equal(*nw_cuda.nw_align_sharded_at([cuda], Q, T, ql, tl, cluster=1, **kw), s_p, strips_p)
 
 
 def test_sharded_sweep_distinct_devices_equal_plain(cuda):

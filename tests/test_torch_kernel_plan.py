@@ -122,6 +122,102 @@ def test_sweep_plan_routes():
         nw_cuda.plan_sweep(8, 100, 256, 256, warps_per_pair=2)
 
 
+def _shard_launch_cover(band, D, n_local, cluster, B=2):
+    """(pair, shard, lane) -> times covered by a launch of shards [0, n_local)
+    at this cluster size, from the kernel's index arithmetic: block x of the
+    grid [B x clusters x cluster] is rank x % cluster of cluster x // cluster,
+    pair b = cluster // clusters, CTA ci = m * cluster + rank of the pair's
+    CTAs, shard ci // C, units [c * U // C, (c + 1) * U // C) of the shard,
+    thread r the r-th of them (threads past them are ghosts)."""
+    plan = nw_cuda.shard_plan(band, D, n_local, cluster)
+    Wl = (band + 1) // D
+    S, C = plan.lanes, plan.ctas_per_shard
+    U = Wl // S
+    cover = np.zeros((B, n_local, Wl), np.int32)
+    for blk in range(B * plan.clusters * plan.cluster):
+        cl, rank = divmod(blk, plan.cluster)
+        b, m = divmod(cl, plan.clusters)
+        ls, c = divmod(m * plan.cluster + rank, C)
+        u0, u1 = c * U // C, (c + 1) * U // C
+        assert 1 <= u1 - u0 <= plan.threads  # a lane for every CTA, a thread for every unit
+        for r in range(plan.threads):
+            if r < u1 - u0:  # the ragged tail's threads own no real lane
+                cover[b, ls, (u0 + r) * S:(u0 + r + 1) * S] += 1
+    return plan, cover
+
+
+@pytest.mark.parametrize("band,D,n_local", [
+    (16639, 2, 2), (17407, 1, 1), (17407, 8, 8), (2047, 2, 2), (2047, 8, 8), (255, 8, 8), (1023, 4, 2),
+    (279, 1, 1), (699, 2, 2), (104, 3, 3), (6143, 1, 1), (383, 3, 3), (9, 1, 1), (65535, 1, 1)])
+def test_shard_plan_covers_each_lane_once(band, D, n_local):
+    """Every cluster size the sharded planner takes covers each lane of each
+    of the device's shards once, within the card's limits: 1,024 threads
+    (and the instantiation's launch bound), 232,448 bytes of shared memory,
+    more than half an SM's so one CTA holds an SM, clusters of 1 to 16."""
+    sizes = nw_cuda.shard_cluster_sizes(band, D, n_local)
+    assert sizes and set(sizes) <= {1, 2, 4, 8, 16}
+    Wl = (band + 1) // D
+    for cs in sizes:
+        plan, cover = _shard_launch_cover(band, D, n_local, cs)
+        assert (cover == 1).all(), cs
+        assert plan.cluster == cs and plan.clusters * cs == n_local * plan.ctas_per_shard
+        assert plan.lanes == nw_cuda.shard_lanes(Wl) and Wl % plan.lanes == 0
+        assert plan.threads % 32 == 0 and plan.threads <= min(MAX_THREADS, nw_cuda._SHARD_MAX_THREADS)
+        assert MAX_SMEM // 2 < plan.smem_bytes <= MAX_SMEM
+        # the staged-base rings: a tile and a half of bases beyond the span,
+        # and a tile's new bases within the threads' share
+        span = plan.threads * plan.lanes
+        assert plan.qring >= span + nw_cuda.SHARD_TILE + 2 and plan.tring >= span + 2 * nw_cuda.SHARD_TILE + 1
+        assert plan.qring & (plan.qring - 1) == 0 and plan.tring & (plan.tring - 1) == 0
+        assert plan.threads * nw_cuda._SHARD_STAGE >= nw_cuda.SHARD_TILE // 2 + 1 + nw_cuda.SHARD_TILE
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("band,D,B", [(1023, 2, 3), (279, 1, 2), (4095, 4, 1), (1399, 2, 2), (1049, 3, 2),
+                                      (2999, 5, 1), (104, 3, 2), (7, 1, 2)])
+def test_shard_plan_ragged(cluster, band, D, B):
+    """Ragged shards (Wl not a multiple of CTAs x threads x lanes; 4, 2 and
+    1 lanes a thread): each lane of each pair's shards once, the tails'
+    threads ghosts, at every cluster size the planner takes."""
+    if cluster not in nw_cuda.shard_cluster_sizes(band, D, D):
+        with pytest.raises(ValueError):
+            nw_cuda.shard_plan(band, D, D, cluster)
+        return
+    plan, cover = _shard_launch_cover(band, D, D, cluster, B=B)
+    assert (cover == 1).all()
+    assert plan.threads * plan.lanes * plan.ctas_per_shard >= (band + 1) // D
+
+
+def test_shard_plan_choices():
+    """The planner's lanes, its cluster layout at the route's shapes, and
+    what it refuses."""
+    assert [nw_cuda.shard_lanes(w) for w in (8320, 280, 350, 35)] == [4, 4, 2, 1]
+    # the route's shape: both shards in one cluster of 16, 8 CTAs a shard
+    p = nw_cuda.shard_plan(16639, 2, 2, 16)
+    assert (p.lanes, p.ctas_per_shard, p.clusters, p.threads) == (4, 8, 1, 288)
+    # one shard a device (distinct cards): 16 CTAs of the shard in one cluster
+    assert nw_cuda.shard_plan(16639, 2, 1, 16).clusters == 1
+    # eight shards: two CTAs each, one cluster; at four CTAs a cluster
+    # (two shards of two CTAs), four
+    p = nw_cuda.shard_plan(17407, 8, 8, 16)
+    assert (p.ctas_per_shard, p.clusters) == (2, 1)
+    assert nw_cuda.shard_plan(17407, 8, 8, 4).clusters == 4
+    # a shard too wide for cluster x 512 threads x 4 lanes takes more CTAs
+    assert nw_cuda.shard_plan(65535, 1, 1, 16).ctas_per_shard == 32
+    # a CTA without a lane, a cluster size the card does not take, lanes
+    # that do not divide the shard
+    with pytest.raises(ValueError):
+        nw_cuda.shard_plan(31, 1, 1, 16)
+    assert 16 not in nw_cuda.shard_cluster_sizes(31, 1, 1)
+    for bad in (3, 32, 0):
+        with pytest.raises(ValueError):
+            nw_cuda.shard_plan(1023, 1, 1, bad)
+    with pytest.raises(ValueError):
+        nw_cuda.nw_align_sharded_at(["cpu"], *[torch.zeros(1, 8, dtype=torch.uint8)] * 2,
+                                    *[torch.zeros(1, dtype=torch.int32)] * 2, cluster=3, mismatch=5, o1=8,
+                                    e1=2, o2=24, e2=1, band=7, tmax=8)
+
+
 def test_register_route_penalties():
     """The register route's keyed arithmetic needs penalties in [0, 2^16);
     one-piece scoring leaves o2/e2 (negative) out."""
