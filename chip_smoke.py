@@ -103,8 +103,11 @@ Phases (any failure exits non-zero and prints no ok line):
      through the runner with emit='auto' and 'ops', in turns, with equal
      results; 8b. all 600 pairs through WfaAligner(kernel='wfa'): every
      batch's kernel against its plain version (scores, whole history,
-     CIGARs), the score-only mode on one batch, and the sha256 of a subset's
-     records against the JAX package's (WFA_SUBSET_SHA256);
+     CIGARs), each batch's route, ring and staging bytes and microseconds a
+     score step, the launches' sum and the score-only mode on one batch
+     beside the first design's times from an earlier tree's run (EARLIER_MS,
+     printed only, never in the kernels line), and the sha256 of a
+     subset's records against the JAX package's (WFA_SUBSET_SHA256);
   9. dp_dtype='int16', sweep='rows', fold and band_tiling (see run_phase9):
      all 600 pairs through WfaAligner under each option of VARIANTS, in turns with
      the default (the runner's seconds), each option's kernels launched,
@@ -113,7 +116,9 @@ Phases (any failure exits non-zero and prints no ok line):
      kernel A's int16 and snapshot modes, kernel B's start mode and the
      row-major kernels C and D against their plain versions on every chunk
      those runs launched them on, timed on the first such run's largest
-     chunk, with the fold's combine timed between its kernels; and
+     chunk (kernel C with its plan, its pairs resident an SM and its
+     microseconds a row, beside the first design's time), with the fold's
+     combine timed between its kernels; and
      int16 retries forced with a lowered INT16_CUTOFF;
  10. band_tiling='auto' (see run_phase10): the 600 pairs on the full wide
      route untiled and tiled, in turns (the runner's seconds), the tiled
@@ -234,6 +239,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from seqrush_tpu_torch.tools.headline import SCORES, WFA_BAND_SLACK, synth_hla
+
 HBM_BYTES_PER_S = 3.35e12
 ISSUE_OPS_PER_S = 33.5e12  # 32-bit lane instructions of any kind
 ALU_OPS_PER_S = 16.7e12  # integer minima, on the ALU pipe alone
@@ -244,34 +251,6 @@ SCORE_ONLY_MIN_OPS_PER_CELL = 11
 WALK_OPS_PER_STEP = 25
 WFA_OPS_PER_CELL = 40
 REPS = 3
-SCORES = "0,5,8,2,24,1"
-
-
-def synth_hla(n_seqs=25, length=3300, seed=7):
-    """HLA-like corpus: one base, ~2% SNPs and a few indels per sample, the
-    last sample's middle third reverse-complemented (the JAX bench's
-    headline generator)."""
-    rng = np.random.default_rng(seed)
-    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
-    base = bases[rng.integers(0, 4, size=length)]
-    out = [("gene*00", base.tobytes())]
-    comp = bytes.maketrans(b"ACGT", b"TGCA")
-    for k in range(1, n_seqs):
-        s = bytearray(base.tobytes())
-        for pos in rng.integers(0, len(s), size=int(0.02 * len(s))):
-            s[pos] = bases[rng.integers(0, 4)]
-        for _ in range(rng.integers(2, 6)):
-            pos = int(rng.integers(0, len(s) - 50))
-            ln = int(rng.integers(1, 30))
-            if rng.random() < 0.5:
-                del s[pos : pos + ln]
-            else:
-                s[pos:pos] = bases[rng.integers(0, 4, size=ln)].tobytes()
-        if k == n_seqs - 1:
-            a, b = len(s) // 3, 2 * len(s) // 3
-            s[a:b] = bytes(s[a:b]).translate(comp)[::-1]
-        out.append((f"gene*{k:02d}", bytes(s)))
-    return out
 
 
 def synth_family(n_seqs=4, length=2304, seed=11):
@@ -406,9 +385,6 @@ def wfa_subset():
     named = synth_hla()
     return named[:5] + [named[-1]]
 
-
-# RunnerConfig of the WFA phase (and of scripts/jax_wfa_digest.py)
-WFA_BAND_SLACK = 128
 
 
 def fasta_faults() -> dict[str, bytes]:
@@ -572,12 +548,18 @@ def ptxas_summary(log: str) -> list[str]:
             name, rest = m.group(2)[:n], m.group(2)[n:]
             t = re.match(r"ILi(\d+)ELb([01])ELb([01])E", rest)
             w = re.match(r"ILb([01])E", rest)
-            rows = re.match(r"ILi(\d+)ELb([01])ELi(\d+)E", rest)
+            rows = re.match(r"ILi(\d+)ELb([01])ELb([01])ELb([01])ELi(\d+)ELi(\d+)E", rest)
             snap = re.match(r"ILi(\d+)ELb([01])EE", rest)
             wide = re.match(r"ILb([01])ELb([01])ELb([01])E", rest)
-            if rows:
+            if name == "nw_rows_sweep_kernel" and rows:
                 name += (f"<{rows.group(1)}, {'two' if rows.group(2) == '1' else 'one'}-piece, "
-                         f"{rows.group(3)} threads>")
+                         f"{'int16' if rows.group(3) == '1' else 'int32'}"
+                         f"{', windows' if rows.group(4) == '1' else ''}, {rows.group(5)} threads, "
+                         f"{rows.group(6)} blocks>")
+            elif name == "wfa_kernel" and wide:
+                name += (f"<{'two' if wide.group(1) == '1' else 'one'}-piece, "
+                         f"{'rings' if wide.group(2) == '1' else 'global'}"
+                         f"{', staged' if wide.group(3) == '1' else ''}>")
             elif snap:
                 name += f"<{snap.group(1)}, {'two' if snap.group(2) == '1' else 'one'}-piece>"
             elif wide:
@@ -586,8 +568,6 @@ def ptxas_summary(log: str) -> list[str]:
                          f"{', snapshot' if wide.group(3) == '1' else ''}>")
             elif name == "nw_sweep_tiled_wide" and w:
                 name += f"<{'int16' if w.group(1) == '1' else 'int32'}>"
-            elif name == "wfa_kernel" and w:
-                name += f"<{'two' if w.group(1) == '1' else 'one'}-piece>"
             elif t:
                 name += (f"<{t.group(1)}, {'two' if t.group(2) == '1' else 'one'}-piece, "
                          f"{'traceback' if t.group(3) == '1' else 'score-only'}>")
@@ -2037,14 +2017,18 @@ def run_phase8(smi: str, ptxas: list[str], ctx: dict) -> list[dict]:
         cells = sum(x + 1 for x in stepped) * nd
         hist_bytes = sum(h.numel() * 2 for h in h_k)
         b = bound(Q.size + T.size + 12 * len(ql) + hist_bytes, cells * WFA_OPS_PER_CELL)
+        plan = wfa.wfa_plan(Q.shape[1], T.shape[1], d["band"], **pen)
         entry = {"shape": {"B": len(ql), "band": d["band"], "smax": d["smax"], "Lq": Q.shape[1],
                            "Lt": T.shape[1]},
                  "steps": max(stepped), "ms": ms, "us_per_step": ms * 1e3 / max(1, max(stepped)),
-                 "plain_ms": plain_ms, **b, "max_abs_err": err}
+                 "plain_ms": plain_ms, **b, "max_abs_err": err, "route": plan.route, "staged": plan.staged,
+                 "ring_bytes": plan.ring_bytes, "stage_bytes": plan.stage_bytes}
         per_batch.append(entry)
         print(f"wfa batch B={len(ql)} band={d['band']} smax={d['smax']}: max_abs_err={err}; {ms:.4f} ms for "
               f"{max(stepped)} score steps ({entry['us_per_step']:.3f} us a step; bound "
-              f"{b['bound_ms']:.4f} ms, {b['bound_by']}); plain {plain_ms:.1f} ms")
+              f"{b['bound_ms']:.4f} ms, {b['bound_by']}); plain {plain_ms:.1f} ms; route {plan.route}"
+              f"{' staged' if plan.staged else ''}, rings {plan.ring_bytes} B ({plan.ring_rows} rows), "
+              f"staging {plan.stage_bytes} B")
         if err:
             raise AssertionError("the wavefront kernel disagrees with its plain version")
         if first is None:
@@ -2068,8 +2052,11 @@ def run_phase8(smi: str, ptxas: list[str], ctx: dict) -> list[dict]:
     stepped = [int(s) if s >= 0 else int(c) for s, c in zip(s_o.tolist(), args[4].tolist())]
     b_o = bound(args[0].numel() + args[1].numel() + 12 * args[0].shape[0]
                 + sum(h.numel() * 2 for h in roll_k), sum(x + 1 for x in stepped) * nd * WFA_OPS_PER_CELL)
+    print(f"wfa batches: the {len(per_batch)} launches take {sum(e['ms'] for e in per_batch):.4f} ms (the first "
+          f"design's, an earlier tree's run: {EARLIER_MS['wfa_launches']}) | {smi}")
     print(f"wfa score-only (first batch, keep_history=False): launches {launches_o}; scores equal the "
-          f"full mode's; max_abs_err={err_o}; {o_ms:.4f} ms (full mode {per_batch[0]['ms']:.4f}; bound "
+          f"full mode's; max_abs_err={err_o}; {o_ms:.4f} ms, {o_ms * 1e3 / max(1, max(stepped)):.3f} us a step "
+          f"(the first design's, an earlier tree's run: {EARLIER_MS['wfa_score_only']}; full mode {per_batch[0]['ms']:.4f}; bound "
           f"{b_o['bound_ms']:.4f}, plain {plain_o_ms:.1f})")
     if err_o or none != {} or launches_o != 1:
         raise AssertionError("the score-only wavefront kernel disagrees")
@@ -2086,9 +2073,9 @@ def run_phase8(smi: str, ptxas: list[str], ctx: dict) -> list[dict]:
 
     largest = runs["largest"]
     carrier = max(per_batch, key=lambda e: e["steps"])
-    occ = wfa.wfa_occupancy(pobj.two_piece, carrier["shape"]["Lq"], carrier["shape"]["Lt"],
-                            carrier["shape"]["band"])
+    occ = wfa.wfa_occupancy(carrier["shape"]["Lq"], carrier["shape"]["Lt"], carrier["shape"]["band"], **pen)
     piece = "two-piece" if pobj.two_piece else "one-piece"
+    wfa_name = f"wfa_kernel<{piece}, {occ['route']}{', staged' if occ['staged'] else ''}>"
     return [
         {"name": "nw_walk_runs", "route": "cuda", "source": "seqrush_tpu_torch/ops/csrc/nw_walk.cu",
          "replaces": "seqrush_tpu/ops/nw.py:1199 (_tb_scan_tbw, emit='runs'; XLA)",
@@ -2104,17 +2091,29 @@ def run_phase8(smi: str, ptxas: list[str], ctx: dict) -> list[dict]:
          "launches": wl["wfa"], "launches_path": "WfaAligner(kernel='wfa'), 600 headline pairs",
          "max_abs_err": err_w, "ms": carrier["ms"], "plain_ms": carrier["plain_ms"],
          "bound_ms": carrier["bound_ms"], "bound_by": carrier["bound_by"], "library_ms": None,
-         "regs_per_thread": ptxas_registers(ptxas, f"wfa_kernel<{piece}>"), **occ,
-         "shape": carrier["shape"], "serial_score_steps": carrier["steps"], "batches": per_batch,
-         "cigars_checked": n_cigars, "route_wall_s": wall, "tolerance": 0},
+         "regs_per_thread": ptxas_registers(ptxas, wfa_name), **occ,
+         "shape": carrier["shape"], "serial_score_steps": carrier["steps"], "us_per_step": carrier["us_per_step"],
+         "batches": per_batch, "launches_ms": sum(e["ms"] for e in per_batch), "cigars_checked": n_cigars,
+         "route_wall_s": wall, "tolerance": 0},
         {"name": "wfa_score_only", "route": "cuda", "source": "seqrush_tpu_torch/ops/csrc/wfa.cu",
          "replaces": "seqrush_tpu/ops/wfa.py:232 (wfa_align_device, keep_history=False; XLA)",
          "launches": launches_o, "launches_path": "wfa_align_device(keep_history=False), first batch",
          "max_abs_err": err_o, "ms": o_ms, "plain_ms": plain_o_ms, **b_o, "library_ms": None,
-         "regs_per_thread": ptxas_registers(ptxas, f"wfa_kernel<{piece}>"),
-         "shape": per_batch[0]["shape"], "serial_score_steps": max(stepped), "tolerance": 0},
+         "regs_per_thread": ptxas_registers(ptxas, wfa_name), "resident_pairs_per_sm": occ["resident_pairs_per_sm"],
+         "shape": per_batch[0]["shape"], "serial_score_steps": max(stepped),
+         "us_per_step": o_ms * 1e3 / max(1, max(stepped)), "tolerance": 0},
     ]
 
+
+# the first designs' times at the same shapes, measured by this script on
+# the tree before their redesign, on an NVIDIA H100 80GB HBM3 at 700.00 W
+# (not in this run): printed beside this run's in the text lines only.  The
+# wavefront kernel with its history read back from device memory and a
+# byte-wise extension (its 9 launches on the 600 pairs, and the score-only
+# mode on the first batch [256, 256 steps]), kernel C with two barriers a
+# row at 4 lanes x 256 threads on the rows run's largest chunk [576, R
+# 3,584, Wr 1,023]
+EARLIER_MS = {"wfa_launches": 38.6, "wfa_score_only": 1.6388, "nw_rows_sweep": 10.9157}
 
 ROWS_OPS_PER_CELL = 35
 ROWS_MIN_OPS_PER_CELL = 10
@@ -2380,6 +2379,11 @@ def run_phase9(smi: str, ptxas: list[str], ctx: dict) -> list[dict]:
         if err_c or err_d:
             raise AssertionError("kernel C or D disagrees with its plain version")
         if name == "rows" and rank == 0:
+            occ = nw_cuda.nw_rows_occupancy(Q.shape[1], d["band"], pen["o2"] >= 0, d["int16"])
+            print(f"  kernel C's plan: {S} lanes x {threads} threads a pair, rows staged {occ['window_rows']} at a "
+                  f"time of {Q.shape[1]}, {occ['regs_per_thread']} registers, "
+                  f"{occ['resident_pairs_per_sm']} pairs resident an SM (reckoned {occ['reckoned_pairs_per_sm']}; "
+                  f"{Q.shape[0]} pairs on {torch.cuda.get_device_properties(0).multi_processor_count} SMs)")
             ms_c = cuda_ms(lambda: nw_cuda.nw_align_rows(Q, T, ql, tl, **kw), REPS)
             ms_d = cuda_ms(lambda: nw_cuda.nw_walk_rows(tb_k, ql, tl, band=d["band"]), REPS)
             cells = int((ql.to(torch.int64) + 1).sum().item()) * Wr
@@ -2389,16 +2393,21 @@ def run_phase9(smi: str, ptxas: list[str], ctx: dict) -> list[dict]:
             b_d = bound(2 * steps + walk_k[0].numel() + 4 * walk_k[1].numel() + 12 * Q.shape[0],
                         steps * WALK_OPS_PER_STEP)
             shape = {"B": Q.shape[0], "R": Q.shape[1], "Wr": Wr, "lanes_per_thread": S, "threads": threads}
+            most, blocks = nw_cuda.rows_bounds(S, threads)
             out["nw_rows_sweep"] = {
                 "shape": shape, "ms": ms_c, "plain_ms": plain_c_ms, **b_c, "max_abs_err": err_c,
                 "launches": runs["rows"][2]["nw_rows_sweep"], "launches_path": "sweep='rows'",
-                "ptxas": [line for line in ptxas if line.startswith("nw_rows_sweep_kernel")]}
+                "us_per_row": ms_c * 1e3 / Q.shape[1], "window_rows": occ["window_rows"],
+                **{k: occ[k] for k in ("regs_per_thread", "resident_pairs_per_sm", "reckoned_pairs_per_sm")},
+                "ptxas": ptxas_registers(ptxas, f"nw_rows_sweep_kernel<{S}, two-piece, int32, {most} threads, "
+                                                f"{blocks} blocks>")}
             out["nw_rows_walk"] = {
                 "shape": shape, "ms": ms_d, "plain_ms": plain_d_ms, **b_d, "max_abs_err": err_d,
                 "launches": runs["rows"][2]["nw_rows_walk"], "launches_path": "sweep='rows'",
                 "gap_lists_over_gap_max": int((walk_k[3] > nw.GAP_MAX).sum()),
                 "ptxas": ptxas_registers(ptxas, "nw_rows_walk_kernel")}
-            print(f"  timed: sweep {ms_c:.4f} ms (bound {b_c['bound_ms']:.4f}, plain {plain_c_ms:.1f}); walk "
+            print(f"  timed: sweep {ms_c:.4f} ms, {ms_c * 1e3 / Q.shape[1]:.4f} us a row (the first design's, an "
+                  f"earlier tree's run: {EARLIER_MS['nw_rows_sweep']}; bound {b_c['bound_ms']:.4f}, plain {plain_c_ms:.1f}); walk "
                   f"{ms_d:.4f} ms (bound {b_d['bound_ms']:.5f}, plain {plain_d_ms:.1f}) | {smi}")
         del tb_k, walk_k, walk_p
         torch.cuda.empty_cache()

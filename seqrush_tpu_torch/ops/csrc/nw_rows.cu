@@ -18,18 +18,46 @@
 // traceback tensor [B, R + 1, Wr] equals the plain version's
 // (ops/nw_cuda.py::nw_align_rows_reference) byte for byte.
 //
-// What bounds it on an H100: the chain of rows.  Each row of a pair needs two
-// prefix-minimum scans across its Wr lanes, so the pair's threads meet twice
-// a row; a row costs a few dozen instructions a lane plus the scans'
-// shuffles and two block barriers.  Design: one block a pair; thread r owns
-// the S lanes [r * S, r * S + S) in registers (S = 4, 8 or 16, the fewest
-// that keep the block at 512 threads, ops/nw_cuda.py::rows_plan); a scan is
-// serial inside the strip, five __shfl_up_sync rounds inside the warp and
-// one pass over the warps' totals in shared memory; D1 and D2 share the
-// rounds and the barrier.  The lane to the right in the previous row comes
-// from the next thread by __shfl_down_sync, and across warps through shared
-// memory behind the second barrier.  The query base of a row is one
-// broadcast load; each thread slides its S target bases by one a row.
+// What bounds it on an H100: the instructions a cell takes, issued by the
+// pairs resident on each SM (the rows of a pair are serial, and its whole
+// traceback, R + 1 rows of every pair, is written).  A row needs two
+// prefix-minimum scans across its Wr lanes, so the pair's warps meet once a
+// row.  The design (ops/nw_cuda.py::rows_plan picks the strip):
+//   * one block a pair; thread r owns the S lanes [r * S, r * S + S) in
+//     registers: 8 lanes on 4 warps at Wr <= 1,024 under
+//     __launch_bounds__(128, 5), so five pairs fit an SM and the largest
+//     dispatch (576 pairs on 132 SMs) runs in one wave, one warp a pair on
+//     each SM sub-partition; wider bands take 8 or 16 lanes on up to 1,024
+//     threads.  16 lanes on 2 warps and 4 on 8 were slower (PERF.md);
+//   * one block barrier a row.  A scan is serial inside the strip, five
+//     __shfl_up_sync rounds inside the warp, and one pass over the warps
+//     before this one (each in a lane, one __reduce_min_sync).  The warps
+//     publish, double-buffered by the row's parity, their scan total without
+//     their last lane, that lane's diagonal candidate, and after the row
+//     their first lane's H, I1, I2.  The last lane of a warp needs the next
+//     warp's first lane of the previous row, so it is computed after the
+//     barrier, by its own thread and by every later warp from the published
+//     values (the same instructions, so the same value);
+//   * few registers a lane, so the strip needs no packing at the 96 the
+//     launch bound leaves: the lanes' ramps k e and k e + o are kernel
+//     parameters (read from the constant bank), the scans inside a strip run
+//     on A relative to its first lane, Ht is A + k e again, I1 and I2 update
+//     in place;
+//   * no global load on a row's chain: the pair's query and target are
+//     staged in shared memory at the start, 16 bytes at a time where the
+//     rows are aligned, each target row padded with TPAD; a lane reads its
+//     target base there each row, and a row's query base is read a row
+//     ahead.  Where a pair's rows do not fit the share of shared memory
+//     that keeps the launch bound's pairs resident (past about 21,500 rows
+//     at Wr <= 1,024), they are staged a window of rows at a time, the next
+//     window behind one more barrier (ops/nw_cuda.py::rows_smem), in
+//     instantiations of their own: the windows' loop in the same kernel
+//     cost 3-4% at the main shape, even on a branch of its own;
+//   * the int16 mode and the one-piece penalties are template flags, so the
+//     int32 path carries none of the wraps and clamps.
+// What is left is issue: five warps on each sub-partition, each issuing a
+// cell's instructions (its choices and six traceback bits) for its 8 lanes
+// and, once a row, the scans, the warps' last lanes and the exchange.
 //
 // Kernel D (nw_rows_walk_kernel) replaces the XLA program
 // seqrush_tpu/ops/nw.py::_tb_rows_scan: one warp a pair walks from row qlen
@@ -56,238 +84,345 @@
 #define RW_MAX_WARPS 32
 #define RW_WALK_PAIRS 4  // kernel D: one warp a pair
 
+#define RW_MAX_LANES 16  // lanes a thread, at most
+
+// The penalties, and per lane k of a strip k * e and k * e + o: kernel
+// parameters, which the instructions read from the constant bank, so the
+// lanes' ramps take no registers.
 struct RowPen {
   int mis, o1, e1, oe1, o2, e2, oe2;
-  int neg;   // the DP's +infinity
-  bool i16;  // the int16 mode
+  int neg;  // the DP's +infinity
+  int ke1[RW_MAX_LANES], ke2[RW_MAX_LANES], ko1[RW_MAX_LANES], ko2[RW_MAX_LANES];
 };
 
 // an add of the sweep: in the int16 mode the low 16 bits, sign-extended
-__device__ __forceinline__ int radd(int a, int b, bool i16) {
+template <bool I16>
+__device__ __forceinline__ int radd(int a, int b) {
   const int x = a + b;
-  return i16 ? (int)(int16_t)x : x;
+  return I16 ? (int)(int16_t)x : x;
 }
 
-// Shared memory of kernel C: the warps' scan totals, their last lanes' A
-// values, and their first lanes' new H, I1, I2.
+// Shared memory of kernel C, by the row's parity: each warp's scan totals
+// over its lanes but its last, that lane's diagonal candidate H + sub, and
+// its first lane's H, I1, I2 after the row.
 struct RowShared {
-  int tot1[RW_MAX_WARPS], tot2[RW_MAX_WARPS];
-  int last1[RW_MAX_WARPS], last2[RW_MAX_WARPS];
-  int eh[RW_MAX_WARPS], ei1[RW_MAX_WARPS], ei2[RW_MAX_WARPS];
+  int tot1[2][RW_MAX_WARPS], tot2[2][RW_MAX_WARPS], dg[2][RW_MAX_WARPS];
+  int eh[2][RW_MAX_WARPS], ei1[2][RW_MAX_WARPS], ei2[2][RW_MAX_WARPS];
 };
 
-// Warp-inclusive prefix minimum of v (lane order).
-__device__ __forceinline__ int warp_incl_min(int v, int lane) {
+// Warp-inclusive prefix minimum of v (lane order): a lane below d gets its
+// own v back from the shuffle, so the rounds need no predicate.
+__device__ __forceinline__ int warp_incl_min(int v) {
 #pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int u = __shfl_up_sync(RW_FULL, v, d);
-    if (lane >= d) v = min(v, u);
-  }
+  for (int d = 1; d < 32; d <<= 1) v = min(v, __shfl_up_sync(RW_FULL, v, d));
   return v;
 }
 
-// The closed-form D states of one row from Ht: D1 (and D2 when TWO), their
-// opened bits and the H override, for the strip at lanes s0..s0+S-1.
-// Returns each lane's byte bits 2-3 and 6-7; updates Hn.  One barrier.
-template <int S, bool TWO>
-__device__ __forceinline__ void d_pass(const int (&Ht)[S], int (&Hn)[S], uint32_t (&bits)[S],
-                                       const RowPen& p, int s0, int lane, int warp,
-                                       RowShared& sh) {
-  int a1[S], a2[S];
-  int m1 = RW_BIG, m2 = RW_BIG;
+// The gap-free choice of a lane from its diagonal candidate diag = H + sub
+// and the previous row's H, I1, I2 one lane to the right: Ht, the new I1 and
+// I2, and the byte's bits 0-1 and 4-5.
+template <bool TWO, bool I16>
+__device__ __forceinline__ int rows_ht(int diag, int hu, int i1u, int i2u, const RowPen& p,
+                                       int& I1n, int& I2n, uint32_t& low) {
+  int a = radd<I16>(hu, p.oe1);
+  int c = radd<I16>(i1u, p.e1);
+  I1n = min(a, c);
+  uint32_t by = (uint32_t)(a <= c) << 4;
+  I2n = p.neg;
+  if (TWO) {
+    a = radd<I16>(hu, p.oe2);
+    c = radd<I16>(i2u, p.e2);
+    I2n = min(a, c);
+    by |= (uint32_t)(a <= c) << 5;
+  }
+  int ht = diag;
+  if (I16) {
+    ht = min(ht, p.neg);
+    I1n = min(I1n, p.neg);
+    I2n = min(I2n, p.neg);
+  }
+  if (I1n < ht) {
+    ht = I1n;
+    by |= 1u;
+  }
+  if (I2n < ht) {
+    ht = I2n;
+    by = (by & ~3u) | 2u;
+  }
+  low = by;
+  return ht;
+}
+
+// Copy n bytes of a row to shared memory, 16 bytes at a time: dst[j] =
+// src[j + base] where 0 <= j + base < len, pad elsewhere (dst 16-aligned,
+// base a multiple of 16, n a multiple of 16).
+__device__ __forceinline__ void rows_stage(uint8_t* dst, const uint8_t* __restrict__ src, int len,
+                                           int base, int n, uint8_t pad, int tid, int nth) {
+  const bool aligned = ((uintptr_t)src & 15) == 0;
+  for (int c = tid; c < n / 16; c += nth) {
+    const int i0 = c * 16 + base;
+    uint4 v;
+    if (aligned && i0 >= 0 && i0 + 16 <= len) {
+      v = __ldg((const uint4*)(src + i0));
+    } else {
+      uint32_t w[4];
 #pragma unroll
-  for (int k = 0; k < S; ++k) {
-    a1[k] = Ht[k] - (s0 + k) * p.e1;
-    m1 = min(m1, a1[k]);
-    if (TWO) {
-      a2[k] = Ht[k] - (s0 + k) * p.e2;
-      m2 = min(m2, a2[k]);
+      for (int j = 0; j < 16; ++j) {
+        const int i = i0 + j;
+        const uint32_t byte = (i >= 0 && i < len) ? src[i] : pad;
+        if ((j & 3) == 0) w[j >> 2] = 0;
+        w[j >> 2] |= byte << (8 * (j & 3));
+      }
+      v = make_uint4(w[0], w[1], w[2], w[3]);
     }
-  }
-  // strip totals -> warp-inclusive -> exclusive before the strip
-  const int inc1 = warp_incl_min(m1, lane);
-  const int inc2 = TWO ? warp_incl_min(m2, lane) : RW_BIG;
-  int ex1 = __shfl_up_sync(RW_FULL, inc1, 1);
-  int ex2 = __shfl_up_sync(RW_FULL, inc2, 1);
-  int prev1 = __shfl_up_sync(RW_FULL, a1[S - 1], 1);
-  int prev2 = TWO ? __shfl_up_sync(RW_FULL, a2[S - 1], 1) : RW_BIG;
-  if (lane == 31) {
-    sh.tot1[warp] = inc1;
-    sh.tot2[warp] = inc2;
-    sh.last1[warp] = a1[S - 1];
-    sh.last2[warp] = TWO ? a2[S - 1] : RW_BIG;
-  }
-  __syncthreads();
-  int w1 = RW_BIG, w2 = RW_BIG;
-  for (int w = 0; w < warp; ++w) {
-    w1 = min(w1, sh.tot1[w]);
-    if (TWO) w2 = min(w2, sh.tot2[w]);
-  }
-  if (lane == 0) {
-    ex1 = RW_BIG;
-    ex2 = RW_BIG;
-    prev1 = warp ? sh.last1[warp - 1] : RW_BIG;
-    prev2 = warp ? sh.last2[warp - 1] : RW_BIG;
-  }
-  int run1 = min(w1, ex1), run2 = min(w2, ex2);
-#pragma unroll
-  for (int k = 0; k < S; ++k) {
-    const int l = s0 + k;
-    // lane l: P[l] = run, opened iff P[l] == A[l - 1]
-    const int d1 = min(run1 + l * p.e1 + p.o1, p.neg);
-    const bool d1o = run1 == prev1;
-    prev1 = a1[k];
-    run1 = min(run1, a1[k]);
-    int d2 = p.neg;
-    bool d2o = false;
-    if (TWO) {
-      d2 = min(run2 + l * p.e2 + p.o2, p.neg);
-      d2o = run2 == prev2;
-      prev2 = a2[k];
-      run2 = min(run2, a2[k]);
-    }
-    int h = Ht[k];
-    uint32_t dtag = 0;
-    if (d1 < h) {
-      h = d1;
-      dtag = 1;
-    }
-    if (d2 < h) {
-      h = d2;
-      dtag = 2;
-    }
-    Hn[k] = h;
-    bits[k] = (dtag << 2) | ((uint32_t)d1o << 6) | ((uint32_t)d2o << 7);
+    ((uint4*)dst)[c] = v;
   }
 }
 
-template <int S, bool TWO, int MAXT>
-__global__ void __launch_bounds__(MAXT) nw_rows_sweep_kernel(
+// The previous row's values at a strip's lanes.
+template <int S>
+struct RowState {
+  int H[S], I1[S], I2[S];
+};
+
+// One row of kernel C for the strip at lanes s0..s0+S-1 (FIRST: row 0, the
+// leading gap, whose Ht is 0 at lane K and +infinity elsewhere).  tr: the
+// strip's target bases at this row (tr[k] under lane s0 + k).  Writes the
+// row's bytes at out (lanes < Wr) and leaves the row's H, I1, I2 in st.
+// Inside a strip the scans run on A relative to the strip's first lane,
+// A[k] + s0 e = Ht[k] - k e, whose ramps come from the constant bank.
+template <int S, bool TWO, bool I16, bool FIRST>
+__device__ __forceinline__ void rows_row(RowState<S>& st, const uint8_t* tr, int qc, int par,
+                                         const RowPen& p, RowShared& sh, int s0, int s0e1,
+                                         int s0e2, int lane, int warp, int nwarps, int Wr, int K,
+                                         uint8_t* __restrict__ out) {
+  const bool last = lane == 31;  // owns the warp's last lane, done after the barrier
+  // the previous row's values one lane to the right, from the next thread
+  const int hu = __shfl_down_sync(RW_FULL, st.H[0], 1);
+  const int iu1 = __shfl_down_sync(RW_FULL, st.I1[0], 1);
+  const int iu2 = TWO ? __shfl_down_sync(RW_FULL, st.I2[0], 1) : p.neg;
+  int diag_last = 0;
+  int ar1[S], ar2[S];
+  uint32_t by[S];
+  int m1 = RW_BIG, m2 = RW_BIG;
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    int ht;
+    if (FIRST) {
+      ht = s0 + k == K ? 0 : p.neg;
+      by[k] = 0;
+      st.I1[k] = st.I2[k] = p.neg;
+    } else {
+      // lane k reads lane k + 1 of the previous row before this loop
+      // overwrites it (ascending k), so I1 and I2 update in place
+      const int diag = radd<I16>(st.H[k], (int)tr[k] == qc ? 0 : p.mis);
+      if (k == S - 1) diag_last = diag;
+      ht = rows_ht<TWO, I16>(diag, k < S - 1 ? st.H[k + 1] : hu, k < S - 1 ? st.I1[k + 1] : iu1,
+                             k < S - 1 ? st.I2[k + 1] : iu2, p, st.I1[k], st.I2[k], by[k]);
+    }
+    if (FIRST && k == S - 1) diag_last = ht;
+    ar1[k] = ht - p.ke1[k];
+    ar2[k] = TWO ? ht - p.ke2[k] : RW_BIG;
+    if (k < S - 1 || !last) {
+      m1 = min(m1, ar1[k]);
+      m2 = min(m2, ar2[k]);
+    }
+  }
+  // the warp's scan over its lanes but its last, on absolute A
+  const int inc1 = warp_incl_min(m1 - s0e1);
+  const int inc2 = TWO ? warp_incl_min(m2 - s0e2) : RW_BIG;
+  int ex1 = __shfl_up_sync(RW_FULL, inc1, 1);
+  int ex2 = TWO ? __shfl_up_sync(RW_FULL, inc2, 1) : RW_BIG;
+  int prev1 = __shfl_up_sync(RW_FULL, ar1[S - 1] - s0e1, 1);
+  int prev2 = TWO ? __shfl_up_sync(RW_FULL, ar2[S - 1] - s0e2, 1) : RW_BIG;
+  if (last) {
+    sh.tot1[par][warp] = inc1;
+    sh.tot2[par][warp] = inc2;
+    sh.dg[par][warp] = diag_last;  // row 0: the lane's Ht
+  }
+  __syncthreads();
+  const int pp = par ^ 1;
+  if (!FIRST && last) {
+    // the warp's last lane, with the next warp's first lane of the previous row
+    const bool next = warp + 1 < nwarps;
+    const int ht = rows_ht<TWO, I16>(diag_last, next ? sh.eh[pp][warp + 1] : p.neg,
+                                     next ? sh.ei1[pp][warp + 1] : p.neg,
+                                     next ? sh.ei2[pp][warp + 1] : p.neg, p, st.I1[S - 1],
+                                     st.I2[S - 1], by[S - 1]);
+    ar1[S - 1] = ht - p.ke1[S - 1];
+    ar2[S - 1] = TWO ? ht - p.ke2[S - 1] : RW_BIG;
+  }
+  // the warps before this one: lane v takes warp v's total and last lane
+  int w1 = RW_BIG, w2 = RW_BIG;
+  if (warp > 0) {
+    int t1 = RW_BIG, t2 = RW_BIG, al1 = RW_BIG, al2 = RW_BIG;
+    if (lane < warp) {
+      const int L = (lane + 1) * 32 * S - 1;
+      int htl = sh.dg[par][lane];
+      if (!FIRST) {
+        int x1, x2;
+        uint32_t xb;
+        htl = rows_ht<TWO, I16>(htl, sh.eh[pp][lane + 1], sh.ei1[pp][lane + 1], sh.ei2[pp][lane + 1],
+                                p, x1, x2, xb);
+      }
+      al1 = htl - L * p.e1;
+      t1 = min(sh.tot1[par][lane], al1);
+      if (TWO) {
+        al2 = htl - L * p.e2;
+        t2 = min(sh.tot2[par][lane], al2);
+      }
+    }
+    w1 = __reduce_min_sync(RW_FULL, t1);
+    const int pl1 = __shfl_sync(RW_FULL, al1, warp - 1);
+    if (lane == 0) prev1 = pl1;
+    if (TWO) {
+      w2 = __reduce_min_sync(RW_FULL, t2);
+      const int pl2 = __shfl_sync(RW_FULL, al2, warp - 1);
+      if (lane == 0) prev2 = pl2;
+    }
+  } else if (lane == 0) {
+    prev1 = prev2 = RW_BIG;
+  }
+  if (lane == 0) ex1 = ex2 = RW_BIG;
+  // back to the strip's relative A: P[l] + s0 e and A[l - 1] + s0 e
+  int run1 = min(w1, ex1) + s0e1, run2 = min(w2, ex2) + s0e2;
+  prev1 += s0e1;
+  prev2 += s0e2;
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    // lane l = s0 + k: P[l] = run, opened iff P[l] == A[l - 1]
+    const int d1 = min(run1 + p.ko1[k], p.neg);
+    const bool d1o = run1 == prev1;
+    prev1 = ar1[k];
+    run1 = min(run1, ar1[k]);
+    int d2 = p.neg;
+    bool d2o = false;
+    if (TWO) {
+      d2 = min(run2 + p.ko2[k], p.neg);
+      d2o = run2 == prev2;
+      prev2 = ar2[k];
+      run2 = min(run2, ar2[k]);
+    }
+    int h = ar1[k] + p.ke1[k];  // Ht
+    uint32_t b = by[k] | ((uint32_t)d1o << 6) | ((uint32_t)d2o << 7);
+    if (d1 < h) {
+      h = d1;
+      b |= 1u << 2;
+    }
+    if (d2 < h) {
+      h = d2;
+      b = (b & ~(3u << 2)) | (2u << 2);
+    }
+    st.H[k] = h;
+    by[k] = b;
+  }
+  if (s0 + S <= Wr) {
+#pragma unroll
+    for (int k = 0; k < S; ++k) out[s0 + k] = (uint8_t)by[k];
+  } else {
+    // lanes past Wr stay +infinity: the last real lane's right neighbour
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      if (s0 + k < Wr) {
+        out[s0 + k] = (uint8_t)by[k];
+      } else {
+        st.H[k] = st.I1[k] = st.I2[k] = p.neg;
+      }
+    }
+  }
+  if (lane == 0) {
+    sh.eh[par][warp] = st.H[0];
+    sh.ei1[par][warp] = st.I1[0];
+    sh.ei2[par][warp] = st.I2[0];
+  }
+}
+
+// Rows 1..n of a window (row r = w0 + j at j, w0 even, so j's parity is
+// r's): qs[j] the query base of row j + 1 (qn carries row j's, read a row
+// ahead), tcol + j lane s0's target bases, tbw + j * Wr the row's bytes; the
+// score captured at row jfin (the pair's qlen).
+template <int S, bool TWO, bool I16>
+__device__ __forceinline__ void rows_run(RowState<S>& st, int& qn, const uint8_t* qs,
+                                         const uint8_t* tcol, int n, int jfin, bool fin_here,
+                                         int fin_lane, const RowPen& p, RowShared& sh, int s0,
+                                         int s0e1, int s0e2, int lane, int warp, int nwarps, int Wr,
+                                         int K, uint8_t* __restrict__ tbw, int* score) {
+  for (int j = 1; j <= n; ++j) {
+    const int qc = qn;
+    qn = qs[j];
+    rows_row<S, TWO, I16, false>(st, tcol + j, qc, j & 1, p, sh, s0, s0e1, s0e2, lane, warp, nwarps,
+                                 Wr, K, tbw + (size_t)j * Wr);
+    if (j == jfin && fin_here && fin_lane >= 0) {
+#pragma unroll
+      for (int k = 0; k < S; ++k)
+        if (s0 + k == fin_lane) *score = st.H[k] < RW_INF ? st.H[k] : -1;
+    }
+  }
+}
+
+template <int S, bool TWO, bool I16, bool WIN, int MAXT, int MINB>
+__global__ void __launch_bounds__(MAXT, MINB) nw_rows_sweep_kernel(
     const uint8_t* __restrict__ Q,   // [B, R] query codes, QPAD-padded
     const uint8_t* __restrict__ T,   // [B, Lt] target codes, TPAD-padded
     const int* __restrict__ qlens, const int* __restrict__ tlens,
     int* __restrict__ scores,        // [B] out
     uint8_t* __restrict__ tb,        // [B, R + 1, Wr] out
-    int R, int Lt, int K, RowPen p) {
+    int R, int Lt, int K, RowPen p, int win, int nq, int t_off, int nt) {
+  extern __shared__ __align__(16) uint8_t rw_smem[];
   __shared__ RowShared sh;
   const int b = blockIdx.x;
-  const int r_t = threadIdx.x;
-  const int lane = r_t & 31;
-  const int warp = r_t >> 5;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
   const int Wr = 2 * K + 1;
-  const int s0 = r_t * S;
+  const int s0 = tid * S;
   const int qlen = qlens[b];
   const int tlen = tlens[b];
   const int fin_lane = tlen - qlen + K;
-  const uint8_t* q = Q + (size_t)b * R;
-  const uint8_t* tg = T + (size_t)b * Lt;
+  const bool fin_here = (unsigned)(fin_lane - s0) < (unsigned)S && fin_lane < Wr;
   uint8_t* tbb = tb + (size_t)b * (R + 1) * Wr;
-  if (r_t == 0) scores[b] = -1;  // ordered before the capture by the row barriers
+  const uint8_t* Qb = Q + (size_t)b * R;
+  const uint8_t* Tb = T + (size_t)b * Lt;
+  if (tid == 0) scores[b] = -1;  // ordered before the capture by the row barriers
 
-  // the target base under lane l of row r: T[r - K + l - 1] (TPAD off it)
-  int tw[S];
-#pragma unroll
-  for (int k = 0; k < S; ++k) {
-    const int x = s0 + k - K - 1;  // row 0
-    tw[k] = (x >= 0 && x < Lt) ? (int)__ldg(tg + x) : RW_TPAD;
-  }
+  // A window of the rows (w0, w0 + win] (all R where it fits): the query at
+  // qs[i] = Q[w0 + i], and the target base under lane l at row r at
+  // ts[t_off - K - 1 + (r - w0) + l] = T[r - K - 1 + l], TPAD off the target
+  uint8_t* qs = rw_smem;
+  uint8_t* ts = rw_smem + nq;
+  rows_stage(qs, Qb, R, 0, nq, RW_QPAD, tid, blockDim.x);
+  rows_stage(ts, Tb, Lt, -t_off, nt, RW_TPAD, tid, blockDim.x);
+  __syncthreads();
+  const uint8_t* tcol = ts + t_off - K - 1 + s0;  // lane s0 at the window's first row
+  const int s0e1 = s0 * p.e1, s0e2 = s0 * p.e2;
 
-  int H[S], I1[S], I2[S], Ht[S], Hn[S];
-  uint32_t bits[S];
-  // row 0: Ht is 0 at lane K, neg elsewhere; the row is the leading gap
+  RowState<S> st;
 #pragma unroll
-  for (int k = 0; k < S; ++k) Ht[k] = (s0 + k == K) ? 0 : p.neg;
-  d_pass<S, TWO>(Ht, Hn, bits, p, s0, lane, warp, sh);
-#pragma unroll
-  for (int k = 0; k < S; ++k) {
-    const bool real = s0 + k < Wr;
-    H[k] = real ? Hn[k] : p.neg;
-    I1[k] = I2[k] = p.neg;
-    if (real) tbb[s0 + k] = (uint8_t)bits[k];
-  }
-  if (qlen == 0 && (unsigned)(fin_lane - s0) < (unsigned)S && fin_lane < Wr) {
+  for (int k = 0; k < S; ++k) st.H[k] = st.I1[k] = st.I2[k] = p.neg;
+  rows_row<S, TWO, I16, true>(st, tcol, 0, 0, p, sh, s0, s0e1, s0e2, lane, warp, nwarps, Wr, K, tbb);
+  if (qlen == 0 && fin_here) {
 #pragma unroll
     for (int k = 0; k < S; ++k)
-      if (s0 + k == fin_lane) scores[b] = H[k] < RW_INF ? H[k] : -1;
+      if (s0 + k == fin_lane) scores[b] = st.H[k] < RW_INF ? st.H[k] : -1;
   }
-
-  for (int r = 1; r <= R; ++r) {
-    // the previous row's values one lane to the right (the same column)
-    int hu = __shfl_down_sync(RW_FULL, H[0], 1);
-    int iu1 = __shfl_down_sync(RW_FULL, I1[0], 1);
-    int iu2 = __shfl_down_sync(RW_FULL, I2[0], 1);
-    if (lane == 0) {
-      sh.eh[warp] = H[0];
-      sh.ei1[warp] = I1[0];
-      sh.ei2[warp] = I2[0];
+  int qn = qs[0];  // row r's query base, read a row ahead
+  if (!WIN) {
+    rows_run<S, TWO, I16>(st, qn, qs, tcol, R, qlen, fin_here, fin_lane, p, sh, s0, s0e1, s0e2, lane,
+                          warp, nwarps, Wr, K, tbb, scores + b);
+    return;
+  }
+  // the same rows a window at a time (an instantiation of its own)
+  for (int w0 = 0; w0 < R; w0 += win) {
+    if (w0 > 0) {
+      // every thread has passed row w0's barrier, after which no thread
+      // reads the staged rows, so the next window overwrites them at once
+      rows_stage(qs, Qb, R, w0, nq, RW_QPAD, tid, blockDim.x);
+      rows_stage(ts, Tb, Lt, w0 - t_off, nt, RW_TPAD, tid, blockDim.x);
+      __syncthreads();
     }
-    __syncthreads();
-    if (lane == 31) {
-      const bool next = warp + 1 < nwarps;
-      hu = next ? sh.eh[warp + 1] : p.neg;
-      iu1 = next ? sh.ei1[warp + 1] : p.neg;
-      iu2 = next ? sh.ei2[warp + 1] : p.neg;
-    }
-    // slide the target window one base to the right
-#pragma unroll
-    for (int k = 0; k < S - 1; ++k) tw[k] = tw[k + 1];
-    {
-      const int x = r + s0 + S - 1 - K - 1;
-      tw[S - 1] = (x >= 0 && x < Lt) ? (int)__ldg(tg + x) : RW_TPAD;
-    }
-    const int qc = (int)__ldg(q + r - 1);
-    int I1n[S], I2n[S];
-    uint32_t low[S];
-#pragma unroll
-    for (int k = 0; k < S; ++k) {
-      const int h_up = k < S - 1 ? H[k + 1] : hu;
-      const int i1_up = k < S - 1 ? I1[k + 1] : iu1;
-      const int i2_up = k < S - 1 ? I2[k + 1] : iu2;
-      int a = radd(h_up, p.oe1, p.i16);
-      int c = radd(i1_up, p.e1, p.i16);
-      I1n[k] = min(a, c);
-      uint32_t by = (uint32_t)(a <= c) << 4;
-      I2n[k] = p.neg;
-      if (TWO) {
-        a = radd(h_up, p.oe2, p.i16);
-        c = radd(i2_up, p.e2, p.i16);
-        I2n[k] = min(a, c);
-        by |= (uint32_t)(a <= c) << 5;
-      }
-      int ht = radd(H[k], qc == tw[k] ? 0 : p.mis, p.i16);
-      if (p.i16) {
-        ht = min(ht, p.neg);
-        I1n[k] = min(I1n[k], p.neg);
-        I2n[k] = min(I2n[k], p.neg);
-      }
-      if (I1n[k] < ht) {
-        ht = I1n[k];
-        by |= 1u;
-      }
-      if (I2n[k] < ht) {
-        ht = I2n[k];
-        by = (by & ~3u) | 2u;
-      }
-      Ht[k] = ht;
-      low[k] = by;
-    }
-    d_pass<S, TWO>(Ht, Hn, bits, p, s0, lane, warp, sh);
-    uint8_t* row = tbb + (size_t)r * Wr;
-#pragma unroll
-    for (int k = 0; k < S; ++k) {
-      const bool real = s0 + k < Wr;
-      if (real) row[s0 + k] = (uint8_t)(low[k] | bits[k]);
-      // lanes past Wr stay +infinity: the last real lane's right neighbour
-      H[k] = real ? Hn[k] : p.neg;
-      I1[k] = real ? I1n[k] : p.neg;
-      I2[k] = real ? I2n[k] : p.neg;
-    }
-    if (r == qlen && (unsigned)(fin_lane - s0) < (unsigned)S && fin_lane < Wr && fin_lane >= 0) {
-#pragma unroll
-      for (int k = 0; k < S; ++k)
-        if (s0 + k == fin_lane) scores[b] = H[k] < RW_INF ? H[k] : -1;
-    }
+    rows_run<S, TWO, I16>(st, qn, qs, tcol, min(win, R - w0), qlen - w0, fin_here, fin_lane, p, sh, s0,
+                          s0e1, s0e2, lane, warp, nwarps, Wr, K, tbb + (size_t)w0 * Wr, scores + b);
   }
 }
 
@@ -373,54 +508,86 @@ __global__ void __launch_bounds__(32 * RW_WALK_PAIRS) nw_rows_walk_kernel(
   if (x == 0) gcount[b] = n;
 }
 
-template <int S, bool TWO, int MAXT>
-static cudaError_t launch_rows(const void* Q, const void* T, const void* qlens, const void* tlens,
-                               void* scores, void* tb, int B, int R, int Lt, int K, RowPen p,
-                               int threads, cudaStream_t st) {
-  nw_rows_sweep_kernel<S, TWO, MAXT><<<B, threads, 0, st>>>(
-      (const uint8_t*)Q, (const uint8_t*)T, (const int*)qlens, (const int*)tlens, (int*)scores,
-      (uint8_t*)tb, R, Lt, K, p);
-  return cudaGetLastError();
+template <bool TWO, bool I16, bool WIN>
+static const void* rows_fn_t(int S, int threads) {
+  if (S == 8 && threads <= 128) return (const void*)nw_rows_sweep_kernel<8, TWO, I16, WIN, 128, 5>;
+  if (S == 8 && threads <= 512) return (const void*)nw_rows_sweep_kernel<8, TWO, I16, WIN, 512, 1>;
+  if (S == 16 && threads <= 512) return (const void*)nw_rows_sweep_kernel<16, TWO, I16, WIN, 512, 1>;
+  if (S == 16 && threads <= 1024) return (const void*)nw_rows_sweep_kernel<16, TWO, I16, WIN, 1024, 1>;
+  return nullptr;
+}
+
+// kernel C's instantiation for S lanes on `threads` threads (the launch
+// bounds ops/nw_cuda.py::ROWS_BOUNDS lists), staging the rows whole or a
+// window at a time, or null
+static const void* rows_fn(int S, int threads, bool two, bool i16, bool win) {
+  using Fn = const void* (*)(int, int);
+  static const Fn fns[8] = {rows_fn_t<false, false, false>, rows_fn_t<false, false, true>,
+                            rows_fn_t<false, true, false>,  rows_fn_t<false, true, true>,
+                            rows_fn_t<true, false, false>,  rows_fn_t<true, false, true>,
+                            rows_fn_t<true, true, false>,   rows_fn_t<true, true, true>};
+  return fns[4 * two + 2 * i16 + win](S, threads);
 }
 
 // Kernel C: one block of `threads` threads a pair, S lanes a thread
-// (threads * S >= 2K + 1, threads a multiple of 32, at most 512, or 1024
-// with S = 16 for the widest bands).  Returns the CUDA error code.
+// (threads * S >= 2K + 1, threads a multiple of 32); the rows staged win at
+// a time (win >= R, or a multiple of 16), in shared memory nq bytes of
+// query and nt of target, the target row at offset t_off
+// (ops/nw_cuda.py::rows_smem).  Returns the CUDA error code.
 extern "C" int nw_rows_sweep_launch(const void* Q, const void* T, const void* qlens,
                                     const void* tlens, void* scores, void* tb, int B, int R,
                                     int Lt, int K, int mismatch, int o1, int e1, int o2, int e2,
-                                    int int16, int S, int threads, void* stream) {
+                                    int int16, int S, int threads, int win, int nq, int t_off,
+                                    int nt, void* stream) {
   if (B <= 0) return (int)cudaSuccess;
-  if (threads < 32 || threads > 1024 || threads % 32 || (long)threads * S < 2L * K + 1)
+  const bool i16 = int16 != 0;
+  const void* fn = rows_fn(S, threads, o2 >= 0, i16, win < R);
+  const int wn = min(win, R);
+  if (fn == nullptr || threads < 32 || threads % 32 || (long)threads * S < 2L * K + 1 ||
+      (win < R && (win < 16 || win % 16)) || nq < wn + 1 || nq % 16 || t_off < K + 1 ||
+      t_off % 16 || nt % 16 || (long)nt < (long)t_off - K + (long)threads * S + wn)
     return (int)cudaErrorInvalidValue;
   RowPen p;
-  p.i16 = int16 != 0;
-  p.mis = p.i16 ? (int)(int16_t)mismatch : mismatch;
+  p.mis = i16 ? (int)(int16_t)mismatch : mismatch;
   p.o1 = o1;
   p.e1 = e1;
   p.oe1 = o1 + e1;
   p.o2 = o2;
   p.e2 = e2;
   p.oe2 = o2 + e2;
-  p.neg = p.i16 ? RW_INF16 : RW_INF;
-  const bool two = o2 >= 0;
-  cudaStream_t st = (cudaStream_t)stream;
-#define RW_LAUNCH(SV, MT)                                                                        \
-  return (int)(two ? launch_rows<SV, true, MT>(Q, T, qlens, tlens, scores, tb, B, R, Lt, K, p,   \
-                                               threads, st)                                      \
-                   : launch_rows<SV, false, MT>(Q, T, qlens, tlens, scores, tb, B, R, Lt, K, p,  \
-                                                threads, st));
-  if (threads > 512) {
-    if (S != 16) return (int)cudaErrorInvalidValue;
-    RW_LAUNCH(16, 1024)
+  p.neg = i16 ? RW_INF16 : RW_INF;
+  for (int k = 0; k < RW_MAX_LANES; ++k) {
+    p.ke1[k] = k * e1;
+    p.ke2[k] = k * e2;
+    p.ko1[k] = k * e1 + o1;
+    p.ko2[k] = k * e2 + o2;
   }
-  switch (S) {
-    case 4: RW_LAUNCH(4, 512)
-    case 8: RW_LAUNCH(8, 512)
-    case 16: RW_LAUNCH(16, 512)
-    default: return (int)cudaErrorInvalidValue;
+  const int smem = nq + nt;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
   }
-#undef RW_LAUNCH
+  void* args[] = {&Q, &T, &qlens, &tlens, &scores, &tb, &R, &Lt, &K, &p, &win, &nq, &t_off, &nt};
+  return (int)cudaLaunchKernel(fn, dim3(B), dim3(threads), args, (size_t)smem,
+                               (cudaStream_t)stream);
+}
+
+// Registers per thread and resident blocks (pairs) per SM of kernel C at one
+// launch shape (smem: its dynamic shared memory; win: rows staged a window
+// at a time).
+extern "C" int nw_rows_occupancy(int S, int threads, int two, int int16, int win, int smem,
+                                 int* regs, int* blocks_per_sm) {
+  const void* fn = rows_fn(S, threads, two != 0, int16 != 0, win != 0);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return (int)err;
+  *regs = attr.numRegs;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, threads, smem);
 }
 
 // Kernel D: four pairs a block, a ring of `ring` >= G slots a warp.  Returns

@@ -20,19 +20,40 @@
 //
 // What bounds it on an H100: the chain of score steps.  Step s needs the
 // wavefronts of steps s - x, s - o - e and s - e, so the steps of a pair
-// are serial; a step's work is NDIAG cells.  The design:
+// are serial; a step's work is NDIAG cells, one thread each.  A step's
+// chain is its lookback reads, the cell's maxima, the greedy extension and
+// one barrier.  The design:
 //   * one block per pair, threads striding over the diagonals; the score
 //     loop runs inside the kernel with one __syncthreads() per step, so a
 //     pair costs no launch per score and leaves the loop when it ends,
 //     whatever the rest of the batch does;
-//   * the pair's query and target staged in shared memory when they fit,
-//     read from device memory otherwise; the greedy extension compares one
-//     base at a time and stops at either sequence's end;
-//   * the history rows in device memory, written once a step and read back
-//     by the block (they stay in L2 across the few steps of a lookback);
+//   * lookback rings in shared memory (the "rings" route): each wavefront
+//     keeps only the rows its recurrences read back, as the same clipped
+//     int16 values the history holds (M max(x, o1 + e1, o2 + e2) + 1 rows,
+//     I and D e + 1 rows each), one NULL16 column on either side of a row
+//     so the neighbouring diagonals need no bounds test; a step reads only
+//     its rings, and the history in device memory (or the score-only mode's
+//     rolling rows) is written with streaming stores and never read back.
+//     Where the rings do not fit shared memory (very wide bands or very
+//     long lookbacks) the "global" route reads the history rows back from
+//     device memory, as the first design did;
+//   * the pair's query and target staged in shared memory when they fit
+//     beside the rings, read from device memory otherwise;
+//   * a blocked greedy extension: 8 bases a compare, each operand as two
+//     aligned 8-byte loads and a shift, the first differing base from the
+//     xor's lowest set bit, the run capped at either sequence's end (so the
+//     pad columns' values do not matter; reads past a row's end stay inside
+//     the staged copy's slack, or fall back to byte loads at the edges of
+//     the tensors in device memory);
 //   * the end of a pair is signalled through one of two shared flags, by
 //     the parity of the step, so a thread that has seen one step's flag
-//     cannot race with the next step's writer.
+//     cannot race with the next step's writer;
+//   * the mismatch 0 reads M's own row (NULL in the history), which no ring
+//     holds, so it takes the global route (ops/wfa.py::wfa_plan).
+// What is left: a step's chain of ring reads, maxima, extension and barrier
+// where a batch leaves an SM one pair (about 1 us a step); where two or more
+// pairs share an SM, their 16 warps each issue every diagonal's work, and
+// the step takes 2 to 2.5 us.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -45,7 +66,7 @@ __device__ __forceinline__ int16_t wfa_store16(int x) {
 }
 
 // History row of score sb at diagonal d, NULL before score 0 or off the band
-// (the reference's _hist_row and its shifts).
+// (the reference's _hist_row and its shifts): the global route's read.
 __device__ __forceinline__ int wfa_hist(const int16_t* H, int sb, int rows, int nd, int d) {
   if (sb < 0 || d < 0 || d >= nd) return WFA_NULL;
   const int v = H[(size_t)(sb % rows) * nd + d];
@@ -57,17 +78,61 @@ __device__ __forceinline__ int wfa_valid(int off, int k, int ql, int tl) {
   return (off >= 0 && off <= tl && v >= 0 && v <= ql) ? off : WFA_NULL;
 }
 
-__device__ __forceinline__ int wfa_extend(int h, int k, const uint8_t* q, const uint8_t* t, int ql,
-                                          int tl) {
-  int v = h - k;
-  while (h < tl && v < ql && t[h] == q[v]) {
-    ++h;
-    ++v;
+// The 8 bytes at p..p+7 (any alignment), little-endian, from two aligned
+// 8-byte words.  GUARD: p may lie near the ends [lo, hi) of a tensor in
+// device memory, where an aligned word could leave it; those reads go byte
+// by byte, and bytes outside it read as 0xff.
+template <bool GUARD>
+__device__ __forceinline__ uint64_t wfa_load8(const uint8_t* p, const uint8_t* lo,
+                                              const uint8_t* hi) {
+  const uintptr_t a = (uintptr_t)p;
+  const uint64_t* w = (const uint64_t*)(a & ~(uintptr_t)7);
+  const unsigned sh = (unsigned)(a & 7) * 8;
+  if (GUARD && ((const uint8_t*)w < lo || (const uint8_t*)(w + 2) > hi)) {
+    uint64_t out = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const uint8_t* b = p + j;
+      const uint64_t v = (b >= lo && b < hi) ? *b : 0xffu;
+      out |= v << (8 * j);
+    }
+    return out;
   }
-  return h;
+  const uint64_t w0 = w[0];
+  if (sh == 0) return w0;
+  return (w0 >> sh) | (w[1] << (64 - sh));
 }
 
-template <bool TWO>
+// The greedy extension of offset h on diagonal k: the matching run from
+// (h, h - k), 8 bases a compare, capped at min(tl, h + (ql - v)).
+template <bool GUARD>
+__device__ __forceinline__ int wfa_extend(int h, int k, const uint8_t* q, const uint8_t* t, int ql,
+                                          int tl, const uint8_t* qlo, const uint8_t* qhi,
+                                          const uint8_t* tlo, const uint8_t* thi) {
+  const int v = h - k;
+  const int lim = min(tl - h, ql - v);
+  int n = 0;
+  while (n < lim) {
+    const uint64_t diff = wfa_load8<GUARD>(t + h + n, tlo, thi) ^ wfa_load8<GUARD>(q + v + n, qlo, qhi);
+    if (diff) {
+      n += (__ffsll((long long)diff) - 1) >> 3;
+      break;
+    }
+    n += 8;
+  }
+  return h + min(n, lim);
+}
+
+// ring slot of score s - back, c = s % R, 0 <= back < R; the slot of a
+// negative score is one not yet written (NULL16 since the start)
+__device__ __forceinline__ int wfa_slot(int c, int back, int R) {
+  const int r = c - back;
+  return r < 0 ? r + R : r;
+}
+
+// RINGS: the lookback rows in shared memory (else read back from the
+// history in device memory).  STAGED: the sequences in shared memory.
+template <bool TWO, bool RINGS, bool STAGED>
 __global__ void __launch_bounds__(1024) wfa_kernel(
     const uint8_t* __restrict__ Q,   // [B, Lq]
     const uint8_t* __restrict__ T,   // [B, Lt]
@@ -76,8 +141,8 @@ __global__ void __launch_bounds__(1024) wfa_kernel(
     const int* __restrict__ caps,    // [B] score caps
     int* __restrict__ scores,        // [B] out
     int16_t* HM, int16_t* HI1, int16_t* HD1, int16_t* HI2, int16_t* HD2,  // [B, rows, nd]
-    int Lq, int Lt, int band, int rows, int smax, int x, int o1, int e1, int o2, int e2,
-    int stage) {
+    int B, int Lq, int Lt, int band, int rows, int smax, int x, int o1, int e1, int o2, int e2,
+    int ring_bytes) {
   extern __shared__ __align__(16) uint8_t wfa_smem[];
   __shared__ int s_done[2];  // the pair ended at a step of this parity
   __shared__ int s_score;
@@ -88,13 +153,34 @@ __global__ void __launch_bounds__(1024) wfa_kernel(
   const int ql = qlens[b], tl = tlens[b], cap = caps[b];
   const uint8_t* q = Q + (size_t)b * Lq;
   const uint8_t* t = T + (size_t)b * Lt;
-  if (stage) {
-    uint8_t* sq = wfa_smem;
-    uint8_t* st = wfa_smem + ((Lq + 15) & ~15);
-    for (int i = tid; i < Lq; i += nth) sq[i] = q[i];
-    for (int i = tid; i < Lt; i += nth) st[i] = t[i];
+  // the tensors' extents, for the guarded 8-byte reads of the unstaged route
+  const uint8_t* qlo = Q;
+  const uint8_t* qhi = Q + (size_t)B * Lq;
+  const uint8_t* tlo = T;
+  const uint8_t* thi = T + (size_t)B * Lt;
+  if (STAGED) {
+    // each copy keeps 16 bytes of slack past the row for the 8-byte reads
+    const int sq_bytes = ((Lq + 15) & ~15) + 16;
+    const int st_bytes = ((Lt + 15) & ~15) + 16;
+    uint8_t* sq = wfa_smem + ring_bytes;
+    uint8_t* st = sq + sq_bytes;
+    for (int i = tid; i < sq_bytes; i += nth) sq[i] = i < Lq ? q[i] : 0xffu;
+    for (int i = tid; i < st_bytes; i += nth) st[i] = i < Lt ? t[i] : 0xfeu;
     q = sq;
     t = st;
+  }
+  const int stride = nd + 2;  // a ring row: NULL16, diagonals 0..nd-1, NULL16
+  const int RM = max(max(x, o1 + e1), TWO ? o2 + e2 : 0) + 1;
+  const int R1 = e1 + 1;
+  const int R2 = TWO ? e2 + 1 : 0;
+  int16_t* rM = (int16_t*)wfa_smem;
+  int16_t* rI1 = rM + RM * stride;
+  int16_t* rD1 = rI1 + R1 * stride;
+  int16_t* rI2 = rD1 + R1 * stride;
+  int16_t* rD2 = rI2 + R2 * stride;
+  if (RINGS) {
+    const int n = (RM + 2 * R1 + 2 * R2) * stride;
+    for (int i = tid; i < n; i += nth) rM[i] = (int16_t)WFA_NULL16;
   }
   const size_t base = (size_t)b * rows * nd;
   HM += base;
@@ -114,8 +200,10 @@ __global__ void __launch_bounds__(1024) wfa_kernel(
   for (int d = tid; d < nd; d += nth) {
     const int k = d - band;
     int m = wfa_valid(k == 0 ? 0 : WFA_NULL, k, ql, tl);
-    if (m > WFA_NULL) m = wfa_extend(m, k, q, t, ql, tl);
-    HM[d] = wfa_store16(m);
+    if (m > WFA_NULL) m = wfa_extend<!STAGED>(m, k, q, t, ql, tl, qlo, qhi, tlo, thi);
+    const int16_t m16 = wfa_store16(m);
+    if (RINGS) rM[d + 1] = m16;
+    __stcs(HM + d, m16);
     if (d == dfin && m == tl) {
       s_done[0] = 1;
       s_score = 0;
@@ -123,36 +211,81 @@ __global__ void __launch_bounds__(1024) wfa_kernel(
   }
   __syncthreads();
   bool done = s_done[0];
+  int cM = 0, c1 = 0, c2 = 0, ch = 0;  // s % RM, s % R1, s % R2, s % rows
   for (int s = 1; s <= smax && !done; ++s) {
-    const size_t r = (size_t)(s % rows) * nd;
+    cM = cM + 1 == RM ? 0 : cM + 1;
+    c1 = c1 + 1 == R1 ? 0 : c1 + 1;
+    if (TWO) c2 = c2 + 1 == R2 ? 0 : c2 + 1;
+    ch = ch + 1 == rows ? 0 : ch + 1;
+    const size_t r = (size_t)ch * nd;
     const int so1 = s - o1 - e1, se1 = s - e1;
     const int so2 = s - o2 - e2, se2 = s - e2;
+    // this step's ring rows, offset by the pad column
+    const int16_t* pMx = rM + wfa_slot(cM, x, RM) * stride + 1;
+    const int16_t* pMo1 = rM + wfa_slot(cM, o1 + e1, RM) * stride + 1;
+    const int16_t* pI1 = rI1 + wfa_slot(c1, e1, R1) * stride + 1;
+    const int16_t* pD1 = rD1 + wfa_slot(c1, e1, R1) * stride + 1;
+    const int16_t* pMo2 = rM + (TWO ? wfa_slot(cM, o2 + e2, RM) : 0) * stride + 1;
+    const int16_t* pI2 = rI2 + (TWO ? wfa_slot(c2, e2, R2) : 0) * stride + 1;
+    const int16_t* pD2 = rD2 + (TWO ? wfa_slot(c2, e2, R2) : 0) * stride + 1;
     for (int d = tid; d < nd; d += nth) {
       const int k = d - band;
-      const int m_x = wfa_hist(HM, s - x, rows, nd, d);
-      int i1 = max(wfa_hist(HM, so1, rows, nd, d + 1), wfa_hist(HI1, se1, rows, nd, d + 1));
-      int d1 = max(wfa_hist(HM, so1, rows, nd, d - 1), wfa_hist(HD1, se1, rows, nd, d - 1));
-      d1 = d1 > WFA_NULL ? d1 + 1 : WFA_NULL;
-      i1 = wfa_valid(i1, k, ql, tl);
-      d1 = wfa_valid(d1, k, ql, tl);
+      // the lookback values; a NULL16 read stays negative (-32768) through
+      // the +1s below, and every negative offset is NULL after validity
+      int m_x, mo1u, mo1l, i1u, d1l, mo2u = WFA_NULL, mo2l = WFA_NULL, i2u = WFA_NULL,
+                                      d2l = WFA_NULL;
+      if (RINGS) {
+        m_x = pMx[d];
+        mo1u = pMo1[d + 1];
+        mo1l = pMo1[d - 1];
+        i1u = pI1[d + 1];
+        d1l = pD1[d - 1];
+        if (TWO) {
+          mo2u = pMo2[d + 1];
+          mo2l = pMo2[d - 1];
+          i2u = pI2[d + 1];
+          d2l = pD2[d - 1];
+        }
+      } else {
+        m_x = wfa_hist(HM, s - x, rows, nd, d);
+        mo1u = wfa_hist(HM, so1, rows, nd, d + 1);
+        mo1l = wfa_hist(HM, so1, rows, nd, d - 1);
+        i1u = wfa_hist(HI1, se1, rows, nd, d + 1);
+        d1l = wfa_hist(HD1, se1, rows, nd, d - 1);
+        if (TWO) {
+          mo2u = wfa_hist(HM, so2, rows, nd, d + 1);
+          mo2l = wfa_hist(HM, so2, rows, nd, d - 1);
+          i2u = wfa_hist(HI2, se2, rows, nd, d + 1);
+          d2l = wfa_hist(HD2, se2, rows, nd, d - 1);
+        }
+      }
+      const int i1 = wfa_valid(max(mo1u, i1u), k, ql, tl);
+      const int d1 = wfa_valid(max(mo1l, d1l) + 1, k, ql, tl);
       int i2 = WFA_NULL, d2 = WFA_NULL;
       if (TWO) {
-        i2 = max(wfa_hist(HM, so2, rows, nd, d + 1), wfa_hist(HI2, se2, rows, nd, d + 1));
-        d2 = max(wfa_hist(HM, so2, rows, nd, d - 1), wfa_hist(HD2, se2, rows, nd, d - 1));
-        d2 = d2 > WFA_NULL ? d2 + 1 : WFA_NULL;
-        i2 = wfa_valid(i2, k, ql, tl);
-        d2 = wfa_valid(d2, k, ql, tl);
+        i2 = wfa_valid(max(mo2u, i2u), k, ql, tl);
+        d2 = wfa_valid(max(mo2l, d2l) + 1, k, ql, tl);
       }
-      int m = m_x > WFA_NULL ? m_x + 1 : WFA_NULL;
-      m = max(max(m, max(i1, d1)), max(i2, d2));
+      int m = max(max(m_x + 1, max(i1, d1)), max(i2, d2));
       m = wfa_valid(m, k, ql, tl);
-      if (m > WFA_NULL) m = wfa_extend(m, k, q, t, ql, tl);
-      HM[r + d] = wfa_store16(m);
-      HI1[r + d] = wfa_store16(i1);
-      HD1[r + d] = wfa_store16(d1);
+      if (m > WFA_NULL) m = wfa_extend<!STAGED>(m, k, q, t, ql, tl, qlo, qhi, tlo, thi);
+      const int16_t m16 = wfa_store16(m), i116 = wfa_store16(i1), d116 = wfa_store16(d1);
+      if (RINGS) {
+        rM[cM * stride + 1 + d] = m16;
+        rI1[c1 * stride + 1 + d] = i116;
+        rD1[c1 * stride + 1 + d] = d116;
+      }
+      __stcs(HM + r + d, m16);
+      __stcs(HI1 + r + d, i116);
+      __stcs(HD1 + r + d, d116);
       if (TWO) {
-        HI2[r + d] = wfa_store16(i2);
-        HD2[r + d] = wfa_store16(d2);
+        const int16_t i216 = wfa_store16(i2), d216 = wfa_store16(d2);
+        if (RINGS) {
+          rI2[c2 * stride + 1 + d] = i216;
+          rD2[c2 * stride + 1 + d] = d216;
+        }
+        __stcs(HI2 + r + d, i216);
+        __stcs(HD2 + r + d, d216);
       }
       if (d == dfin && m == tl && s <= cap) {
         s_done[s & 1] = 1;
@@ -165,51 +298,48 @@ __global__ void __launch_bounds__(1024) wfa_kernel(
   if (tid == 0) scores[b] = s_score;
 }
 
-template <bool TWO>
-static cudaError_t wfa_launch_t(const void* Q, const void* T, const void* qlens, const void* tlens,
-                                const void* caps, void* scores, void* HM, void* HI1, void* HD1,
-                                void* HI2, void* HD2, int B, int Lq, int Lt, int band, int rows,
-                                int smax, int x, int o1, int e1, int o2, int e2, int threads,
-                                int smem_bytes, cudaStream_t stream) {
-  if (smem_bytes > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(wfa_kernel<TWO>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-    if (err != cudaSuccess) return err;
-  }
-  wfa_kernel<TWO><<<B, threads, smem_bytes, stream>>>(
-      (const uint8_t*)Q, (const uint8_t*)T, (const int*)qlens, (const int*)tlens, (const int*)caps,
-      (int*)scores, (int16_t*)HM, (int16_t*)HI1, (int16_t*)HD1, (int16_t*)HI2, (int16_t*)HD2, Lq,
-      Lt, band, rows, smax, x, o1, e1, o2, e2, smem_bytes > 0);
-  return cudaGetLastError();
+static const void* wfa_fn(bool two, bool rings, bool staged) {
+  const void* fns[8] = {
+      (const void*)wfa_kernel<false, false, false>, (const void*)wfa_kernel<false, false, true>,
+      (const void*)wfa_kernel<false, true, false>,  (const void*)wfa_kernel<false, true, true>,
+      (const void*)wfa_kernel<true, false, false>,  (const void*)wfa_kernel<true, false, true>,
+      (const void*)wfa_kernel<true, true, false>,   (const void*)wfa_kernel<true, true, true>};
+  return fns[(two ? 4 : 0) + (rings ? 2 : 0) + (staged ? 1 : 0)];
 }
 
 // One launch over B pairs: scores [B] int32 out; the history tensors
 // [B, rows, 2 * band + 1] int16, filled with NULL16 by the caller (HI2, HD2
-// unused when o2 < 0); the pair's query and target staged in smem_bytes of
-// shared memory (0: read from device memory).  Returns the CUDA error code.
+// unused when o2 < 0).  Shared memory: ring_bytes of lookback rings (0: the
+// global route, which reads the history back), then, when staged, the
+// pair's query and target (ops/wfa.py::wfa_plan sizes both).  Returns the
+// CUDA error code.
 extern "C" int wfa_launch(const void* Q, const void* T, const void* qlens, const void* tlens,
                           const void* caps, void* scores, void* HM, void* HI1, void* HD1,
                           void* HI2, void* HD2, int B, int Lq, int Lt, int band, int rows,
                           int smax, int x, int o1, int e1, int o2, int e2, int threads,
-                          int smem_bytes, void* stream) {
+                          int ring_bytes, int staged, int smem_bytes, void* stream) {
   if (B <= 0) return (int)cudaSuccess;
-  if (threads < 32 || threads > 1024 || rows < 1 || band < 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (o2 >= 0)
-    return (int)wfa_launch_t<true>(Q, T, qlens, tlens, caps, scores, HM, HI1, HD1, HI2, HD2, B,
-                                   Lq, Lt, band, rows, smax, x, o1, e1, o2, e2, threads,
-                                   smem_bytes, s);
-  return (int)wfa_launch_t<false>(Q, T, qlens, tlens, caps, scores, HM, HI1, HD1, HI2, HD2, B,
-                                  Lq, Lt, band, rows, smax, x, o1, e1, o2, e2, threads, smem_bytes,
-                                  s);
+  if (threads < 32 || threads > 1024 || rows < 1 || band < 0 || ring_bytes < 0 ||
+      ring_bytes > smem_bytes)
+    return (int)cudaErrorInvalidValue;
+  const void* fn = wfa_fn(o2 >= 0, ring_bytes > 0, staged != 0);
+  if (smem_bytes > 48 * 1024) {
+    cudaError_t err =
+        cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  void* args[] = {&Q,  &T,  &qlens, &tlens, &caps, &scores, &HM, &HI1, &HD1, &HI2, &HD2, &B,
+                  &Lq, &Lt, &band,  &rows,  &smax, &x,      &o1, &e1,  &o2,  &e2,  &ring_bytes};
+  return (int)cudaLaunchKernel(fn, dim3(B), dim3(threads), args, (size_t)smem_bytes,
+                               (cudaStream_t)stream);
 }
 
 // Registers per thread, static shared memory and resident blocks (pairs) per
 // SM of one launch shape.
-extern "C" int wfa_occupancy(int two, int threads, int smem_bytes, int* regs, int* blocks_per_sm,
-                             int* static_smem) {
+extern "C" int wfa_occupancy(int two, int rings, int staged, int threads, int smem_bytes, int* regs,
+                             int* blocks_per_sm, int* static_smem) {
   cudaFuncAttributes attr;
-  const void* fn = two ? (const void*)wfa_kernel<true> : (const void*)wfa_kernel<false>;
+  const void* fn = wfa_fn(two, rings, staged);
   cudaError_t err = cudaFuncGetAttributes(&attr, fn);
   if (err != cudaSuccess) return (int)err;
   *regs = attr.numRegs;

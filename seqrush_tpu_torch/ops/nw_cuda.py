@@ -240,8 +240,10 @@ def _library() -> ctypes.CDLL:
             lib.nw_walk_runs_launch.restype = i32
             lib.nw_walk_segment_launch.argtypes = [ptr] * 3 + [i32] * 6 + [ptr]
             lib.nw_walk_segment_launch.restype = i32
-            lib.nw_rows_sweep_launch.argtypes = [ptr] * 6 + [i32] * 12 + [ptr]
+            lib.nw_rows_sweep_launch.argtypes = [ptr] * 6 + [i32] * 16 + [ptr]
             lib.nw_rows_sweep_launch.restype = i32
+            lib.nw_rows_occupancy.argtypes = [i32] * 6 + [ptr] * 2
+            lib.nw_rows_occupancy.restype = i32
             lib.nw_rows_walk_launch.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
             lib.nw_rows_walk_launch.restype = i32
             lib.nw_walk_occupancy.argtypes = [ptr] * 3
@@ -250,9 +252,9 @@ def _library() -> ctypes.CDLL:
             lib.nw_sweep_tiled_launch.restype = i32
             lib.nw_walk_runs_tiled_launch.argtypes = [ptr] * 6 + [i32] * 8 + [ptr]
             lib.nw_walk_runs_tiled_launch.restype = i32
-            lib.wfa_launch.argtypes = [ptr] * 11 + [i32] * 13 + [ptr]
+            lib.wfa_launch.argtypes = [ptr] * 11 + [i32] * 15 + [ptr]
             lib.wfa_launch.restype = i32
-            lib.wfa_occupancy.argtypes = [i32] * 2 + [ptr] * 3
+            lib.wfa_occupancy.argtypes = [i32] * 5 + [ptr] * 3
             lib.wfa_occupancy.restype = i32
             lib.nw_sweep_shard_launch.argtypes = [ptr] * 7 + [i32] * 24 + [ptr]
             lib.nw_sweep_shard_launch.restype = i32
@@ -1487,12 +1489,15 @@ def rows_width(band: int) -> int:
     return 2 * band + 1
 
 
-# lanes per thread kernel C is built for; it takes the fewest that keep a
-# pair's block at ROWS_THREADS threads or below, and 16 lanes on up to
-# ROWS_MAX_THREADS threads for the widest bands
-ROWS_LANES = (4, 8, 16)
-ROWS_THREADS = 512
-ROWS_MAX_THREADS = 1024
+# kernel C's instantiations, (lanes a thread, most threads) -> the blocks an
+# SM its __launch_bounds__ promise (csrc/nw_rows.cu::rows_fn_t; each with the
+# rows staged whole and a window at a time)
+ROWS_BOUNDS = {(8, 128): 5, (8, 512): 1, (16, 512): 1, (16, 1024): 1}
+ROWS_MAX_LANES = 16 * 1024
+_SM_REGS = 65536
+_SM_THREADS = 2048
+_SM_SMEM = 233472  # shared memory of an SM; a block reserves 1 KB of it
+_ROWS_STATIC_SMEM = 6 * 2 * 32 * 4  # csrc/nw_rows.cu::RowShared
 # slots of kernel D's gap ring in shared memory, per pair; the gap list
 # (min(gap_max, R + 1) entries) must fit it
 ROWS_WALK_RING = 256
@@ -1500,15 +1505,52 @@ ROWS_WALK_RING = 256
 
 def rows_plan(Wr: int) -> tuple[int, int]:
     """(lanes per thread, threads per block) of kernel C for Wr lanes: one
-    block a pair, thread r owning lanes [r * S, r * S + S)."""
-    for S in ROWS_LANES:
-        threads = -(-(-(-Wr // S)) // 32) * 32
-        if threads <= ROWS_THREADS:
-            return S, threads
-    threads = -(-(-(-Wr // 16)) // 32) * 32
-    if threads <= ROWS_MAX_THREADS:
-        return 16, threads
-    raise ValueError(f"the row-major sweep takes at most {16 * ROWS_MAX_THREADS} lanes, got {Wr}")
+    block a pair, thread r owning lanes [r * S, r * S + S).  8 lanes a
+    thread up to 4,096 lanes (4 warps and five pairs an SM up to 1,024), 16
+    past that, on as many warps as cover Wr."""
+    if not 1 <= Wr <= ROWS_MAX_LANES:
+        raise ValueError(f"the row-major sweep takes 1 to {ROWS_MAX_LANES} lanes, got {Wr}")
+    S = 8 if Wr <= 8 * 512 else 16
+    return S, -(-(-(-Wr // S)) // 32) * 32
+
+
+def rows_bounds(S: int, threads: int) -> tuple[int, int]:
+    """(most threads, blocks an SM) of the instantiation kernel C runs S
+    lanes on `threads` threads with (the first in ROWS_BOUNDS that takes
+    it)."""
+    for (lanes, most), blocks in ROWS_BOUNDS.items():
+        if lanes == S and threads <= most:
+            return most, blocks
+    raise ValueError(f"kernel C has no instantiation of {S} lanes on {threads} threads")
+
+
+def rows_smem(R: int, band: int, S: int, threads: int) -> tuple[int, int, int, int]:
+    """(window rows, query bytes, target offset, target bytes) of kernel
+    C's shared memory: a window's query rows and the byte past it (read a
+    row ahead), and its target row at a 16-aligned offset past the band's
+    leading pad, long enough for every lane's base at every row of the
+    window.  The window is all R rows where they fit the share of an SM's
+    shared memory that leaves the launch bound's pairs resident, else the
+    most rows, a multiple of 16, that fit it."""
+    t_off = _round16(band + 1)
+    fixed = t_off - band + threads * S
+    _most, blocks = rows_bounds(S, threads)
+    share = min(_SM_SMEM // blocks - 1024, _SMEM_OPTIN_BYTES) - _ROWS_STATIC_SMEM
+    win = R
+    if _round16(R + 1) + _round16(fixed + R) > share:
+        win = (share - fixed - 32) // 32 * 16
+    return win, _round16(win + 1), t_off, _round16(fixed + win)
+
+
+def rows_pairs_per_sm(S: int, threads: int, R: int, band: int) -> int:
+    """Pairs resident on an SM, reckoned from kernel C's launch bounds (the
+    registers they leave a thread, rounded down to 8), its threads and its
+    shared memory."""
+    most, blocks = rows_bounds(S, threads)
+    regs = _SM_REGS // (blocks * most) // 8 * 8
+    _win, nq, _t_off, nt = rows_smem(R, band, S, threads)
+    return min(_SM_REGS // (min(regs, 255) * threads), _SM_THREADS // threads, 32,
+               _SM_SMEM // (nq + nt + _ROWS_STATIC_SMEM + 1024))
 
 
 def nw_align_rows(Q, T, qlens, tlens, *, mismatch, o1, e1, o2, e2, band, int16=False):
@@ -1525,7 +1567,7 @@ def nw_align_rows(Q, T, qlens, tlens, *, mismatch, o1, e1, o2, e2, band, int16=F
     device = Q.device
     _check("Q", Q, torch.uint8, 2, device)
     _check("T", T, torch.uint8, 2, device)
-    B, R = Q.shape
+    B = Q.shape[0]
     if T.shape[0] != B:
         raise ValueError("Q and T must have the same batch size")
     _check_lengths(qlens, tlens, B, device)
@@ -1535,8 +1577,10 @@ def nw_align_rows(Q, T, qlens, tlens, *, mismatch, o1, e1, o2, e2, band, int16=F
     if device.type == "cpu":
         return nw_align_rows_reference(Q, T, qlens, tlens, **kw)
     _require_cuda(device)
+    R = Q.shape[1]
     Wr = rows_width(band)
     S, threads = rows_plan(Wr)
+    win, nq, t_off, nt = rows_smem(R, band, S, threads)
     scores = torch.empty(B, dtype=torch.int32, device=device)
     tb = torch.empty((B, R + 1, Wr), dtype=torch.uint8, device=device)
     if B == 0:
@@ -1547,11 +1591,27 @@ def nw_align_rows(Q, T, qlens, tlens, *, mismatch, o1, e1, o2, e2, band, int16=F
         err = lib.nw_rows_sweep_launch(
             Q.data_ptr(), T.data_ptr(), qlens.data_ptr(), tlens.data_ptr(), scores.data_ptr(),
             tb.data_ptr(), B, R, T.shape[1], band, mismatch, o1, e1, o2, e2, int(int16), S,
-            threads, stream)
+            threads, win, nq, t_off, nt, stream)
     if err != 0:
         raise RuntimeError(f"nw_rows sweep launch failed with CUDA error {err}")
     LAUNCHES["nw_rows_sweep"] += 1
     return scores, tb
+
+
+def nw_rows_occupancy(R: int, band: int, two_piece: bool, int16: bool = False) -> dict:
+    """Registers per thread and resident pairs per SM of kernel C at a
+    launch shape, from the CUDA runtime (needs the card), beside
+    rows_pairs_per_sm's reckoning."""
+    S, threads = rows_plan(rows_width(band))
+    win, nq, _t_off, nt = rows_smem(R, band, S, threads)
+    regs, blocks = ctypes.c_int(), ctypes.c_int()
+    err = _library().nw_rows_occupancy(S, threads, int(two_piece), int(int16), int(win < R), nq + nt,
+                                       ctypes.byref(regs), ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"nw_rows occupancy query failed with CUDA error {err}")
+    return {"lanes_per_thread": S, "threads": threads, "window_rows": win, "regs_per_thread": regs.value,
+            "smem_per_block": nq + nt + _ROWS_STATIC_SMEM, "resident_pairs_per_sm": blocks.value,
+            "reckoned_pairs_per_sm": rows_pairs_per_sm(S, threads, R, band)}
 
 
 def nw_align_rows_reference(Q, T, qlens, tlens, *, mismatch, o1, e1, o2, e2, band, int16=False):

@@ -173,15 +173,55 @@ def wfa_run(Q, T, qlens, tlens, score_caps, *, mismatch, o1, e1, o2, e2, smax, b
     return _launch(Q, T, qlens, tlens, score_caps, **kw)
 
 
-def wfa_plan(Lq: int, Lt: int, band: int) -> tuple[int, int]:
-    """(threads per block, dynamic shared memory bytes) of a launch: threads
-    cover the 2 * band + 1 diagonals (at most 1,024, striding past that);
-    the pair's query and target are staged in shared memory when they fit
-    (0 bytes: read from device memory)."""
+@dataclass(frozen=True)
+class WfaPlan:
+    """How the wavefront kernel runs a batch: one block of `threads` threads
+    a pair.  route "rings": the rows the recurrences read back in shared
+    memory (ring_rows M, I/D one-piece, I/D two-piece; ring_bytes); route
+    "global": the history read back from device memory (ring_bytes 0).
+    staged: the query and target in stage_bytes of shared memory beside the
+    rings (else read from device memory)."""
+
+    route: str
+    staged: bool
+    threads: int
+    ring_rows: tuple[int, int, int]
+    ring_bytes: int
+    stage_bytes: int
+
+    @property
+    def smem_bytes(self) -> int:
+        return self.ring_bytes + self.stage_bytes
+
+
+def ring_rows(mismatch: int, o1: int, e1: int, o2: int, e2: int) -> tuple[int, int, int]:
+    """Rows of the lookback rings: M keeps max(x, o1 + e1, o2 + e2) + 1, I1
+    and D1 e1 + 1 each, I2 and D2 e2 + 1 each (0 one-piece)."""
+    M = history_rows(mismatch, o1, e1, o2, e2, 0, keep_history=False)
+    return M, e1 + 1, (e2 + 1) if o2 >= 0 else 0
+
+
+def wfa_plan(Lq: int, Lt: int, band: int, *, mismatch: int, o1: int, e1: int, o2: int,
+             e2: int) -> WfaPlan:
+    """The wavefront kernel's launch: threads cover the 2 * band + 1
+    diagonals (at most 1,024, striding past that).  The lookback rings (each
+    row the diagonals and a NULL16 column either side, int16) go to shared
+    memory when they fit, and the sequences beside them when both fit (each
+    rounded up to 16 bytes plus 16 of slack for the 8-byte reads); rings
+    alone next, then the history read back from device memory with the
+    sequences staged where they fit alone.  The rings need mismatch >= 1:
+    at 0 the M recurrence reads the row it writes, as only the history in
+    device memory gives it."""
     nd = 2 * band + 1
     threads = min(1024, -(-nd // 32) * 32)
-    stage = -(-Lq // 16) * 16 + -(-Lt // 16) * 16
-    return threads, (stage if stage <= _SMEM_STAGE_BYTES else 0)
+    rows = ring_rows(mismatch, o1, e1, o2, e2)
+    ring = nw_cuda._round16((rows[0] + 2 * rows[1] + 2 * rows[2]) * (nd + 2) * 2)
+    stage = nw_cuda._round16(Lq) + 16 + nw_cuda._round16(Lt) + 16
+    if mismatch >= 1 and ring <= _SMEM_STAGE_BYTES:
+        staged = ring + stage <= _SMEM_STAGE_BYTES
+        return WfaPlan("rings", staged, threads, rows, ring, stage if staged else 0)
+    staged = stage <= _SMEM_STAGE_BYTES
+    return WfaPlan("global", staged, threads, rows, 0, stage if staged else 0)
 
 
 def _launch(Q, T, qlens, tlens, score_caps, *, mismatch, o1, e1, o2, e2, smax, band,
@@ -197,7 +237,7 @@ def _launch(Q, T, qlens, tlens, score_caps, *, mismatch, o1, e1, o2, e2, smax, b
              for _ in range(5 if two else 3)]
     if B == 0:
         return scores, hists
-    threads, smem = wfa_plan(Lq, Lt, band)
+    plan = wfa_plan(Lq, Lt, band, mismatch=mismatch, o1=o1, e1=e1, o2=o2, e2=e2)
     lib = nw_cuda._library()
     h = [x.data_ptr() for x in hists] + [None] * (5 - len(hists))
     with torch.cuda.device(device):
@@ -205,7 +245,7 @@ def _launch(Q, T, qlens, tlens, score_caps, *, mismatch, o1, e1, o2, e2, smax, b
         err = lib.wfa_launch(
             Q.data_ptr(), T.data_ptr(), qlens.data_ptr(), tlens.data_ptr(), score_caps.data_ptr(),
             scores.data_ptr(), *h, B, Lq, Lt, band, rows, smax, mismatch, o1, e1, o2, e2,
-            threads, smem, stream,
+            plan.threads, plan.ring_bytes, int(plan.staged), plan.smem_bytes, stream,
         )
     if err != 0:
         raise RuntimeError(f"wfa launch failed with CUDA error {err}")
@@ -213,18 +253,21 @@ def _launch(Q, T, qlens, tlens, score_caps, *, mismatch, o1, e1, o2, e2, smax, b
     return scores, hists
 
 
-def wfa_occupancy(two_piece: bool, Lq: int, Lt: int, band: int) -> dict:
+def wfa_occupancy(Lq: int, Lt: int, band: int, *, mismatch: int, o1: int, e1: int, o2: int,
+                  e2: int) -> dict:
     """Registers per thread, shared memory per block and resident pairs per
-    SM of a launch shape (needs the card)."""
-    threads, smem = wfa_plan(Lq, Lt, band)
+    SM of a launch shape, with its plan (needs the card)."""
+    plan = wfa_plan(Lq, Lt, band, mismatch=mismatch, o1=o1, e1=e1, o2=o2, e2=e2)
     regs, blocks, static = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    err = nw_cuda._library().wfa_occupancy(int(two_piece), threads, smem, ctypes.byref(regs),
+    err = nw_cuda._library().wfa_occupancy(int(o2 >= 0), int(plan.route == "rings"), int(plan.staged),
+                                           plan.threads, plan.smem_bytes, ctypes.byref(regs),
                                            ctypes.byref(blocks), ctypes.byref(static))
     if err != 0:
         raise RuntimeError(f"wfa occupancy query failed with CUDA error {err}")
-    return {"regs_per_thread": regs.value, "smem_per_block": smem + static.value,
-            "resident_pairs_per_sm": blocks.value, "threads": threads,
-            "staged": bool(smem)}
+    return {"regs_per_thread": regs.value, "smem_per_block": plan.smem_bytes + static.value,
+            "resident_pairs_per_sm": blocks.value, "threads": plan.threads, "route": plan.route,
+            "staged": plan.staged, "ring_rows": list(plan.ring_rows), "ring_bytes": plan.ring_bytes,
+            "stage_bytes": plan.stage_bytes}
 
 
 def _valid(off, ks, ql, tl):

@@ -793,54 +793,84 @@ def test_walk_runs_equal_plain(cuda, kind, B, L, band, two_piece, run_max, run_l
         assert (cnt > run_max).any()
 
 
-def _wfa_pairs(rng, n, L, n_snp, indel):
+def _wfa_pairs(rng, n, L, n_snp, indel, n_frac=0.0, same=False):
     """n seeded pairs of length ~L with SNPs and an indel of up to `indel`
-    bases, an identical pair, and a zero-length row."""
+    bases (n_frac of the bases N, code 4; same: every target its query), an
+    identical pair, and a zero-length row."""
     qs, ts = [], []
     for k in range(n):
         q = rng.integers(0, 4, L).astype(np.uint8)
+        q[rng.random(L) < n_frac] = 4
         t = q.copy()
-        t[rng.integers(0, L, n_snp)] = rng.integers(0, 4, n_snp)
-        if indel and k % 2:
-            p = int(rng.integers(L // 4, L // 2))
-            t = np.delete(t, np.arange(p, p + 1 + k % indel))
-        elif indel:
-            t = np.insert(t, L // 2, rng.integers(0, 4, 1 + k % indel).astype(np.uint8))
+        if not same:
+            t[rng.integers(0, L, n_snp)] = rng.integers(0, 5 if n_frac else 4, n_snp)
+            if indel and k % 2:
+                p = int(rng.integers(L // 4, L // 2))
+                t = np.delete(t, np.arange(p, p + 1 + k % indel))
+            elif indel:
+                t = np.insert(t, L // 2, rng.integers(0, 4, 1 + k % indel).astype(np.uint8))
         qs.append(q)
         ts.append(t)
     return qs + [qs[0], np.zeros(0, np.uint8)], ts + [qs[0].copy(), np.zeros(0, np.uint8)]
 
 
+HEADLINE_PEN = (5, 8, 2, 24, 1)
+
+
 @pytest.mark.parametrize(
-    "n,L,n_snp,indel,band,smax,two_piece,keep",
+    "n,L,n_snp,indel,band,smax,two_piece,keep,pad,pen,n_frac,same,route",
     [
-        (6, 600, 8, 30, 63, 300, True, True),
-        (6, 600, 8, 30, 63, 300, True, False),  # score-only: the rolling rows
-        (6, 600, 8, 12, 63, 300, False, True),  # one-piece
-        (5, 800, 10, 40, 600, 400, True, True),  # 1,201 diagonals: threads stride
-        (3, 400, 8, 9, 48, 100, True, True),  # a cap stops a pair unfinished
-        # rows padded to 120,000 columns: too wide for shared memory (the
-        # pairs stay short: offsets past 32,767 saturate the int16 history)
-        (2, 3000, 15, 20, 31, 200, True, True),
+        (6, 600, 8, 30, 63, 300, True, True, 0, None, 0.0, False, "rings staged"),
+        (6, 600, 8, 30, 63, 300, True, False, 0, None, 0.0, False, "rings staged"),  # score-only
+        (6, 600, 8, 12, 63, 300, False, True, 0, None, 0.0, False, "rings staged"),  # one-piece
+        (6, 600, 8, 12, 63, 300, False, False, 0, None, 0.0, False, "rings staged"),
+        (5, 800, 10, 40, 600, 400, True, True, 0, None, 0.0, False, "rings staged"),  # threads stride
+        (3, 400, 8, 9, 48, 100, True, True, 0, None, 0.0, False, "rings staged"),  # a cap stops a pair
+        # rows padded to 120,000 columns: too wide for shared memory beside
+        # the rings (the pairs stay short: offsets past 32,767 saturate the
+        # int16 history)
+        (2, 3000, 15, 20, 31, 200, True, True, 120_000, None, 0.0, False, "rings"),
+        (2, 3000, 15, 20, 31, 200, True, False, 120_000, None, 0.0, False, "rings"),
+        # the staging boundary at band 255: rings 36,944 bytes, the sequences
+        # 194,464 bytes fit beside them, 194,496 do not
+        (3, 2000, 10, 20, 255, 150, True, True, 97_216, None, 0.0, False, "rings staged"),
+        (3, 2000, 10, 20, 255, 150, True, True, 97_232, None, 0.0, False, "rings"),
+        # the rings' boundary: 3,213 columns of 36 rows fit at band 1,605, not at 1,606
+        (3, 600, 8, 20, 1605, 150, True, True, 0, None, 0.0, False, "rings"),
+        (3, 600, 8, 20, 1606, 150, True, True, 0, None, 0.0, False, "global staged"),
+        (3, 600, 8, 20, 1606, 150, True, False, 120_000, None, 0.0, False, "global"),
+        # a long lookback (o2 + e2 = 41: a 42-row M ring), mismatch 0 (the
+        # global route), bands 0 and 15, N-rich pairs, identical pairs
+        (4, 900, 10, 40, 255, 300, True, True, 0, (5, 8, 2, 40, 1), 0.0, False, "rings staged"),
+        (4, 900, 10, 40, 255, 300, True, False, 0, (5, 8, 2, 40, 1), 0.0, False, "rings staged"),
+        (4, 300, 10, 6, 63, 200, True, True, 0, (0, 8, 2, 24, 1), 0.0, False, "global staged"),
+        (4, 300, 6, 0, 0, 100, True, True, 0, None, 0.0, False, "rings staged"),
+        (4, 300, 6, 8, 15, 120, False, True, 0, None, 0.0, False, "rings staged"),
+        (5, 1200, 20, 10, 255, 300, True, True, 0, None, 0.3, False, "rings staged"),
+        (3, 3000, 0, 0, 255, 20, True, True, 0, None, 0.05, True, "rings staged"),
+        (3, 3000, 0, 0, 255, 20, True, False, 0, None, 0.0, True, "rings staged"),
     ],
 )
-def test_wfa_kernel_equals_plain(cuda, n, L, n_snp, indel, band, smax, two_piece, keep):
-    """The wavefront kernel: scores and the whole history tensors (every row
-    a pair stepped, NULL16 past its end) exactly the plain version's."""
-    rng = np.random.default_rng(L + band + int(keep))
-    qs, ts = _wfa_pairs(rng, n, L, n_snp, indel)
+def test_wfa_kernel_equals_plain(cuda, n, L, n_snp, indel, band, smax, two_piece, keep, pad, pen,
+                                 n_frac, same, route):
+    """The wavefront kernel on each route of its planner: scores and the
+    whole history tensors (every row a pair stepped, NULL16 past its end),
+    or the score-only mode's rolling rows, exactly the plain version's."""
+    rng = np.random.default_rng(L + band + int(keep) + pad)
+    qs, ts = _wfa_pairs(rng, n, L, n_snp, indel, n_frac, same)
     Q, T, ql, tl = wfa.pack_batch(qs, ts)
-    if L == 3000:
-        Q = np.pad(Q, ((0, 0), (0, 120_000 - Q.shape[1])), constant_values=wfa.QPAD)
-        T = np.pad(T, ((0, 0), (0, 120_000 - T.shape[1])), constant_values=wfa.TPAD)
+    if pad:
+        Q = np.pad(Q, ((0, 0), (0, pad - Q.shape[1])), constant_values=wfa.QPAD)
+        T = np.pad(T, ((0, 0), (0, pad - T.shape[1])), constant_values=wfa.TPAD)
     caps = np.full(len(qs), smax, np.int32)
-    if smax == 100:
+    if smax == 100 and band:
         caps[0] = 20
     args = [torch.from_numpy(a).to(cuda) for a in (Q, T, ql, tl, caps)]
-    kw = dict(mismatch=5, o1=8, e1=2, o2=24 if two_piece else -1, e2=1 if two_piece else -1,
+    x, o1, e1, o2, e2 = pen or HEADLINE_PEN
+    kw = dict(mismatch=x, o1=o1, e1=e1, o2=o2 if two_piece else -1, e2=e2 if two_piece else -1,
               smax=smax, band=band, keep_history=keep)
-    staged = wfa.wfa_plan(Q.shape[1], T.shape[1], band)[1] > 0
-    assert staged == (L != 3000)
+    plan = wfa.wfa_plan(Q.shape[1], T.shape[1], band, **{k: kw[k] for k in ("mismatch", "o1", "e1", "o2", "e2")})
+    assert f"{plan.route}{' staged' if plan.staged else ''}" == route
     before = dict(nw_cuda.LAUNCHES)
     s_k, h_k = wfa.wfa_run(*args, **kw)
     torch.cuda.synchronize()
@@ -849,8 +879,11 @@ def test_wfa_kernel_equals_plain(cuda, n, L, n_snp, indel, band, smax, two_piece
     s_p, h_p = wfa.wfa_align_reference(*args, **kw)
     assert torch.equal(s_k, s_p)
     assert int(s_k[-1]) == 0 and int(s_k[-2]) == 0  # the zero-length and identical pairs
-    assert (s_k[:-2] > 0).sum() >= 1
-    if smax == 100:
+    if same:
+        assert (s_k == 0).all()
+    elif band:
+        assert (s_k[:-2] > 0).sum() >= 1
+    if smax == 100 and band:
         assert int(s_k[0]) == -1
     for a, b in zip(h_k, h_p):
         assert torch.equal(a, b)
@@ -1006,25 +1039,43 @@ def test_walk_start_on_random_cursors_equals_plain(cuda):
 
 
 @pytest.mark.parametrize(
-    "B,L,band,two_piece,int16,pen2",
+    "B,L,band,two_piece,int16,pen2,sm_smem",
     [
-        (8, 300, 63, True, False, None),
-        (8, 300, 63, True, True, None),
-        (8, 600, 511, False, False, None),  # Wr 1023: 4 lanes, 256 threads
-        (6, 800, 1535, True, False, None),  # Wr 3071: 8 lanes
-        (4, 700, 4095, True, True, None),  # Wr 8191: 16 lanes, 512 threads
-        (3, 500, 5000, True, False, None),  # Wr 10001: 16 lanes, 640 threads
-        (8, 300, 127, True, True, 3000),  # int16 adds that wrap
+        (8, 300, 63, True, False, None, None),
+        (8, 300, 63, True, True, None, None),
+        (8, 600, 511, False, False, None, None),  # Wr 1023: 8 lanes, 128 threads
+        (7, 600, 511, True, False, None, None),
+        (7, 600, 511, True, True, None, None),
+        (5, 600, 512, True, False, None, None),  # Wr 1025: 8 lanes, 160 threads
+        (6, 800, 1535, True, False, None, None),  # Wr 3071: 8 lanes, 384 threads
+        (3, 700, 2047, True, False, None, None),  # Wr 4095: 8 lanes, 512 threads
+        (3, 700, 2048, False, True, None, None),  # Wr 4097: 16 lanes, 288 threads
+        (4, 700, 4095, True, True, None, None),  # Wr 8191: 16 lanes, 512 threads
+        (3, 500, 4096, True, False, None, None),  # Wr 8193: 16 lanes, 544 threads
+        (3, 500, 5000, True, False, None, None),  # Wr 10001: 16 lanes, 640 threads
+        (8, 300, 127, True, True, 3000, None),  # int16 adds that wrap
+        # rows staged a window at a time: past the share that keeps five
+        # pairs an SM (R 22,784 at Wr 63: two windows of up to 21,920), and
+        # with less shared memory an SM in the planner, many windows
+        (3, 22600, 31, True, False, None, None),
+        (7, 600, 511, True, False, None, 19400),  # six 128-row windows
+        (7, 600, 511, True, True, None, 19400),
+        (5, 300, 95, False, False, None, 15700),  # four 144-row windows
+        (3, 700, 2048, True, False, None, 7760),  # 16 lanes, 288 threads: 272-row windows
     ],
 )
-def test_rows_kernels_equal_plain(cuda, B, L, band, two_piece, int16, pen2):
+def test_rows_kernels_equal_plain(cuda, monkeypatch, B, L, band, two_piece, int16, pen2, sm_smem):
     """Kernels C and D: scores, the whole row-major traceback, the steps,
     the gap list and its count exactly the plain versions'."""
+    if sm_smem is not None:
+        monkeypatch.setattr(nw_cuda, "_SM_SMEM", sm_smem)
     rng = np.random.default_rng(band + B)
     qs, ts = _variants(rng, B, L, band, 0.0)
     (Q, T, ql, tl), _tmax = _pack(qs, ts, cuda)
     kw = dict(mismatch=5, o1=8, e1=2, o2=(pen2 or 24) if two_piece else -1,
               e2=1 if two_piece else -1, band=band)
+    if L > 20000 or sm_smem is not None:
+        assert nw_cuda.rows_smem(Q.shape[1], band, *nw_cuda.rows_plan(2 * band + 1))[0] < Q.shape[1]
     before = dict(nw_cuda.LAUNCHES)
     s_k, tb_k = nw_cuda.nw_align_rows(Q, T, ql, tl, int16=int16, **kw)
     walk_k = nw_cuda.nw_walk_rows(tb_k, ql, tl, band=band)
@@ -1036,6 +1087,14 @@ def test_rows_kernels_equal_plain(cuda, B, L, band, two_piece, int16, pen2):
     walk_p = nw_cuda.nw_walk_rows_reference(tb_k, ql, tl, band=band)
     for a, b in zip(walk_k, walk_p):
         assert torch.equal(a, b)
+
+
+def test_rows_occupancy_fills_card_in_one_wave(cuda):
+    """At the rows run's main shape [Wr 1023, R 3,584] kernel C keeps five
+    pairs on an SM, as its plan reckons."""
+    occ = nw_cuda.nw_rows_occupancy(3584, 511, True)
+    assert occ["resident_pairs_per_sm"] >= 5
+    assert occ["resident_pairs_per_sm"] == occ["reckoned_pairs_per_sm"]
 
 
 @pytest.mark.parametrize("gap_max", [1, 3, 160])

@@ -4,6 +4,9 @@
   can dispatch: within the card's limits (1,024 threads, 232,448 bytes of
   shared memory a block), and every pair and every lane covered exactly
   once.
+* ``rows_plan`` (kernel C) for every width it takes, and ``wfa_plan`` (the
+  wavefront kernel): its lookback rings from the penalties and the route
+  boundaries in band, lookback and sequence length.
 * Which launch sites fetch kernel B's run tokens and which its opcodes.
 * The walk kernel's tile (ops/csrc/nw_walk.cu): on seeded pairs run through
   the plain versions, the walk's cursor moves by at most one lane per
@@ -18,7 +21,7 @@ import torch
 
 from seqrush_tpu_torch.align import anchored, sweep
 from seqrush_tpu_torch.align.runner import RunnerConfig, WfaAligner
-from seqrush_tpu_torch.ops import nw, nw_cuda
+from seqrush_tpu_torch.ops import nw, nw_cuda, wfa
 from seqrush_tpu_torch.ops.nw import OP_D, OP_I, OP_M, _i0_of
 from seqrush_tpu_torch.sequences import make_sequence_set
 
@@ -216,6 +219,115 @@ def test_shard_plan_choices():
         nw_cuda.nw_align_sharded_at(["cpu"], *[torch.zeros(1, 8, dtype=torch.uint8)] * 2,
                                     *[torch.zeros(1, dtype=torch.int32)] * 2, cluster=3, mismatch=5, o1=8,
                                     e1=2, o2=24, e2=1, band=7, tmax=8)
+
+
+def test_rows_plan_covers_each_lane_once():
+    """Kernel C's strip for every width from 1 to the widest: each lane on
+    one thread (thread r owns [r * S, r * S + S)), no warp without a real
+    lane, an instantiation that takes it within the card's limits; at the
+    rows run's main width, Wr 1,023, five pairs resident an SM as the launch
+    bounds, threads and shared memory reckon it (576 pairs in one wave on
+    132 SMs)."""
+    for Wr in range(1, nw_cuda.ROWS_MAX_LANES + 1):
+        S, threads = nw_cuda.rows_plan(Wr)
+        most, _blocks = nw_cuda.rows_bounds(S, threads)
+        assert threads % 32 == 0 and threads <= min(most, MAX_THREADS)
+        assert threads * S >= Wr > (threads - 32) * S
+        if Wr in (1, 2, 95, 1023, 1024, 1025, 4095, 4096, 4097, 8193, nw_cuda.ROWS_MAX_LANES):
+            owner = np.arange(threads * S) // S
+            cover = np.bincount(owner[:Wr], minlength=threads)
+            assert cover.sum() == Wr and (cover[: Wr // S] == S).all()
+    with pytest.raises(ValueError):
+        nw_cuda.rows_plan(nw_cuda.ROWS_MAX_LANES + 1)
+    S, threads = nw_cuda.rows_plan(1023)
+    assert (S, threads) == (8, 128) and nw_cuda.rows_bounds(S, threads) == (128, 5)
+    assert nw_cuda.rows_pairs_per_sm(S, threads, 3584, 511) >= -(-576 // 132) == 5
+    win, nq, t_off, nt = nw_cuda.rows_smem(3584, 511, S, threads)
+    assert win == 3584 and nq + nt <= MAX_SMEM and t_off >= 512 and nt >= t_off - 511 + threads * S + 3584
+
+
+@pytest.mark.parametrize("Wr", [1, 1023, 1025, 4097, nw_cuda.ROWS_MAX_LANES])
+def test_rows_window_keeps_pairs_resident(Wr):
+    """Kernel C stages a pair's rows whole while they fit the share of an
+    SM's shared memory that keeps its launch bound's pairs resident, and a
+    window of rows (a multiple of 16) past that, so no query length is too
+    long and the pairs an SM never drop below the launch bound's; the
+    boundary is where the whole rows stop fitting."""
+    band = (Wr - 1) // 2
+    S, threads = nw_cuda.rows_plan(Wr)
+    _most, blocks = nw_cuda.rows_bounds(S, threads)
+    static = nw_cuda._ROWS_STATIC_SMEM
+
+    def fits(R):
+        win, nq, t_off, nt = nw_cuda.rows_smem(R, band, S, threads)
+        w = min(win, R)
+        assert t_off % 16 == 0 and t_off >= band + 1 and nq % 16 == 0 and nt % 16 == 0
+        assert nq >= w + 1 and nt >= t_off - band + threads * S + w
+        assert nq + nt + static <= MAX_SMEM and blocks * (nq + nt + static + 1024) <= 233472
+        assert nw_cuda.rows_pairs_per_sm(S, threads, R, band) >= min(blocks, nw_cuda.rows_pairs_per_sm(S, threads, 1, band))
+        if win < R:
+            assert win % 16 == 0 and win >= 4096
+        return win >= R
+
+    lo, hi = 0, 1 << 20
+    assert fits(lo) and fits(3584) and not fits(hi)
+    while hi - lo > 1:  # the longest query staged whole
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid)
+    assert all(fits(R) for R in range(max(0, lo - 40), lo + 1))
+    assert not any(fits(R) for R in (hi, hi + 1, hi + 17, 3 * hi, 1 << 22))
+    if blocks == 5:
+        assert 20000 < lo < 23000  # Wr <= 1,024: about 21,500-21,900 rows whole
+
+
+HEADLINE_PEN = dict(mismatch=5, o1=8, e1=2, o2=24, e2=1)
+
+
+@pytest.mark.parametrize("pen,rows", [
+    (HEADLINE_PEN, (26, 3, 2)),
+    (dict(mismatch=5, o1=8, e1=2, o2=-1, e2=-1), (11, 3, 0)),  # one-piece
+    (dict(mismatch=5, o1=8, e1=2, o2=40, e2=1), (42, 3, 2)),  # a long lookback
+    (dict(mismatch=30, o1=4, e1=3, o2=9, e2=2), (31, 4, 3)),  # the mismatch the deepest
+])
+def test_wfa_plan_rings_from_penalties(pen, rows):
+    """The wavefront kernel's rings: M keeps its deepest lookback plus one
+    rows, I and D their extend plus one, as int16 rows of the diagonals and
+    a NULL16 column either side, rounded up to 16 bytes."""
+    plan = wfa.wfa_plan(3648, 3648, 255, **pen)
+    assert plan.ring_rows == rows == wfa.ring_rows(**pen)
+    assert plan.ring_bytes == -(-(rows[0] + 2 * rows[1] + 2 * rows[2]) * 513 * 2 // 16) * 16
+    assert plan.route == "rings" and plan.staged and plan.smem_bytes <= MAX_SMEM - 1024
+    assert plan.stage_bytes == 2 * (3648 + 16)
+
+
+def test_wfa_plan_route_boundaries():
+    """Where the rings and the staged sequences stop fitting a block's
+    shared memory: in sequence length, band and lookback; and mismatch 0,
+    whose M reads the row it writes, on the history in device memory."""
+    def route(Lq, band, **pen):
+        p = wfa.wfa_plan(Lq, Lq, band, **{**HEADLINE_PEN, **pen})
+        assert p.smem_bytes <= MAX_SMEM - 1024
+        return p.route, p.staged
+
+    # sequence length at band 255: 36,944 bytes of rings, then 2 x (L + 16)
+    assert route(97_216, 255) == ("rings", True)
+    assert route(97_232, 255) == ("rings", False)
+    # band: 36 rows of 2 * band + 3 int16 columns
+    assert route(600, 1605) == ("rings", False)
+    assert route(600, 1606) == ("global", True)
+    assert route(200_000, 1606) == ("global", False)
+    assert route(600, 1500) == ("rings", True)
+    # lookback at band 600 (1,203 columns): 95 rows fit beside the
+    # sequences, 96 alone, 97 not at all
+    assert route(600, 600, o2=83, e2=1) == ("rings", True)
+    assert route(600, 600, o2=84, e2=1) == ("rings", False)
+    assert route(600, 600, o2=85, e2=1) == ("global", True)
+    assert wfa.wfa_plan(600, 600, 600, **{**HEADLINE_PEN, "o2": 84}).ring_rows == (86, 3, 2)
+    # mismatch 0
+    assert route(600, 63, mismatch=0) == ("global", True)
+    # threads: a warp at band 0, 1,024 (striding) past 511
+    assert wfa.wfa_plan(100, 100, 0, **HEADLINE_PEN).threads == 32
+    assert wfa.wfa_plan(100, 100, 600, **HEADLINE_PEN).threads == 1024
 
 
 def test_register_route_penalties():

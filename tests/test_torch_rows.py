@@ -195,11 +195,12 @@ def test_sweep_rows_runs():
         WfaAligner(make_sequence_set(named), RunnerConfig(sweep="cols"), device="cpu")
 
 
-@pytest.mark.parametrize("Wr,plan", [(95, (4, 32)), (1023, (4, 256)), (2049, (8, 288)),
+@pytest.mark.parametrize("Wr,plan", [(95, (8, 32)), (1023, (8, 128)), (2049, (8, 288)),
                                      (3071, (8, 384)), (8191, (16, 512)), (10001, (16, 640))])
 def test_rows_plan(Wr, plan):
-    """Kernel C's launch shape: the fewest lanes a thread that keep a block at
-    512 threads, 16 lanes on up to 1,024 threads past that."""
+    """Kernel C's launch shape: 8 lanes a thread up to 4,096 lanes (at most
+    128 threads up to 1,024, five pairs an SM), 16 lanes on up to 1,024
+    threads past that."""
     assert nw_cuda.rows_plan(Wr) == plan
     S, threads = plan
     assert threads % 32 == 0 and S * threads >= Wr

@@ -299,11 +299,98 @@ def test_take_batch_splits_at_the_budget_as_jax():
     assert out_p == out_j and len(out_p) > 1
 
 
+HEADLINE = dict(mismatch=5, o1=8, e1=2, o2=24, e2=1)
+
+
 def test_wfa_launch_plan():
     """Threads cover the diagonals (at most 1,024, striding past that); the
-    sequences are staged in shared memory only where they fit."""
-    assert wfa.wfa_plan(3648, 3648, 255) == (512, 7296)
-    assert wfa.wfa_plan(3648, 3648, 600)[0] == 1024
-    assert wfa.wfa_plan(120_064, 120_064, 31) == (64, 0)
-    assert wfa.wfa_plan(100, 100, 0) == (32, 224)
+    lookback rings and the sequences go to shared memory where they fit."""
+    plan = wfa.wfa_plan(3648, 3648, 255, **HEADLINE)
+    assert plan == wfa.WfaPlan("rings", True, 512, (26, 3, 2), 36944, 7328)
+    assert plan.smem_bytes == 36944 + 7328
+    assert wfa.wfa_plan(3648, 3648, 600, **HEADLINE).threads == 1024
+    assert wfa.wfa_plan(120_064, 120_064, 31, **HEADLINE) == wfa.WfaPlan("rings", False, 64, (26, 3, 2),
+                                                                           4688, 0)
+    assert wfa.wfa_plan(100, 100, 0, **HEADLINE) == wfa.WfaPlan("rings", True, 32, (26, 3, 2), 224, 256)
     assert "wfa" in nw_cuda.LAUNCHES and "wfa_score_only" in nw_cuda.LAUNCHES
+
+
+def _staged(row: np.ndarray, pad: int) -> bytes:
+    """A row as the kernel stages it: rounded up to 16 bytes plus 16 of
+    slack, the rest filled with pad."""
+    n = -(-row.size // 16) * 16 + 16
+    return row.tobytes() + bytes([pad]) * (n - row.size)
+
+
+def _blocked_extend(h, k, q: bytes, t: bytes, ql, tl):
+    """The kernel's greedy extension (csrc/wfa.cu::wfa_extend), modelled: 8
+    bases a compare, each operand from two aligned 8-byte words and a shift,
+    the first differing base from the xor's lowest set bit, the run capped
+    at min(tl, h + (ql - v))."""
+
+    def load8(buf, i):
+        base, sh = i & ~7, (i & 7) * 8
+        w0 = int.from_bytes(buf[base : base + 8], "little")
+        if not sh:
+            return w0
+        w1 = int.from_bytes(buf[base + 8 : base + 16], "little")
+        return ((w0 >> sh) | (w1 << (64 - sh))) & (2**64 - 1)
+
+    v = h - k
+    lim = min(tl - h, ql - v)
+    n = 0
+    while n < lim:
+        diff = load8(t, h + n) ^ load8(q, v + n)
+        if diff:
+            n += ((diff & -diff).bit_length() - 1) >> 3
+            break
+        n += 8
+    return h + min(n, lim)
+
+
+def _extension_pairs(rng):
+    """Seeded pairs with N codes, runs that end at either sequence's end (a
+    prefix of the other, in both orders), identical sequences, a pair of
+    nothing but N and one empty query."""
+    base = rng.integers(0, 5, 700).astype(np.uint8)
+    snp = base.copy()
+    snp[rng.integers(0, 700, 9)] = rng.integers(0, 5, 9)
+    return [(base, snp), (base[:450], base), (base, base[:333]), (base, base.copy()),
+            (np.full(77, 4, np.uint8), np.full(91, 4, np.uint8)), (np.zeros(0, np.uint8), base[:40]),
+            (rng.integers(0, 4, 500).astype(np.uint8), rng.integers(0, 4, 530).astype(np.uint8))]
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_blocked_extension_equals_byte_loop(seed):
+    """The kernel's 8-byte extension, modelled in Python on staged copies
+    of the rows, gives the port's byte loop (ops/wfa.py::_extend) offset for
+    offset on every real cell of every diagonal, whatever the pads hold."""
+    rng = np.random.default_rng(seed)
+    pairs = _extension_pairs(rng)
+    band = 40
+    Q, T, ql, tl = wfa.pack_batch([q for q, _ in pairs], [t for _, t in pairs])
+    ks = np.arange(-band, band + 1)
+    M = np.full((len(pairs), ks.size), wfa.NULL, np.int64)
+    for b in range(len(pairs)):
+        for j, k in enumerate(ks):
+            lo, hi = max(0, int(k)), min(int(tl[b]), int(ql[b]) + int(k))
+            if lo <= hi:
+                M[b, j] = rng.integers(lo, hi + 1) if rng.random() < 0.7 else lo
+    ref = wfa._extend(torch.from_numpy(M), torch.from_numpy(ks)[None, :], torch.from_numpy(Q),
+                      torch.from_numpy(T), torch.from_numpy(ql.astype(np.int64))[:, None],
+                      torch.from_numpy(tl.astype(np.int64))[:, None]).numpy()
+    runs = 0
+    for b, (q, t) in enumerate(pairs):
+        # the kernel's staged rows, the bare sequences with the packing's
+        # pads, and with pads that match each other: the cap, not the pads,
+        # ends a run at a sequence's end
+        for staged_q, staged_t in ((_staged(Q[b], 0xFF), _staged(T[b], 0xFE)),
+                                   (_staged(q, wfa.QPAD), _staged(t, wfa.TPAD)),
+                                   (_staged(q, 0), _staged(t, 0))):
+            for j, k in enumerate(ks):
+                if M[b, j] == wfa.NULL:
+                    continue
+                got = _blocked_extend(int(M[b, j]), int(k), staged_q, staged_t, int(ql[b]), int(tl[b]))
+                assert got == ref[b, j], (b, int(k))
+                runs += got - M[b, j] >= 8
+    assert runs > 0
