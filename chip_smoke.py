@@ -113,12 +113,16 @@ Phases (any failure exits non-zero and prints no ok line):
      the default (the runner's seconds), each option's kernels launched,
      every score the default run's, the records' sha256 and the counters
      the JAX package's (VARIANT_DIGESTS; the fold options on wfa_subset());
-     kernel A's int16 and snapshot modes, kernel B's start mode and the
-     row-major kernels C and D against their plain versions on every chunk
-     those runs launched them on, timed on the first such run's largest
-     chunk (kernel C with its plan, its pairs resident an SM and its
-     microseconds a row, beside the first design's time), with the fold's
-     combine timed between its kernels; and
+     kernel A's int16 mode (the packed s16x2 sweep where the planner gives
+     it twins) and snapshot mode, kernel B's start mode and the row-major
+     kernels C and D against their plain versions on every chunk those
+     runs launched them on, timed on the first such run's largest chunk
+     (the int16 mode in turns with the int32 mode and the int32 body's
+     int16 mode, with its plan, registers, local bytes and twins an SM;
+     kernel C with its plan, its pairs resident an SM and its microseconds
+     a row; kernel D with its registers and pairs an SM; each beside the
+     first design's time), with the fold's combine timed between its
+     kernels; and
      int16 retries forced with a lowered INT16_CUTOFF;
  10. band_tiling='auto' (see run_phase10): the 600 pairs on the full wide
      route untiled and tiled, in turns (the runner's seconds), the tiled
@@ -208,11 +212,11 @@ reads nothing later).  The tiled mode is charged the sweep's instructions
 for each pair's cells at its own lanes (W, or n_tiles * W for a wide pair)
 and its whole tile-row traceback.  The int16 mode is charged half the sweep's 37
 instructions and 11 minima a cell: its values fit 16-bit lanes, and the
-packed s16x2 forms (__viaddmin_s16x2 adds and clamps with the int16 wrap,
-__vimin3_s16x2 and __vibmin_s16x2 take minima and their compare bits) do
-two lanes an instruction at the same rates; the keys of H's choice need 19
-bits and would not pack as keys, so this is a floor below what a packed
-kernel could reach.  A segment launch is charged
+packed s16x2 forms (__viaddmin_u16x2, __vimin3_u16x2) do two lanes an
+instruction at the same rates; the packed sweep (nw_sweep_i16.cu) takes H's
+choice and the opened bits without the int32 body's 19-bit keys, at more
+instructions a twin's cell than half of 37, so this is a floor below what
+it reaches.  A segment launch is charged
 the same instructions for the cells its pairs need in its anti-diagonals,
 its traceback rows [B, seg, W] (full mode), the carry read and written (2 x
 24 bytes a lane) and its windows of the operands; a segment walk its steps,
@@ -240,6 +244,7 @@ import numpy as np
 import torch
 
 from seqrush_tpu_torch.tools.headline import SCORES, WFA_BAND_SLACK, synth_hla
+from seqrush_tpu_torch.tools.sweep_shapes import device_ms
 
 HBM_BYTES_PER_S = 3.35e12
 ISSUE_OPS_PER_S = 33.5e12  # 32-bit lane instructions of any kind
@@ -1089,6 +1094,16 @@ def run(work: Path, name: str, smi: str, ptxas: list[str]) -> int:
     return 0
 
 LONG_KERNELS = ("nw_sweep_segment_score_only", "nw_sweep_segment_group", "nw_walk_segment_group")
+
+
+def ptxas_spills(ptxas: list[str], kernel: str) -> int | None:
+    """Spill-store bytes of one kernel from ptxas_summary's lines (None when
+    there is no log)."""
+    for line in ptxas:
+        m = re.match(r"(.*?): \d+ registers.*?(\d+) bytes spill stores", line)
+        if m and m.group(1) == kernel:
+            return int(m.group(2))
+    return None
 
 
 def ptxas_registers(ptxas: list[str], kernel: str) -> int | None:
@@ -2091,7 +2106,8 @@ def run_phase8(smi: str, ptxas: list[str], ctx: dict) -> list[dict]:
          "launches": wl["wfa"], "launches_path": "WfaAligner(kernel='wfa'), 600 headline pairs",
          "max_abs_err": err_w, "ms": carrier["ms"], "plain_ms": carrier["plain_ms"],
          "bound_ms": carrier["bound_ms"], "bound_by": carrier["bound_by"], "library_ms": None,
-         "regs_per_thread": ptxas_registers(ptxas, wfa_name), **occ,
+         "regs_per_thread": ptxas_registers(ptxas, wfa_name),
+         **{("plan_route" if k == "route" else k): v for k, v in occ.items()},
          "shape": carrier["shape"], "serial_score_steps": carrier["steps"], "us_per_step": carrier["us_per_step"],
          "batches": per_batch, "launches_ms": sum(e["ms"] for e in per_batch), "cigars_checked": n_cigars,
          "route_wall_s": wall, "tolerance": 0},
@@ -2112,8 +2128,11 @@ def run_phase8(smi: str, ptxas: list[str], ctx: dict) -> list[dict]:
 # byte-wise extension (its 9 launches on the 600 pairs, and the score-only
 # mode on the first batch [256, 256 steps]), kernel C with two barriers a
 # row at 4 lanes x 256 threads on the rows run's largest chunk [576, R
-# 3,584, Wr 1,023]
-EARLIER_MS = {"wfa_launches": 38.6, "wfa_score_only": 1.6388, "nw_rows_sweep": 10.9157}
+# 3,584, Wr 1,023], kernel A's int16 mode on the int32 body at the int16
+# run's chunk [576, W 512, tmax 7,168], and kernel D reading two or three
+# bytes a row from device memory on the rows run's largest chunk
+EARLIER_MS = {"wfa_launches": 38.6, "wfa_score_only": 1.6388, "nw_rows_sweep": 10.9157,
+              "nw_sweep_int16": 7.6808, "nw_rows_walk": 1.9607}
 
 ROWS_OPS_PER_CELL = 35
 ROWS_MIN_OPS_PER_CELL = 10
@@ -2262,21 +2281,41 @@ def run_phase9(smi: str, ptxas: list[str], ctx: dict) -> list[dict]:
         if err:
             raise AssertionError("kernel A's int16 mode disagrees with its plain version")
         if rank == 0:
+            B_, Lq, Lt = Q.shape[0], Q.shape[1], T.shape[1]
+            plan = nw_cuda.plan_sweep_i16(B_, W, Lq, Lt)
+            body = nw_cuda.plan_sweep(B_, W, Lq, Lt)
+            # in turns: the packed sweep (the planner's), the int32 mode, the
+            # int32 body's int16 mode (the earlier design, still built for
+            # the dispatches the planner gives it), the packed sweep again
             ms = cuda_ms(lambda: nw_cuda.nw_align(Q, T, ql, tl, **kw), REPS)
             int32_ms = cuda_ms(lambda: nw_cuda.nw_align(Q, T, ql, tl, **dict(kw, int16=False)), REPS)
+            body_ms = cuda_ms(lambda: nw_cuda.sweep_launch(Q, T, ql, tl, body, **kw), REPS)
+            ms2 = cuda_ms(lambda: nw_cuda.nw_align(Q, T, ql, tl, **kw), REPS)
             cells = int((ql + tl).to(torch.int64).sum().item()) * W
-            b = bound(Q.numel() + T.numel() + 12 * Q.shape[0] + tb_k.numel(), cells * INT16_OPS_PER_CELL,
+            b = bound(Q.numel() + T.numel() + 12 * B_ + tb_k.numel(), cells * INT16_OPS_PER_CELL,
                       cells * INT16_MIN_OPS_PER_CELL)
-            b32 = bound(Q.numel() + T.numel() + 12 * Q.shape[0] + tb_k.numel(), cells * SWEEP_OPS_PER_CELL,
+            b32 = bound(Q.numel() + T.numel() + 12 * B_ + tb_k.numel(), cells * SWEEP_OPS_PER_CELL,
                         cells * SWEEP_MIN_OPS_PER_CELL)
-            plan = nw_cuda.plan_sweep(Q.shape[0], W, Q.shape[1], T.shape[1])
+            occ = nw_cuda.sweep_occupancy(plan, W, pen["o2"] >= 0)
+            name = (f"nw_sweep_i16<{plan.lanes}, two-piece, traceback>" if plan.route == "twins"
+                    else f"nw_sweep_regs<{plan.lanes}, two-piece, traceback>")
             out["nw_sweep_int16"] = {
-                "shape": {"B": Q.shape[0], "W": W, "tmax": tmax}, "ms": ms, "plain_ms": plain_ms,
-                "int32_ms": int32_ms, **b, "int32_bound_ms": b32["bound_ms"], "max_abs_err": err,
-                "launches": runs["int16"][2]["nw_sweep_int16"], "launches_path": "dp_dtype='int16'",
-                "ptxas": ptxas_registers(ptxas, f"nw_sweep_regs<{plan.lanes}, two-piece, traceback>")}
-            print(f"  timed: {ms:.4f} ms (int32 mode {int32_ms:.4f}; bound {b['bound_ms']:.4f} at the packed "
-                  f"s16x2 rate, the int32 mode's {b32['bound_ms']:.4f}; plain {plain_ms:.1f}) | {smi}")
+                "shape": {"B": B_, "W": W, "tmax": tmax}, "ms": ms, "ms_again": ms2, "plain_ms": plain_ms,
+                "int32_ms": int32_ms, "int32_body_int16_ms": body_ms, **b, "int32_bound_ms": b32["bound_ms"],
+                "max_abs_err": err, "launches": runs["int16"][2]["nw_sweep_int16"],
+                "launches_path": "dp_dtype='int16'", "plan_route": plan.route, "lanes_per_thread": plan.lanes,
+                "warps_per_twin": plan.warps_per_pair, "regs_per_thread": occ["regs_per_thread"],
+                "ptxas": ptxas_registers(ptxas, name), "spill_bytes": ptxas_spills(ptxas, name),
+                "local_bytes_per_thread": occ.get("local_bytes_per_thread"),
+                "resident_twins_per_sm": occ.get("resident_twins_per_sm"),
+                **({k: v for k, v in nw_cuda.twins_reckoning(plan, B_, occ["resident_blocks_per_sm"]).items()
+                    if k != "resident_blocks_per_sm"} if plan.route == "twins" else {})}
+            print(f"  timed: {ms:.4f} / {ms2:.4f} ms, {plan.route} {plan.lanes} lanes x {plan.warps_per_pair} warps, "
+                  f"{occ['regs_per_thread']} registers, {occ.get('local_bytes_per_thread')} local bytes, "
+                  f"{occ.get('resident_twins_per_sm')} twins an SM (the first design's, an earlier tree's run: "
+                  f"{EARLIER_MS['nw_sweep_int16']}; the int32 body's int16 mode in this run {body_ms:.4f}; "
+                  f"int32 mode {int32_ms:.4f}; bound {b['bound_ms']:.4f} at the packed s16x2 rate, the int32 "
+                  f"mode's {b32['bound_ms']:.4f}; plain {plain_ms:.1f}) | {smi}")
         del tb_k
         torch.cuda.empty_cache()
 
@@ -2386,6 +2425,11 @@ def run_phase9(smi: str, ptxas: list[str], ctx: dict) -> list[dict]:
                   f"{Q.shape[0]} pairs on {torch.cuda.get_device_properties(0).multi_processor_count} SMs)")
             ms_c = cuda_ms(lambda: nw_cuda.nw_align_rows(Q, T, ql, tl, **kw), REPS)
             ms_d = cuda_ms(lambda: nw_cuda.nw_walk_rows(tb_k, ql, tl, band=d["band"]), REPS)
+            # beside it kernel D's own time from the profiler: about 0.1 ms,
+            # near the host's time to issue a call, which cuda_ms counts too
+            dev_d_ms = device_ms(lambda: nw_cuda.nw_walk_rows(tb_k, ql, tl, band=d["band"]),
+                                 "nw_rows_walk_kernel", REPS)
+            occ_d = nw_cuda.rows_walk_occupancy(min(nw.GAP_MAX, Q.shape[1] + 1))
             cells = int((ql.to(torch.int64) + 1).sum().item()) * Wr
             b_c = bound(Q.numel() + T.numel() + 12 * Q.shape[0] + tb_k.numel(), cells * ROWS_OPS_PER_CELL,
                         cells * ROWS_MIN_OPS_PER_CELL)
@@ -2402,13 +2446,20 @@ def run_phase9(smi: str, ptxas: list[str], ctx: dict) -> list[dict]:
                 "ptxas": ptxas_registers(ptxas, f"nw_rows_sweep_kernel<{S}, two-piece, int32, {most} threads, "
                                                 f"{blocks} blocks>")}
             out["nw_rows_walk"] = {
-                "shape": shape, "ms": ms_d, "plain_ms": plain_d_ms, **b_d, "max_abs_err": err_d,
+                "shape": shape, "ms": ms_d, "device_ms": dev_d_ms, "plain_ms": plain_d_ms, **b_d, "max_abs_err": err_d,
                 "launches": runs["rows"][2]["nw_rows_walk"], "launches_path": "sweep='rows'",
                 "gap_lists_over_gap_max": int((walk_k[3] > nw.GAP_MAX).sum()),
-                "ptxas": ptxas_registers(ptxas, "nw_rows_walk_kernel")}
+                "ptxas": ptxas_registers(ptxas, "nw_rows_walk_kernel"),
+                "spill_bytes": ptxas_spills(ptxas, "nw_rows_walk_kernel"),
+                **{k: occ_d[k] for k in ("regs_per_thread", "local_bytes_per_thread", "smem_per_block",
+                                         "resident_pairs_per_sm", "reckoned_pairs_per_sm")}}
             print(f"  timed: sweep {ms_c:.4f} ms, {ms_c * 1e3 / Q.shape[1]:.4f} us a row (the first design's, an "
                   f"earlier tree's run: {EARLIER_MS['nw_rows_sweep']}; bound {b_c['bound_ms']:.4f}, plain {plain_c_ms:.1f}); walk "
-                  f"{ms_d:.4f} ms (bound {b_d['bound_ms']:.5f}, plain {plain_d_ms:.1f}) | {smi}")
+                  f"{ms_d:.4f} ms a call, {dev_d_ms} on the device (the first design's, an earlier tree's run: "
+                  f"{EARLIER_MS['nw_rows_walk']}; bound "
+                  f"{b_d['bound_ms']:.5f}, plain {plain_d_ms:.1f}; {occ_d['regs_per_thread']} registers, "
+                  f"{occ_d['local_bytes_per_thread']} local bytes, {occ_d['resident_pairs_per_sm']} pairs an SM, "
+                  f"reckoned {occ_d['reckoned_pairs_per_sm']}) | {smi}")
         del tb_k, walk_k, walk_p
         torch.cuda.empty_cache()
     print(f"9b chunks held to their plain versions {json.dumps(checked)}")
@@ -2432,7 +2483,7 @@ def run_phase9(smi: str, ptxas: list[str], ctx: dict) -> list[dict]:
     if retries <= 0 or not same or launches_r["nw_sweep"] <= 0:
         raise AssertionError("the forced int16 retries did not re-run in int32")
 
-    src = {"nw_sweep_int16": "seqrush_tpu_torch/ops/csrc/nw_sweep.cu",
+    src = {"nw_sweep_int16": "seqrush_tpu_torch/ops/csrc/nw_sweep_i16.cu",
            "nw_sweep_snapshot": "seqrush_tpu_torch/ops/csrc/nw_sweep_snap.cu",
            "nw_walk_start": "seqrush_tpu_torch/ops/csrc/nw_walk.cu",
            "nw_rows_sweep": "seqrush_tpu_torch/ops/csrc/nw_rows.cu",

@@ -61,14 +61,42 @@
 //
 // Kernel D (nw_rows_walk_kernel) replaces the XLA program
 // seqrush_tpu/ops/nw.py::_tb_rows_scan: one warp a pair walks from row qlen
-// down, one row a step: the M or I step of the row (a byte), and a D-run
-// ending in the row resolved at once as the nearest lane at or left of the
-// cursor whose D opened bit is set, found 32 lanes a ballot.  Its outputs are
-// the step opcodes [B, R + 1], and the D-runs' rows and lengths at the G
-// lowest rows, ascending (nw._tb_rows_scan's top_k), plus their count: the
-// walk meets the lowest rows last, so it keeps the last G in a ring in shared
-// memory and writes them out rotated at the end.  What bounds it is the chain
-// of dependent byte loads, two or three a row.
+// down, one query row a step: the M or I step of the row, and a D-run ending
+// in the row resolved at once as the nearest lane at or left of the cursor
+// whose D opened bit is set.  Its outputs are the step opcodes [B, R + 1],
+// and the D-runs' rows and lengths at the G lowest rows, ascending
+// (nw._tb_rows_scan's top_k), plus their count: the walk meets the lowest
+// rows last, so it keeps the last G in a ring in shared memory and writes
+// them out rotated at the end.
+// What bounds it on an H100: the chain of a pair's rows, each step's byte
+// picking the next cell, with about one pair per SM sub-partition (576 pairs
+// on 132 SMs), so nothing hides a step's latency.  The first design read two
+// or three bytes a row from device memory, each waiting on the last.  This
+// one, as kernel B does (nw_walk.cu):
+//   * the warp walks over a tile of its pair's traceback in shared memory,
+//     64 rows x 32 lanes, the cursor 16 lanes from its left edge; a tile
+//     row is copied as the three 16-byte blocks that cover its 32 lanes at
+//     any alignment (rows are Wr bytes apart, an odd number), by cp.async
+//     straight into shared memory, 6 copies a thread a tile; while the warp
+//     walks one tile, the next two below it (around the cursor's lane) are
+//     in flight.  A cursor that leaves a tile sideways (an I drift past its
+//     right edge, a D-run past its left) loads a tile around itself; a
+//     D-run search past the tile's left edge reads device memory, 32 lanes
+//     a ballot;
+//   * in state H, thread x reads the byte x rows down at the cursor's lane:
+//     a byte with neither a D override nor an I choice is an M step that
+//     keeps the lane, so one ballot takes the run of such rows before the
+//     first other one (up to 32 rows: matches and mismatches, most of a
+//     path), and its opcodes go out as one coalesced store;
+//   * in I1 or I2, thread x reads the byte x rows down and x lanes right,
+//     and one ballot takes the I steps up to the row whose opened bit closes
+//     the gap;
+//   * the rest (a D-run, an I step from H, row 0) is one row as before, read
+//     from the tile.
+// Its chain is then about one shared-memory round trip a 32 rows, plus one
+// device-memory round trip a 64-row tile where the copies have not landed.
+// (Tiles loaded a byte a row and thread into registers, as kernel B's are,
+// ran as fast at [576, R 3,584, Wr 1,023] on 96 registers against 46.)
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -426,8 +454,64 @@ __global__ void __launch_bounds__(MAXT, MINB) nw_rows_sweep_kernel(
   }
 }
 
-// Kernel D: the walk of pair b (one warp).  ring: this warp's G slots of
-// (row, length) in shared memory.
+// Kernel D's tiles: rows top - RW_TILE_R + 1 .. top x lanes c0 .. c0 + 31 of
+// a pair's traceback.  A tile row holds the three 16-byte blocks that cover
+// its 32 lanes at any alignment (RW_TILE_W bytes), copied by cp.async; lane
+// c0 + cc of row top - rr sits at byte rw_tile_off + cc of the tile row.  A
+// warp has RW_TILES of them: the one it walks and up to RW_TILES - 1 loading
+// below it.  A loaded tile puts the cursor's lane RW_TILE_LEFT lanes from its
+// left edge.
+#define RW_TILE_R 64
+#define RW_TILE_C 32
+#define RW_TILE_W 48
+#define RW_TILES 3
+#define RW_TILE_LEFT 16
+
+__device__ __forceinline__ void rw_cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void rw_cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// Wait until at most n of this thread's copy groups are pending (n < RW_TILES).
+__device__ __forceinline__ void rw_cp_async_wait(int n) {
+  if (n <= 0)
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  else if (n == 1)
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+}
+
+// The byte of lane c0 + cc of a tile row within its 16-byte blocks: the
+// row's address (pair base tb_lo, row `row`) plus c0, modulo 16.
+__device__ __forceinline__ int rw_tile_off(unsigned tb_lo, int row, int c0, int Wr) {
+  return (int)((tb_lo + (unsigned)row * (unsigned)Wr + (unsigned)c0) & 15u);
+}
+
+// Start copying the tile whose top row is `top` at lanes c0 .. into `tile`
+// (one commit group a thread, empty where it has no block): rows below 0
+// and blocks wholly outside the traceback [tb, tb_end) are not read.  A
+// block that straddles tb (a view that starts off a 16-byte boundary) is
+// copied whole: its aligned address still lies in the same allocation.
+__device__ __forceinline__ void rw_load_tile(uint8_t* tile, const uint8_t* tbb, const uint8_t* tb,
+                                             const uint8_t* tb_end, int top, int c0, int x, int Wr) {
+  for (int i = x; i < RW_TILE_R * 3; i += 32) {
+    const int rr = i / 3, blk = i - 3 * (i / 3);
+    const int row = top - rr;
+    if (row < 0) continue;
+    const uint8_t* g = tbb + (ptrdiff_t)row * Wr + c0;
+    const uint8_t* a = reinterpret_cast<const uint8_t*>(((uintptr_t)g & ~(uintptr_t)15) + 16 * blk);
+    if (a + 16 > tb && a < tb_end) rw_cp_async16(tile + rr * RW_TILE_W + 16 * blk, a);
+  }
+  rw_cp_async_commit();
+}
+
+// Kernel D: the walk of pair b (one warp).  Its tiles and its ring of G
+// (row, length) slots in dynamic shared memory (rows_walk_smem).  Every
+// value the control flow reads is the same in every thread (a ballot's, or
+// a broadcast read), so the warp never diverges.
 __global__ void __launch_bounds__(32 * RW_WALK_PAIRS) nw_rows_walk_kernel(
     const uint8_t* __restrict__ tb,  // [B, R + 1, Wr]
     const int* __restrict__ qlens, const int* __restrict__ tlens,
@@ -436,62 +520,159 @@ __global__ void __launch_bounds__(32 * RW_WALK_PAIRS) nw_rows_walk_kernel(
     int16_t* __restrict__ gvals,     // [B, G] out
     int* __restrict__ gcount,        // [B] out
     int B, int R, int K, int G) {
-  extern __shared__ int ring_smem[];
+  extern __shared__ __align__(16) uint8_t rw_walk_smem[];
   const int warp = threadIdx.x >> 5;
   const int x = threadIdx.x & 31;
   const int b = blockIdx.x * RW_WALK_PAIRS + warp;
   if (b >= B) return;
-  int* ring_r = ring_smem + (size_t)warp * 2 * G;
+  constexpr int TILE_BYTES = RW_TILE_R * RW_TILE_W;
+  uint8_t* tiles = rw_walk_smem + (size_t)warp * RW_TILES * TILE_BYTES;
+  int* ring_r = reinterpret_cast<int*>(rw_walk_smem + (size_t)RW_WALK_PAIRS * RW_TILES * TILE_BYTES) +
+                (size_t)warp * 2 * G;
   int* ring_n = ring_r + G;
   const int Wr = 2 * K + 1;
   const uint8_t* tbb = tb + (size_t)b * (R + 1) * Wr;
+  const uint8_t* tb_end = tb + (size_t)B * (R + 1) * Wr;
+  const unsigned tb_lo = (unsigned)(uintptr_t)tbb;
   uint8_t* st_out = steps + (size_t)b * (R + 1);
   const int qlen = qlens[b];
   const int tlen = tlens[b];
-  int cur_l = min(max(tlen - qlen + K, 0), Wr - 1);
+  int r = qlen;                                  // the cursor's row
+  int cl = min(max(tlen - qlen + K, 0), Wr - 1);  // and lane
   int st = 0;  // 0 H, 1 I1, 2 I2
   int n = 0;   // D-runs found
-  if (!(qlen == 0 && tlen == 0)) {
-    for (int r = qlen; r >= 0; --r) {
-      const uint8_t* row = tbb + (size_t)r * Wr;
-      const int b1 = (cur_l >= 0 && cur_l < Wr) ? (int)row[cur_l] : 0;
-      const bool in_h = st == 0;
-      const int dtag = in_h ? (b1 >> 2) & 3 : 0;
-      int l0 = -1;
-      if (dtag > 0) {
-        // the nearest lane at or left of the cursor whose D opened bit is set
-        const int bit = 5 + dtag;
-        for (int base = min(cur_l, Wr - 1); base >= 0; base -= 32) {
+  // the tile walked: slot cs, rows top - R + 1 .. top, lanes c0 ..; nq more
+  // loading in the next slots, rows below it in turn, lanes pc0 ..
+  int cs = 0, top = -RW_TILE_R - 1, c0 = 0;
+  int nq = 0, pc0 = 0;
+  // lane c0 + cc of tile row rr, 0 off the band or below row 0
+  auto tile_byte = [&](int rr, int cc) -> int {
+    const int row = top - rr, l = c0 + cc;
+    if (row < 0 || l < 0 || l >= Wr) return 0;
+    return tiles[cs * TILE_BYTES + rr * RW_TILE_W + rw_tile_off(tb_lo, row, c0, Wr) + cc];
+  };
+  bool walking = !(qlen == 0 && tlen == 0);
+  while (walking) {
+    int ur = top - r, uc = cl - c0;
+    if ((unsigned)ur >= RW_TILE_R || (unsigned)uc >= RW_TILE_C) {
+      if (nq > 0 && (unsigned)(top - RW_TILE_R - r) < RW_TILE_R && (unsigned)(cl - pc0) < RW_TILE_C) {
+        // the next tile holds the cursor: wait for its copies
+        rw_cp_async_wait(nq - 1);
+        --nq;
+        cs = cs + 1 == RW_TILES ? 0 : cs + 1;
+        top -= RW_TILE_R;
+        c0 = pc0;
+      } else {
+        // load a tile around the cursor, once every copy in flight has landed
+        rw_cp_async_wait(0);
+        __syncwarp();
+        nq = 0;
+        top = r;
+        c0 = cl - RW_TILE_LEFT;
+        rw_load_tile(tiles + cs * TILE_BYTES, tbb, tb, tb_end, top, c0, x, Wr);
+        rw_cp_async_wait(0);
+        pc0 = c0;
+      }
+      __syncwarp();
+      ur = top - r;
+      uc = cl - c0;
+      // keep RW_TILES - 1 tiles loading below it, around this lane
+      if (nq == 0) pc0 = cl - RW_TILE_LEFT;
+      while (nq < RW_TILES - 1 && top - RW_TILE_R * (nq + 1) >= 0) {
+        const int s = (cs + nq + 1) % RW_TILES;
+        rw_load_tile(tiles + s * TILE_BYTES, tbb, tb, tb_end, top - RW_TILE_R * (nq + 1), pc0, x, Wr);
+        ++nq;
+      }
+    }
+    if (r > 0) {
+      if (st == 0) {
+        // thread x looks x rows down at the cursor's lane.  A row whose
+        // byte has no D override and the diagonal choice is an M step that
+        // keeps the lane; a run of them, up to the tile's last row and row
+        // 1, is taken at once, one opcode a thread.
+        const int rr = ur + x;
+        const bool reach = rr < RW_TILE_R && r - x >= 1;
+        const unsigned run = __ballot_sync(RW_FULL, reach && (tile_byte(rr, uc) & 15) == 0);
+        const int k = run == RW_FULL ? 32 : __ffs(~run) - 1;
+        if (k > 0) {
+          if (x < k) st_out[r - x] = RW_OP_M;
+          r -= k;
+          // the walk ends after row 1 where its step leaves the cursor at lane K
+          if (r == 0 && cl == K) break;
+          // the row that stopped the run is decided below if it is in reach
+          if (k == 32 || !((__ballot_sync(RW_FULL, reach) >> k) & 1)) continue;
+          ur += k;
+        }
+      } else {
+        // in I1 or I2 each row is an I step one lane right, up to the row
+        // whose opened bit closes the gap: thread x looks x rows down and x
+        // lanes right, and the steps up to the first closing row inside the
+        // tile (and above row 0) are taken at once
+        const int rr = ur + x, cc = uc + x;
+        const bool reach = rr < RW_TILE_R && cc < RW_TILE_C && r - x >= 1;
+        const unsigned in = __ballot_sync(RW_FULL, reach);
+        const unsigned closes = __ballot_sync(RW_FULL, reach && ((tile_byte(rr, cc) >> (3 + st)) & 1));
+        const int k_in = in == RW_FULL ? 32 : __ffs(~in) - 1;
+        const int k_close = closes ? __ffs(closes) - 1 : 32;
+        const int k = k_close < k_in ? k_close + 1 : k_in;
+        if (x < k) st_out[r - x] = RW_OP_I;
+        if (k_close < k_in) st = 0;
+        r -= k;
+        cl += k;
+        if (r == 0 && cl == K) break;
+        continue;
+      }
+    }
+    // one row: the cursor's byte, and a D-run ending in it resolved at once
+    const int b1 = tile_byte(ur, uc);
+    const bool in_h = st == 0;
+    const int dtag = in_h ? (b1 >> 2) & 3 : 0;
+    int l0 = -1;
+    if (dtag > 0) {
+      // the nearest lane at or left of the cursor whose D opened bit is set:
+      // the tile's lanes first, then 32 lanes a ballot from device memory
+      const int bit = 5 + dtag;
+      const unsigned m = __ballot_sync(RW_FULL, uc - x >= 0 && ((tile_byte(ur, uc - x) >> bit) & 1));
+      if (m) {
+        l0 = cl - (__ffs(m) - 1);
+      } else {
+        const uint8_t* row = tbb + (size_t)r * Wr;
+        for (int base = min(c0 - 1, Wr - 1); base >= 0; base -= 32) {
           const int l = base - x;
-          const bool hit = l >= 0 && ((row[l] >> bit) & 1);
-          const unsigned m = __ballot_sync(RW_FULL, hit);
-          if (m) {
-            l0 = base - (__ffs(m) - 1);
+          const unsigned h = __ballot_sync(RW_FULL, l >= 0 && ((row[l] >> bit) & 1));
+          if (h) {
+            l0 = base - (__ffs(h) - 1);
             break;
           }
         }
       }
-      const int glen = (dtag > 0 && l0 >= 0) ? cur_l - l0 + 1 : 0;
-      const int step_lane = dtag > 0 ? l0 - 1 : cur_l;
-      const int b2 = (step_lane >= 0 && step_lane < Wr) ? (int)row[step_lane] : 0;
-      const int ht = in_h ? (b2 & 3) : st;
-      const bool is_i = ht > 0;
-      const int iopen = ((in_h ? b2 : b1) >> (3 + ht)) & 1;
-      const bool terminal = r == 0;
-      if (x == 0) {
-        if (!terminal) st_out[r] = is_i ? RW_OP_I : RW_OP_M;
-        if (glen > 0) {
-          ring_r[n % G] = r;
-          ring_n[n % G] = glen;
-        }
-      }
-      if (glen > 0) ++n;
-      const int nl = step_lane + (is_i ? 1 : 0);
-      st = (is_i && !iopen) ? ht : 0;
-      cur_l = nl;
-      if (terminal || (r - 1 == 0 && nl == K)) break;
     }
+    const int glen = (dtag > 0 && l0 >= 0) ? cl - l0 + 1 : 0;
+    const int sl = dtag > 0 ? l0 - 1 : cl;
+    int b2 = 0;
+    if ((unsigned)(sl - c0) < RW_TILE_C) {
+      b2 = tile_byte(ur, sl - c0);
+    } else if (sl >= 0 && sl < Wr) {
+      b2 = tbb[(size_t)r * Wr + sl];
+    }
+    const int ht = in_h ? (b2 & 3) : st;
+    const bool is_i = ht > 0;
+    const int iopen = ((in_h ? b2 : b1) >> (3 + ht)) & 1;
+    if (x == 0) {
+      if (r > 0) st_out[r] = is_i ? RW_OP_I : RW_OP_M;
+      if (glen > 0) {
+        ring_r[n % G] = r;
+        ring_n[n % G] = glen;
+      }
+    }
+    if (glen > 0) ++n;
+    const int nl = sl + (is_i ? 1 : 0);
+    st = (is_i && !iopen) ? ht : 0;
+    cl = nl;
+    if (r == 0 || (r == 1 && nl == K)) break;
+    --r;
   }
+  rw_cp_async_wait(0);  // no copy outlives the block's shared memory
   __syncwarp();
   // the gaps of the lowest rows, ascending: the last min(n, G) found, newest first
   const int kept = min(n, G);
@@ -590,6 +771,12 @@ extern "C" int nw_rows_occupancy(int S, int threads, int two, int int16, int win
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, threads, smem);
 }
 
+// Dynamic shared memory of a block of kernel D: each warp's RW_TILES tiles
+// and its gap ring of G (row, length) slots (ops/nw_cuda.py::rows_walk_smem).
+static size_t rw_walk_smem_bytes(int G) {
+  return (size_t)RW_WALK_PAIRS * (RW_TILES * RW_TILE_R * RW_TILE_W + 2 * G * sizeof(int));
+}
+
 // Kernel D: four pairs a block, a ring of `ring` >= G slots a warp.  Returns
 // the CUDA error code.
 extern "C" int nw_rows_walk_launch(const void* tb, const void* qlens, const void* tlens,
@@ -598,9 +785,33 @@ extern "C" int nw_rows_walk_launch(const void* tb, const void* qlens, const void
   if (B <= 0) return (int)cudaSuccess;
   if (G < 1 || G > ring) return (int)cudaErrorInvalidValue;
   const int blocks = (B + RW_WALK_PAIRS - 1) / RW_WALK_PAIRS;
-  const size_t smem = (size_t)RW_WALK_PAIRS * 2 * G * sizeof(int);
+  const size_t smem = rw_walk_smem_bytes(G);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute((const void*)nw_rows_walk_kernel,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
   nw_rows_walk_kernel<<<blocks, 32 * RW_WALK_PAIRS, smem, (cudaStream_t)stream>>>(
       (const uint8_t*)tb, (const int*)qlens, (const int*)tlens, (uint8_t*)steps,
       (int16_t*)grows, (int16_t*)gvals, (int*)gcount, B, R, K, G);
   return (int)cudaGetLastError();
+}
+
+// Registers per thread, local (spilled) bytes per thread and resident
+// blocks (four pairs each) per SM of kernel D with a gap ring of `ring`
+// slots a warp.
+extern "C" int nw_rows_walk_occupancy(int ring, int* regs, int* local_bytes, int* blocks_per_sm) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, (const void*)nw_rows_walk_kernel);
+  if (err != cudaSuccess) return (int)err;
+  *regs = attr.numRegs;
+  *local_bytes = (int)attr.localSizeBytes;
+  const size_t smem = rw_walk_smem_bytes(ring);
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute((const void*)nw_rows_walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, (const void*)nw_rows_walk_kernel,
+                                                            32 * RW_WALK_PAIRS, smem);
 }

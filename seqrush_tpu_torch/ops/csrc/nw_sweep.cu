@@ -11,7 +11,11 @@
 //     int16, so an add past 32,767 wraps there: the register route takes
 //     only penalties whose adds to 30000 cannot wrap (its keys need values
 //     >= 0), and the wide route sign-extends the low 16 bits of every add,
-//     which is the JAX arithmetic whatever the penalties;
+//     which is the JAX arithmetic whatever the penalties.  Where the
+//     planner gives a dispatch twins (ops/nw_cuda.py::plan_sweep_i16), the
+//     register route's int16 mode is the packed s16x2 sweep of
+//     nw_sweep_i16.cu instead; this body keeps it for dispatches of few
+//     pairs and for the snapshot and tiled modes;
 //   * snapshot (SnapArgs; _sweep_v3(t_snap=...), the bidirectional fold):
 //     at t == t_snap[b] the carry (H(t), H(t-1), I1, D1, I2, D2) goes to
 //     SNAP and the clamped diagonal candidate h_diag + sub at t_snap and

@@ -7,8 +7,10 @@
   or, with ``with_traceback=False`` (the score-only mode of the anchored
   route's verify sweep), the scores alone and None: no traceback tensor is
   allocated and the kernel stores none.  ``int16=True`` runs the saturating
-  int16 DP of ``seqrush_tpu/ops/nw.py::_sweep_v3(dtype=int16)``;
-  ``t_snap`` the fold's snapshot mode (``_sweep_v3(t_snap=...)``).
+  int16 DP of ``seqrush_tpu/ops/nw.py::_sweep_v3(dtype=int16)``, on the
+  register route as the packed s16x2 sweep (``csrc/nw_sweep_i16.cu``, two
+  pairs a register, ``plan_sweep_i16``); ``t_snap`` the fold's snapshot mode
+  (``_sweep_v3(t_snap=...)``).
 * ``nw_walk`` -- kernel B, the reverse traceback walk (``csrc/nw_walk.cu``;
   replaces ``nw_pallas.py::_walk_kernel``).  Returns opcodes [B, tmax + 1]
   uint8 (0 none, 1 M, 2 I, 3 D at column td).
@@ -112,8 +114,8 @@ LAUNCHES = {"nw_sweep": 0, "nw_sweep_score_only": 0, "nw_walk": 0, "nw_walk_runs
             "nw_walk_start": 0, "nw_rows_sweep": 0, "nw_rows_walk": 0, "nw_sweep_tiled": 0,
             "nw_walk_runs_tiled": 0, "nw_sweep_sharded": 0}
 
-_SOURCES = ("nw_sweep.cu", "nw_sweep_seg.cu", "nw_sweep_snap.cu", "nw_sweep_tiled.cu", "nw_walk.cu", "wfa.cu",
-            "nw_rows.cu", "nw_sweep_shard.cu")
+_SOURCES = ("nw_sweep.cu", "nw_sweep_seg.cu", "nw_sweep_snap.cu", "nw_sweep_tiled.cu", "nw_sweep_i16.cu",
+            "nw_walk.cu", "wfa.cu", "nw_rows.cu", "nw_sweep_shard.cu")
 _HEADERS = ("nw_sweep.cuh",)
 # anti-diagonals per segment of the long-pair route (the JAX package's default)
 LONG_SEG = 2048
@@ -131,6 +133,13 @@ _NVCC_FLAGS = (
 # csrc/nw_sweep.cu states it (a larger block fails to launch)
 _MAX_THREADS = {4: 128, 8: 384, 12: 256, 16: 256}
 SWEEP_LANES = tuple(_MAX_THREADS)
+# the same for the packed int16 sweep (csrc/nw_sweep_i16.cu::I16Bounds):
+# lanes a thread -> (most threads, blocks an SM its launch bound promises)
+_I16_BOUNDS = {4: (128, 3), 8: (384, 1), 16: (256, 1)}
+I16_LANES = tuple(_I16_BOUNDS)
+# a twin's lane-step of the packed sweep against one pair's of the int32
+# body, in issue time (on the card at [576, W 512]: PERF.md)
+I16_TWIN_CELL_COST = 1.25
 # widest band the register route covers; wider bands take the wide route
 REG_MAX_W = max(s * t for s, t in _MAX_THREADS.items())
 _SWEEP_ROWS = 11  # DP rows per pair on the wide route
@@ -232,6 +241,10 @@ def _library() -> ctypes.CDLL:
             lib.nw_sweep_launch.restype = i32
             lib.nw_sweep_occupancy.argtypes = [i32] * 8 + [ptr] * 3
             lib.nw_sweep_occupancy.restype = i32
+            lib.nw_sweep_i16_launch.argtypes = [ptr] * 6 + [i32] * 15 + [ptr]
+            lib.nw_sweep_i16_launch.restype = i32
+            lib.nw_sweep_i16_occupancy.argtypes = [i32] * 6 + [ptr] * 4
+            lib.nw_sweep_i16_occupancy.restype = i32
             lib.nw_sweep_segment_launch.argtypes = [ptr] * 10 + [i32] * 20 + [ptr]
             lib.nw_sweep_segment_launch.restype = i32
             lib.nw_walk_launch.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
@@ -246,6 +259,8 @@ def _library() -> ctypes.CDLL:
             lib.nw_rows_occupancy.restype = i32
             lib.nw_rows_walk_launch.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
             lib.nw_rows_walk_launch.restype = i32
+            lib.nw_rows_walk_occupancy.argtypes = [i32] + [ptr] * 3
+            lib.nw_rows_walk_occupancy.restype = i32
             lib.nw_walk_occupancy.argtypes = [ptr] * 3
             lib.nw_walk_occupancy.restype = i32
             lib.nw_sweep_tiled_launch.argtypes = [ptr] * 8 + [i32] * 19 + [ptr]
@@ -416,6 +431,86 @@ def plan_sweep(B: int, W: int, Lq: int, Lt: int, *, warps_per_pair: int | None =
     return best[1] if best is not None else wide_plan(B, W, groups)
 
 
+def twin_smem_bytes(Lq: int, Lt: int, W: int, lanes: int, wpp: int) -> int:
+    """Shared memory of one twin of the packed int16 sweep: the two pairs'
+    padded queries and padded reversed targets interleaved, a 16-bit word a
+    position, and the warp-edge slots (csrc/nw_sweep_i16.cu)."""
+    L = lanes * 32 * wpp
+    return _round16(2 * (Lq + 1 + L)) + _round16(2 * (Lt + W + L)) + 2 * wpp * 6 * 4
+
+
+def _twins_plan(B: int, W: int, Lq: int, Lt: int, lanes: int, wpp: int) -> SweepPlan:
+    twin_bytes = twin_smem_bytes(Lq, Lt, W, lanes, wpp)
+    n_twins = -(-B // 2)
+    ppb = max(1, _SMSPS_PER_SM // wpp)
+    ppb = min(ppb, _I16_BOUNDS[lanes][0] // (32 * wpp), _SMEM_OPTIN_BYTES // twin_bytes, max(n_twins, 1))
+    if wpp > 1:
+        ppb = min(ppb, _MAX_PAIR_BARRIERS)
+    return SweepPlan("twins", lanes, wpp, ppb, 32 * wpp * ppb, twin_bytes, twin_bytes * ppb,
+                     -(-n_twins // ppb))
+
+
+def plan_sweep_i16(B: int, W: int, Lq: int, Lt: int, *, warps_per_twin: int | None = None) -> SweepPlan:
+    """Kernel A's int16 mode on the register route (its penalties must be
+    register_route_penalties(..., int16=True)'s): the packed sweep's plan.
+    Twin i is pairs 2i and 2i + 1; block x holds twins [x * pairs_per_block,
+    ...), warps_per_pair warps each (route "twins"; pair_bytes is a twin's
+    shared memory).  By default the fewest lanes a thread (4, 8, 16) whose
+    warps cover W, at as many warps as W needs: 4 lanes were the fastest
+    strip wherever they cover W, 8 where they do not (PERF.md).  That
+    plan where its _sweep_cost, times I16_TWIN_CELL_COST, is below the int32
+    body's plan's (plan_sweep), and that plan (route "regs", the int32
+    body's int16 mode) where it is not: a dispatch of few pairs leaves the
+    twins' SMs a warp or two, whose chains no other warp hides.
+    `warps_per_twin` forces the packed sweep at that count, with the fewest
+    lanes that cover W.  Bands wider than REG_MAX_W take the wide route,
+    twins whose sequences do not fit in shared memory plan_sweep's plan."""
+    if B < 0 or W < 1:
+        raise ValueError(f"bad dispatch B={B}, W={W}")
+    if W > REG_MAX_W:
+        return wide_plan(B, W)
+    if warps_per_twin is not None:
+        wpp = int(warps_per_twin)
+        lanes = next((s for s in I16_LANES if s * 32 * wpp >= W and 32 * wpp <= _I16_BOUNDS[s][0]), None)
+        if wpp < 1 or lanes is None or lanes * 32 * (wpp - 1) >= W:
+            raise ValueError(f"{warps_per_twin} warps per twin cannot cover W={W}")
+        if twin_smem_bytes(Lq, Lt, W, lanes, wpp) > _SMEM_OPTIN_BYTES:
+            return wide_plan(B, W)
+        return _twins_plan(B, W, Lq, Lt, lanes, wpp)
+    twins = None
+    for s in I16_LANES:
+        wpp = -(-W // (32 * s))
+        if 32 * wpp <= _I16_BOUNDS[s][0]:
+            if twin_smem_bytes(Lq, Lt, W, s, wpp) <= _SMEM_OPTIN_BYTES:
+                twins = _twins_plan(B, W, Lq, Lt, s, wpp)
+            break
+    body = plan_sweep(B, W, Lq, Lt)
+    if twins is None or (body.route == "regs" and _sweep_cost(twins) * I16_TWIN_CELL_COST >= _sweep_cost(body)):
+        return body
+    return twins
+
+
+def twins_resident_blocks(plan: SweepPlan) -> int:
+    """Blocks of a "twins" plan resident on an SM, reckoned from the launch
+    bound's promise of registers (rounded down to 8 a thread), the threads
+    and the shared memory (each block reserving 1 KB)."""
+    most, blocks = _I16_BOUNDS[plan.lanes]
+    regs = min(_SM_REGS // (blocks * most) // 8 * 8, 255)
+    return max(0, min(_SM_REGS // (regs * plan.threads), _SM_THREADS // plan.threads, 32,
+                      _SM_SMEM // (plan.smem_bytes + 1024)))
+
+
+def twins_reckoning(plan: SweepPlan, B: int, resident_blocks: int | None = None) -> dict:
+    """Twins, warps an SM and waves of a "twins" plan on the H100's SMs:
+    warps_per_sm counts the blocks each SM is given (all waves), waves the
+    rounds of resident blocks (resident_blocks an SM, reckoned by
+    twins_resident_blocks unless given, e.g. from sweep_occupancy)."""
+    resident = twins_resident_blocks(plan) if resident_blocks is None else resident_blocks
+    per_sm = -(-plan.blocks // _H100_SMS)
+    return {"twins": -(-B // 2), "warps_per_sm": per_sm * plan.pairs_per_block * plan.warps_per_pair,
+            "resident_blocks_per_sm": resident, "waves": -(-plan.blocks // (_H100_SMS * max(resident, 1)))}
+
+
 WALK_PAIRS_PER_BLOCK = 4  # one warp per pair (csrc/nw_walk.cu)
 WALK_TILE = (64, 32)  # rows x lanes of the walk's shared-memory tile
 
@@ -458,9 +553,12 @@ def nw_align(Q, T, qlens, tlens, *, mismatch, o1, e1, o2, e2, band, tmax, with_t
     if device.type == "cpu":
         return nw_align_reference(Q, T, qlens, tlens, **kw)
     _require_cuda(device)
-    plan = plan_sweep(B, band + 1, Q.shape[1], T.shape[1])
     if not register_route_penalties(mismatch, o1, e1, o2, e2, int16):
         plan = wide_plan(B, band + 1)
+    elif int16 and t_snap is None:
+        plan = plan_sweep_i16(B, band + 1, Q.shape[1], T.shape[1])
+    else:
+        plan = plan_sweep(B, band + 1, Q.shape[1], T.shape[1])
     return sweep_launch(Q, T, qlens, tlens, plan, **kw)
 
 
@@ -468,9 +566,11 @@ def sweep_launch(Q, T, qlens, tlens, plan: SweepPlan, *, mismatch, o1, e1, o2, e
                  with_traceback=True, int16=False, t_snap=None):
     """Launch kernel A on checked CUDA tensors with a given plan (nw_align's
     plan, or another one to compare launch shapes)."""
-    if plan.route == "regs" and not register_route_penalties(mismatch, o1, e1, o2, e2, int16):
+    if plan.route != "wide" and not register_route_penalties(mismatch, o1, e1, o2, e2, int16):
         raise ValueError("the register route takes penalties in [0, 2^16) only "
                          "(in int16, those whose adds cannot wrap)")
+    if plan.route == "twins" and (not int16 or t_snap is not None):
+        raise ValueError("the packed sweep (route 'twins') runs the int16 mode without snapshots only")
     device = Q.device
     B, Lq = Q.shape
     W = band + 1
@@ -489,6 +589,18 @@ def sweep_launch(Q, T, qlens, tlens, plan: SweepPlan, *, mismatch, o1, e1, o2, e
     if plan.route == "wide" and not plan.smem_bytes:
         scratch = torch.empty(B * _SWEEP_ROWS * W, dtype=torch.int32, device=device)
     lib = _library()
+    if plan.route == "twins":
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = lib.nw_sweep_i16_launch(
+                Q.data_ptr(), T.data_ptr(), qlens.data_ptr(), tlens.data_ptr(), scores.data_ptr(),
+                tb.data_ptr() if tb is not None else None, B, Lq, T.shape[1], W, tmax, tmax_pad,
+                mismatch, o1, e1, o2, e2, plan.lanes, plan.warps_per_pair, plan.pairs_per_block,
+                plan.pair_bytes, stream)
+        if err != 0:
+            raise RuntimeError(f"nw_sweep_i16 launch failed with CUDA error {err}")
+        LAUNCHES["nw_sweep_int16" if with_traceback else "nw_sweep_score_only"] += 1
+        return scores, tb
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.nw_sweep_launch(
@@ -514,6 +626,19 @@ def sweep_occupancy(plan: SweepPlan, W: int, two_piece: bool, with_traceback: bo
     SM of a plan's launch shape in the full or the score-only mode, from the
     CUDA runtime and the launch code (needs the card)."""
     regs, blocks, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    if plan.route == "twins":
+        spill = ctypes.c_int()
+        err = _library().nw_sweep_i16_occupancy(plan.lanes, int(two_piece), int(with_traceback),
+                                                plan.pairs_per_block, plan.pair_bytes, plan.threads,
+                                                ctypes.byref(regs), ctypes.byref(spill), ctypes.byref(blocks),
+                                                ctypes.byref(smem))
+        if err != 0:
+            raise RuntimeError(f"nw_sweep_i16 occupancy query failed with CUDA error {err}")
+        return {"regs_per_thread": regs.value, "local_bytes_per_thread": spill.value,
+                "smem_per_block": smem.value, "resident_blocks_per_sm": blocks.value,
+                "resident_twins_per_sm": blocks.value * plan.pairs_per_block,
+                "resident_pairs_per_sm": 2 * blocks.value * plan.pairs_per_block,
+                "warps_per_pair": plan.warps_per_pair}
     scratch = int(plan.route == "wide" and not plan.smem_bytes)
     err = _library().nw_sweep_occupancy(plan.lanes, int(two_piece), int(with_traceback), W,
                                         plan.pairs_per_block, plan.pair_bytes, scratch, plan.threads,
@@ -1501,6 +1626,26 @@ _ROWS_STATIC_SMEM = 6 * 2 * 32 * 4  # csrc/nw_rows.cu::RowShared
 # slots of kernel D's gap ring in shared memory, per pair; the gap list
 # (min(gap_max, R + 1) entries) must fit it
 ROWS_WALK_RING = 256
+ROWS_WALK_PAIRS = 4  # kernel D: one warp a pair (csrc/nw_rows.cu::RW_WALK_PAIRS)
+# kernel D's shared-memory tiles: rows, bytes a row (the three 16-byte blocks
+# that cover 32 lanes at any alignment), tiles a warp (csrc/nw_rows.cu)
+ROWS_WALK_TILE = (64, 48, 3)
+
+
+def rows_walk_smem(G: int) -> int:
+    """Shared memory of a block of kernel D: each warp's tiles (the one it
+    walks and those loading below it) and its gap ring of G (row, length)
+    int32 slots."""
+    if not 1 <= G <= ROWS_WALK_RING:
+        raise ValueError(f"kernel D keeps 1 to {ROWS_WALK_RING} gaps a pair, got {G}")
+    rows, row_bytes, tiles = ROWS_WALK_TILE
+    return ROWS_WALK_PAIRS * (tiles * rows * row_bytes + 2 * G * 4)
+
+
+def rows_walk_pairs_per_sm(G: int) -> int:
+    """Pairs of kernel D an SM's shared memory and threads leave resident
+    (each block reserving 1 KB)."""
+    return ROWS_WALK_PAIRS * min(_SM_SMEM // (rows_walk_smem(G) + 1024), _SM_THREADS // (32 * ROWS_WALK_PAIRS), 32)
 
 
 def rows_plan(Wr: int) -> tuple[int, int]:
@@ -1612,6 +1757,19 @@ def nw_rows_occupancy(R: int, band: int, two_piece: bool, int16: bool = False) -
     return {"lanes_per_thread": S, "threads": threads, "window_rows": win, "regs_per_thread": regs.value,
             "smem_per_block": nq + nt + _ROWS_STATIC_SMEM, "resident_pairs_per_sm": blocks.value,
             "reckoned_pairs_per_sm": rows_pairs_per_sm(S, threads, R, band)}
+
+
+def rows_walk_occupancy(G: int) -> dict:
+    """Registers and spilled bytes per thread and resident pairs per SM of
+    kernel D with a gap list of G slots, from the CUDA runtime (needs the
+    card), beside rows_walk_pairs_per_sm's reckoning."""
+    regs, local, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = _library().nw_rows_walk_occupancy(G, ctypes.byref(regs), ctypes.byref(local), ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"nw_rows walk occupancy query failed with CUDA error {err}")
+    return {"regs_per_thread": regs.value, "local_bytes_per_thread": local.value,
+            "smem_per_block": rows_walk_smem(G), "resident_pairs_per_sm": blocks.value * ROWS_WALK_PAIRS,
+            "reckoned_pairs_per_sm": rows_walk_pairs_per_sm(G)}
 
 
 def nw_align_rows_reference(Q, T, qlens, tlens, *, mismatch, o1, e1, o2, e2, band, int16=False):
@@ -1931,7 +2089,7 @@ def sweep_tiled_launch(Q, T, qlens, tlens, order, n_wide: int, plan: TiledPlan, 
     """Launch kernel A's tiled mode on checked CUDA tensors: order [n_pairs]
     int32 holds the wide pairs' first rows, then the narrow pairs'
     (_tiled_order); plan is plan_sweep_tiled's, or another to compare."""
-    if plan.route == "regs" and not register_route_penalties(mismatch, o1, e1, o2, e2, int16):
+    if plan.route != "wide" and not register_route_penalties(mismatch, o1, e1, o2, e2, int16):
         raise ValueError("the register route takes penalties in [0, 2^16) only "
                          "(in int16, those whose adds cannot wrap)")
     device = Q.device

@@ -1,7 +1,7 @@
 """Time kernel A (the sweep) at chosen batch sizes and bands on one GPU.
 
     python3 seqrush_tpu_torch/tools/sweep_shapes.py [--shapes B:W,...]
-        [--each-strip] [--root DIR] [--ptxas]
+        [--int16] [--each-strip] [--root DIR] [--ptxas]
 
 The pairs are synthetic gene-length haplotypes made from seed 0 (a random
 base of 3,300 bases, ~2% SNPs and a few indels per copy), packed as the
@@ -13,6 +13,12 @@ lanes-per-thread strip that covers W, at as many warps as it needs, and on
 the wide route the rows in a global scratch; each is held bit-equal to
 ``nw_align``'s scores and traceback first.
 
+--int16 times the int16 mode instead, with the int32 mode's time on the
+same pairs beside it (``int32_ms``) and a sha256 of the int16 scores and
+traceback; with --each-strip, every warps-a-twin count of the packed sweep
+(``plan_sweep_i16``) and the int32 body's int16 mode at the planner's
+int32 strip (``int32_body_ms``), each held bit-equal first.
+
 --root imports seqrush_tpu_torch from another checkout, such as an earlier
 commit unpacked with ``git archive``; only ``nw_align`` is used then, so
 two versions of the kernel can be timed on one card in one call.  --ptxas
@@ -23,6 +29,7 @@ of that checkout's build (empty when the library was already built).
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import statistics
 import subprocess
@@ -89,6 +96,27 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, kernel: str, reps: int) -> float | None:
+    """Mean device time of the CUDA kernels whose name holds `kernel` over
+    reps calls of fn(), from the profiler's trace (None where it traces no
+    device time): unlike cuda_ms it leaves out the host's time to issue a
+    call, which exceeds a kernel's own below about 0.1 ms."""
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    except Exception as exc:  # noqa: BLE001 - a measurement that is not there is reported as such
+        print(f"the profiler did not trace {kernel}: {exc!r}", file=sys.stderr)
+        return None
+    hits = [e for e in prof.key_averages() if kernel in e.key]
+    count = sum(e.count for e in hits)
+    total_us = sum(getattr(e, "device_time_total", 0) or 0 for e in hits)
+    return total_us / 1e3 / count if count and total_us else None
+
+
 def strips(nw_cuda, B: int, W: int, Lq: int, Lt: int):
     """(label, plan) of every strip that covers W, and the wide route with
     its rows in a global scratch where the planner keeps them in shared
@@ -110,6 +138,7 @@ def strips(nw_cuda, B: int, W: int, Lq: int, Lt: int):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--shapes", default="576:512,48:1536")
+    ap.add_argument("--int16", action="store_true")
     ap.add_argument("--each-strip", action="store_true")
     ap.add_argument("--root", type=Path, default=Path(__file__).resolve().parents[2])
     ap.add_argument("--ptxas", action="store_true")
@@ -134,12 +163,40 @@ def main(argv=None) -> int:
         B, W = (int(x) for x in spec.split(":"))
         (Q, T, ql, tl), tmax = pack(make_pairs(B, LENGTH, 0), dev)
         kw = dict(PENALTIES, band=W - 1, tmax=tmax)
+        if args.int16:
+            kw["int16"] = True
         s_k, tb_k = nw_cuda.nw_align(Q, T, ql, tl, **kw)
         row = {"root": str(args.root), "B": B, "W": W, "tmax": tmax, "card": smi,
                "nw_align_ms": cuda_ms(lambda: nw_cuda.nw_align(Q, T, ql, tl, **kw), REPS)}
         if hasattr(nw_cuda, "plan_sweep"):
             row["plan"] = repr(nw_cuda.plan_sweep(B, W, Q.shape[1], T.shape[1]))
-        if args.each_strip:
+        if args.int16:
+            kw32 = dict(kw, int16=False)
+            row["int32_ms"] = cuda_ms(lambda: nw_cuda.nw_align(Q, T, ql, tl, **kw32), REPS)
+            digest = hashlib.sha256(s_k.cpu().numpy().tobytes())
+            digest.update(tb_k.cpu().numpy().tobytes())
+            row["sha256"] = digest.hexdigest()[:16]
+            if hasattr(nw_cuda, "plan_sweep_i16"):
+                row["plan"] = repr(nw_cuda.plan_sweep_i16(B, W, Q.shape[1], T.shape[1]))
+        if args.each_strip and args.int16:
+            row["strips_ms"] = {}
+            plans = [(f"int32 body, {p.lanes} lanes x {p.warps_per_pair} warps", p)
+                     for p in [nw_cuda.plan_sweep(B, W, Q.shape[1], T.shape[1])] if p.route == "regs"]
+            for w in (1, 2, 4, 8, 16, 32):
+                try:
+                    p = nw_cuda.plan_sweep_i16(B, W, Q.shape[1], T.shape[1], warps_per_twin=w)
+                except ValueError:
+                    continue
+                if p.route == "twins":
+                    plans.append((f"twins, {p.lanes} lanes x {w} warps", p))
+            for label, plan in plans:
+                s_w, tb_w = nw_cuda.sweep_launch(Q, T, ql, tl, plan, **kw)
+                if not (torch.equal(s_w, s_k) and torch.equal(tb_w, tb_k)):
+                    raise AssertionError(f"{label} disagrees with nw_align at B={B} W={W}")
+                del s_w, tb_w
+                row["strips_ms"][label] = cuda_ms(
+                    lambda: nw_cuda.sweep_launch(Q, T, ql, tl, plan, **kw), REPS)
+        elif args.each_strip:
             row["strips_ms"] = {}
             for label, plan in strips(nw_cuda, B, W, Q.shape[1], T.shape[1]):
                 s_w, tb_w = nw_cuda.sweep_launch(Q, T, ql, tl, plan, **kw)

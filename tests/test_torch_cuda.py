@@ -13,6 +13,7 @@ import torch
 
 from seqrush_tpu_torch import cli
 from seqrush_tpu_torch.ops import nw_cuda, wfa
+from torch_edge_corpora import INT16_EDGE_PENALTIES, int16_edge_corpus, rows_edge_corpus
 
 pytestmark = pytest.mark.cuda
 
@@ -1120,6 +1121,136 @@ def test_rows_walk_gap_caps_equal_plain(cuda, gap_max):
     for a, b in zip(walk_k, walk_p):
         assert torch.equal(a, b)
     assert (walk_k[3] > gap_max).any()
+
+
+# -- the packed int16 sweep and the tiled row walk on their edge corpora
+
+
+def _twin_strips(B, W, Lq, Lt):
+    """Every warps-a-twin count of the packed sweep that covers W."""
+    out = []
+    for w in (1, 2, 4, 8, 16, 32):
+        try:
+            plan = nw_cuda.plan_sweep_i16(B, W, Lq, Lt, warps_per_twin=w)
+        except ValueError:
+            continue
+        if plan.route == "twins":
+            out.append(plan)
+    return out
+
+
+@pytest.mark.parametrize("band", [127, 511])
+@pytest.mark.parametrize("case", sorted(INT16_EDGE_PENALTIES))
+def test_int16_packed_edge_corpus_equals_plain(cuda, case, band):
+    """The packed int16 sweep on its edge corpus (twins of very different
+    lengths, an odd B, an empty pair beside a full one, penalties at the
+    int16 limit, ties in H's choice): scores and the whole traceback
+    exactly the plain version's, at every warps-a-twin count and at the
+    planner's pick (the int32 body's int16 mode where twins do not pay);
+    the score-only mode's scores too."""
+    Q, T, ql, tl, tmax = (torch.from_numpy(a).to(cuda) if isinstance(a, np.ndarray) else a
+                          for a in int16_edge_corpus())
+    pen = INT16_EDGE_PENALTIES[case]
+    assert nw_cuda.register_route_penalties(*pen, int16=True)
+    kw = dict(zip(("mismatch", "o1", "e1", "o2", "e2"), pen), band=band, tmax=tmax, int16=True)
+    B, W = Q.shape[0], band + 1
+    before = dict(nw_cuda.LAUNCHES)
+    s_k, tb_k = nw_cuda.nw_align(Q, T, ql, tl, **kw)
+    s_o, _ = nw_cuda.nw_align(Q, T, ql, tl, with_traceback=False, **kw)
+    torch.cuda.synchronize()
+    assert nw_cuda.LAUNCHES["nw_sweep_int16"] == before["nw_sweep_int16"] + 1
+    assert nw_cuda.LAUNCHES["nw_sweep_score_only"] == before["nw_sweep_score_only"] + 1
+    s_p, tb_p = nw_cuda.nw_align_reference(Q, T, ql, tl, **kw)
+    assert torch.equal(s_k, s_p) and torch.equal(tb_k, tb_p) and torch.equal(s_o, s_p)
+    assert int(s_k[2]) == 0 and int(s_k[1]) > 0
+    strips = _twin_strips(B, W, Q.shape[1], T.shape[1])
+    assert len(strips) >= (3 if W == 512 else 1)
+    for plan in strips:
+        s_w, tb_w = nw_cuda.sweep_launch(Q, T, ql, tl, plan, **kw)
+        assert torch.equal(s_w, s_p) and torch.equal(tb_w, tb_p), plan
+
+
+def test_int16_packed_occupancy(cuda):
+    """At the int16 run's main shape [576, W 512] the packed sweep's plan
+    spills nothing and keeps at least the twins an SM the planner reckons."""
+    plan = nw_cuda.plan_sweep_i16(576, 512, 3584, 3584)
+    occ = nw_cuda.sweep_occupancy(plan, 512, True)
+    assert plan.route == "twins" and occ["local_bytes_per_thread"] == 0
+    reck = nw_cuda.twins_reckoning(plan, 576, occ["resident_blocks_per_sm"])
+    assert occ["resident_blocks_per_sm"] >= nw_cuda.twins_resident_blocks(plan) and reck["waves"] == 1
+
+
+@pytest.mark.parametrize("int16,gap_max", [(False, None), (True, None), (False, 4), (True, 4)])
+def test_rows_walk_edge_corpus_equals_plain(cuda, int16, gap_max):
+    """Kernel D on its edge corpus (D-runs longer than a tile's lanes, an
+    I-drift to the band's last lane, R not a multiple of the tile's rows,
+    more D-runs than the gap list holds, int16 tracebacks): steps, gap
+    rows, lengths and counts exactly the plain version's."""
+    Q, T, ql, tl = (torch.from_numpy(a).to(cuda) for a in rows_edge_corpus())
+    band = 63
+    _s, tb = nw_cuda.nw_align_rows(Q, T, ql, tl, mismatch=5, o1=8, e1=2, o2=24, e2=1, band=band, int16=int16)
+    before = nw_cuda.LAUNCHES["nw_rows_walk"]
+    walk_k = nw_cuda.nw_walk_rows(tb, ql, tl, band=band, gap_max=gap_max)
+    torch.cuda.synchronize()
+    assert nw_cuda.LAUNCHES["nw_rows_walk"] == before + 1
+    walk_p = nw_cuda.nw_walk_rows_reference(tb, ql, tl, band=band, gap_max=gap_max)
+    for a, b in zip(walk_k, walk_p):
+        assert torch.equal(a, b)
+    assert int(walk_k[2].max()) >= band - 2 and int(walk_k[3].max()) > 4
+
+
+@pytest.mark.parametrize("seed,band,R,plain", [(0, 63, 700, 0.9), (1, 200, 333, 0.97), (2, 511, 1100, 0.99),
+                                               (3, 15, 257, 0.5)])
+def test_rows_walk_random_bytes_equals_plain(cuda, seed, band, R, plain):
+    """Kernel D on random traceback bytes, a share `plain` of them plain M
+    (no D override, the diagonal choice), with random lengths (empty, row
+    0 only, full): every state, D-run, I-drift and lane off the band the
+    bytes lead to, exactly as the plain version walks it."""
+    rng = np.random.default_rng(seed)
+    B, Wr = 13, 2 * band + 1
+    tb = rng.integers(0, 256, (B, R + 1, Wr)).astype(np.uint8)
+    tb[rng.random(tb.shape) < plain] &= 0xF0
+    ql = rng.integers(0, R + 1, B).astype(np.int32)
+    tl = np.clip(ql + rng.integers(-band - 5, band + 6, B), 0, None).astype(np.int32)
+    ql[:3], tl[:3] = (0, 0, R), (0, 7, R)
+    tb, ql, tl = (torch.from_numpy(a).to(cuda) for a in (tb, ql, tl))
+    for gap_max in (None, 3):
+        walk_k = nw_cuda.nw_walk_rows(tb, ql, tl, band=band, gap_max=gap_max)
+        torch.cuda.synchronize()
+        walk_p = nw_cuda.nw_walk_rows_reference(tb, ql, tl, band=band, gap_max=gap_max)
+        for a, b in zip(walk_k, walk_p):
+            assert torch.equal(a, b), gap_max
+
+
+@pytest.mark.parametrize("tl0", [1, 15])
+@pytest.mark.parametrize("skip", [1, 2, 3])
+def test_rows_walk_unaligned_view_equals_plain(cuda, skip, tl0):
+    """Kernel D on a contiguous view tb[skip:] that starts off a 16-byte
+    boundary (odd Wr): pair 0 starts in row 0 at lane band + tl0 with a
+    D-run back to lane 0, which lies in the block that straddles the view's
+    start (in the cursor's first tile at tl0 = 1, left of it at tl0 =
+    band), and the walk equals the plain version's."""
+    rng = np.random.default_rng(skip)
+    B, R, band = 9, 40, 15
+    Wr = 2 * band + 1
+    cl = band + tl0
+    full = rng.integers(0, 256, (B + skip, R + 1, Wr)).astype(np.uint8)
+    full[rng.random(full.shape) < 0.7] &= 0xF0
+    full[skip, 0] = 0
+    full[skip, 0, cl] = 1 << 2  # in H, a D-run (tag 1) ends at the cursor
+    full[skip, 0, 0] = 1 << 6   # and opens at lane 0
+    ql = rng.integers(0, R + 1, B).astype(np.int32)
+    tl = np.clip(ql + rng.integers(-band, band + 1, B), 0, None).astype(np.int32)
+    ql[0], tl[0] = 0, tl0
+    tb = torch.from_numpy(full).to(cuda)[skip:]
+    ql, tl = (torch.from_numpy(a).to(cuda) for a in (ql, tl))
+    assert tb.is_contiguous() and tb.data_ptr() % 16
+    walk_k = nw_cuda.nw_walk_rows(tb, ql, tl, band=band)
+    torch.cuda.synchronize()
+    walk_p = nw_cuda.nw_walk_rows_reference(tb, ql, tl, band=band)
+    assert int(walk_p[2][0, 0]) == cl + 1
+    for a, b in zip(walk_k, walk_p):
+        assert torch.equal(a, b)
 
 
 # -- band tiling: kernel A's tiled mode and kernel B's tiled runs mode

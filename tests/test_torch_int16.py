@@ -22,6 +22,7 @@ from seqrush_tpu_torch.sequences import make_sequence_set
 from test_anchored_wide import synth_family
 from test_torch_anchored_runner import _family_pairs
 from test_torch_runner import _nw_corpus
+from torch_edge_corpora import INT16_EDGE_PENALTIES, int16_edge_corpus
 
 SCORES = "0,5,8,2,24,1"
 COUNTERS = ("int16_retries", "band_escalations", "run_overflows", "gap_overflows", "dropped",
@@ -83,6 +84,31 @@ def test_int16_sweep_equals_jax(case, band):
         assert (s_p.numpy()[:-2] < 0).all()  # the wrap reaches every score
     else:
         assert (s_p.numpy()[:-2] > 0).all()
+
+
+@pytest.mark.parametrize("band", [127, 511])
+@pytest.mark.parametrize("case", sorted(INT16_EDGE_PENALTIES))
+def test_int16_edge_corpus_equals_jax(case, band):
+    """The packed int16 sweep's edge corpus (adjacent twins of very
+    different lengths, an odd B, an empty pair beside a full one, penalties
+    at the register route's int16 limit, ties in H's choice): the plain
+    version's scores and whole traceback, which the card holds the packed
+    kernel to bit for bit (tests/test_torch_cuda.py), equal the JAX
+    package's int16 sweep's."""
+    Q, T, ql, tl, tmax = int16_edge_corpus()
+    pen = dict(zip(("mismatch", "o1", "e1", "o2", "e2"), INT16_EDGE_PENALTIES[case]))
+    assert nw_cuda.register_route_penalties(*INT16_EDGE_PENALTIES[case], int16=True)
+    s_j, tb_j, _t = jnw._sweep_v3(jnp.asarray(Q), jnp.asarray(T), jnp.asarray(ql), jnp.asarray(tl),
+                                  band=band, tmax=tmax, with_traceback=True, dtype=jnp.int16, **pen)
+    s_p, tb_p = nw_cuda.nw_align(*(torch.from_numpy(a) for a in (Q, T, ql, tl)), band=band,
+                                 tmax=tmax, int16=True, **pen)
+    np.testing.assert_array_equal(np.asarray(s_j), s_p.numpy())
+    tb_j = np.transpose(np.asarray(tb_j), (1, 0, 2))
+    np.testing.assert_array_equal(tb_j[:, : tmax + 1], tb_p.numpy()[:, : tmax + 1])
+    assert int(s_p[2]) == 0 and (s_p.numpy()[[0, 1, 3]] > 0).all()
+    # at the limit penalties no add wraps (every score non-negative), though
+    # the unrelated pair's mismatches of 2,767 saturate its cells at INF16
+    assert (s_p.numpy() >= 0).all()
 
 
 @pytest.mark.parametrize("pen,regs", [((5, 8, 2, 24, 1), True), ((5, 8, 2, -1, -1), True),

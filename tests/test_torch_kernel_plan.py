@@ -521,3 +521,107 @@ def test_walk_output_by_launch_site():
     assert [(d["kind"], d["emit"]) for d in auto.stats["dispatches"]] == [("chunk", "runs")]
     assert [(d["kind"], d["emit"]) for d in longr.stats["dispatches"]] == [("long", "ops")]
 
+
+
+# -- the packed int16 sweep's planner (twins) and kernel D's shared memory
+
+
+def _check_twin_plan(plan, B, W, Lq, Lt):
+    """A plan_sweep_i16 pick within the card's limits: the packed sweep's
+    ("twins") or the int32 body's (plan_sweep's, "regs" or "wide")."""
+    if plan.route != "twins":
+        assert plan == nw_cuda.plan_sweep(B, W, Lq, Lt)
+        return
+    n_twins = -(-B // 2)
+    most, _blocks = nw_cuda._I16_BOUNDS[plan.lanes]
+    assert plan.lanes in nw_cuda.I16_LANES and W <= nw_cuda.REG_MAX_W
+    assert plan.threads == 32 * plan.warps_per_pair * plan.pairs_per_block <= most <= MAX_THREADS
+    assert plan.lanes * 32 * plan.warps_per_pair >= W > plan.lanes * 32 * (plan.warps_per_pair - 1)
+    assert plan.pair_bytes == nw_cuda.twin_smem_bytes(Lq, Lt, W, plan.lanes, plan.warps_per_pair)
+    assert plan.smem_bytes == plan.pair_bytes * plan.pairs_per_block <= MAX_SMEM
+    assert plan.blocks * plan.pairs_per_block >= n_twins > (plan.blocks - 1) * plan.pairs_per_block
+    if plan.warps_per_pair > 1:
+        assert plan.pairs_per_block <= 2  # named barriers 1 and 2
+
+
+@pytest.mark.parametrize("B", _batch_ladder())
+def test_twin_plan_within_limits(B):
+    """Every band the register route takes at this batch size, with
+    sequences sized as the runner packs them, and the longest pairs."""
+    for W in range(1, nw_cuda.REG_MAX_W + 1, 7):
+        L = max(256, -(-W // 256) * 256)
+        _check_twin_plan(nw_cuda.plan_sweep_i16(B, W, L, L), B, W, L, L)
+    for W in (1, 512, 1536, 4096, 4097, MAX_W):
+        _check_twin_plan(nw_cuda.plan_sweep_i16(B, W, 32768, 32768), B, W, 32768, 32768)
+
+
+@pytest.mark.parametrize("B,W,wpt", [(9, 128, 1), (9, 512, 4), (576, 512, None), (576, 512, 1), (576, 512, 2),
+                                     (144, 768, None), (7, 100, 1), (3, 3072, 12), (1, 4096, 8)])
+def test_twin_plan_covers_each_lane_once(B, W, wpt):
+    """Every (pair, lane) once, from the kernel's index arithmetic: twin i of
+    block x * pairs_per_block + i is pairs 2i and 2i + 1 (an odd B's last
+    twin has none past B), thread r of a twin owns lanes [r * S, r * S + S)
+    of both."""
+    L = max(256, -(-W // 256) * 256)
+    plan = nw_cuda.plan_sweep_i16(B, W, L, L, warps_per_twin=wpt)
+    assert plan.route == "twins"
+    _check_twin_plan(plan, B, W, L, L)
+    cover = np.zeros((B, W), np.int32)
+    for blk in range(plan.blocks):
+        for tid in range(plan.threads):
+            warp, lane = divmod(tid, 32)
+            pib, wip = divmod(warp, plan.warps_per_pair)
+            twin = blk * plan.pairs_per_block + pib
+            r = wip * 32 + lane
+            for b in (2 * twin, 2 * twin + 1):
+                if b < B:
+                    cover[b, r * plan.lanes:min(r * plan.lanes + plan.lanes, W)] += 1
+    assert (cover == 1).all()
+
+
+def test_twin_plan_picks_and_reckoning():
+    """The planner's picks where every strip was timed on the card
+    (PERF.md): 4 lanes a thread wherever they cover W, 8 where they do not, the
+    int32 body's int16 mode where twins leave the SMs a warp or two (few
+    pairs); at the int16 run's shape [576, W 512] 288 twins, 12 warps on the
+    busiest SM, one wave; the twin's shared memory and the forcing."""
+    picks = {(576, 512): ("twins", 4, 4), (288, 512): ("twins", 4, 4), (576, 128): ("twins", 4, 1),
+             (144, 768): ("twins", 8, 3), (48, 1536): ("regs", 12, 4), (64, 1170): ("regs", 12, 4),
+             (9, 512): ("regs", 4, 4), (576, 4096): ("twins", 16, 8), (8, 4097): ("wide", 0, 32)}
+    for (B, W), want in picks.items():
+        p = nw_cuda.plan_sweep_i16(B, W, 3584, 3584)
+        assert (p.route, p.lanes, p.warps_per_pair) == want, (B, W)
+    p = nw_cuda.plan_sweep_i16(576, 512, 3584, 3584)
+    assert (p.pairs_per_block, p.threads, p.blocks) == (1, 128, 288)
+    assert p.pair_bytes == 8208 + 9216 + 2 * 4 * 6 * 4 == 17616  # 2 x (Lq + 1 + L) and 2 x (Lt + W + L), rounded to 16
+    reck = nw_cuda.twins_reckoning(p, 576)
+    assert reck == {"twins": 288, "warps_per_sm": 12, "resident_blocks_per_sm": 3, "waves": 1}
+    assert nw_cuda.twins_reckoning(p, 576, resident_blocks=2)["waves"] == 2
+    odd = nw_cuda.plan_sweep_i16(9, 512, 768, 768, warps_per_twin=4)
+    assert (odd.route, odd.lanes, odd.blocks) == ("twins", 4, 5)
+    assert nw_cuda.twin_smem_bytes(100, 200, 64, 4, 1) == 464 + 784 + 48
+    with pytest.raises(ValueError):  # a second warp of ghost lanes only
+        nw_cuda.plan_sweep_i16(8, 100, 256, 256, warps_per_twin=2)
+    with pytest.raises(ValueError):  # more threads than any instantiation takes
+        nw_cuda.plan_sweep_i16(8, 4096, 4096, 4096, warps_per_twin=1)
+    # twins too long for shared memory take the int32 body's plan: its
+    # register route while one pair fits, the wide route past that
+    assert nw_cuda.plan_sweep_i16(576, 512, 60000, 60000) == nw_cuda.plan_sweep(576, 512, 60000, 60000)
+    assert nw_cuda.plan_sweep(576, 512, 60000, 60000).route == "regs"
+    assert nw_cuda.plan_sweep_i16(576, 512, 120000, 120000).route == "wide"
+
+
+def test_rows_walk_smem():
+    """Kernel D's block: four warps, each with three tiles of 64 rows of 48
+    bytes (the 16-byte blocks that cover 32 lanes at any alignment) and a
+    gap ring of G (row, length) slots; 41,984 bytes at GAP_MAX, which leaves
+    20 pairs an SM (five blocks' shared memory), 45,056 at the ring's 256
+    slots, below the 48 KB a block takes without opting in."""
+    assert nw_cuda.rows_walk_smem(1) == 4 * (3 * 64 * 48 + 8) == 36896
+    assert nw_cuda.rows_walk_smem(nw_cuda.ROWS_WALK_RING) == 45056 <= 48 * 1024
+    assert nw_cuda.rows_walk_smem(nw.GAP_MAX) == 4 * (9216 + 8 * 160) == 41984
+    assert nw_cuda.rows_walk_pairs_per_sm(nw.GAP_MAX) == 20
+    assert nw_cuda.rows_walk_pairs_per_sm(1) == 24
+    for G in (0, nw_cuda.ROWS_WALK_RING + 1):
+        with pytest.raises(ValueError):
+            nw_cuda.rows_walk_smem(G)

@@ -23,6 +23,7 @@ from seqrush_tpu_torch.ops import nw, nw_cuda
 from seqrush_tpu_torch.scores import AlignmentScores
 from seqrush_tpu_torch.sequences import make_sequence_set
 from test_torch_int16 import COUNTERS, PENALTIES, SCORES, _corpus, _keys, _runners, sweep_batch
+from torch_edge_corpora import rows_edge_corpus
 
 
 def _unpacked_steps(packed, n):
@@ -119,6 +120,32 @@ def test_rows_small_gap_max_equals_jax(small_gap_max):
         if got[4][b] <= 2:
             args = (got[1][b], got[2][b], got[3][b], int(got[4][b]), int(ql[b]))
             assert nw.decode_rowtokens(*args) == jnw.decode_rowtokens(*args)
+
+
+@pytest.mark.parametrize("int16", [False, True])
+def test_rows_edge_corpus_equals_jax(int16):
+    """Kernel D's edge corpus (D-runs longer than a tile's 32 lanes, an
+    I-run drifting the cursor to the band's last lane, R = 700 rows, not a
+    multiple of the tile's 64, a pair of 13 D-runs), in int32 and int16:
+    every output of the plain versions, which the card holds kernel D to
+    bit for bit, equals the JAX package's fused program."""
+    Q, T, ql, tl = rows_edge_corpus()
+    pen = dict(zip(("mismatch", "o1", "e1", "o2", "e2"), PENALTIES["two_piece"]))
+    ref, got, _tb = _both(Q, T, ql, tl, 63, int16, pen)
+    for name, a, b in zip(("scores", "steps", "grows", "gvals", "gcount"), ref, got):
+        np.testing.assert_array_equal(a, b, err_msg=name)
+    assert int(got[3].max()) >= 61 and int(got[4].max()) == 13
+
+
+def test_rows_edge_corpus_small_gap_max_equals_jax(small_gap_max):
+    """The same corpus with GAP_MAX 2 in both packages: the pair of 13
+    D-runs overflows the list (its lowest two kept, the full count)."""
+    Q, T, ql, tl = rows_edge_corpus()
+    pen = dict(zip(("mismatch", "o1", "e1", "o2", "e2"), PENALTIES["two_piece"]))
+    ref, got, _tb = _both(Q, T, ql, tl, 63, False, pen)
+    for name, a, b in zip(("scores", "steps", "grows", "gvals", "gcount"), ref, got):
+        np.testing.assert_array_equal(a, b, err_msg=name)
+    assert got[2].shape[1] == 2 and int(got[4].max()) == 13
 
 
 def test_decode_rowtokens_equals_jax():
