@@ -27,9 +27,19 @@ Phases (any failure exits non-zero and prints no ok line):
      dispatch shapes are printed.  The sorted graph must have node ids
      1..N, be isomorphic to the unsorted one, and have a layout RMSE no
      higher; the layout's phase seconds, the SGD's ticks and their width
-     and both graphs' RMSE and MAE are printed, and the SGD of this graph
-     is timed with its sums in a fixed order (as shipped) and with float
-     atomics (seqrush_tpu_torch/tools/sgd_timing.py);
+     and both graphs' RMSE and MAE are printed (the default run's layout
+     must have launched the SGD tick kernel);
+  3d. the SGD tick kernel (ops/csrc/sgd_tick.cu; see run_sgd and
+     seqrush_tpu_torch/tools/sgd_timing.py) on the unsorted headline graph:
+     the whole run (800 ticks) on the card against the plain tick on the
+     CPU fed the same draws, bit for bit after each tick of the first block
+     of draws and at the end of every block, and the layout's own run ending
+     at the same positions; the kernel's run and the plain ticks' run on the
+     card timed in turns, the launches a tick and the device-busy share of
+     each from torch.profiler (at most 3 launches a tick), two kernel runs
+     bit-equal; then the same on a synthetic 1,000-path graph
+     (tools/headline.py::synth_variation_graph; its first block of draws
+     held to the CPU);
   3b. the same corpus with ``--wide-route full --no-sort`` (one wide-band
      sweep per wide pair): every pair aligned, every path in the graph;
      both graphs' counts and whether the two --no-sort GFA files are
@@ -121,8 +131,9 @@ Phases (any failure exits non-zero and prints no ok line):
      int16 mode, with its plan, registers, local bytes and twins an SM;
      kernel C with its plan, its pairs resident an SM and its microseconds
      a row; kernel D with its registers and pairs an SM; each beside the
-     first design's time), with the fold's combine timed between its
-     kernels; and
+     first design's time); the fold's combine kernel against its plain
+     version on every fold chunk, timed with its launches on the largest;
+     and
      int16 retries forced with a lowered INT16_CUTOFF;
  10. band_tiling='auto' (see run_phase10): the 600 pairs on the full wide
      route untiled and tiled, in turns (the runner's seconds), the tiled
@@ -188,10 +199,19 @@ cell it needs none of the instructions that build the byte:
   2  the cell's validity;
   5  validity and INF clamp of the five states (5 m);
  = 24 instructions, 11 of them minima: again the issue rate bounds it.
-The fold's combine (plain torch) is charged the 12 [B, W] int32 planes it
-reads, what it writes and 55 instructions a forward lane
-(COMBINE_OPS_PER_LANE).  The walk needs one byte read and about 25
-instructions per step it takes,
+The fold's combine is charged the 12 [B, W] int32 planes it reads, what
+it writes and 55 instructions a forward lane (COMBINE_OPS_PER_LANE): bytes
+bound it.  The SGD tick is charged each term's draws (18 B); its gathers
+(two of node_of_step and step_pos, one of step_path, step_rank,
+path_first, path_count, and H[js] with up to bit_length(space + 1) probes
+of the search), each table at its reads a term times the terms or at its
+size where that is less (H and the path tables, read by every term, come
+from cache); and the positions read once and written once, 8 B a node
+(tools/sgd_timing.py::tick_bytes): 0.51 MB and 0.15 us a tick on the
+headline, 15.3 MB and 4.6 us on the 1,000-path graph.  Bytes bound it,
+while a term's chain of about 25 dependent reads and the tick's two
+grid-wide dependencies set its real floor.  The walk
+needs one byte read and about 25 instructions per step it takes,
 at the issue rate, and writes the opcode rows (its runs mode: the token
 rows and the counts instead).  The wavefront kernel must write its history
 tensors whole and needs, per cell of each score step a pair takes
@@ -472,10 +492,10 @@ VARIANT_DIGESTS = {
 VARIANT_KERNELS = {
     "int16": ("nw_sweep_int16", "nw_walk_runs"),
     "rows": ("nw_rows_sweep", "nw_rows_walk"),
-    "fold": ("nw_sweep_snapshot", "nw_walk_start"),
-    "fold_full": ("nw_sweep_snapshot", "nw_walk_start"),
+    "fold": ("nw_sweep_snapshot", "fold_combine", "nw_walk_start"),
+    "fold_full": ("nw_sweep_snapshot", "fold_combine", "nw_walk_start"),
     "rows_int16": ("nw_rows_sweep", "nw_rows_walk"),
-    "fold_int16": ("nw_sweep_snapshot", "nw_walk_start"),
+    "fold_int16": ("nw_sweep_snapshot", "fold_combine", "nw_walk_start"),
     "tiled": ("nw_sweep_tiled", "nw_walk_runs_tiled"),
     "tiled_int16": ("nw_sweep_tiled", "nw_walk_runs_tiled"),
 }
@@ -644,7 +664,6 @@ def run(work: Path, name: str, smi: str, ptxas: list[str]) -> int:
     from seqrush_tpu_torch.ops import nw, nw_cuda
     from seqrush_tpu_torch.tools.isomorphic import isomorphic
     from seqrush_tpu_torch.tools.measure_layout_quality import layout_quality
-    from seqrush_tpu_torch.tools.sgd_timing import time_sgd
     from seqrush_tpu_torch.scores import AlignmentScores
     from seqrush_tpu_torch.sequences import make_sequence_set
 
@@ -680,7 +699,7 @@ def run(work: Path, name: str, smi: str, ptxas: list[str]) -> int:
                            for d in st["dispatches"] if d["kind"] == kind])
 
     # 3. main path (layout on), then the same with --no-sort
-    rep, launches, wall = drive(gfa)
+    rep, launches, wall = drive(gfa, kernels=path_kernels + ("sgd_tick",))
     rep_ns, launches_ns, wall_ns = drive(gfa_ns, "--no-sort")
     st = rep["stats"]["aligner"]
     n_align = int(rep["counters"]["alignments"])
@@ -768,10 +787,7 @@ def run(work: Path, name: str, smi: str, ptxas: list[str]) -> int:
     )
     if not q["rmse"] <= q_ns["rmse"]:
         raise AssertionError("the sorted graph's RMSE is above the unsorted one's")
-    sgd_times = time_sgd(unsorted_g)
-    print("sgd timing " + json.dumps(sgd_times))
-    if not sgd_times["fixed_order_runs_bit_equal"]:
-        raise AssertionError("two SGD runs with one seed gave different positions")
+    sgd_entry = run_sgd(gfa_ns, launches, ph, smi)
 
     # 4. small corpora
     small = small_corpus()
@@ -1079,6 +1095,7 @@ def run(work: Path, name: str, smi: str, ptxas: list[str]) -> int:
         "largest": score_only["largest"], "probe": sites["probe"], "tolerance": 0,
         "launches_path": "--wide-verify",
     })
+    out.append(sgd_entry)
     out.extend(long_out)
     out.extend(phase8)
     ctx9 = {"named": named, "pairs": pairs, "scores": scores, "pen": pen}
@@ -1092,6 +1109,87 @@ def run(work: Path, name: str, smi: str, ptxas: list[str]) -> int:
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0
+
+SGD_MAX_LAUNCHES_PER_TICK = 3
+
+
+def run_sgd(gfa_ns: Path, launches: dict, ph: dict, smi: str) -> dict:
+    """3d. The SGD tick kernel (ops/csrc/sgd_tick.cu) on the headline's
+    unsorted graph (the --no-sort GFA) and on synth_variation_graph()'s
+    1,000 paths, each through tools/sgd_timing.py in a process of its own
+    (profiler sessions after its own have recorded no device activity in
+    the process that ran them, and phase 9 reads the profiler).
+
+    On each: the kernel's ticks on the card against the plain tick on the
+    CPU fed the same draws (tools/sgd_timing.py::cpu_parity), bit for bit
+    after each tick of the first block of draws and at the end of every
+    block (the headline's whole run, the layout's own run ending at the
+    same positions; the 1,000-path graph's first block); the kernel's whole
+    run and the plain ticks' on the card in turns (time_sgd: plain, kernel,
+    kernel, plain; both kernel runs bit-equal to the first), the launches a
+    tick and the device-busy share of 16 ticks of each from torch.profiler
+    (at most SGD_MAX_LAUNCHES_PER_TICK for the kernel).  Returns the kernels
+    line's entry of the tick."""
+    t_phase = time.time()
+    got = {}
+    for tag, args in (("headline", [str(gfa_ns), "--parity", "0"]),
+                      ("paths_1000", ["--synthetic", "1000", "--parity", "1"])):
+        proc = subprocess.run([sys.executable, "-m", "seqrush_tpu_torch.tools.sgd_timing", *args, "--profile"],
+                              capture_output=True, text=True, timeout=300, cwd=Path(__file__).resolve().parent)
+        if proc.returncode != 0:
+            print(proc.stdout[-3000:], proc.stderr[-3000:], file=sys.stderr)
+            raise AssertionError(f"tools/sgd_timing.py failed on the {tag} graph")
+        tim = json.loads(proc.stdout.strip().splitlines()[-1])
+        par = tim.pop("cpu_parity")
+        kp, pp = tim["kernel_profile"], tim["plain_profile"]
+        print(f"sgd tick kernel, {tag} graph ({tim['nodes']} nodes, {tim['paths']} paths, {tim['steps']} steps; "
+              f"{tim['ticks']} ticks of {tim['tick_width']} terms): against the plain tick on the CPU "
+              f"{json.dumps(par)}; run {tim['kernel_s']:.4f} s = {tim['kernel_ms_per_tick']:.4f} ms a tick "
+              f"(runs {json.dumps(tim['kernel_runs_s'])}, first of the process {tim['first_run_s']:.4f}), "
+              f"{kp['launches_per_tick']} launches a tick, device busy {kp['device_busy_share_of_run']:.4f} of "
+              f"the run ({kp['device_busy_share']:.4f} of the profiled window) "
+              f"({kp['device_ms_per_tick']:.4f} ms a tick on the device); plain ticks on the card "
+              f"{tim['plain_s']:.4f} s = {tim['plain_ms_per_tick']:.4f} ms a tick (runs "
+              f"{json.dumps(tim['plain_runs_s'])}), {pp['launches_per_tick']} launches a tick, busy "
+              f"{pp['device_busy_share_of_run']:.4f} ({pp['device_busy_share']:.4f}); bound "
+              f"{tim['bound_ms_per_tick']:.6f} ms a tick "
+              f"({tim['tick_bytes']} B, bytes); kernel runs bit-equal {tim['kernel_runs_bit_equal']} | {smi}")
+        if not par["bit_equal"]:
+            raise AssertionError(f"the SGD tick kernel differs from the plain tick on the CPU ({tag})")
+        if not (tim["kernel_runs_bit_equal"] and tim["finite"]):
+            raise AssertionError(f"two SGD runs with one seed gave different positions ({tag})")
+        if kp["launches_per_tick"] > SGD_MAX_LAUNCHES_PER_TICK:
+            raise AssertionError(f"the SGD tick takes {kp['launches_per_tick']} launches a tick ({tag})")
+        got[tag] = (par, tim)
+    par, tim = got["headline"]
+    par1, tim1 = got["paths_1000"]
+
+    def numbers(par, tim):
+        kp, pp = tim["kernel_profile"], tim["plain_profile"]
+        return {"shape": {k: tim[k] for k in ("nodes", "paths", "steps", "ticks", "tick_width", "block_ticks")},
+                "run_s": tim["kernel_s"], "plain_run_s": tim["plain_s"], "ms_per_tick": tim["kernel_ms_per_tick"],
+                "plain_ms_per_tick": tim["plain_ms_per_tick"], "bound_ms_per_tick": tim["bound_ms_per_tick"],
+                "launches_per_tick": kp["launches_per_tick"], "plain_launches_per_tick": pp["launches_per_tick"],
+                "device_busy_share": kp["device_busy_share_of_run"],
+                "plain_device_busy_share": pp["device_busy_share_of_run"],
+                "device_busy_share_profiled": kp["device_busy_share"],
+                "plain_device_busy_share_profiled": pp["device_busy_share"],
+                "plain_device_ms_per_tick": pp["device_ms_per_tick"],
+                "device_ms_per_tick": kp["device_ms_per_tick"], "ticks_held_to_cpu": par["ticks_compared"],
+                "max_abs_err": par["max_abs_err"]}
+
+    head = numbers(par, tim)
+    print(f"3d wall {time.time() - t_phase:.1f} s")
+    return {
+        "name": "sgd_tick", "route": "cuda", "source": "seqrush_tpu_torch/ops/csrc/sgd_tick.cu",
+        "replaces": "seqrush_tpu/layout/sgd.py:187", "launches": launches["sgd_tick"],
+        "launches_path": "default run (layout), one a tick", "max_abs_err": max(par["max_abs_err"],
+                                                                              par1["max_abs_err"]),
+        "ms": head["ms_per_tick"], "plain_ms": head["plain_ms_per_tick"], "bound_ms": head["bound_ms_per_tick"],
+        "bound_by": "bytes", "library_ms": None, **head, "layout_sgd_s": ph["layout_sgd"],
+        "paths_1000": numbers(par1, tim1), "tolerance": 0,
+    }
+
 
 LONG_KERNELS = ("nw_sweep_segment_score_only", "nw_sweep_segment_group", "nw_walk_segment_group")
 
@@ -2164,15 +2262,17 @@ def run_phase9(smi: str, ptxas: list[str], ctx: dict) -> list[dict]:
         it: kernel A's int16 mode on the int16 run's chunks (scores, whole
         traceback); kernel A's snapshot mode on the chunks of the fold,
         fold_full and fold_int16 runs (scores, traceback, SNAP, DIAGA,
-        DIAGB) and kernel B's start mode from the combine's cursors there;
+        DIAGB), the combine kernel (scores, cursors, crossings) and kernel
+        B's start mode from the combine's cursors there;
         kernels C and D on the rows and rows_int16 runs' chunks (scores,
         whole row-major traceback, steps, gap list, counts).  Timed on the
         largest chunk of the int16, fold and rows runs: CUDA-event medians
-        of REPS runs after a warm-up, the plain versions once; the
-        combine's time and torch launches beside the fold.
+        of REPS runs after a warm-up, the plain versions once (the
+        combine's as CUDA-event medians too); the combine's and its plain
+        version's device launches from torch.profiler.
     9c. the int16 run again with the port's nw.INT16_CUTOFF lowered to 300:
         int16_retries > 0, every score the int16 run's.
-    Returns the kernels line's entries of the five new kernels and modes;
+    Returns the kernels line's entries of the six kernels and modes;
     9a's runs go into ctx['runs'] for phase 10."""
     from seqrush_tpu_torch.align.runner import RunnerConfig, WfaAligner
     from seqrush_tpu_torch.ops import nw, nw_cuda
@@ -2265,7 +2365,19 @@ def run_phase9(smi: str, ptxas: list[str], ctx: dict) -> list[dict]:
     pen = ctx["pen"]
     out = {}
     checked = {k: [] for k in ("nw_sweep_int16", "nw_sweep_snapshot", "nw_walk_start", "nw_rows_sweep",
-                               "nw_rows_walk")}
+                               "nw_rows_walk", "fold_combine")}
+
+    def cuda_launches(fn):
+        """Device launches of fn() from torch.profiler's device events (None
+        where it does not trace the card)."""
+        try:
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA) or None
+        except Exception as exc:  # noqa: BLE001 - a measurement that is not there is reported as such
+            print(f"  the profiler did not count the launches: {exc!r}")
+            return None
 
     # kernel A, int16 mode: every int16 chunk of the int16 run
     for name, rank, al, d, _chunk, arrays, tmax in chunks_of("int16", ("int16",), lambda d: d["int16"]):
@@ -2339,6 +2451,11 @@ def run_phase9(smi: str, ptxas: list[str], ctx: dict) -> list[dict]:
         SNAP, DIAGA, DIAGB = snaps_k
         combine = dict(o1=pen["o1"], o2=pen["o2"], band=band)
         fold_s, state, cross_m = nw_cuda.fold_combine(SNAP, DIAGA, DIAGB, ql, tl, **combine)
+        plain_c_ms, want = once_ms(lambda: nw_cuda.fold_combine_reference(SNAP, DIAGA, DIAGB, ql, tl, **combine))
+        err_c = max(max_abs_err(a, b) for a, b in zip((fold_s, state, cross_m), want))
+        checked["fold_combine"].append([ql.shape[0], band + 1, int(int16), err_c])
+        if err_c:
+            raise AssertionError(f"the fold's combine kernel disagrees with its plain version ({name} chunk)")
         ops_k = nw_cuda.nw_walk_start(tb_k, state, band=band, tmax=tmax_half)
         plain_w_ms, ops_p = once_ms(lambda: nw_cuda.nw_walk_start_reference(tb_k, state, band=band,
                                                                             tmax=tmax_half))
@@ -2367,15 +2484,23 @@ def run_phase9(smi: str, ptxas: list[str], ctx: dict) -> list[dict]:
             print(f"  snapshot sweep timed: {ms:.4f} ms (without snapshots {plain_sweep_ms:.4f}; bound "
                   f"{b['bound_ms']:.4f} for the {cells} cells up to t_snap + 1; plain {plain_ms:.1f}; "
                   f"{out['nw_sweep_snapshot']['ptxas']} registers at {plan.lanes} lanes) | {smi}")
-            combine_ms = cuda_ms(lambda: nw_cuda.fold_combine(SNAP, DIAGA, DIAGB, ql, tl, **combine), REPS)
-            try:  # the combine's device launches, from the profiler where it traces the card
-                with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-                    nw_cuda.fold_combine(SNAP, DIAGA, DIAGB, ql, tl, **combine)
-                    torch.cuda.synchronize()
-                combine_launches = sum(e.count for e in prof.key_averages() if e.device_type.name == "CUDA") or None
-            except Exception as exc:  # noqa: BLE001 - a measurement that is not there is reported as such
-                print(f"  the profiler did not count the combine's launches: {exc!r}")
-                combine_launches = None
+            # in turns: the plain version, the kernel, the kernel, the plain version
+            plain_cs = [cuda_ms(lambda: nw_cuda.fold_combine_reference(SNAP, DIAGA, DIAGB, ql, tl, **combine),
+                                REPS)]
+            combine_mss = [cuda_ms(lambda: nw_cuda.fold_combine(SNAP, DIAGA, DIAGB, ql, tl, **combine), REPS)
+                           for _ in range(2)]
+            plain_cs.append(cuda_ms(lambda: nw_cuda.fold_combine_reference(SNAP, DIAGA, DIAGB, ql, tl, **combine),
+                                    REPS))
+            combine_ms = statistics.median(combine_mss)
+            # the kernel's own device time: a call's CUDA-event time above
+            # also holds the host's time to issue it
+            combine_dev_ms = device_ms(lambda: nw_cuda.fold_combine(SNAP, DIAGA, DIAGB, ql, tl, **combine),
+                                       "fold_combine_kernel", REPS)
+            combine_launches = cuda_launches(lambda: nw_cuda.fold_combine(SNAP, DIAGA, DIAGB, ql, tl, **combine))
+            plain_launches = cuda_launches(
+                lambda: nw_cuda.fold_combine_reference(SNAP, DIAGA, DIAGB, ql, tl, **combine))
+            if combine_launches not in (None, 1):
+                raise AssertionError(f"the combine took {combine_launches} launches")
             # the combine reads 12 [B, W] int32 planes (the forward rows' six
             # snapshot planes, the backward rows' four gap planes, DIAGA and
             # DIAGB) and the lengths, and writes the scores, the cursors
@@ -2389,12 +2514,20 @@ def run_phase9(smi: str, ptxas: list[str], ctx: dict) -> list[dict]:
             out["nw_walk_start"] = {
                 "shape": {"B": n_rows, "W": W, "tmax": tmax_half}, "ms": ms_w, "plain_ms": plain_w_ms, **wb,
                 "max_abs_err": err_w, "launches": runs["fold"][2]["nw_walk_start"], "launches_path": "fold=True",
-                "combine_ms": combine_ms, "combine_cuda_launches": combine_launches,
-                "combine_bound_ms": cb["bound_ms"], "combine_bound_by": cb["bound_by"],
                 "ptxas": ptxas_registers(ptxas, "nw_walk_seg_kernel")}
+            out["fold_combine"] = {
+                "shape": {"B": n_pairs, "W": W}, "ms": combine_ms, "ms_runs": combine_mss,
+                "device_ms": combine_dev_ms,
+                "plain_ms": statistics.median(plain_cs), "plain_ms_runs": plain_cs, **cb, "max_abs_err": err_c,
+                "launches": runs["fold"][2]["fold_combine"], "launches_path": "fold=True, one a fold chunk",
+                "cuda_launches_per_call": combine_launches, "plain_cuda_launches_per_call": plain_launches,
+                "plain_once_ms": plain_c_ms, "ptxas": ptxas_registers(ptxas, "fold_combine_kernel")}
             print(f"  start walk timed: {ms_w:.4f} ms (bound {wb['bound_ms']:.5f}; plain {plain_w_ms:.1f}); the "
-                  f"combine between them {combine_ms:.4f} ms in {combine_launches} CUDA launches (bound "
-                  f"{cb['bound_ms']:.5f}, {cb['bound_by']}) | {smi}")
+                  f"combine between them {combine_ms:.4f} ms in {combine_launches} CUDA launches (runs "
+                  f"{json.dumps(combine_mss)}, {combine_dev_ms} ms on the device; bound {cb['bound_ms']:.5f}, "
+                  f"{cb['bound_by']}; the plain version "
+                  f"{json.dumps(plain_cs)} ms in {plain_launches} launches; "
+                  f"{out['fold_combine']['ptxas']} registers) | {smi}")
         del tb_k, snaps_k, SNAP, DIAGA, DIAGB
         torch.cuda.empty_cache()
 
@@ -2487,12 +2620,14 @@ def run_phase9(smi: str, ptxas: list[str], ctx: dict) -> list[dict]:
            "nw_sweep_snapshot": "seqrush_tpu_torch/ops/csrc/nw_sweep_snap.cu",
            "nw_walk_start": "seqrush_tpu_torch/ops/csrc/nw_walk.cu",
            "nw_rows_sweep": "seqrush_tpu_torch/ops/csrc/nw_rows.cu",
-           "nw_rows_walk": "seqrush_tpu_torch/ops/csrc/nw_rows.cu"}
+           "nw_rows_walk": "seqrush_tpu_torch/ops/csrc/nw_rows.cu",
+           "fold_combine": "seqrush_tpu_torch/ops/csrc/fold_combine.cu"}
     replaces = {"nw_sweep_int16": "seqrush_tpu/ops/nw.py:275 (_sweep_v3, dtype=int16; XLA)",
                 "nw_sweep_snapshot": "seqrush_tpu/ops/nw.py:275 (_sweep_v3, t_snap; XLA; nw_align_fold :1678)",
                 "nw_walk_start": "seqrush_tpu/ops/nw.py:1199 (_tb_scan_tbw, start; XLA)",
                 "nw_rows_sweep": "seqrush_tpu/ops/nw.py:1877 (_sweep_rows; XLA)",
-                "nw_rows_walk": "seqrush_tpu/ops/nw.py:2021 (_tb_rows_scan; XLA)"}
+                "nw_rows_walk": "seqrush_tpu/ops/nw.py:2021 (_tb_rows_scan; XLA)",
+                "fold_combine": "seqrush_tpu/ops/nw.py:1720"}
     return [{"name": k, "route": "cuda", "source": src[k], "replaces": replaces[k], "library_ms": None,
              **v, "tolerance": 0} for k, v in out.items()]
 

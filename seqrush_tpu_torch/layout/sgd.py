@@ -24,17 +24,25 @@ we keep the exact table).
 
 Two things differ from the JAX module, by design:
 
-  * The tick (``sgd_tick``) is a plain function of the positions and one
-    tick's draws, and the loop (``_sgd_run``) makes the draws a block at a
-    time from a seeded ``torch.Generator`` on the run's device.  The stream
-    is torch's (Philox on a GPU, Mersenne Twister on the CPU), not JAX's
-    threefry, so positions differ from the JAX package's for the same seed;
-    fed the same draws, the tick computes the same positions.
-  * The same seed on the same device gives the same positions bit for bit.
-    On a GPU that needs care: ``index_add_`` there sums with float atomics
-    in whatever order the threads arrive.  ``_scatter_terms`` sums the
-    displacements with ``index_put_(accumulate=True)`` instead, which sorts
-    the indices and adds each node's terms in a fixed order.
+  * The tick is a function of the positions and one tick's draws, and the
+    loop (``_sgd_run``) makes the draws a block at a time from a seeded
+    ``torch.Generator`` on the run's device.  The stream is torch's (Philox
+    on a GPU, Mersenne Twister on the CPU), not JAX's threefry, so positions
+    differ from the JAX package's for the same seed; fed the same draws, the
+    tick computes the same positions bit for bit.
+  * On a GPU each tick is one call of a hand-written kernel
+    (``sgd_tick_cuda``, ``ops/csrc/sgd_tick.cu``, three launches); on the
+    CPU the plain version (``sgd_tick``) runs.  Both sum each node's terms
+    in one fixed order, that of the JAX tick's ``.at[i].add(-r_x)
+    .at[j].add(r_x)``: a left fold from 0.0 over the terms that name the node
+    first, in term order, then over those that name it second.  So the
+    kernel's positions equal the plain version's run on the CPU bit for bit,
+    and the same seed on the same device gives the same positions.  On the
+    CPU ``_scatter_terms`` adds with ``index_add_``, a serial loop in index
+    order at every size; ``index_put_(accumulate=True)`` adds with parallel
+    float atomics there from 32,768 entries on.  The plain version run on a
+    GPU sums with ``index_put_(accumulate=True)``, which sorts the indices
+    first and is reproducible, but not in that order.
 
 The reference's reverse-handle position bug class (looking up a step's
 position index with the oriented handle instead of the forward handle —
@@ -52,6 +60,7 @@ import numpy as np
 import torch
 
 from ..graph.bigraph import BidirectedGraph
+from ..ops import nw_cuda
 from ..utils import resolve_device
 
 
@@ -214,13 +223,20 @@ def _scatter_terms(
     as ``i`` plus r_x over those that name it as ``j``, and how many valid
     terms name it.
 
-    The displacements go through ``index_put_(accumulate=True)``: on a GPU
-    it sorts the indices and sums each node's terms in a fixed order, where
-    ``index_add_`` would add them with float atomics in the order the
-    threads arrive; on the CPU both add in index order.  The counts are sums
-    of 0.0 and 1.0, exact in any order, so they take the cheaper call."""
+    On the CPU the displacements go through ``index_add_``, which adds them
+    one by one in the order of ``cat([i, j])`` at every size (the order the
+    tick kernel keeps); ``index_put_(accumulate=True)`` would add them with
+    parallel float atomics from 32,768 entries on.  On a GPU ``index_add_``
+    adds with float atomics in the order the threads arrive, so the
+    displacements go through ``index_put_(accumulate=True)``, which sorts
+    the indices and sums each node's terms in a fixed order.  The counts are
+    sums of 0.0 and 1.0, exact in any order."""
     ij = torch.cat([i, j])
-    upd = torch.zeros_like(x).index_put_((ij,), torch.cat([-r_x, r_x]), accumulate=True)
+    terms = torch.cat([-r_x, r_x])
+    if x.device.type == "cpu":
+        upd = torch.zeros_like(x).index_add_(0, ij, terms)
+    else:
+        upd = torch.zeros_like(x).index_put_((ij,), terms, accumulate=True)
     term_cnt = torch.zeros_like(x).index_add_(0, ij, torch.cat([nvalid, nvalid]))
     return upd, term_cnt
 
@@ -238,7 +254,8 @@ def sgd_tick(
     """One tick: ``u`` term pairs drawn by (step_idx, coin_zipf, coin_back,
     u01, u02), each [u], moved against the snapshot ``x``; returns the new
     positions.  float32 arithmetic in the order of the JAX tick
-    (seqrush_tpu/layout/sgd.py, ``_sgd_run.tick``)."""
+    (seqrush_tpu/layout/sgd.py, ``_sgd_run.tick``).  The plain version of
+    the tick kernel (``sgd_tick_cuda``); it runs on any device."""
     t = tables
     eta = float(t.etas[min(it, t.etas.shape[0] - 1)])
     cooling = it >= t.first_cooling_iter
@@ -313,6 +330,121 @@ def draw_block(
     return step_idx, coin_zipf, coin_back, u01, u02
 
 
+class TickWork(NamedTuple):
+    """The tick kernel's scratch for N nodes and w terms (int32 unless
+    said).  ``cnt``, ``cur`` and ``done`` are 0 between ticks: the kernel
+    leaves them so."""
+
+    ti: torch.Tensor  # [w] each term's first node, -1 where the term is not valid
+    tj: torch.Tensor  # [w] each term's second node
+    tr: torch.Tensor  # float32 [w] each term's displacement
+    slots: torch.Tensor  # [2w] each node's positions in cat([i, j])
+    vals: torch.Tensor  # float32 [2w] the displacements in each node's order
+    off: torch.Tensor  # [N] each node's first slot
+    cnt: torch.Tensor  # [N] each node's valid terms
+    cur: torch.Tensor  # [N] each node's slots filled
+    done: torch.Tensor  # [1] blocks of the term launch that finished
+
+
+def tick_work(n_nodes: int, width: int, device: torch.device) -> TickWork:
+    i32, f32 = torch.int32, torch.float32
+    return TickWork(
+        torch.empty(width, dtype=i32, device=device),
+        torch.empty(width, dtype=i32, device=device),
+        torch.empty(width, dtype=f32, device=device),
+        torch.empty(2 * width, dtype=i32, device=device),
+        torch.empty(2 * width, dtype=f32, device=device),
+        torch.empty(n_nodes, dtype=i32, device=device),
+        torch.zeros(n_nodes, dtype=i32, device=device),
+        torch.zeros(n_nodes, dtype=i32, device=device),
+        torch.zeros(1, dtype=i32, device=device),
+    )
+
+
+# a node named by more terms than this in a tick is ranked by a block of the
+# tick kernel's last launch, not a warp (ops/csrc/sgd_tick.cu)
+LONG_NODE_TERMS = 256
+
+
+def _launch_tick(lib, stream: int, x, out, it: int, draws, tables: SGDTables, work: TickWork) -> None:
+    t = tables
+    cooling = it >= t.first_cooling_iter
+    H = t.Hcool if cooling else t.Hmain
+    eta = float(t.etas[min(it, t.etas.shape[0] - 1)])
+    with torch.cuda.device(x.device):
+        err = lib.sgd_tick_launch(
+            x.data_ptr(), out.data_ptr(), *(d.data_ptr() for d in draws),
+            t.node_of_step.data_ptr(), t.step_pos.data_ptr(), t.step_path.data_ptr(),
+            t.step_rank.data_ptr(), t.path_first.data_ptr(), t.path_count.data_ptr(), H.data_ptr(),
+            *(a.data_ptr() for a in work), t.space, int(cooling), eta, draws[0].shape[0],
+            x.shape[0], LONG_NODE_TERMS, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"sgd_tick launch failed with CUDA error {err}")
+    nw_cuda.LAUNCHES["sgd_tick"] += 1
+
+
+def sgd_tick_cuda(
+    x: torch.Tensor,
+    it: int,
+    step_idx: torch.Tensor,
+    coin_zipf: torch.Tensor,
+    coin_back: torch.Tensor,
+    u01: torch.Tensor,
+    u02: torch.Tensor,
+    tables: SGDTables,
+    work: TickWork | None = None,
+    out: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """``sgd_tick`` on a GPU: one tick of ``ops/csrc/sgd_tick.cu`` (three
+    launches) into ``out`` (made when None; never ``x``), whose positions
+    equal those of ``sgd_tick`` run on the CPU on the same inputs bit for
+    bit.  ``work`` is ``tick_work``'s scratch, made when None."""
+    device = x.device
+    if device.type != "cuda":
+        raise ValueError(f"sgd_tick_cuda runs on a GPU, got {device}: the CPU runs sgd_tick")
+    w = step_idx.shape[0]
+    for name, a, dtype in (("x", x, torch.float32), ("step_idx", step_idx, torch.int64),
+                           ("coin_zipf", coin_zipf, torch.bool), ("coin_back", coin_back, torch.bool),
+                           ("u01", u01, torch.float32), ("u02", u02, torch.float32)):
+        if a.dtype != dtype or a.dim() != 1 or a.device != device or not a.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 1-D {dtype} tensor on {device}")
+        if name != "x" and a.shape[0] != w:
+            raise ValueError(f"the draws must have one length, got {a.shape[0]} and {w}")
+    if tables.node_of_step.device != device:
+        raise ValueError(f"the tables are on {tables.node_of_step.device}, expected {device}")
+    if out is None:
+        out = torch.empty_like(x)
+    if out is x or out.shape != x.shape:
+        raise ValueError("out must be another buffer of x's shape")
+    if work is None:
+        work = tick_work(x.shape[0], w, device)
+    if work.ti.shape[0] != w or work.cnt.shape[0] != x.shape[0] or work.cnt.device != device:
+        raise ValueError(f"work is for {work.ti.shape[0]} terms and {work.cnt.shape[0]} nodes on "
+                         f"{work.cnt.device}, not {w} and {x.shape[0]} on {device}")
+    stream = torch.cuda.current_stream(device).cuda_stream
+    _launch_tick(nw_cuda._library(), stream, x, out, it, (step_idx, coin_zipf, coin_back, u01, u02),
+                 tables, work)
+    return out
+
+
+def _kernel_ticks(x0: torch.Tensor, tables: SGDTables, width: int):
+    """A tick function for the run's loop on the card: the library, the
+    stream, the scratch and two position buffers fetched once; each tick
+    writes the buffer the tick before did not."""
+    lib = nw_cuda._library()
+    work = tick_work(x0.shape[0], width, x0.device)
+    bufs = (torch.empty_like(x0), torch.empty_like(x0))
+    stream = torch.cuda.current_stream(x0.device).cuda_stream
+
+    def tick(x, it, *draws):
+        out = bufs[1] if x is bufs[0] else bufs[0]
+        _launch_tick(lib, stream, x, out, it, draws, tables, work)
+        return out
+
+    return tick
+
+
 def _sgd_run(
     x0: torch.Tensor,
     tables: SGDTables,
@@ -325,16 +457,22 @@ def _sgd_run(
     """All ``(len(etas) - 1) * n_sub`` ticks from ``x0``.  The draws are made
     ``block_ticks`` ticks at a time from one generator, to bound their
     memory.  The block size is part of how the stream is laid out, so it
-    comes from ``tick_plan`` alone: one graph and seed, one stream."""
+    comes from ``tick_plan`` alone: one graph and seed, one stream.  On a
+    GPU every tick runs the tick kernel; on the CPU the plain ``sgd_tick``."""
     T = (tables.etas.shape[0] - 1) * n_sub
     B = block_ticks if block_ticks > 0 else T
     gen = torch.Generator(device=x0.device)
     gen.manual_seed(int(seed))
+    if x0.device.type == "cuda":
+        tick = _kernel_ticks(x0, tables, u_per_sub)
+    else:
+        def tick(x, it, *draws):
+            return sgd_tick(x, it, *draws, tables)
     x = x0
     for lo in range(0, T, B):
         draws = draw_block(gen, min(B, T - lo), u_per_sub, n_steps)
         for k in range(draws[0].shape[0]):
-            x = sgd_tick(x, (lo + k) // n_sub, *(d[k] for d in draws), tables)
+            x = tick(x, (lo + k) // n_sub, *(d[k] for d in draws))
     return x
 
 

@@ -40,8 +40,9 @@
   the segment mode's walk over a whole traceback from given cursors.
 * ``nw_align_fold`` -- the bidirectional fold (``nw.nw_align_fold``):
   kernel A's snapshot mode on the forward and the reversed rows, the join
-  of the halves in plain torch on the device (``fold_combine``), kernel B's
-  start mode on both halves.
+  of the halves (``fold_combine``, ``csrc/fold_combine.cu``; the counterpart
+  of ``nw.nw_align_fold``'s combine, nw.py:1720-1806), kernel B's start mode
+  on both halves.
 * ``nw_align_rows`` / ``nw_walk_rows`` -- kernels C and D, the row-major
   sweep and walk (``csrc/nw_rows.cu``; the counterparts of ``nw._sweep_rows``
   and ``nw._tb_rows_scan``).
@@ -56,7 +57,7 @@
 Each wrapper runs its plain PyTorch version (``nw_align_reference``,
 ``nw_walk_reference``, ``nw_walk_runs_reference``, ``nw_walk_start_reference``,
 ``nw_align_rows_reference``, ``nw_walk_rows_reference``,
-``nw_align_sharded_reference``) when the tensors lie
+``nw_align_sharded_reference``, ``fold_combine_reference``) when the tensors lie
 on the CPU, and launches its CUDA
 kernel when they lie on a GPU; there is no fallback between the two.  The
 plain versions repeat the reference arithmetic step by step, including the
@@ -83,9 +84,10 @@ forward run's launch too), ``nw_walk_segment``, and the group launches
 ``nw_sweep_segment_group``, ``nw_walk_segment_group``, which the long route
 makes at every G, 1 included), the sharded mode as ``nw_sweep_sharded`` (one a
 device's launch), and kernels C and D as ``nw_rows_sweep`` and
-``nw_rows_walk``; the wavefront kernel of ``ops/wfa.py`` counts its
-launches here too (``wfa``, ``wfa_score_only``), since one build makes one
-library of every source.
+``nw_rows_walk``, the fold's combine as ``fold_combine``; the wavefront
+kernel of ``ops/wfa.py`` (``wfa``, ``wfa_score_only``) and the SGD tick of
+``layout/sgd.py`` (``sgd_tick``, one a tick: its three launches) count their
+launches here too, since one build makes one library of every source.
 """
 
 from __future__ import annotations
@@ -112,10 +114,10 @@ LAUNCHES = {"nw_sweep": 0, "nw_sweep_score_only": 0, "nw_walk": 0, "nw_walk_runs
             "nw_sweep_segment_group": 0, "nw_walk_segment_group": 0,
             "wfa": 0, "wfa_score_only": 0, "nw_sweep_int16": 0, "nw_sweep_snapshot": 0,
             "nw_walk_start": 0, "nw_rows_sweep": 0, "nw_rows_walk": 0, "nw_sweep_tiled": 0,
-            "nw_walk_runs_tiled": 0, "nw_sweep_sharded": 0}
+            "nw_walk_runs_tiled": 0, "nw_sweep_sharded": 0, "fold_combine": 0, "sgd_tick": 0}
 
 _SOURCES = ("nw_sweep.cu", "nw_sweep_seg.cu", "nw_sweep_snap.cu", "nw_sweep_tiled.cu", "nw_sweep_i16.cu",
-            "nw_walk.cu", "wfa.cu", "nw_rows.cu", "nw_sweep_shard.cu")
+            "nw_walk.cu", "wfa.cu", "nw_rows.cu", "nw_sweep_shard.cu", "fold_combine.cu", "sgd_tick.cu")
 _HEADERS = ("nw_sweep.cuh",)
 # anti-diagonals per segment of the long-pair route (the JAX package's default)
 LONG_SEG = 2048
@@ -277,6 +279,11 @@ def _library() -> ctypes.CDLL:
             lib.nw_sweep_shard_capacity.restype = i32
             lib.nw_sweep_shard_peer.argtypes = [i32] * 2
             lib.nw_sweep_shard_peer.restype = i32
+            lib.fold_combine_launch.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
+            lib.fold_combine_launch.restype = i32
+            lib.sgd_tick_launch.argtypes = ([ptr] * 23 + [ctypes.c_longlong, i32, ctypes.c_float, i32, i32, i32]
+                                            + [ptr])
+            lib.sgd_tick_launch.restype = i32
             _lib = lib
         return _lib
 
@@ -1489,6 +1496,40 @@ def nw_walk_start_reference(tb, state, *, band, tmax):
 
 
 def fold_combine(SNAP, DIAGA, DIAGB, qlens, tlens, *, o1, o2, band):
+    """The fold's join of its half sweeps (nw.nw_align_fold's combine):
+    fold_combine_reference's function, on a GPU in one launch of
+    csrc/fold_combine.cu (a block a pair).  qlens and tlens are int32 there.
+    Returns (scores [B] int32, state [4, 2B] int32, cross_m [B] bool)."""
+    device = SNAP.device
+    if device.type == "cpu":
+        return fold_combine_reference(SNAP, DIAGA, DIAGB, qlens, tlens, o1=o1, o2=o2, band=band)
+    _require_cuda(device)
+    B, W = qlens.shape[0], band + 1
+    _check("SNAP", SNAP, torch.int32, 3, device)
+    _check("DIAGA", DIAGA, torch.int32, 2, device)
+    _check("DIAGB", DIAGB, torch.int32, 2, device)
+    _check_lengths(qlens, tlens, B, device)
+    if tuple(SNAP.shape) != (6, 2 * B, W) or tuple(DIAGA.shape) != (2 * B, W) or DIAGB.shape != DIAGA.shape:
+        raise ValueError(f"SNAP {tuple(SNAP.shape)} / DIAGA {tuple(DIAGA.shape)} / DIAGB "
+                         f"{tuple(DIAGB.shape)} do not fit {B} pairs at band {band}")
+    scores = torch.empty(B, dtype=torch.int32, device=device)
+    state = torch.empty((4, 2 * B), dtype=torch.int32, device=device)
+    cross_m = torch.empty(B, dtype=torch.bool, device=device)
+    if B == 0:
+        return scores, state, cross_m
+    lib = _library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.fold_combine_launch(SNAP.data_ptr(), DIAGA.data_ptr(), DIAGB.data_ptr(), qlens.data_ptr(),
+                                      tlens.data_ptr(), scores.data_ptr(), state.data_ptr(), cross_m.data_ptr(),
+                                      B, W, int(o1), int(o2), stream)
+    if err != 0:
+        raise RuntimeError(f"fold_combine launch failed with CUDA error {err}")
+    LAUNCHES["fold_combine"] += 1
+    return scores, state, cross_m
+
+
+def fold_combine_reference(SNAP, DIAGA, DIAGB, qlens, tlens, *, o1, o2, band):
     """The fold's join of its half sweeps (nw.nw_align_fold's combine, in
     plain PyTorch on the tensors' device): every edge that crosses the seam
     between the forward rows' anti-diagonal tm = ceil(fin / 2) and the

@@ -1,6 +1,7 @@
 """The headline corpus and its scoring, shared by ``chip_smoke.py``, the
 JAX package's digest scripts under ``scripts/`` (through ``chip_smoke``) and
-``tools/wfa_shapes.py``."""
+``tools/wfa_shapes.py``; and ``synth_variation_graph``, the layout's graph at
+1,000 haplotypes (``chip_smoke.py`` phase 3, ``tools/sgd_timing.py``)."""
 
 from __future__ import annotations
 
@@ -37,3 +38,70 @@ def synth_hla(n_seqs=25, length=3300, seed=7):
             s[a:b] = bytes(s[a:b]).translate(comp)[::-1]
         out.append((f"gene*{k:02d}", bytes(s)))
     return out
+
+
+def synth_variation_graph(n_paths=1000, length=3300, n_sites=900, seed=11, loop_visits=0):
+    """A BidirectedGraph of one locus of ``length`` bp and ``n_paths``
+    haplotypes, built directly (no alignment): ``n_sites`` biallelic sites,
+    92% SNPs, 4% deletions and 4% insertions of 1-4 bp, each with its own
+    alternate allele frequency (uniform in [0.02, 0.5]); every haplotype is
+    a path through the reference segments between the sites (each at least
+    1 bp) and, at each site, the allele it carries (a deletion's carriers
+    skip its reference node, an insertion's non-carriers have no node
+    there).  Node ids run 1..N in reference order.  At the defaults: 2,639
+    nodes and 1,770,128 path steps, the headline graph's shape at 40 x its
+    25 paths, at the top of the 1k-haplotype range users build.  With
+    ``loop_visits`` K > 0 one more node, a 2 bp repeat unit, follows the
+    middle backbone segment and every path visits it K times in a row (a
+    collapsed tandem repeat: a node of K x n_paths steps and a self-loop
+    edge)."""
+    from seqrush_tpu_torch.graph.bigraph import BidirectedGraph
+
+    rng = np.random.default_rng(seed)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    kind = rng.choice(3, size=n_sites, p=[0.92, 0.04, 0.04])  # 0 SNP, 1 deletion, 2 insertion
+    indel = rng.integers(1, 5, size=n_sites)
+    ref_len = np.where(kind == 0, 1, np.where(kind == 1, indel, 0))
+    spare = length - int(ref_len.sum()) - (n_sites + 1)
+    if spare < 0:
+        raise ValueError(f"{n_sites} sites do not fit {length} bp")
+    seg_len = 1 + rng.multinomial(spare, np.full(n_sites + 1, 1.0 / (n_sites + 1)))
+    freq = rng.uniform(0.02, 0.5, size=n_sites)
+    g = BidirectedGraph()
+    # the node of each slot: backbone segment k at 2k, site k's reference
+    # and alternate alleles at columns 2k + 1 of ref_node / alt_node (0: none)
+    ref_node = np.zeros(2 * n_sites + 1, np.int64)
+    alt_node = np.zeros(2 * n_sites + 1, np.int64)
+    nid = 0
+    for k in range(n_sites + 1):
+        nid += 1
+        g.add_node(nid, bases[rng.integers(0, 4, seg_len[k])])
+        ref_node[2 * k] = alt_node[2 * k] = nid
+        if k == n_sites:
+            break
+        if kind[k] != 2:
+            nid += 1
+            ref = rng.integers(0, 4, ref_len[k])
+            g.add_node(nid, bases[ref])
+            ref_node[2 * k + 1] = nid
+        if kind[k] == 0:  # the alternate base: one of the other three
+            nid += 1
+            g.add_node(nid, bases[[(ref[0] + rng.integers(1, 4)) % 4]])
+            alt_node[2 * k + 1] = nid
+        elif kind[k] == 2:
+            nid += 1
+            g.add_node(nid, bases[rng.integers(0, 4, indel[k])])
+            alt_node[2 * k + 1] = nid
+    carries = np.ones((n_paths, 2 * n_sites + 1), bool)
+    carries[:, 1::2] = rng.random((n_paths, n_sites)) < freq
+    slots = np.where(carries, alt_node, ref_node)
+    cut, loop = 2 * (n_sites // 2) + 1, np.zeros(0, np.int64)
+    if loop_visits > 0:
+        nid += 1
+        g.add_node(nid, bases[rng.integers(0, 4, 2)])
+        loop = np.full(loop_visits, nid, np.int64)
+    for p in range(n_paths):
+        row = np.concatenate([slots[p, :cut], loop, slots[p, cut:]])
+        g.add_path(f"hap{p:04d}", row[row > 0] << 1)
+    g.verify_path_edges()
+    return g

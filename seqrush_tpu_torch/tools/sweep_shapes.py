@@ -111,10 +111,11 @@ def device_ms(fn, kernel: str, reps: int) -> float | None:
     except Exception as exc:  # noqa: BLE001 - a measurement that is not there is reported as such
         print(f"the profiler did not trace {kernel}: {exc!r}", file=sys.stderr)
         return None
-    hits = [e for e in prof.key_averages() if kernel in e.key]
-    count = sum(e.count for e in hits)
-    total_us = sum(getattr(e, "device_time_total", 0) or 0 for e in hits)
-    return total_us / 1e3 / count if count and total_us else None
+    # the device events themselves: key_averages() has been seen to list no
+    # device time for a kernel launched outside torch where events() holds it
+    hits = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
+    total_us = sum(e.device_time for e in hits)
+    return total_us / 1e3 / len(hits) if hits and total_us else None
 
 
 def strips(nw_cuda, B: int, W: int, Lq: int, Lt: int):

@@ -1,6 +1,7 @@
 """Kernels A and B (their runs, int16, snapshot, start and tiled modes too), the
-row-major kernels C and D and the wavefront kernel on the card against their
-plain versions, and the pipeline on cuda against cpu.  Marked ``cuda``; each test skips without a
+row-major kernels C and D, the wavefront kernel, the fold's combine and the
+SGD tick on the card against their plain versions (the tick against the
+plain tick run on the CPU), and the pipeline on cuda against cpu.  Marked ``cuda``; each test skips without a
 CUDA device.  This file imports nothing of JAX, so it runs where JAX is not
 installed:
 
@@ -369,6 +370,170 @@ def test_sgd_tick_on_cuda_close_to_cpu_and_reproducible(cuda):
     assert sgd.path_linear_sgd(g, params, "cuda") == first
 
 
+def _variation_graph(seed, n_nodes=120, n_paths=5):
+    """tests/test_torch_graph_order.py::variation_gfa's graph (skipped
+    segments, SNP bubbles, an inverted block, a tandem repeat, segments
+    stored reverse-complemented), built with the port's BidirectedGraph."""
+    from seqrush_tpu_torch.graph.bigraph import BidirectedGraph
+
+    rng = np.random.default_rng(seed)
+    ids = rng.permutation(np.arange(1, 2 * n_nodes + 1))
+    main, alt = ids[:n_nodes], ids[n_nodes:]
+    has_alt = rng.random(n_nodes) < 0.2
+    stored_rev = rng.random(n_nodes) < 0.1
+    g = BidirectedGraph()
+    for k in range(n_nodes):
+        g.add_node(int(main[k]), bytes(rng.choice(list(b"ACGT"), size=int(rng.integers(1, 7))).astype(np.uint8)))
+        if has_alt[k]:
+            g.add_node(int(alt[k]), bytes(rng.choice(list(b"ACGT"), size=1).astype(np.uint8)))
+    for p in range(n_paths):
+        steps = []
+        for k in range(n_nodes):
+            if 0 < k < n_nodes - 1 and rng.random() < 0.05:
+                continue
+            if has_alt[k] and rng.random() < 0.5:
+                steps.append((int(alt[k]), False))
+            else:
+                steps.append((int(main[k]), bool(stored_rev[k])))
+        if p % 2 == 1:
+            a, b = len(steps) // 3, len(steps) // 3 + int(rng.integers(4, 12))
+            steps[a:b] = [(n, not r) for n, r in reversed(steps[a:b])]
+        if p == 0:
+            a = 2 * len(steps) // 3
+            steps[a:a] = steps[a : a + 5]
+        g.build_path(f"path{p}", steps)
+    visited = {int(h) >> 1 for path in g.paths for h in path.steps}
+    g.nodes = {n: seq for n, seq in g.nodes.items() if n in visited}
+    g.verify_path_edges()
+    return g
+
+
+def _edge_graph(kind):
+    """Graphs at the edges of the tick: a one-step path beside longer ones,
+    only two-step paths, and a hub node on every path (several times each)."""
+    from seqrush_tpu_torch.graph.bigraph import BidirectedGraph
+
+    rng = np.random.default_rng(len(kind))
+    if kind == "one_step":
+        g = _variation_graph(4, n_nodes=60)
+        g.add_path("single", np.array([g.paths[0].steps[3]]))
+        return g
+    g = BidirectedGraph()
+    n = 40
+    for nid in range(1, n + 1):
+        g.add_node(nid, bytes(rng.choice(list(b"ACGT"), size=int(rng.integers(1, 6))).astype(np.uint8)))
+    for p in range(12 if kind == "two_steps" else 30):
+        if kind == "two_steps":
+            steps = rng.choice(np.arange(1, n + 1), size=2, replace=False)
+        else:
+            body = rng.choice(np.arange(2, n + 1), size=20, replace=False)
+            steps = np.insert(body, [0, 5, 10, 15, 20], 1)  # node 1 five times a path
+        g.add_path(f"p{p}", steps.astype(np.int64) << 1)
+    g.verify_path_edges()
+    return g
+
+
+def _held_to_cpu_ticks(g, blocks=None):
+    """tools/sgd_timing.py::cpu_parity on g: the tick kernel on the card
+    against the plain tick on the CPU fed the same draws, compared after
+    every tick of the first block of draws and at the end of every block
+    (of the first ``blocks``); each compared tick launched the kernel once
+    (the whole run's check adds the layout's own run of n_ticks)."""
+    from seqrush_tpu_torch.tools.sgd_timing import cpu_parity
+
+    before = nw_cuda.LAUNCHES["sgd_tick"]
+    par = cpu_parity(g, blocks)
+    assert par["bit_equal"] and par["max_abs_err"] == 0.0, par
+    whole = "layout_run_equal" in par
+    assert nw_cuda.LAUNCHES["sgd_tick"] - before == par["ticks_compared"] * (2 if whole else 1)
+    return par
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_sgd_tick_kernel_equals_cpu_ticks_whole_run(cuda, seed):
+    """Every tick of a whole run (800 ticks in one block of draws: before
+    and after cooling) of the tick kernel bit-equal to the plain tick run on
+    the CPU; the layout's own run on the card (sgd._sgd_run) ends at the
+    same positions, and two such runs with one seed are bit-equal."""
+    from seqrush_tpu_torch.layout import sgd
+    from seqrush_tpu_torch.layout.ygs import YgsParams
+
+    g = _variation_graph(seed)
+    par = _held_to_cpu_ticks(g)
+    params = YgsParams.from_graph(g).to_sgd()
+    plan = sgd.sgd_setup(g, params, "cuda")
+    assert par["ticks_compared_one_by_one"] == plan.n_ticks == 800 and par["layout_run_equal"]
+    assert plan.tables.first_cooling_iter * plan.n_sub < plan.n_ticks
+    run = lambda: sgd._sgd_run(plan.x0, plan.tables, params.seed, plan.n_steps, plan.n_sub,
+                               plan.u_per_sub, plan.block_ticks)
+    assert torch.equal(run().view(torch.int32), run().view(torch.int32))
+
+
+@pytest.mark.parametrize("kind", ["one_step", "two_steps", "hub"])
+def test_sgd_tick_kernel_equals_cpu_ticks_edge_graphs(cuda, kind):
+    par = _held_to_cpu_ticks(_edge_graph(kind))
+    assert par["ticks_compared_one_by_one"] == par["ticks_compared"] == 800
+
+
+def test_sgd_tick_kernel_equals_cpu_ticks_1000_paths(cuda):
+    """The first block of draws (16 ticks of 262,144 terms) of the 1,000-path
+    graph bit-equal to the plain tick on the CPU."""
+    from seqrush_tpu_torch.tools.headline import synth_variation_graph
+
+    par = _held_to_cpu_ticks(synth_variation_graph(), blocks=1)
+    assert par["tick_width"] == 262144 and par["ticks_compared_one_by_one"] == par["block_ticks"] == 16
+
+
+@pytest.mark.parametrize("long_terms", [0, 3])
+@pytest.mark.parametrize("kind", ["variation", "hub"])
+def test_sgd_tick_kernel_block_ranked_nodes_equal_cpu_ticks(cuda, monkeypatch, kind, long_terms):
+    """Every node named by more than ``long_terms`` terms ranked by a block
+    (the bitmap of its positions), the rest by a warp: every tick of a
+    whole run bit-equal to the plain tick run on the CPU."""
+    from seqrush_tpu_torch.layout import sgd
+
+    monkeypatch.setattr(sgd, "LONG_NODE_TERMS", long_terms)
+    g = _variation_graph(0) if kind == "variation" else _edge_graph(kind)
+    par = _held_to_cpu_ticks(g)
+    assert par["ticks_compared_one_by_one"] == par["ticks_compared"] == 800
+
+
+@pytest.mark.parametrize("loop, long_terms", [(20, None), (0, 0)])
+def test_sgd_tick_kernel_long_nodes_1000_paths(cuda, monkeypatch, loop, long_terms):
+    """The first block of draws of the 1,000-path graph bit-equal to the
+    plain tick on the CPU: with a node that every path visits 20 times in a
+    row (about 5,000 terms a tick on that node, ranked by a block over
+    eight windows of positions), and with every node ranked by a block."""
+    from seqrush_tpu_torch.layout import sgd
+    from seqrush_tpu_torch.tools.headline import synth_variation_graph
+
+    if long_terms is not None:
+        monkeypatch.setattr(sgd, "LONG_NODE_TERMS", long_terms)
+    g = synth_variation_graph(loop_visits=loop)
+    if loop:
+        steps = np.bincount(np.concatenate([p.steps >> 1 for p in g.paths]))
+        assert steps.max() == 1000 * loop
+    par = _held_to_cpu_ticks(g, blocks=1)
+    assert par["tick_width"] == 262144 and par["ticks_compared_one_by_one"] == 16
+
+
+def test_sgd_layout_runs_the_tick_kernel(cuda):
+    """path_linear_sgd on cuda launches the tick kernel once a tick and
+    gives the same positions on every call."""
+    from seqrush_tpu_torch.layout import sgd
+
+    g = _chain_graph(1)
+    params = sgd.PathSGDParams()
+    before = nw_cuda.LAUNCHES["sgd_tick"]
+    first = sgd.path_linear_sgd(g, params, "cuda")
+    plan = sgd.sgd_setup(g, params, "cuda")
+    assert nw_cuda.LAUNCHES["sgd_tick"] == before + plan.n_ticks
+    assert sgd.path_linear_sgd(g, params, "cuda") == first
+    d = sgd.draw_block(torch.Generator(device="cuda"), 1, plan.u_per_sub, plan.n_steps)
+    with pytest.raises(ValueError, match="another buffer"):
+        sgd.sgd_tick_cuda(plan.x0, 0, *(a[0] for a in d), plan.tables, out=plan.x0)
+
+
 def test_layout_and_schedules_on_cuda(cuda, tmp_path):
     """The default run (layout on) twice on cuda: byte-identical; against
     cpu: isomorphic; the tree schedule picks the same pairs on both."""
@@ -530,7 +695,7 @@ def _long_launches(n_fwd, n_grp, n_gwalk, n_seg_tb, n_seg_walk):
             "nw_walk_segment_group": n_gwalk, "wfa": 0, "wfa_score_only": 0,
             "nw_sweep_int16": 0, "nw_sweep_snapshot": 0, "nw_walk_start": 0, "nw_rows_sweep": 0,
             "nw_rows_walk": 0, "nw_sweep_tiled": 0, "nw_walk_runs_tiled": 0,
-            "nw_sweep_sharded": 0}
+            "nw_sweep_sharded": 0, "fold_combine": 0, "sgd_tick": 0}
 
 
 @pytest.mark.parametrize("G", ["all", 2, 1])
@@ -1012,10 +1177,73 @@ def test_fold_equals_plain(cuda, B, L, band, two_piece, int16):
     torch.cuda.synchronize()
     assert nw_cuda.LAUNCHES["nw_sweep_snapshot"] == before["nw_sweep_snapshot"] + 1
     assert nw_cuda.LAUNCHES["nw_walk_start"] == before["nw_walk_start"] + 1
+    assert nw_cuda.LAUNCHES["fold_combine"] == before["fold_combine"] + 1
     cpu = [a.cpu() for a in args]
     s_p, ops_p, cm_p = nw_cuda.nw_align_fold(*cpu, band=band_eff, tmax_half=tmax_half, int16=int16, **pen)
     assert torch.equal(s_k.cpu(), s_p) and torch.equal(ops_k.cpu(), ops_p) and torch.equal(cm_k.cpu(), cm_p)
     assert (s_k[:-1] > 0).all() and int(s_k[-1]) == 0
+
+
+def _combine_both(SNAP, DIAGA, DIAGB, ql, tl, **kw):
+    before = nw_cuda.LAUNCHES["fold_combine"]
+    got = nw_cuda.fold_combine(SNAP, DIAGA, DIAGB, ql, tl, **kw)
+    torch.cuda.synchronize()
+    assert nw_cuda.LAUNCHES["fold_combine"] == before + 1
+    want = nw_cuda.fold_combine_reference(SNAP, DIAGA, DIAGB, ql, tl, **kw)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    return got
+
+
+@pytest.mark.parametrize("B,L,band,two_piece,int16,narrow", [(9, 600, 127, True, False, False),
+                                                             (9, 600, 127, True, True, False),
+                                                             (6, 900, 255, False, False, False),
+                                                             (5, 1500, 1535, True, False, False),
+                                                             (7, 600, 127, False, True, False),
+                                                             (8, 300, 4, True, False, True),
+                                                             (8, 300, 4, False, False, True)])
+def test_fold_combine_kernel_equals_plain(cuda, B, L, band, two_piece, int16, narrow):
+    """The combine kernel on the snapshot sweep's own outputs: scores, the
+    half-walks' starts and the crossings exactly fold_combine_reference's,
+    in one launch.  The batches hold a zero-length pair (fin == 0) and a
+    tiny one; with ``narrow`` the band is below the pairs' length
+    differences, so rows do not finish (score -1, inert starts)."""
+    rng = np.random.default_rng(L + band + int(narrow))
+    (Q, T, Qr, Tr, ql, tl), band_eff, tmax_half = _fold_inputs(rng, B, L, band, cuda)
+    if narrow:
+        band_eff = band
+    pen = _penalties(two_piece, band_eff, tmax_half)
+    fin = ql + tl
+    tm = torch.div(fin + 1, 2, rounding_mode="floor")
+    t_snap = torch.cat([tm, fin - tm]).to(torch.int32)
+    _s, _tb, (SNAP, DIAGA, DIAGB) = nw_cuda.nw_align(torch.cat([Q, Qr]), torch.cat([T, Tr]), torch.cat([ql, ql]),
+                                                     torch.cat([tl, tl]), int16=int16, t_snap=t_snap, **pen)
+    scores, state, cross_m = _combine_both(SNAP, DIAGA, DIAGB, ql, tl, o1=pen["o1"], o2=pen["o2"], band=band_eff)
+    assert int(scores[-1]) == 0 and int(fin[-1]) == 0
+    if narrow:
+        assert (scores == -1).any()
+    else:
+        assert (scores[:-1] > 0).all()
+
+
+@pytest.mark.parametrize("two_piece", [True, False])
+@pytest.mark.parametrize("B,W", [(1, 1), (3, 40), (17, 129), (4, 700)])
+def test_fold_combine_kernel_on_random_snapshots(cuda, B, W, two_piece):
+    """The combine as a function of any snapshots: small values (many ties
+    between lanes and terms), INF cells, lengths from 0 past the band, each
+    pair's rows read at its own seam."""
+    rng = np.random.default_rng(B * 1000 + W + two_piece)
+    INF = 1 << 28
+    SNAP = rng.integers(0, 12, (6, 2 * B, W)).astype(np.int32)
+    DIAGA = rng.integers(0, 12, (2 * B, W)).astype(np.int32)
+    DIAGB = rng.integers(0, 12, (2 * B, W)).astype(np.int32)
+    for a in (SNAP, DIAGA, DIAGB):
+        a[rng.random(a.shape) < 0.3] = INF
+    ql = rng.integers(0, 3 * W + 3, B).astype(np.int32)
+    tl = rng.integers(0, 3 * W + 3, B).astype(np.int32)
+    ql[0] = tl[0] = 0
+    args = [torch.from_numpy(a).to(cuda) for a in (SNAP, DIAGA, DIAGB, ql, tl)]
+    _combine_both(*args, o1=8, o2=24 if two_piece else -1, band=W - 1)
 
 
 def test_walk_start_on_random_cursors_equals_plain(cuda):

@@ -11,7 +11,9 @@ so whole runs with their own draws differ.  What must agree:
   after one iteration (n_sub ticks at the largest learning rate)
   max |x_port - x_jax| <= 1e-3; after all 100 iterations the node order by
   (position, id) is equal;
-* a run with one seed twice on one device: bit-equal positions.
+* a run with one seed twice on one device: bit-equal positions;
+* the plain tick fed the JAX package's draws, run on the CPU: the JAX
+  package's positions bit for bit, after 1 and after 100 iterations.
 """
 
 import jax
@@ -158,6 +160,22 @@ def test_tick_with_jax_draws_one_iteration(seed):
     assert ids_j == ids_p
     assert np.isfinite(x_port).all()
     assert np.abs(x_port - x_jax).max() <= ONE_ITERATION_TOL_BP
+
+
+@pytest.mark.parametrize("n_iters", [1, 100])
+@pytest.mark.parametrize("seed", GRAPH_SEEDS)
+def test_tick_with_jax_draws_bit_equal(seed, n_iters):
+    """Fed the JAX package's draws, the plain tick on the CPU gives the JAX
+    package's positions bit for bit, after one iteration and after all 100
+    (800 ticks): both sum each node's terms in the order of cat([i, j]),
+    with the same float32 operations.  The tick kernel is held to this
+    plain tick bit for bit on the card (tests/test_torch_cuda.py)."""
+    jg, g = _graphs(seed)
+    x_jax, ids_j, _ = _jax_run(jg, jsgd.PathSGDParams(bucket=False), n_iters)
+    x_port, ids_p, _ = _port_run_with_jax_draws(g, psgd.PathSGDParams(bucket=False), n_iters)
+    assert ids_j == ids_p
+    assert x_port.dtype == x_jax.dtype == np.float32
+    assert (x_port.view(np.int32) == x_jax.view(np.int32)).all()
 
 
 @pytest.mark.parametrize("seed", GRAPH_SEEDS)
