@@ -29,17 +29,19 @@ Phases (any failure exits non-zero and prints no ok line):
      higher; the layout's phase seconds, the SGD's ticks and their width
      and both graphs' RMSE and MAE are printed (the default run's layout
      must have launched the SGD tick kernel);
-  3d. the SGD tick kernel (ops/csrc/sgd_tick.cu; see run_sgd and
-     seqrush_tpu_torch/tools/sgd_timing.py) on the unsorted headline graph:
-     the whole run (800 ticks) on the card against the plain tick on the
-     CPU fed the same draws, bit for bit after each tick of the first block
-     of draws and at the end of every block, and the layout's own run ending
-     at the same positions; the kernel's run and the plain ticks' run on the
-     card timed in turns, the launches a tick and the device-busy share of
-     each from torch.profiler (at most 3 launches a tick), two kernel runs
-     bit-equal; then the same on a synthetic 1,000-path graph
-     (tools/headline.py::synth_variation_graph; its first block of draws
-     held to the CPU);
+  3d. the SGD tick kernel (ops/csrc/sgd_tick.cu, one cooperative launch a
+     block of ticks; see run_sgd and seqrush_tpu_torch/tools/sgd_timing.py)
+     on the unsorted headline graph: the whole run (800 ticks, 2 blocks) on
+     the card against the plain tick on the CPU fed the same draws, bit for
+     bit after every tick (a launch a tick) and at the end of every block (a
+     launch a block), and the layout's own run ending at the same
+     positions; the kernel's run and the plain ticks' run on the card timed
+     in turns, the launches, device time and device-busy share of each from
+     torch.profiler (one launch of the kernel a block of ticks), the
+     kernel's time by phase, two kernel runs bit-equal; then the same on a
+     synthetic 1,000-path graph (tools/headline.py::synth_variation_graph)
+     and on it with a node of 20,000 steps (--loop 20), the first block of
+     draws of each held to the CPU;
   3b. the same corpus with ``--wide-route full --no-sort`` (one wide-band
      sweep per wide pair): every pair aligned, every path in the graph;
      both graphs' counts and whether the two --no-sort GFA files are
@@ -201,17 +203,18 @@ cell it needs none of the instructions that build the byte:
  = 24 instructions, 11 of them minima: again the issue rate bounds it.
 The fold's combine is charged the 12 [B, W] int32 planes it reads, what
 it writes and 55 instructions a forward lane (COMBINE_OPS_PER_LANE): bytes
-bound it.  The SGD tick is charged each term's draws (18 B); its gathers
-(two of node_of_step and step_pos, one of step_path, step_rank,
-path_first, path_count, and H[js] with up to bit_length(space + 1) probes
-of the search), each table at its reads a term times the terms or at its
-size where that is less (H and the path tables, read by every term, come
-from cache); and the positions read once and written once, 8 B a node
-(tools/sgd_timing.py::tick_bytes): 0.51 MB and 0.15 us a tick on the
-headline, 15.3 MB and 4.6 us on the 1,000-path graph.  Bytes bound it,
-while a term's chain of about 25 dependent reads and the tick's two
-grid-wide dependencies set its real floor.  The walk
-needs one byte read and about 25 instructions per step it takes,
+bound it.  The SGD tick is charged each term's draws (18 B); its
+gathers at 4 B a field, the width of the kernel's int32 and float32
+records (the first step's node, position, path and rank, the second step's
+node and position, the path's first step and count, and H[js] with up to
+bit_length(space + 1) probes of the search), each table at its reads a
+term times the terms or at its size where that is less (H and the path
+tables, read by every term, come from cache); and the positions read once
+and written once, 8 B a node (tools/sgd_timing.py::tick_bytes): 0.38 MB and 0.11 us a tick on the
+headline, 11.05 MB and 3.3 us on the 1,000-path graph.  Bytes bound it,
+while a term's chain of five dependent reads, the tick's four grid
+barriers and the counting sort's scattered stores set its real floor.
+The walk needs one byte read and about 25 instructions per step it takes,
 at the issue rate, and writes the opcode rows (its runs mode: the token
 rows and the counts instead).  The wavefront kernel must write its history
 tensors whole and needs, per cell of each score step a pair takes
@@ -567,10 +570,13 @@ def ptxas_summary(log: str) -> list[str]:
     registers, barriers, stack frame and spill bytes."""
     out, name, frame = [], None, ""
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '_Z(\d+)(\w+)'", line)
+        m = re.search(r"Compiling entry function '_Z(?:N(\d+)(?=_GLOBAL__N_))?(\w+)'", line)
         if m:
-            n = int(m.group(1))
-            name, rest = m.group(2)[:n], m.group(2)[n:]
+            # a kernel in an anonymous namespace: its name follows the namespace's
+            mangled = m.group(2)[int(m.group(1) or 0):]
+            lm = re.match(r"\d+", mangled)
+            n = int(lm.group(0))
+            name, rest = mangled[lm.end():lm.end() + n], mangled[lm.end() + n:]
             t = re.match(r"ILi(\d+)ELb([01])ELb([01])E", rest)
             w = re.match(r"ILb([01])E", rest)
             rows = re.match(r"ILi(\d+)ELb([01])ELb([01])ELb([01])ELi(\d+)ELi(\d+)E", rest)
@@ -788,6 +794,8 @@ def run(work: Path, name: str, smi: str, ptxas: list[str]) -> int:
     if not q["rmse"] <= q_ns["rmse"]:
         raise AssertionError("the sorted graph's RMSE is above the unsorted one's")
     sgd_entry = run_sgd(gfa_ns, launches, ph, smi)
+    sgd_entry.update(regs_per_thread=ptxas_registers(ptxas, "sgd_ticks_kernel"),
+                     spill_stores=ptxas_spills(ptxas, "sgd_ticks_kernel"))
 
     # 4. small corpora
     small = small_corpus()
@@ -1110,30 +1118,35 @@ def run(work: Path, name: str, smi: str, ptxas: list[str]) -> int:
                                              "count": torch.cuda.device_count()}}))
     return 0
 
-SGD_MAX_LAUNCHES_PER_TICK = 3
+# kernel launches of the SGD a block of ticks (besides draw_block's draws)
+SGD_LAUNCHES_PER_BLOCK = 1
 
 
 def run_sgd(gfa_ns: Path, launches: dict, ph: dict, smi: str) -> dict:
     """3d. The SGD tick kernel (ops/csrc/sgd_tick.cu) on the headline's
-    unsorted graph (the --no-sort GFA) and on synth_variation_graph()'s
-    1,000 paths, each through tools/sgd_timing.py in a process of its own
-    (profiler sessions after its own have recorded no device activity in
-    the process that ran them, and phase 9 reads the profiler).
+    unsorted graph (the --no-sort GFA), on synth_variation_graph()'s 1,000
+    paths and on the same with a node that every path visits 20 times in a
+    row, each through tools/sgd_timing.py in a process of its own (profiler
+    sessions after its own have recorded no device activity in the process
+    that ran them, and phase 9 reads the profiler).
 
     On each: the kernel's ticks on the card against the plain tick on the
     CPU fed the same draws (tools/sgd_timing.py::cpu_parity), bit for bit
-    after each tick of the first block of draws and at the end of every
-    block (the headline's whole run, the layout's own run ending at the
-    same positions; the 1,000-path graph's first block); the kernel's whole
-    run and the plain ticks' on the card in turns (time_sgd: plain, kernel,
-    kernel, plain; both kernel runs bit-equal to the first), the launches a
-    tick and the device-busy share of 16 ticks of each from torch.profiler
-    (at most SGD_MAX_LAUNCHES_PER_TICK for the kernel).  Returns the kernels
-    line's entry of the tick."""
+    after every tick (one launch a tick) and at the end of every block of
+    draws (one launch the block) of the headline's whole run, where the
+    layout's own run must end at the same positions, and of the first block
+    of the other two; the kernel's whole run and the plain ticks' on the
+    card in turns (time_sgd: plain, kernel, kernel, plain; both kernel runs
+    bit-equal to the first), the launches, device time by kernel and
+    device-busy share of the run's first block (SGD_LAUNCHES_PER_BLOCK
+    launches of the tick kernel) and of 16 plain ticks from torch.profiler,
+    and the kernel's device time a tick by phase from its own timer.
+    Returns the kernels line's entry of the tick."""
     t_phase = time.time()
     got = {}
     for tag, args in (("headline", [str(gfa_ns), "--parity", "0"]),
-                      ("paths_1000", ["--synthetic", "1000", "--parity", "1"])):
+                      ("paths_1000", ["--synthetic", "1000", "--parity", "1"]),
+                      ("looped", ["--synthetic", "1000", "--loop", "20", "--parity", "1"])):
         proc = subprocess.run([sys.executable, "-m", "seqrush_tpu_torch.tools.sgd_timing", *args, "--profile"],
                               capture_output=True, text=True, timeout=300, cwd=Path(__file__).resolve().parent)
         if proc.returncode != 0:
@@ -1143,51 +1156,53 @@ def run_sgd(gfa_ns: Path, launches: dict, ph: dict, smi: str) -> dict:
         par = tim.pop("cpu_parity")
         kp, pp = tim["kernel_profile"], tim["plain_profile"]
         print(f"sgd tick kernel, {tag} graph ({tim['nodes']} nodes, {tim['paths']} paths, {tim['steps']} steps; "
-              f"{tim['ticks']} ticks of {tim['tick_width']} terms): against the plain tick on the CPU "
-              f"{json.dumps(par)}; run {tim['kernel_s']:.4f} s = {tim['kernel_ms_per_tick']:.4f} ms a tick "
-              f"(runs {json.dumps(tim['kernel_runs_s'])}, first of the process {tim['first_run_s']:.4f}), "
-              f"{kp['launches_per_tick']} launches a tick, device busy {kp['device_busy_share_of_run']:.4f} of "
-              f"the run ({kp['device_busy_share']:.4f} of the profiled window) "
-              f"({kp['device_ms_per_tick']:.4f} ms a tick on the device); plain ticks on the card "
-              f"{tim['plain_s']:.4f} s = {tim['plain_ms_per_tick']:.4f} ms a tick (runs "
-              f"{json.dumps(tim['plain_runs_s'])}), {pp['launches_per_tick']} launches a tick, busy "
-              f"{pp['device_busy_share_of_run']:.4f} ({pp['device_busy_share']:.4f}); bound "
-              f"{tim['bound_ms_per_tick']:.6f} ms a tick "
+              f"{tim['ticks']} ticks of {tim['tick_width']} terms, {tim['block_ticks']} a block): against the "
+              f"plain tick on the CPU {json.dumps(par)}; run {tim['kernel_s']:.4f} s = "
+              f"{tim['kernel_ms_per_tick']:.4f} ms a tick (runs {json.dumps(tim['kernel_runs_s'])}, first of the "
+              f"process {tim['first_run_s']:.4f}); first block: {kp['tick_kernel_launches']} kernel launches and "
+              f"{kp['other_launches']} others, device busy {kp['device_busy_share_of_run']:.4f} of the run "
+              f"({kp['device_busy_share']:.4f} of the profiled block) ({kp['device_ms_per_tick']:.4f} ms a tick "
+              f"on the device: {json.dumps(kp['device_ms_per_tick_by_kernel'])}); by phase "
+              f"{json.dumps(tim['phase_ms_per_tick'])}; plain ticks on the card {tim['plain_s']:.4f} s = "
+              f"{tim['plain_ms_per_tick']:.4f} ms a tick (runs {json.dumps(tim['plain_runs_s'])}), "
+              f"{pp['launches_per_tick']} launches a tick, busy {pp['device_busy_share_of_run']:.4f} "
+              f"({pp['device_busy_share']:.4f}); bound {tim['bound_ms_per_tick']:.6f} ms a tick "
               f"({tim['tick_bytes']} B, bytes); kernel runs bit-equal {tim['kernel_runs_bit_equal']} | {smi}")
         if not par["bit_equal"]:
             raise AssertionError(f"the SGD tick kernel differs from the plain tick on the CPU ({tag})")
         if not (tim["kernel_runs_bit_equal"] and tim["finite"]):
             raise AssertionError(f"two SGD runs with one seed gave different positions ({tag})")
-        if kp["launches_per_tick"] > SGD_MAX_LAUNCHES_PER_TICK:
-            raise AssertionError(f"the SGD tick takes {kp['launches_per_tick']} launches a tick ({tag})")
+        n_blocks = -(-tim["ticks"] // tim["block_ticks"])
+        if kp["tick_kernel_launches"] != SGD_LAUNCHES_PER_BLOCK or par.get("layout_run_launches", n_blocks) != (
+                SGD_LAUNCHES_PER_BLOCK * n_blocks):
+            raise AssertionError(f"the SGD takes other than {SGD_LAUNCHES_PER_BLOCK} launch a block of ticks ({tag})")
         got[tag] = (par, tim)
-    par, tim = got["headline"]
-    par1, tim1 = got["paths_1000"]
 
     def numbers(par, tim):
         kp, pp = tim["kernel_profile"], tim["plain_profile"]
         return {"shape": {k: tim[k] for k in ("nodes", "paths", "steps", "ticks", "tick_width", "block_ticks")},
                 "run_s": tim["kernel_s"], "plain_run_s": tim["plain_s"], "ms_per_tick": tim["kernel_ms_per_tick"],
                 "plain_ms_per_tick": tim["plain_ms_per_tick"], "bound_ms_per_tick": tim["bound_ms_per_tick"],
-                "launches_per_tick": kp["launches_per_tick"], "plain_launches_per_tick": pp["launches_per_tick"],
+                "launches_per_block": kp["tick_kernel_launches"], "draw_launches_per_block": kp["other_launches"],
+                "plain_launches_per_tick": pp["launches_per_tick"],
                 "device_busy_share": kp["device_busy_share_of_run"],
                 "plain_device_busy_share": pp["device_busy_share_of_run"],
                 "device_busy_share_profiled": kp["device_busy_share"],
                 "plain_device_busy_share_profiled": pp["device_busy_share"],
                 "plain_device_ms_per_tick": pp["device_ms_per_tick"],
-                "device_ms_per_tick": kp["device_ms_per_tick"], "ticks_held_to_cpu": par["ticks_compared"],
-                "max_abs_err": par["max_abs_err"]}
+                "device_ms_per_tick": kp["device_ms_per_tick"], "phase_ms_per_tick": tim["phase_ms_per_tick"],
+                "ticks_held_to_cpu": par["ticks_compared"], "max_abs_err": par["max_abs_err"]}
 
-    head = numbers(par, tim)
+    head = numbers(*got["headline"])
     print(f"3d wall {time.time() - t_phase:.1f} s")
     return {
         "name": "sgd_tick", "route": "cuda", "source": "seqrush_tpu_torch/ops/csrc/sgd_tick.cu",
         "replaces": "seqrush_tpu/layout/sgd.py:187", "launches": launches["sgd_tick"],
-        "launches_path": "default run (layout), one a tick", "max_abs_err": max(par["max_abs_err"],
-                                                                              par1["max_abs_err"]),
+        "launches_path": "default run (layout), one a block of ticks",
+        "max_abs_err": max(p["max_abs_err"] for p, _t in got.values()),
         "ms": head["ms_per_tick"], "plain_ms": head["plain_ms_per_tick"], "bound_ms": head["bound_ms_per_tick"],
         "bound_by": "bytes", "library_ms": None, **head, "layout_sgd_s": ph["layout_sgd"],
-        "paths_1000": numbers(par1, tim1), "tolerance": 0,
+        "paths_1000": numbers(*got["paths_1000"]), "looped": numbers(*got["looped"]), "tolerance": 0,
     }
 
 
@@ -1221,7 +1236,8 @@ def run_long(work: Path, smi: str, drive, shapes, ptxas: list[str]) -> list[dict
         package's GFA (its sha256);
     6b. the 8 x 60 kb locus through the default run (layout on) and with
         ``--no-sort``: all 56 ordered pairs aligned on the long route, none
-        anchored; the sorted graph's checks of phase 3;
+        anchored; the sorted graph's checks of phase 3; the layout SGD's
+        plan on the locus (H staged or read through L1, digit passes);
     6c. on the largest long chunk: each segment kernel against its plain
         version on the first, a middle and the last segment (exact); the
         forward pass in one launch against the chained launches; at the main
@@ -1241,6 +1257,8 @@ def run_long(work: Path, smi: str, drive, shapes, ptxas: list[str]) -> list[dict
     from seqrush_tpu_torch.align.pairs import all_ordered_pairs
     from seqrush_tpu_torch.align.runner import RunnerConfig, WfaAligner
     from seqrush_tpu_torch.graph.bigraph import parse_gfa
+    from seqrush_tpu_torch.layout import sgd
+    from seqrush_tpu_torch.layout.ygs import YgsParams
     from seqrush_tpu_torch.ops import nw_cuda
     from seqrush_tpu_torch.scores import AlignmentScores
     from seqrush_tpu_torch.sequences import make_sequence_set
@@ -1272,6 +1290,7 @@ def run_long(work: Path, smi: str, drive, shapes, ptxas: list[str]) -> list[dict
         raise AssertionError("the 110 kb pair's --no-sort GFA is not the JAX package's")
 
     # 6b. the 8 x 60 kb locus, default run and --no-sort
+    dev = torch.device("cuda")
     named = synth_locus()
     n_pairs = len(named) * (len(named) - 1)
     lfa, lgfa, lgfa_ns = work / "locus.fa", work / "locus.gfa", work / "locus_nosort.gfa"
@@ -1307,6 +1326,13 @@ def run_long(work: Path, smi: str, drive, shapes, ptxas: list[str]) -> list[dict
     same, why = isomorphic(sorted_g, unsorted_g)
     if not same:
         raise AssertionError(f"the locus's sorted and unsorted graphs are not isomorphic: {why}")
+    # the layout's SGD plan on the locus: H (space + 1 floats) outgrows its
+    # share of shared memory, so the Zipf search reads it through L1
+    lplan = sgd.sgd_setup(unsorted_g, YgsParams.from_graph(unsorted_g).to_sgd(), dev)
+    lwork = sgd.tick_work(lplan.x0.shape[0], lplan.u_per_sub, lplan.tables.space, dev, lplan.block_ticks)
+    print(f"  locus SGD: {lplan.n_ticks} ticks of {lplan.u_per_sub} terms, {lplan.block_ticks} a block, space "
+          f"{lplan.tables.space}; layout_sgd {rep['phases_s']['layout_sgd']:.4f} s; plan "
+          f"{json.dumps(lwork.plan._asdict())}")
     q, q_ns = layout_quality(sorted_g), layout_quality(unsorted_g)
     print(f"  locus layout rmse {q['rmse']:.3f} mae {q['mae']:.3f} | --no-sort rmse "
           f"{q_ns['rmse']:.3f} (bp)")
@@ -1314,7 +1340,6 @@ def run_long(work: Path, smi: str, drive, shapes, ptxas: list[str]) -> list[dict
         raise AssertionError("the locus's sorted graph's RMSE is above the unsorted one's")
 
     # 6c. the segment kernels on the largest long chunk
-    dev = torch.device("cuda")
     al = WfaAligner(make_sequence_set(named), RunnerConfig(scores=AlignmentScores.parse(SCORES)),
                     device=dev)
     pen = al._penalties()

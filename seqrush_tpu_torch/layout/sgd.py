@@ -30,9 +30,10 @@ Two things differ from the JAX module, by design:
     on a GPU, Mersenne Twister on the CPU), not JAX's threefry, so positions
     differ from the JAX package's for the same seed; fed the same draws, the
     tick computes the same positions bit for bit.
-  * On a GPU each tick is one call of a hand-written kernel
-    (``sgd_tick_cuda``, ``ops/csrc/sgd_tick.cu``, three launches); on the
-    CPU the plain version (``sgd_tick``) runs.  Both sum each node's terms
+  * On a GPU each block of ticks is one launch of a hand-written kernel
+    (``sgd_ticks_cuda``, ``ops/csrc/sgd_tick.cu``, a cooperative launch
+    with a stable counting sort of each tick's terms by node); on the CPU
+    the plain version (``sgd_tick``) runs.  Both sum each node's terms
     in one fixed order, that of the JAX tick's ``.at[i].add(-r_x)
     .at[j].add(r_x)``: a left fold from 0.0 over the terms that name the node
     first, in term order, then over those that name it second.  So the
@@ -53,6 +54,7 @@ when the flat index is built, so every lookup is by node id.
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -166,6 +168,16 @@ def sgd_schedule(w_min, w_max, iter_max, iter_with_max_lr, eps) -> np.ndarray:
     return eta_max * np.exp(-lam * np.abs(t - iter_with_max_lr))
 
 
+class KernelTables(NamedTuple):
+    """The tick kernel's copies of a run's tables (``ops/csrc/sgd_tick.cu``),
+    made by ``kernel_tables``: one record a step (a single 16-byte read), one
+    a path, and the learning rates on the device."""
+
+    step_rec: torch.Tensor  # int32 [S, 4]: node_of_step, step_path, step_rank, step_pos's float32 bits
+    path_rec: torch.Tensor  # int32 [P, 2]: path_first, path_count
+    etas: torch.Tensor  # float32 [iter_max + 1]
+
+
 class SGDTables(NamedTuple):
     """What a tick reads besides the positions and its draws.  The tensors
     live on the run's device; integer tables are int64 (torch's index type)."""
@@ -181,6 +193,19 @@ class SGDTables(NamedTuple):
     etas: np.ndarray  # float32 [iter_max + 1], on the host
     first_cooling_iter: int
     space: int
+    kernel: KernelTables | None = None  # on a GPU, the tick kernel's tables; None on the CPU
+
+
+def kernel_tables(t: SGDTables) -> KernelTables:
+    """The tick kernel's tables from the plain ones, on their device.  The
+    kernel indexes steps and paths with int32: more steps raise."""
+    if t.node_of_step.numel() >= 1 << 31:
+        raise ValueError(f"{t.node_of_step.numel()} path steps: the tick kernel indexes them with int32")
+    step_rec = torch.stack([t.node_of_step.int(), t.step_path.int(), t.step_rank.int(),
+                            t.step_pos.view(torch.int32)], dim=1)
+    path_rec = torch.stack([t.path_first.int(), t.path_count.int()], dim=1)
+    etas = torch.as_tensor(t.etas, device=t.node_of_step.device)
+    return KernelTables(step_rec.contiguous(), path_rec.contiguous(), etas)
 
 
 def make_tables(
@@ -192,7 +217,8 @@ def make_tables(
     theta: float,
     device: torch.device,
 ) -> SGDTables:
-    """Move the step index and the harmonic tables to ``device``, once."""
+    """Move the step index and the harmonic tables to ``device``, once; on a
+    GPU also the tick kernel's (``kernel_tables``)."""
     # exact partial harmonic sums H[i] = sum_{1..i} i^-theta (H[0] = 0)
     i_arr = np.arange(1, space + 1, dtype=np.float64)
     Hmain = np.concatenate([[0.0], np.cumsum(i_arr ** (-theta))]).astype(np.float32)
@@ -201,7 +227,7 @@ def make_tables(
     def dev(a: np.ndarray, dtype) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
 
-    return SGDTables(
+    tables = SGDTables(
         dev(node_of_step, torch.int64),
         dev(index.step_pos, torch.float32),
         dev(index.step_path, torch.int64),
@@ -214,6 +240,7 @@ def make_tables(
         int(first_cooling_iter),
         int(space),
     )
+    return tables._replace(kernel=kernel_tables(tables)) if device.type == "cuda" else tables
 
 
 def _scatter_terms(
@@ -330,58 +357,221 @@ def draw_block(
     return step_idx, coin_zipf, coin_back, u01, u02
 
 
-class TickWork(NamedTuple):
-    """The tick kernel's scratch for N nodes and w terms (int32 unless
-    said).  ``cnt``, ``cur`` and ``done`` are 0 between ticks: the kernel
-    leaves them so."""
+# The tick kernel's launch (ops/csrc/sgd_tick.cu): threads a block; the
+# count matrix's budget (bins x chunks int32, kept well inside the H100's 50
+# MB L2 with the offsets beside it); the most bins one pass of the counting
+# sort takes (two histograms of them in a block's shared memory, 48 KB); the
+# most shared memory H may take when it is staged; the fold's staging
+# buffers (two of 256 floats a warp).
+TICK_THREADS = 256
+COUNT_BUDGET_BYTES = 8 << 20
+MAX_BINS = 6144
+H_SMEM_BYTES = 64 << 10
+FOLD_SMEM_BYTES = TICK_THREADS // 32 * 2 * 256 * 4
+# the most shared memory the positions may take when a block stages them
+# for its terms' reads (only where a block has more terms than threads: with
+# one term a thread the staging's round trip costs more than the gathers)
+X_SMEM_BYTES = 32 << 10
+# the kernel's phases, in the order of its timer's slots: the terms (and the
+# first pass's count), the count of each later digit pass, the scans, the
+# places, the folds
+TICK_PHASES = ("terms", "count", "scan", "place", "fold")
 
-    ti: torch.Tensor  # [w] each term's first node, -1 where the term is not valid
-    tj: torch.Tensor  # [w] each term's second node
-    tr: torch.Tensor  # float32 [w] each term's displacement
-    slots: torch.Tensor  # [2w] each node's positions in cat([i, j])
-    vals: torch.Tensor  # float32 [2w] the displacements in each node's order
-    off: torch.Tensor  # [N] each node's first slot
-    cnt: torch.Tensor  # [N] each node's valid terms
-    cur: torch.Tensor  # [N] each node's slots filled
-    done: torch.Tensor  # [1] blocks of the term launch that finished
+
+class TicksPlan(NamedTuple):
+    """How the tick kernel runs a graph's ticks (``ticks_plan``)."""
+
+    block_ticks: int  # ticks a launch in the run (tick_plan's block_ticks)
+    chunk: int  # C: terms of a term chunk, entries of an entry chunk
+    chunks: int  # entry chunks of a tick, 2 * ceil(width / C): a side's last may be part padding
+    bins: int  # bins of the first pass of the counting sort (the most of any pass)
+    digit_bits: int  # 0: one pass by node id; else the bits of a digit
+    passes: int  # passes of the counting sort
+    count_bytes: int  # the count matrix, bins x chunks int32
+    stage_h: bool  # H in shared memory for the Zipf search
+    stage_x: bool  # the positions in shared memory for the terms' reads
+    smem_bytes: int  # dynamic shared memory a block
+    blocks_per_sm: int  # the occupancy figure (0 when not known)
+    grid: int  # blocks_per_sm x SMs: every block the card holds at once
 
 
-def tick_work(n_nodes: int, width: int, device: torch.device) -> TickWork:
-    i32, f32 = torch.int32, torch.float32
-    return TickWork(
-        torch.empty(width, dtype=i32, device=device),
-        torch.empty(width, dtype=i32, device=device),
-        torch.empty(width, dtype=f32, device=device),
-        torch.empty(2 * width, dtype=i32, device=device),
-        torch.empty(2 * width, dtype=f32, device=device),
-        torch.empty(n_nodes, dtype=i32, device=device),
-        torch.zeros(n_nodes, dtype=i32, device=device),
-        torch.zeros(n_nodes, dtype=i32, device=device),
-        torch.zeros(1, dtype=i32, device=device),
+def ticks_plan(
+    n_nodes: int,
+    width: int,
+    space: int,
+    block_ticks: int,
+    blocks_per_sm: int = 0,
+    sms: int = 0,
+) -> TicksPlan:
+    """The tick kernel's launch for N nodes, ``width`` terms a tick and H of
+    ``space + 1`` floats: one pass by node id where the nodes fit
+    ``MAX_BINS``, else passes by digits of the node id (the most bits whose
+    bins fit); the smallest chunk (256 terms, doubled while it is narrower
+    than the width) whose count matrix fits ``COUNT_BUDGET_BYTES``, each
+    side's last chunk padded where the chunk does not divide the width; H
+    staged where it fits its share of shared memory, the positions where
+    they fit theirs and a chunk has more terms than a block has threads; the
+    grid from the card's occupancy figure.  The module's budgets are read at
+    each call."""
+    if n_nodes < 1 or width < 1 or space < 1:
+        raise ValueError(f"no ticks to plan for {n_nodes} nodes, width {width}, space {space}")
+    if n_nodes <= MAX_BINS:
+        digit_bits, passes, bins = 0, 1, n_nodes
+    else:
+        digit_bits = MAX_BINS.bit_length() - 1
+        passes = -(-(n_nodes - 1).bit_length() // digit_bits)
+        bins = 1 << digit_bits
+    chunk = min(width, TICK_THREADS)
+    while chunk < width and 2 * -(-width // chunk) * bins * 4 > COUNT_BUDGET_BYTES:
+        chunk *= 2
+    chunks = 2 * -(-width // chunk)
+    h_bytes, x_bytes = (space + 1) * 4, n_nodes * 4
+    stage_h, stage_x = h_bytes <= H_SMEM_BYTES, chunk > TICK_THREADS and x_bytes <= X_SMEM_BYTES
+    smem = FOLD_SMEM_BYTES + 2 * bins * 4 + (h_bytes if stage_h else 0) + (x_bytes if stage_x else 0)
+    return TicksPlan(
+        block_ticks, chunk, chunks, bins, digit_bits, passes, chunks * bins * 4, stage_h, stage_x, smem,
+        blocks_per_sm, blocks_per_sm * sms,
     )
 
 
-# a node named by more terms than this in a tick is ranked by a block of the
-# tick kernel's last launch, not a warp (ops/csrc/sgd_tick.cu)
-LONG_NODE_TERMS = 256
+class TickWork(NamedTuple):
+    """The tick kernel's plan and scratch for N nodes and w terms (int32
+    unless said)."""
+
+    plan: TicksPlan
+    ti: torch.Tensor  # [w] each term's first node, -1 where the term is not valid
+    tj: torch.Tensor  # [w] each term's second node
+    tr: torch.Tensor  # float32 [w] each term's displacement
+    counts: torch.Tensor  # [bins * chunks] the count matrix; 0 between launches, the kernel leaves it so
+    offs: torch.Tensor  # [bins * chunks] each (bin, chunk)'s first slot among the bin's entries
+    totals: torch.Tensor  # [bins] each bin's entries
+    node_off: torch.Tensor  # [N] each node's first slot (one pass)
+    node_cnt: torch.Tensor  # [N] each node's valid terms (one pass)
+    keys: torch.Tensor  # [2, 2w] node ids in each digit pass's order ([0] with one pass)
+    vals: torch.Tensor  # float32 [passes > 1 ? 2 : 1, 2w] displacements in each pass's order
+    phase_ns: torch.Tensor  # int64 [len(TICK_PHASES)] the phases' nanoseconds, when timed
 
 
-def _launch_tick(lib, stream: int, x, out, it: int, draws, tables: SGDTables, work: TickWork) -> None:
-    t = tables
-    cooling = it >= t.first_cooling_iter
-    H = t.Hcool if cooling else t.Hmain
-    eta = float(t.etas[min(it, t.etas.shape[0] - 1)])
-    with torch.cuda.device(x.device):
-        err = lib.sgd_tick_launch(
-            x.data_ptr(), out.data_ptr(), *(d.data_ptr() for d in draws),
-            t.node_of_step.data_ptr(), t.step_pos.data_ptr(), t.step_path.data_ptr(),
-            t.step_rank.data_ptr(), t.path_first.data_ptr(), t.path_count.data_ptr(), H.data_ptr(),
-            *(a.data_ptr() for a in work), t.space, int(cooling), eta, draws[0].shape[0],
-            x.shape[0], LONG_NODE_TERMS, stream,
-        )
+def tick_work(n_nodes: int, width: int, space: int, device: torch.device, block_ticks: int = 1) -> TickWork:
+    """``ticks_plan`` with the card's occupancy figure for its shared memory,
+    and its scratch on ``device``.  Raises where the card cannot run the
+    kernel as one cooperative launch."""
+    lib = nw_cuda._library()
+    plan = ticks_plan(n_nodes, width, space, block_ticks)
+    blocks, sms = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = lib.sgd_ticks_occupancy(plan.smem_bytes, ctypes.byref(blocks), ctypes.byref(sms))
     if err != 0:
-        raise RuntimeError(f"sgd_tick launch failed with CUDA error {err}")
+        raise RuntimeError(f"sgd_ticks_occupancy failed with CUDA error {err}")
+    if blocks.value < 1:
+        raise RuntimeError(f"no block of the tick kernel fits an SM with {plan.smem_bytes} B of shared memory")
+    plan = plan._replace(blocks_per_sm=blocks.value, grid=blocks.value * sms.value)
+    i32, f32 = torch.int32, torch.float32
+    entries = 2 * width
+
+    def empty(n, dtype=i32):
+        return torch.empty(n, dtype=dtype, device=device)
+
+    multi = plan.passes > 1
+    return TickWork(
+        plan, empty(width), empty(width), empty(width, f32),
+        torch.zeros(plan.bins * plan.chunks, dtype=i32, device=device), empty(plan.bins * plan.chunks),
+        empty(plan.bins), empty(n_nodes), empty(n_nodes),
+        empty((2 if multi else 0, entries)), empty((2 if multi else 1, entries), f32),
+        torch.zeros(len(TICK_PHASES), dtype=torch.int64, device=device),
+    )
+
+
+class _TicksArgs(ctypes.Structure):
+    """ops/csrc/sgd_tick.cu's ``Ticks``, field for field."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "x_in", "out0", "out1", "step_idx", "coin_zipf", "coin_back", "u01", "u02", "step_rec", "path_rec",
+        "Hmain", "Hcool", "etas", "ti", "tj", "tr", "counts", "offs", "totals", "node_off", "node_cnt",
+        "keys0", "keys1", "vals0", "vals1", "phase_ns")]
+    _fields_ += [("space", ctypes.c_longlong), ("lo", ctypes.c_longlong)]
+    _fields_ += [(name, ctypes.c_int) for name in (
+        "n_etas", "first_cooling", "n_sub", "n_ticks", "w", "N", "chunk", "chunks", "bins", "digit_bits",
+        "passes", "stage_h", "stage_x")]
+
+
+def _launch_ticks(lib, stream: int, x, outs, lo: int, n_sub: int, draws, tables: SGDTables,
+                  work: TickWork, timed: bool = False) -> torch.Tensor:
+    """Ticks lo .. lo + B - 1 (B = the draws' rows) in one launch; returns
+    the buffer of outs that the last tick wrote."""
+    t, k, p = tables, tables.kernel, work.plan
+    n_ticks, width = draws[0].shape
+    multi = p.passes > 1
+    ptr = lambda a: a.data_ptr()  # noqa: E731
+    args = _TicksArgs(
+        ptr(x), ptr(outs[0]), ptr(outs[1]), *map(ptr, draws), ptr(k.step_rec), ptr(k.path_rec), ptr(t.Hmain),
+        ptr(t.Hcool), ptr(k.etas), ptr(work.ti), ptr(work.tj), ptr(work.tr), ptr(work.counts),
+        ptr(work.offs), ptr(work.totals), ptr(work.node_off), ptr(work.node_cnt),
+        ptr(work.keys[0]) if multi else None, ptr(work.keys[1]) if multi else None,
+        ptr(work.vals[0]), ptr(work.vals[1]) if multi else None, ptr(work.phase_ns) if timed else None,
+        t.space, lo, k.etas.shape[0], t.first_cooling_iter, n_sub, n_ticks, width, x.shape[0],
+        p.chunk, p.chunks, p.bins, p.digit_bits, p.passes, int(p.stage_h), int(p.stage_x),
+    )
+    with torch.cuda.device(x.device):
+        err = lib.sgd_ticks_launch(ctypes.byref(args), p.grid, p.smem_bytes, stream)
+    if err != 0:
+        raise RuntimeError(f"sgd_ticks launch failed with CUDA error {err}")
     nw_cuda.LAUNCHES["sgd_tick"] += 1
+    return outs[(n_ticks - 1) & 1]
+
+
+def sgd_ticks_cuda(
+    x: torch.Tensor,
+    lo: int,
+    n_sub: int,
+    draws: tuple[torch.Tensor, ...],
+    tables: SGDTables,
+    work: TickWork | None = None,
+    outs: tuple[torch.Tensor, torch.Tensor] | None = None,
+    timed: bool = False,
+) -> torch.Tensor:
+    """Ticks lo .. lo + B - 1 of a run of ``n_sub`` ticks an iteration on a
+    GPU, in one launch of ``ops/csrc/sgd_tick.cu``: the draws are
+    ``draw_block``'s (step_idx, coin_zipf, coin_back, u01, u02), each [B, w];
+    tick lo + b writes ``outs[b % 2]`` (two buffers of x's shape, made when
+    None; x may be outs[1], never outs[0]).  Returns the last tick's buffer,
+    whose positions equal those of B ticks of ``sgd_tick`` run on the CPU
+    on the same inputs bit for bit.  ``work`` is ``tick_work``'s plan and
+    scratch, made when None.  With ``timed`` the kernel adds each phase's
+    nanoseconds to ``work.phase_ns``."""
+    device = x.device
+    if device.type != "cuda":
+        raise ValueError(f"sgd_ticks_cuda runs on a GPU, got {device}: the CPU runs sgd_tick")
+    if x.dtype != torch.float32 or x.dim() != 1 or not x.is_contiguous():
+        raise ValueError(f"x must be a contiguous 1-D float32 tensor on {device}")
+    shape = draws[0].shape
+    for name, a, dtype in zip(("step_idx", "coin_zipf", "coin_back", "u01", "u02"), draws,
+                              (torch.int64, torch.bool, torch.bool, torch.float32, torch.float32)):
+        if a.dtype != dtype or a.dim() != 2 or a.device != device or not a.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 2-D {dtype} tensor on {device}")
+        if a.shape != shape:
+            raise ValueError(f"the draws must have one shape, got {tuple(a.shape)} and {tuple(shape)}")
+    if len(draws) != 5 or shape[0] < 1:
+        raise ValueError("give the five draws of at least one tick")
+    if tables.kernel is None or tables.kernel.step_rec.device != device:
+        where = "the CPU" if tables.kernel is None else tables.kernel.step_rec.device
+        raise ValueError(f"the tick kernel's tables are on {where}, expected {device}")
+    if outs is None:
+        outs = (torch.empty_like(x), torch.empty_like(x))
+    if any(o.shape != x.shape or o.dtype != x.dtype or o.device != device for o in outs):
+        raise ValueError("outs must be two buffers of x's shape")
+    if outs[0] is x or outs[0].data_ptr() == x.data_ptr():
+        raise ValueError("outs[0] must be another buffer than x")
+    if shape[0] > 1 and outs[0].data_ptr() == outs[1].data_ptr():
+        raise ValueError("outs must be two buffers")
+    w = shape[1]
+    if work is None:
+        work = tick_work(x.shape[0], w, tables.space, device, shape[0])
+    if work.ti.shape[0] != w or work.node_off.shape[0] != x.shape[0] or work.ti.device != device:
+        raise ValueError(f"work is for {work.ti.shape[0]} terms and {work.node_off.shape[0]} nodes on "
+                         f"{work.ti.device}, not {w} and {x.shape[0]} on {device}")
+    stream = torch.cuda.current_stream(device).cuda_stream
+    return _launch_ticks(nw_cuda._library(), stream, x, outs, lo, n_sub, draws, tables, work, timed)
 
 
 def sgd_tick_cuda(
@@ -396,53 +586,22 @@ def sgd_tick_cuda(
     work: TickWork | None = None,
     out: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """``sgd_tick`` on a GPU: one tick of ``ops/csrc/sgd_tick.cu`` (three
-    launches) into ``out`` (made when None; never ``x``), whose positions
-    equal those of ``sgd_tick`` run on the CPU on the same inputs bit for
-    bit.  ``work`` is ``tick_work``'s scratch, made when None."""
-    device = x.device
-    if device.type != "cuda":
-        raise ValueError(f"sgd_tick_cuda runs on a GPU, got {device}: the CPU runs sgd_tick")
-    w = step_idx.shape[0]
-    for name, a, dtype in (("x", x, torch.float32), ("step_idx", step_idx, torch.int64),
-                           ("coin_zipf", coin_zipf, torch.bool), ("coin_back", coin_back, torch.bool),
-                           ("u01", u01, torch.float32), ("u02", u02, torch.float32)):
-        if a.dtype != dtype or a.dim() != 1 or a.device != device or not a.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous 1-D {dtype} tensor on {device}")
-        if name != "x" and a.shape[0] != w:
-            raise ValueError(f"the draws must have one length, got {a.shape[0]} and {w}")
-    if tables.node_of_step.device != device:
-        raise ValueError(f"the tables are on {tables.node_of_step.device}, expected {device}")
+    """``sgd_tick`` on a GPU: ``sgd_ticks_cuda``'s launch with one tick (of
+    iteration ``it``) into ``out`` (made when None; never ``x``), whose
+    positions equal those of ``sgd_tick`` run on the CPU on the same inputs
+    bit for bit."""
     if out is None:
         out = torch.empty_like(x)
-    if out is x or out.shape != x.shape:
-        raise ValueError("out must be another buffer of x's shape")
-    if work is None:
-        work = tick_work(x.shape[0], w, device)
-    if work.ti.shape[0] != w or work.cnt.shape[0] != x.shape[0] or work.cnt.device != device:
-        raise ValueError(f"work is for {work.ti.shape[0]} terms and {work.cnt.shape[0]} nodes on "
-                         f"{work.cnt.device}, not {w} and {x.shape[0]} on {device}")
-    stream = torch.cuda.current_stream(device).cuda_stream
-    _launch_tick(nw_cuda._library(), stream, x, out, it, (step_idx, coin_zipf, coin_back, u01, u02),
-                 tables, work)
-    return out
+    draws = tuple(d.unsqueeze(0) for d in (step_idx, coin_zipf, coin_back, u01, u02))
+    return sgd_ticks_cuda(x, it, 1, draws, tables, work, (out, out))
 
 
-def _kernel_ticks(x0: torch.Tensor, tables: SGDTables, width: int):
-    """A tick function for the run's loop on the card: the library, the
-    stream, the scratch and two position buffers fetched once; each tick
-    writes the buffer the tick before did not."""
-    lib = nw_cuda._library()
-    work = tick_work(x0.shape[0], width, x0.device)
-    bufs = (torch.empty_like(x0), torch.empty_like(x0))
-    stream = torch.cuda.current_stream(x0.device).cuda_stream
-
-    def tick(x, it, *draws):
-        out = bufs[1] if x is bufs[0] else bufs[0]
-        _launch_tick(lib, stream, x, out, it, draws, tables, work)
-        return out
-
-    return tick
+def tick_blocks(n_ticks: int, block_ticks: int) -> list[tuple[int, int]]:
+    """(first tick, ticks) of each block of draws of a run of ``n_ticks``,
+    ``block_ticks`` at a time (all at once when 0): on a GPU each block is
+    one launch of the tick kernel."""
+    B = block_ticks if block_ticks > 0 else n_ticks
+    return [(lo, min(B, n_ticks - lo)) for lo in range(0, n_ticks, B)]
 
 
 def _sgd_run(
@@ -458,21 +617,27 @@ def _sgd_run(
     ``block_ticks`` ticks at a time from one generator, to bound their
     memory.  The block size is part of how the stream is laid out, so it
     comes from ``tick_plan`` alone: one graph and seed, one stream.  On a
-    GPU every tick runs the tick kernel; on the CPU the plain ``sgd_tick``."""
-    T = (tables.etas.shape[0] - 1) * n_sub
-    B = block_ticks if block_ticks > 0 else T
+    GPU each block of ticks is one launch of the tick kernel
+    (``_launch_ticks``); on the CPU every tick is the plain ``sgd_tick``."""
+    blocks = tick_blocks((tables.etas.shape[0] - 1) * n_sub, block_ticks)
     gen = torch.Generator(device=x0.device)
     gen.manual_seed(int(seed))
-    if x0.device.type == "cuda":
-        tick = _kernel_ticks(x0, tables, u_per_sub)
-    else:
-        def tick(x, it, *draws):
-            return sgd_tick(x, it, *draws, tables)
+    cuda = x0.device.type == "cuda"
+    if cuda:
+        lib = nw_cuda._library()
+        B = max((n for _lo, n in blocks), default=1)
+        work = tick_work(x0.shape[0], u_per_sub, tables.space, x0.device, B)
+        bufs = (torch.empty_like(x0), torch.empty_like(x0))
+        stream = torch.cuda.current_stream(x0.device).cuda_stream
     x = x0
-    for lo in range(0, T, B):
-        draws = draw_block(gen, min(B, T - lo), u_per_sub, n_steps)
-        for k in range(draws[0].shape[0]):
-            x = tick(x, (lo + k) // n_sub, *(d[k] for d in draws))
+    for lo, n in blocks:
+        draws = draw_block(gen, n, u_per_sub, n_steps)
+        if cuda:
+            outs = bufs if x is not bufs[0] else bufs[::-1]
+            x = _launch_ticks(lib, stream, x, outs, lo, n_sub, draws, tables, work)
+            continue
+        for k in range(n):
+            x = sgd_tick(x, (lo + k) // n_sub, *(d[k] for d in draws), tables)
     return x
 
 

@@ -86,7 +86,7 @@ makes at every G, 1 included), the sharded mode as ``nw_sweep_sharded`` (one a
 device's launch), and kernels C and D as ``nw_rows_sweep`` and
 ``nw_rows_walk``, the fold's combine as ``fold_combine``; the wavefront
 kernel of ``ops/wfa.py`` (``wfa``, ``wfa_score_only``) and the SGD tick of
-``layout/sgd.py`` (``sgd_tick``, one a tick: its three launches) count their
+``layout/sgd.py`` (``sgd_tick``, one a block of ticks) count their
 launches here too, since one build makes one library of every source.
 """
 
@@ -281,9 +281,10 @@ def _library() -> ctypes.CDLL:
             lib.nw_sweep_shard_peer.restype = i32
             lib.fold_combine_launch.argtypes = [ptr] * 8 + [i32] * 4 + [ptr]
             lib.fold_combine_launch.restype = i32
-            lib.sgd_tick_launch.argtypes = ([ptr] * 23 + [ctypes.c_longlong, i32, ctypes.c_float, i32, i32, i32]
-                                            + [ptr])
-            lib.sgd_tick_launch.restype = i32
+            lib.sgd_ticks_occupancy.argtypes = [i32, ptr, ptr]
+            lib.sgd_ticks_occupancy.restype = i32
+            lib.sgd_ticks_launch.argtypes = [ptr, i32, i32, ptr]
+            lib.sgd_ticks_launch.restype = i32
             _lib = lib
         return _lib
 

@@ -1,11 +1,11 @@
 """Time the default CLI run (FASTA to GFA with the layout) of two or more
 checkouts of the repository in turns on one GPU.
 
-  python -m seqrush_tpu_torch.tools.cli_turns --root OLD --root . [--rounds 2] [--runs 3]
+  python -m seqrush_tpu_torch.tools.cli_turns --root OLD --root . [--rounds 2] [--runs 3] [--fasta F]
 
 Each ``--root`` is a checkout (an older commit unpacked with ``git
 archive``, for example).  The headline corpus (``tools/headline.py::
-synth_hla``) is written once; each root first runs it once in a process of
+synth_hla``) is written once, or ``--fasta`` names another; each root first runs it once in a process of
 its own (its kernels' build, not timed), then in each round the roots run
 in turns, forward then backward (A B B A), each in a fresh process that
 calls that checkout's ``cli.main`` ``runs`` times in a row with
@@ -70,6 +70,7 @@ def main(argv=None) -> int:
     p.add_argument("--root", action="append", required=True, help="a checkout of the repository")
     p.add_argument("--rounds", type=int, default=2, help="rounds of turns (A B B A each)")
     p.add_argument("--runs", type=int, default=3, help="cli.main runs a process")
+    p.add_argument("--fasta", help="a FASTA file to run instead of the headline corpus")
     ns = p.parse_args(argv)
     roots = [Path(r).resolve() for r in ns.root]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -77,8 +78,11 @@ def main(argv=None) -> int:
     runs: dict[str, list[list[dict]]] = {str(r): [] for r in roots}
     with tempfile.TemporaryDirectory(prefix="cli_turns_") as tmp:
         work = Path(tmp)
-        fasta = work / "hla25.fa"
-        fasta.write_bytes(b"".join(b">%s\n%s\n" % (n.encode(), s) for n, s in synth_hla()))
+        if ns.fasta:
+            fasta = Path(ns.fasta).resolve()
+        else:
+            fasta = work / "hla25.fa"
+            fasta.write_bytes(b"".join(b">%s\n%s\n" % (n.encode(), s) for n, s in synth_hla()))
         for k, root in enumerate(roots):
             _child(root, fasta, work / f"warm{k}", 1)
         order = []

@@ -436,16 +436,19 @@ def _edge_graph(kind):
 def _held_to_cpu_ticks(g, blocks=None):
     """tools/sgd_timing.py::cpu_parity on g: the tick kernel on the card
     against the plain tick on the CPU fed the same draws, compared after
-    every tick of the first block of draws and at the end of every block
-    (of the first ``blocks``); each compared tick launched the kernel once
-    (the whole run's check adds the layout's own run of n_ticks)."""
+    every tick of the first ``blocks`` blocks of draws (or all), one launch
+    a tick, and at the end of each of those blocks, one launch a block;
+    the whole run's check adds the layout's own run, one launch a block."""
     from seqrush_tpu_torch.tools.sgd_timing import cpu_parity
 
     before = nw_cuda.LAUNCHES["sgd_tick"]
     par = cpu_parity(g, blocks)
     assert par["bit_equal"] and par["max_abs_err"] == 0.0, par
-    whole = "layout_run_equal" in par
-    assert nw_cuda.LAUNCHES["sgd_tick"] - before == par["ticks_compared"] * (2 if whole else 1)
+    assert par["launches"] == par["ticks_compared"] + par["blocks_compared"]
+    n_blocks = -(-par["ticks_compared"] // par["block_ticks"])
+    whole = par.get("layout_run_launches", 0)
+    assert whole == (n_blocks if "layout_run_equal" in par else 0)
+    assert nw_cuda.LAUNCHES["sgd_tick"] - before == par["launches"] + whole
     return par
 
 
@@ -462,7 +465,7 @@ def test_sgd_tick_kernel_equals_cpu_ticks_whole_run(cuda, seed):
     par = _held_to_cpu_ticks(g)
     params = YgsParams.from_graph(g).to_sgd()
     plan = sgd.sgd_setup(g, params, "cuda")
-    assert par["ticks_compared_one_by_one"] == plan.n_ticks == 800 and par["layout_run_equal"]
+    assert par["ticks_compared"] == plan.n_ticks == 800 and par["layout_run_equal"]
     assert plan.tables.first_cooling_iter * plan.n_sub < plan.n_ticks
     run = lambda: sgd._sgd_run(plan.x0, plan.tables, params.seed, plan.n_steps, plan.n_sub,
                                plan.u_per_sub, plan.block_ticks)
@@ -472,7 +475,7 @@ def test_sgd_tick_kernel_equals_cpu_ticks_whole_run(cuda, seed):
 @pytest.mark.parametrize("kind", ["one_step", "two_steps", "hub"])
 def test_sgd_tick_kernel_equals_cpu_ticks_edge_graphs(cuda, kind):
     par = _held_to_cpu_ticks(_edge_graph(kind))
-    assert par["ticks_compared_one_by_one"] == par["ticks_compared"] == 800
+    assert par["ticks_compared"] == par["block_ticks"] == 800
 
 
 def test_sgd_tick_kernel_equals_cpu_ticks_1000_paths(cuda):
@@ -481,45 +484,156 @@ def test_sgd_tick_kernel_equals_cpu_ticks_1000_paths(cuda):
     from seqrush_tpu_torch.tools.headline import synth_variation_graph
 
     par = _held_to_cpu_ticks(synth_variation_graph(), blocks=1)
-    assert par["tick_width"] == 262144 and par["ticks_compared_one_by_one"] == par["block_ticks"] == 16
+    assert par["tick_width"] == 262144 and par["ticks_compared"] == par["block_ticks"] == 16
 
 
-@pytest.mark.parametrize("long_terms", [0, 3])
-@pytest.mark.parametrize("kind", ["variation", "hub"])
-def test_sgd_tick_kernel_block_ranked_nodes_equal_cpu_ticks(cuda, monkeypatch, kind, long_terms):
-    """Every node named by more than ``long_terms`` terms ranked by a block
-    (the bitmap of its positions), the rest by a warp: every tick of a
-    whole run bit-equal to the plain tick run on the CPU."""
+# the counting sort's plans held to the CPU on the same inputs, as budgets
+# of layout/sgd.py set while the plan is made: the default (one pass by node
+# id), one chunk a side (a count budget of 0 leaves the chunk at the tick's
+# width or above it), digit passes of 2 bits, and both
+SORT_PLANS = ({}, {"COUNT_BUDGET_BYTES": 0}, {"MAX_BINS": 4}, {"MAX_BINS": 4, "COUNT_BUDGET_BYTES": 0})
+
+
+def _sort_graph(kind):
+    """The sort's cases: the edge graphs, a small graph whose every node
+    some term of a tick names, and a variation graph with a node on no path,
+    which no term names."""
+    from seqrush_tpu_torch.graph.bigraph import BidirectedGraph
+
+    if kind in ("one_step", "two_steps", "hub"):
+        return _edge_graph(kind)
+    if kind == "all_named":
+        g = BidirectedGraph()
+        for nid in range(1, 11):
+            g.add_node(nid, b"ACGT"[: 1 + nid % 4])
+        for p in range(5):
+            g.add_path(f"p{p}", np.roll(np.arange(1, 11), p).astype(np.int64) << 1)
+        g.verify_path_edges()
+        return g
+    g = _variation_graph(1)
+    g.add_node(max(g.nodes) + 1, b"ACG")
+    return g
+
+
+def _sort_plans_equal_cpu(g, n_ticks, params=None):
+    """n_ticks ticks of g under each of SORT_PLANS, one launch a tick and one
+    launch them all, against the plain tick on the CPU fed the same draws,
+    bit for bit after every tick.  Returns the one-pass plan's last node
+    counts."""
     from seqrush_tpu_torch.layout import sgd
+    from seqrush_tpu_torch.layout.ygs import YgsParams
 
-    monkeypatch.setattr(sgd, "LONG_NODE_TERMS", long_terms)
-    g = _variation_graph(0) if kind == "variation" else _edge_graph(kind)
-    par = _held_to_cpu_ticks(g)
-    assert par["ticks_compared_one_by_one"] == par["ticks_compared"] == 800
+    params = params or YgsParams.from_graph(g).to_sgd()
+    gpu, cpu = sgd.sgd_setup(g, params, "cuda"), sgd.sgd_setup(g, params, "cpu")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    draws = sgd.draw_block(gen, n_ticks, gpu.u_per_sub, gpu.n_steps)
+    host = [d.cpu() for d in draws]
+    want, xc = [], cpu.x0
+    for k in range(n_ticks):
+        xc = sgd.sgd_tick(xc, k // cpu.n_sub, *(d[k] for d in host), cpu.tables)
+        want.append(xc.view(torch.int32))
+    counts = None
+    for kw in SORT_PLANS:
+        with pytest.MonkeyPatch.context() as mp:
+            for name, value in kw.items():
+                mp.setattr(sgd, name, value)
+            work = sgd.tick_work(gpu.x0.shape[0], gpu.u_per_sub, gpu.tables.space, gpu.x0.device, n_ticks)
+        assert (work.plan.passes > 1) == ("MAX_BINS" in kw), work.plan
+        xk = gpu.x0
+        for k in range(n_ticks):
+            xk = sgd.sgd_tick_cuda(xk, k // gpu.n_sub, *(d[k] for d in draws), gpu.tables, work=work)
+            assert torch.equal(xk.cpu().view(torch.int32), want[k]), (kw, k)
+        if not kw:
+            counts = work.node_cnt.cpu()  # the last tick's
+        xb = sgd.sgd_ticks_cuda(gpu.x0, 0, gpu.n_sub, draws, gpu.tables, work)
+        assert torch.equal(xb.cpu().view(torch.int32), want[-1]), kw
+    return counts
 
 
-@pytest.mark.parametrize("loop, long_terms", [(20, None), (0, 0)])
-def test_sgd_tick_kernel_long_nodes_1000_paths(cuda, monkeypatch, loop, long_terms):
-    """The first block of draws of the 1,000-path graph bit-equal to the
-    plain tick on the CPU: with a node that every path visits 20 times in a
-    row (about 5,000 terms a tick on that node, ranked by a block over
-    eight windows of positions), and with every node ranked by a block."""
-    from seqrush_tpu_torch.layout import sgd
+@pytest.mark.parametrize("kind", ["one_step", "two_steps", "hub", "all_named", "unnamed"])
+def test_sgd_tick_sort_equals_cpu_ticks(cuda, kind):
+    """Every tick of a whole run (800 ticks, cooling included) under each
+    plan of the counting sort bit-equal to the plain tick on the CPU: on the
+    edge graphs, on a graph whose every node is named in the last tick, and
+    on one with a node that no term names (its position moves by +0.0)."""
+    g = _sort_graph(kind)
+    counts = _sort_plans_equal_cpu(g, 800)
+    if kind == "all_named":
+        assert (counts > 0).all()
+    if kind == "unnamed":
+        assert counts[-1] == 0 and (counts > 0).any()
+
+
+def test_sgd_tick_sort_equals_cpu_ticks_looped(cuda):
+    """A node that every one of 1,000 paths visits 20 times in a row (about
+    5,900 entries a tick on that node): 16 ticks of 262,144 terms under each
+    plan of the counting sort bit-equal to the plain tick on the CPU."""
     from seqrush_tpu_torch.tools.headline import synth_variation_graph
 
-    if long_terms is not None:
-        monkeypatch.setattr(sgd, "LONG_NODE_TERMS", long_terms)
-    g = synth_variation_graph(loop_visits=loop)
-    if loop:
-        steps = np.bincount(np.concatenate([p.steps >> 1 for p in g.paths]))
-        assert steps.max() == 1000 * loop
-    par = _held_to_cpu_ticks(g, blocks=1)
-    assert par["tick_width"] == 262144 and par["ticks_compared_one_by_one"] == 16
+    g = synth_variation_graph(loop_visits=20)
+    steps = np.bincount(np.concatenate([p.steps >> 1 for p in g.paths]))
+    assert steps.max() == 1000 * 20
+    counts = _sort_plans_equal_cpu(g, 16)
+    assert counts.max() > 4000
+
+
+@pytest.mark.parametrize("kind, width", [("variation", 341), ("chain", 5461)])
+def test_sgd_tick_kernel_any_width_equals_cpu_ticks(cuda, kind, width):
+    """Three ticks an iteration make tick_plan's width no power of two (the
+    JAX package's step bucket over n_sub), so each side's last chunk of the
+    counting sort is part padding (under a count budget of 0 the one chunk
+    is wider than the tick): every tick of a whole run under each plan of
+    the sort bit-equal to the plain tick on the CPU."""
+    from seqrush_tpu_torch.layout import sgd
+    from seqrush_tpu_torch.layout.ygs import YgsParams
+
+    g = _variation_graph(0) if kind == "variation" else _chain_graph(1)
+    params = YgsParams.from_graph(g).to_sgd()
+    params.n_sub = 3
+    plan = sgd.sgd_setup(g, params, "cpu")
+    assert plan.u_per_sub == width and plan.n_ticks == plan.block_ticks == 300
+    _sort_plans_equal_cpu(g, 300, params)
+    before = nw_cuda.LAUNCHES["sgd_tick"]
+    pos = sgd.path_linear_sgd(g, params, "cuda")
+    assert nw_cuda.LAUNCHES["sgd_tick"] == before + 1 and np.isfinite(list(pos.values())).all()
+
+
+def test_sgd_tick_unstaged_tables_equal_cpu_ticks(cuda, monkeypatch):
+    """H read from device memory (a graph whose longest path outgrows H's
+    share of shared memory) and the positions too: every tick of a whole
+    run under each plan of the counting sort bit-equal to the plain tick on
+    the CPU."""
+    from seqrush_tpu_torch.layout import sgd
+
+    monkeypatch.setattr(sgd, "H_SMEM_BYTES", 0)
+    monkeypatch.setattr(sgd, "X_SMEM_BYTES", 0)
+    g = _variation_graph(0)
+    params_space = sgd.sgd_setup(g, sgd.PathSGDParams(), "cpu").tables.space
+    assert not sgd.ticks_plan(len(g.nodes), 128, params_space, 1).stage_h
+    _sort_plans_equal_cpu(g, 800)
+
+
+def test_sgd_ticks_refused_launch_raises(cuda):
+    """A grid larger than the card holds at once is refused, not run another
+    way: the wrapper raises and the launch count stays."""
+    from seqrush_tpu_torch.layout import sgd
+
+    g = _chain_graph(2)
+    plan = sgd.sgd_setup(g, sgd.PathSGDParams(), "cuda")
+    work = sgd.tick_work(plan.x0.shape[0], plan.u_per_sub, plan.tables.space, cuda)
+    big = work._replace(plan=work.plan._replace(grid=4 * work.plan.grid))
+    d = sgd.draw_block(torch.Generator(device="cuda"), 2, plan.u_per_sub, plan.n_steps)
+    before = nw_cuda.LAUNCHES["sgd_tick"]
+    with pytest.raises(RuntimeError, match="sgd_ticks launch failed"):
+        sgd.sgd_ticks_cuda(plan.x0, 0, plan.n_sub, d, plan.tables, big)
+    assert nw_cuda.LAUNCHES["sgd_tick"] == before
+    torch.cuda.synchronize()
 
 
 def test_sgd_layout_runs_the_tick_kernel(cuda):
-    """path_linear_sgd on cuda launches the tick kernel once a tick and
-    gives the same positions on every call."""
+    """path_linear_sgd on cuda launches the tick kernel once a block of
+    ticks and gives the same positions on every call."""
     from seqrush_tpu_torch.layout import sgd
 
     g = _chain_graph(1)
@@ -527,7 +641,7 @@ def test_sgd_layout_runs_the_tick_kernel(cuda):
     before = nw_cuda.LAUNCHES["sgd_tick"]
     first = sgd.path_linear_sgd(g, params, "cuda")
     plan = sgd.sgd_setup(g, params, "cuda")
-    assert nw_cuda.LAUNCHES["sgd_tick"] == before + plan.n_ticks
+    assert nw_cuda.LAUNCHES["sgd_tick"] == before + -(-plan.n_ticks // plan.block_ticks)
     assert sgd.path_linear_sgd(g, params, "cuda") == first
     d = sgd.draw_block(torch.Generator(device="cuda"), 1, plan.u_per_sub, plan.n_steps)
     with pytest.raises(ValueError, match="another buffer"):

@@ -7,7 +7,7 @@ import pytest
 
 from seqrush_tpu_torch.layout import sgd
 from seqrush_tpu_torch.tools.headline import synth_variation_graph
-from seqrush_tpu_torch.tools.sgd_timing import TERM_DRAW_BYTES, _setup, tick_bytes
+from seqrush_tpu_torch.tools.sgd_timing import FIELD_BYTES, TERM_DRAW_BYTES, _setup, tick_bytes
 
 
 def _plan(n_paths, loop_visits=0):
@@ -18,8 +18,9 @@ def _plan(n_paths, loop_visits=0):
 @pytest.mark.parametrize("width", [64, 1 << 20])
 def test_tick_bytes_charges_each_table_at_most_its_size(width):
     """Each table the terms gather from costs its reads a term times the
-    terms, or its size where that is less; the draws are read once a term
-    and the positions once each way."""
+    terms, or its size where that is less, at 4 B a field (the tick
+    kernel's int32 and float32 records); the draws are read once a term and
+    the positions once each way."""
     _g, plan = _plan(30)
     plan = plan._replace(u_per_sub=width)
     t = plan.tables
@@ -27,10 +28,11 @@ def test_tick_bytes_charges_each_table_at_most_its_size(width):
     reads = ((t.node_of_step, 2), (t.step_pos, 2), (t.step_path, 1), (t.step_rank, 1),
              (t.path_first, 1), (t.path_count, 1), (t.Hmain, probes))
     want = width * TERM_DRAW_BYTES + 2 * 4 * plan.x0.numel()
-    want += sum(min(r * width, a.numel()) * a.element_size() for a, r in reads)
+    assert FIELD_BYTES == 4
+    want += sum(min(r * width, a.numel()) * 4 for a, r in reads)
     assert tick_bytes(plan) == want
     if width > t.node_of_step.numel():
-        tables = sum(a.numel() * a.element_size() for a, _r in reads)
+        tables = sum(a.numel() * 4 for a, _r in reads)
         assert tick_bytes(plan) - width * TERM_DRAW_BYTES - 8 * plan.x0.numel() == tables
 
 
@@ -51,8 +53,8 @@ def test_synth_variation_graph_loop():
 
 
 def test_long_node_plan_on_cpu_runs_plain():
-    """The looped graph lays out on the CPU (the plain tick, whatever
-    LONG_NODE_TERMS says) with finite positions."""
+    """The looped graph lays out on the CPU (the plain tick) with finite
+    positions."""
     g, plan = _plan(8, loop_visits=40)
     x = sgd._sgd_run(plan.x0, plan.tables, 7, plan.n_steps, plan.n_sub, plan.u_per_sub, plan.block_ticks)
     assert x.shape == plan.x0.shape and bool(x.isfinite().all())
