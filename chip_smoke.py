@@ -156,11 +156,19 @@ Phases (any failure exits non-zero and prints no ok line):
      sizes users run (see run_phase12): the C++ FASTA parser against the
      Python loop on the headline, the locus and a 1,000 x 3.3 kb FASTA (equal
      records), and fasta_faults() through --no-sort (the JAX package's GFA
-     or golden-check error, FASTA_FAULTS_JAX); in a fresh process the
-     default headline run's pre_unite split into the CUDA context and its
-     unite, the Python match-run loop's seconds, and the flush through the
-     host library against the device unite on the same edges (headline and
-     locus, equal parents, DEFAULT_GFA_SHA256); kernel='wfa' with the C++
+     or golden-check error, FASTA_FAULTS_JAX); in a fresh process (12b) the
+     default headline run's pre_unite split into the CUDA context, loading
+     the kernels' library, the edges' copy, the first launches and the
+     unite itself (and again warm), the align phase's seconds and first
+     chunk dispatches, the union-find kernels' launches by the pre-unite and
+     by the flush, the Python match-run loop's seconds, and at three sizes
+     (the headline's flush, the locus's, a synthetic 50 M-edge flush over
+     1,000 x 3.3 kb) the hook and compress launches (ops/csrc/unionfind.cu)
+     timed apart, the edges' copy apart, the unite in turns with its plain
+     version (with the plain version's host reads) and the host library's
+     unite in turns with the pipeline's, every parent equal; find on an
+     uncompressed forest against its plain version (DEFAULT_GFA_SHA256,
+     the locus's phase 6 bytes); kernel='wfa' with the C++
      and the Python backtrace (equal records, WFA_SUBSET_SHA256); the
      translocation pair's host walk in C++ and Python (equal items); the
      sweepga align phase (SWEEPGA_GFA_SHA256) and chain_anchors' DP in C++
@@ -248,7 +256,14 @@ package's unclamped recurrence, no validity) needs per cell the sweep's
 instructions without the validity and the five clamps: 30 instructions, 6
 of them minima (SHARD_OPS_PER_CELL), at the issue rate, and writes its
 strips whole; its handover of one column a step is latency, which no bound
-of bytes or instructions sees.
+of bytes or instructions sees.  The union-find's hook launch is charged its
+edges (8 B an edge, int32 ends), the parent read once (4 B a slot) and the
+hooks this run made written once (4 B each: the roots before less the roots
+after); its compress launch the parent read and written once (8 B a slot);
+the unite as one function the edges and the parent in and out once (8 B an
+edge, 8 B a slot); find its positions in and roots out (8 B a position)
+and the parent read once.  Their finds' chains of dependent L2 reads set
+their real floor.
 """
 
 from __future__ import annotations
@@ -279,6 +294,14 @@ SCORE_ONLY_MIN_OPS_PER_CELL = 11
 WALK_OPS_PER_STEP = 25
 WFA_OPS_PER_CELL = 40
 REPS = 3
+# the synthetic flush of phase 12b: the pipeline flushes at 50,000,000 queued
+# edges (pipeline.py::_queue_unites)
+SYNTH_FLUSH_EDGES = 50_000_000
+# cycles the card spins before a timed launch of a few microseconds (about
+# 1 ms at 1.98 GHz), while the host enqueues it
+SPIN_CYCLES = 2_000_000
+# the union-find's kernels on the pipeline's path (its pre-unite and flush)
+UF_KERNELS = ("uf_hook", "uf_compress")
 
 
 def synth_family(n_seqs=4, length=2304, seed=11):
@@ -532,6 +555,26 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def spun_ms(fn, reps: int) -> float:
+    """Median CUDA-event time of fn() over reps runs after one warm-up, each
+    behind a spin of the card (torch.cuda._sleep) long enough for the host
+    to enqueue fn's launches, so the events time the kernels alone and not
+    the host's issue of a launch of a few microseconds."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
 def once_ms(fn):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -705,8 +748,8 @@ def run(work: Path, name: str, smi: str, ptxas: list[str]) -> int:
                            for d in st["dispatches"] if d["kind"] == kind])
 
     # 3. main path (layout on), then the same with --no-sort
-    rep, launches, wall = drive(gfa, kernels=path_kernels + ("sgd_tick",))
-    rep_ns, launches_ns, wall_ns = drive(gfa_ns, "--no-sort")
+    rep, launches, wall = drive(gfa, kernels=path_kernels + ("sgd_tick",) + UF_KERNELS)
+    rep_ns, launches_ns, wall_ns = drive(gfa_ns, "--no-sort", kernels=path_kernels + UF_KERNELS)
     st = rep["stats"]["aligner"]
     n_align = int(rep["counters"]["alignments"])
     g = rep["graph"]
@@ -1111,7 +1154,8 @@ def run(work: Path, name: str, smi: str, ptxas: list[str]) -> int:
     out.extend(run_phase10(smi, ptxas, ctx9))
     out.extend(run_phase11(work, smi, ptxas, ctx9))
     ctx9["wfa_kernel_ms"] = sum(b["ms"] for e in phase8 if e["name"] == "wfa" for b in e["batches"])
-    run_phase12(work, smi, drive, ctx9)
+    ctx9["launches"] = launches
+    out.extend(run_phase12(work, smi, drive, ctx9))
     print(json.dumps({"kernels": out}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -3187,29 +3231,191 @@ def in_turns(a: str, b: str) -> tuple[str, ...]:
     return (a, b, b, a, a, b)
 
 
-def unite_split(runs: list[tuple[str, str, str]]) -> dict:
-    """12b's measurements, in a fresh process (``python3 chip_smoke.py
-    --unite-split TAG FASTA GFA ...``): each FASTA through the CLI on the
-    card with --no-sort, in order, timing the pre-unite's first device
-    tensor (the CUDA context, on the process's first run) and its unite
-    apart, summing SeqRushTorch._result_to_unites, timing the flush's device
-    unite and keeping the largest flush's parent and edges; then that flush
-    through the host library (the parent to the host as int32,
+def _uf_roots(p: torch.Tensor) -> int:
+    """Self-parented slots of a parent array on the card."""
+    return int((p == torch.arange(p.numel(), dtype=p.dtype, device=p.device)).sum().item())
+
+
+def uf_flush_numbers(tag: str, parent0: np.ndarray, u: np.ndarray, v: np.ndarray, host_unite) -> dict:
+    """One flush (parent0 and its edges, int64 numpy) at one size, on the
+    card: the edges' host cast and copy to the card timed apart; the hook
+    and the compress launches (CUDA events, median of 3 after a warm-up) on
+    the edges already on the card, three runs equal; the unite (its copy of
+    the parent, hook, compress) and its plain version in turns, with the
+    plain version's host reads; compress_reference on the hooked parent
+    against the compress launch; the host C++ unite (parent to the host,
     uf_unite_bulk and full compression, back to the card) against the
-    pipeline's device unite (unionfind.unite_edges), three times each in
-    turns, the parents equal.  Returns a dict by tag; the GFA's sha256 is
-    in it."""
-    from seqrush_tpu_torch import cli, pipeline
-    from seqrush_tpu_torch.native import uf_unite_bulk_native as host_unite
+    pipeline's unite from numpy edges, in turns; every parent equal.  The
+    hook and the compress are timed behind a spin of the card (see
+    spun_ms)."""
     from seqrush_tpu_torch.ops import unionfind as uf
 
     dev = torch.device("cuda")
+    p_dev = torch.from_numpy(parent0).to(dev)
+    n_slots, n_edges = int(p_dev.numel()), int(u.size)
+    cast_s, copy_s = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        u32, v32 = u.astype(np.int32), v.astype(np.int32)
+        t1 = time.perf_counter()
+        ud, vd = torch.from_numpy(u32).to(dev), torch.from_numpy(v32).to(dev)
+        torch.cuda.synchronize()
+        cast_s.append(t1 - t0)
+        copy_s.append(time.perf_counter() - t1)
+    del u32, v32
+    # the split, edges on the card; the card spins while the host enqueues
+    # both launches, so the events time the kernels alone
+    hook_ms, comp_ms, runs = [], [], []
+    for rep in range(4):
+        p = p_dev.clone()
+        e0, e1, e2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SPIN_CYCLES)
+        e0.record()
+        uf._hook_cuda(p, ud, vd)
+        e1.record()
+        uf._compress_cuda(p)
+        e2.record()
+        e2.synchronize()
+        if rep:
+            hook_ms.append(e0.elapsed_time(e1))
+            comp_ms.append(e1.elapsed_time(e2))
+        runs.append(p)
+    if not all(torch.equal(r, runs[0]) for r in runs[1:]):
+        raise AssertionError(f"the {tag} flush's kernel runs differ")
+    kernel = runs[0]
+    hooked = p_dev.clone()
+    uf._hook_cuda(hooked, ud, vd)
+    comp_k = hooked.clone()
+    uf._compress_cuda(comp_k)
+    comp_plain = uf.compress_reference(hooked)
+    comp_plain_ms = cuda_ms(lambda: uf.compress_reference(hooked), REPS)
+    hooks = _uf_roots(p_dev) - _uf_roots(kernel)
+    # the unite and its plain version in turns, edges on the card, each
+    # warmed first (a process's first call of the plain version also loads
+    # torch's kernels)
+    turns, got = {"plain": [], "kernel": []}, {}
+    uf.unite_edges_reference(p_dev, ud, vd)
+    uf.unite_edges(p_dev, ud, vd)
+    for mode in in_turns("plain", "kernel"):
+        fn = uf.unite_edges_reference if mode == "plain" else uf.unite_edges
+        ms, res = once_ms(lambda: fn(p_dev, ud, vd))
+        turns[mode].append(ms)
+        if mode in got and not torch.equal(got[mode], res):
+            raise AssertionError(f"two {mode} unites of the {tag} flush differ")
+        got[mode] = res
+    reads = [0]
+    equal = torch.equal
+
+    def counted(a, b):
+        reads[0] += 1
+        return equal(a, b)
+
+    torch.equal = counted
+    try:
+        uf.unite_edges_reference(p_dev, ud, vd)
+    finally:
+        torch.equal = equal
+    # the host C++ unite against the pipeline's unite from numpy edges
+    secs = {"cpp": [], "device": []}
+    split = {"to_host": [], "cpp": [], "to_card": []}
+    for mode in in_turns("cpp", "device"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if mode == "cpp":
+            par = p_dev.to("cpu", torch.int32, copy=True).numpy()
+            t1 = time.perf_counter()
+            host_unite(par, u, v)
+            t2 = time.perf_counter()
+            res = torch.from_numpy(par).to(dev)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            for key, dt in zip(split, (t1 - t0, t2 - t1, t3 - t2)):
+                split[key].append(dt)
+        else:
+            res = uf.unite_edges(p_dev, u, v)
+            torch.cuda.synchronize()
+        secs[mode].append(time.perf_counter() - t0)
+        if mode in got and not torch.equal(got[mode], res):
+            raise AssertionError(f"two {mode} unites of the {tag} flush differ")
+        got[mode] = res
+    err = max(max_abs_err(kernel, got[m]) for m in ("plain", "kernel", "cpp", "device"))
+    err = max(err, max_abs_err(comp_k, comp_plain))
+    hook_bytes = 8 * n_edges + 4 * n_slots + 4 * hooks
+    return {
+        "edges": n_edges, "parent_slots": n_slots, "hooks": hooks,
+        "edge_cast_s": cast_s, "edge_copy_s": copy_s,
+        "hook_ms": statistics.median(hook_ms), "compress_ms": statistics.median(comp_ms),
+        "hook_ms_each": hook_ms, "compress_ms_each": comp_ms,
+        "unite_in_turns_ms": turns, "plain_host_reads": reads[0], "compress_plain_ms": comp_plain_ms,
+        "hook_bound_ms": hook_bytes / HBM_BYTES_PER_S * 1e3,
+        "compress_bound_ms": 8 * n_slots / HBM_BYTES_PER_S * 1e3,
+        "unite_bound_ms": (8 * n_edges + 8 * n_slots) / HBM_BYTES_PER_S * 1e3,
+        "flush_in_turns_s": secs, "cpp_flush_split_s": split, "max_abs_err": err,
+        "parents_equal": err == 0,
+    }
+
+
+def uf_find_numbers(n_slots: int, seed: int = 5) -> dict:
+    """find over every slot of an uncompressed forest of n_slots (each slot
+    below a random smaller one with probability 1/2): the kernel (spun_ms)
+    against find_reference (cuda_ms), each the median of 3 after a warm-up,
+    equal."""
+    from seqrush_tpu_torch.ops import unionfind as uf
+
+    rng = np.random.default_rng(seed)
+    idx = np.arange(n_slots)
+    parent = np.where(rng.random(n_slots) < 0.5, (rng.random(n_slots) * idx).astype(np.int64), idx)
+    p = torch.from_numpy(parent.astype(np.int32)).to("cuda")
+    pos = torch.arange(n_slots, dtype=torch.int32, device="cuda")
+    ms = spun_ms(lambda: uf.find(p, pos), REPS)
+    want = uf.find_reference(p, pos)
+    plain_ms = cuda_ms(lambda: uf.find_reference(p, pos), REPS)
+    got = uf.find(p, pos)
+    depth = int(torch.where(got == pos, 0, 1).sum().item())
+    return {"slots": n_slots, "positions": n_slots, "not_roots": depth, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": (8 * n_slots + 4 * n_slots) / HBM_BYTES_PER_S * 1e3,
+            "max_abs_err": max_abs_err(got, want)}
+
+
+def unite_split(runs: list[tuple[str, str, str]]) -> dict:
+    """12b's measurements, in a fresh process (``python3 chip_smoke.py
+    --unite-split TAG FASTA GFA ...``): each FASTA through the CLI on the
+    card with --no-sort, in order.  The pre-unite of the process's first run
+    is split, each part synchronised: its first device tensor (the CUDA
+    context), loading the kernels' library, the edges' cast and copy, the
+    first hook launch (the library's load apart) and the compress launch;
+    then the same pre-unite again, warm.  The align phase's seconds and each
+    run's first two chunk dispatches (host seconds) show a cost that moves
+    from the pre-unite into the align phase.  The union-find's launches of
+    the pre-unite and of the flush are counted apart; _result_to_unites'
+    seconds are summed; the flush's unite is timed and the largest flush's
+    parent and edges kept for uf_flush_numbers.  Then a synthetic flush at
+    the top of the users' range (1,000 x 3.3 kb, 50,000,000 edges of match
+    runs after the F/R pre-unite, tools/headline.py::synth_flush_edges)
+    through uf_flush_numbers, and find on an uncompressed forest of the
+    headline's size.  Returns a dict by tag; each run's GFA sha256 is in
+    it."""
+    from seqrush_tpu_torch import cli, pipeline
+    from seqrush_tpu_torch.align import runner
+    from seqrush_tpu_torch.native import uf_unite_bulk_native as host_unite
+    from seqrush_tpu_torch.ops import nw_cuda
+    from seqrush_tpu_torch.ops import unionfind as uf
+    from seqrush_tpu_torch.tools.headline import synth_flush_edges
+
     create, unite_edges = uf.create, uf.unite_edges
+    parts = {"edges_s": "edges_on", "hook_s": "_hook_cuda", "compress_s": "_compress_cuda"}
+    originals = {key: getattr(uf, name) for key, name in parts.items()}
+    library = nw_cuda._library
     to_unites = pipeline.SeqRushTorch._result_to_unites
     flush = pipeline.SeqRushTorch._flush_unites
+    dispatch = runner.WfaAligner._dispatch_nw_chunk
     t: dict = {}
+    pre: dict = {}
     flushes: list = []
-    in_flush = [False]
+    dispatch_s: list = []
+    site = [None]
+    uf_launches = {"pre_unite": {}, "flush": {}}
 
     def timed(fn, key):
         def wrapper(*a, **k):
@@ -3220,30 +3426,63 @@ def unite_split(runs: list[tuple[str, str, str]]) -> dict:
             return out
         return wrapper
 
+    def part(fn, key):
+        """fn timed on its own, synchronised, while a pre-unite runs."""
+        def wrapper(*a, **k):
+            if site[0] != "pre_unite":
+                return fn(*a, **k)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            pre[key] = pre.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return wrapper
+
     pre_unite_unite = timed(unite_edges, "pre_unite_unite_s")
     flush_unite = timed(unite_edges, "flush_device_s")
 
+    def counted(kind, fn, *a):
+        before = dict(nw_cuda.LAUNCHES)
+        site[0] = kind
+        try:
+            return fn(*a)
+        finally:
+            site[0] = None
+            for k in ("uf_hook", "uf_compress"):
+                uf_launches[kind][k] = uf_launches[kind].get(k, 0) + nw_cuda.LAUNCHES[k] - before[k]
+
     def capturing_unite(parent, u, v):
-        if not in_flush[0]:
-            return pre_unite_unite(parent, u, v)
+        if site[0] != "flush":
+            return counted("pre_unite", pre_unite_unite, parent, u, v)
         flushes.append((parent.to("cpu", torch.int32, copy=True).numpy(), np.asarray(u), np.asarray(v)))
         return flush_unite(parent, u, v)
 
     def flagged_flush(self):
-        in_flush[0] = True
-        try:
-            flush(self)
-        finally:
-            in_flush[0] = False
+        counted("flush", flush, self)
+
+    def timed_dispatch(self, chunk):
+        t0 = time.perf_counter()
+        out = dispatch(self, chunk)
+        dispatch_s.append(time.perf_counter() - t0)
+        return out
 
     uf.create, uf.unite_edges = timed(create, "create_s"), capturing_unite
+    for key, name in parts.items():
+        setattr(uf, name, part(originals[key], key))
+    nw_cuda._library = part(library, "library_s")
     pipeline.SeqRushTorch._result_to_unites = timed(to_unites, "result_to_unites_s")
     pipeline.SeqRushTorch._flush_unites = flagged_flush
-    out = {}
+    runner.WfaAligner._dispatch_nw_chunk = timed_dispatch
+    out, largest = {}, {}
     try:
-        for tag, fasta, gfa in runs:
+        for k, (tag, fasta, gfa) in enumerate(runs):
             t.clear()
+            pre.clear()
             flushes.clear()
+            dispatch_s.clear()
+            for d in uf_launches.values():
+                d.clear()
             prof = Path(gfa + ".json")
             t0 = time.time()
             if cli.main(["-s", fasta, "-o", gfa, "--no-sort", "--profile", str(prof)]) != 0:
@@ -3251,43 +3490,49 @@ def unite_split(runs: list[tuple[str, str, str]]) -> dict:
             rep = json.loads(prof.read_text())
             parent0, u, v = max(flushes, key=lambda f: f[1].size)
             out[tag] = {"wall_s": time.time() - t0, "phases_s": rep["phases_s"], **t,
-                        "flushes": len(flushes), "edges": int(u.size), "parent_slots": int(parent0.size),
+                        "pre_unite_parts_s": dict(pre), "first_dispatches_s": dispatch_s[:2],
+                        "uf_launches": {kk: dict(d) for kk, d in uf_launches.items()},
+                        "flushes": len(flushes),
                         "gfa_sha256": hashlib.sha256(Path(gfa).read_bytes()).hexdigest()}
-            p_dev = torch.from_numpy(parent0).to(dev)
-            secs = {"cpp": [], "device": []}
-            split = {"to_host": [], "cpp": [], "to_card": []}
-            got = {}
-            for mode in in_turns("cpp", "device"):
+            if "library_s" in pre:
+                out[tag]["pre_unite_parts_s"]["first_hook_launch_s"] = pre["hook_s"] - pre["library_s"]
+            if k == 0:
+                # the same pre-unite again, warm
+                pre.clear()
+                n_total = (parent0.size - 2) // 2
+                i = np.arange(n_total, dtype=np.int64)
+                p0 = create(parent0.size, "cuda")
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                if mode == "cpp":
-                    par = p_dev.to("cpu", torch.int32, copy=True).numpy()
-                    t1 = time.perf_counter()
-                    host_unite(par, u, v)
-                    t2 = time.perf_counter()
-                    res = torch.from_numpy(par).to(dev)
-                    torch.cuda.synchronize()
-                    t3 = time.perf_counter()
-                    for key, dt in zip(split, (t1 - t0, t2 - t1, t3 - t2)):
-                        split[key].append(dt)
-                else:
-                    res = unite_edges(p_dev, u, v)
-                    torch.cuda.synchronize()
-                secs[mode].append(time.perf_counter() - t0)
-                if mode in got and not torch.equal(got[mode], res):
-                    raise AssertionError(f"two {mode} unites of the {tag} flush differ")
-                got[mode] = res
-            out[tag]["flush_in_turns_s"] = secs
-            out[tag]["cpp_flush_split_s"] = split
-            out[tag]["parents_equal"] = bool(torch.equal(got["cpp"], got["device"]))
+                counted("pre_unite", unite_edges, p0, i << 1, (i << 1) | 1)
+                torch.cuda.synchronize()
+                out[tag]["pre_unite_warm_s"] = {"unite_s": time.perf_counter() - t0, **pre}
+            largest[tag] = (parent0, u, v)
     finally:
         uf.create, uf.unite_edges = create, unite_edges
+        for key, name in parts.items():
+            setattr(uf, name, originals[key])
+        nw_cuda._library = library
         pipeline.SeqRushTorch._result_to_unites = to_unites
         pipeline.SeqRushTorch._flush_unites = flush
+        runner.WfaAligner._dispatch_nw_chunk = dispatch
+    for tag, (parent0, u, v) in largest.items():
+        out[tag].update(uf_flush_numbers(tag, parent0, u, v, host_unite))
+    # the top of the users' range: 1,000 x 3.3 kb, a flush of 50 M edges
+    n_seqs, length = 1000, 3300
+    t0 = time.perf_counter()
+    u, v = synth_flush_edges(n_seqs=n_seqs, length=length, n_edges=SYNTH_FLUSH_EDGES)
+    i = np.arange(n_seqs * length, dtype=np.int64)
+    parent0 = uf.unite_edges(uf.create(2 * n_seqs * length + 2, "cuda"), i << 1, (i << 1) | 1)
+    made_s = time.perf_counter() - t0
+    if not torch.equal(parent0, uf.unite_edges_reference(uf.create(parent0.numel(), "cuda"), i << 1, (i << 1) | 1)):
+        raise AssertionError("the synthetic pre-unite differs from its plain version")
+    out["synthetic"] = {"made_s": made_s, **uf_flush_numbers("synthetic", parent0.cpu().numpy(), u, v, host_unite)}
+    out["find"] = uf_find_numbers(out[runs[0][0]]["parent_slots"])
     return out
 
 
-def run_phase12(work: Path, smi: str, drive, ctx: dict) -> None:
+def run_phase12(work: Path, smi: str, drive, ctx: dict) -> list[dict]:
     """12. The host library's parser, unite and walks at the sizes users run.
 
     12a. the FASTA parser: the headline FASTA, the 8 x 60 kb locus FASTA and a
@@ -3298,12 +3543,15 @@ def run_phase12(work: Path, smi: str, drive, ctx: dict) -> None:
          sha256, or the golden check's RuntimeError, equal to the JAX
          package's (FASTA_FAULTS_JAX);
     12b. the unite, in a fresh process (unite_split): the default headline
-         run's pre_unite split into the CUDA context and its unite, the
-         Python seconds of _result_to_unites, the flush through the host
-         library against the device unite on the same edges of the
-         headline and of the locus, in turns, equal parents; the headline
-         GFA must have DEFAULT_GFA_SHA256, the locus's the bytes of phase
-         6's --no-sort run;
+         run's pre_unite split into its parts, cold and warm, the align
+         phase's seconds and first dispatches, the union-find launches of
+         the pre-unite and of the flush (each must launch both kernels), the
+         Python seconds of _result_to_unites; at the headline's flush, the
+         locus's and a synthetic 50 M-edge one the kernels timed apart and
+         against the plain version and the host library's unite, equal
+         parents; find against its plain version; the headline GFA must have
+         DEFAULT_GFA_SHA256, the locus's the bytes of phase 6's --no-sort
+         run.  Returns the union-find's entries of the kernels line;
     12c. the 600 pairs through kernel='wfa' with the C++ backtrace and with
          the Python specification (native.backtrace_native patched to
          return None), three times each in turns: equal records, the
@@ -3368,13 +3616,42 @@ def run_phase12(work: Path, smi: str, drive, ctx: dict) -> None:
         raise AssertionError("the unite-split process failed")
     split = json.loads(proc.stdout.strip().splitlines()[-1])
     for tag, r in split.items():
-        print(f"unite split, {tag} --no-sort (fresh process): " + json.dumps(r) + f" | {smi}")
+        print(f"unite split, {tag}{' --no-sort (fresh process)' if 'gfa_sha256' in r else ''}: "
+              + json.dumps(r) + f" | {smi}")
     if split["headline"]["gfa_sha256"] != DEFAULT_GFA_SHA256:
         raise AssertionError("the unite-split process's headline GFA is not the JAX package's")
     if Path(runs[1][2]).read_bytes() != (work / "locus_nosort.gfa").read_bytes():
         raise AssertionError("the unite-split process's locus GFA differs from phase 6's")
-    if not all(r["parents_equal"] for r in split.values()):
-        raise AssertionError("the host and the device unite gave different parents")
+    sizes = {tag: split[tag] for tag in ("headline", "locus", "synthetic")}
+    if not all(r["parents_equal"] for r in sizes.values()) or split["find"]["max_abs_err"]:
+        raise AssertionError("the union-find kernels, their plain versions and the host unite disagree")
+    for kind in ("pre_unite", "flush"):
+        if not all(split["headline"]["uf_launches"][kind].get(k, 0) > 0 for k in UF_KERNELS):
+            raise AssertionError(f"the headline run's {kind} did not launch the union-find kernels")
+    print(f"phase 12 wall {time.time() - t_phase:.1f} s (12b done)")
+    keys = ("edges", "parent_slots", "hooks", "hook_ms", "compress_ms", "hook_bound_ms", "compress_bound_ms",
+            "unite_bound_ms", "unite_in_turns_ms", "plain_host_reads", "compress_plain_ms", "edge_cast_s",
+            "edge_copy_s", "flush_in_turns_s", "max_abs_err")
+    h, launches = sizes["headline"], ctx["launches"]
+    common = {"route": "cuda", "source": "seqrush_tpu_torch/ops/csrc/unionfind.cu",
+              "launches_path": "default run: the pre-unite and the flush",
+              "max_abs_err": max(r["max_abs_err"] for r in sizes.values()), "library_ms": None,
+              "shape": {"edges": h["edges"], "slots": h["parent_slots"]}, "bound_by": "bytes",
+              "unite_ms": statistics.median(h["unite_in_turns_ms"]["kernel"]),
+              "unite_plain_ms": statistics.median(h["unite_in_turns_ms"]["plain"]),
+              "unite_bound_ms": h["unite_bound_ms"], "plain_host_reads": h["plain_host_reads"],
+              **{tag: {k: sizes[tag][k] for k in keys} for tag in ("locus", "synthetic")}, "tolerance": 0}
+    uf_entries = [
+        {"name": "uf_hook", "replaces": "seqrush_tpu/ops/unionfind.py:105 (unite_edges; XLA while_loop)",
+         "launches": launches["uf_hook"], "ms": h["hook_ms"], "plain_ms": common["unite_plain_ms"],
+         "plain_of": "unite_edges_reference, its hooks and compression", "bound_ms": h["hook_bound_ms"],
+         **common},
+        {"name": "uf_compress",
+         "replaces": "seqrush_tpu/ops/unionfind.py:88 (compress; XLA while_loop) and :133 (find, uf_find_kernel)",
+         "launches": launches["uf_compress"], "ms": h["compress_ms"], "plain_ms": h["compress_plain_ms"],
+         "plain_of": "compress_reference on the hooked parent", "bound_ms": h["compress_bound_ms"],
+         "find": split["find"], **common},
+    ]
 
     # 12c. the wavefront route with the C++ and the Python backtrace
     seqs = make_sequence_set(named)
@@ -3462,6 +3739,7 @@ def run_phase12(work: Path, smi: str, drive, ctx: dict) -> None:
     if digest != SWEEPGA_GFA_SHA256 or chains["cpp"] != chains["python"]:
         raise AssertionError("the sweepga GFA is not the JAX package's, or the chaining DPs disagree")
     print(f"phase 12 wall {time.time() - t_phase:.1f} s")
+    return uf_entries
 
 
 if __name__ == "__main__":

@@ -85,9 +85,11 @@ forward run's launch too), ``nw_walk_segment``, and the group launches
 makes at every G, 1 included), the sharded mode as ``nw_sweep_sharded`` (one a
 device's launch), and kernels C and D as ``nw_rows_sweep`` and
 ``nw_rows_walk``, the fold's combine as ``fold_combine``; the wavefront
-kernel of ``ops/wfa.py`` (``wfa``, ``wfa_score_only``) and the SGD tick of
-``layout/sgd.py`` (``sgd_tick``, one a block of ticks) count their
-launches here too, since one build makes one library of every source.
+kernel of ``ops/wfa.py`` (``wfa``, ``wfa_score_only``), the SGD tick of
+``layout/sgd.py`` (``sgd_tick``, one a block of ticks) and the union-find of
+``ops/unionfind.py`` (``uf_hook``, ``uf_compress``, ``uf_find``;
+``csrc/unionfind.cu``) count their launches here too, since one build makes
+one library of every source.
 """
 
 from __future__ import annotations
@@ -114,10 +116,12 @@ LAUNCHES = {"nw_sweep": 0, "nw_sweep_score_only": 0, "nw_walk": 0, "nw_walk_runs
             "nw_sweep_segment_group": 0, "nw_walk_segment_group": 0,
             "wfa": 0, "wfa_score_only": 0, "nw_sweep_int16": 0, "nw_sweep_snapshot": 0,
             "nw_walk_start": 0, "nw_rows_sweep": 0, "nw_rows_walk": 0, "nw_sweep_tiled": 0,
-            "nw_walk_runs_tiled": 0, "nw_sweep_sharded": 0, "fold_combine": 0, "sgd_tick": 0}
+            "nw_walk_runs_tiled": 0, "nw_sweep_sharded": 0, "fold_combine": 0, "sgd_tick": 0,
+            "uf_hook": 0, "uf_compress": 0, "uf_find": 0}
 
 _SOURCES = ("nw_sweep.cu", "nw_sweep_seg.cu", "nw_sweep_snap.cu", "nw_sweep_tiled.cu", "nw_sweep_i16.cu",
-            "nw_walk.cu", "wfa.cu", "nw_rows.cu", "nw_sweep_shard.cu", "fold_combine.cu", "sgd_tick.cu")
+            "nw_walk.cu", "wfa.cu", "nw_rows.cu", "nw_sweep_shard.cu", "fold_combine.cu", "sgd_tick.cu",
+            "unionfind.cu")
 _HEADERS = ("nw_sweep.cuh",)
 # anti-diagonals per segment of the long-pair route (the JAX package's default)
 LONG_SEG = 2048
@@ -285,6 +289,13 @@ def _library() -> ctypes.CDLL:
             lib.sgd_ticks_occupancy.restype = i32
             lib.sgd_ticks_launch.argtypes = [ptr, i32, i32, ptr]
             lib.sgd_ticks_launch.restype = i32
+            i64 = ctypes.c_longlong
+            lib.uf_hook_launch.argtypes = [ptr] * 3 + [i64, i32, ptr]
+            lib.uf_hook_launch.restype = i32
+            lib.uf_compress_launch.argtypes = [ptr, i32, ptr]
+            lib.uf_compress_launch.restype = i32
+            lib.uf_find_launch.argtypes = [ptr] * 3 + [i64, i32, ptr]
+            lib.uf_find_launch.restype = i32
             _lib = lib
         return _lib
 

@@ -3,20 +3,30 @@
 The state is a dense ``parent: int32[capacity]`` tensor with two bulk,
 deterministic operations (the counterparts of ``seqrush_tpu/ops/unionfind.py``):
 
-* ``unite_edges(parent, u, v)`` -- hook every edge's larger root onto the
-  smaller root with an unordered scatter-min (``scatter_reduce_(..., "amin")``),
-  alternated with pointer jumping until nothing changes.  The converged
-  representative of every component is its minimum Pos, so the result does
-  not depend on edge order or device.
-* ``compress(parent)`` -- ``parent = parent[parent]`` until a fixpoint;
-  afterwards ``parent[i]`` is the representative of i.
+* ``unite_edges(parent, u, v)`` -- afterwards every edge's ends share a root,
+  and the parent array is fully compressed.  Every component's
+  representative is its smallest input root (from an identity start, its
+  minimum Pos), so the result does not depend on edge order or device.
+* ``compress(parent)`` -- afterwards ``parent[i]`` is the representative of i.
 
-``find``, ``count_components``, ``BidirectedUnionFind`` (the reference's
-stateful API over those bulk operations) and ``match_region_pairs`` are the
-rest of the JAX module's surface.
+On a GPU both, and ``find``, run the hand-written kernels of
+``csrc/unionfind.cu`` (a lock-free CAS hook over the edges, then a chase of
+every slot to its root: two launches a unite, no read back to the host);
+on the CPU they run their plain versions, ``unite_edges_reference``
+(scatter-min hooks, ``scatter_reduce_(..., "amin")``, alternated with
+pointer jumping until nothing changes), ``compress_reference``
+(``parent = parent[parent]`` until a fixpoint) and ``find_reference``, each
+of whose loops reads one flag back to the host a round.  There is no
+fallback between the two: a failed build or launch raises.  The kernels'
+wrappers return new tensors, as the plain versions do; the input parent is
+never written.
+
+``count_components``, ``BidirectedUnionFind`` (the reference's stateful API
+over those bulk operations) and ``match_region_pairs`` are the rest of the
+JAX module's surface.
 
 Capacity is ``2 * total_length + 2`` so raw Pos values (offset << 1 | orient)
-index directly.  Each loop reads one flag back to the host per round.
+index directly.
 """
 
 from __future__ import annotations
@@ -25,6 +35,7 @@ import numpy as np
 import torch
 
 from ..utils import resolve_device
+from . import nw_cuda
 
 
 def create(capacity: int, device: str | torch.device = "cuda") -> torch.Tensor:
@@ -35,7 +46,18 @@ def create(capacity: int, device: str | torch.device = "cuda") -> torch.Tensor:
 
 
 def compress(parent: torch.Tensor) -> torch.Tensor:
-    """Full path compression: parent[i] becomes the root of i, for all i."""
+    """Full path compression: parent[i] becomes the root of i, for all i.
+    On a GPU one launch of uf_compress_kernel on a copy of parent."""
+    if parent.device.type == "cpu":
+        return compress_reference(parent)
+    _check_parent(parent)
+    out = parent.clone()
+    _compress_cuda(out)
+    return out
+
+
+def compress_reference(parent: torch.Tensor) -> torch.Tensor:
+    """Plain version of compress: parent = parent[parent] until a fixpoint."""
     p = parent
     while True:
         p2 = p[p.long()]
@@ -44,23 +66,96 @@ def compress(parent: torch.Tensor) -> torch.Tensor:
         p = p2
 
 
+def _host_array(x, dtype) -> torch.Tensor:
+    a = np.ascontiguousarray(x, dtype=dtype)
+    if any(st < 0 for st in a.strides):  # numpy calls a reversed 1-entry view contiguous
+        a = a.copy()
+    return torch.from_numpy(a)
+
+
 def _as_index(x, device: torch.device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=torch.int64)
-    return torch.from_numpy(np.ascontiguousarray(x, dtype=np.int64)).to(device)
+    return _host_array(x, np.int64).to(device)
+
+
+def edges_on(x, device: torch.device) -> torch.Tensor:
+    """Indices as a contiguous int32 tensor on the card (the JAX program
+    casts them to int32): numpy arrays and CPU tensors are cast on the host
+    before the copy, which halves the bytes of int64 edges over PCIe;
+    tensors already on the card are cast there."""
+    if isinstance(x, torch.Tensor):
+        if x.device.type == "cpu":
+            x = x.to(torch.int32)
+        return x.to(device=device, dtype=torch.int32).contiguous()
+    return _host_array(x, np.int32).to(device)
+
+
+def _check_parent(parent: torch.Tensor) -> None:
+    nw_cuda._require_cuda(parent.device)
+    nw_cuda._check("parent", parent, torch.int32, 1, parent.device)
+
+
+def _launch(kernel: str, device: torch.device, *args) -> None:
+    """One launch of csrc/unionfind.cu's `kernel` on the current stream of
+    `device`, counted in nw_cuda.LAUNCHES; raises if it was refused."""
+    lib = nw_cuda._library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, f"{kernel}_launch")(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch failed with CUDA error {err}")
+    nw_cuda.LAUNCHES[kernel] += 1
+
+
+def _hook_cuda(parent: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> None:
+    """uf_hook_kernel on parent in place: afterwards every (u[e], v[e])
+    shares a root.  u and v are int32 on parent's card; no launch for no
+    edges."""
+    if u.numel():
+        _launch("uf_hook", parent.device, parent.data_ptr(), u.data_ptr(), v.data_ptr(), u.numel(),
+                parent.numel())
+
+
+def _compress_cuda(parent: torch.Tensor) -> None:
+    """uf_compress_kernel on parent in place: afterwards parent[i] is the
+    root of i."""
+    if parent.numel():
+        _launch("uf_compress", parent.device, parent.data_ptr(), parent.numel())
 
 
 def unite_edges(parent: torch.Tensor, u, v) -> torch.Tensor:
     """Bulk unite: afterwards every (u[i], v[i]) pair is connected.
 
     Returns a fully compressed parent array (parent[i] == root of i) whose
-    roots are component minima, whatever the edge order."""
+    roots are each component's smallest input root, whatever the edge order.
+    On a GPU: the edges as int32 on the card (numpy or CPU edges are cast on
+    the host before the copy, edges on the card are cast there), then one
+    launch of uf_hook_kernel and one of uf_compress_kernel on a copy of
+    parent; an empty edge list only compresses, as in the JAX package."""
+    if parent.device.type == "cpu":
+        return unite_edges_reference(parent, u, v)
+    _check_parent(parent)
+    out = parent.clone()
+    u32 = edges_on(u, out.device)
+    v32 = edges_on(v, out.device)
+    if u32.shape != v32.shape:
+        raise ValueError(f"u has {u32.numel()} entries and v {v32.numel()}")
+    _hook_cuda(out, u32, v32)
+    _compress_cuda(out)
+    return out
+
+
+def unite_edges_reference(parent: torch.Tensor, u, v) -> torch.Tensor:
+    """Plain version of unite_edges: scatter-min hooks of every edge's larger
+    root onto its smaller root, alternated with compress_reference until
+    nothing changes; roots are each component's smallest input root."""
     u = _as_index(u, parent.device)
     v = _as_index(v, parent.device)
     p = parent
     if u.numel():
         while True:
-            p = compress(p)
+            p = compress_reference(p)
             ru = p[u]
             rv = p[v]
             hi = torch.maximum(ru, rv).long()
@@ -69,7 +164,7 @@ def unite_edges(parent: torch.Tensor, u, v) -> torch.Tensor:
             if torch.equal(p2, p):
                 break
             p = p2
-    return compress(p)
+    return compress_reference(p)
 
 
 def count_components_fast(parent, n_valid: int) -> int:
@@ -85,7 +180,22 @@ def count_components_fast(parent, n_valid: int) -> int:
 
 
 def find(parent: torch.Tensor, pos) -> torch.Tensor:
-    """Representatives of pos for any (possibly uncompressed) parent array."""
+    """Representatives of pos (int32, pos's shape) for any (possibly
+    uncompressed) parent array.  On a GPU one launch of uf_find_kernel, which
+    only reads parent."""
+    if parent.device.type == "cpu":
+        return find_reference(parent, pos)
+    _check_parent(parent)
+    p32 = edges_on(pos, parent.device)
+    out = torch.empty_like(p32)
+    if p32.numel():
+        _launch("uf_find", parent.device, parent.data_ptr(), p32.data_ptr(), out.data_ptr(), p32.numel(),
+                parent.numel())
+    return out
+
+
+def find_reference(parent: torch.Tensor, pos) -> torch.Tensor:
+    """Plain version of find: r = parent[r] until a fixpoint."""
     r = _as_index(pos, parent.device)
     while True:
         r2 = parent[r].long()

@@ -1,7 +1,9 @@
 """The headline corpus and its scoring, shared by ``chip_smoke.py``, the
 JAX package's digest scripts under ``scripts/`` (through ``chip_smoke``) and
-``tools/wfa_shapes.py``; and ``synth_variation_graph``, the layout's graph at
-1,000 haplotypes (``chip_smoke.py`` phase 3, ``tools/sgd_timing.py``)."""
+``tools/wfa_shapes.py``; ``synth_variation_graph``, the layout's graph at
+1,000 haplotypes (``chip_smoke.py`` phase 3, ``tools/sgd_timing.py``); and
+``synth_flush_edges``, a union-find flush at that scale (``chip_smoke.py``
+phase 12b)."""
 
 from __future__ import annotations
 
@@ -105,3 +107,33 @@ def synth_variation_graph(n_paths=1000, length=3300, n_sites=900, seed=11, loop_
         g.add_path(f"hap{p:04d}", row[row > 0] << 1)
     g.verify_path_edges()
     return g
+
+
+def synth_flush_edges(n_seqs=1000, length=3300, n_edges=50_000_000, min_run=20, max_run=400, seed=17):
+    """The flush's edges at the top of the users' range: match runs of
+    min_run..max_run consecutive positions between random pairs of distinct
+    sequences, on both strands, as Pos pairs (offset << 1 | orientation)
+    over n_seqs sequences of `length` bases, cut to n_edges edges (the
+    pipeline flushes at 50,000,000 queued edges).  Long runs make long
+    chains, the hard case for hooking.  Returns int64 (u, v)."""
+    rng = np.random.default_rng(seed)
+    n_runs = int(n_edges / ((min_run + max_run) / 2) * 1.1) + 16
+    lens = rng.integers(min_run, max_run + 1, n_runs)
+    ends = np.cumsum(lens)
+    if ends[-1] < n_edges:
+        raise ValueError("too few runs drawn")
+    keep = int(np.searchsorted(ends, n_edges)) + 1
+    lens = lens[:keep]
+    lens[-1] -= int(ends[keep - 1]) - n_edges
+    a = rng.integers(0, n_seqs, keep)
+    b = (a + rng.integers(1, n_seqs, keep)) % n_seqs
+    sa = rng.integers(0, length - lens + 1)
+    sb = rng.integers(0, length - lens + 1)
+    rc = rng.integers(0, 2, keep).astype(bool)
+    run = np.repeat(np.arange(keep), lens)
+    j = np.arange(n_edges) - np.repeat(np.cumsum(lens) - lens, lens)
+    u = (a[run].astype(np.int64) * length + sa[run] + j) << 1
+    t = sb[run] + j
+    v = np.where(rc[run], ((b[run].astype(np.int64) * length + (length - 1 - t)) << 1) | 1,
+                 (b[run].astype(np.int64) * length + t) << 1)
+    return u, v

@@ -1,7 +1,8 @@
 """Kernels A and B (their runs, int16, snapshot, start and tiled modes too), the
-row-major kernels C and D, the wavefront kernel, the fold's combine and the
-SGD tick on the card against their plain versions (the tick against the
-plain tick run on the CPU), and the pipeline on cuda against cpu.  Marked ``cuda``; each test skips without a
+row-major kernels C and D, the wavefront kernel, the fold's combine, the
+SGD tick and the union-find on the card against their plain versions (the
+tick against the plain tick run on the CPU), and the pipeline on cuda
+against cpu.  Marked ``cuda``; each test skips without a
 CUDA device.  This file imports nothing of JAX, so it runs where JAX is not
 installed:
 
@@ -14,7 +15,10 @@ import torch
 
 from seqrush_tpu_torch import cli
 from seqrush_tpu_torch.ops import nw_cuda, wfa
+from seqrush_tpu_torch.ops import unionfind as uf
+from seqrush_tpu_torch.tools.headline import synth_flush_edges
 from torch_edge_corpora import INT16_EDGE_PENALTIES, int16_edge_corpus, rows_edge_corpus
+from torch_uf_cases import pre_unite_edges, uf_cases
 
 pytestmark = pytest.mark.cuda
 
@@ -809,7 +813,8 @@ def _long_launches(n_fwd, n_grp, n_gwalk, n_seg_tb, n_seg_walk):
             "nw_walk_segment_group": n_gwalk, "wfa": 0, "wfa_score_only": 0,
             "nw_sweep_int16": 0, "nw_sweep_snapshot": 0, "nw_walk_start": 0, "nw_rows_sweep": 0,
             "nw_rows_walk": 0, "nw_sweep_tiled": 0, "nw_walk_runs_tiled": 0,
-            "nw_sweep_sharded": 0, "fold_combine": 0, "sgd_tick": 0}
+            "nw_sweep_sharded": 0, "fold_combine": 0, "sgd_tick": 0, "uf_hook": 0, "uf_compress": 0,
+            "uf_find": 0}
 
 
 @pytest.mark.parametrize("G", ["all", 2, 1])
@@ -1827,3 +1832,100 @@ def test_mesh_runner_and_band_shard_on_card(cuda):
     meshed, rec_mesh = run(Mesh([cuda] * 2))
     assert meshed.stats["band_sharded"] >= 1 and plain.stats["band_sharded"] == 0
     assert rec_mesh == rec_plain
+
+
+# -- the union-find (ops/csrc/unionfind.cu) ---------------------------------------
+
+
+@pytest.mark.parametrize("name", sorted(uf_cases()))
+def test_unionfind_kernels_equal_plain(cuda, name):
+    """unite_edges, compress and find on the card against their plain
+    versions on the card and on the CPU, bit for bit, on the CPU tests'
+    cases (input forests uncompressed with roots that are not minima,
+    self-loops and duplicates, a reversed chain, a star, match runs, no
+    edges); the input parent is left as it was."""
+    parent, u, v = uf_cases()[name]
+    p = torch.from_numpy(parent.copy()).to(cuda)
+    before = dict(nw_cuda.LAUNCHES)
+    got = uf.unite_edges(p, u, v)
+    torch.cuda.synchronize()
+    assert nw_cuda.LAUNCHES["uf_hook"] == before["uf_hook"] + (1 if u.size else 0)
+    assert nw_cuda.LAUNCHES["uf_compress"] == before["uf_compress"] + 1
+    assert got.dtype == torch.int32 and got.device == p.device
+    assert torch.equal(got, uf.unite_edges_reference(p, u, v))
+    assert torch.equal(got.cpu(), uf.unite_edges_reference(torch.from_numpy(parent.copy()), u, v))
+    assert torch.equal(uf.compress(p), uf.compress_reference(p))
+    pos = np.concatenate([np.arange(parent.size), np.arange(parent.size)[::-3]])
+    found = uf.find(p, pos)
+    assert found.shape == pos.shape and torch.equal(found, uf.find_reference(p, pos))
+    assert torch.equal(uf.find(p, pos.reshape(1, -1)), found.reshape(1, -1))
+    assert torch.equal(p.cpu(), torch.from_numpy(parent))
+
+
+def _pre_united(cuda, n_seqs, length):
+    return uf.unite_edges(uf.create(2 * n_seqs * length + 2, cuda), *pre_unite_edges(n_seqs * length))
+
+
+@pytest.mark.parametrize("n_seqs,n_edges", [(200, 1_000_000), (1000, 6_000_000)])
+def test_unionfind_run_edges_equal_plain(cuda, n_seqs, n_edges):
+    """A flush of match runs of 20-400 positions between random pairs on
+    both strands after the F/R pre-unite (1.32 M and 6.6 M slots): the
+    kernel's parent equals the plain version's on the card; three kernel
+    runs are equal; every root is its component's minimum Pos."""
+    length = 3300
+    p0 = _pre_united(cuda, n_seqs, length)
+    assert torch.equal(p0, uf.unite_edges_reference(uf.create(p0.numel(), cuda),
+                                                    *pre_unite_edges(n_seqs * length)))
+    u, v = synth_flush_edges(n_seqs=n_seqs, length=length, n_edges=n_edges, seed=n_seqs)
+    ud, vd = torch.from_numpy(u).to(cuda), torch.from_numpy(v).to(cuda)
+    runs = [uf.unite_edges(p0, ud, vd) for _ in range(3)]
+    assert all(torch.equal(r, runs[0]) for r in runs[1:])
+    assert torch.equal(runs[0], uf.unite_edges_reference(p0, ud, vd))
+    idx = torch.arange(p0.numel(), device=cuda, dtype=torch.int32)
+    first = torch.full_like(idx, p0.numel()).scatter_reduce(0, runs[0].long(), idx, reduce="amin")
+    assert torch.equal(first[runs[0].long()], runs[0])
+
+
+def test_unionfind_edge_types_equal(cuda):
+    """Edges as int64 and int32 numpy, as int32 and int64 tensors on the
+    CPU and on the card: one parent."""
+    u, v = synth_flush_edges(n_seqs=40, length=3300, n_edges=200_000, seed=3)
+    p0 = _pre_united(cuda, 40, 3300)
+    want = uf.unite_edges_reference(p0, u, v)
+    for conv in (lambda a: a, lambda a: a.astype(np.int32), lambda a: torch.from_numpy(a),
+                 lambda a: torch.from_numpy(a.astype(np.int32)), lambda a: torch.from_numpy(a).to(cuda),
+                 lambda a: torch.from_numpy(a.astype(np.int32)).to(cuda)):
+        assert torch.equal(uf.unite_edges(p0, conv(u), conv(v)), want)
+
+
+def test_unite_is_two_launches_and_reads_nothing_back(cuda):
+    """With the edges on the card a unite is exactly two launches (hook,
+    compress) and no device-to-host read (torch's sync debug mode raises
+    on one); compress and find one launch each, also without a read."""
+    parent, u, v = uf_cases()["runs"]
+    p = torch.from_numpy(parent).to(cuda)
+    ud, vd = torch.from_numpy(u).to(cuda), torch.from_numpy(v).to(cuda)
+    uf.unite_edges(p, ud, vd)
+    torch.cuda.synchronize()
+    nw_cuda.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = uf.unite_edges(p, ud, vd)
+        launched = dict(nw_cuda.LAUNCHES)
+        uf.compress(out)
+        roots = uf.find(out, ud)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert sum(launched.values()) == 2 and launched["uf_hook"] == launched["uf_compress"] == 1
+    assert nw_cuda.LAUNCHES["uf_compress"] == 2 and nw_cuda.LAUNCHES["uf_find"] == 1
+    assert torch.equal(roots, uf.find_reference(out, ud))
+
+
+def test_unionfind_refuses_what_the_kernel_does_not_take(cuda):
+    p = uf.create(10, cuda)
+    with pytest.raises(ValueError):
+        uf.unite_edges(p.long(), np.array([1]), np.array([2]))
+    with pytest.raises(ValueError):
+        uf.compress(torch.arange(20, dtype=torch.int32, device=cuda)[::2])
+    with pytest.raises(ValueError):
+        uf.unite_edges(p, np.array([1, 2]), np.array([2]))
