@@ -174,7 +174,11 @@ Phases (any failure exits non-zero and prints no ok line):
      sweepga align phase (SWEEPGA_GFA_SHA256) and chain_anchors' DP in C++
      and Python (equal chains);
  13. prints {"kernels": [...]}, the nvidia-smi line, and last
-     {"ok": true, "device": {...}}.
+     {"ok": true, "device": {...}}.  The walk's entries (nw_walk_runs,
+     nw_walk_runs_tiled) give as ms the kernel's time behind a spin of the
+     card (spun_ms), which leaves out the host's issue of the launch; before
+     the walk's redesign their ms was a plain CUDA-event median (cuda_ms),
+     which counts it, so the two are not compared.
 
 Bounds: the least time the card could take for the same work, the larger
 of (bytes moved / 3.35 TB/s) and (instructions / their peak rate).  The
@@ -282,7 +286,7 @@ import numpy as np
 import torch
 
 from seqrush_tpu_torch.tools.headline import SCORES, WFA_BAND_SLACK, synth_hla
-from seqrush_tpu_torch.tools.sweep_shapes import device_ms
+from seqrush_tpu_torch.tools.sweep_shapes import SPIN_CYCLES, device_ms, spun_ms
 
 HBM_BYTES_PER_S = 3.35e12
 ISSUE_OPS_PER_S = 33.5e12  # 32-bit lane instructions of any kind
@@ -297,9 +301,6 @@ REPS = 3
 # the synthetic flush of phase 12b: the pipeline flushes at 50,000,000 queued
 # edges (pipeline.py::_queue_unites)
 SYNTH_FLUSH_EDGES = 50_000_000
-# cycles the card spins before a timed launch of a few microseconds (about
-# 1 ms at 1.98 GHz), while the host enqueues it
-SPIN_CYCLES = 2_000_000
 # the union-find's kernels on the pipeline's path (its pre-unite and flush)
 UF_KERNELS = ("uf_hook", "uf_compress")
 
@@ -555,26 +556,6 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def spun_ms(fn, reps: int) -> float:
-    """Median CUDA-event time of fn() over reps runs after one warm-up, each
-    behind a spin of the card (torch.cuda._sleep) long enough for the host
-    to enqueue fn's launches, so the events time the kernels alone and not
-    the host's issue of a launch of a few microseconds."""
-    fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        torch.cuda._sleep(SPIN_CYCLES)
-        start.record()
-        fn()
-        stop.record()
-        stop.synchronize()
-        times.append(start.elapsed_time(stop))
-    return statistics.median(times)
-
-
 def once_ms(fn):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -606,6 +587,14 @@ def walk_bounds(ops: torch.Tensor) -> tuple[float, float]:
     steps = int((ops != 0).sum().item())
     walk_bytes = steps + ops.numel() + 8 * ops.shape[0]
     return walk_bytes / HBM_BYTES_PER_S * 1e3, steps * WALK_OPS_PER_STEP / ISSUE_OPS_PER_S * 1e3
+
+
+def walk_split_summary(split: dict) -> dict:
+    """nw_cuda.walk_runs_split's split without its per-row cycles, rounded."""
+    out = {k: round(v, 3) if isinstance(v, float) else v for k, v in split.items() if k != "row_cycles"}
+    for k in ("cycles", "counts"):
+        out[k] = {p: round(v, 1) for p, v in split[k].items()}
+    return out
 
 
 def ptxas_summary(log: str) -> list[str]:
@@ -640,6 +629,8 @@ def ptxas_summary(log: str) -> list[str]:
                 name += (f"<{'traceback' if wide.group(1) == '1' else 'score-only'}, "
                          f"{'int16' if wide.group(2) == '1' else 'int32'}"
                          f"{', snapshot' if wide.group(3) == '1' else ''}>")
+            elif name.startswith("nw_walk") and w:
+                name += "<timed>" if w.group(1) == "1" else ""  # the walk's timer on (a timing tool's)
             elif name == "nw_sweep_tiled_wide" and w:
                 name += f"<{'int16' if w.group(1) == '1' else 'int32'}>"
             elif t:
@@ -1098,7 +1089,8 @@ def run(work: Path, name: str, smi: str, ptxas: list[str]) -> int:
         "named": named, "pairs": pairs, "scores": scores, "pen": pen, "launches": launches,
         "runs_sites": [("largest", inputs(main_d), main_d["band"], main_d["tmax"], nw.RUN_MAX),
                        ("window", inputs(win_d), win_d["band"], win_d["tmax"], anchored.WIN_RUN_MAX),
-                       ("gap", sites["gap_inputs"][:4], *sites["gap_inputs"][4:], None)],
+                       ("gap", sites["gap_inputs"][:4], *sites["gap_inputs"][4:], None),
+                       ("corpus", *gap_corpus_site(dev), nw.RUN_MAX)],
         "run_overflows": {"default": st["run_overflows"], **sites["run_overflows"]},
     })
 
@@ -1251,6 +1243,15 @@ def run_sgd(gfa_ns: Path, launches: dict, ph: dict, smi: str) -> dict:
 
 
 LONG_KERNELS = ("nw_sweep_segment_score_only", "nw_sweep_segment_group", "nw_walk_segment_group")
+
+
+def gap_corpus_site(dev) -> tuple:
+    """The walk gap corpus (tools/headline.py::walk_gap_corpus) on the card:
+    ((Q, T, qlens, tlens), band, tmax)."""
+    from seqrush_tpu_torch.tools.headline import walk_gap_corpus
+
+    Q, T, ql, tl, band, tmax = walk_gap_corpus()
+    return tuple(torch.from_numpy(a).to(dev) for a in (Q, T, ql, tl)), band, tmax
 
 
 def ptxas_spills(ptxas: list[str], kernel: str) -> int | None:
@@ -2026,10 +2027,14 @@ def run_phase8(smi: str, ptxas: list[str], ctx: dict) -> list[dict]:
     8a. the runs mode against its plain version (tokens and counts, exact)
         on the traceback of each launch site that takes it, at its own token
         budget: the default run's largest chunk (RUN_MAX) and window chunk
-        (WIN_RUN_MAX), the sweepga gap chunk (GAP_RUN_MAX); and on a seeded
-        batch at run_len_max 8 and run_max 4, where runs split and lists
-        overflow; CUDA-event times beside the opcode walk's on the same
-        traceback; each mode's run_overflows against the JAX package's
+        (WIN_RUN_MAX), the sweepga gap chunk (GAP_RUN_MAX), and the walk gap
+        corpus (tools/headline.py::walk_gap_corpus, RUN_MAX); and
+        on a seeded batch at run_len_max 8 and run_max 4, where runs split
+        and lists overflow; CUDA-event times behind a spin of the card
+        (spun_ms) beside the opcode walk's on the same traceback, the bound,
+        the registers, and the walk's phase split from its own timer
+        (nw_cuda.walk_runs_split, whose tokens must be the same); each
+        mode's run_overflows against the JAX package's
         (RUN_OVERFLOWS); all 600 pairs through the runner with emit 'auto'
         (run tokens) and 'ops', in turns: equal results, the align seconds
         and the collect seconds of each;
@@ -2061,6 +2066,7 @@ def run_phase8(smi: str, ptxas: list[str], ctx: dict) -> list[dict]:
 
     # 8a. the runs mode at each launch site
     runs = {}
+    regs = ptxas_registers(ptxas, "nw_walk_runs_kernel")
     for label, (Q, T, ql, tl), band, tmax, run_max in ctx["runs_sites"]:
         run_max = run_max or GAP_RUN_MAX
         kw = dict(band=band, tmax=tmax, **pen)
@@ -2069,24 +2075,28 @@ def run_phase8(smi: str, ptxas: list[str], ctx: dict) -> list[dict]:
         plain_ms, (tok_p, cnt_p) = once_ms(lambda: nw_cuda.nw_walk_runs_reference(
             tb, ql, tl, band=band, tmax=tmax, run_max=run_max))
         err = max(max_abs_err(tok, tok_p), max_abs_err(cnt, cnt_p))
-        ms = cuda_ms(lambda: nw_cuda.nw_walk_runs(tb, ql, tl, band=band, tmax=tmax, run_max=run_max),
-                     REPS)
-        ops_ms = cuda_ms(lambda: nw_cuda.nw_walk(tb, ql, tl, band=band, tmax=tmax), REPS)
+        ms = spun_ms(lambda: nw_cuda.nw_walk_runs(tb, ql, tl, band=band, tmax=tmax, run_max=run_max), REPS)
+        ops_ms = spun_ms(lambda: nw_cuda.nw_walk(tb, ql, tl, band=band, tmax=tmax), REPS)
+        tok_t, cnt_t, wsplit = nw_cuda.walk_runs_split(tb, ql, tl, band=band, tmax=tmax, run_max=run_max)
+        err = max(err, max_abs_err(tok_t, tok), max_abs_err(cnt_t, cnt))
         steps = int((nw_cuda.nw_walk(tb, ql, tl, band=band, tmax=tmax) != 0).sum().item())
         B = Q.shape[0]
         b = bound(steps + 4 * tok.numel() + 4 * B + 8 * B, steps * WALK_OPS_PER_STEP)
         runs[label] = {"shape": {"B": B, "W": band + 1, "tmax": tmax, "run_max": run_max},
                        "ms": ms, "opcode_walk_ms": ops_ms, "plain_ms": plain_ms, **b,
                        "max_abs_err": err, "overflowing_rows": int((cnt > run_max).sum()),
-                       "token_bytes": 4 * (tok.numel() + B), "opcode_bytes": B * (tmax + 1)}
+                       "token_bytes": 4 * (tok.numel() + B), "opcode_bytes": B * (tmax + 1),
+                       "regs_per_thread": regs, "split": walk_split_summary(wsplit)}
         print(f"runs walk {label}: B={B} W={band + 1} tmax={tmax} run_max={run_max} max_abs_err={err}; "
               f"{ms:.4f} ms (opcode walk {ops_ms:.4f} ms, bound {b['bound_ms']:.5f}, plain "
-              f"{plain_ms:.1f}); rows over budget {runs[label]['overflowing_rows']}; copy back "
+              f"{plain_ms:.1f}); {regs} registers; rows over budget {runs[label]['overflowing_rows']}; copy back "
               f"{runs[label]['token_bytes']} bytes of tokens for {runs[label]['opcode_bytes']} of "
               f"opcodes | {smi}")
+        print(f"  its phase split (SM cycles a walked pair, and each phase's count): "
+              f"{json.dumps(runs[label]['split'])} | {smi}")
         if err:
             raise AssertionError(f"the runs walk disagrees with its plain version ({label})")
-        del tb, tok, cnt, tok_p, cnt_p
+        del tb, tok, cnt, tok_p, cnt_p, tok_t, cnt_t
         torch.cuda.empty_cache()
 
     # a seeded batch whose runs split (at 8 steps) and overflow (past 4)
@@ -2266,7 +2276,7 @@ def run_phase8(smi: str, ptxas: list[str], ctx: dict) -> list[dict]:
          "ms": largest["ms"], "plain_ms": largest["plain_ms"], "bound_ms": largest["bound_ms"],
          "bound_by": largest["bound_by"], "library_ms": None,
          "regs_per_thread": ptxas_registers(ptxas, "nw_walk_runs_kernel"), "shape": largest["shape"],
-         "opcode_walk_ms": largest["opcode_walk_ms"],
+         "opcode_walk_ms": largest["opcode_walk_ms"], "split": largest["split"],
          **{k: v for k, v in runs.items() if k != "largest"}, "tolerance": 0},
         {"name": "wfa", "route": "cuda", "source": "seqrush_tpu_torch/ops/csrc/wfa.cu",
          "replaces": "seqrush_tpu/ops/wfa.py:232 (wfa_align_device; XLA)",
@@ -2714,10 +2724,12 @@ def run_phase10(smi: str, ptxas: list[str], ctx: dict) -> list[dict]:
          plain versions on every distinct tiled chunk of phase 9's tiled and
          tiled_int16 runs (scores, the whole tile-row traceback, tokens,
          counts), exactly.  On the tiled run's first chunk, CUDA-event
-         medians of the tiled sweep and walk, and of the same pairs split as
-         the untiled runner splits them (the narrow jobs at their band, the
-         wide ones at theirs: sweep and runs walk of each), the two in turns
-         (split, tiled, tiled, split); the plain versions once.
+         medians of the tiled sweep and walk (the walk behind a spin of the
+         card, spun_ms, with its registers and its phase split from its own
+         timer), and of the same pairs split as the untiled runner splits
+         them (the narrow jobs at their band, the wide ones at theirs: sweep
+         and runs walk of each), the two in turns (split, tiled, tiled,
+         split); the plain versions once.
     Returns the kernels line's entries of the two tiled modes."""
     from seqrush_tpu_torch.align.runner import RunnerConfig, WfaAligner, _TiledChunk
     from seqrush_tpu_torch.ops import nw, nw_cuda
@@ -2820,7 +2832,12 @@ def run_phase10(smi: str, ptxas: list[str], ctx: dict) -> list[dict]:
                 for which in ("split", "tiled", "tiled", "split"):
                     turns[which].append(cuda_ms(run_tiled if which == "tiled" else run_split, REPS))
                 ms = cuda_ms(lambda: nw_cuda.nw_align_tiled(Qd, Td, qd, td, tile, wide, **kw), REPS)
-                ms_w = cuda_ms(lambda: nw_cuda.nw_walk_runs_tiled(tb_k, qd, td, tile, wide, **wk), REPS)
+                ms_w = spun_ms(lambda: nw_cuda.nw_walk_runs_tiled(tb_k, qd, td, tile, wide, **wk), REPS)
+                tok_t, cnt_t, wsplit = nw_cuda.walk_runs_split(tb_k, qd, td, band=d["band"], tmax=tmax,
+                                                               run_max=nw.RUN_MAX, tiled=(tile, wide, d["n_tiles"]))
+                if max_abs_err(tok_t, tok_k) or max_abs_err(cnt_t, cnt_k):
+                    raise AssertionError("the timed tiled walk differs from the tiled walk")
+                del tok_t, cnt_t
                 split_parts = []  # [B, W, sweep ms, runs walk ms] of each untiled launch
                 for Qs, Ts, qs_, ts_, band_s, tmax_s in split:
                     _s, tb_s = nw_cuda.nw_align(Qs, Ts, qs_, ts_, band=band_s, tmax=tmax_s, **pen)
@@ -2845,11 +2862,15 @@ def run_phase10(smi: str, ptxas: list[str], ctx: dict) -> list[dict]:
                 out["nw_walk_runs_tiled"] = {
                     "ms": ms_w, "plain_ms": plain_w_ms, **wb, "max_abs_err": err_w,
                     "launches": launches_t["nw_walk_runs_tiled"],
-                    "ptxas": ptxas_registers(ptxas, "nw_walk_runs_tiled_kernel"), **common}
+                    "ptxas": ptxas_registers(ptxas, "nw_walk_runs_tiled_kernel"),
+                    "split": walk_split_summary(wsplit), **common}
                 print(f"  timed: tiled sweep {ms:.4f} ms (bound {max(sb, so):.4f}; plain {plain_ms:.1f}), tiled walk "
-                      f"{ms_w:.4f} ms (bound {wb['bound_ms']:.5f}; plain {plain_w_ms:.1f}); the same pairs split "
+                      f"{ms_w:.4f} ms (bound {wb['bound_ms']:.5f}; plain {plain_w_ms:.1f}; "
+                      f"{out['nw_walk_runs_tiled']['ptxas']} registers); the same pairs split "
                       f"[B, W, sweep ms, walk ms] {json.dumps(split_parts)}; sweep + walk in turns (split, tiled, tiled, "
                       f"split) {json.dumps(turns)} | {smi}")
+                print(f"  the tiled walk's phase split (SM cycles a walked pair, and each phase's count): "
+                      f"{json.dumps(out['nw_walk_runs_tiled']['split'])} | {smi}")
             del tb_k, tok_k, cnt_k, tok_p, cnt_p
             torch.cuda.empty_cache()
     print(f"10b tiled chunks held to their plain versions [run, rows, W, tiles, wide, tmax, int16, route, lanes, "

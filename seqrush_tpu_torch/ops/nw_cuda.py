@@ -255,7 +255,7 @@ def _library() -> ctypes.CDLL:
             lib.nw_sweep_segment_launch.restype = i32
             lib.nw_walk_launch.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
             lib.nw_walk_launch.restype = i32
-            lib.nw_walk_runs_launch.argtypes = [ptr] * 5 + [i32] * 6 + [ptr]
+            lib.nw_walk_runs_launch.argtypes = [ptr] * 5 + [i32] * 6 + [ptr, ptr]
             lib.nw_walk_runs_launch.restype = i32
             lib.nw_walk_segment_launch.argtypes = [ptr] * 3 + [i32] * 6 + [ptr]
             lib.nw_walk_segment_launch.restype = i32
@@ -269,9 +269,11 @@ def _library() -> ctypes.CDLL:
             lib.nw_rows_walk_occupancy.restype = i32
             lib.nw_walk_occupancy.argtypes = [ptr] * 3
             lib.nw_walk_occupancy.restype = i32
+            lib.nw_walk_timer_slots.argtypes = []
+            lib.nw_walk_timer_slots.restype = i32
             lib.nw_sweep_tiled_launch.argtypes = [ptr] * 8 + [i32] * 19 + [ptr]
             lib.nw_sweep_tiled_launch.restype = i32
-            lib.nw_walk_runs_tiled_launch.argtypes = [ptr] * 6 + [i32] * 8 + [ptr]
+            lib.nw_walk_runs_tiled_launch.argtypes = [ptr] * 6 + [i32] * 8 + [ptr, ptr]
             lib.nw_walk_runs_tiled_launch.restype = i32
             lib.wfa_launch.argtypes = [ptr] * 11 + [i32] * 15 + [ptr]
             lib.wfa_launch.restype = i32
@@ -530,8 +532,38 @@ def twins_reckoning(plan: SweepPlan, B: int, resident_blocks: int | None = None)
             "resident_blocks_per_sm": resident, "waves": -(-plan.blocks // (_H100_SMS * max(resident, 1)))}
 
 
-WALK_PAIRS_PER_BLOCK = 4  # one warp per pair (csrc/nw_walk.cu)
-WALK_TILE = (64, 32)  # rows x lanes of the walk's shared-memory tile
+WALK_PAIRS_PER_BLOCK = 2  # one warp per pair (csrc/nw_walk.cu)
+WALK_ROWS = 64  # anti-diagonals a tile of the walk's ring in shared memory
+WALK_DEPTH = 2  # tiles loading below the one walked
+
+
+def gap_lane_shift(td: int, K: int, k: int, delete: bool) -> int:
+    """The lane moved by k gap steps from anti-diagonal td (the twin of
+    csrc/nw_walk.cu's gap_lane_shift): the lane is i - i0(t), and a D step
+    keeps i while an I step lowers it by one, so i0(td) - i0(td - k), less k
+    in an I gap."""
+    return _i0_of(td, K) - _i0_of(td - k, K) - (0 if delete else k)
+
+
+def walk_path_lane(lane: int, td: int, m: int, t: int, K: int) -> int:
+    """The lane the walk's tiles expect at anti-diagonal t <= td on the path
+    from the cursor at (lane, td) in state m (csrc/nw_walk.cu's WalkPath): 0
+    the diagonal, which loses a lane a step at or below K; else the gap state
+    m (odd D, even I), the gap taken to go on."""
+    if m == 0:
+        above = (td - K + 1) >> 1 if td > K else 0
+        return lane - max((td - t) // 2 - above, 0)
+    return lane + gap_lane_shift(td, K, td - t, bool(m & 1))
+
+
+def walk_row_window(lane: int, addr: int, lo_lane: int, hi_lane: int) -> tuple[int, int, int]:
+    """The lanes a tile row of the walk holds (the twin of csrc/nw_walk.cu's
+    walk_row_window) for the path's lane `lane`, its byte at address addr,
+    in a row of lanes [lo_lane, hi_lane) laid out contiguously: the 32-byte
+    sector that holds the lane.  Returns (c0, s, e): lane c0 + k at the tile
+    row's byte k, for k in [s, e)."""
+    c0 = lane - (addr & 31)
+    return c0, max(0, lo_lane - c0), min(32, hi_lane - c0)
 
 
 # -- kernel A: the sweep -------------------------------------------------------
@@ -678,6 +710,50 @@ def walk_occupancy() -> dict:
         raise RuntimeError(f"nw_walk occupancy query failed with CUDA error {err}")
     return {"regs_per_thread": regs.value, "smem_per_block": smem.value,
             "resident_pairs_per_sm": blocks.value * WALK_PAIRS_PER_BLOCK, "warps_per_pair": 1}
+
+
+# the phases of the walk's own timer (csrc/nw_walk.cu, WalkTimer), in its order
+WALK_PHASES = ("switch", "miss", "ballot", "gap", "tokens", "refetch")
+
+
+def walk_split(v: list[int], slots: int) -> dict:
+    """The split of a timed walk launch from its timer's values v
+    (csrc/nw_walk.cu's WalkTimer: `slots` values, then each row's cycles):
+    per walked pair the mean SM cycles and the mean number of each phase of
+    WALK_PHASES the timer has (a switch onto a tile loaded ahead; a load
+    around a cursor the tiles in flight missed; diagonal ballots; gap
+    ballots and the other single steps; token writes; refetches of the
+    tiles in flight), the rest ("other"), the mean and the longest pair's
+    cycles, the pairs walked, the nanoseconds a cycle (the pairs'
+    %globaltimer time over their cycles), and each row's cycles (0 where no
+    pair starts or nothing was walked)."""
+    n = (slots - 4) // 2
+    names = WALK_PHASES[:n]
+    pairs = max(v[2 * n + 3], 1)
+    cycles = {k: v[i] / pairs for i, k in enumerate(names)}
+    total = v[2 * n] / pairs
+    return {"cycles": {**cycles, "other": total - sum(cycles.values())},
+            "counts": {k: v[n + i] / pairs for i, k in enumerate(names)},
+            "pair_cycles": total, "longest_pair_cycles": v[2 * n + 2], "pairs": v[2 * n + 3],
+            "ns_per_cycle": v[2 * n + 1] / max(v[2 * n], 1), "row_cycles": v[slots:]}
+
+
+def walk_runs_split(tb, qlens, tlens, *, band, tmax, run_max, run_len_max=None, tiled=None):
+    """One launch of kernel B's runs mode (with tiled=(tile, wide, n_tiles),
+    its tiled runs mode, band the tile rows') on the card with the walk's
+    own timer, for a timing tool; the pipeline never launches it.  Returns
+    (tokens, counts, walk_split of the timer)."""
+    _require_cuda(tb.device)
+    run_len_max = nw._RUN_LEN_MAX if run_len_max is None else int(run_len_max)
+    slots = _library().nw_walk_timer_slots()
+    phase = torch.zeros(slots + tb.shape[0], dtype=torch.int64, device=tb.device)
+    if tiled is None:
+        tokens, counts = _walk_runs_launch(tb, qlens, tlens, band + 1, tmax, run_max, run_len_max, phase)
+    else:
+        tile, wide, n_tiles = tiled
+        tokens, counts = _walk_runs_tiled_launch(tb, qlens, tlens, tile, wide, band, n_tiles, tmax, run_max,
+                                                 run_len_max, phase)
+    return tokens, counts, walk_split(phase.cpu().tolist(), slots)
 
 
 def _frame(x: torch.Tensor, delta: int, inf_col: torch.Tensor) -> torch.Tensor:
@@ -1138,6 +1214,15 @@ def nw_walk_runs(tb, qlens, tlens, *, band, tmax, run_max, run_len_max=None):
         return nw_walk_runs_reference(tb, qlens, tlens, band=band, tmax=tmax, run_max=run_max,
                                       run_len_max=run_len_max)
     _require_cuda(device)
+    return _walk_runs_launch(tb, qlens, tlens, W, tmax, run_max, run_len_max, None)
+
+
+def _walk_runs_launch(tb, qlens, tlens, W, tmax, run_max, run_len_max, phase):
+    """The runs mode's launch; phase: None, or the timer's values
+    (nw_walk_timer_slots() + B int64, zero-filled), which take the timed
+    kernel."""
+    device = tb.device
+    B = tb.shape[0]
     tokens = torch.zeros((B, run_max), dtype=torch.int32, device=device)
     counts = torch.zeros(B, dtype=torch.int32, device=device)
     if B == 0:
@@ -1147,7 +1232,8 @@ def nw_walk_runs(tb, qlens, tlens, *, band, tmax, run_max, run_len_max=None):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.nw_walk_runs_launch(
             tb.data_ptr(), qlens.data_ptr(), tlens.data_ptr(), tokens.data_ptr(), counts.data_ptr(),
-            B, W, tmax, tb.shape[1], run_max, run_len_max, stream,
+            B, W, tmax, tb.shape[1], run_max, run_len_max, None if phase is None else phase.data_ptr(),
+            stream,
         )
     if err != 0:
         raise RuntimeError(f"nw_walk runs launch failed with CUDA error {err}")
@@ -2227,6 +2313,15 @@ def nw_walk_runs_tiled(tb, qlens, tlens, tile, wide, *, band, n_tiles, tmax, run
     if device.type == "cpu":
         return nw_walk_runs_tiled_reference(tb, qlens, tlens, tile, wide, **kw)
     _require_cuda(device)
+    return _walk_runs_tiled_launch(tb, qlens, tlens, tile, wide, band, n_tiles, tmax, run_max, run_len_max,
+                                   None)
+
+
+def _walk_runs_tiled_launch(tb, qlens, tlens, tile, wide, band, n_tiles, tmax, run_max, run_len_max, phase):
+    """The tiled runs mode's launch; phase as in _walk_runs_launch."""
+    device = tb.device
+    B = tb.shape[0]
+    W = band + 1
     order, n_wide = _tiled_order(tile, wide, n_tiles, band, B, device)
     tokens = torch.zeros((B, run_max), dtype=torch.int32, device=device)
     counts = torch.zeros(B, dtype=torch.int32, device=device)
@@ -2238,7 +2333,7 @@ def nw_walk_runs_tiled(tb, qlens, tlens, tile, wide, *, band, n_tiles, tmax, run
         err = lib.nw_walk_runs_tiled_launch(
             tb.data_ptr(), qlens.data_ptr(), tlens.data_ptr(), order.data_ptr(), tokens.data_ptr(),
             counts.data_ptr(), order.numel(), n_wide, n_tiles, W, tmax, tb.shape[1], run_max, run_len_max,
-            stream,
+            None if phase is None else phase.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"nw_walk tiled runs launch failed with CUDA error {err}")

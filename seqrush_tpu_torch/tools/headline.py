@@ -3,7 +3,8 @@ JAX package's digest scripts under ``scripts/`` (through ``chip_smoke``) and
 ``tools/wfa_shapes.py``; ``synth_variation_graph``, the layout's graph at
 1,000 haplotypes (``chip_smoke.py`` phase 3, ``tools/sgd_timing.py``); and
 ``synth_flush_edges``, a union-find flush at that scale (``chip_smoke.py``
-phase 12b)."""
+phase 12b); and ``walk_gap_corpus``, the traceback walk's gap corpus
+(``chip_smoke.py`` phases 8a and 10b, ``tools/walk_timing.py``, the tests)."""
 
 from __future__ import annotations
 
@@ -137,3 +138,78 @@ def synth_flush_edges(n_seqs=1000, length=3300, n_edges=50_000_000, min_run=20, 
     v = np.where(rc[run], ((b[run].astype(np.int64) * length + (length - 1 - t)) << 1) | 1,
                  (b[run].astype(np.int64) * length + t) << 1)
     return u, v
+
+
+def walk_gap_pairs(seed=19):
+    """The pairs of walk_gap_corpus, (query, target) base codes: gap runs of
+    1 to 200 steps (past a diagonal or gap ballot's 32 steps and a walk
+    tile's 64 rows, their lane drifting out of a 32-lane window sideways),
+    gaps in the band's corner (anti-diagonals up to K) and runs that carry
+    the path to the band's edges (|i - j| near K = 199), walks that end
+    inside a gap (a query-only or target-only prefix), a query-only and a
+    target-only row, and a zero-length row last."""
+    rng = np.random.default_rng(seed)
+
+    def rand(n):
+        return rng.integers(0, 4, n).astype(np.uint8)
+
+    def snps(s, n):
+        s = s.copy()
+        if s.size:
+            pos = rng.integers(0, s.size, n)
+            s[pos] = (s[pos] + rng.integers(1, 4, n)) % 4
+        return s
+
+    pairs = []
+    # one gap of each length in a pair of its own, in the middle: D (target
+    # bases inserted) on even lengths' pairs, I (deleted) on odd; the run of
+    # 200 beside an I run of 60, so that the pair's end stays in the band
+    for n in (1, 3, 31, 33, 64, 65, 150, 200):
+        q = rand(420)
+        t = snps(q, 6)
+        t = np.insert(t, 210, rand(n)) if n % 2 == 0 else np.delete(t, np.arange(180, 180 + n))
+        if n == 200:
+            t = np.delete(t, np.arange(100, 160))
+        pairs.append((q, t))
+    # many gaps in one pair, deletions (I runs) and insertions (D runs) in turn
+    q = rand(640)
+    t = q.copy()
+    for p, n, ins in ((560, 40, False), (470, 12, True), (380, 90, True), (250, 5, False), (120, 70, False)):
+        t = np.insert(t, p, rand(n)) if ins else np.delete(t, np.arange(p, p + n))
+    pairs.append((q, snps(t, 8)))
+    # gaps in the band's corner: within the first anti-diagonals
+    q = rand(300)
+    pairs.append((q, np.insert(snps(q, 3), 8, rand(60))))
+    pairs.append((q, np.delete(snps(q, 3), np.arange(12, 57))))
+    # to the band's edges, |i - j| near K: a D run of 190 (met first by the
+    # walk) and an I run of 190 back; an I run of 185 that stays there
+    q = rand(520)
+    pairs.append((q, np.delete(np.insert(snps(q, 4), 400, rand(190)), np.arange(100, 290))))
+    pairs.append((np.insert(q, 300, rand(185)), snps(q, 4)))
+    # walks that end inside a gap: a query-only / target-only prefix
+    core = rand(250)
+    pairs.append((np.concatenate([rand(37), core]), snps(core, 2)))
+    pairs.append((snps(core, 2), np.concatenate([rand(45), core])))
+    # a query-only and a target-only row, and a zero-length row
+    pairs.append((rand(50), np.zeros(0, np.uint8)))
+    pairs.append((np.zeros(0, np.uint8), rand(70)))
+    pairs.append((np.zeros(0, np.uint8), np.zeros(0, np.uint8)))
+    return pairs
+
+
+def walk_gap_corpus(seed=19):
+    """walk_gap_pairs packed at band 199 (W 200, rows 200 bytes apart: a
+    row's 32-lane window starts at every offset of its 16-byte blocks).
+    Returns (Q, T, qlens, tlens, band, tmax)."""
+    pairs = walk_gap_pairs(seed)
+    lq = -(-max(q.size for q, _ in pairs) // 16) * 16
+    lt = -(-max(t.size for _, t in pairs) // 16) * 16
+    Q = np.full((len(pairs), lq), 6, np.uint8)  # ops/nw.py's QPAD and TPAD
+    T = np.full((len(pairs), lt), 7, np.uint8)
+    for b, (q, t) in enumerate(pairs):
+        Q[b, : q.size] = q
+        T[b, : t.size] = t
+    ql = np.array([q.size for q, _ in pairs], np.int32)
+    tl = np.array([t.size for _, t in pairs], np.int32)
+    tmax = -(-int((ql + tl).max()) // 512) * 512
+    return Q, T, ql, tl, 199, tmax

@@ -96,6 +96,32 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+# cycles the card spins before a timed launch of a few microseconds (about
+# 1 ms at 1.98 GHz), while the host enqueues it
+SPIN_CYCLES = 2_000_000
+
+
+def spun_ms(fn, reps: int) -> float:
+    """Median CUDA-event time of fn() over reps runs after one warm-up, each
+    behind a spin of the card (torch.cuda._sleep) long enough for the host
+    to enqueue fn's launches, so the events time the kernels alone and not
+    the host's issue of a launch of a few microseconds (which cuda_ms
+    counts)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
 def device_ms(fn, kernel: str, reps: int) -> float | None:
     """Mean device time of the CUDA kernels whose name holds `kernel` over
     reps calls of fn(), from the profiler's trace (None where it traces no

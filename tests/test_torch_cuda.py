@@ -17,7 +17,7 @@ from seqrush_tpu_torch import cli
 from seqrush_tpu_torch.ops import nw_cuda, wfa
 from seqrush_tpu_torch.ops import unionfind as uf
 from seqrush_tpu_torch.tools.headline import synth_flush_edges
-from torch_edge_corpora import INT16_EDGE_PENALTIES, int16_edge_corpus, rows_edge_corpus
+from torch_edge_corpora import INT16_EDGE_PENALTIES, int16_edge_corpus, rows_edge_corpus, walk_gap_pairs
 from torch_uf_cases import pre_unite_edges, uf_cases
 
 pytestmark = pytest.mark.cuda
@@ -106,6 +106,14 @@ def _edges(rng, B, L, band, inv_frac):
     return qs + [np.zeros(0, np.uint8)], ts + [np.zeros(0, np.uint8)]
 
 
+def _gaps(rng, B, L, band, inv_frac):
+    """The walk gap corpus (tests/torch_edge_corpora.py::walk_gap_pairs,
+    18 pairs ending in a zero-length row): gap runs of 1 to 200 steps, in
+    the band's corner and out to its edges, walks ending inside a gap."""
+    pairs = walk_gap_pairs()
+    return [q for q, _ in pairs], [t for _, t in pairs]
+
+
 def _penalties(two_piece, band, tmax):
     return dict(mismatch=5, o1=8, e1=2, o2=24 if two_piece else -1,
                 e2=1 if two_piece else -1, band=band, tmax=tmax)
@@ -142,12 +150,15 @@ def _penalties(two_piece, band, tmax):
         ("ties", 9, 400, 100, False, 0.0),
         ("edges", 11, 300, 31, True, 0.0),
         ("edges", 11, 300, 100, True, 0.0),
+        ("gaps", 18, 0, 199, True, 0.0),  # the opcode walk's gap ballots
+        ("gaps", 18, 0, 199, False, 0.0),
+        ("gaps", 18, 0, 127, True, 0.0),  # runs past the band's edges
     ],
 )
 def test_kernels_equal_plain_versions(cuda, kind, B, L, band, two_piece, inv):
     """Exact equality (integers): scores, the whole traceback tensor, opcodes."""
     rng = np.random.default_rng(band + B)
-    make = {"variants": _variants, "ties": _ties, "edges": _edges}[kind]
+    make = {"variants": _variants, "ties": _ties, "edges": _edges, "gaps": _gaps}[kind]
     (Q, T, ql, tl), tmax = _pack(*make(rng, B, L, band, inv), cuda)
     kw = _penalties(two_piece, band, tmax)
     before = dict(nw_cuda.LAUNCHES)
@@ -1054,13 +1065,22 @@ def test_fuzz_tool_runs_on_cuda(cuda):
         ("variants", 8, 1500, 1535, True, 128, 40),  # diagonal ballots across the cap
         ("ties", 9, 400, 127, True, 128, 7),
         ("edges", 11, 300, 31, True, 16, 5),  # walks from outside the band
+        # the walk gap corpus: gap runs taken by ballot, cut by the cap
+        ("gaps", 18, 0, 199, True, 128, 1),
+        ("gaps", 18, 0, 199, True, 128, 5),
+        ("gaps", 18, 0, 199, True, 128, 31),
+        ("gaps", 18, 0, 199, True, 128, 32),
+        ("gaps", 18, 0, 199, True, 128, 33),
+        ("gaps", 18, 0, 199, False, 128, (1 << 14) - 1),  # one-piece
+        ("gaps", 18, 0, 199, True, 2, (1 << 14) - 1),  # counts past run_max
+        ("gaps", 18, 0, 127, True, 128, 40),  # runs past the band's edges
     ],
 )
 def test_walk_runs_equal_plain(cuda, kind, B, L, band, two_piece, run_max, run_len_max):
     """Kernel B's runs mode: tokens and counts exactly the plain version's
     (the run-length encoding of the opcode walk, in walk order)."""
     rng = np.random.default_rng(band + B + run_max)
-    make = {"variants": _variants, "ties": _ties, "edges": _edges}[kind]
+    make = {"variants": _variants, "ties": _ties, "edges": _edges, "gaps": _gaps}[kind]
     (Q, T, ql, tl), tmax = _pack(*make(rng, B, L, band, 0.3 if band > 1000 else 0.0), cuda)
     kw = _penalties(two_piece, band, tmax)
     _s, tb = nw_cuda.nw_align(Q, T, ql, tl, **kw)
@@ -1619,6 +1639,22 @@ def _tiled_batch(rng, band, R, n_narrow, n_wide, L):
     return rq, rt, tile, is_wide
 
 
+def _gap_tiled_batch(R):
+    """The walk gap corpus in the tiled row layout: its gappiest pairs (the D
+    runs of 150 and 200, the many-gap pair, both band-edge pairs) wide, R
+    rows each, the rest narrow, then a zero-length padding row."""
+    pairs = walk_gap_pairs()[:-1]
+    gappy = {6, 7, 8, 11, 12}
+    rows = [(k, 0) for k in range(len(pairs)) if k not in gappy]
+    rows += [(k, r) for k in sorted(gappy) for r in range(R)] + [(None, 0)]
+    empty = np.zeros(0, np.uint8)
+    qs = [pairs[k][0] if k is not None else empty for k, _r in rows]
+    ts = [pairs[k][1] if k is not None else empty for k, _r in rows]
+    tile = np.array([r for _k, r in rows], np.int32)
+    is_wide = np.array([k in gappy for k, _r in rows])
+    return qs, ts, tile, is_wide
+
+
 @pytest.mark.parametrize(
     "band,R,int16,pen",
     [
@@ -1631,6 +1667,12 @@ def _tiled_batch(rng, band, R, n_narrow, n_wide, L):
         (511, 3, False, (5, 8, 2, 24, 1)),  # the headline's merge: 512 and 1536 lanes
         (101, 3, True, (5, 8, 2, 3000, 1)),  # int16 adds that wrap: the wide route
         (1099, 4, True, (5, 8, 2, 24, 1)),  # 4400 lanes: the wide route
+        # the walk gap corpus, its gappiest pairs wide: windows that straddle
+        # tile rows at any offset (W 200), and tile rows of fewer than 32
+        # lanes (W 16), each window the tile row's own lanes of its sector
+        (199, 2, False, "gaps"),
+        (199, 3, True, "gaps"),
+        (15, 3, False, "gaps"),
     ],
 )
 def test_tiled_kernels_equal_plain(cuda, band, R, int16, pen):
@@ -1639,7 +1681,12 @@ def test_tiled_kernels_equal_plain(cuda, band, R, int16, pen):
     versions', each launched once."""
     rng = np.random.default_rng(band * 10 + R)
     L = 3 * (band + 1) if band < 500 else 1400
-    qs, ts, tile, is_wide = _tiled_batch(rng, band, R, 5, 3, L)
+    gaps = pen == "gaps"
+    if gaps:
+        qs, ts, tile, is_wide = _gap_tiled_batch(R)
+        pen = (5, 8, 2, 24, 1)
+    else:
+        qs, ts, tile, is_wide = _tiled_batch(rng, band, R, 5, 3, L)
     (Q, T, ql, tl), tmax = _pack(qs, ts, cuda)
     kw = dict(zip(("mismatch", "o1", "e1", "o2", "e2"), pen), band=band, n_tiles=R, tmax=tmax, int16=int16)
     before = dict(nw_cuda.LAUNCHES)
@@ -1657,7 +1704,9 @@ def test_tiled_kernels_equal_plain(cuda, band, R, int16, pen):
     first = torch.from_numpy((tile == 0) & (np.arange(len(tile)) < len(tile) - 1)).to(cuda)
     assert bool((cnt_k[first] > 0).all())
     # int16 adds past 32,767 wrap, as the JAX package's do: negative scores there
-    assert bool((s_k[first] >= 0).all()) == (not int16 or pen[3] < 3000)
+    # (W 16 leaves the corpus's long gaps' final cells off the band: score -1)
+    if not (gaps and band < 32):
+        assert bool((s_k[first] >= 0).all()) == (not int16 or pen[3] < 3000)
 
 
 @pytest.mark.parametrize("lanes", [8, 12, 16])

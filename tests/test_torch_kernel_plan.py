@@ -340,9 +340,10 @@ def test_register_route_penalties():
     assert not nw_cuda.register_route_penalties(5, 8, 2, 24, 1 << 16)
 
 
-def _walk_cells(ops, qlen, tlen, K):
+def _walk_cells(ops, qlen, tlen, K, with_ops=False):
     """The (anti-diagonal, lane) cells the walk visits, rebuilt from its
-    opcodes (one opcode per visited cell, at column td)."""
+    opcodes (one opcode per visited cell, at column td), with each cell's
+    opcode where with_ops."""
     i, j = qlen, tlen
     cells = []
     for td in range(ops.size - 1, 0, -1):
@@ -350,7 +351,7 @@ def _walk_cells(ops, qlen, tlen, K):
         if op == 0:
             continue
         assert td == i + j, "an opcode off the cursor's anti-diagonal"
-        cells.append((td, i - _i0_of(td, K)))
+        cells.append((td, i - _i0_of(td, K), op) if with_ops else (td, i - _i0_of(td, K)))
         if op == OP_M:
             i, j = i - 1, j - 1
         elif op == OP_I:
@@ -387,35 +388,69 @@ def _pairs(rng, n, L, band):
     return Q, T, ql, tl
 
 
-def _walk(Q, T, ql, tl, band, two_piece):
+def _walk(Q, T, ql, tl, band, two_piece, with_ops=False):
     tmax = int((ql + tl).max())
     kw = dict(mismatch=5, o1=8, e1=2, o2=24 if two_piece else -1, e2=1 if two_piece else -1,
               band=band, tmax=tmax)
     args = [torch.from_numpy(a) for a in (Q, T, ql, tl)]
     _scores, tb = nw_cuda.nw_align(*args, **kw)
     ops = nw_cuda.nw_walk(tb, args[2], args[3], band=band, tmax=tmax).numpy()
-    return [_walk_cells(ops[b], int(ql[b]), int(tl[b]), band) for b in range(Q.shape[0])]
+    return [_walk_cells(ops[b], int(ql[b]), int(tl[b]), band, with_ops) for b in range(Q.shape[0])]
 
 
-def _tile_loads(cells, R, C, K):
-    """Tiles the walk kernel loads on demand (csrc/nw_walk.cu): it keeps a
-    tile of R rows x C lanes and prefetches the R rows below it, each centred
-    on the lanes a path of matches would take."""
+def _tile_loads(steps, K, W):
+    """The steps at which the walk kernel loads a tile around a cursor its
+    tiles in flight missed (csrc/nw_walk.cu), for a traceback whose rows lie
+    W bytes apart from a 32-byte boundary: a tile holds WALK_ROWS rows, each
+    the window nw_cuda.walk_row_window gives for the lane of the path the
+    tile was loaded for (from the cursor where it was issued: the diagonal,
+    or the gap the cursor is in, carried on); WALK_DEPTH tiles load below
+    the one walked; where a gap run closes inside the tile and the next tile
+    does not hold the diagonal from there at its top or bottom row, the
+    tiles in flight load again on it (the kernel checks after each gap
+    ballot).  steps: the walk's (anti-diagonal, lane, opcode) cells."""
+    R = nw_cuda.WALK_ROWS
+    gap_state = {nw.OP_D: nw.H_D1, nw.OP_I: nw.H_I1}
 
-    def drift(top):
-        rows = min(top, K) - max(top - R, 0)
-        return rows // 2 if rows > 0 else 0
+    def on_band(lane):
+        return min(max(lane, 0), W - 1)
 
-    top, c0, ntop, nc0, demand = -1, 0, -1, 0, 0
-    for td, lane in cells:
-        if not (top - R < td <= top and c0 <= lane < c0 + C):
-            if not (ntop - R < td <= ntop and nc0 <= lane < nc0 + C):
-                demand += 1
-                ntop, nc0 = td, lane - min(drift(td) // 2 + C // 2, C - 1)
-            top, c0 = ntop, nc0
-            assert top - R < td <= top and c0 <= lane < c0 + C
-            ntop = top - R
-            nc0 = lane - drift(td) - drift(ntop) // 2 - C // 2
+    def tile(top, path):
+        wins = {}
+        for t in range(max(top - R + 1, 1), top + 1):
+            p = on_band(nw_cuda.walk_path_lane(*path, t, K))
+            wins[t] = nw_cuda.walk_row_window(p, t * W + p, 0, W)
+        return top, wins
+
+    def holds(tl, t, lane):
+        top, wins = tl
+        if not top - R < t <= top:
+            return False
+        if not 0 <= lane < W:
+            return True
+        c0, s, e = wins[t]
+        return s <= lane - c0 < e
+
+    cur, flight, demand = (-1, {}), [], []
+    for n, (td, lane, op) in enumerate(steps):
+        if not holds(cur, td, lane):
+            inside = n > 0 and op == steps[n - 1][2] and op in gap_state
+            path = (lane, td, gap_state[op] if inside else 0)
+            if flight and holds(flight[0], td, lane):
+                cur, flight = flight[0], flight[1:]
+            else:
+                demand.append(n)
+                cur, flight = tile(td, path), []
+            while len(flight) < nw_cuda.WALK_DEPTH and cur[0] - R * (len(flight) + 1) >= 1:
+                flight.append(tile(cur[0] - R * (len(flight) + 1), path))
+        closes = op in gap_state and n + 1 < len(steps) and steps[n + 1][2] != op
+        if closes and flight and holds(cur, *steps[n + 1][:2]):
+            t2, l2, _op = steps[n + 1]
+            ntop = cur[0] - R
+            nlow = max(ntop - R + 1, 1)
+            path = (l2, t2, 0)
+            if not all(holds(flight[0], t, on_band(nw_cuda.walk_path_lane(*path, t, K))) for t in (ntop, nlow)):
+                flight = [tile(cur[0] - R * (q + 1), path) for q in range(len(flight))]
     return demand
 
 
@@ -424,7 +459,7 @@ def test_walk_cursor_moves_one_lane_per_antidiagonal(seed, band, two_piece):
     """The lane moves by at most one per anti-diagonal, so a tile of R rows
     and 2R lanes centred on the cursor is left only through its last row."""
     rng = np.random.default_rng(seed)
-    R, _C = nw_cuda.WALK_TILE
+    R = nw_cuda.WALK_ROWS
     for cells in _walk(*_pairs(rng, 6, 160, band), band, two_piece):
         assert cells
         for (t1, l1), (t2, l2) in zip(cells, cells[1:]):
@@ -439,10 +474,12 @@ def test_walk_cursor_moves_one_lane_per_antidiagonal(seed, band, two_piece):
 
 @pytest.mark.parametrize("seed,two_piece", [(0, True), (1, False)])
 def test_walk_prefetch_serves_short_gaps(seed, two_piece):
-    """Along SNPs and gaps shorter than half the tile's lanes the prefetched
-    tile always holds the cursor: only the first tile is a demand load."""
+    """Along SNPs and gaps of up to 15 steps the tiles in flight hold every
+    step the path they were loaded for takes: after the first tile, a tile is
+    loaded around the cursor only where a gap step took it off that path,
+    at most once a gap run."""
     rng = np.random.default_rng(seed)
-    R, C = nw_cuda.WALK_TILE
+    C = 32
     qs, ts = [], []
     for k in range(4):
         q = rng.integers(0, 4, 600).astype(np.uint8)
@@ -457,8 +494,11 @@ def test_walk_prefetch_serves_short_gaps(seed, two_piece):
         T[b, : t.size] = t
     ql = np.full(4, 600, np.int32)
     tl = np.array([t.size for t in ts], np.int32)
-    for cells in _walk(Q, T, ql, tl, 63, two_piece):
-        assert _tile_loads(cells, R, C, 63) == 1
+    for steps in _walk(Q, T, ql, tl, 63, two_piece, with_ops=True):
+        loads = _tile_loads(steps, 63, 64)
+        gap_runs = sum(op != OP_M and (n == 0 or steps[n - 1][2] != op) for n, (_t, _l, op) in enumerate(steps))
+        assert loads[0] == 0 and len(loads) <= 1 + gap_runs
+        assert all(steps[n - 1][2] != OP_M for n in loads[1:])
 
 
 def test_new_launch_sites_routes():

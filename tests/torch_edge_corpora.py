@@ -5,6 +5,10 @@ imports no JAX) share them."""
 
 import numpy as np
 
+# the traceback walk's gap corpus lives beside the headline corpus, so that
+# chip_smoke.py and tools/walk_timing.py build it without the tests
+from seqrush_tpu_torch.tools.headline import walk_gap_corpus, walk_gap_pairs  # noqa: F401
+
 QPAD, TPAD = 6, 7
 
 # penalties (mismatch, o1, e1, o2, e2): the headline's; one-piece; every add
@@ -106,3 +110,4 @@ def rows_edge_corpus(seed=16, band=63):
     ts += [rng.integers(0, 4, 40).astype(np.uint8), np.array([1], np.uint8), np.zeros(0, np.uint8)]
     lt = max(t.size for t in ts)
     return _pack(qs, ts, 700, -(-lt // 16) * 16)
+
