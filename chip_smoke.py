@@ -163,9 +163,11 @@ Phases (any failure exits non-zero and prints no ok line):
      chunk dispatches, the union-find kernels' launches by the pre-unite and
      by the flush, the Python match-run loop's seconds, and at three sizes
      (the headline's flush, the locus's, a synthetic 50 M-edge flush over
-     1,000 x 3.3 kb) the hook and compress launches (ops/csrc/unionfind.cu)
-     timed apart, the edges' copy apart, the unite in turns with its plain
-     version (with the plain version's host reads) and the host library's
+     1,000 x 3.3 kb) the unite's one launch (ops/csrc/unionfind.cu: the hook
+     and the compress behind a grid barrier) and the compress launch alone
+     (on an uncompressed forest of the flush's slots) timed, the edges'
+     copy apart, the unite in turns with its plain version (with the
+     plain version's host reads) and the host library's
      unite in turns with the pipeline's, every parent equal; find on an
      uncompressed forest against its plain version (DEFAULT_GFA_SHA256,
      the locus's phase 6 bytes); kernel='wfa' with the C++
@@ -240,10 +242,10 @@ two I candidates and their minima and opened bits, the substitution and the
 gap-free choice, the two closed-form D states (the lane ramp, the running
 prefix minimum, the open, the clamp and the opened compare each) and the
 override, and the byte; its row walk (kernel D) is charged as the
-anti-diagonal walk is, a step a row.  The snapshot mode adds its SNAP,
-DIAGA and DIAGB stores to the sweep's bytes and is charged the cells the
-fold needs of it, each row's anti-diagonals up to t_snap + 1 (the combine
-reads nothing later).  The tiled mode is charged the sweep's instructions
+anti-diagonal walk is, a step a row.  The snapshot mode is charged the
+cells the fold needs of it, each row's anti-diagonals up to t_snap + 1 (the
+combine and the start walk read nothing later), their traceback bytes and
+its SNAP, DIAGA and DIAGB stores.  The tiled mode is charged the sweep's instructions
 for each pair's cells at its own lanes (W, or n_tiles * W for a wide pair)
 and its whole tile-row traceback.  The int16 mode is charged half the sweep's 37
 instructions and 11 minima a cell: its values fit 16-bit lanes, and the
@@ -260,14 +262,12 @@ package's unclamped recurrence, no validity) needs per cell the sweep's
 instructions without the validity and the five clamps: 30 instructions, 6
 of them minima (SHARD_OPS_PER_CELL), at the issue rate, and writes its
 strips whole; its handover of one column a step is latency, which no bound
-of bytes or instructions sees.  The union-find's hook launch is charged its
-edges (8 B an edge, int32 ends), the parent read once (4 B a slot) and the
-hooks this run made written once (4 B each: the roots before less the roots
-after); its compress launch the parent read and written once (8 B a slot);
-the unite as one function the edges and the parent in and out once (8 B an
-edge, 8 B a slot); find its positions in and roots out (8 B a position)
-and the parent read once.  Their finds' chains of dependent L2 reads set
-their real floor.
+of bytes or instructions sees.  The union-find's unite launch (the hook and
+the compress) is charged its edges and the parent in and out once (8 B an
+edge, int32 ends, and 8 B a slot); its compress launch alone the forest
+read and written once (8 B a slot); find its positions in and roots out
+(8 B a position) and the parent read once.  Their finds' chains of dependent
+L2 reads set their real floor.
 """
 
 from __future__ import annotations
@@ -286,7 +286,7 @@ import numpy as np
 import torch
 
 from seqrush_tpu_torch.tools.headline import SCORES, WFA_BAND_SLACK, synth_hla
-from seqrush_tpu_torch.tools.sweep_shapes import SPIN_CYCLES, device_ms, spun_ms
+from seqrush_tpu_torch.tools.sweep_shapes import SPIN_CYCLES, device_ms, snapshot_rows_err, spun_ms
 
 HBM_BYTES_PER_S = 3.35e12
 ISSUE_OPS_PER_S = 33.5e12  # 32-bit lane instructions of any kind
@@ -302,7 +302,7 @@ REPS = 3
 # edges (pipeline.py::_queue_unites)
 SYNTH_FLUSH_EDGES = 50_000_000
 # the union-find's kernels on the pipeline's path (its pre-unite and flush)
-UF_KERNELS = ("uf_hook", "uf_compress")
+UF_KERNELS = ("uf_unite",)
 
 
 def synth_family(n_seqs=4, length=2304, seed=11):
@@ -629,7 +629,7 @@ def ptxas_summary(log: str) -> list[str]:
                 name += (f"<{'traceback' if wide.group(1) == '1' else 'score-only'}, "
                          f"{'int16' if wide.group(2) == '1' else 'int32'}"
                          f"{', snapshot' if wide.group(3) == '1' else ''}>")
-            elif name.startswith("nw_walk") and w:
+            elif name.startswith(("nw_walk", "uf_unite")) and w:
                 name += "<timed>" if w.group(1) == "1" else ""  # the walk's timer on (a timing tool's)
             elif name == "nw_sweep_tiled_wide" and w:
                 name += f"<{'int16' if w.group(1) == '1' else 'int32'}>"
@@ -1147,6 +1147,7 @@ def run(work: Path, name: str, smi: str, ptxas: list[str]) -> int:
     out.extend(run_phase11(work, smi, ptxas, ctx9))
     ctx9["wfa_kernel_ms"] = sum(b["ms"] for e in phase8 if e["name"] == "wfa" for b in e["batches"])
     ctx9["launches"] = launches
+    ctx9["ptxas"] = ptxas
     out.extend(run_phase12(work, smi, drive, ctx9))
     print(json.dumps({"kernels": out}))
     print(smi)
@@ -2340,8 +2341,8 @@ def run_phase9(smi: str, ptxas: list[str], ctx: dict) -> list[dict]:
         9a's own dispatch inputs, exactly, on every distinct chunk that ran
         it: kernel A's int16 mode on the int16 run's chunks (scores, whole
         traceback); kernel A's snapshot mode on the chunks of the fold,
-        fold_full and fold_int16 runs (scores, traceback, SNAP, DIAGA,
-        DIAGB), the combine kernel (scores, cursors, crossings) and kernel
+        fold_full and fold_int16 runs (scores, each row's traceback rows 0
+        .. t_snap + 1, SNAP, DIAGA, DIAGB), the combine kernel (scores, cursors, crossings) and kernel
         B's start mode from the combine's cursors there;
         kernels C and D on the rows and rows_int16 runs' chunks (scores,
         whole row-major traceback, steps, gap list, counts).  Timed on the
@@ -2524,7 +2525,7 @@ def run_phase9(smi: str, ptxas: list[str], ctx: dict) -> list[dict]:
         kw = dict(band=band, tmax=tmax_half, t_snap=t_snap, int16=int16, **pen)
         s_k, tb_k, snaps_k = nw_cuda.nw_align(Q2, T2, ql2, tl2, **kw)
         plain_ms, (s_p, tb_p, snaps_p) = once_ms(lambda: nw_cuda.nw_align_reference(Q2, T2, ql2, tl2, **kw))
-        err = max([max_abs_err(s_k, s_p), max_abs_err(tb_k, tb_p)]
+        err = max([max_abs_err(s_k, s_p), snapshot_rows_err(tb_k, tb_p, t_snap, tmax_half)]
                   + [max_abs_err(a, b) for a, b in zip(snaps_k, snaps_p)])
         del tb_p, snaps_p
         SNAP, DIAGA, DIAGB = snaps_k
@@ -2551,18 +2552,24 @@ def run_phase9(smi: str, ptxas: list[str], ctx: dict) -> list[dict]:
             plain_sweep_ms = cuda_ms(lambda: nw_cuda.nw_align(Q2, T2, ql2, tl2, **dict(kw, t_snap=None)), REPS)
             # the half sweeps need the anti-diagonals up to t_snap + 1 (DIAGB) of each row
             cells = int(torch.clamp(t_snap.to(torch.int64) + 1, max=tmax_half).sum().item()) * W
-            b = bound(Q2.numel() + T2.numel() + 12 * n_rows + tb_k.numel() + 4 * n_rows + 8 * 4 * n_rows * W,
+            b = bound(Q2.numel() + T2.numel() + 12 * n_rows + cells + 4 * n_rows + 8 * 4 * n_rows * W,
                       cells * SWEEP_OPS_PER_CELL, cells * SWEEP_MIN_OPS_PER_CELL)
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
             plan = nw_cuda.plan_sweep(n_rows, W, Q2.shape[1], T2.shape[1])
+            occ = nw_cuda.sweep_occupancy(plan, W, pen["o2"] >= 0, snapshot=True)
+            kname = f"nw_sweep_regs_snap<{plan.lanes}, two-piece>"
             out["nw_sweep_snapshot"] = {
                 "shape": {"B": n_rows, "W": W, "tmax": tmax_half}, "ms": ms, "plain_ms": plain_ms,
                 "no_snapshot_ms": plain_sweep_ms, **b, "max_abs_err": err,
                 "launches": runs["fold"][2]["nw_sweep_snapshot"], "launches_path": "fold=True",
-                "ptxas": ptxas_registers(ptxas, f"nw_sweep_regs_snap<{plan.lanes}, two-piece>"),
-                "lanes_per_thread": plan.lanes}
+                "ptxas": ptxas_registers(ptxas, kname), "spill_bytes": ptxas_spills(ptxas, kname),
+                "lanes_per_thread": plan.lanes,
+                "regs_per_thread": occ["regs_per_thread"], "resident_pairs_per_sm": occ["resident_pairs_per_sm"],
+                "rounds": nw_cuda.snap_rounds(n_rows, occ["resident_pairs_per_sm"], sms)}
             print(f"  snapshot sweep timed: {ms:.4f} ms (without snapshots {plain_sweep_ms:.4f}; bound "
                   f"{b['bound_ms']:.4f} for the {cells} cells up to t_snap + 1; plain {plain_ms:.1f}; "
-                  f"{out['nw_sweep_snapshot']['ptxas']} registers at {plan.lanes} lanes) | {smi}")
+                  f"{occ['regs_per_thread']} registers at {plan.lanes} lanes, {occ['resident_pairs_per_sm']} "
+                  f"pairs an SM, {out['nw_sweep_snapshot']['rounds']} rounds) | {smi}")
             # in turns: the plain version, the kernel, the kernel, the plain version
             plain_cs = [cuda_ms(lambda: nw_cuda.fold_combine_reference(SNAP, DIAGA, DIAGB, ql, tl, **combine),
                                 REPS)]
@@ -3259,21 +3266,25 @@ def _uf_roots(p: torch.Tensor) -> int:
 
 def uf_flush_numbers(tag: str, parent0: np.ndarray, u: np.ndarray, v: np.ndarray, host_unite) -> dict:
     """One flush (parent0 and its edges, int64 numpy) at one size, on the
-    card: the edges' host cast and copy to the card timed apart; the hook
-    and the compress launches (CUDA events, median of 3 after a warm-up) on
-    the edges already on the card, three runs equal; the unite (its copy of
-    the parent, hook, compress) and its plain version in turns, with the
-    plain version's host reads; compress_reference on the hooked parent
-    against the compress launch; the host C++ unite (parent to the host,
-    uf_unite_bulk and full compression, back to the card) against the
+    card: the edges' host cast and copy to the card timed apart; the unite's
+    one launch (hook and compress behind a grid barrier; CUDA events, median
+    of 3 after a warm-up) on the edges already on the card, four runs equal;
+    the compress launch alone on an uncompressed forest of the flush's
+    slots (tools/headline.py::deep_forest: the flush's input parent is
+    compressed already, so the launch would move nothing there) against
+    compress_reference on the same forest, four runs equal; the unite (its
+    copy of the parent and its launch) and its plain version in turns,
+    with the plain version's host reads; the host C++ unite (parent to the
+    host, uf_unite_bulk and full compression, back to the card) against the
     pipeline's unite from numpy edges, in turns; every parent equal.  The
-    hook and the compress are timed behind a spin of the card (see
-    spun_ms)."""
+    launches are timed behind a spin of the card (see spun_ms)."""
     from seqrush_tpu_torch.ops import unionfind as uf
+    from seqrush_tpu_torch.tools.headline import deep_forest
 
     dev = torch.device("cuda")
     p_dev = torch.from_numpy(parent0).to(dev)
     n_slots, n_edges = int(p_dev.numel()), int(u.size)
+    forest = torch.from_numpy(deep_forest(n_slots)).to(dev)
     cast_s, copy_s = [], []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -3284,33 +3295,38 @@ def uf_flush_numbers(tag: str, parent0: np.ndarray, u: np.ndarray, v: np.ndarray
         cast_s.append(t1 - t0)
         copy_s.append(time.perf_counter() - t1)
     del u32, v32
-    # the split, edges on the card; the card spins while the host enqueues
-    # both launches, so the events time the kernels alone
-    hook_ms, comp_ms, runs = [], [], []
-    for rep in range(4):
-        p = p_dev.clone()
-        e0, e1, e2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+
+    def spun_launch(fn, src):
+        """(ms, parent) of fn on a copy of src, the copy made before the
+        spin; the card spins while the host enqueues the launch, so the
+        events time the kernel alone."""
+        p = src.clone()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         torch.cuda.synchronize()
         torch.cuda._sleep(SPIN_CYCLES)
         e0.record()
-        uf._hook_cuda(p, ud, vd)
+        fn(p)
         e1.record()
-        uf._compress_cuda(p)
-        e2.record()
-        e2.synchronize()
+        e1.synchronize()
+        return e0.elapsed_time(e1), p
+
+    unite_ms, comp_ms, runs, comp_runs = [], [], [], []
+    for rep in range(4):
+        ms, p = spun_launch(lambda q: uf._unite_cuda(q, ud, vd), p_dev)
+        ms_c, c = spun_launch(uf._compress_cuda, forest)
         if rep:
-            hook_ms.append(e0.elapsed_time(e1))
-            comp_ms.append(e1.elapsed_time(e2))
+            unite_ms.append(ms)
+            comp_ms.append(ms_c)
         runs.append(p)
+        comp_runs.append(c)
     if not all(torch.equal(r, runs[0]) for r in runs[1:]):
         raise AssertionError(f"the {tag} flush's kernel runs differ")
-    kernel = runs[0]
-    hooked = p_dev.clone()
-    uf._hook_cuda(hooked, ud, vd)
-    comp_k = hooked.clone()
-    uf._compress_cuda(comp_k)
-    comp_plain = uf.compress_reference(hooked)
-    comp_plain_ms = cuda_ms(lambda: uf.compress_reference(hooked), REPS)
+    if not all(torch.equal(r, comp_runs[0]) for r in comp_runs[1:]):
+        raise AssertionError(f"the compress runs on the {tag} flush's forest differ")
+    kernel, comp_k = runs[0], comp_runs[0]
+    comp_plain = uf.compress_reference(forest)
+    comp_plain_ms = cuda_ms(lambda: uf.compress_reference(forest), REPS)
+    forest_moved = int((forest != comp_plain).sum().item())
     hooks = _uf_roots(p_dev) - _uf_roots(kernel)
     # the unite and its plain version in turns, edges on the card, each
     # warmed first (a process's first call of the plain version also loads
@@ -3362,15 +3378,13 @@ def uf_flush_numbers(tag: str, parent0: np.ndarray, u: np.ndarray, v: np.ndarray
         got[mode] = res
     err = max(max_abs_err(kernel, got[m]) for m in ("plain", "kernel", "cpp", "device"))
     err = max(err, max_abs_err(comp_k, comp_plain))
-    hook_bytes = 8 * n_edges + 4 * n_slots + 4 * hooks
     return {
         "edges": n_edges, "parent_slots": n_slots, "hooks": hooks,
         "edge_cast_s": cast_s, "edge_copy_s": copy_s,
-        "hook_ms": statistics.median(hook_ms), "compress_ms": statistics.median(comp_ms),
-        "hook_ms_each": hook_ms, "compress_ms_each": comp_ms,
+        "unite_kernel_ms": statistics.median(unite_ms), "compress_ms": statistics.median(comp_ms),
+        "unite_kernel_ms_each": unite_ms, "compress_ms_each": comp_ms,
         "unite_in_turns_ms": turns, "plain_host_reads": reads[0], "compress_plain_ms": comp_plain_ms,
-        "hook_bound_ms": hook_bytes / HBM_BYTES_PER_S * 1e3,
-        "compress_bound_ms": 8 * n_slots / HBM_BYTES_PER_S * 1e3,
+        "compress_bound_ms": 8 * n_slots / HBM_BYTES_PER_S * 1e3, "compress_forest_moved": forest_moved,
         "unite_bound_ms": (8 * n_edges + 8 * n_slots) / HBM_BYTES_PER_S * 1e3,
         "flush_in_turns_s": secs, "cpp_flush_split_s": split, "max_abs_err": err,
         "parents_equal": err == 0,
@@ -3378,16 +3392,14 @@ def uf_flush_numbers(tag: str, parent0: np.ndarray, u: np.ndarray, v: np.ndarray
 
 
 def uf_find_numbers(n_slots: int, seed: int = 5) -> dict:
-    """find over every slot of an uncompressed forest of n_slots (each slot
-    below a random smaller one with probability 1/2): the kernel (spun_ms)
-    against find_reference (cuda_ms), each the median of 3 after a warm-up,
-    equal."""
+    """find over every slot of an uncompressed forest of n_slots
+    (tools/headline.py::deep_forest: each slot below a random smaller one
+    with probability 1/2): the kernel (spun_ms) against find_reference
+    (cuda_ms), each the median of 3 after a warm-up, equal."""
     from seqrush_tpu_torch.ops import unionfind as uf
+    from seqrush_tpu_torch.tools.headline import deep_forest
 
-    rng = np.random.default_rng(seed)
-    idx = np.arange(n_slots)
-    parent = np.where(rng.random(n_slots) < 0.5, (rng.random(n_slots) * idx).astype(np.int64), idx)
-    p = torch.from_numpy(parent.astype(np.int32)).to("cuda")
+    p = torch.from_numpy(deep_forest(n_slots, seed)).to("cuda")
     pos = torch.arange(n_slots, dtype=torch.int32, device="cuda")
     ms = spun_ms(lambda: uf.find(p, pos), REPS)
     want = uf.find_reference(p, pos)
@@ -3405,7 +3417,7 @@ def unite_split(runs: list[tuple[str, str, str]]) -> dict:
     card with --no-sort, in order.  The pre-unite of the process's first run
     is split, each part synchronised: its first device tensor (the CUDA
     context), loading the kernels' library, the edges' cast and copy, the
-    first hook launch (the library's load apart) and the compress launch;
+    first unite launch (the library's load apart);
     then the same pre-unite again, warm.  The align phase's seconds and each
     run's first two chunk dispatches (host seconds) show a cost that moves
     from the pre-unite into the align phase.  The union-find's launches of
@@ -3425,7 +3437,7 @@ def unite_split(runs: list[tuple[str, str, str]]) -> dict:
     from seqrush_tpu_torch.tools.headline import synth_flush_edges
 
     create, unite_edges = uf.create, uf.unite_edges
-    parts = {"edges_s": "edges_on", "hook_s": "_hook_cuda", "compress_s": "_compress_cuda"}
+    parts = {"edges_s": "edges_on", "unite_s": "_unite_cuda"}
     originals = {key: getattr(uf, name) for key, name in parts.items()}
     library = nw_cuda._library
     to_unites = pipeline.SeqRushTorch._result_to_unites
@@ -3470,7 +3482,7 @@ def unite_split(runs: list[tuple[str, str, str]]) -> dict:
             return fn(*a)
         finally:
             site[0] = None
-            for k in ("uf_hook", "uf_compress"):
+            for k in UF_KERNELS:
                 uf_launches[kind][k] = uf_launches[kind].get(k, 0) + nw_cuda.LAUNCHES[k] - before[k]
 
     def capturing_unite(parent, u, v):
@@ -3516,7 +3528,7 @@ def unite_split(runs: list[tuple[str, str, str]]) -> dict:
                         "flushes": len(flushes),
                         "gfa_sha256": hashlib.sha256(Path(gfa).read_bytes()).hexdigest()}
             if "library_s" in pre:
-                out[tag]["pre_unite_parts_s"]["first_hook_launch_s"] = pre["hook_s"] - pre["library_s"]
+                out[tag]["pre_unite_parts_s"]["first_unite_launch_s"] = pre["unite_s"] - pre["library_s"]
             if k == 0:
                 # the same pre-unite again, warm
                 pre.clear()
@@ -3646,32 +3658,38 @@ def run_phase12(work: Path, smi: str, drive, ctx: dict) -> list[dict]:
     sizes = {tag: split[tag] for tag in ("headline", "locus", "synthetic")}
     if not all(r["parents_equal"] for r in sizes.values()) or split["find"]["max_abs_err"]:
         raise AssertionError("the union-find kernels, their plain versions and the host unite disagree")
+    if not all(r["compress_forest_moved"] > 0 for r in sizes.values()):
+        raise AssertionError("a compress was checked on a forest with nothing to compress")
     for kind in ("pre_unite", "flush"):
         if not all(split["headline"]["uf_launches"][kind].get(k, 0) > 0 for k in UF_KERNELS):
             raise AssertionError(f"the headline run's {kind} did not launch the union-find kernels")
     print(f"phase 12 wall {time.time() - t_phase:.1f} s (12b done)")
-    keys = ("edges", "parent_slots", "hooks", "hook_ms", "compress_ms", "hook_bound_ms", "compress_bound_ms",
-            "unite_bound_ms", "unite_in_turns_ms", "plain_host_reads", "compress_plain_ms", "edge_cast_s",
-            "edge_copy_s", "flush_in_turns_s", "max_abs_err")
+    keys = ("edges", "parent_slots", "hooks", "unite_kernel_ms", "unite_kernel_ms_each", "compress_ms",
+            "unite_bound_ms", "compress_bound_ms", "compress_forest_moved", "unite_in_turns_ms", "plain_host_reads",
+            "compress_plain_ms",
+            "edge_cast_s", "edge_copy_s", "flush_in_turns_s", "max_abs_err")
     h, launches = sizes["headline"], ctx["launches"]
     common = {"route": "cuda", "source": "seqrush_tpu_torch/ops/csrc/unionfind.cu",
-              "launches_path": "default run: the pre-unite and the flush",
               "max_abs_err": max(r["max_abs_err"] for r in sizes.values()), "library_ms": None,
               "shape": {"edges": h["edges"], "slots": h["parent_slots"]}, "bound_by": "bytes",
-              "unite_ms": statistics.median(h["unite_in_turns_ms"]["kernel"]),
               "unite_plain_ms": statistics.median(h["unite_in_turns_ms"]["plain"]),
-              "unite_bound_ms": h["unite_bound_ms"], "plain_host_reads": h["plain_host_reads"],
+              "plain_host_reads": h["plain_host_reads"],
               **{tag: {k: sizes[tag][k] for k in keys} for tag in ("locus", "synthetic")}, "tolerance": 0}
     uf_entries = [
-        {"name": "uf_hook", "replaces": "seqrush_tpu/ops/unionfind.py:105 (unite_edges; XLA while_loop)",
-         "launches": launches["uf_hook"], "ms": h["hook_ms"], "plain_ms": common["unite_plain_ms"],
-         "plain_of": "unite_edges_reference, its hooks and compression", "bound_ms": h["hook_bound_ms"],
-         **common},
+        {"name": "uf_unite", "replaces": "seqrush_tpu/ops/unionfind.py:105 (unite_edges; XLA while_loop)",
+         "launches": launches["uf_unite"], "launches_path": "default run: the pre-unite and the flush",
+         "ms": h["unite_kernel_ms"], "ms_each": h["unite_kernel_ms_each"], "plain_ms": common["unite_plain_ms"],
+         "plain_of": "unite_edges_reference, its hooks and compression", "bound_ms": h["unite_bound_ms"],
+         "unite_call_ms": statistics.median(h["unite_in_turns_ms"]["kernel"]),
+         "ptxas": ptxas_registers(ctx["ptxas"], "uf_unite_kernel"), **common},
         {"name": "uf_compress",
          "replaces": "seqrush_tpu/ops/unionfind.py:88 (compress; XLA while_loop) and :133 (find, uf_find_kernel)",
-         "launches": launches["uf_compress"], "ms": h["compress_ms"], "plain_ms": h["compress_plain_ms"],
-         "plain_of": "compress_reference on the hooked parent", "bound_ms": h["compress_bound_ms"],
-         "find": split["find"], **common},
+         "launches": launches["uf_compress"],
+         "launches_path": "compress() and count_components; no longer on the default run (the unite compresses)",
+         "ms": h["compress_ms"], "plain_ms": h["compress_plain_ms"],
+         "plain_of": "compress_reference on an uncompressed forest of the flush's slots (headline.deep_forest)",
+         "bound_ms": h["compress_bound_ms"], "forest_slots_moved": h["compress_forest_moved"],
+         "ptxas": ptxas_registers(ctx["ptxas"], "uf_compress_kernel"), "find": split["find"], **common},
     ]
 
     # 12c. the wavefront route with the C++ and the Python backtrace

@@ -293,13 +293,16 @@ extern "C" int nw_sweep_launch(const void* Q, const void* T, const void* qlens, 
 
 // Registers per thread, resident blocks per SM and shared memory per block
 // (static, from the runtime, plus the dynamic bytes the launch asks for) of
-// one launch shape in the full mode (with_tb) or the score-only mode; lanes 0
-// is the wide route.
-extern "C" int nw_sweep_occupancy(int lanes, int two, int with_tb, int W, int ppb, int pair_bytes,
-                                  int scratch, int threads, int* regs, int* blocks_per_sm,
-                                  int* smem_bytes) {
+// one launch shape in the full mode (with_tb), the score-only mode or the
+// snapshot mode (snap, the register route's own kernel); lanes 0 is the wide
+// route.
+extern "C" int nw_sweep_occupancy(int lanes, int two, int with_tb, int snap, int W, int ppb,
+                                  int pair_bytes, int scratch, int threads, int* regs,
+                                  int* blocks_per_sm, int* smem_bytes) {
   const void* fn;
-  if (lanes == 0)
+  if (snap)
+    fn = lanes == 0 ? nullptr : nw_sweep_snap_kernel(lanes, two != 0);
+  else if (lanes == 0)
     fn = with_tb ? (const void*)nw_sweep_wide<true, false, false>
                  : (const void*)nw_sweep_wide<false, false, false>;
   else if (two)

@@ -517,15 +517,16 @@ __device__ __forceinline__ void advance(Strip<S>& s, Edges& e, const Pair& pr, c
 
 // Anti-diagonals [a, hi] of the recurrence in the phases of the shifts: up
 // to K (0, 0), then (1, 1) and (0, 1) in turn, two an iteration.  Returns
-// the anti-diagonal after the last one swept (a when hi < a).
-template <int S, bool TWO, bool TB, bool SEG, bool SNAP>
+// the anti-diagonal after the last one swept (a when hi < a).  ANY_START: a
+// may lie past K where (a - K) is even (a segment's start, or the snapshot
+// mode's spans).
+template <int S, bool TWO, bool TB, bool SEG, bool SNAP, bool ANY_START = SEG>
 __device__ __forceinline__ int sweep_span(Strip<S>& s, Edges& e, const Pair& pr, const Pen& p, int a,
                                           int hi, int& qs, int& ts) {
   const int K = pr.K;
   int t = a;
   for (; t <= hi && t <= K; ++t) advance<S, TWO, TB, SEG, SNAP, 0, 0>(s, e, pr, p, t, qs, ts);
-  // a segment may start where (t - K) is even
-  if (SEG && t <= hi && ((t - K) & 1) == 0)
+  if (ANY_START && t <= hi && ((t - K) & 1) == 0)
     advance<S, TWO, TB, SEG, SNAP, 0, 1>(s, e, pr, p, t++, qs, ts);
   for (; t + 1 <= hi; t += 2) {  // (t - K) is odd here
     advance<S, TWO, TB, SEG, SNAP, 1, 1>(s, e, pr, p, t, qs, ts);
@@ -643,13 +644,7 @@ __device__ __forceinline__ void sweep_regs_body(
   pr.wpp = wpp;
   pr.pib = pib;
   pr.neg = p.neg;
-  pr.plane = (size_t)B * W;
-  if (SNAP) {
-    pr.snap = sn.snap + (size_t)b * W;
-    pr.diaga = sn.diaga + (size_t)b * W;
-    pr.diagb = sn.diagb + (size_t)b * W;
-    pr.t_snap = sn.t_snap[b];
-  }
+  if (SNAP) pr.t_snap = sn.t_snap[b];
   if (SEG) {
     pr.qb = qb;
     pr.tb0 = tb0;
@@ -706,7 +701,7 @@ __device__ __forceinline__ void sweep_regs_body(
     exchange<S, TWO>(s, e, pr, 0);
     e.hl2 = p.neg;  // H(-1)
     // t_snap == 0 snapshots the initial state: neg but H's origin
-    if (SNAP && pr.t_snap == 0 && pr.s0 == 0) pr.snap[0] = 0;
+    if (SNAP && pr.t_snap == 0 && pr.s0 == 0) sn.snap[(size_t)b * W] = 0;
   }
 
   // from t_final + 3 on every input is INF (the states are INF past t_final);
@@ -755,6 +750,24 @@ __device__ __forceinline__ void sweep_regs_body(
   int qs = min(i0_of(1, K), Lq + 1);
   int ts = max(0, min(Lt - 1 + i0_of(1, K) + W, Lt + W));
   load_windows<S, SEG>(s, pr, qs, ts);
+  if (SNAP) {
+    // The snapshot mode's rows end at t_snap + 1, or at t_final where the
+    // score falls within tmax and later: anti-diagonals up to t_snap - 1
+    // with no capture, the two captured ones, the rest to the score, and
+    // the constant rows up to t_snap + 1 past t_final + 2.  The traceback
+    // rows past that end are left unwritten.
+    const int score_end = pr.t_final <= tmax ? pr.t_final : 0;
+    const int end = min(min(tmax, last), max(pr.t_snap + 1, score_end));
+    int t = sweep_span<S, TWO, TB, SEG, false, true>(s, e, pr, p, 1, min(end, pr.t_snap - 1), qs, ts);
+    pr.snap = sn.snap + (size_t)b * W;
+    pr.diaga = sn.diaga + (size_t)b * W;
+    pr.diagb = sn.diagb + (size_t)b * W;
+    pr.plane = (size_t)B * W;
+    t = sweep_span<S, TWO, TB, SEG, true, true>(s, e, pr, p, t, min(end, pr.t_snap + 1), qs, ts);
+    t = sweep_span<S, TWO, TB, SEG, false, true>(s, e, pr, p, t, end, qs, ts);
+    if (TB) cheap_rows<S, TWO, SEG>(s, pr, p, t, min(tmax, pr.t_snap + 1), qs, ts);
+    return;
+  }
   const int t = sweep_span<S, TWO, TB, SEG, SNAP>(s, e, pr, p, 1, min(tmax, last), qs, ts);
   if (TB) cheap_rows<S, TWO, SEG>(s, pr, p, t, tmax, qs, ts);
 }
@@ -798,3 +811,7 @@ cudaError_t nw_sweep_snap_regs_launch(const void* Q, const void* T, const void* 
                                       int Lt, int W, int tmax, int tmax_pad, Pen p, bool two,
                                       int lanes, int wpp, int ppb, int pair_bytes, SnapArgs sn,
                                       cudaStream_t stream);
+
+// The register route's snapshot-mode kernel for lanes and two-piece, or null
+// (nw_sweep_snap.cu), for nw_sweep_occupancy.
+const void* nw_sweep_snap_kernel(int lanes, bool two);

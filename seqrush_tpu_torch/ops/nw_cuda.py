@@ -87,8 +87,8 @@ device's launch), and kernels C and D as ``nw_rows_sweep`` and
 ``nw_rows_walk``, the fold's combine as ``fold_combine``; the wavefront
 kernel of ``ops/wfa.py`` (``wfa``, ``wfa_score_only``), the SGD tick of
 ``layout/sgd.py`` (``sgd_tick``, one a block of ticks) and the union-find of
-``ops/unionfind.py`` (``uf_hook``, ``uf_compress``, ``uf_find``;
-``csrc/unionfind.cu``) count their launches here too, since one build makes
+``ops/unionfind.py`` (``uf_unite``, the hook and the compress in one
+cooperative launch; ``uf_compress``, ``uf_find``; ``csrc/unionfind.cu``) count their launches here too, since one build makes
 one library of every source.
 """
 
@@ -117,7 +117,7 @@ LAUNCHES = {"nw_sweep": 0, "nw_sweep_score_only": 0, "nw_walk": 0, "nw_walk_runs
             "wfa": 0, "wfa_score_only": 0, "nw_sweep_int16": 0, "nw_sweep_snapshot": 0,
             "nw_walk_start": 0, "nw_rows_sweep": 0, "nw_rows_walk": 0, "nw_sweep_tiled": 0,
             "nw_walk_runs_tiled": 0, "nw_sweep_sharded": 0, "fold_combine": 0, "sgd_tick": 0,
-            "uf_hook": 0, "uf_compress": 0, "uf_find": 0}
+            "uf_unite": 0, "uf_compress": 0, "uf_find": 0}
 
 _SOURCES = ("nw_sweep.cu", "nw_sweep_seg.cu", "nw_sweep_snap.cu", "nw_sweep_tiled.cu", "nw_sweep_i16.cu",
             "nw_walk.cu", "wfa.cu", "nw_rows.cu", "nw_sweep_shard.cu", "fold_combine.cu", "sgd_tick.cu",
@@ -245,7 +245,7 @@ def _library() -> ctypes.CDLL:
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             lib.nw_sweep_launch.argtypes = [ptr] * 11 + [i32] * 17 + [ptr]
             lib.nw_sweep_launch.restype = i32
-            lib.nw_sweep_occupancy.argtypes = [i32] * 8 + [ptr] * 3
+            lib.nw_sweep_occupancy.argtypes = [i32] * 9 + [ptr] * 3
             lib.nw_sweep_occupancy.restype = i32
             lib.nw_sweep_i16_launch.argtypes = [ptr] * 6 + [i32] * 15 + [ptr]
             lib.nw_sweep_i16_launch.restype = i32
@@ -292,8 +292,10 @@ def _library() -> ctypes.CDLL:
             lib.sgd_ticks_launch.argtypes = [ptr, i32, i32, ptr]
             lib.sgd_ticks_launch.restype = i32
             i64 = ctypes.c_longlong
-            lib.uf_hook_launch.argtypes = [ptr] * 3 + [i64, i32, ptr]
-            lib.uf_hook_launch.restype = i32
+            lib.uf_unite_launch.argtypes = [ptr] * 3 + [i64, i32, i32, ptr]
+            lib.uf_unite_launch.restype = i32
+            lib.uf_unite_occupancy.argtypes = [ptr, ptr]
+            lib.uf_unite_occupancy.restype = i32
             lib.uf_compress_launch.argtypes = [ptr, i32, ptr]
             lib.uf_compress_launch.restype = i32
             lib.uf_find_launch.argtypes = [ptr] * 3 + [i64, i32, ptr]
@@ -452,6 +454,13 @@ def plan_sweep(B: int, W: int, Lq: int, Lt: int, *, warps_per_pair: int | None =
     return best[1] if best is not None else wide_plan(B, W, groups)
 
 
+def snap_rounds(B: int, resident_pairs: int, sms: int = _H100_SMS) -> int:
+    """Rounds of pairs the busiest SM runs: B pairs spread over sms SMs, each
+    holding resident_pairs at once (the snapshot mode's reckoning of its
+    last wave)."""
+    return -(-(-(-B // sms)) // max(resident_pairs, 1))
+
+
 def twin_smem_bytes(Lq: int, Lt: int, W: int, lanes: int, wpp: int) -> int:
     """Shared memory of one twin of the packed int16 sweep: the two pairs'
     padded queries and padded reversed targets interleaved, a 16-bit word a
@@ -585,7 +594,10 @@ def nw_align(Q, T, qlens, tlens, *, mismatch, o1, e1, o2, e2, band, tmax, with_t
     returns (SNAP [6, B, W], DIAGA [B, W], DIAGB [B, W]) int32, the carry
     (H(t), H(t - 1), I1, D1, I2, D2) at t == t_snap[b] and the clamped
     diagonal candidate at t_snap and t_snap + 1 (INF, or INF16, where a
-    capture falls past tmax)."""
+    capture falls past tmax); the traceback is then promised only in each
+    row's rows 0 .. t_snap + 1 (snapshot_rows), which is all the fold reads,
+    and the card's register route sweeps no further than they and the score
+    need."""
     device = Q.device
     _check("Q", Q, torch.uint8, 2, device)
     _check("T", T, torch.uint8, 2, device)
@@ -672,11 +684,15 @@ def sweep_launch(Q, T, qlens, tlens, plan: SweepPlan, *, mismatch, o1, e1, o2, e
     return (scores, tb) if snaps is None else (scores, tb, snaps)
 
 
-def sweep_occupancy(plan: SweepPlan, W: int, two_piece: bool, with_traceback: bool = True) -> dict:
+def sweep_occupancy(plan: SweepPlan, W: int, two_piece: bool, with_traceback: bool = True, *,
+                    snapshot: bool = False) -> dict:
     """Registers per thread, shared memory per block and resident pairs per
-    SM of a plan's launch shape in the full or the score-only mode, from the
+    SM of a plan's launch shape in the full or the score-only mode, or with
+    snapshot the snapshot mode's own kernel on the register route, from the
     CUDA runtime and the launch code (needs the card)."""
     regs, blocks, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    if snapshot and plan.route != "regs":
+        raise ValueError("the snapshot mode's own kernel is the register route's")
     if plan.route == "twins":
         spill = ctypes.c_int()
         err = _library().nw_sweep_i16_occupancy(plan.lanes, int(two_piece), int(with_traceback),
@@ -691,7 +707,7 @@ def sweep_occupancy(plan: SweepPlan, W: int, two_piece: bool, with_traceback: bo
                 "resident_pairs_per_sm": 2 * blocks.value * plan.pairs_per_block,
                 "warps_per_pair": plan.warps_per_pair}
     scratch = int(plan.route == "wide" and not plan.smem_bytes)
-    err = _library().nw_sweep_occupancy(plan.lanes, int(two_piece), int(with_traceback), W,
+    err = _library().nw_sweep_occupancy(plan.lanes, int(two_piece), int(with_traceback), int(snapshot), W,
                                         plan.pairs_per_block, plan.pair_bytes, scratch, plan.threads,
                                         ctypes.byref(regs), ctypes.byref(blocks), ctypes.byref(smem))
     if err != 0:
@@ -935,6 +951,17 @@ def nw_align_reference(Q, T, qlens, tlens, *, mismatch, o1, e1, o2, e2, band, tm
 
 
 # -- kernel A, segment mode ------------------------------------------------------
+
+
+def snapshot_rows(t_snap: torch.Tensor, tmax: int, tmax_pad: int) -> torch.Tensor:
+    """The traceback rows [B, tmax_pad] bool that kernel A's snapshot mode
+    promises equal to nw_align_reference's: each row's rows 0 ..
+    min(t_snap + 1, tmax), those the fold's start walk reads (it walks back
+    from the crossing at t_snap or t_snap + 1).  On the register route the
+    kernel leaves the rows past them unwritten, or runs them only as far as
+    a score within tmax needs."""
+    last = torch.clamp(t_snap.to(torch.int64) + 1, max=tmax)
+    return torch.arange(tmax_pad, device=t_snap.device)[None, :] <= last[:, None]
 
 
 def _check_segment(Q, T, qlens, tlens, carry, scores, band, t0, seg):

@@ -10,9 +10,10 @@ deterministic operations (the counterparts of ``seqrush_tpu/ops/unionfind.py``):
 * ``compress(parent)`` -- afterwards ``parent[i]`` is the representative of i.
 
 On a GPU both, and ``find``, run the hand-written kernels of
-``csrc/unionfind.cu`` (a lock-free CAS hook over the edges, then a chase of
-every slot to its root: two launches a unite, no read back to the host);
-on the CPU they run their plain versions, ``unite_edges_reference``
+``csrc/unionfind.cu`` (a unite is one cooperative launch: a lock-free CAS
+hook over the edges, a grid barrier, then a chase of every slot to its
+root; no read back to the host); on the CPU they run their plain versions,
+``unite_edges_reference``
 (scatter-min hooks, ``scatter_reduce_(..., "amin")``, alternated with
 pointer jumping until nothing changes), ``compress_reference``
 (``parent = parent[parent]`` until a fixpoint) and ``find_reference``, each
@@ -31,11 +32,19 @@ index directly.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
 from ..utils import resolve_device
 from . import nw_cuda
+
+
+# the counts of the hook's own timer (csrc/unionfind.cu, UF_COUNT_*, built
+# only into tools/uf_timing.py's library), in the kernel's order
+UF_COUNTS = ("edges", "first_hop_equal", "no_cas", "finds", "hops", "find_cycles", "halving_stores", "cas",
+             "cas_failed", "max_hops", "compress_hops")
 
 
 def create(capacity: int, device: str | torch.device = "cuda") -> torch.Tensor:
@@ -108,13 +117,41 @@ def _launch(kernel: str, device: torch.device, *args) -> None:
     nw_cuda.LAUNCHES[kernel] += 1
 
 
-def _hook_cuda(parent: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> None:
-    """uf_hook_kernel on parent in place: afterwards every (u[e], v[e])
-    shares a root.  u and v are int32 on parent's card; no launch for no
-    edges."""
-    if u.numel():
-        _launch("uf_hook", parent.device, parent.data_ptr(), u.data_ptr(), v.data_ptr(), u.numel(),
-                parent.numel())
+# threads a block of csrc/unionfind.cu's kernels (UF_THREADS there)
+UF_THREADS = 256
+_OCCUPANCY: dict = {}
+
+
+def unite_grid(n_edges: int, n_slots: int, blocks_per_sm: int, sms: int) -> int:
+    """Blocks of a unite's cooperative launch: one thread an edge or a slot,
+    whichever are more, up to the blocks the card holds at once (the grid
+    strides over the rest)."""
+    if blocks_per_sm < 1 or sms < 1:
+        raise ValueError(f"the card holds {blocks_per_sm} blocks of the unite on each of {sms} SMs")
+    need = -(-max(n_edges, n_slots, 1) // UF_THREADS)
+    return min(need, blocks_per_sm * sms)
+
+
+def _occupancy(device: torch.device) -> tuple[int, int]:
+    """(blocks an SM, SMs) of uf_unite_kernel on device, asked once."""
+    key = device.index if device.index is not None else torch.cuda.current_device()
+    if key not in _OCCUPANCY:
+        bps, sms = ctypes.c_int(), ctypes.c_int()
+        with torch.cuda.device(device):
+            err = nw_cuda._library().uf_unite_occupancy(ctypes.byref(bps), ctypes.byref(sms))
+        if err != 0:
+            raise RuntimeError(f"uf_unite occupancy query failed with CUDA error {err}")
+        _OCCUPANCY[key] = (bps.value, sms.value)
+    return _OCCUPANCY[key]
+
+
+def _unite_cuda(parent: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> None:
+    """uf_unite_kernel on parent in place, one cooperative launch: afterwards
+    every (u[e], v[e]) shares a root and parent[i] is the root of i.  u and
+    v are int32 on parent's card (none: only the compress)."""
+    grid = unite_grid(u.numel(), parent.numel(), *_occupancy(parent.device))
+    _launch("uf_unite", parent.device, parent.data_ptr(), u.data_ptr(), v.data_ptr(), u.numel(), parent.numel(),
+            grid)
 
 
 def _compress_cuda(parent: torch.Tensor) -> None:
@@ -131,8 +168,9 @@ def unite_edges(parent: torch.Tensor, u, v) -> torch.Tensor:
     roots are each component's smallest input root, whatever the edge order.
     On a GPU: the edges as int32 on the card (numpy or CPU edges are cast on
     the host before the copy, edges on the card are cast there), then one
-    launch of uf_hook_kernel and one of uf_compress_kernel on a copy of
-    parent; an empty edge list only compresses, as in the JAX package."""
+    cooperative launch of uf_unite_kernel on a copy of parent (the hook, a
+    grid barrier, the compress); an empty edge list only compresses, as in
+    the JAX package."""
     if parent.device.type == "cpu":
         return unite_edges_reference(parent, u, v)
     _check_parent(parent)
@@ -141,8 +179,8 @@ def unite_edges(parent: torch.Tensor, u, v) -> torch.Tensor:
     v32 = edges_on(v, out.device)
     if u32.shape != v32.shape:
         raise ValueError(f"u has {u32.numel()} entries and v {v32.numel()}")
-    _hook_cuda(out, u32, v32)
-    _compress_cuda(out)
+    if out.numel():
+        _unite_cuda(out, u32, v32)
     return out
 
 

@@ -140,6 +140,17 @@ def synth_flush_edges(n_seqs=1000, length=3300, n_edges=50_000_000, min_run=20, 
     return u, v
 
 
+def deep_forest(n_slots, seed=5):
+    """An uncompressed union-find forest of n_slots: each slot below a random
+    smaller slot with probability 1/2, else a root; roots are minima of
+    their trees, as a unite leaves them, and chains run a few hops deep.
+    Returns an int32 parent array."""
+    rng = np.random.default_rng(seed)
+    idx = np.arange(n_slots)
+    parent = np.where(rng.random(n_slots) < 0.5, (rng.random(n_slots) * idx).astype(np.int64), idx)
+    return parent.astype(np.int32)
+
+
 def walk_gap_pairs(seed=19):
     """The pairs of walk_gap_corpus, (query, target) base codes: gap runs of
     1 to 200 steps (past a diagonal or gap ballot's 32 steps and a walk

@@ -20,8 +20,9 @@ traceback; with --each-strip, every warps-a-twin count of the packed sweep
 int32 strip (``int32_body_ms``), each held bit-equal first.
 
 --root imports seqrush_tpu_torch from another checkout, such as an earlier
-commit unpacked with ``git archive``; only ``nw_align`` is used then, so
-two versions of the kernel can be timed on one card in one call.  --ptxas
+commit unpacked with ``git archive`` (``load_root``, under a name of its
+own); only ``nw_align`` is used then, so two versions of the kernel can be
+timed on one card in one call.  --ptxas
 first prints the registers, stack and spills ptxas reports for each kernel
 of that checkout's build (empty when the library was already built).
 """
@@ -30,6 +31,8 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import importlib
+import importlib.util
 import json
 import statistics
 import subprocess
@@ -101,21 +104,27 @@ def cuda_ms(fn, reps: int) -> float:
 SPIN_CYCLES = 2_000_000
 
 
-def spun_ms(fn, reps: int) -> float:
+def spun_ms(fn, reps: int, setup=None) -> float:
     """Median CUDA-event time of fn() over reps runs after one warm-up, each
     behind a spin of the card (torch.cuda._sleep) long enough for the host
     to enqueue fn's launches, so the events time the kernels alone and not
     the host's issue of a launch of a few microseconds (which cuda_ms
-    counts)."""
-    fn()
+    counts).  With setup, each run calls fn(setup()), setup's work (a copy
+    of an input the launch writes in place) done before the spin and left
+    out of the time."""
+    def inputs():
+        return (setup(),) if setup is not None else ()
+
+    fn(*inputs())
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
+        args = inputs()
         torch.cuda.synchronize()
         torch.cuda._sleep(SPIN_CYCLES)
         start.record()
-        fn()
+        fn(*args)
         stop.record()
         stop.synchronize()
         times.append(start.elapsed_time(stop))
@@ -144,6 +153,69 @@ def device_ms(fn, kernel: str, reps: int) -> float | None:
     return total_us / 1e3 / len(hits) if hits and total_us else None
 
 
+def load_root(root: Path, alias: str):
+    """root's seqrush_tpu_torch package imported as `alias` (its modules
+    import each other relatively, so they resolve inside it); returns its
+    ops.nw_cuda."""
+    pkg = root / "seqrush_tpu_torch"
+    spec = importlib.util.spec_from_file_location(alias, pkg / "__init__.py",
+                                                  submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[alias] = mod
+    spec.loader.exec_module(mod)
+    return importlib.import_module(f"{alias}.ops.nw_cuda")
+
+
+def ptxas_lines(log: str, pick: str = "") -> list[str]:
+    """ptxas' lines of nvcc's -Xptxas=-v log (registers; stack frame and
+    spills), each after the name of its kernel, for the kernels whose
+    mangled name holds pick."""
+    out, name = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and pick in name and ("Used" in line or "spill" in line):
+            out.append(f"{name}: {line.split(':', 1)[-1].strip()}")
+    return out
+
+
+def build_one(root: Path, src_name: str, out_dir: Path, flags: tuple[str, ...] = (),
+              pick: str = "") -> tuple[Path, list[str]]:
+    """nvcc of root's seqrush_tpu_torch/ops/csrc/<src_name> alone (with
+    flags) into a library of its own under out_dir, named by a hash of the
+    source and flags; returns its path and ptxas_lines(log, pick)."""
+    from seqrush_tpu_torch.ops import nw_cuda
+
+    src = root / "seqrush_tpu_torch" / "ops" / "csrc" / src_name
+    tag = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:12]
+    lib = out_dir / f"{Path(src_name).stem}-{tag}.so"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    res = subprocess.run([nw_cuda._nvcc(), *nw_cuda._NVCC_FLAGS, *flags, "-shared", "-o", str(lib), str(src)],
+                         capture_output=True, text=True)
+    if res.returncode:
+        raise RuntimeError(f"nvcc failed for {src}:\n{res.stdout}{res.stderr}")
+    return lib, ptxas_lines(res.stdout + res.stderr, pick)
+
+
+def snapshot_rows_err(tb_k: torch.Tensor, tb_p: torch.Tensor, t_snap: torch.Tensor, tmax: int) -> int:
+    """Largest |tb_k - tb_p| of two snapshot-mode tracebacks over the rows
+    the mode promises (nw_cuda.snapshot_rows: each row's rows 0 .. t_snap +
+    1; the register route leaves the others unwritten), a slice of rows at
+    a time."""
+    from seqrush_tpu_torch.ops import nw_cuda
+
+    if tb_k.shape != tb_p.shape:
+        raise AssertionError(f"shape mismatch {tuple(tb_k.shape)} vs {tuple(tb_p.shape)}")
+    rows = nw_cuda.snapshot_rows(t_snap, tmax, tb_k.shape[1])
+    step = max(1, (1 << 27) // max(1, tb_k[0].numel()))
+    err = 0
+    for k in range(0, tb_k.shape[0], step):
+        keep = rows[k : k + step, :, None]
+        diff = torch.where(keep, tb_k[k : k + step].to(torch.int64) - tb_p[k : k + step].to(torch.int64), 0)
+        err = max(err, int(diff.abs().max().item()) if diff.numel() else 0)
+    return err
+
+
 def strips(nw_cuda, B: int, W: int, Lq: int, Lt: int):
     """(label, plan) of every strip that covers W, and the wide route with
     its rows in a global scratch where the planner keeps them in shared
@@ -153,7 +225,7 @@ def strips(nw_cuda, B: int, W: int, Lq: int, Lt: int):
         for s in nw_cuda.SWEEP_LANES:
             wpp = -(-W // (32 * s))
             if 32 * wpp <= nw_cuda._MAX_THREADS[s]:
-                out.append((f"{s} lanes x {wpp} warps", nw_cuda._regs_plan(B, W, Lq, Lt, s, wpp)))
+                out.append((f"{s} lanes x {wpp} warps", nw_cuda._regs_plan(B, W, Lq, Lt, s, wpp, None)))
     else:
         plan = nw_cuda.wide_plan(B, W)
         if plan.smem_bytes:
@@ -173,8 +245,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("sweep_shapes: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(args.root.resolve()))
-    from seqrush_tpu_torch.ops import nw_cuda
+    nw_cuda = load_root(args.root.resolve(), "_sweep_root")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -182,9 +253,8 @@ def main(argv=None) -> int:
     ).stdout.strip().splitlines()[0]
     if args.ptxas:
         _path, log = nw_cuda.build()
-        for line in log.splitlines():
-            if "Compiling entry function" in line or "Used" in line or "spill" in line:
-                print(json.dumps({"root": str(args.root), "ptxas": line.strip()}), flush=True)
+        for line in ptxas_lines(log):
+            print(json.dumps({"root": str(args.root), "ptxas": line}), flush=True)
     dev = torch.device("cuda")
     for spec in args.shapes.split(","):
         B, W = (int(x) for x in spec.split(":"))

@@ -38,7 +38,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
 import json
 import statistics
 import subprocess
@@ -48,31 +47,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .sweep_shapes import spun_ms
+from .sweep_shapes import build_one, spun_ms
 
 _REPO = Path(__file__).resolve().parents[2]
-
-
-def build_walk(root: Path, out_dir: Path) -> tuple[Path, list[str]]:
-    """nvcc of root's csrc/nw_walk.cu alone into a library; returns its path
-    and ptxas' lines for the walk kernels."""
-    from seqrush_tpu_torch.ops import nw_cuda
-
-    src = root / "seqrush_tpu_torch" / "ops" / "csrc" / "nw_walk.cu"
-    tag = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    lib = out_dir / f"nw_walk-{tag}.so"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    res = subprocess.run([nw_cuda._nvcc(), *nw_cuda._NVCC_FLAGS, "-shared", "-o", str(lib), str(src)],
-                         capture_output=True, text=True)
-    if res.returncode:
-        raise RuntimeError(f"nvcc failed for {src}:\n{res.stdout}{res.stderr}")
-    lines, name = [], None
-    for line in (res.stdout + res.stderr).splitlines():
-        if "Compiling entry function" in line:
-            name = line.split("'")[1]
-        elif "Used" in line and name and "walk" in name:
-            lines.append(f"{name}: {line.split('Used', 1)[1].strip()}")
-    return lib, lines
 
 
 class Walk:
@@ -282,7 +259,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     walks = {}
     for spec in args.root or [str(_REPO)]:
-        path, ptxas = build_walk(Path(spec).resolve(), _REPO / "build" / "walk_timing")
+        path, ptxas = build_one(Path(spec).resolve(), "nw_walk.cu", _REPO / "build" / "walk_timing", pick="walk")
         walks[spec] = Walk(path)
         print(json.dumps({"root": spec, "timer": walks[spec].timed, "ptxas": ptxas}), flush=True)
     sites = headline_sites(set(args.sites.split(",")), dev)

@@ -824,7 +824,7 @@ def _long_launches(n_fwd, n_grp, n_gwalk, n_seg_tb, n_seg_walk):
             "nw_walk_segment_group": n_gwalk, "wfa": 0, "wfa_score_only": 0,
             "nw_sweep_int16": 0, "nw_sweep_snapshot": 0, "nw_walk_start": 0, "nw_rows_sweep": 0,
             "nw_rows_walk": 0, "nw_sweep_tiled": 0, "nw_walk_runs_tiled": 0,
-            "nw_sweep_sharded": 0, "fold_combine": 0, "sgd_tick": 0, "uf_hook": 0, "uf_compress": 0,
+            "nw_sweep_sharded": 0, "fold_combine": 0, "sgd_tick": 0, "uf_unite": 0, "uf_compress": 0,
             "uf_find": 0}
 
 
@@ -1261,9 +1261,11 @@ def test_int16_score_only_equals_plain(cuda, band, pen):
     ],
 )
 def test_snapshot_sweep_equals_plain(cuda, band, two_piece, int16, plan):
-    """Kernel A's snapshot mode: SNAP, DIAGA and DIAGB (and the scores and
-    traceback) exactly the plain version's, with t_snap 0, in the middle,
-    at tmax - 1 and past a pair's end."""
+    """Kernel A's snapshot mode: SNAP, DIAGA and DIAGB, the scores and each
+    row's traceback rows 0 .. t_snap + 1 (nw_cuda.snapshot_rows: the rows
+    past them the register route leaves unwritten) exactly the plain
+    version's, with t_snap 0, in the middle, at tmax - 1 and past a pair's
+    end."""
     rng = np.random.default_rng(band + 3)
     (Q, T, ql, tl), tmax = _pack(*_variants(rng, 10, 600, band, 0.0), cuda)
     kw = _penalties(two_piece, band, tmax)
@@ -1279,7 +1281,9 @@ def test_snapshot_sweep_equals_plain(cuda, band, two_piece, int16, plan):
         out_k = nw_cuda.sweep_launch(Q, T, ql, tl, p, int16=int16, t_snap=t_snap, **kw)
     torch.cuda.synchronize()
     out_p = nw_cuda.nw_align_reference(Q, T, ql, tl, int16=int16, t_snap=t_snap, **kw)
-    assert torch.equal(out_k[0], out_p[0]) and torch.equal(out_k[1], out_p[1])
+    rows = nw_cuda.snapshot_rows(t_snap, tmax, out_p[1].shape[1])[:, :, None]
+    assert torch.equal(out_k[0], out_p[0])
+    assert torch.equal(torch.where(rows, out_k[1], 0), torch.where(rows, out_p[1], 0))
     for a, b in zip(out_k[2], out_p[2]):
         assert torch.equal(a, b)
 
@@ -1898,8 +1902,8 @@ def test_unionfind_kernels_equal_plain(cuda, name):
     before = dict(nw_cuda.LAUNCHES)
     got = uf.unite_edges(p, u, v)
     torch.cuda.synchronize()
-    assert nw_cuda.LAUNCHES["uf_hook"] == before["uf_hook"] + (1 if u.size else 0)
-    assert nw_cuda.LAUNCHES["uf_compress"] == before["uf_compress"] + 1
+    assert nw_cuda.LAUNCHES["uf_unite"] == before["uf_unite"] + 1
+    assert nw_cuda.LAUNCHES["uf_compress"] == before["uf_compress"]
     assert got.dtype == torch.int32 and got.device == p.device
     assert torch.equal(got, uf.unite_edges_reference(p, u, v))
     assert torch.equal(got.cpu(), uf.unite_edges_reference(torch.from_numpy(parent.copy()), u, v))
@@ -1935,6 +1939,44 @@ def test_unionfind_run_edges_equal_plain(cuda, n_seqs, n_edges):
     assert torch.equal(first[runs[0].long()], runs[0])
 
 
+@pytest.mark.parametrize("name", ["star", "reverse_chain", "self_loops_duplicates", "runs", "flush_2m"])
+def test_unionfind_ten_runs_equal_plain(cuda, name):
+    """Ten unites of one input on the card give one parent, the plain
+    version's: a star (every edge onto one root, the CAS's most shared
+    target), a chain given in reverse order (the longest climbs),
+    self-loops and duplicate edges, match runs, and a 2 M-edge flush of
+    match runs after the F/R pre-unite (tools/headline.py::
+    synth_flush_edges)."""
+    if name == "flush_2m":
+        p0 = _pre_united(cuda, 300, 3300)
+        u, v = synth_flush_edges(n_seqs=300, length=3300, n_edges=2_000_000, seed=7)
+    else:
+        parent, u, v = uf_cases()[name]
+        p0 = torch.from_numpy(parent).to(cuda)
+    ud, vd = torch.from_numpy(u).to(cuda), torch.from_numpy(v).to(cuda)
+    want = uf.unite_edges_reference(p0, ud, vd)
+    for _ in range(10):
+        assert torch.equal(uf.unite_edges(p0, ud, vd), want)
+
+
+def test_unite_grid_fits_the_card(cuda):
+    """The unite's cooperative grid is what the card holds at once or less:
+    a launch at the full grid and at one block more (refused, raising)."""
+    bps, sms = uf._occupancy(cuda)
+    assert bps >= 1 and sms == torch.cuda.get_device_properties(cuda).multi_processor_count
+    parent, u, v = uf_cases()["runs"]
+    p = torch.from_numpy(parent).to(cuda)
+    ud, vd = uf.edges_on(u, cuda), uf.edges_on(v, cuda)
+    want = uf.unite_edges_reference(p, ud, vd)
+    for grid in (1, bps * sms):
+        out = p.clone()
+        uf._launch("uf_unite", cuda, out.data_ptr(), ud.data_ptr(), vd.data_ptr(), ud.numel(), out.numel(), grid)
+        assert torch.equal(out, want)
+    with pytest.raises(RuntimeError):
+        uf._launch("uf_unite", cuda, p.clone().data_ptr(), ud.data_ptr(), vd.data_ptr(), ud.numel(), p.numel(),
+                   bps * sms + 1)
+
+
 def test_unionfind_edge_types_equal(cuda):
     """Edges as int64 and int32 numpy, as int32 and int64 tensors on the
     CPU and on the card: one parent."""
@@ -1948,9 +1990,10 @@ def test_unionfind_edge_types_equal(cuda):
 
 
 def test_unite_is_two_launches_and_reads_nothing_back(cuda):
-    """With the edges on the card a unite is exactly two launches (hook,
-    compress) and no device-to-host read (torch's sync debug mode raises
-    on one); compress and find one launch each, also without a read."""
+    """With the edges on the card a unite is exactly one launch (the hook
+    and the compress behind a grid barrier; two launches before the fused
+    design) and no device-to-host read (torch's sync debug mode raises on
+    one); compress and find one launch each, also without a read."""
     parent, u, v = uf_cases()["runs"]
     p = torch.from_numpy(parent).to(cuda)
     ud, vd = torch.from_numpy(u).to(cuda), torch.from_numpy(v).to(cuda)
@@ -1965,8 +2008,8 @@ def test_unite_is_two_launches_and_reads_nothing_back(cuda):
         roots = uf.find(out, ud)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    assert sum(launched.values()) == 2 and launched["uf_hook"] == launched["uf_compress"] == 1
-    assert nw_cuda.LAUNCHES["uf_compress"] == 2 and nw_cuda.LAUNCHES["uf_find"] == 1
+    assert sum(launched.values()) == 1 and launched["uf_unite"] == 1
+    assert nw_cuda.LAUNCHES["uf_compress"] == 1 and nw_cuda.LAUNCHES["uf_find"] == 1
     assert torch.equal(roots, uf.find_reference(out, ud))
 
 

@@ -112,6 +112,42 @@ def test_fold_equals_jax(case, odd, int16):
     np.testing.assert_array_equal(merged, jnw.merge_fold_ops(ops_p.numpy(), cm_p.numpy()))
 
 
+@pytest.mark.parametrize("int16", [False, True])
+@pytest.mark.parametrize("odd", [0, 1])
+def test_fold_reads_no_row_past_t_snap_plus_one(odd, int16):
+    """The snapshot mode's traceback is promised only in each row's rows 0 ..
+    t_snap + 1 (nw_cuda.snapshot_rows; the card leaves the rest unwritten):
+    with every row past them overwritten by random bytes, the combine's and
+    the start walk's plain versions give the untouched run's scores,
+    opcodes and crossings (and the JAX package's fold's)."""
+    Q, T, Qr, Tr, ql, tl = (torch.from_numpy(a) for a in _fold_batch(11 + odd, odd))
+    band, tmax_half = 95, 512
+    pen = dict(zip(("mismatch", "o1", "e1", "o2", "e2"), PENALTIES["two_piece"]))
+    fin = ql + tl
+    tm = torch.div(fin + 1, 2, rounding_mode="floor")
+    t_snap = torch.cat([tm, fin - tm]).to(torch.int32)
+    _s, tb, (SNAP, DIAGA, DIAGB) = nw_cuda.nw_align(torch.cat([Q, Qr]), torch.cat([T, Tr]), torch.cat([ql, ql]),
+                                                    torch.cat([tl, tl]), band=band, tmax=tmax_half, int16=int16,
+                                                    t_snap=t_snap, **pen)
+    rows = nw_cuda.snapshot_rows(t_snap, tmax_half, tb.shape[1])
+    assert not rows.all()
+    noise = torch.from_numpy(np.random.default_rng(odd).integers(0, 256, tuple(tb.shape), dtype=np.uint8))
+    scrambled = torch.where(rows[:, :, None], tb, noise)
+    comb = dict(o1=pen["o1"], o2=pen["o2"], band=band)
+    got = []
+    for t in (tb, scrambled):
+        scores, state, cross_m = nw_cuda.fold_combine_reference(SNAP, DIAGA, DIAGB, ql, tl, **comb)
+        got.append((scores, nw_cuda.nw_walk_start_reference(t, state, band=band, tmax=tmax_half), cross_m))
+    for a, b in zip(*got):
+        assert torch.equal(a, b)
+    s_j, packed, cm_j = jnw.nw_align_fold(*(jnp.asarray(a.numpy()) for a in (Q, T, Qr, Tr, ql, tl)), band=band,
+                                          tmax_half=tmax_half, use_int16=int16, **pen)
+    ops_j = jnw.unpack_opcodes(np.asarray(packed), np.asarray(packed).shape[1] * 4)
+    np.testing.assert_array_equal(np.asarray(s_j), got[1][0].numpy())
+    np.testing.assert_array_equal(ops_j[:, : got[1][1].shape[1]], got[1][1].numpy())
+    np.testing.assert_array_equal(np.asarray(cm_j), got[1][2].numpy())
+
+
 def test_walk_start_equals_jax():
     """Kernel B's start mode against _tb_scan_tbw(start=...) from arbitrary
     cursors: every material, the band's edge lanes, anti-diagonal 0."""

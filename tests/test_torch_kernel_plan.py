@@ -665,3 +665,23 @@ def test_rows_walk_smem():
     for G in (0, nw_cuda.ROWS_WALK_RING + 1):
         with pytest.raises(ValueError):
             nw_cuda.rows_walk_smem(G)
+
+
+# -- the snapshot mode's rounds (snap_rounds) ----------------------------------
+
+
+@pytest.mark.parametrize("B,resident,sms,want", [(1152, 4, 132, 3), (1152, 5, 132, 2), (528, 4, 132, 1),
+                                                 (529, 4, 132, 2), (1, 1, 132, 1), (132 * 9, 5, 132, 2)])
+def test_snap_rounds(B, resident, sms, want):
+    """Rounds of pairs on the busiest SM: B pairs over the SMs, resident at
+    once on each."""
+    assert nw_cuda.snap_rounds(B, resident, sms) == want
+
+
+def test_fold_chunk_plan():
+    """The fold's largest headline chunk [1,152 rows, W 768] takes 8 lanes x
+    3 warps, a pair a block of 96 threads: at the four pairs an SM its 168
+    registers hold, three rounds of rows on the busiest SM."""
+    plan = nw_cuda.plan_sweep(1152, 768, 3584, 3584)
+    assert (plan.route, plan.lanes, plan.warps_per_pair, plan.pairs_per_block, plan.threads) == ("regs", 8, 3, 1, 96)
+    assert nw_cuda.snap_rounds(plan.blocks * plan.pairs_per_block, 65536 // (168 * plan.threads)) == 3

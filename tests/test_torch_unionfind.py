@@ -180,3 +180,35 @@ def test_cpu_runs_no_kernel():
     b.unite(4, 9)
     assert b.same(4, 9)
     assert nw_cuda.LAUNCHES == before
+
+
+@pytest.mark.parametrize("n_edges,n_slots,bps,sms,want", [
+    (1_840_217, 164_952, 8, 132, 1056),  # the headline flush: the whole card, the grid strides
+    (0, 164_952, 8, 132, 645),  # no edges: a thread a slot
+    (1000, 50, 8, 132, 4),  # fewer slots than edges: a thread an edge
+    (0, 1, 8, 132, 1),
+    (50_000_000, 6_600_002, 6, 132, 792),  # fewer blocks an SM than the launch bound's
+])
+def test_unite_grid(n_edges, n_slots, bps, sms, want):
+    """The unite's cooperative grid: a thread an edge or a slot, whichever
+    are more, never more blocks than the card holds at once."""
+    assert tuf.unite_grid(n_edges, n_slots, bps, sms) == want
+
+
+def test_unite_grid_refuses_a_card_that_holds_no_block():
+    with pytest.raises(ValueError):
+        tuf.unite_grid(10, 10, 0, 132)
+
+
+def test_uf_constants_equal_the_kernel():
+    """UF_THREADS and the timer's count names (UF_COUNTS) are the ones
+    csrc/unionfind.cu defines, in its order."""
+    import re
+    from pathlib import Path
+
+    src = (Path(tuf.__file__).parent / "csrc" / "unionfind.cu").read_text()
+    assert int(re.search(r"constexpr int UF_THREADS = (\d+);", src).group(1)) == tuf.UF_THREADS
+    counts = dict((int(k), name) for name, k in re.findall(r"#define UF_COUNT_(\w+) (\d+)", src))
+    assert int(re.search(r"#define UF_COUNTS (\d+)", src).group(1)) == len(tuf.UF_COUNTS) == len(counts)
+    names = [counts[k].lower() for k in range(len(counts))]
+    assert names == list(tuf.UF_COUNTS)
