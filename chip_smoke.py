@@ -141,9 +141,11 @@ Phases (any failure exits non-zero and prints no ok line):
      route untiled and tiled, in turns (the runner's seconds), the tiled
      records equal to the untiled ones; kernel A's tiled mode and kernel B's
      tiled runs mode against their plain versions on every tiled chunk of
-     phase 9's tiled and tiled_int16 runs; on the merged chunk the tiled
-     sweep and walk timed against the same pairs split as the untiled
-     runner splits them; the phase's wall time;
+     phase 9's tiled and tiled_int16 runs (the sweep's traceback on the rows
+     it promises, nw_cuda.tiled_promised_rows); on the merged chunk the
+     tiled sweep's registers, spills and blocks an SM, both chunks' sweeps
+     timed, and sweep and walk timed against the same pairs split as the
+     untiled runner splits them; the phase's wall time;
  11. the mesh paths on the one card, D shards placed by Mesh([cuda:0] * D)
      (see run_phase11): a ~24 kb pair with an 8 kb translocation, over the
      default memory budget, through the band-sharded route (kernel A's
@@ -286,7 +288,7 @@ import numpy as np
 import torch
 
 from seqrush_tpu_torch.tools.headline import SCORES, WFA_BAND_SLACK, synth_hla
-from seqrush_tpu_torch.tools.sweep_shapes import SPIN_CYCLES, device_ms, snapshot_rows_err, spun_ms
+from seqrush_tpu_torch.tools.sweep_shapes import SPIN_CYCLES, device_ms, masked_rows_err, snapshot_rows_err, spun_ms
 
 HBM_BYTES_PER_S = 3.35e12
 ISSUE_OPS_PER_S = 33.5e12  # 32-bit lane instructions of any kind
@@ -633,6 +635,9 @@ def ptxas_summary(log: str) -> list[str]:
                 name += "<timed>" if w.group(1) == "1" else ""  # the walk's timer on (a timing tool's)
             elif name == "nw_sweep_tiled_wide" and w:
                 name += f"<{'int16' if w.group(1) == '1' else 'int32'}>"
+            elif name == "nw_sweep_tiled_regs" and t:
+                name += (f"<{t.group(1)}, {'two' if t.group(2) == '1' else 'one'}-piece"
+                         f"{', timed' if t.group(3) == '1' else ''}>")
             elif t:
                 name += (f"<{t.group(1)}, {'two' if t.group(2) == '1' else 'one'}-piece, "
                          f"{'traceback' if t.group(3) == '1' else 'score-only'}>")
@@ -2729,14 +2734,19 @@ def run_phase10(smi: str, ptxas: list[str], ctx: dict) -> list[dict]:
          must equal the untiled run's (each pair at its own band either way).
     10b. kernel A's tiled mode and kernel B's tiled runs mode against their
          plain versions on every distinct tiled chunk of phase 9's tiled and
-         tiled_int16 runs (scores, the whole tile-row traceback, tokens,
-         counts), exactly.  On the tiled run's first chunk, CUDA-event
-         medians of the tiled sweep and walk (the walk behind a spin of the
-         card, spun_ms, with its registers and its phase split from its own
-         timer), and of the same pairs split as the untiled runner splits
-         them (the narrow jobs at their band, the wide ones at theirs: sweep
-         and runs walk of each), the two in turns (split, tiled, tiled,
-         split); the plain versions once.
+         tiled_int16 runs, exactly: scores, the tile-row traceback on every
+         row the tiled mode promises (each pair's rows 0 .. min(tmax,
+         t_final + 2), nw_cuda.tiled_promised_rows; its register route
+         leaves the later rows unwritten and the walk starts at t_final),
+         and tokens and counts.  On the tiled run's first chunk the
+         tiled sweep's registers, spills and resident blocks an SM, and
+         CUDA-event medians of the tiled sweep (and of the tiled_int16
+         chunk's) and walk behind a spin of the card (spun_ms; the walk with
+         its registers and its phase split from its own timer), and of the
+         same pairs split as the untiled runner splits them (the narrow jobs
+         at their band, the wide ones at theirs: sweep and runs walk of
+         each), the two in turns (split, tiled, tiled, split); the plain
+         versions once.
     Returns the kernels line's entries of the two tiled modes."""
     from seqrush_tpu_torch.align.runner import RunnerConfig, WfaAligner, _TiledChunk
     from seqrush_tpu_torch.ops import nw, nw_cuda
@@ -2800,13 +2810,15 @@ def run_phase10(smi: str, ptxas: list[str], ctx: dict) -> list[dict]:
             s_k, tb_k = nw_cuda.nw_align_tiled(Qd, Td, qd, td, tile, wide, **kw)
             plain_ms, (s_p, tb_p) = once_ms(lambda: nw_cuda.nw_align_tiled_reference(Qd, Td, qd, td, tile, wide,
                                                                                       **kw))
-            err = max(max_abs_err(s_k, s_p), max_abs_err(tb_k, tb_p))
-            del tb_p
+            # the rows the tiled mode promises: each pair's 0 .. min(tmax, t_final + 2)
+            keep = nw_cuda.tiled_promised_rows(qd, td, tile, wide, d["n_tiles"], tmax, tb_k.shape[1])
+            err = max(max_abs_err(s_k, s_p), masked_rows_err(tb_k, tb_p, keep))
             wk = dict(run_max=nw.RUN_MAX, **lay)
             tok_k, cnt_k = nw_cuda.nw_walk_runs_tiled(tb_k, qd, td, tile, wide, **wk)
             plain_w_ms, (tok_p, cnt_p) = once_ms(
                 lambda: nw_cuda.nw_walk_runs_tiled_reference(tb_k, qd, td, tile, wide, **wk))
             err_w = max(max_abs_err(tok_k, tok_p), max_abs_err(cnt_k, cnt_p))
+            del tb_p
             W = d["band"] + 1
             plan = nw_cuda.plan_sweep_tiled(n_narrow, d["n_wide"], W, d["n_tiles"], Q.shape[1], T.shape[1])
             checked.append([name, Q.shape[0], W, d["n_tiles"], d["n_wide"], tmax, int(d["int16"]), plan.route,
@@ -2838,7 +2850,8 @@ def run_phase10(smi: str, ptxas: list[str], ctx: dict) -> list[dict]:
                 turns = {"split": [], "tiled": []}
                 for which in ("split", "tiled", "tiled", "split"):
                     turns[which].append(cuda_ms(run_tiled if which == "tiled" else run_split, REPS))
-                ms = cuda_ms(lambda: nw_cuda.nw_align_tiled(Qd, Td, qd, td, tile, wide, **kw), REPS)
+                ms = spun_ms(lambda: nw_cuda.nw_align_tiled(Qd, Td, qd, td, tile, wide, **kw), REPS)
+                occ = nw_cuda.tiled_occupancy(plan, pen["o2"] >= 0, W) if plan.route == "regs" else None
                 ms_w = spun_ms(lambda: nw_cuda.nw_walk_runs_tiled(tb_k, qd, td, tile, wide, **wk), REPS)
                 tok_t, cnt_t, wsplit = nw_cuda.walk_runs_split(tb_k, qd, td, band=d["band"], tmax=tmax,
                                                                run_max=nw.RUN_MAX, tiled=(tile, wide, d["n_tiles"]))
@@ -2853,7 +2866,8 @@ def run_phase10(smi: str, ptxas: list[str], ctx: dict) -> list[dict]:
                         lambda: nw_cuda.nw_walk_runs(tb_s, qs_, ts_, band=band_s, tmax=tmax_s, run_max=nw.RUN_MAX),
                         REPS)])
                     del tb_s
-                sb, so = sweep_bounds(Qd, Td, qd, td, lanes, tb_k.numel())
+                # the traceback bytes the launch must write: the rows it promises
+                sb, so = sweep_bounds(Qd, Td, qd, td, lanes, int(keep.sum().item()) * W)
                 steps = int(((tok_k >> 2) * (tok_k > 0)).sum().item())
                 B = Qd.shape[0]
                 wb = bound(steps + 4 * tok_k.numel() + 12 * B, steps * WALK_OPS_PER_STEP / ISSUE_OPS_PER_S * 1e3)
@@ -2865,12 +2879,16 @@ def run_phase10(smi: str, ptxas: list[str], ctx: dict) -> list[dict]:
                     "ms": ms, "plain_ms": plain_ms, "bound_ms": max(sb, so),
                     "bound_by": "bytes" if sb >= so else "operations", "max_abs_err": err,
                     "launches": launches_t["nw_sweep_tiled"], "split_ms": split_parts,
-                    "ptxas": ptxas_registers(ptxas, f"nw_sweep_tiled_regs<{plan.lanes}, two-piece>"), **common}
+                    "ptxas": ptxas_registers(ptxas, f"nw_sweep_tiled_regs<{plan.lanes}, two-piece>"),
+                    "ptxas_line": next((x for x in ptxas if x.startswith(f"nw_sweep_tiled_regs<{plan.lanes}, two-piece>:")),
+                                       None), "occupancy": occ, **common}
                 out["nw_walk_runs_tiled"] = {
                     "ms": ms_w, "plain_ms": plain_w_ms, **wb, "max_abs_err": err_w,
                     "launches": launches_t["nw_walk_runs_tiled"],
                     "ptxas": ptxas_registers(ptxas, "nw_walk_runs_tiled_kernel"),
                     "split": walk_split_summary(wsplit), **common}
+                print(f"  tiled sweep's kernel: {out['nw_sweep_tiled']['ptxas_line']}; occupancy {json.dumps(occ)} "
+                      f"| {smi}")
                 print(f"  timed: tiled sweep {ms:.4f} ms (bound {max(sb, so):.4f}; plain {plain_ms:.1f}), tiled walk "
                       f"{ms_w:.4f} ms (bound {wb['bound_ms']:.5f}; plain {plain_w_ms:.1f}; "
                       f"{out['nw_walk_runs_tiled']['ptxas']} registers); the same pairs split "
@@ -2878,7 +2896,11 @@ def run_phase10(smi: str, ptxas: list[str], ctx: dict) -> list[dict]:
                       f"split) {json.dumps(turns)} | {smi}")
                 print(f"  the tiled walk's phase split (SM cycles a walked pair, and each phase's count): "
                       f"{json.dumps(out['nw_walk_runs_tiled']['split'])} | {smi}")
-            del tb_k, tok_k, cnt_k, tok_p, cnt_p
+            if name == "tiled_int16" and "nw_sweep_tiled" in out and "ms_int16" not in out["nw_sweep_tiled"]:
+                out["nw_sweep_tiled"]["ms_int16"] = spun_ms(
+                    lambda: nw_cuda.nw_align_tiled(Qd, Td, qd, td, tile, wide, **kw), REPS)
+                print(f"  timed: tiled sweep, tiled_int16 chunk {out['nw_sweep_tiled']['ms_int16']:.4f} ms | {smi}")
+            del tb_k, tok_k, cnt_k, tok_p, cnt_p, keep
             torch.cuda.empty_cache()
     print(f"10b tiled chunks held to their plain versions [run, rows, W, tiles, wide, tmax, int16, route, lanes, "
           f"err sweep, err walk] {json.dumps(checked)}; phase 10 wall {time.time() - t_phase:.1f} s")

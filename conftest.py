@@ -11,16 +11,29 @@ collected, and every later process finds it built.
 ``native.py`` is loaded by its path, not through ``import seqrush_tpu``: it
 needs only the standard library and numpy, and importing the package could
 import jax before ``tests/conftest.py`` sets up its CPU devices.
+
+Each pytest-xdist worker also gets one torch intra-op thread.  The port's
+CPU paths issue many small torch ops; six workers each spinning torch's
+default pool of one thread a core on the same cores run them hundreds of
+times slower than one thread each.  No result depends on the thread count.
 """
 
 import fcntl
 import importlib.util
+import os
 from pathlib import Path
 
 _ROOT = Path(__file__).resolve().parent
 
 
 def pytest_configure(config):
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        try:
+            import torch
+        except ImportError:
+            pass
+        else:
+            torch.set_num_threads(1)
     native_py = _ROOT / "seqrush_tpu" / "native.py"
     if not native_py.exists():
         return

@@ -240,8 +240,9 @@ __device__ __forceinline__ void bar_pair(int pib, int count) {
 
 // One anti-diagonal of the recurrence over the thread's S lanes.  DP/DPP:
 // the lane shift to rows t-1 and t-2.  Lane k is valid iff
-// (unsigned)(k - vlo) <= vspan.  Packs the bytes into words[].
-template <int S, bool TWO, int DP, int DPP>
+// (unsigned)(k - vlo) <= vspan, or, with ALL (the caller knows every lane
+// is), always.  Packs the bytes into words[].
+template <int S, bool TWO, int DP, int DPP, bool ALL = false>
 __device__ __forceinline__ void sweep_step(Strip<S>& s, const Edges& e, const Pen& p, int vlo,
                                            uint32_t vspan, uint32_t (&words)[(S + 3) / 4]) {
   int nh[S], ni1[S], nd1[S], ni2[S], nd2[S];
@@ -260,7 +261,7 @@ __device__ __forceinline__ void sweep_step(Strip<S>& s, const Edges& e, const Pe
       d2_left = DP ? (k < S - 1 ? s.d2[k + 1] : e.d2r) : s.d2[k];
     }
     const int sub = s.qw[k] == s.tw[k] ? 0 : p.mis;
-    const int off = (uint32_t)(k - vlo) <= vspan ? 0 : p.neg;
+    const int off = (ALL || (uint32_t)(k - vlo) <= vspan) ? 0 : p.neg;
     const uint32_t byte = cell_keyed<TWO>(h_up, h_left, h_diag, i1_up, d1_left, i2_up, d2_left,
                                           sub, off, p, nh[k], ni1[k], nd1[k], ni2[k], nd2[k]);
     words[k >> 2] |= byte << (8 * (k & 3));
@@ -355,28 +356,6 @@ __device__ __forceinline__ void store_row(uint8_t* row, int s0, int W, int walig
 #pragma unroll
   for (int k = 0; k < S; ++k)
     if (s0 + k < W) row[s0 + k] = (uint8_t)(words[k >> 2] >> (8 * (k & 3)));
-}
-
-// Tiled mode: store the thread's S bytes of traceback row t into the pair's
-// tile rows (lane l at tile row l / tw, lane l % tw): as store_row into the
-// strip's tile row, byte by byte where the strip crosses a tile row's end.
-template <int S>
-__device__ __forceinline__ void store_row_tiled(const Pair& pr, int t,
-                                                const uint32_t (&words)[(S + 3) / 4]) {
-  if (pr.s0 >= pr.W) return;
-  if (!pr.split) {
-    store_row<S>(pr.tbb + pr.trow + (size_t)t * pr.tw, pr.tc0, pr.tw, pr.walign, words);
-    return;
-  }
-#pragma unroll
-  for (int k = 0; k < S; ++k) {
-    const int l = pr.s0 + k;
-    if (l < pr.W) {
-      const int tile = l / pr.tw;
-      pr.tbb[tile * pr.tstride + (size_t)t * pr.tw + (l - tile * pr.tw)] =
-          (uint8_t)(words[k >> 2] >> (8 * (k & 3)));
-    }
-  }
 }
 
 // shared-memory layout of one pair: padded query, padded reversed target,
@@ -482,9 +461,7 @@ __device__ __forceinline__ void snap_carry(const Strip<S>& s, const Pair& pr) {
 // the traceback row (TB), take the score at t_final, exchange the edges.
 // In segment mode the score is taken only where none was before.  In the
 // snapshot mode the captures of t_snap and t_snap + 1 are predicated stores.
-// In the tiled mode the row goes into the pair's tile rows and a block holds
-// up to four multi-warp pairs.
-template <int S, bool TWO, bool TB, bool SEG, bool SNAP, int DP, int DPP, bool TILED = false>
+template <int S, bool TWO, bool TB, bool SEG, bool SNAP, int DP, int DPP>
 __device__ __forceinline__ void advance(Strip<S>& s, Edges& e, const Pair& pr, const Pen& p,
                                         int t, int& qs, int& ts) {
   if (t > 1) slide_windows<S, SEG>(s, pr, t, qs, ts);
@@ -502,8 +479,7 @@ __device__ __forceinline__ void advance(Strip<S>& s, Edges& e, const Pair& pr, c
     snap_diag<S, DPP>(s, e, pr, p, vlo, vspan, t == pr.t_snap ? pr.diaga : pr.diagb);
   uint32_t words[(S + 3) / 4];
   sweep_step<S, TWO, DP, DPP>(s, e, p, vlo, vspan, words);
-  if (TB && TILED) store_row_tiled<S>(pr, t, words);
-  else if (TB) store_row<S>(pr.tbb + (size_t)(SEG ? t - pr.row0 : t) * pr.W, pr.s0, pr.W, pr.walign, words);
+  if (TB) store_row<S>(pr.tbb + (size_t)(SEG ? t - pr.row0 : t) * pr.W, pr.s0, pr.W, pr.walign, words);
   if (SNAP && t == pr.t_snap) snap_carry<S, TWO>(s, pr);
   if (t == pr.t_final) {
     const int fl = pr.qlen - i0 - pr.s0;
@@ -512,7 +488,7 @@ __device__ __forceinline__ void advance(Strip<S>& s, Edges& e, const Pair& pr, c
       if (k == fl && pr.s0 + k < pr.W && s.h1[k] < NW_INF && (!SEG || *pr.score < 0))
         *pr.score = s.h1[k];
   }
-  exchange<S, TWO, TILED ? 4 : 2>(s, e, pr, t & 1);
+  exchange<S, TWO>(s, e, pr, t & 1);
 }
 
 // Anti-diagonals [a, hi] of the recurrence in the phases of the shifts: up

@@ -271,8 +271,10 @@ def _library() -> ctypes.CDLL:
             lib.nw_walk_occupancy.restype = i32
             lib.nw_walk_timer_slots.argtypes = []
             lib.nw_walk_timer_slots.restype = i32
-            lib.nw_sweep_tiled_launch.argtypes = [ptr] * 8 + [i32] * 19 + [ptr]
+            lib.nw_sweep_tiled_launch.argtypes = [ptr] * 8 + [i32] * 19 + [ptr, ptr]
             lib.nw_sweep_tiled_launch.restype = i32
+            lib.nw_sweep_tiled_occupancy.argtypes = [i32] * 5 + [ptr] * 3
+            lib.nw_sweep_tiled_occupancy.restype = i32
             lib.nw_walk_runs_tiled_launch.argtypes = [ptr] * 6 + [i32] * 8 + [ptr, ptr]
             lib.nw_walk_runs_tiled_launch.restype = i32
             lib.wfa_launch.argtypes = [ptr] * 11 + [i32] * 15 + [ptr]
@@ -2251,10 +2253,13 @@ def nw_align_tiled(Q, T, qlens, tlens, tile, wide, *, mismatch, o1, e1, o2, e2, 
 
 
 def sweep_tiled_launch(Q, T, qlens, tlens, order, n_wide: int, plan: TiledPlan, *, mismatch, o1, e1, o2,
-                       e2, band, n_tiles, tmax, int16=False):
+                       e2, band, n_tiles, tmax, int16=False, timer=None):
     """Launch kernel A's tiled mode on checked CUDA tensors: order [n_pairs]
     int32 holds the wide pairs' first rows, then the narrow pairs'
-    (_tiled_order); plan is plan_sweep_tiled's, or another to compare."""
+    (_tiled_order); plan is plan_sweep_tiled's, or another to compare.
+    timer: None, or a zero-filled int64 tensor of TILED_TIMER_SLOTS a warp
+    of the launch, which takes the register route's timed instantiation
+    (sweep_tiled_split)."""
     if plan.route != "wide" and not register_route_penalties(mismatch, o1, e1, o2, e2, int16):
         raise ValueError("the register route takes penalties in [0, 2^16) only "
                          "(in int16, those whose adds cannot wrap)")
@@ -2278,12 +2283,115 @@ def sweep_tiled_launch(Q, T, qlens, tlens, order, n_wide: int, plan: TiledPlan, 
             tb.data_ptr(), order.data_ptr(), scratch.data_ptr() if scratch is not None else None,
             n_pairs, n_wide, n_tiles, Lq, T.shape[1], W, tmax, tmax_pad, mismatch, o1, e1, o2, e2,
             int(int16), plan.lanes, plan.warps_per_pair, plan.pair_bytes, plan.threads, plan.smem_bytes,
-            stream,
+            None if timer is None else timer.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"nw_sweep tiled launch failed with CUDA error {err}")
     LAUNCHES["nw_sweep_tiled"] += 1
     return scores, tb
+
+
+def tiled_promised_rows(qlens, tlens, tile, wide, n_tiles: int, tmax: int, tmax_pad: int) -> torch.Tensor:
+    """[B, tmax_pad] bool on qlens' device: the traceback rows kernel A's
+    tiled mode writes, each pair's rows 0 .. min(tmax, t_final + 2) on each
+    of its tile rows (a wide pair's t_final from its first row); the tiled
+    walk reads no other row (it starts at t_final)."""
+    fin = (qlens.to(torch.int64) + tlens.to(torch.int64)).clone()
+    B = fin.numel()
+    tile = np.asarray(tile, dtype=np.int64)
+    wide = np.asarray(wide, dtype=bool)
+    owner = np.arange(B) - np.where(wide, tile, 0)  # each row's pair's first row
+    end = torch.clamp(fin[torch.from_numpy(owner).to(fin.device)] + 2, max=tmax)
+    return torch.arange(tmax_pad, device=fin.device)[None, :] <= end[:, None]
+
+
+def tiled_occupancy(plan: TiledPlan, two_piece: bool, W: int) -> dict:
+    """Registers and local (spill) bytes a thread and resident blocks an SM
+    of the tiled register route's kernel at a plan's lanes and block, for
+    tile rows of W lanes, from the CUDA runtime (needs the card)."""
+    if plan.route != "regs":
+        raise ValueError("the occupancy query is the register route's")
+    regs, local, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = _library().nw_sweep_tiled_occupancy(plan.lanes, int(two_piece), W, plan.threads, plan.smem_bytes,
+                                              ctypes.byref(regs), ctypes.byref(local), ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"nw_sweep tiled occupancy query failed with CUDA error {err}")
+    return {"regs_per_thread": regs.value, "local_bytes_per_thread": local.value,
+            "resident_blocks_per_sm": blocks.value, "warps_per_block": plan.threads // 32}
+
+
+# values a warp of the tiled register route's timer (csrc/nw_sweep_tiled.cu)
+TILED_TIMER_SLOTS = 7
+
+
+def tiled_split(v: np.ndarray, warps_per_block: int, n_wide: int) -> dict:
+    """The split of a timed tiled launch from its timer v [warps, 7] int64
+    (csrc/nw_sweep_tiled.cu: each warp's %globaltimer at entry, after
+    staging and at its end; its recurrence's SM cycles; %smid; its pair's
+    first row, -1 for an empty slot; its anti-diagonals).  Blocks below
+    n_wide are wide.  Returns the launch's span, the wide blocks' and the
+    narrow blocks' times, each SM's warps and blocks, the busiest SM's
+    warps, time and cycles against the mean, the nanoseconds a cycle, the
+    recurrence's cycles an anti-diagonal a warp by the warps on its SM and
+    by kind, and the blocks that ran alone on an SM."""
+    v = np.asarray(v, dtype=np.int64).reshape(-1, TILED_TIMER_SLOTS)
+    live = v[:, 5] >= 0
+    block = np.arange(v.shape[0]) // warps_per_block
+    t0 = int(v[:, 0].min())
+    start, end = v[:, 0] - t0, np.where(live, v[:, 2], v[:, 1]) - t0
+    n_blocks = int(block.max()) + 1 if v.size else 0
+    b_start = np.full(n_blocks, np.iinfo(np.int64).max)
+    b_end = np.zeros(n_blocks, np.int64)
+    np.minimum.at(b_start, block, start)
+    np.maximum.at(b_end, block, end)
+    b_ms = (b_end - b_start) / 1e6
+    wide_b = np.arange(n_blocks) < n_wide
+    sm = v[:, 4]
+    sms = np.unique(sm)
+    sm_warps = np.array([int((live & (sm == k)).sum()) for k in sms])
+    sm_blocks = np.array([np.unique(block[sm == k]).size for k in sms])
+    sm_end = np.array([int(end[sm == k].max()) for k in sms]) / 1e6
+    sm_cycles = np.array([int(v[live & (sm == k), 3].sum()) for k in sms])
+    dp_ns = (v[live, 2] - v[live, 1]).sum()
+    per_step = np.where(live, v[:, 3] / np.maximum(v[:, 6], 1), 0.0)
+    by_load = {}
+    for k in sorted(set(sm_warps.tolist())):
+        on = live & np.isin(sm, sms[sm_warps == k])
+        for kind, sel in (("wide", on & wide_b[block]), ("narrow", on & ~wide_b[block])):
+            if sel.any():
+                by_load[f"{k} warps, {kind}"] = round(float(per_step[sel].mean()), 1)
+    busiest = int(np.argmax(sm_end)) if sms.size else 0
+    lone = sorted({int(x) for x in block[np.isin(sm, sms[sm_blocks == 1])]})
+
+    def stats(x):
+        return {"mean": round(float(x.mean()), 4), "max": round(float(x.max()), 4)} if x.size else None
+
+    return {"kernel_ms": round(float(end.max()) / 1e6, 4),
+            "wide_block_ms": stats(b_ms[wide_b]), "narrow_block_ms": stats(b_ms[~wide_b]),
+            "sms": int(sms.size), "sm_warps": {str(k): int((sm_warps == k).sum()) for k in np.unique(sm_warps)},
+            "sm_blocks": {str(k): int((sm_blocks == k).sum()) for k in np.unique(sm_blocks)},
+            "busiest_sm": {"warps": int(sm_warps[busiest]), "ms": round(float(sm_end[busiest]), 4),
+                           "cycles": int(sm_cycles[busiest])} if sms.size else None,
+            "mean_sm": {"warps": round(float(sm_warps.mean()), 3), "ms": round(float(sm_end.mean()), 4),
+                        "cycles": round(float(sm_cycles.mean()), 1)} if sms.size else None,
+            "ns_per_cycle": round(float(dp_ns / max(int(v[live, 3].sum()), 1)), 4),
+            "cycles_per_anti_diagonal": by_load,
+            "recurrence_ms_mean": round(float((v[live, 2] - v[live, 1]).mean()) / 1e6, 4) if live.any() else 0.0,
+            "lone_blocks": lone}
+
+
+def sweep_tiled_split(Q, T, qlens, tlens, order, n_wide: int, plan: TiledPlan, **kw):
+    """One launch of kernel A's tiled register route on the card with its
+    own timer, for a timing tool; the pipeline never launches it.  Returns
+    (scores, tb, tiled_split of the timer)."""
+    _require_cuda(Q.device)
+    if plan.route != "regs":
+        raise ValueError("the timer is the register route's")
+    timer = torch.zeros(plan.blocks * (plan.threads // 32) * TILED_TIMER_SLOTS, dtype=torch.int64,
+                        device=Q.device)
+    scores, tb = sweep_tiled_launch(Q, T, qlens, tlens, order, n_wide, plan, timer=timer, **kw)
+    split = tiled_split(timer.view(-1, TILED_TIMER_SLOTS).cpu().numpy(), plan.threads // 32, n_wide)
+    return scores, tb, split
 
 
 def _tile_index(first: np.ndarray, n_tiles: int, device) -> torch.Tensor:

@@ -197,23 +197,28 @@ def build_one(root: Path, src_name: str, out_dir: Path, flags: tuple[str, ...] =
     return lib, ptxas_lines(res.stdout + res.stderr, pick)
 
 
-def snapshot_rows_err(tb_k: torch.Tensor, tb_p: torch.Tensor, t_snap: torch.Tensor, tmax: int) -> int:
-    """Largest |tb_k - tb_p| of two snapshot-mode tracebacks over the rows
-    the mode promises (nw_cuda.snapshot_rows: each row's rows 0 .. t_snap +
-    1; the register route leaves the others unwritten), a slice of rows at
-    a time."""
-    from seqrush_tpu_torch.ops import nw_cuda
-
+def masked_rows_err(tb_k: torch.Tensor, tb_p: torch.Tensor, keep: torch.Tensor) -> int:
+    """Largest |tb_k - tb_p| of two tracebacks [B, rows, W] over the rows
+    keep [B, rows] marks (a mode that leaves the others unwritten), a slice
+    of rows at a time."""
     if tb_k.shape != tb_p.shape:
         raise AssertionError(f"shape mismatch {tuple(tb_k.shape)} vs {tuple(tb_p.shape)}")
-    rows = nw_cuda.snapshot_rows(t_snap, tmax, tb_k.shape[1])
     step = max(1, (1 << 27) // max(1, tb_k[0].numel()))
     err = 0
     for k in range(0, tb_k.shape[0], step):
-        keep = rows[k : k + step, :, None]
-        diff = torch.where(keep, tb_k[k : k + step].to(torch.int64) - tb_p[k : k + step].to(torch.int64), 0)
+        diff = torch.where(keep[k : k + step, :, None],
+                           tb_k[k : k + step].to(torch.int64) - tb_p[k : k + step].to(torch.int64), 0)
         err = max(err, int(diff.abs().max().item()) if diff.numel() else 0)
     return err
+
+
+def snapshot_rows_err(tb_k: torch.Tensor, tb_p: torch.Tensor, t_snap: torch.Tensor, tmax: int) -> int:
+    """masked_rows_err of two snapshot-mode tracebacks over the rows the mode
+    promises (nw_cuda.snapshot_rows: each row's rows 0 .. t_snap + 1; the
+    register route leaves the others unwritten)."""
+    from seqrush_tpu_torch.ops import nw_cuda
+
+    return masked_rows_err(tb_k, tb_p, nw_cuda.snapshot_rows(t_snap, tmax, tb_k.shape[1]))
 
 
 def strips(nw_cuda, B: int, W: int, Lq: int, Lt: int):

@@ -17,6 +17,7 @@ from seqrush_tpu_torch import cli
 from seqrush_tpu_torch.ops import nw_cuda, wfa
 from seqrush_tpu_torch.ops import unionfind as uf
 from seqrush_tpu_torch.tools.headline import synth_flush_edges
+from seqrush_tpu_torch.tools.sweep_shapes import masked_rows_err
 from torch_edge_corpora import INT16_EDGE_PENALTIES, int16_edge_corpus, rows_edge_corpus, walk_gap_pairs
 from torch_uf_cases import pre_unite_edges, uf_cases
 
@@ -1659,6 +1660,14 @@ def _gap_tiled_batch(R):
     return qs, ts, tile, is_wide
 
 
+def _tiled_rows_equal(tb_k, tb_p, ql, tl, tile, is_wide, R, tmax):
+    """Whether two tiled tracebacks agree on every row the tiled mode
+    promises (nw_cuda.tiled_promised_rows: each pair's rows 0 .. min(tmax,
+    t_final + 2); the register route leaves the rest unwritten)."""
+    keep = nw_cuda.tiled_promised_rows(ql, tl, tile, is_wide, R, tmax, tb_k.shape[1])
+    return masked_rows_err(tb_k, tb_p, keep) == 0
+
+
 @pytest.mark.parametrize(
     "band,R,int16,pen",
     [
@@ -1680,9 +1689,11 @@ def _gap_tiled_batch(R):
     ],
 )
 def test_tiled_kernels_equal_plain(cuda, band, R, int16, pen):
-    """Kernel A's tiled mode (scores, the whole tile-row traceback) and
-    kernel B's tiled runs mode (tokens, counts) exactly their plain
-    versions', each launched once."""
+    """Kernel A's tiled mode (scores, the tile-row traceback on every row
+    it promises: each pair's rows up to t_final + 2) and kernel B's tiled
+    runs mode (tokens, counts, on the kernel's traceback and on the plain
+    version's whole one) exactly their plain versions', each launched
+    once."""
     rng = np.random.default_rng(band * 10 + R)
     L = 3 * (band + 1) if band < 500 else 1400
     gaps = pen == "gaps"
@@ -1702,9 +1713,11 @@ def test_tiled_kernels_equal_plain(cuda, band, R, int16, pen):
     assert nw_cuda.LAUNCHES["nw_walk_runs_tiled"] == before["nw_walk_runs_tiled"] + 1
     s_p, tb_p = nw_cuda.nw_align_tiled_reference(Q, T, ql, tl, tile, is_wide, **kw)
     assert torch.equal(s_k, s_p)
-    assert torch.equal(tb_k, tb_p)
+    assert _tiled_rows_equal(tb_k, tb_p, ql, tl, tile, is_wide, R, tmax)
     tok_p, cnt_p = nw_cuda.nw_walk_runs_tiled_reference(tb_k, ql, tl, tile, is_wide, **lay)
     assert torch.equal(tok_k, tok_p) and torch.equal(cnt_k, cnt_p)
+    tok_w, cnt_w = nw_cuda.nw_walk_runs_tiled_reference(tb_p, ql, tl, tile, is_wide, **lay)
+    assert torch.equal(tok_k, tok_w) and torch.equal(cnt_k, cnt_w)
     first = torch.from_numpy((tile == 0) & (np.arange(len(tile)) < len(tile) - 1)).to(cuda)
     assert bool((cnt_k[first] > 0).all())
     # int16 adds past 32,767 wrap, as the JAX package's do: negative scores there
@@ -1717,7 +1730,8 @@ def test_tiled_kernels_equal_plain(cuda, band, R, int16, pen):
 def test_tiled_sweep_every_strip_equals_plain(cuda, lanes):
     """Kernel A's tiled mode at each lanes-per-thread shape that fits the
     headline's merge (W 512, 3 tiles; 4 lanes would need 384 threads, over
-    that strip's 128-thread bound), against the plain version."""
+    that strip's 128-thread bound), against the plain version on every row
+    it promises."""
     rng = np.random.default_rng(lanes)
     band, R = 511, 3
     qs, ts, tile, is_wide = _tiled_batch(rng, band, R, 4, 2, 1200)
@@ -1733,7 +1747,100 @@ def test_tiled_sweep_every_strip_equals_plain(cuda, lanes):
     s_k, tb_k = nw_cuda.sweep_tiled_launch(Q, T, ql, tl, order, n_wide, plan, **kw)
     torch.cuda.synchronize()
     s_p, tb_p = nw_cuda.nw_align_tiled_reference(Q, T, ql, tl, tile, is_wide, **kw)
-    assert torch.equal(s_k, s_p) and torch.equal(tb_k, tb_p)
+    assert torch.equal(s_k, s_p) and _tiled_rows_equal(tb_k, tb_p, ql, tl, tile, is_wide, R, tmax)
+
+
+def _tiled_layout_batch(rng, case):
+    """The tiled row layout (narrow rows, then R rows a wide pair) of one
+    case: (qs, ts, tile, is_wide, band, R)."""
+    empty = np.zeros(0, np.uint8)
+    band, R = 511, 3
+    if case == "few_blocks":  # 4 blocks on 132 SMs
+        qs, ts, tile, is_wide = _tiled_batch(rng, band, R, 3, 1, 1400)
+        return qs, ts, tile, is_wide, band, R
+    if case == "rounds":  # 571 blocks of 6 warps, two resident an SM: more than two rounds
+        qs, ts, tile, is_wide = _tiled_batch(rng, band, R, 1700, 4, 160)
+        return qs, ts, tile, is_wide, band, R
+    if case == "padding":  # zero-length rows among the narrow ones, and one-sided empty pairs
+        qs, ts, tile, is_wide = _tiled_batch(rng, band, R, 6, 2, 900)
+        for k in (1, 3):
+            qs[k], ts[k] = empty, empty
+        qs[4] = empty
+        ts[5] = empty
+        return qs, ts, tile, is_wide, band, R
+    # short_wide: wide pairs of 60 bases among narrow pairs of 1,400
+    qs, ts, tile, is_wide = _tiled_batch(rng, band, R, 5, 2, 1400)
+    short = rng.integers(0, 4, 60).astype(np.uint8)
+    for b in np.flatnonzero(is_wide):
+        qs[b], ts[b] = short, short[::-1].copy()
+    return qs, ts, tile, is_wide, band, R
+
+
+@pytest.mark.parametrize("case", ["few_blocks", "rounds", "padding", "short_wide"])
+@pytest.mark.parametrize("int16", [False, True])
+@pytest.mark.parametrize("two_piece", [False, True])
+@pytest.mark.parametrize("lanes", [8, 16])
+def test_tiled_sweep_layouts_equal_plain(cuda, case, int16, two_piece, lanes):
+    """Kernel A's tiled register route against the plain version, scores
+    and every promised row exactly, on fewer blocks than SMs, more than two
+    rounds of blocks, zero-length and one-sided empty pairs, and wide pairs
+    much shorter than the narrow ones (ending thousands of anti-diagonals
+    before them), in int32 and int16, one- and two-piece, at 8 lanes a
+    thread (the headline merge's strip) and 16 (the planner's pick for
+    these batches)."""
+    rng = np.random.default_rng(sum(map(ord, case)) + 2 * int16 + two_piece)
+    qs, ts, tile, is_wide, band, R = _tiled_layout_batch(rng, case)
+    (Q, T, ql, tl), tmax = _pack(qs, ts, cuda)
+    pen = (5, 8, 2, 24, 1) if two_piece else (5, 8, 2, -1, -1)
+    kw = dict(zip(("mismatch", "o1", "e1", "o2", "e2"), pen), band=band, n_tiles=R, tmax=tmax, int16=int16)
+    order, n_wide = nw_cuda._tiled_order(tile, is_wide, R, band, len(tile), cuda)
+    W = band + 1
+    wpp = -(-W // (32 * lanes))
+    pair_bytes = nw_cuda.pair_smem_bytes(Q.shape[1], T.shape[1], W, lanes, wpp)
+    plan = nw_cuda.TiledPlan("regs", lanes, wpp, 32 * wpp * R, pair_bytes,
+                             max(R * pair_bytes, nw_cuda.pair_smem_bytes(Q.shape[1], T.shape[1], R * W, lanes, wpp * R)),
+                             n_wide + -(-(order.numel() - n_wide) // R))
+    if case == "few_blocks":
+        assert plan.blocks < torch.cuda.get_device_properties(cuda).multi_processor_count
+    if case == "rounds":
+        occ = nw_cuda.tiled_occupancy(plan, two_piece, W)
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        assert plan.blocks > 2 * sms * occ["resident_blocks_per_sm"]
+    s_k, tb_k = nw_cuda.sweep_tiled_launch(Q, T, ql, tl, order, n_wide, plan, **kw)
+    torch.cuda.synchronize()
+    s_p, tb_p = nw_cuda.nw_align_tiled_reference(Q, T, ql, tl, tile, is_wide, **kw)
+    assert torch.equal(s_k, s_p)
+    assert _tiled_rows_equal(tb_k, tb_p, ql, tl, tile, is_wide, R, tmax)
+    lay = dict(band=band, n_tiles=R, tmax=tmax, run_max=64)
+    tok_k, cnt_k = nw_cuda.nw_walk_runs_tiled(tb_k, ql, tl, tile, is_wide, **lay)
+    tok_p, cnt_p = nw_cuda.nw_walk_runs_tiled_reference(tb_p, ql, tl, tile, is_wide, **lay)
+    assert torch.equal(tok_k, tok_p) and torch.equal(cnt_k, cnt_p)
+
+
+def test_tiled_timer_split(cuda):
+    """The register route's timed instantiation (nw_cuda.sweep_tiled_split)
+    gives the untimed launch's outputs and puts every launched block on
+    some SM; a plan whose W is not a multiple of its strip has no timed
+    instantiation and raises."""
+    rng = np.random.default_rng(31)
+    qs, ts, tile, is_wide = _tiled_batch(rng, 511, 3, 6, 2, 1400)
+    (Q, T, ql, tl), tmax = _pack(qs, ts, cuda)
+    kw = dict(mismatch=5, o1=8, e1=2, o2=24, e2=1, band=511, n_tiles=3, tmax=tmax)
+    order, n_wide = nw_cuda._tiled_order(tile, is_wide, 3, 511, len(tile), cuda)
+    plan = nw_cuda.plan_sweep_tiled(order.numel() - n_wide, n_wide, 512, 3, Q.shape[1], T.shape[1])
+    s_k, tb_k = nw_cuda.nw_align_tiled(Q, T, ql, tl, tile, is_wide, **kw)
+    s_t, tb_t, split = nw_cuda.sweep_tiled_split(Q, T, ql, tl, order, n_wide, plan, **kw)
+    assert torch.equal(s_t, s_k) and _tiled_rows_equal(tb_t, tb_k, ql, tl, tile, is_wide, 3, tmax)
+    assert sum(int(k) * v for k, v in split["sm_blocks"].items()) == plan.blocks
+    assert split["wide_block_ms"]["max"] > 0 and split["narrow_block_ms"]["max"] > 0
+    qs, ts, tile, is_wide = _tiled_batch(rng, 101, 3, 4, 2, 300)
+    (Q, T, ql, tl), tmax = _pack(qs, ts, cuda)
+    order, n_wide = nw_cuda._tiled_order(tile, is_wide, 3, 101, len(tile), cuda)
+    plan = nw_cuda.TiledPlan("regs", 8, 1, 96, nw_cuda.pair_smem_bytes(Q.shape[1], T.shape[1], 102, 8, 1),
+                             3 * nw_cuda.pair_smem_bytes(Q.shape[1], T.shape[1], 306, 8, 3),
+                             n_wide + -(-(order.numel() - n_wide) // 3))
+    with pytest.raises(RuntimeError):
+        nw_cuda.sweep_tiled_split(Q, T, ql, tl, order, n_wide, plan, **dict(kw, band=101, tmax=tmax))
 
 
 def test_tiled_runner_equals_untiled(cuda):

@@ -685,3 +685,148 @@ def test_fold_chunk_plan():
     plan = nw_cuda.plan_sweep(1152, 768, 3584, 3584)
     assert (plan.route, plan.lanes, plan.warps_per_pair, plan.pairs_per_block, plan.threads) == ("regs", 8, 3, 1, 96)
     assert nw_cuda.snap_rounds(plan.blocks * plan.pairs_per_block, 65536 // (168 * plan.threads)) == 3
+
+
+# -- kernel A's tiled mode: the planner, the block layout and the live warps ----
+
+
+def _tiled_layout(n_narrow, n_wide, R):
+    """tile [B] and wide [B] of n_narrow narrow rows, then n_wide pairs of R rows."""
+    tile = np.concatenate([np.zeros(n_narrow, np.int32), np.tile(np.arange(R, dtype=np.int32), n_wide)])
+    wide = np.concatenate([np.zeros(n_narrow, bool), np.ones(n_wide * R, bool)])
+    return tile, wide
+
+
+def _tiled_pairs_of_blocks(plan, order, n_wide, R):
+    """The register route's pair of each warp (csrc/nw_sweep_tiled.cu):
+    {pair's first row: [(block, warp in pair), ...]} and each block's kind."""
+    out = {}
+    for blk in range(plan.blocks):
+        wide = blk < n_wide
+        for warp in range(plan.threads // 32):
+            pib = 0 if wide else warp // plan.warps_per_pair
+            wip = warp - pib * (R * plan.warps_per_pair if wide else plan.warps_per_pair)
+            slot = blk if wide else n_wide + (blk - n_wide) * R + pib
+            if slot < len(order):
+                out.setdefault(int(order[slot]), []).append((blk, wip, wide))
+    return out
+
+
+@pytest.mark.parametrize("n_narrow,n_wide,W,R", [
+    (560, 48, 512, 3),   # the headline's merged chunk (552 pairs and 8 padding rows)
+    (7, 2, 64, 2),
+    (5, 3, 128, 4),
+    (4, 2, 102, 3),      # W not a multiple of 32: strips cross tile rows
+    (3, 1, 200, 2),
+    (6, 2, 16, 4),
+    (2, 0, 512, 3),      # no wide pair
+    (0, 5, 256, 3),      # no narrow pair
+])
+def test_tiled_plan_covers_every_row_once(n_narrow, n_wide, W, R):
+    """plan_sweep_tiled within each strip's launch bound and the shared
+    memory; every pair's first row in exactly one block, a wide pair alone
+    in its block with every warp and its n_tiles * W lanes covered by them, a
+    narrow pair's last warp holding a real lane; every row of the layout
+    some pair's."""
+    Lq = Lt = 1792
+    plan = nw_cuda.plan_sweep_tiled(n_narrow, n_wide, W, R, Lq, Lt)
+    assert plan.route == "regs"
+    assert plan.threads <= nw_cuda._MAX_THREADS[plan.lanes] and plan.threads % 32 == 0
+    assert plan.smem_bytes <= MAX_SMEM
+    assert plan.smem_bytes >= R * plan.pair_bytes
+    assert plan.smem_bytes >= nw_cuda.pair_smem_bytes(Lq, Lt, R * W, plan.lanes, R * plan.warps_per_pair)
+    assert plan.blocks == n_wide + -(-n_narrow // R)
+    tile, wide = _tiled_layout(n_narrow, n_wide, R)
+    order, nw_ = nw_cuda._tiled_order(tile, wide, R, W - 1, len(tile), "cpu")
+    assert nw_ == n_wide
+    owners = _tiled_pairs_of_blocks(plan, order.numpy(), n_wide, R)
+    assert sorted(owners) == sorted(np.flatnonzero(tile == 0).tolist())
+    rows = []
+    lanes_per_warp = 32 * plan.lanes
+    for first, warps in owners.items():
+        is_wide = bool(wide[first])
+        assert len({b for b, _w, _k in warps}) == 1 and all(k == is_wide for _b, _w, k in warps)
+        Wp = R * W if is_wide else W
+        assert sorted(w for _b, w, _k in warps) == list(range(len(warps)))
+        assert len(warps) * lanes_per_warp >= Wp
+        if is_wide:  # each tile's warps_per_pair warps: a warp past the pair's lanes holds ghosts only
+            assert len(warps) == plan.threads // 32 == R * plan.warps_per_pair
+        else:
+            assert Wp > (len(warps) - 1) * lanes_per_warp
+        rows += list(range(first, first + (R if is_wide else 1)))
+    assert sorted(rows) == list(range(len(tile)))
+
+
+def test_tiled_plan_headline_merge():
+    """The headline's merged chunk [704 rows, W 512, 3 tiles, 48 wide]: 8
+    lanes a thread, 2 warps a narrow pair, 6-warp blocks, 235 of them."""
+    plan = nw_cuda.plan_sweep_tiled(560, 48, 512, 3, 3584, 3584)
+    assert (plan.route, plan.lanes, plan.warps_per_pair, plan.threads, plan.blocks) == ("regs", 8, 2, 192, 235)
+    assert plan.pair_bytes == nw_cuda.pair_smem_bytes(3584, 3584, 512, 8, 2)
+
+
+def test_tiled_plan_wide_route_past_the_register_route():
+    """n_tiles * W over REG_MAX_W takes the wide route (one block a pair)."""
+    plan = nw_cuda.plan_sweep_tiled(4, 2, 1100, 4, 2048, 2048)
+    assert plan.route == "wide" and plan.blocks == 6 and plan.threads <= MAX_THREADS
+
+
+@pytest.mark.parametrize("W,R,S", [(512, 3, 8), (512, 3, 4), (102, 3, 4), (102, 2, 8), (200, 2, 16),
+                                   (16, 4, 8), (64, 2, 12), (1536, 2, 16)])
+def test_tiled_strip_stores_cover_each_lane_once(W, R, S):
+    """The register route's store of a wide pair's row (csrc/nw_sweep_tiled.cu):
+    a thread's strip [s0, s0 + S) goes to tile row s0 // W from lane
+    s0 % W (to nothing past the pair's R * W lanes, W as its first lane),
+    byte by byte through each lane's own tile row where it crosses a tile
+    row's end (only where W is not a multiple of S): every lane of the pair
+    lands once, at [l // W, l % W]."""
+    Wp = R * W
+    wpp = -(-W // (32 * S))
+    seen = np.zeros((R, W), int)
+    for s0 in range(0, 32 * S * wpp * R, S):
+        tile = s0 // W if s0 < Wp else 0
+        tc0 = s0 - tile * W if s0 < Wp else W
+        split = W % S != 0 and s0 < Wp and s0 + S > (tile + 1) * W and (tile + 1) * W < Wp
+        for k in range(S):
+            lane = s0 + k
+            if split:
+                if lane < Wp:
+                    seen[lane // W, lane % W] += 1
+            elif tc0 + k < W:  # store_row: lanes of the strip inside its tile row
+                seen[tile, tc0 + k] += 1
+                assert tile * W + tc0 + k == lane
+    assert (seen == 1).all()
+    assert W % S or not any(s0 + S > (s0 // W + 1) * W for s0 in range(0, Wp, S))
+
+
+
+
+def test_tiled_split_of_a_timer():
+    """nw_cuda.tiled_split on a hand-made timer: three 2-warp blocks, the
+    first wide, two of them on SM 4 and one alone on SM 9; an empty slot."""
+    ns = 1_000_000
+    rows = []  # entry, staged, end, cycles, smid, first row, anti-diagonals
+    for blk, (sm, end_ms, cycles) in enumerate([(4, 5, 2000), (4, 7, 3000), (9, 3, 1000)]):
+        for warp in range(2):
+            first = -1 if (blk, warp) == (2, 1) else 10 * blk
+            rows.append([0, 1000, end_ms * ns, cycles * 100, sm, first, 100])
+    split = nw_cuda.tiled_split(np.array(rows), 2, 1)
+    assert split["kernel_ms"] == 7.0
+    assert split["wide_block_ms"] == {"mean": 5.0, "max": 5.0}
+    assert split["narrow_block_ms"]["max"] == 7.0
+    assert split["sm_blocks"] == {"1": 1, "2": 1} and split["sm_warps"] == {"1": 1, "4": 1}
+    assert split["busiest_sm"] == {"warps": 4, "ms": 7.0, "cycles": 2 * (200_000 + 300_000)}
+    assert split["lone_blocks"] == [2]
+    assert split["cycles_per_anti_diagonal"] == {"4 warps, wide": 2000.0, "4 warps, narrow": 3000.0,
+                                                 "1 warps, narrow": 1000.0}
+
+
+def test_tiled_timer_slots_equal_the_kernel():
+    """nw_cuda.TILED_TIMER_SLOTS (the timer's size a warp, read by
+    sweep_tiled_split and tiled_split) equals the one #define in
+    csrc/nw_sweep_tiled.cu."""
+    import re
+    from pathlib import Path
+
+    src = (Path(nw_cuda.__file__).parent / "csrc" / "nw_sweep_tiled.cu").read_text()
+    assert re.findall(r"^#define TILED_TIMER_SLOTS (\d+)$", src, re.M) == [str(nw_cuda.TILED_TIMER_SLOTS)]

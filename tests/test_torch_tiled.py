@@ -279,3 +279,32 @@ def test_runner_band_tiling_run_overflow_retries(monkeypatch):
     for k in ("tiled_chunks", "tiled_rows", "cells_padded", "run_overflows"):
         assert port.stats[k] == ref.stats[k], k
     assert _records(res) == _records(ref_res)
+
+
+@pytest.mark.parametrize("case", ["mixed_r3", "w102", "int16"])
+def test_tiled_walk_reads_no_row_past_t_final_plus_2(case):
+    """Kernel A's tiled mode promises each pair's rows 0 .. min(tmax,
+    t_final + 2) only (nw_cuda.tiled_promised_rows; the card leaves the
+    rest unwritten): with every other row of every tile row overwritten by
+    random bytes, the plain tiled walk gives the untouched run's tokens and
+    counts, and the JAX package's nw_align_with_runs_tiled's."""
+    rng = np.random.default_rng({"mixed_r3": 7, "w102": 29, "int16": 13}[case])
+    band, R, int16 = {"mixed_r3": (63, 3, False), "w102": (101, 3, False), "int16": (63, 3, True)}[case]
+    narrow = _pairs(rng, 4, 180 if band < 100 else 300, indels=3)
+    wide = _pairs(rng, 2, 180 if band < 100 else 300, inv_frac=0.3)
+    Q, T, ql, tl, tile, is_wide = _layout(narrow, wide, band, R, B=len(narrow) + R * len(wide) + 2)
+    tmax = -(-max(len(q) + len(t) for q, t in narrow + wide) // 512) * 512
+    sc, tok, cnt, _tb_j = (np.asarray(a) for a in _jax_tiled(Q, T, ql, tl, tile, is_wide, band=band, R=R,
+                                                              tmax=tmax, use_int16=int16))
+    Qt, Tt, qt, tt = (torch.from_numpy(a) for a in (Q, T, ql, tl))
+    lay = dict(band=band, n_tiles=R, tmax=tmax)
+    _s, tb = nw_cuda.nw_align_tiled(Qt, Tt, qt, tt, tile, is_wide, int16=int16, **lay, **PEN)
+    rows = nw_cuda.tiled_promised_rows(qt, tt, tile, is_wide, R, tmax, tb.shape[1])
+    assert not rows.all() and rows[:, 0].all()
+    noise = torch.from_numpy(rng.integers(0, 256, tuple(tb.shape), dtype=np.uint8))
+    scrambled = torch.where(rows[:, :, None], tb, noise)
+    got = [nw_cuda.nw_walk_runs_tiled(t, qt, tt, tile, is_wide, run_max=jnw.RUN_MAX, **lay) for t in (tb, scrambled)]
+    assert torch.equal(got[0][0], got[1][0]) and torch.equal(got[0][1], got[1][1])
+    first = tile == 0
+    np.testing.assert_array_equal(got[1][0].numpy()[first], tok[first])
+    np.testing.assert_array_equal(got[1][1].numpy()[first], cnt[first])
