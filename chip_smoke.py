@@ -154,6 +154,14 @@ Phases (any failure exits non-zero and prints no ok line):
      meshes of 1, 2 and 4 shards (records equal); the sharded align + unite
      step for D = 1, 2, 4, 8; two processes joined by gloo on the headline
      FASTA with --no-sort (DEFAULT_GFA_SHA256 on both);
+ 11e. kernel A's wide route (see run_phase11e): translocation_pair() with
+     wide_route='full' and no mesh through it (nw_sweep_wide) and through
+     the long route at its band (nw_sweep_wide_segment), scores equal; the
+     same for long_deletion_pair() (W 28,160: a chain of two 16-CTA
+     clusters a pair, launched in slices), its score the 28 kb gap's; each
+     site of tools/wide_timing.py against its plain version (exact) and
+     timed, with its plan, registers, spills, bound and chain floor (the
+     floor probe's step latency at the site's plan);
  12. the host library (seqrush_tpu_torch/csrc/seqrush_native.cpp) at the
      sizes users run (see run_phase12): the C++ FASTA parser against the
      Python loop on the headline, the locus and a 1,000 x 3.3 kb FASTA (equal
@@ -287,7 +295,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from seqrush_tpu_torch.tools.headline import SCORES, WFA_BAND_SLACK, synth_hla
+from seqrush_tpu_torch.tools.headline import (SCORES, WFA_BAND_SLACK, long_deletion_pair, long_deletion_score,
+                                              synth_hla, translocation_pair)
 from seqrush_tpu_torch.tools.sweep_shapes import SPIN_CYCLES, device_ms, masked_rows_err, snapshot_rows_err, spun_ms
 
 HBM_BYTES_PER_S = 3.35e12
@@ -621,6 +630,19 @@ def ptxas_summary(log: str) -> list[str]:
                          f"{'int16' if rows.group(3) == '1' else 'int32'}"
                          f"{', windows' if rows.group(4) == '1' else ''}, {rows.group(5)} threads, "
                          f"{rows.group(6)} blocks>")
+            elif name in ("nw_sweep_wide", "nw_sweep_wide_seg") and (
+                    wa := re.match(r"ILi(\d+)ELb([01])ELb([01])ELi(\d)E", rest)):
+                # the cell's arithmetic AR (csrc/nw_sweep_wide.cuh)
+                name += (f"<{wa.group(1)}, {'two' if wa.group(2) == '1' else 'one'}-piece, "
+                         f"{'traceback' if wa.group(3) == '1' else 'score-only'}, "
+                         f"{('plain int32', 'keyed int32', 'int16')[int(wa.group(4))]}>")
+            elif name in ("nw_sweep_wide_solo", "nw_sweep_wide_seg_solo") and (
+                    ws := re.match(r"ILb([01])ELb([01])ELi(\d)E", rest)):
+                name += (f"<{'two' if ws.group(1) == '1' else 'one'}-piece, "
+                         f"{'traceback' if ws.group(2) == '1' else 'score-only'}, "
+                         f"{('plain int32', 'keyed int32', 'int16')[int(ws.group(3))]}>")
+            elif name == "nw_sweep_wide_floor" and (wf := re.match(r"ILi(\d+)E", rest)):
+                name += f"<{wf.group(1)}>"
             elif name == "wfa_kernel" and wide:
                 name += (f"<{'two' if wide.group(1) == '1' else 'one'}-piece, "
                          f"{'rings' if wide.group(2) == '1' else 'global'}"
@@ -1150,6 +1172,7 @@ def run(work: Path, name: str, smi: str, ptxas: list[str]) -> int:
     out.extend(run_phase9(smi, ptxas, ctx9))
     out.extend(run_phase10(smi, ptxas, ctx9))
     out.extend(run_phase11(work, smi, ptxas, ctx9))
+    out.extend(run_phase11e(smi, ptxas, ctx9))
     ctx9["wfa_kernel_ms"] = sum(b["ms"] for e in phase8 if e["name"] == "wfa" for b in e["batches"])
     ctx9["launches"] = launches
     ctx9["ptxas"] = ptxas
@@ -2919,22 +2942,6 @@ SHARD_PHASE_LIMIT_S = 480  # phase 11's wall-clock limit: a hang fails the run
 MESH_SIZES = (1, 2, 4, 8)
 
 
-def translocation_pair(seed=23, flank=4000, block=8000, snp_rate=0.005):
-    """Two ~24 kb haplotypes that differ by a balanced translocation of an
-    8 kb block (q = A X B C, t = A B X C, |A| = |C| = 4 kb, |X| = |B| = 8
-    kb) and 0.5% SNPs on t: the optimal path leaves the main diagonal by 8
-    kb, so its certified band is wide and its traceback exceeds the default
-    2.6e9-byte budget (phase 11a)."""
-    rng = np.random.default_rng(seed)
-    acgt = np.frombuffer(b"ACGT", np.uint8)
-    A, X, B, C = (acgt[rng.integers(0, 4, n)] for n in (flank, block, block, flank))
-    q = np.concatenate([A, X, B, C])
-    t = np.concatenate([A, B, X, C])
-    hit = rng.random(t.size) < snp_rate
-    t[hit] = acgt[rng.integers(0, 4, int(hit.sum()))]
-    return [("hapA", q.tobytes()), ("hapB", t.tobytes())]
-
-
 def sharded_err(out, ref) -> int:
     """Largest difference of one sharded run's (scores, strips) from another's."""
     (s, strips), (s_ref, strips_ref) = out, ref
@@ -3274,6 +3281,179 @@ def run_phase11(work: Path, smi: str, ptxas: list[str], ctx: dict) -> list[dict]
         "ptxas": ptxas_registers(ptxas, f"nw_sweep_cluster<{route_pick.lanes}, two-piece>"),
         "tolerance": 0,
     }]
+
+
+WIDE_PLAIN_ON_HOST = ("long8_w128",)  # phase 11e's sites whose plain version runs on the host CPU
+WIDE_PHASE_LIMIT_S = 420  # phase 11e's wall-clock limit: a hang fails the run
+
+
+def run_phase11e(smi: str, ptxas: list[str], ctx: dict) -> list[dict]:
+    """11e. Kernel A's wide route (ops/csrc/nw_sweep_wide.cuh: nw_sweep_wide,
+    nw_sweep_wide_seg; one pair a thread-block cluster, its lanes in
+    registers).
+
+    The main paths, the launch counters reset just before each and read
+    just after: translocation_pair() through WfaAligner(wide_route='full')
+    without a mesh (its band passes REG_MAX_W: nw_sweep_wide launched), and
+    the same with long_pair_threshold 32,768 (the long route at that band:
+    nw_sweep_wide_segment launched); the two scores equal, each run's wall.
+    Then long_deletion_pair() the same two ways (threshold 16,384): its band
+    passes 24,576 lanes, so each pair is a chain of two 16-CTA clusters and
+    the chunk's 8 padded pairs run in slices of resident clusters; both
+    scores the 28 kb gap's, the alignments equal.
+    Then every site of tools/wide_timing.py (the translocation pair [1, W
+    17,408, tmax 48,128] with its traceback and score-only, W 4,097 and its
+    int16 and snapshot modes, [8, W 5,120] and score-only, int16 penalties
+    that wrap at [64, W 128], [8, W 128, Lq = Lt = 120,064], the segment
+    mode's forward run and grouped recompute at W 4,608): the kernel against
+    its plain version on the same inputs (exact; the plain version once a
+    site, its time; on the host CPU for WIDE_PLAIN_ON_HOST, on the card for
+    the others), timed behind a spin of the card, with its plan, the
+    kernel's registers and spilled bytes, its bound and its chain floor
+    (tools/wide_timing.py::site_row: the site's longest pair's
+    anti-diagonals at the step latency of the floor probe, the column
+    exchange and barrier alone, at the same plan).  A watchdog ends the
+    run (exit 3) past WIDE_PHASE_LIMIT_S.  Returns the kernels line's entries of nw_sweep_wide
+    and nw_sweep_wide_segment."""
+    import os
+    import threading
+    from dataclasses import asdict
+
+    from seqrush_tpu_torch.align.runner import RunnerConfig, WfaAligner
+    from seqrush_tpu_torch.ops import nw, nw_cuda
+    from seqrush_tpu_torch.sequences import make_sequence_set
+    from seqrush_tpu_torch.tools import wide_timing as wt
+
+    def expire():
+        print(f"chip_smoke: phase 11e passed its {WIDE_PHASE_LIMIT_S} s limit", file=sys.stderr, flush=True)
+        os._exit(3)
+
+    watchdog = threading.Timer(WIDE_PHASE_LIMIT_S, expire)
+    watchdog.daemon = True
+    watchdog.start()
+    t_phase = time.time()
+    dev = torch.device("cuda", 0)
+    scores_cfg = ctx["scores"]
+    seqs_tr = make_sequence_set(translocation_pair())
+    one = np.array([[0, 1]])
+    paths = {}
+    seqs_del = make_sequence_set(long_deletion_pair())
+    for key, seqs, kernel, extra in (
+            ("single_shot", seqs_tr, "nw_sweep_wide", {}),
+            ("long_route", seqs_tr, "nw_sweep_wide_segment", {"long_pair_threshold": 32_768}),
+            ("chain_single_shot", seqs_del, "nw_sweep_wide", {}),
+            ("chain_long_route", seqs_del, "nw_sweep_wide_segment", {"long_pair_threshold": 16_384})):
+        al = WfaAligner(seqs, RunnerConfig(scores=scores_cfg, wide_route="full", **extra), device=dev)
+        nw_cuda.reset_launch_counts()
+        t0 = time.time()
+        (res,) = al.align_pairs(one)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = dict(nw_cuda.LAUNCHES)
+        if counts[kernel] <= 0:
+            raise AssertionError(f"{kernel} was not launched on the {key} path")
+        paths[key] = {"wall_s": wall, "score": res.score, "launches": {k: v for k, v in counts.items() if v},
+                      "dispatches": [[d["kind"], d["B"], d["band"], d["tmax"], d.get("sweep")]
+                                     for d in al.stats["dispatches"]],
+                      "cigar": res.cigar_string if key.startswith("chain") else None}
+    print(f"wide route main paths, translocation_pair() and long_deletion_pair() with wide_route='full' "
+          f"(no mesh): {json.dumps(paths)} | {smi}")
+    if paths["single_shot"]["score"] != paths["long_route"]["score"]:
+        raise AssertionError("the long route's score differs from single-shot's on the translocation pair")
+    # past 24,576 lanes a pair is a chain of 16-CTA clusters: the chunk's 8
+    # padded pairs exceed the clusters the card holds, so it runs in slices
+    want = long_deletion_score(scores_cfg)
+    for key in ("chain_single_shot", "chain_long_route"):
+        p = paths[key]
+        if p["score"] != want or p["cigar"] != paths["chain_single_shot"]["cigar"]:
+            raise AssertionError(f"{key}: score {p['score']} (the 28 kb gap's is {want}) or its alignment differs")
+        if not all(d[2] + 1 > 24_576 and d[4] == "wide" for d in p["dispatches"]):
+            raise AssertionError(f"{key}: a dispatch did not take the wide route past 24,576 lanes")
+    if paths["chain_single_shot"]["launches"]["nw_sweep_wide"] < 2:
+        raise AssertionError("the chain's single-shot dispatch was not sliced")
+
+    sites = wt.wide_sites(dev)
+    rows = {}
+    for name in wt.SITES:
+        site = sites[name]
+        Q, T, ql, tl = site["inputs"]
+        kw = site["kw"]
+        ckpt = wt._ckpt(site, dev) if site["kind"] != "align" else None
+        if site["kind"] == "group":
+            wt.launcher(nw_cuda, dict(site, kind="run"), ckpt)()
+        out_k = [x.clone() for x in wt.launcher(nw_cuda, site, ckpt)()]
+        torch.cuda.synchronize()
+        plain_ms = None
+        if name == "translocation_score_only":  # the plain version's scores of the traceback site
+            ref = [rows["translocation"]["ref_scores"]]
+        elif site["kind"] == "align":
+            # the plain version of [8, W 128, 120,064] on the host: its 120,000
+            # steps of [8, 128] ops are launch-bound on the card (118 s there, NVIDIA H100 80GB HBM3)
+            pd = torch.device("cpu") if name in WIDE_PLAIN_ON_HOST else dev
+            args_p = [x.to(pd) for x in (Q, T, ql, tl)]
+            kw_p = {k: v.to(pd) if torch.is_tensor(v) else v for k, v in kw.items()}
+            plain_ms, ref = once_ms(lambda: nw_cuda.nw_align_reference(*args_p, **kw_p))
+            ref = [x.to(dev) for x in [x for x in ref[:2] if x is not None] + (list(ref[2]) if len(ref) > 2 else [])]
+        elif site["kind"] == "run":
+            ck = ckpt.clone()
+            ck[1:] = -7
+            s0 = torch.full((Q.shape[0],), -1, dtype=torch.int32, device=dev)
+            plain_ms, s_p = once_ms(lambda: nw_cuda.nw_align_segment_run_reference(
+                Q, T, ql, tl, ck, s0, s0=0, n_run=wt.N_RUN, **kw))
+            ref = [s_p, ck[1:]]
+        else:
+            tb_p = torch.zeros_like(out_k[1])
+            plain_ms, s_p = once_ms(lambda: nw_cuda.nw_align_segment_group_reference(
+                Q, T, ql, tl, ckpt, s0=0, G=wt.N_RUN, tb=tb_p, **kw))
+            ref = [s_p, tb_p]
+        err = max(max_abs_err(a, b) for a, b in zip(out_k, ref))
+        if name == "translocation_score_only":
+            err = max_abs_err(out_k[0], ref[0])
+        if err:
+            raise AssertionError(f"kernel A's wide route differs from its plain version at {name}")
+        ms = spun_ms(wt.launcher(nw_cuda, site, ckpt), REPS)
+        row = wt.site_row(nw_cuda, sys.modules[__name__], site, ms, REPS)
+        rows[name] = {"shape": {"B": Q.shape[0], "W": kw["band"] + 1, "Lq": Q.shape[1], "tmax": kw.get("tmax")},
+                      "ms": ms, "plain_ms": plain_ms,
+                      "plain_device": "cpu" if name in WIDE_PLAIN_ON_HOST else "cuda", "max_abs_err": err,
+                      "bound_ms": row["bound_ms"],
+                      "bound_by": row["bound_by"], "chain_floor_ms": row["chain"]["floor_ms"],
+                      "chain": row["chain"], "plan": asdict(wt.site_plan(nw_cuda, site)), **row["kernel"]}
+        if name == "translocation":
+            rows[name]["ref_scores"] = ref[0]
+        del out_k, ref, ckpt
+        sites[name] = None
+        torch.cuda.empty_cache()
+    rows["translocation"].pop("ref_scores")
+    print(f"  wide route sites: {json.dumps(rows)} | {smi}")
+    wide_ptxas = [x for x in ptxas if x.startswith("nw_sweep_wide")]
+    print(f"  ptxas {json.dumps(wide_ptxas)}")
+    watchdog.cancel()
+    print(f"phase 11e wall {time.time() - t_phase:.1f} s")
+    single = [n for n in rows if not n.startswith("segment")]
+    seg = [n for n in rows if n.startswith("segment")]
+    main_s, main_g = rows["translocation"], rows["segment_group_w4608"]
+    return [
+        {"name": "nw_sweep_wide", "route": "cuda", "source": "seqrush_tpu_torch/ops/csrc/nw_sweep_wide.cu",
+         "replaces": "seqrush_tpu/ops/nw_pallas.py:38 (_kernel, nw_align_pallas :402; the wide route)",
+         "launches": paths["single_shot"]["launches"]["nw_sweep_wide"],
+         "launches_path": "translocation_pair() through WfaAligner(wide_route='full'), no mesh",
+         "max_abs_err": max(rows[n]["max_abs_err"] for n in single),
+         "ms": main_s["ms"], "plain_ms": main_s["plain_ms"], "bound_ms": main_s["bound_ms"],
+         "bound_by": main_s["bound_by"], "library_ms": None, "chain_floor_ms": main_s["chain_floor_ms"],
+         "shape": main_s["shape"], "plan": main_s["plan"], "sites": {n: rows[n] for n in single},
+         "path_wall_s": paths["single_shot"]["wall_s"], "ptxas": wide_ptxas, "tolerance": 0},
+        {"name": "nw_sweep_wide_segment", "route": "cuda",
+         "source": "seqrush_tpu_torch/ops/csrc/nw_sweep_wide_seg.cu",
+         "replaces": "seqrush_tpu/ops/nw.py:968 (_nw_segment; the wide route)",
+         "launches": paths["long_route"]["launches"]["nw_sweep_wide_segment"],
+         "launches_path": "translocation_pair() through WfaAligner(wide_route='full', long_pair_threshold=32768)",
+         "max_abs_err": max(rows[n]["max_abs_err"] for n in seg),
+         "ms": main_g["ms"], "plain_ms": main_g["plain_ms"], "bound_ms": main_g["bound_ms"],
+         "bound_by": main_g["bound_by"], "library_ms": None, "chain_floor_ms": main_g["chain_floor_ms"],
+         "shape": main_g["shape"], "plan": main_g["plan"], "sites": {n: rows[n] for n in seg},
+         "path_wall_s": paths["long_route"]["wall_s"], "tolerance": 0},
+    ]
 
 
 def in_turns(a: str, b: str) -> tuple[str, ...]:

@@ -1218,8 +1218,10 @@ class WfaAligner:
             t_need = int((qlens + tlens).max())
             n_seg = -(-t_need // seg)
             budget = self.cfg.memory_budget_bytes
-            entry.update(kind="long", seg=seg, n_seg=n_seg, emit="ops",
-                         group=nw_cuda.long_group_size(B, band + 1, seg, n_seg, budget))
+            group = nw_cuda.long_group_size(B, band + 1, seg, n_seg, budget)
+            entry.update(kind="long", seg=seg, n_seg=n_seg, emit="ops", group=group,
+                         sweep=nw_cuda._segment_plan(B, band + 1, Q.shape[1], T.shape[1], seg, group,
+                                                     pen).route)
             self.stats["long_pairs"] += len(chunk)
             self.stats["dispatches"].append(entry)
             # a stream of the chunk's own, so that a long chunk dispatched
@@ -1249,6 +1251,9 @@ class WfaAligner:
                                                           **pen)
             mode, out = "fold", (ops2, cross_m)  # the fold's walk emits opcodes
         else:
+            # kernel A's route on the card: "regs", "twins" or "wide"
+            entry["sweep"] = nw_cuda.align_plan(B, band + 1, Q.shape[1], T.shape[1], int16=use_int16,
+                                                **pen).route
             scores, tb = nw_cuda.nw_align(Qd, Td, qd, td, band=band, tmax=tmax, int16=use_int16,
                                           **pen)
             if self._use_runs(chunk, tmax):

@@ -79,13 +79,12 @@
 // forward pass is one grid row whose run crosses the segment boundaries.
 // Both modes run the recurrence to t_final + 2, where every state is INF, so
 // the strips then hold the carry of any later row.  Its instantiations are
-// separate kernels (nw_sweep_regs_seg, nw_sweep_wide_seg).
-// Bands too wide for registers, and penalties outside [0, 2^16), take the
-// wide route (nw_sweep_wide in nw_sweep.cu, nw_sweep_wide_seg in
-// nw_sweep_seg.cu), the port's first design kept as it was: one block per
-// pair with the DP rows in shared memory while they fit (W <= 5,282) and in
-// a global scratch above that, one block barrier per anti-diagonal, and the
-// reference's arithmetic for any int32 penalties.
+// separate kernels (nw_sweep_regs_seg).
+// Bands too wide for registers, penalties outside [0, 2^16), int16 adds
+// that can wrap and pairs whose sequences do not fit in shared memory take
+// the wide route (nw_sweep_wide.cuh: nw_sweep_wide in nw_sweep_wide.cu,
+// nw_sweep_wide_seg in nw_sweep_wide_seg.cu): one pair a thread-block
+// cluster, its lanes in registers, plain compares.
 
 #pragma once
 
@@ -749,9 +748,9 @@ __device__ __forceinline__ void sweep_regs_body(
 }
 
 // ---------------------------------------------------------------------------
-// Wide route: one block per pair, DP rows (H in three, each gap state in two)
-// in dynamic shared memory, or in a global scratch [B, 11, W] where 11 rows
-// do not fit, one block barrier per anti-diagonal.
+// What the tiled mode's wide route (nw_sweep_tiled.cu) keeps of the port's
+// first design: one block a pair, DP rows in shared memory or a global
+// scratch.
 
 // lane l of a row framed by a lane shift delta in {-1, 0, 1}, neg outside
 __device__ __forceinline__ int framed(const int* row, int l, int delta, int W, int neg = NW_INF) {
@@ -759,7 +758,7 @@ __device__ __forceinline__ int framed(const int* row, int l, int delta, int W, i
   return (k >= 0 && k < W) ? row[k] : neg;
 }
 
-// an add of the int16 mode on the wide route: the low 16 bits, sign-extended
+// an add of the int16 mode there: the low 16 bits, sign-extended
 // (the JAX package's int16 adds wrap)
 __device__ __forceinline__ int add16(int a, int b, bool i16) {
   const int x = a + b;
@@ -768,12 +767,8 @@ __device__ __forceinline__ int add16(int a, int b, bool i16) {
 
 // ---------------------------------------------------------------------------
 
-// Dynamic shared memory of a launch: the wide route's rows unless it has a
-// scratch, or ppb pairs of pair_bytes on the register route.
-static size_t dynamic_smem(int lanes, int W, int ppb, int pair_bytes, bool scratch) {
-  if (lanes == 0) return scratch ? 0 : (size_t)NW_ROWS * W * sizeof(int);
-  return (size_t)ppb * pair_bytes;
-}
+// Dynamic shared memory of a register-route launch: ppb pairs of pair_bytes.
+static size_t dynamic_smem(int ppb, int pair_bytes) { return (size_t)ppb * pair_bytes; }
 
 static cudaError_t allow_smem(const void* fn, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;

@@ -72,16 +72,13 @@
 //     dimension), after cudaOccupancyMaxActiveClusters has said that all of
 //     the launch's clusters are resident together: every cluster of a pair
 //     spins on its neighbours.
+// The exchange, the barrier, the ring-and-flag protocol and the rings are
+// nw_cluster.cuh's, shared with kernel A's wide route (nw_sweep_wide.cuh).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "nw_sweep.cuh"
-
-constexpr int kRecInts = 8;  // a record: slot[2][3], the flag, a pad
-constexpr int kFlag = 6;
-constexpr int kTile = 128;   // anti-diagonals a tile of staged bases
-constexpr int kStage = 7;    // a thread's share of a tile's new bases, at most
+#include "nw_cluster.cuh"
 
 // threads a CTA at most: 512 leave each thread 128 registers (at 1,024 the
 // 1- and 2-lane builds spill)
@@ -100,146 +97,6 @@ struct ShardArgs {
   int qring, tring;                    // ring buffer bytes (powers of two)
   int sys;
   int mismatch, o1, e1, o2, e2;
-};
-
-static __device__ __forceinline__ int load_volatile(const int* p) {
-  return *(const volatile int*)p;
-}
-
-static __device__ __forceinline__ void store_volatile(int* p, int v) { *(volatile int*)p = v; }
-
-static __device__ __forceinline__ void fence(bool sys) {
-  if (sys)
-    __threadfence_system();
-  else
-    __threadfence();
-}
-
-static __device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// spin until a peer's flag reaches `want`; what it wrote before raising the
-// flag is visible afterwards.  A peer that never gets there (a cluster that
-// is not resident, a fault elsewhere) ends the kernel with a trap after
-// kSpinLimitNs instead of hanging the card
-constexpr unsigned long long kSpinLimitNs = 20ull * 1000 * 1000 * 1000;
-
-static __device__ __forceinline__ void wait_flag(const int* flag, int want, bool sys) {
-  if (load_volatile(flag) < want) {
-    const unsigned long long t0 = global_ns();
-    while (load_volatile(flag) < want) {
-      if (global_ns() - t0 > kSpinLimitNs) __trap();
-    }
-  }
-  fence(sys);
-}
-
-static __device__ __forceinline__ unsigned cluster_rank() {
-  unsigned r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
-  return r;
-}
-
-static __device__ __forceinline__ unsigned cluster_ctas() {
-  unsigned r;
-  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
-  return r;
-}
-
-// A step's arrive.  What a thread wrote into its own CTA's shared memory
-// (a warp's edge slot, staged bases) is ordered before it by a CTA-scope
-// fence; the columns that cross CTAs travel by st.async, whose arrival the
-// receiver's mbarrier tracks, so the arrive itself is relaxed: a release at
-// cluster scope would wait for every store in flight (the traceback rows
-// too) on every anti-diagonal.
-static __device__ __forceinline__ void cluster_arrive() {
-  __threadfence_block();
-  __syncwarp();
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
-}
-
-static __device__ __forceinline__ void cluster_wait() {
-  __syncwarp();
-  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
-}
-
-// the start: every CTA of the cluster runs and sees the others' mbarriers
-static __device__ __forceinline__ void cluster_sync() {
-  __syncwarp();
-  asm volatile("barrier.cluster.arrive.aligned;" ::: "memory");
-  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
-}
-
-static __device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// the address of this CTA's shared-memory word `local` in CTA `rank`'s
-static __device__ __forceinline__ uint32_t map_rank(uint32_t local, unsigned rank) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(local), "r"(rank));
-  return remote;
-}
-
-static __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-// the receiver's arrive for one column: its own arrival and the 16 bytes
-// the sender's st.async completes
-static __device__ __forceinline__ void mbar_arm(uint32_t bar) {
-  asm volatile(
-      "{\n .reg .b64 st;\n mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], 16;\n}" ::"r"(bar)
-      : "memory");
-}
-
-static __device__ __forceinline__ bool mbar_try_wait(uint32_t bar, int parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      " selp.u32 %0, 1, 0, p;\n}"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// wait for the column of phase `parity`; a column that never comes traps
-// after kSpinLimitNs, as a lost flag does
-static __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const unsigned long long t0 = global_ns();
-  while (!mbar_try_wait(bar, parity)) {
-    if (global_ns() - t0 > kSpinLimitNs) __trap();
-  }
-}
-
-// three values into a neighbour CTA's slot, completing 16 bytes of its mbarrier
-static __device__ __forceinline__ void st_async3(uint32_t slot, uint32_t bar, int a, int b, int c) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, [%5];" ::"r"(
-          slot),
-      "r"(a), "r"(b), "r"(c), "r"(0), "r"(bar)
-      : "memory");
-}
-
-template <int S>
-struct Lanes {
-  int h1[S], h2[S], i1[S], d1[S], i2[S], d2[S];  // H at t - 1 and t - 2, the gap states at t - 1
-  int qw[S], tw[S];                              // bases under the lanes
-};
-
-// the neighbour columns: H(t-1), H(t-2), I1, I2 (t-1) at lane g0 - 1, and
-// H(t-1), D1, D2 (t-1) at lane g0 + S; and the columns a CTA edge thread
-// has received from the left and the right CTA and sent to each (the k-th
-// column of a direction travels in slot k & 1, in phase k >> 1 of its
-// mbarrier)
-struct Edge {
-  int hl1, hl2, i1l, i2l, hr1, d1r, d2r;
-  int in_l, in_r, out_r, out_l;
 };
 
 // What a thread knows of its place: uniform over the CTA but for g0, r and
@@ -271,87 +128,9 @@ struct Ctx {
   uint8_t* Qr;
   uint8_t* Tr;
   int qmask, tmask;
+  int t1;   // the first anti-diagonal (1)
+  int neg;  // beyond the band's edges: INF
 };
-
-static __device__ __forceinline__ int qs_of(int t, const Ctx& c) {
-  return min(i0_of(t, c.K), c.Lq + 1);
-}
-
-static __device__ __forceinline__ int ts_of(int t, const Ctx& c) {
-  return max(0, min(c.Lt - t + i0_of(t, c.K) + c.W, c.Lt + c.W));
-}
-
-// the bases at padded-operand positions: [QPAD] + q + [QPAD]*W and
-// [TPAD]*W + reverse(tg) + [TPAD]*W
-static __device__ __forceinline__ int qbase(int x, const Ctx& c) {
-  return (x >= 1 && x <= c.Lq) ? (int)c.q[x - 1] : NW_QPAD;
-}
-
-static __device__ __forceinline__ int tbase(int y, const Ctx& c) {
-  return (y >= c.W && y < c.W + c.Lt) ? (int)c.tg[c.Lt - 1 - (y - c.W)] : NW_TPAD;
-}
-
-// The new bases of tile k + 1 (anti-diagonals from 1 + (k + 1) * kTile):
-// query positions (hq, hq + nq] past what tile k staged and target
-// positions [lt, lt + nt) below it.
-struct TileNew {
-  int hq, nq, lt, nt;
-};
-
-static __device__ __forceinline__ TileNew tile_new(int k, const Ctx& c) {
-  const int e0 = (k + 1) * kTile;
-  const int e1 = min(e0 + kTile, c.t_total);
-  TileNew n;
-  n.hq = qs_of(e0, c) + c.a0 + c.span - 1;
-  n.nq = qs_of(e1, c) + c.a0 + c.span - 1 - n.hq;
-  const int lt0 = ts_of(e0, c) + c.a0;
-  n.lt = ts_of(e1, c) + c.a0;
-  n.nt = lt0 - n.lt;
-  return n;
-}
-
-// A tile's first step loads the next tile's new bases (thread r takes
-// entries r, r + threads, ...) into registers; half a tile later they go
-// into the rings.  The rings hold a tile and a half of bases beyond a CTA's
-// span, so nothing tile k still reads is overwritten.
-static __device__ __forceinline__ void stage_step(int t, const Ctx& c, int (&pre)[kStage]) {
-  const int k = (t - 1) / kTile;
-  const int o = (t - 1) - k * kTile;
-  if (o != 0 && o != kTile / 2) return;
-  if (1 + (k + 1) * kTile > c.t_total) return;  // no next tile
-  const TileNew n = tile_new(k, c);
-  const int threads = c.nw * 32;
-#pragma unroll
-  for (int i = 0; i < kStage; ++i) {
-    const int j = c.r + i * threads;
-    if (o == 0) {
-      if (j < n.nq)
-        pre[i] = qbase(n.hq + 1 + j, c);
-      else if (j < n.nq + n.nt)
-        pre[i] = tbase(n.lt + j - n.nq, c);
-    } else {
-      if (j < n.nq)
-        c.Qr[(n.hq + 1 + j) & c.qmask] = (uint8_t)pre[i];
-      else if (j < n.nq + n.nt)
-        c.Tr[(n.lt + j - n.nq) & c.tmask] = (uint8_t)pre[i];
-    }
-  }
-}
-
-// tile 0's bases, staged by every thread before the sweep starts
-static __device__ __forceinline__ void stage_first(const Ctx& c) {
-  const int e = min(kTile, c.t_total);
-  const int q0 = qs_of(1, c) + c.a0;
-  const int nq = qs_of(e, c) + c.a0 + c.span - q0;
-  const int t0 = ts_of(e, c) + c.a0;
-  const int nt = ts_of(1, c) + c.a0 + c.span - t0;
-  for (int j = c.r; j < nq + nt; j += c.nw * 32) {
-    if (j < nq)
-      c.Qr[(q0 + j) & c.qmask] = (uint8_t)qbase(q0 + j, c);
-    else
-      c.Tr[(t0 + j - nq) & c.tmask] = (uint8_t)tbase(t0 + j - nq, c);
-  }
-}
 
 struct Pen32 {
   int mis, oe1, e1, oe2, e2;
@@ -394,127 +173,6 @@ __device__ __forceinline__ void shard_cell(const Lanes<S>& L, const Edge& e, con
   if (I2n < H) { H = I2n; ch = 4; }
   Hn = H;
   byte = b | ch;
-}
-
-// Ring end: wait until the peer has finished step t - 1 (so it has read
-// slot t & 1's step t - 2), put the column (if any) into slot t & 1, raise
-// the flag to t + 1.
-static __device__ __forceinline__ void ring_publish(int* rec, const int* peer, int t, bool col, int v0,
-                                                    int v1, int v2, bool sys) {
-  wait_flag(peer + kFlag, t, sys);
-  if (col) {
-    int* s = rec + (t & 1) * 3;
-    store_volatile(s, v0);
-    store_volatile(s + 1, v1);
-    store_volatile(s + 2, v2);
-  }
-  fence(sys);
-  store_volatile(rec + kFlag, t + 1);
-}
-
-// the peer's column of step t - 1
-static __device__ __forceinline__ void ring_read(const int* peer, int t, bool sys, int& v0, int& v1,
-                                                 int& v2) {
-  wait_flag(peer + kFlag, t, sys);
-  const int* s = peer + ((t - 1) & 1) * 3;
-  v0 = load_volatile(s);
-  v1 = load_volatile(s + 1);
-  v2 = load_volatile(s + 2);
-}
-
-// After step t: hand the column the next step needs (DPN: its dp) to the
-// neighbour threads, warps, CTAs and clusters, each into slot t & 1.
-template <int S, bool TWO, int DPN>
-__device__ __forceinline__ void publish(const Lanes<S>& L, Edge& e, const Ctx& c, int t) {
-  const int par = t & 1;
-  if (DPN == 0) {  // the next step reads the left neighbour's last lane
-    const int h = L.h1[S - 1], i1 = L.i1[S - 1], i2 = TWO ? L.i2[S - 1] : NW_INF;
-    e.hl2 = e.hl1;
-    e.hl1 = __shfl_up_sync(FULL_MASK, h, 1);
-    e.i1l = __shfl_up_sync(FULL_MASK, i1, 1);
-    if (TWO) e.i2l = __shfl_up_sync(FULL_MASK, i2, 1);
-    if (c.r == c.nreal - 1) {
-      if (c.has_right_cta) {
-        const int k = e.out_r++ & 1;
-        st_async3(c.to_r + 16 * k, c.to_r_bar + 8 * k, h, i1, i2);
-      }
-    } else if (c.lane == 31 && c.r < c.nreal) {
-      int* s = c.lw + (par * c.nw + c.warp + 1) * 3;
-      s[0] = h;
-      s[1] = i1;
-      s[2] = i2;
-    }
-  } else {  // the next step reads the right neighbour's first lane
-    const int h = L.h1[0], d1 = L.d1[0], d2 = TWO ? L.d2[0] : NW_INF;
-    e.hr1 = __shfl_down_sync(FULL_MASK, h, 1);
-    e.d1r = __shfl_down_sync(FULL_MASK, d1, 1);
-    if (TWO) e.d2r = __shfl_down_sync(FULL_MASK, d2, 1);
-    if (c.r == 0) {
-      if (c.has_left_cta) {
-        const int k = e.out_l++ & 1;
-        st_async3(c.to_l + 16 * k, c.to_l_bar + 8 * k, h, d1, d2);
-      }
-    } else if (c.lane == 0 && c.r < c.nreal) {
-      int* s = c.rw + (par * c.nw + c.warp - 1) * 3;
-      s[0] = h;
-      s[1] = d1;
-      s[2] = d2;
-    }
-  }
-  // the cluster's ends raise their flags every step, with a column or not
-  if (c.left_end)
-    ring_publish(c.my_left, c.peer_left, t, DPN == 1, L.h1[0], L.d1[0], TWO ? L.d2[0] : NW_INF, c.sys);
-  if (c.right_end)
-    ring_publish(c.my_right, c.peer_right, t, DPN == 0, L.h1[S - 1], L.i1[S - 1],
-                 TWO ? L.i2[S - 1] : NW_INF, c.sys);
-}
-
-// Before step t (after the barrier): the column from outside the warp, for
-// the threads at a warp's, a CTA's or a cluster's edge.
-template <bool TWO, int DP>
-__device__ __forceinline__ void read_edges(Edge& e, const Ctx& c, int t) {
-  const int par = (t - 1) & 1;
-  int v0 = NW_INF, v1 = NW_INF, v2 = NW_INF;
-  if (DP == 0) {
-    if (c.lane != 0) return;
-    if (c.r == 0) {
-      if (c.has_left_cta) {
-        const int k = e.in_l++;
-        mbar_arm(c.bar_l + 8 * (k & 1));
-        mbar_wait(c.bar_l + 8 * (k & 1), (k >> 1) & 1);
-        const int* s = c.slot_l + 4 * (k & 1);
-        v0 = s[0], v1 = s[1], v2 = s[2];
-      } else if (c.left_end) {
-        ring_read(c.peer_left, t, c.sys, v0, v1, v2);
-      }
-    } else {
-      const int* s = c.lw + (par * c.nw + c.warp) * 3;
-      v0 = s[0], v1 = s[1], v2 = s[2];
-    }
-    e.hl1 = v0;
-    e.i1l = v1;
-    if (TWO) e.i2l = v2;
-  } else {
-    if (c.r == c.nreal - 1) {
-      if (c.has_right_cta) {
-        const int k = e.in_r++;
-        mbar_arm(c.bar_r + 8 * (k & 1));
-        mbar_wait(c.bar_r + 8 * (k & 1), (k >> 1) & 1);
-        const int* s = c.slot_r + 4 * (k & 1);
-        v0 = s[0], v1 = s[1], v2 = s[2];
-      } else if (c.right_end) {
-        ring_read(c.peer_right, t, c.sys, v0, v1, v2);
-      }
-    } else if (c.lane == 31) {
-      const int* s = c.rw + (par * c.nw + c.warp) * 3;
-      v0 = s[0], v1 = s[1], v2 = s[2];
-    } else {
-      return;
-    }
-    e.hr1 = v0;
-    e.d1r = v1;
-    if (TWO) e.d2r = v2;
-  }
 }
 
 // Anti-diagonal t: slide the bases, compute the lanes that need no
@@ -609,6 +267,8 @@ __global__ void __launch_bounds__(kMaxThreads) nw_sweep_cluster(const ShardArgs 
   c.tlen = a.tlens[b];
   c.t_final = c.qlen + c.tlen;
   c.t_total = a.t_total;
+  c.t1 = 1;
+  c.neg = NW_INF;
   c.q = a.Q + (size_t)b * a.Lq;
   c.tg = a.T + (size_t)b * a.Lt;
   c.nreal = u1 - u0;
@@ -715,29 +375,6 @@ static const void* pick_kernel(int lanes, bool two) {
   }
 }
 
-static cudaError_t prepare(const void* fn, int cluster, int smem) {
-  cudaError_t err = allow_smem(fn, (size_t)smem);
-  if (err != cudaSuccess) return err;
-  if (cluster > 8) err = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  return err;
-}
-
-static void cluster_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, int blocks, int cluster,
-                           int threads, int smem, cudaStream_t stream) {
-  cfg = cudaLaunchConfig_t{};
-  cfg.gridDim = dim3(blocks);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = (size_t)smem;
-  cfg.stream = stream;
-  attr = cudaLaunchAttribute{};
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = cluster;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-}
-
 // Clusters of the sharded mode that can be resident at once on `device` at
 // this shape (cudaOccupancyMaxActiveClusters).  Returns the CUDA error code
 // (cudaErrorInvalidValue for lanes the library does not build).
@@ -747,7 +384,7 @@ extern "C" int nw_sweep_shard_capacity(int device, int two, int lanes, int clust
   if (err != cudaSuccess) return (int)err;
   const void* fn = pick_kernel(lanes, two != 0);
   if (!fn) return (int)cudaErrorInvalidValue;
-  err = prepare(fn, cluster, smem);
+  err = prepare_cluster(fn, cluster, smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
@@ -787,7 +424,7 @@ extern "C" int nw_sweep_shard_launch(const void* Q, const void* T, const void* q
   if (err != cudaSuccess) return (int)err;
   const void* fn = pick_kernel(lanes, o2 >= 0);
   if (!fn) return (int)cudaErrorInvalidValue;
-  err = prepare(fn, cluster, smem);
+  err = prepare_cluster(fn, cluster, smem);
   if (err != cudaSuccess) return (int)err;
   ShardArgs a{(const uint8_t*)Q, (const uint8_t*)T, (const int*)qlens, (const int*)tlens,
               (int*)scores, (uint8_t*)strips, (const unsigned long long*)table,

@@ -58,7 +58,7 @@ cudaError_t nw_sweep_snap_regs_launch(const void* Q, const void* T, const void* 
                                       cudaStream_t stream) {
   const void* fn = nw_sweep_snap_kernel(lanes, two);
   if (fn == nullptr) return cudaErrorInvalidValue;
-  const size_t smem = dynamic_smem(lanes, W, ppb, pair_bytes, false);
+  const size_t smem = dynamic_smem(ppb, pair_bytes);
   cudaError_t err = allow_smem(fn, smem);
   if (err != cudaSuccess) return err;
   const uint8_t* q = (const uint8_t*)Q;

@@ -66,9 +66,11 @@ can be compared whole.
 
 Kernel A has two routes, which ``plan_sweep`` (pure Python) picks from the
 band: the register route (each pair's lanes in the registers of one to
-eight warps) up to W = REG_MAX_W, and the wide route (one block per pair,
-DP rows in shared memory, or in a global scratch where they do not fit)
-above it or for penalties outside [0, 2^16).
+eight warps) up to W = REG_MAX_W, and the wide route (``wide_plan``; one
+pair a thread-block cluster, or a chain of clusters, its lanes in
+registers; ``csrc/nw_sweep_wide.cuh``) above it, for penalties outside
+[0, 2^16), int16 adds that can wrap, and sequences too long for the
+register route's shared memory.
 
 The kernels are compiled at first use with ``nvcc`` for ``sm_90a`` from the
 sources under ``csrc/`` into ``build/seqrush_tpu_torch/`` at the repository
@@ -82,7 +84,9 @@ runs and start modes as ``nw_walk_runs`` and ``nw_walk_start``, each segment
 mode apart (``nw_sweep_segment``, ``nw_sweep_segment_score_only`` (a
 forward run's launch too), ``nw_walk_segment``, and the group launches
 ``nw_sweep_segment_group``, ``nw_walk_segment_group``, which the long route
-makes at every G, 1 included), the sharded mode as ``nw_sweep_sharded`` (one a
+makes at every G, 1 included), the wide route apart as ``nw_sweep_wide``
+(single-shot, every mode) and ``nw_sweep_wide_segment`` (every segment
+launch), one a launch of a chain's slices (``wide_slices``), the sharded mode as ``nw_sweep_sharded`` (one a
 device's launch), and kernels C and D as ``nw_rows_sweep`` and
 ``nw_rows_walk``, the fold's combine as ``fold_combine``; the wavefront
 kernel of ``ops/wfa.py`` (``wfa``, ``wfa_score_only``), the SGD tick of
@@ -117,12 +121,13 @@ LAUNCHES = {"nw_sweep": 0, "nw_sweep_score_only": 0, "nw_walk": 0, "nw_walk_runs
             "wfa": 0, "wfa_score_only": 0, "nw_sweep_int16": 0, "nw_sweep_snapshot": 0,
             "nw_walk_start": 0, "nw_rows_sweep": 0, "nw_rows_walk": 0, "nw_sweep_tiled": 0,
             "nw_walk_runs_tiled": 0, "nw_sweep_sharded": 0, "fold_combine": 0, "sgd_tick": 0,
-            "uf_unite": 0, "uf_compress": 0, "uf_find": 0}
+            "uf_unite": 0, "uf_compress": 0, "uf_find": 0, "nw_sweep_wide": 0, "nw_sweep_wide_segment": 0}
 
 _SOURCES = ("nw_sweep.cu", "nw_sweep_seg.cu", "nw_sweep_snap.cu", "nw_sweep_tiled.cu", "nw_sweep_i16.cu",
             "nw_walk.cu", "wfa.cu", "nw_rows.cu", "nw_sweep_shard.cu", "fold_combine.cu", "sgd_tick.cu",
-            "unionfind.cu")
-_HEADERS = ("nw_sweep.cuh",)
+            "unionfind.cu", "nw_sweep_wide.cu", "nw_sweep_wide_plain.cu", "nw_sweep_wide_i16.cu",
+            "nw_sweep_wide_seg.cu")
+_HEADERS = ("nw_sweep.cuh", "nw_cluster.cuh", "nw_sweep_wide.cuh")
 # anti-diagonals per segment of the long-pair route (the JAX package's default)
 LONG_SEG = 2048
 # the long route's traceback budget (RunnerConfig.memory_budget_bytes' default)
@@ -148,7 +153,7 @@ I16_LANES = tuple(_I16_BOUNDS)
 I16_TWIN_CELL_COST = 1.25
 # widest band the register route covers; wider bands take the wide route
 REG_MAX_W = max(s * t for s, t in _MAX_THREADS.items())
-_SWEEP_ROWS = 11  # DP rows per pair on the wide route
+_SWEEP_ROWS = 11  # DP rows per pair on the tiled mode's wide route
 # dynamic shared memory a block may opt into on H100 (sm_90)
 _SMEM_OPTIN_BYTES = 232448
 _MAX_PAIR_BARRIERS = 2  # named barriers 1 and 2, one per multi-warp pair
@@ -243,15 +248,23 @@ def _library() -> ctypes.CDLL:
             path, _log = build()
             lib = ctypes.CDLL(str(path))
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.nw_sweep_launch.argtypes = [ptr] * 11 + [i32] * 17 + [ptr]
+            lib.nw_sweep_launch.argtypes = [ptr] * 10 + [i32] * 16 + [ptr]
             lib.nw_sweep_launch.restype = i32
-            lib.nw_sweep_occupancy.argtypes = [i32] * 9 + [ptr] * 3
+            lib.nw_sweep_occupancy.argtypes = [i32] * 7 + [ptr] * 3
             lib.nw_sweep_occupancy.restype = i32
+            lib.nw_sweep_wide_launch.argtypes = [ptr] * 11 + [i32] * 23 + [ptr]
+            lib.nw_sweep_wide_launch.restype = i32
+            lib.nw_sweep_wide_seg_launch.argtypes = [ptr] * 9 + [i32] * 29 + [ptr]
+            lib.nw_sweep_wide_seg_launch.restype = i32
+            lib.nw_sweep_wide_floor_launch.argtypes = [ptr] * 2 + [i32] * 11 + [ptr]
+            lib.nw_sweep_wide_floor_launch.restype = i32
+            lib.nw_sweep_wide_query.argtypes = [i32] * 9 + [ptr] * 4
+            lib.nw_sweep_wide_query.restype = i32
             lib.nw_sweep_i16_launch.argtypes = [ptr] * 6 + [i32] * 15 + [ptr]
             lib.nw_sweep_i16_launch.restype = i32
             lib.nw_sweep_i16_occupancy.argtypes = [i32] * 6 + [ptr] * 4
             lib.nw_sweep_i16_occupancy.restype = i32
-            lib.nw_sweep_segment_launch.argtypes = [ptr] * 10 + [i32] * 20 + [ptr]
+            lib.nw_sweep_segment_launch.argtypes = [ptr] * 9 + [i32] * 19 + [ptr]
             lib.nw_sweep_segment_launch.restype = i32
             lib.nw_walk_launch.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
             lib.nw_walk_launch.restype = i32
@@ -337,16 +350,14 @@ def _require_cuda(device: torch.device) -> None:
 
 @dataclass(frozen=True)
 class SweepPlan:
-    """How kernel A covers a dispatch.  Pair b runs in block b // pairs_per_block
-    as warps [p * warps_per_pair, (p + 1) * warps_per_pair) with
-    p = b % pairs_per_block; its thread r owns lanes [r * lanes, r * lanes + lanes)
-    (lanes >= W are ghosts).  The wide route (lanes 0) runs one block of
-    `threads` threads per pair, lane l on thread l % threads, with its DP
-    rows in smem_bytes of shared memory, or in a global scratch where
-    smem_bytes is 0."""
+    """How kernel A's register route covers a dispatch.  Pair b runs in block
+    b // pairs_per_block as warps [p * warps_per_pair, (p + 1) * warps_per_pair)
+    with p = b % pairs_per_block; its thread r owns lanes [r * lanes,
+    r * lanes + lanes) (lanes >= W are ghosts).  The wide route's plan is a
+    WidePlan."""
 
-    route: str  # "regs" or "wide"
-    lanes: int  # lanes per thread; 0 on the wide route
+    route: str  # "regs" ("twins": the packed int16 sweep)
+    lanes: int  # lanes per thread
     warps_per_pair: int
     pairs_per_block: int
     threads: int  # per block
@@ -385,14 +396,114 @@ def register_route_penalties(mismatch: int, o1: int, e1: int, o2: int, e2: int,
     return not int16 or max(adds) <= 32767 - nw.INF16
 
 
-def wide_plan(B: int, W: int, groups: int = 1) -> SweepPlan:
-    """One block per pair (and grid row), lane l on thread l % threads, its
-    11 DP rows of W int32 in shared memory while they fit, else in a global
-    scratch."""
-    threads = min(1024, -(-W // 32) * 32)
-    rows = _SWEEP_ROWS * W * 4
-    return SweepPlan("wide", 0, threads // 32, 1, threads, 0,
-                     rows if rows <= _SMEM_OPTIN_BYTES else 0, B, groups)
+# the wide route (csrc/nw_sweep_wide.cuh): lanes a thread it is built for,
+# threads a CTA at most (kWideMaxThreads) and CTAs a cluster at most
+# (non-portable above 8)
+WIDE_LANES = (1, 2, 4)
+WIDE_MAX_THREADS = 384
+WIDE_MAX_CLUSTER = 16
+# clusters of each size, one CTA an SM, resident at once on the H100
+# (cudaOccupancyMaxActiveClusters through wide_query, NVIDIA H100 80GB
+# HBM3): a cluster sits in one GPC, so 16-CTA clusters fit 7 times.  The
+# pure planner's hint of the card's shape only: a launch is sliced by the
+# count wide_query measures (wide_slices)
+WIDE_RESIDENT = {16: 7, 8: 15, 4: 30, 2: 66, 1: 132}
+
+
+# the wide route's cell arithmetic (csrc/nw_sweep_wide.cuh's AR)
+WIDE_PLAIN, WIDE_KEYED, WIDE_KEYED16 = 0, 1, 2
+
+
+def wide_arith(mismatch: int, o1: int, e1: int, o2: int, e2: int, int16: bool = False) -> int:
+    """The wide route's cell arithmetic for these penalties (pure): the
+    int16 mode's signed keys; unsigned keys value * 8 + tag where every
+    penalty is in [0, 2^16) (register_route_penalties in int32); plain
+    compares for other int32 penalties."""
+    if int16:
+        return WIDE_KEYED16
+    return WIDE_KEYED if register_route_penalties(mismatch, o1, e1, o2, e2) else WIDE_PLAIN
+
+
+@dataclass(frozen=True)
+class WidePlan:
+    """How kernel A's wide route covers a dispatch: each pair (and grid row)
+    on `ctas` CTAs, CTA c owning units [c * U // ctas, (c + 1) * U // ctas)
+    of the pair's U = ceil(W / lanes) units of `lanes` lanes (thread r the
+    r-th unit; threads past the CTA's units are ghosts, lanes >= W ghost
+    lanes), in clusters of `cluster` CTAs, `clusters` of them a pair (a
+    chain joined through global memory where > 1).  qring and tring are the
+    bytes of the staged-base rings; smem_bytes a CTA's dynamic shared
+    memory, padded to hold an SM alone where the launch's CTAs fit the card
+    at once or the pair is a chain."""
+
+    lanes: int
+    ctas: int
+    cluster: int
+    clusters: int
+    threads: int
+    qring: int
+    tring: int
+    smem_bytes: int
+    blocks: int  # B * ctas, a grid row's CTAs
+    groups: int = 1  # grid rows (segment mode: the segments of a group)
+    route: str = "wide"
+
+    @property
+    def warps_per_pair(self) -> int:
+        return self.ctas * self.threads // 32
+
+    @property
+    def solo(self) -> bool:
+        """One CTA a pair at a lane a thread: the solo kernels, whose step
+        has no neighbour CTA or cluster to test for (csrc/nw_sweep_wide.cuh)."""
+        return self.ctas == 1 and self.lanes == 1
+
+
+def wide_plan(B: int, W: int, groups: int = 1, lanes: int | None = None, ctas: int | None = None,
+              cluster: int | None = None) -> WidePlan:
+    """The wide route's plan for B pairs (and `groups` grid rows) at W lanes
+    (pure): the fewest lanes a thread (1, 2, 4; or `lanes`) whose CTAs of at
+    most WIDE_MAX_THREADS threads, a power of two of them a pair, are
+    clusters that the card holds all at once with a CTA an SM
+    (WIDE_RESIDENT); more lanes a thread cost a warp more than more warps do
+    (PERF.md §6).  Where even 4 lanes a thread do not fit, the fewest
+    CTAs that do, a power of two up to WIDE_MAX_CLUSTER, or a chain of
+    clusters of 16 for a band wider than 16 CTAs hold.  `ctas` and
+    `cluster` force the CTAs a pair and a cluster (a chain where cluster <
+    ctas), to hold every shape the kernel takes to its plain version."""
+    if B < 0 or W < 1 or groups < 1:
+        raise ValueError(f"bad dispatch B={B}, W={W}, groups={groups}")
+    if lanes is not None and lanes not in WIDE_LANES:
+        raise ValueError(f"the wide route takes {WIDE_LANES} lanes a thread, got {lanes}")
+    if ctas is not None:
+        S = lanes or 4
+        U = -(-W // S)
+        cluster = cluster or min(ctas, WIDE_MAX_CLUSTER)
+        if not (1 <= cluster <= WIDE_MAX_CLUSTER and ctas % cluster == 0 and ctas <= U
+                and -(-U // ctas) <= WIDE_MAX_THREADS):
+            raise ValueError(f"{ctas} CTAs in clusters of {cluster} cannot cover {U} units of {S} lanes")
+        return _wide_plan_at(B, groups, S, U, ctas, cluster)
+    pairs = max(B, 1) * groups
+    cap = next((c for c in sorted(WIDE_RESIDENT, reverse=True) if pairs <= WIDE_RESIDENT[c]), 1)
+    for S in (lanes,) if lanes is not None else WIDE_LANES:
+        U = -(-W // S)
+        need = -(-U // WIDE_MAX_THREADS)
+        ctas = _pow2_at_least(need) if need <= WIDE_MAX_CLUSTER else WIDE_MAX_CLUSTER * -(-need // WIDE_MAX_CLUSTER)
+        if ctas <= cap:
+            break
+    return _wide_plan_at(B, groups, S, U, ctas, min(ctas, WIDE_MAX_CLUSTER))
+
+
+def _wide_plan_at(B: int, groups: int, S: int, U: int, ctas: int, cluster: int) -> WidePlan:
+    threads = -(-(-(-U // ctas)) // 32) * 32  # the most units a CTA owns, in warps
+    span = threads * S
+    qring = _pow2_at_least(span + SHARD_TILE + 2)
+    tring = _pow2_at_least(span + 2 * SHARD_TILE + 1)
+    need_bytes = 96 + 48 * (threads // 32) + qring + tring  # mbarriers, CTA slots, warp slots, rings
+    spread = max(B, 1) * groups * ctas <= _H100_SMS or ctas > cluster
+    return WidePlan(lanes=S, ctas=ctas, cluster=cluster, clusters=ctas // cluster, threads=threads, qring=qring,
+                    tring=tring, smem_bytes=max(need_bytes, SHARD_SPREAD_SMEM) if spread else need_bytes,
+                    blocks=B * ctas, groups=groups)
 
 
 def _regs_plan(B: int, W: int, Lq: int, Lt: int, lanes: int, wpp: int, seg: int | None,
@@ -419,7 +530,7 @@ def _sweep_cost(plan: SweepPlan) -> int:
 
 
 def plan_sweep(B: int, W: int, Lq: int, Lt: int, *, warps_per_pair: int | None = None,
-               seg: int | None = None, groups: int = 1) -> SweepPlan:
+               seg: int | None = None, groups: int = 1) -> SweepPlan | WidePlan:
     """Route, lanes per thread, warps per pair, pairs per block and shared
     memory of one sweep launch (of segments of seg anti-diagonals when seg
     is given: its shared memory does not depend on Lq and Lt; `groups` grid
@@ -482,7 +593,7 @@ def _twins_plan(B: int, W: int, Lq: int, Lt: int, lanes: int, wpp: int) -> Sweep
                      -(-n_twins // ppb))
 
 
-def plan_sweep_i16(B: int, W: int, Lq: int, Lt: int, *, warps_per_twin: int | None = None) -> SweepPlan:
+def plan_sweep_i16(B: int, W: int, Lq: int, Lt: int, *, warps_per_twin: int | None = None) -> SweepPlan | WidePlan:
     """Kernel A's int16 mode on the register route (its penalties must be
     register_route_penalties(..., int16=True)'s): the packed sweep's plan.
     Twin i is pairs 2i and 2i + 1; block x holds twins [x * pairs_per_block,
@@ -618,16 +729,26 @@ def nw_align(Q, T, qlens, tlens, *, mismatch, o1, e1, o2, e2, band, tmax, with_t
     if device.type == "cpu":
         return nw_align_reference(Q, T, qlens, tlens, **kw)
     _require_cuda(device)
-    if not register_route_penalties(mismatch, o1, e1, o2, e2, int16):
-        plan = wide_plan(B, band + 1)
-    elif int16 and t_snap is None:
-        plan = plan_sweep_i16(B, band + 1, Q.shape[1], T.shape[1])
-    else:
-        plan = plan_sweep(B, band + 1, Q.shape[1], T.shape[1])
+    plan = align_plan(B, band + 1, Q.shape[1], T.shape[1], mismatch=mismatch, o1=o1, e1=e1, o2=o2, e2=e2,
+                      int16=int16, snapshot=t_snap is not None)
     return sweep_launch(Q, T, qlens, tlens, plan, **kw)
 
 
-def sweep_launch(Q, T, qlens, tlens, plan: SweepPlan, *, mismatch, o1, e1, o2, e2, band, tmax,
+def align_plan(B: int, W: int, Lq: int, Lt: int, *, mismatch, o1, e1, o2, e2, int16=False,
+               snapshot=False) -> SweepPlan | WidePlan:
+    """The plan nw_align launches on the card (pure): the wide route for
+    penalties the register route does not take, else the packed int16
+    sweep's planner in the int16 mode without snapshots, else plan_sweep's
+    (which takes the wide route above REG_MAX_W and where the sequences do
+    not fit the register route's shared memory)."""
+    if not register_route_penalties(mismatch, o1, e1, o2, e2, int16):
+        return wide_plan(B, W)
+    if int16 and not snapshot:
+        return plan_sweep_i16(B, W, Lq, Lt)
+    return plan_sweep(B, W, Lq, Lt)
+
+
+def sweep_launch(Q, T, qlens, tlens, plan: SweepPlan | WidePlan, *, mismatch, o1, e1, o2, e2, band, tmax,
                  with_traceback=True, int16=False, t_snap=None):
     """Launch kernel A on checked CUDA tensors with a given plan (nw_align's
     plan, or another one to compare launch shapes)."""
@@ -641,7 +762,10 @@ def sweep_launch(Q, T, qlens, tlens, plan: SweepPlan, *, mismatch, o1, e1, o2, e
     W = band + 1
     tmax_pad = tmax_pad_of(tmax)
     neg = nw.INF16 if int16 else INF
-    scores = torch.empty(B, dtype=torch.int32, device=device)
+    if plan.route == "wide":
+        scores = torch.full((B,), -1, dtype=torch.int32, device=device)
+    else:
+        scores = torch.empty(B, dtype=torch.int32, device=device)
     tb = torch.empty((B, tmax_pad, W), dtype=torch.uint8, device=device) if with_traceback else None
     snaps = None
     if t_snap is not None:
@@ -650,10 +774,25 @@ def sweep_launch(Q, T, qlens, tlens, plan: SweepPlan, *, mismatch, o1, e1, o2, e
                  torch.full((B, W), neg, dtype=torch.int32, device=device))
     if B == 0:
         return (scores, tb) if snaps is None else (scores, tb, snaps)
-    scratch = None
-    if plan.route == "wide" and not plan.smem_bytes:
-        scratch = torch.empty(B * _SWEEP_ROWS * W, dtype=torch.int32, device=device)
     lib = _library()
+    if plan.route == "wide":
+        ar = wide_arith(mismatch, o1, e1, o2, e2, int16)
+        recs, slices = _wide_launches(device, plan, B, o2 >= 0, with_traceback, ar, False)
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            for b0, nb, _y0, _ny in slices:
+                err = lib.nw_sweep_wide_launch(
+                    Q.data_ptr(), T.data_ptr(), qlens.data_ptr(), tlens.data_ptr(), scores.data_ptr(),
+                    tb.data_ptr() if tb is not None else None, recs.data_ptr() if recs is not None else None,
+                    t_snap.data_ptr() if snaps else None, snaps[0].data_ptr() if snaps else None,
+                    snaps[1].data_ptr() if snaps else None, snaps[2].data_ptr() if snaps else None,
+                    B, Lq, T.shape[1], W, tmax, tmax_pad, mismatch, o1, e1, o2, e2, ar, plan.lanes,
+                    plan.ctas, plan.cluster, plan.clusters, plan.threads, plan.smem_bytes, plan.qring, plan.tring,
+                    b0, nb, int(plan.solo), stream)
+                if err != 0:
+                    raise RuntimeError(f"nw_sweep_wide launch failed with CUDA error {err}")
+                LAUNCHES["nw_sweep_wide"] += 1
+        return (scores, tb) if snaps is None else (scores, tb, snaps)
     if plan.route == "twins":
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
@@ -671,12 +810,10 @@ def sweep_launch(Q, T, qlens, tlens, plan: SweepPlan, *, mismatch, o1, e1, o2, e
         err = lib.nw_sweep_launch(
             Q.data_ptr(), T.data_ptr(), qlens.data_ptr(), tlens.data_ptr(),
             scores.data_ptr(), tb.data_ptr() if tb is not None else None,
-            scratch.data_ptr() if scratch is not None else None,
             t_snap.data_ptr() if snaps else None, snaps[0].data_ptr() if snaps else None,
             snaps[1].data_ptr() if snaps else None, snaps[2].data_ptr() if snaps else None,
             B, Lq, T.shape[1], W, tmax, tmax_pad, mismatch, o1, e1, o2, e2, int(int16),
-            plan.lanes, plan.warps_per_pair, plan.pairs_per_block, plan.pair_bytes,
-            plan.threads, stream,
+            plan.lanes, plan.warps_per_pair, plan.pairs_per_block, plan.pair_bytes, stream,
         )
     if err != 0:
         raise RuntimeError(f"nw_sweep launch failed with CUDA error {err}")
@@ -686,13 +823,110 @@ def sweep_launch(Q, T, qlens, tlens, plan: SweepPlan, *, mismatch, o1, e1, o2, e
     return (scores, tb) if snaps is None else (scores, tb, snaps)
 
 
-def sweep_occupancy(plan: SweepPlan, W: int, two_piece: bool, with_traceback: bool = True, *,
+# the wide route's kernel facts already read from the card, by (device,
+# kernel, cluster, threads, shared memory)
+_wide_queries: dict = {}
+
+
+def wide_query(device, plan: WidePlan, two_piece: bool, with_traceback: bool = True, ar: int = WIDE_KEYED,
+               segment: bool = False) -> dict:
+    """The wide route's kernel at `plan` with the cell arithmetic `ar`
+    (wide_arith) on `device` (needs the card): its registers and local
+    (spilled) bytes a thread, its CTAs resident an SM, and the clusters of
+    plan.cluster CTAs resident on the card at once
+    (cudaOccupancyMaxActiveClusters)."""
+    device = torch.device(device)
+    key = (device, segment, plan.lanes, two_piece, with_traceback, ar, plan.solo, plan.cluster, plan.threads,
+           plan.smem_bytes)
+    if key not in _wide_queries:
+        regs, local, ctas, clusters = (ctypes.c_int() for _ in range(4))
+        with torch.cuda.device(device):
+            err = _library().nw_sweep_wide_query(int(segment), plan.lanes, int(two_piece), int(with_traceback),
+                                                 int(ar), int(plan.solo), plan.cluster, plan.threads,
+                                                 plan.smem_bytes,
+                                                 ctypes.byref(regs), ctypes.byref(local), ctypes.byref(ctas),
+                                                 ctypes.byref(clusters))
+        if err != 0:
+            raise RuntimeError(f"nw_sweep_wide query failed with CUDA error {err}")
+        _wide_queries[key] = {"regs_per_thread": regs.value, "local_bytes_per_thread": local.value,
+                              "resident_ctas_per_sm": ctas.value, "resident_clusters": clusters.value}
+    return dict(_wide_queries[key])
+
+
+def wide_slices(plan: WidePlan, B: int, held: int) -> list[tuple[int, int, int, int]]:
+    """The launches of a wide-route dispatch of B pairs x plan.groups grid
+    rows (pure): (b0, nb, y0, ny), pairs [b0, b0 + nb) of rows [y0, y0 + ny),
+    each (pair, row) in one launch.  Pairs on one cluster each take one
+    launch (clusters the card cannot hold yet wait for a free SM).  A
+    chain's clusters spin on each other, so each launch holds at most
+    `held` clusters, the card's resident clusters at the plan (wide_query):
+    whole rows of B pairs where they fit, else runs of a row's pairs.
+    Raises RuntimeError where one pair's chain alone exceeds `held`."""
+    G = plan.groups
+    if B <= 0:
+        return []
+    if plan.clusters == 1 or B * G * plan.clusters <= held:
+        return [(0, B, 0, G)]
+    per = held // plan.clusters  # pairs (of one row) a launch holds
+    if per < 1:
+        raise RuntimeError(f"a pair's chain of {plan.clusters} clusters of {plan.cluster} CTAs is not resident "
+                           f"at once: the card holds {held}")
+    if per >= B:
+        rows = per // B
+        return [(0, B, y, min(rows, G - y)) for y in range(0, G, rows)]
+    return [(b, min(per, B - b), y, 1) for y in range(G) for b in range(0, B, per)]
+
+
+def _wide_launches(device, plan: WidePlan, B: int, two_piece: bool, with_traceback: bool, ar: int,
+                   segment: bool):
+    """The ring records of a chain of clusters ([groups, B, clusters, 2, 8]
+    int32, zeroed; None where a pair is one cluster) and the launches
+    (wide_slices) at the card's resident clusters for the plan, measured by
+    wide_query."""
+    if plan.clusters == 1:
+        return None, wide_slices(plan, B, 0)
+    held = wide_query(device, plan, two_piece, with_traceback, ar, segment)["resident_clusters"]
+    slices = wide_slices(plan, B, held)
+    return (torch.zeros((plan.groups, B, plan.clusters, 2, SHARD_REC_INTS), dtype=torch.int32, device=device),
+            slices)
+
+
+def wide_floor(plan: WidePlan, W: int, steps: int, device) -> torch.Tensor:
+    """The chain floor's probe (needs the card; csrc/nw_sweep_wide.cuh::
+    wide_floor_body): one pair's `steps` anti-diagonals at W lanes on
+    plan's lanes, CTAs a pair, cluster and threads, with the step's column
+    exchange and barrier alone (two-piece columns; no cell, bases or
+    stores; a solo plan's on the solo kernels' step).  Its time over `steps` is the step latency the cluster's
+    machinery allows at the plan, the floor of the wide route's chain.  A
+    measurement, not a kernel of the main path: LAUNCHES does not count it.
+    Returns the probe's output word (its value means nothing)."""
+    one = wide_plan(1, W, lanes=plan.lanes, ctas=plan.ctas, cluster=plan.cluster)
+    device = torch.device(device)
+    _require_cuda(device)
+    out = torch.zeros(1, dtype=torch.int32, device=device)
+    recs = (torch.zeros((1, 1, one.clusters, 2, SHARD_REC_INTS), dtype=torch.int32, device=device)
+            if one.clusters > 1 else None)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = _library().nw_sweep_wide_floor_launch(
+            recs.data_ptr() if recs is not None else None, out.data_ptr(), W, steps, one.lanes, one.ctas,
+            one.cluster, one.clusters, one.threads, one.smem_bytes, one.qring, one.tring, int(one.solo), stream)
+    if err != 0:
+        raise RuntimeError(f"nw_sweep_wide floor probe failed with CUDA error {err}")
+    return out
+
+
+def sweep_occupancy(plan: SweepPlan | WidePlan, W: int, two_piece: bool, with_traceback: bool = True, *,
                     snapshot: bool = False) -> dict:
     """Registers per thread, shared memory per block and resident pairs per
     SM of a plan's launch shape in the full or the score-only mode, or with
     snapshot the snapshot mode's own kernel on the register route, from the
-    CUDA runtime and the launch code (needs the card)."""
+    CUDA runtime and the launch code (needs the card); on the wide route
+    wide_query's figures."""
     regs, blocks, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    if plan.route == "wide":
+        return {**wide_query(torch.device("cuda", torch.cuda.current_device()), plan, two_piece, with_traceback),
+                "smem_per_block": plan.smem_bytes, "warps_per_pair": plan.warps_per_pair}
     if snapshot and plan.route != "regs":
         raise ValueError("the snapshot mode's own kernel is the register route's")
     if plan.route == "twins":
@@ -708,9 +942,8 @@ def sweep_occupancy(plan: SweepPlan, W: int, two_piece: bool, with_traceback: bo
                 "resident_twins_per_sm": blocks.value * plan.pairs_per_block,
                 "resident_pairs_per_sm": 2 * blocks.value * plan.pairs_per_block,
                 "warps_per_pair": plan.warps_per_pair}
-    scratch = int(plan.route == "wide" and not plan.smem_bytes)
-    err = _library().nw_sweep_occupancy(plan.lanes, int(two_piece), int(with_traceback), int(snapshot), W,
-                                        plan.pairs_per_block, plan.pair_bytes, scratch, plan.threads,
+    err = _library().nw_sweep_occupancy(plan.lanes, int(two_piece), int(with_traceback), int(snapshot),
+                                        plan.pairs_per_block, plan.pair_bytes, plan.threads,
                                         ctypes.byref(regs), ctypes.byref(blocks), ctypes.byref(smem))
     if err != 0:
         raise RuntimeError(f"nw_sweep occupancy query failed with CUDA error {err}")
@@ -1017,7 +1250,7 @@ def nw_align_segment(Q, T, qlens, tlens, carry, scores, *, t0, seg, mismatch, o1
                           with_traceback=with_traceback, out=out, **pen)
 
 
-def segment_launch(Q, T, qlens, tlens, carry, scores, plan: SweepPlan, *, t0, seg, mismatch, o1,
+def segment_launch(Q, T, qlens, tlens, carry, scores, plan: SweepPlan | WidePlan, *, t0, seg, mismatch, o1,
                    e1, o2, e2, band, with_traceback=True, out=None):
     """Launch kernel A's segment mode on checked CUDA tensors with a given
     plan (plan_sweep(..., seg=seg), or another one to compare shapes)."""
@@ -1026,31 +1259,52 @@ def segment_launch(Q, T, qlens, tlens, carry, scores, plan: SweepPlan, *, t0, se
     scores_out = torch.empty_like(scores)
     tb = (torch.empty((B, seg, band + 1), dtype=torch.uint8, device=Q.device)
           if with_traceback else None)
-    _seg_launch(Q, T, qlens, tlens, carry, carry_out, scores, scores_out, tb, 0, plan, t_lo=t0 + 1,
-                seg=seg, n_run=1, n_out=1, mismatch=mismatch, o1=o1, e1=e1, o2=o2, e2=e2,
-                band=band)
-    LAUNCHES["nw_sweep_segment" if with_traceback else "nw_sweep_segment_score_only"] += 1
+    n = _seg_launch(Q, T, qlens, tlens, carry, carry_out, scores, scores_out, tb, 0, plan, t_lo=t0 + 1,
+                    seg=seg, n_run=1, n_out=1, mismatch=mismatch, o1=o1, e1=e1, o2=o2, e2=e2,
+                    band=band)
+    LAUNCHES["nw_sweep_wide_segment" if plan.route == "wide" else
+             "nw_sweep_segment" if with_traceback else "nw_sweep_segment_score_only"] += n
     return carry_out, scores_out, tb
 
 
-def _seg_launch(Q, T, qlens, tlens, ckpt_in, ckpt_out, scores_in, scores, tb, row0, plan: SweepPlan,
+def _seg_launch(Q, T, qlens, tlens, ckpt_in, ckpt_out, scores_in, scores, tb, row0, plan: SweepPlan | WidePlan,
                 *, t_lo, seg, n_run, n_out, mismatch, o1, e1, o2, e2, band):
     """One launch of kernel A's segment mode (csrc/nw_sweep_seg.cu's
-    nw_sweep_segment_launch): plan.groups grid rows, each a run of n_run
+    nw_sweep_segment_launch, or on the wide route csrc/nw_sweep_wide_seg.cu's
+    nw_sweep_wide_seg_launch): plan.groups grid rows, each a run of n_run
     segments from t_lo + y * n_run * seg on; ckpt_in and ckpt_out are
     carries [6, B, W] (views into a checkpoint tensor, the carries after
-    them following), tb [B, rows, W] or None, written from row row0 on.
-    Raises if the launch fails."""
+    them following), tb [B, rows, W] or None, written from row row0 on;
+    scores from scores_in, or as the caller filled them where it is None.
+    Returns the launches made (a chain's dispatch on the wide route is
+    sliced: wide_slices); raises if a launch fails."""
     if plan.route == "regs" and not register_route_penalties(mismatch, o1, e1, o2, e2):
         raise ValueError("the register route takes penalties in [0, 2^16) only")
     B, Lq = Q.shape
     W = band + 1
     if B == 0:
-        return
-    scratch = None
-    if plan.route == "wide" and not plan.smem_bytes:
-        scratch = torch.empty(plan.groups * B * _SWEEP_ROWS * W, dtype=torch.int32, device=Q.device)
+        return 0
     lib = _library()
+    if plan.route == "wide":
+        # the wide route reads the scores before the run from its output
+        if scores_in is not None:
+            scores.copy_(scores_in)
+        ar = wide_arith(mismatch, o1, e1, o2, e2)
+        recs, slices = _wide_launches(Q.device, plan, B, o2 >= 0, tb is not None, ar, True)
+        with torch.cuda.device(Q.device):
+            stream = torch.cuda.current_stream(Q.device).cuda_stream
+            for b0, nb, y0, ny in slices:
+                err = lib.nw_sweep_wide_seg_launch(
+                    Q.data_ptr(), T.data_ptr(), qlens.data_ptr(), tlens.data_ptr(), ckpt_in.data_ptr(),
+                    ckpt_out.data_ptr() if ckpt_out is not None else None, scores.data_ptr(),
+                    tb.data_ptr() + row0 * W if tb is not None else None,
+                    recs.data_ptr() if recs is not None else None, B, Lq, T.shape[1], W, t_lo, seg, n_run, n_out,
+                    plan.groups, tb.shape[1] if tb is not None else 0, mismatch, o1, e1, o2, e2, ar, plan.lanes,
+                    plan.ctas, plan.cluster, plan.clusters, plan.threads, plan.smem_bytes, plan.qring, plan.tring,
+                    b0, nb, y0, ny, int(plan.solo), stream)
+                if err != 0:
+                    raise RuntimeError(f"nw_sweep_wide segment launch failed with CUDA error {err}")
+        return len(slices)
     with torch.cuda.device(Q.device):
         stream = torch.cuda.current_stream(Q.device).cuda_stream
         err = lib.nw_sweep_segment_launch(
@@ -1058,14 +1312,13 @@ def _seg_launch(Q, T, qlens, tlens, ckpt_in, ckpt_out, scores_in, scores, tb, ro
             ckpt_out.data_ptr() if ckpt_out is not None else None,
             scores_in.data_ptr() if scores_in is not None else None, scores.data_ptr(),
             tb.data_ptr() + row0 * W if tb is not None else None,
-            scratch.data_ptr() if scratch is not None else None,
             B, Lq, T.shape[1], W, t_lo, seg, n_run, n_out, plan.groups,
             tb.shape[1] if tb is not None else 0, mismatch, o1, e1, o2, e2,
-            plan.lanes, plan.warps_per_pair, plan.pairs_per_block, plan.pair_bytes,
-            plan.threads, stream,
+            plan.lanes, plan.warps_per_pair, plan.pairs_per_block, plan.pair_bytes, stream,
         )
     if err != 0:
         raise RuntimeError(f"nw_sweep segment launch failed with CUDA error {err}")
+    return 1
 
 
 def nw_align_segment_reference(Q, T, qlens, tlens, carry, scores, *, t0, seg, mismatch, o1, e1,
@@ -1115,9 +1368,9 @@ def nw_align_segment_run(Q, T, qlens, tlens, ckpt, scores, *, s0, n_run, seg, mi
     B, W = Q.shape[0], band + 1
     plan = _segment_plan(B, W, Q.shape[1], T.shape[1], seg, 1, pen)
     out = torch.empty_like(scores)
-    _seg_launch(Q, T, qlens, tlens, ckpt[s0], ckpt[s0 + 1] if n_out else None, scores, out, None,
-                0, plan, t_lo=s0 * seg + 1, seg=seg, n_run=n_run, n_out=n_out, band=band, **pen)
-    LAUNCHES["nw_sweep_segment_score_only"] += 1
+    n = _seg_launch(Q, T, qlens, tlens, ckpt[s0], ckpt[s0 + 1] if n_out else None, scores, out, None,
+                    0, plan, t_lo=s0 * seg + 1, seg=seg, n_run=n_run, n_out=n_out, band=band, **pen)
+    LAUNCHES["nw_sweep_wide_segment" if plan.route == "wide" else "nw_sweep_segment_score_only"] += n
     return out
 
 
@@ -1163,9 +1416,9 @@ def nw_align_segment_group(Q, T, qlens, tlens, ckpt, *, s0, G, seg, mismatch, o1
     _require_cuda(Q.device)
     plan = _segment_plan(B, W, Q.shape[1], T.shape[1], seg, G, pen)
     scores = torch.full((B,), -1, dtype=torch.int32, device=Q.device)
-    _seg_launch(Q, T, qlens, tlens, ckpt[s0], None, None, scores, tb, row0, plan, t_lo=s0 * seg + 1,
-                seg=seg, n_run=1, n_out=0, band=band, **pen)
-    LAUNCHES["nw_sweep_segment_group"] += 1
+    n = _seg_launch(Q, T, qlens, tlens, ckpt[s0], None, None, scores, tb, row0, plan, t_lo=s0 * seg + 1,
+                    seg=seg, n_run=1, n_out=0, band=band, **pen)
+    LAUNCHES["nw_sweep_wide_segment" if plan.route == "wide" else "nw_sweep_segment_group"] += n
     return scores, tb
 
 

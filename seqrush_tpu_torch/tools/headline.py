@@ -3,8 +3,11 @@ JAX package's digest scripts under ``scripts/`` (through ``chip_smoke``) and
 ``tools/wfa_shapes.py``; ``synth_variation_graph``, the layout's graph at
 1,000 haplotypes (``chip_smoke.py`` phase 3, ``tools/sgd_timing.py``); and
 ``synth_flush_edges``, a union-find flush at that scale (``chip_smoke.py``
-phase 12b); and ``walk_gap_corpus``, the traceback walk's gap corpus
-(``chip_smoke.py`` phases 8a and 10b, ``tools/walk_timing.py``, the tests)."""
+phase 12b); ``walk_gap_corpus``, the traceback walk's gap corpus
+(``chip_smoke.py`` phases 8a and 10b, ``tools/walk_timing.py``, the tests);
+and ``translocation_pair``, the over-budget pair of the band-sharded route
+and of kernel A's wide route (``chip_smoke.py`` phases 11a and 11e,
+``tools/wide_timing.py``)."""
 
 from __future__ import annotations
 
@@ -224,3 +227,42 @@ def walk_gap_corpus(seed=19):
     tl = np.array([t.size for _, t in pairs], np.int32)
     tmax = -(-int((ql + tl).max()) // 512) * 512
     return Q, T, ql, tl, 199, tmax
+
+
+def translocation_pair(seed=23, flank=4000, block=8000, snp_rate=0.005):
+    """Two ~24 kb haplotypes that differ by a balanced translocation of an
+    8 kb block (q = A X B C, t = A B X C, |A| = |C| = 4 kb, |X| = |B| = 8
+    kb) and 0.5% SNPs on t: the optimal path leaves the main diagonal by 8
+    kb, so its certified band is wide and its traceback exceeds the default
+    2.6e9-byte budget (chip_smoke.py phase 11a)."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    A, X, B, C = (acgt[rng.integers(0, 4, n)] for n in (flank, block, block, flank))
+    q = np.concatenate([A, X, B, C])
+    t = np.concatenate([A, B, X, C])
+    hit = rng.random(t.size) < snp_rate
+    t[hit] = acgt[rng.integers(0, 4, int(hit.sum()))]
+    return [("hapA", q.tobytes()), ("hapB", t.tobytes())]
+
+
+def long_deletion_pair(seed=29, flank=1000, deleted=28_000):
+    """A ~30 kb haplotype and a 2 kb one that keeps only its two 1 kb
+    flanks (a 28 kb deletion).  The runner's band for the pair (its length
+    difference plus slack: W 28,160) passes 24,576 lanes, where kernel A's
+    wide route runs each pair on a chain of two 16-CTA clusters.  The
+    optimal alignment is the one gap of `deleted` bases: 28,024 at scoring
+    0,5,8,2,24,1 (long_deletion_score)."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    q = acgt[rng.integers(0, 4, 2 * flank + deleted)]
+    t = np.concatenate([q[:flank], q[flank + deleted :]])
+    return [("hapLong", q.tobytes()), ("hapShort", t.tobytes())]
+
+
+def long_deletion_score(scores, deleted=28_000) -> int:
+    """long_deletion_pair's optimal score under AlignmentScores `scores`:
+    one gap of `deleted` bases, the cheaper of the two gap pieces."""
+    cost = scores.gap1_open + scores.gap1_extend * deleted
+    if scores.gap2_open is not None:
+        cost = min(cost, scores.gap2_open + scores.gap2_extend * deleted)
+    return cost

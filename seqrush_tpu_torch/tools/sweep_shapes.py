@@ -10,8 +10,8 @@ headline scoring 0,5,8,2,24,1.  For each shape B:W it prints one JSON line
 with the time of ``nw_align`` (the planner's launch; a CUDA-event median of
 5 runs after a warm-up).  With --each-strip it also times every other
 lanes-per-thread strip that covers W, at as many warps as it needs, and on
-the wide route the rows in a global scratch; each is held bit-equal to
-``nw_align``'s scores and traceback first.
+the wide route each lanes a thread it is built for (``wide_plan(lanes=)``);
+each is held bit-equal to ``nw_align``'s scores and traceback first.
 
 --int16 times the int16 mode instead, with the int32 mode's time on the
 same pairs beside it (``int32_ms``) and a sha256 of the int16 scores and
@@ -222,9 +222,9 @@ def snapshot_rows_err(tb_k: torch.Tensor, tb_p: torch.Tensor, t_snap: torch.Tens
 
 
 def strips(nw_cuda, B: int, W: int, Lq: int, Lt: int):
-    """(label, plan) of every strip that covers W, and the wide route with
-    its rows in a global scratch where the planner keeps them in shared
-    memory."""
+    """(label, plan) of every strip that covers W: on the register route
+    each lanes a thread at as many warps as it needs, on the wide route
+    (W > REG_MAX_W) each lanes a thread it is built for."""
     out = []
     if W <= nw_cuda.REG_MAX_W:
         for s in nw_cuda.SWEEP_LANES:
@@ -232,10 +232,9 @@ def strips(nw_cuda, B: int, W: int, Lq: int, Lt: int):
             if 32 * wpp <= nw_cuda._MAX_THREADS[s]:
                 out.append((f"{s} lanes x {wpp} warps", nw_cuda._regs_plan(B, W, Lq, Lt, s, wpp, None)))
     else:
-        plan = nw_cuda.wide_plan(B, W)
-        if plan.smem_bytes:
-            out.append(("wide, rows in global scratch",
-                        nw_cuda.SweepPlan("wide", 0, plan.warps_per_pair, 1, plan.threads, 0, 0, B)))
+        for s in nw_cuda.WIDE_LANES:
+            plan = nw_cuda.wide_plan(B, W, lanes=s)
+            out.append((f"wide, {s} lanes x {plan.threads} threads x {plan.ctas} CTAs", plan))
     return out
 
 

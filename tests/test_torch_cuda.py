@@ -127,9 +127,9 @@ def _penalties(two_piece, band, tmax):
         ("variants", 8, 300, 63, False, 0.0),
         ("variants", 16, 1200, 383, True, 0.2),
         ("variants", 8, 1500, 1535, True, 0.4),
-        ("variants", 4, 700, 5375, True, 0.3),  # wide route: rows in global scratch
-        ("variants", 4, 700, 5281, True, 0.3),  # W 5282: the widest with rows in shared memory
-        ("variants", 4, 700, 5282, False, 0.3),  # W 5283: the first with rows in global scratch
+        ("variants", 4, 700, 5375, True, 0.3),  # wide route: 16 CTAs a pair, 4 lanes a thread
+        ("variants", 4, 700, 5281, True, 0.3),  # W 5282: 96 threads a CTA, two of them whole warps
+        ("variants", 4, 700, 5282, False, 0.3),  # W 5283: W not a multiple of the strip, byte stores
         ("variants", 8, 200, 0, True, 0.0),  # W 1
         ("variants", 8, 300, 31, True, 0.0),
         ("variants", 8, 300, 32, True, 0.0),
@@ -166,7 +166,8 @@ def test_kernels_equal_plain_versions(cuda, kind, B, L, band, two_piece, inv):
     s_k, tb_k = nw_cuda.nw_align(Q, T, ql, tl, **kw)
     ops_k = nw_cuda.nw_walk(tb_k, ql, tl, band=band, tmax=tmax)
     torch.cuda.synchronize()
-    assert nw_cuda.LAUNCHES["nw_sweep"] == before["nw_sweep"] + 1
+    key = "nw_sweep_wide" if band + 1 > nw_cuda.REG_MAX_W else "nw_sweep"
+    assert nw_cuda.LAUNCHES[key] == before[key] + 1
     assert nw_cuda.LAUNCHES["nw_walk"] == before["nw_walk"] + 1
     s_p, tb_p = nw_cuda.nw_align_reference(Q, T, ql, tl, **kw)
     ops_p = nw_cuda.nw_walk_reference(tb_k, ql, tl, band=band, tmax=tmax)
@@ -187,8 +188,8 @@ def test_kernels_equal_plain_versions(cuda, kind, B, L, band, two_piece, inv):
         (1535, 3, False),
         (1535, 6, True),
         (3071, 6, True),  # 16 lanes, 6 warps
-        (511, "wide", True),  # rows in shared memory
-        (511, "scratch", False),  # rows in global scratch
+        (511, "wide", True),  # the wide route's pick: 4 CTAs of a lane a thread
+        (511, "scratch", False),  # the wide route as a chain: 4 clusters of 2 CTAs, 4 lanes a thread
     ],
 )
 def test_sweep_launch_shapes_equal_plain(cuda, band, plan, two_piece):
@@ -202,7 +203,7 @@ def test_sweep_launch_shapes_equal_plain(cuda, band, plan, two_piece):
     if plan == "wide":
         p = nw_cuda.wide_plan(B, W)
     elif plan == "scratch":
-        p = nw_cuda.SweepPlan("wide", 0, W // 32, 1, W, 0, 0, B)
+        p = nw_cuda.wide_plan(B, W, lanes=4, ctas=8, cluster=2)
     else:
         p = nw_cuda.plan_sweep(B, W, Q.shape[1], T.shape[1], warps_per_pair=plan)
     s_k, tb_k = nw_cuda.sweep_launch(Q, T, ql, tl, p, **kw)
@@ -290,11 +291,220 @@ def test_score_only_sweep_equals_full_sweep(cuda, band, two_piece):
     s_only, none = nw_cuda.nw_align(Q, T, ql, tl, with_traceback=False, **kw)
     torch.cuda.synchronize()
     assert none is None
-    assert nw_cuda.LAUNCHES["nw_sweep_score_only"] == before["nw_sweep_score_only"] + 1
+    key = "nw_sweep_wide" if band + 1 > nw_cuda.REG_MAX_W else "nw_sweep_score_only"
+    assert nw_cuda.LAUNCHES[key] == before[key] + 1
     assert nw_cuda.LAUNCHES["nw_sweep"] == before["nw_sweep"]
     s_p, _ = nw_cuda.nw_align_reference(Q, T, ql, tl, with_traceback=False, **kw)
     assert torch.equal(s_only, s_full)
     assert torch.equal(s_only, s_p)
+
+
+# -- kernel A's wide route (csrc/nw_sweep_wide.cuh): a cluster of CTAs a pair
+
+
+def _wide_batch(cuda, B, L, band, seed):
+    """B - 1 variant pairs of ~L bases with ragged lengths (an inversion on
+    every other pair) and a zero-length row."""
+    return _pack(*_variants(np.random.default_rng(seed), B, L, band, 0.3), cuda)
+
+
+@pytest.mark.parametrize(
+    "band,B,L,two_piece,forced",
+    [
+        (4096, 5, 2500, True, None),  # W 4097: 16 CTAs of 288 threads, a lane a thread
+        (8192, 4, 2500, False, None),  # W 8193: 2 lanes a thread, not a multiple of the strip (byte stores)
+        (4096, 2, 2500, True, (1, 48, 16)),  # a chain of 3 clusters of 16, a lane a thread
+        (4096, 4, 2500, False, (2, 16, 4)),  # a chain of 4 clusters of 4
+        (8192, 3, 5200, True, (4, 32, 16)),  # a chain of 2 clusters of 16 across which the cells run
+        (127, 9, 600, True, (1, 1, 1)),  # a narrow band: one CTA a pair, a lane a thread (solo)
+        (200, 5, 500, False, (1, 1, 1)),  # solo, 7 warps, the last one's lanes partly past W
+        (20, 6, 300, True, (1, 1, 1)),  # solo on one warp, 11 lanes past W
+        (127, 9, 600, False, (4, 1, 1)),  # one warp of 4 lanes a pair
+    ],
+)
+def test_wide_route_equals_plain(cuda, band, B, L, two_piece, forced):
+    """The wide route, full and score-only: scores and every traceback row
+    bit-equal to the plain version, at the planner's pick and at forced
+    lanes, CTAs and clusters; one nw_sweep_wide launch each."""
+    (Q, T, ql, tl), tmax = _wide_batch(cuda, B, L, band, band + B)
+    kw = _penalties(two_piece, band, tmax)
+    W = band + 1
+    if forced is None:
+        plan = nw_cuda.plan_sweep(B, W, Q.shape[1], T.shape[1])
+    else:
+        lanes, ctas, cluster = forced
+        plan = nw_cuda.wide_plan(B, W, lanes=lanes, ctas=ctas, cluster=cluster)
+    assert plan.route == "wide"
+    before = dict(nw_cuda.LAUNCHES)
+    s_k, tb_k = nw_cuda.sweep_launch(Q, T, ql, tl, plan, **kw)
+    s_o, none = nw_cuda.sweep_launch(Q, T, ql, tl, plan, with_traceback=False, **kw)
+    torch.cuda.synchronize()
+    assert nw_cuda.LAUNCHES["nw_sweep_wide"] == before["nw_sweep_wide"] + 2
+    assert all(nw_cuda.LAUNCHES[k] == before[k] for k in ("nw_sweep", "nw_sweep_score_only"))
+    s_p, tb_p = nw_cuda.nw_align_reference(Q, T, ql, tl, **kw)
+    assert none is None and torch.equal(s_k, s_p) and torch.equal(s_o, s_p)
+    assert torch.equal(tb_k, tb_p)
+    assert (s_k[:-1] >= 0).all() and int(s_k[-1]) == -1
+
+
+@pytest.mark.parametrize(
+    "pen,int16,arith",
+    [
+        (dict(mismatch=5, o1=70_000, e1=2, o2=24, e2=1), False, "plain"),  # a gap open past 2^16
+        (dict(mismatch=-3, o1=8, e1=2, o2=-1, e2=-1), False, "plain"),  # a negative mismatch, one-piece
+        (dict(mismatch=5, o1=8, e1=2, o2=24, e2=1), False, "keyed"),  # the register route's penalties
+        (dict(mismatch=5, o1=8, e1=2, o2=-1, e2=-1), False, "keyed"),
+        (dict(mismatch=5, o1=8, e1=2, o2=3000, e2=1), True, "keyed16"),  # int16 adds that wrap
+    ],
+)
+def test_wide_arith_equals_plain(cuda, pen, int16, arith):
+    """Each cell arithmetic of the wide route (nw_cuda.wide_arith: plain
+    compares, unsigned keys, the int16 mode's signed keys) on a pair's two
+    CTAs and on one CTA at a lane a thread (the solo kernels): single-shot
+    scores and every traceback row, and in int32 a segment's carry, scores
+    and rows, bit-equal to the plain versions."""
+    assert nw_cuda.wide_arith(**pen, int16=int16) == {
+        "plain": nw_cuda.WIDE_PLAIN, "keyed": nw_cuda.WIDE_KEYED, "keyed16": nw_cuda.WIDE_KEYED16}[arith]
+    band = 299
+    (Q, T, ql, tl), tmax = _pack(*_variants(np.random.default_rng(31), 6, 700, band, 0.3), cuda)
+    B, W = Q.shape[0], band + 1
+    kw = dict(pen, band=band, tmax=tmax, int16=int16)
+    assert nw_cuda.wide_plan(B, W).solo
+    s_p, tb_p = nw_cuda.nw_align_reference(Q, T, ql, tl, **kw)
+    for plan in (nw_cuda.wide_plan(B, W, lanes=1, ctas=2, cluster=2), nw_cuda.wide_plan(B, W)):
+        s_k, tb_k = nw_cuda.sweep_launch(Q, T, ql, tl, plan, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(s_k, s_p) and torch.equal(tb_k, tb_p)
+    if int16:
+        return
+    seg = 512
+    carry = nw_cuda.initial_carry(B, W, cuda)
+    scores = torch.full((B,), -1, dtype=torch.int32, device=cuda)
+    seg_kw = dict(pen, band=band, t0=seg, seg=seg)
+    c_p, s_p, tb_p = nw_cuda.nw_align_segment_reference(Q, T, ql, tl, carry, scores, t0=0, seg=seg, band=band,
+                                                        **pen)
+    c_p2, s_p2, tb_p2 = nw_cuda.nw_align_segment_reference(Q, T, ql, tl, c_p, s_p, **seg_kw)
+    for plan in (nw_cuda.wide_plan(B, W, lanes=2, ctas=2, cluster=2), nw_cuda.wide_plan(B, W)):
+        before = nw_cuda.LAUNCHES["nw_sweep_wide_segment"]
+        c_k, s_k, tb_k = nw_cuda.segment_launch(Q, T, ql, tl, c_p, s_p, plan, **seg_kw)
+        torch.cuda.synchronize()
+        assert nw_cuda.LAUNCHES["nw_sweep_wide_segment"] == before + 1
+        assert torch.equal(c_k, c_p2) and torch.equal(s_k, s_p2) and torch.equal(tb_k, tb_p2)
+
+
+def test_wide_route_chain_by_planner_equals_plain(cuda):
+    """A band the planner gives a chain of clusters (W 24,577: 32 CTAs of 4
+    lanes, two clusters of 16, 12,288 lanes each), pairs long enough that
+    their cells cross from one cluster to the other: scores and the whole
+    traceback equal the plain version's.  A dispatch with more clusters than
+    the card holds at once is launched in slices (wide_slices at the
+    measured count), each pair's bytes those of its plain version."""
+    band = 24_576
+    (Q, T, ql, tl), tmax = _wide_batch(cuda, 3, 13_000, band, 5)
+    kw = _penalties(True, band, tmax)
+    plan = nw_cuda.plan_sweep(3, band + 1, Q.shape[1], T.shape[1])
+    assert (plan.route, plan.lanes, plan.ctas, plan.cluster, plan.clusters) == ("wide", 4, 32, 16, 2)
+    s_k, tb_k = nw_cuda.nw_align(Q, T, ql, tl, **kw)
+    torch.cuda.synchronize()
+    s_p, tb_p = nw_cuda.nw_align_reference(Q, T, ql, tl, **kw)
+    assert torch.equal(s_k, s_p) and torch.equal(tb_k, tb_p) and (s_k[:-1] >= 0).all()
+    held = nw_cuda.wide_query(cuda, plan, True)["resident_clusters"]
+    assert held >= 6
+    too_many = held // 2 + 1  # pairs whose 2 clusters each exceed the card's resident clusters
+    rows = torch.tensor([0, 2] * too_many, device=cuda)[:too_many]  # a long pair and the zero-length row
+    many = nw_cuda.wide_plan(too_many, band + 1, ctas=32)
+    assert len(nw_cuda.wide_slices(many, too_many, held)) == 2
+    before = nw_cuda.LAUNCHES["nw_sweep_wide"]
+    s_m, tb_m = nw_cuda.sweep_launch(Q[rows], T[rows], ql[rows], tl[rows], many, **kw)
+    torch.cuda.synchronize()
+    assert nw_cuda.LAUNCHES["nw_sweep_wide"] == before + 2
+    assert torch.equal(s_m, s_p[rows]) and torch.equal(tb_m, tb_p[rows])
+
+
+@pytest.mark.parametrize("long_route", [False, True])
+def test_wide_chain_through_the_runner(cuda, long_route):
+    """A pair whose band passes 24,576 lanes (tools/headline.py::
+    long_deletion_pair: W 28,160) through WfaAligner(wide_route='full')
+    without a mesh, single-shot and on the long route: the chunk holds 8
+    padded pairs of two 16-CTA clusters each, more than the card holds at
+    once, so each wide-route dispatch is launched in slices; the score is
+    the one 28 kb gap's and the single-shot and long routes give the same
+    alignment."""
+    from seqrush_tpu_torch.align.runner import RunnerConfig, WfaAligner
+    from seqrush_tpu_torch.sequences import make_sequence_set
+    from seqrush_tpu_torch.tools.headline import long_deletion_pair, long_deletion_score
+
+    seqs = make_sequence_set(long_deletion_pair())
+    extra = {"long_pair_threshold": 16_384} if long_route else {}
+    cfg = RunnerConfig(wide_route="full", **extra)
+    al = WfaAligner(seqs, cfg, device="cuda")
+    nw_cuda.reset_launch_counts()
+    (res,) = al.align_pairs(np.array([[0, 1]]))
+    torch.cuda.synchronize()
+    assert res is not None and res.score == long_deletion_score(cfg.scores) and not res.is_reverse
+    ops = {}
+    for n, op in res.cigar:
+        ops[op] = ops.get(op, 0) + n
+    assert ops == {"=": 2000, "I": 28_000}  # the two flanks matched, the deleted 28 kb one gap
+    disp = [d for d in al.stats["dispatches"] if d["kind"] == ("long" if long_route else "chunk")]
+    assert disp and all(d["band"] + 1 > 24_576 and d["B"] == 8 and d.get("sweep") == "wide" for d in disp)
+    if long_route:
+        assert nw_cuda.LAUNCHES["nw_sweep_wide_segment"] > 2  # the forward run's slices and the groups'
+        single = WfaAligner(seqs, RunnerConfig(wide_route="full"), device="cuda")
+        (one,) = single.align_pairs(np.array([[0, 1]]))
+        assert (one.score, one.is_reverse, one.cigar) == (res.score, res.is_reverse, res.cigar)
+    else:
+        assert nw_cuda.LAUNCHES["nw_sweep_wide"] > len(disp)  # sliced
+
+
+def test_wide_route_long_sequences_equal_plain(cuda):
+    """Sequences beyond the register route's shared memory ([8, W 128,
+    Lq = Lt = 120,064], the runner's long gap and inversion windows): the
+    bases come from the rings, so the wide route takes them; scores and
+    the whole traceback equal the plain version's."""
+    rng = np.random.default_rng(120)
+    qs, ts = [], []
+    for k in range(7):
+        n = (20_000, 3_000, 17_000, 900, 12_000, 5, 8_000)[k]
+        q = rng.integers(0, 4, n).astype(np.uint8)
+        t = q.copy()
+        t[rng.integers(0, n, n // 30 + 1)] = rng.integers(0, 4, n // 30 + 1)
+        if k % 2:
+            t = np.delete(t, np.arange(n // 2, n // 2 + min(40, n // 3)))
+        qs.append(q)
+        ts.append(t)
+    (Q, T, ql, tl), tmax = _pack(qs + [np.zeros(0, np.uint8)], ts + [np.zeros(0, np.uint8)], cuda)
+    Qp = torch.full((8, 120_064), 6, dtype=torch.uint8, device=cuda)
+    Tp = torch.full((8, 120_064), 7, dtype=torch.uint8, device=cuda)
+    Qp[:, : Q.shape[1]], Tp[:, : T.shape[1]] = Q, T
+    kw = _penalties(True, 127, tmax)
+    assert nw_cuda.plan_sweep(8, 128, 120_064, 120_064).route == "wide"
+    s_k, tb_k = nw_cuda.nw_align(Qp, Tp, ql, tl, **kw)
+    torch.cuda.synchronize()
+    s_p, tb_p = nw_cuda.nw_align_reference(Qp, Tp, ql, tl, **kw)
+    assert torch.equal(s_k, s_p) and torch.equal(tb_k, tb_p) and (s_k[:-1] >= 0).all()
+
+
+@pytest.mark.parametrize("band,two_piece", [(4200, True), (4200, False)])
+def test_wide_long_route_equals_single_shot(cuda, band, two_piece):
+    """The long route at a band above REG_MAX_W runs the wide route's
+    segment mode (forward runs and the grouped recompute, nw_sweep_wide_
+    segment): its scores and opcodes equal the single-shot wide kernel's
+    walked by kernel B, and the segment launches equal their plain versions
+    on the way (test_segment_group_kernels_equal_plain_versions)."""
+    (Q, T, ql, tl), tmax = _wide_batch(cuda, 4, 2600, band, band)
+    kw = _penalties(two_piece, band, tmax)
+    kw.pop("tmax")
+    t_need = int((ql + tl).max())
+    nw_cuda.reset_launch_counts()
+    scores, ops = nw_cuda.nw_align_long(Q, T, ql, tl, seg=1024, t_need=t_need, **kw)
+    torch.cuda.synchronize()
+    assert nw_cuda.LAUNCHES["nw_sweep_wide_segment"] >= 2
+    assert nw_cuda.LAUNCHES["nw_sweep_segment_score_only"] == nw_cuda.LAUNCHES["nw_sweep_segment_group"] == 0
+    s_one, tb = nw_cuda.nw_align(Q, T, ql, tl, tmax=tmax, **kw)
+    ops_one = nw_cuda.nw_walk(tb, ql, tl, band=band, tmax=tmax)
+    assert torch.equal(scores, s_one)
+    assert torch.equal(ops[:, : t_need + 1], ops_one[:, : t_need + 1])
 
 
 def test_host_library_equals_python_chain(cuda):
@@ -771,7 +981,7 @@ def _segments_equal_plain(args, band, seg, pen, plan=None):
         (512, 127, False, "regs"),
         (2048, 767, True, "regs"),  # the long route's segment length
         (256, 4200, True, "wide"),  # W 4201: above the register route
-        (256, 63, True, "scratch"),  # wide route, rows in global scratch
+        (256, 63, True, "scratch"),  # wide route forced: a chain of 2 clusters of 2 CTAs, a lane a thread
         (256, 63, "big", "wide"),  # penalties outside [0, 2^16)
     ],
 )
@@ -787,12 +997,15 @@ def test_segment_kernels_equal_plain_versions(cuda, seg, band, two_piece, route)
     B, W = args[0].shape[0], band + 1
     plan = nw_cuda.plan_sweep(B, W, args[0].shape[1], args[1].shape[1], seg=seg)
     assert plan.route == ("wide" if route == "wide" and two_piece != "big" else "regs")
-    scratch = nw_cuda.SweepPlan("wide", 0, 2, 1, 64, 0, 0, B) if route == "scratch" else None
+    scratch = nw_cuda.wide_plan(B, W, lanes=1, ctas=4, cluster=2) if route == "scratch" else None
     before = dict(nw_cuda.LAUNCHES)
     scores, ops = _segments_equal_plain(args, band, seg, pen, scratch)
     n_seg = 3
-    for k in ("nw_sweep_segment", "nw_sweep_segment_score_only", "nw_walk_segment"):
-        assert nw_cuda.LAUNCHES[k] == before[k] + n_seg, k
+    wide = route != "regs" or two_piece == "big"
+    want = ({"nw_sweep_wide_segment": 2 * n_seg, "nw_sweep_segment": 0, "nw_sweep_segment_score_only": 0} if wide
+            else {"nw_sweep_wide_segment": 0, "nw_sweep_segment": n_seg, "nw_sweep_segment_score_only": n_seg})
+    for k, n in {**want, "nw_walk_segment": n_seg}.items():
+        assert nw_cuda.LAUNCHES[k] == before[k] + n, k
     assert (scores[:-1] >= 0).all() and int(scores[-1]) == -1
     assert not ops[-1].any()
 
@@ -826,7 +1039,7 @@ def _long_launches(n_fwd, n_grp, n_gwalk, n_seg_tb, n_seg_walk):
             "nw_sweep_int16": 0, "nw_sweep_snapshot": 0, "nw_walk_start": 0, "nw_rows_sweep": 0,
             "nw_rows_walk": 0, "nw_sweep_tiled": 0, "nw_walk_runs_tiled": 0,
             "nw_sweep_sharded": 0, "fold_combine": 0, "sgd_tick": 0, "uf_unite": 0, "uf_compress": 0,
-            "uf_find": 0}
+            "uf_find": 0, "nw_sweep_wide": 0, "nw_sweep_wide_segment": 0}
 
 
 @pytest.mark.parametrize("G", ["all", 2, 1])
@@ -867,7 +1080,7 @@ def test_long_route_launches_and_equals_single_shot(cuda, G):
         (256, 300, False, "regs"),  # K >= seg: a boundary in the corner phase
         (2048, 767, True, "regs"),  # the long route's segment length
         (256, 4200, True, "wide"),  # W 4201: above the register route
-        (256, 63, True, "scratch"),  # wide route, rows in global scratch
+        (256, 63, True, "scratch"),  # wide route forced: a chain of 2 clusters of 2 CTAs, a lane a thread
     ],
 )
 def test_segment_group_kernels_equal_plain_versions(cuda, seg, band, two_piece, route):
@@ -889,8 +1102,8 @@ def test_segment_group_kernels_equal_plain_versions(cuda, seg, band, two_piece, 
     s_init = torch.full((B,), -1, dtype=torch.int32, device=cuda)
     if route == "scratch":
         real = nw_cuda._segment_plan
-        nw_cuda._segment_plan = lambda B, W, Lq, Lt, seg, groups, pen: nw_cuda.SweepPlan(
-            "wide", 0, 2, 1, 64, 0, 0, B, groups)
+        nw_cuda._segment_plan = lambda B, W, Lq, Lt, seg, groups, pen: nw_cuda.wide_plan(
+            B, W, groups, lanes=1, ctas=4, cluster=2)
     try:
         scores = nw_cuda.nw_align_segment_run(*args, ckpt, s_init, s0=0, n_run=n_seg, **kw)
         torch.cuda.synchronize()
@@ -1223,10 +1436,11 @@ def test_int16_sweep_equals_plain(cuda, band, pen, route):
     kw = dict(zip(("mismatch", "o1", "e1", "o2", "e2"), pen), band=band, tmax=tmax)
     regs = nw_cuda.register_route_penalties(*pen, int16=True) and band + 1 <= nw_cuda.REG_MAX_W
     assert regs == (route == "regs")
-    before = nw_cuda.LAUNCHES["nw_sweep_int16"]
+    key = "nw_sweep_int16" if regs else "nw_sweep_wide"
+    before = nw_cuda.LAUNCHES[key]
     s_k, tb_k = nw_cuda.nw_align(Q, T, ql, tl, int16=True, **kw)
     torch.cuda.synchronize()
-    assert nw_cuda.LAUNCHES["nw_sweep_int16"] == before + 1
+    assert nw_cuda.LAUNCHES[key] == before + 1
     s_p, tb_p = nw_cuda.nw_align_reference(Q, T, ql, tl, int16=True, **kw)
     assert torch.equal(s_k, s_p) and int(s_k[-1]) == 0
     assert torch.equal(tb_k, tb_p)
@@ -1257,7 +1471,9 @@ def test_int16_score_only_equals_plain(cuda, band, pen):
         (100, False, False, None),
         (1791, True, False, None),
         (511, True, True, "wide"),
-        (511, False, False, "scratch"),
+        (200, True, True, "wide"),  # one CTA a pair, a lane a thread: the solo kernel
+        (63, False, False, "wide"),
+        (511, False, False, "scratch"),  # the wide route as a chain of 2 clusters of 4 CTAs
         (4096, True, True, None),  # W 4097: the wide route
     ],
 )
@@ -1278,7 +1494,7 @@ def test_snapshot_sweep_equals_plain(cuda, band, two_piece, int16, plan):
         out_k = nw_cuda.nw_align(Q, T, ql, tl, int16=int16, t_snap=t_snap, **kw)
     else:
         B, W = Q.shape[0], band + 1
-        p = nw_cuda.wide_plan(B, W) if plan == "wide" else nw_cuda.SweepPlan("wide", 0, W // 32, 1, W, 0, 0, B)
+        p = nw_cuda.wide_plan(B, W) if plan == "wide" else nw_cuda.wide_plan(B, W, lanes=2, ctas=8, cluster=4)
         out_k = nw_cuda.sweep_launch(Q, T, ql, tl, p, int16=int16, t_snap=t_snap, **kw)
     torch.cuda.synchronize()
     out_p = nw_cuda.nw_align_reference(Q, T, ql, tl, int16=int16, t_snap=t_snap, **kw)

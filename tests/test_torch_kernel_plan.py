@@ -35,17 +35,34 @@ def _batch_ladder(limit=4096):
     return [b for b in out if b <= limit]
 
 
+def _check_wide_plan(plan, B, W, groups=1):
+    """A wide_plan within the card's limits: lanes a thread it is built
+    for, at most WIDE_MAX_THREADS threads and WIDE_MAX_CLUSTER CTAs a
+    cluster, the pair's CTAs whole clusters, every CTA given at least one
+    unit and at most its threads, the rings and slots in its shared memory."""
+    assert plan.route == "wide" and plan.lanes in nw_cuda.WIDE_LANES
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= nw_cuda.WIDE_MAX_THREADS
+    assert 1 <= plan.cluster <= nw_cuda.WIDE_MAX_CLUSTER and plan.ctas == plan.cluster * plan.clusters
+    assert plan.clusters == 1 or plan.cluster == nw_cuda.WIDE_MAX_CLUSTER
+    U = -(-W // plan.lanes)
+    assert plan.ctas <= U and -(-U // plan.ctas) <= plan.threads < -(-U // plan.ctas) + 32
+    # the clusters a pair needs: a chain only where 16 CTAs of the most
+    # threads cannot hold the band
+    assert plan.clusters == max(1, -(-(-(-U // nw_cuda.WIDE_MAX_THREADS)) // nw_cuda.WIDE_MAX_CLUSTER))
+    span = plan.threads * plan.lanes
+    assert plan.qring >= span + nw_cuda.SHARD_TILE + 2 and plan.tring >= span + 2 * nw_cuda.SHARD_TILE + 1
+    assert 96 + 48 * plan.threads // 32 + plan.qring + plan.tring <= plan.smem_bytes <= MAX_SMEM
+    assert plan.blocks == B * plan.ctas and plan.groups == groups
+
+
 def _check_plan(plan, B, W, Lq, Lt):
+    if plan.route == "wide":
+        _check_wide_plan(plan, B, W)
+        return
     assert plan.threads <= MAX_THREADS and plan.threads % 32 == 0
     assert plan.smem_bytes <= MAX_SMEM
     assert plan.blocks * plan.pairs_per_block >= B
     assert (plan.blocks - 1) * plan.pairs_per_block < max(B, 1)
-    if plan.route == "wide":
-        assert plan.lanes == 0 and plan.pairs_per_block == 1 and plan.blocks == B
-        assert plan.threads == min(MAX_THREADS, -(-W // 32) * 32)
-        # the DP rows in shared memory where 11 rows of W int32 fit
-        assert plan.smem_bytes == (44 * W if 44 * W <= MAX_SMEM else 0)
-        return
     assert plan.route == "regs"
     assert plan.lanes in nw_cuda.SWEEP_LANES
     assert plan.threads == 32 * plan.warps_per_pair * plan.pairs_per_block
@@ -65,7 +82,12 @@ def _coverage(plan, B, W):
     for blk in range(plan.blocks):
         for tid in range(plan.threads):
             if plan.route == "wide":
-                b, lanes = blk, range(tid, W, plan.threads)
+                # the kernel's index arithmetic (csrc/nw_sweep_wide.cuh::wide_body)
+                b, ci = divmod(blk, plan.ctas)
+                U = -(-W // plan.lanes)
+                u0, u1 = ci * U // plan.ctas, (ci + 1) * U // plan.ctas
+                g0 = (u0 + tid) * plan.lanes
+                lanes = range(g0, min(g0 + plan.lanes, W)) if tid < u1 - u0 else ()
             else:
                 warp, lane = divmod(tid, 32)
                 pib, wip = divmod(warp, plan.warps_per_pair)
@@ -107,8 +129,9 @@ def test_sweep_plan_covers_each_lane_once(B, W, wpp):
 def test_sweep_plan_routes():
     """The planner's strip on the runner's band ladder, where it was timed on
     the card against every other strip (PERF.md), the switch to the wide
-    route above the widest register strip, and the wide route's rows
-    leaving shared memory above W = 5,282."""
+    route above the widest register strip, and the wide route's plan at W =
+    5,282 and 5,283 for 8 pairs (8 CTAs of 2 lanes a thread, 352 threads,
+    each holding an SM: eight clusters of 16 would not all be resident)."""
     for B, W, lanes, wpp in ((576, 128, 4, 1), (576, 256, 4, 2), (576, 384, 4, 3),
                              (576, 512, 4, 4), (144, 768, 12, 2), (144, 1280, 12, 4),
                              (144, 1536, 12, 4), (48, 1536, 12, 4), (48, 3072, 12, 8),
@@ -117,12 +140,176 @@ def test_sweep_plan_routes():
         assert (p.route, p.lanes, p.warps_per_pair) == ("regs", lanes, wpp), (B, W)
     assert nw_cuda.plan_sweep(8, nw_cuda.REG_MAX_W, 4864, 4864).route == "regs"
     assert nw_cuda.plan_sweep(8, nw_cuda.REG_MAX_W + 1, 4864, 4864).route == "wide"
-    assert nw_cuda.plan_sweep(8, 5282, 5376, 5376).smem_bytes == 44 * 5282
-    assert nw_cuda.plan_sweep(8, 5283, 5376, 5376).smem_bytes == 0
+    for W in (5282, 5283):
+        p = nw_cuda.plan_sweep(8, W, 5376, 5376)
+        assert (p.lanes, p.ctas, p.cluster, p.threads) == (2, 8, 8, 352)
+        assert p.smem_bytes == nw_cuda.SHARD_SPREAD_SMEM
     with pytest.raises(ValueError):
         nw_cuda.plan_sweep(8, 2048, 2048, 2048, warps_per_pair=1)
     with pytest.raises(ValueError):  # a second warp of ghost lanes only
         nw_cuda.plan_sweep(8, 100, 256, 256, warps_per_pair=2)
+
+
+# bands from the first wide one to the widest the runner dispatches
+# single-shot: a pair of qlen + tlen <= long_pair_threshold (65,536) has a
+# band of at most max(qlen, tlen) + 1 (runner._band_for), so W <= 65,538
+_WIDE_WS = (4097, 4225, 5120, 6143, 8192, 8193, 12_345, 16_385, 17_408, 24_576, 24_577, 32_769, 40_000,
+            49_153, 65_538)
+
+
+@pytest.mark.parametrize("B", [1, 2, 8, 48])
+@pytest.mark.parametrize("W", _WIDE_WS)
+def test_wide_plan_covers_each_lane_once(B, W):
+    """The wide route's plan (a cluster of CTAs a pair, or a chain of
+    clusters of 16) at bands from 4,097 to the widest the runner can
+    dispatch: within the card's limits, the clusters a pair needs counted,
+    and every (pair, lane) owned by exactly one thread of the kernel's
+    index arithmetic."""
+    plan = nw_cuda.plan_sweep(B, W, 65536, 65536)
+    assert plan == nw_cuda.wide_plan(B, W)
+    _check_wide_plan(plan, B, W)
+    if W <= 16 * nw_cuda.WIDE_MAX_THREADS * 4:
+        assert plan.clusters == 1
+    if B == 1:  # a lone pair spreads over 16 CTAs (or a chain of them)
+        assert plan.cluster == nw_cuda.WIDE_MAX_CLUSTER
+    if B <= 8 and W <= 24_576:
+        assert plan.smem_bytes == nw_cuda.SHARD_SPREAD_SMEM  # one CTA an SM
+    if B <= 8 and W <= 8 * nw_cuda.WIDE_MAX_THREADS * 4:
+        # every cluster resident at once, where CTAs of at most
+        # WIDE_MAX_THREADS threads allow it
+        assert B * plan.clusters <= nw_cuda.WIDE_RESIDENT[plan.cluster]
+    cover = _coverage(plan, B, W) if B * W <= 200_000 else _coverage(nw_cuda.wide_plan(1, W), 1, W)
+    assert (cover == 1).all()
+
+
+@pytest.mark.parametrize(
+    "B,W,Lq,Lt,pen,int16",
+    [
+        (64, 128, 1280, 1280, (5, 70000, 2, 24, 1), False),  # a gap open past 2^16
+        (64, 128, 1280, 1280, (-3, 8, 2, -1, -1), False),  # negative penalties
+        (64, 128, 1280, 1280, (5, 8, 2, 3000, 1), True),  # int16 adds that wrap
+        (9, 601, 768, 768, (2800, 8, 2, 24, 1), True),
+        (8, 128, 120_064, 120_064, (5, 8, 2, 24, 1), False),  # beyond the register route's shared memory
+        (3, 4097, 8192, 8192, (5, 8, 2, 24, 1), True),
+        (1, 17_408, 24_064, 24_064, (5, 8, 2, 24, 1), False),  # the translocation pair
+    ],
+)
+def test_wide_plan_at_the_corners(B, W, Lq, Lt, pen, int16):
+    """The dispatches the register route does not take go to the wide
+    route's plan (align_plan, as nw_align launches), each lane once; narrow
+    bands take one CTA a pair, a lane a thread (the solo kernels)."""
+    kw = dict(zip(("mismatch", "o1", "e1", "o2", "e2"), pen))
+    plan = nw_cuda.align_plan(B, W, Lq, Lt, int16=int16, **kw)
+    assert plan.route == "wide"
+    _check_wide_plan(plan, B, W)
+    assert (_coverage(plan, B, W) == 1).all()
+    if W <= 128:  # the solo kernels: one CTA a pair, a lane a thread
+        assert (plan.lanes, plan.ctas, plan.threads) == (1, 1, 128) and plan.solo
+    assert plan.solo == (plan.ctas == 1 and plan.lanes == 1)
+    assert nw_cuda.align_plan(B, W, 768, 768, mismatch=5, o1=8, e1=2, o2=24, e2=1).route == (
+        "wide" if W > nw_cuda.REG_MAX_W else "regs")
+
+
+def test_wide_plan_segment_groups():
+    """The long route's grouped recompute at a wide band: B pairs x G grid
+    rows share the card, so a pair takes fewer CTAs, never a CTA over
+    WIDE_MAX_THREADS threads; forced lanes are kept."""
+    for B, W, G in ((8, 4201, 59), (1, 5000, 3), (48, 4097, 1), (2, 40_000, 2)):
+        plan = nw_cuda._segment_plan(B, W, 256, 256, 2048, G, dict(mismatch=5, o1=8, e1=2, o2=24, e2=1))
+        assert plan == nw_cuda.wide_plan(B, W, G)
+        _check_wide_plan(plan, B, W, G)
+        assert (_coverage(plan, B, W) == 1).all()
+        if B * G > nw_cuda.WIDE_RESIDENT[16] and plan.clusters == 1:
+            assert plan.ctas < 16
+        _check_slices(plan, B, nw_cuda.WIDE_RESIDENT[plan.cluster])
+    for lanes in nw_cuda.WIDE_LANES:
+        plan = nw_cuda.wide_plan(2, 5000, lanes=lanes)
+        assert plan.lanes == lanes
+        _check_wide_plan(plan, 2, 5000)
+    with pytest.raises(ValueError):
+        nw_cuda.wide_plan(2, 5000, lanes=8)
+
+
+def _check_slices(plan, B, held):
+    """wide_slices at `held` resident clusters: every (pair, grid row) in
+    exactly one launch, and a chain's launches within `held` clusters."""
+    slices = nw_cuda.wide_slices(plan, B, held)
+    seen = np.zeros((plan.groups, max(B, 1)), np.int32)
+    for b0, nb, y0, ny in slices:
+        assert nb >= 1 and ny >= 1 and 0 <= b0 and b0 + nb <= B and 0 <= y0 and y0 + ny <= plan.groups
+        seen[y0 : y0 + ny, b0 : b0 + nb] += 1
+        if plan.clusters > 1:
+            assert nb * ny * plan.clusters <= held
+    assert (seen[:, :B] == 1).all()
+    if plan.clusters == 1:
+        assert slices == [(0, B, 0, plan.groups)]
+    return slices
+
+
+@pytest.mark.parametrize("B", [8, 9, 16, 48])
+@pytest.mark.parametrize("W", _WIDE_WS)
+def test_wide_slices_hold_the_resident_clusters(B, W):
+    """Every wide-route dispatch the runner can make launches: a chunk of at
+    least 8 (padded) pairs single-shot, and the long route's forward run and
+    grouped recompute at its G (LONG_RUN, and long_group_size's G under the
+    default budget, 1 at least), at bands up to 65,538: each launch's
+    clusters within the card's resident clusters (WIDE_RESIDENT, the
+    H100's), each pair and grid row launched once."""
+    pen = dict(mismatch=5, o1=8, e1=2, o2=24, e2=1)
+    n_seg = -(-65_536 // nw_cuda.LONG_SEG)
+    groups = {1, nw_cuda.LONG_RUN, nw_cuda.long_group_size(B, W, nw_cuda.LONG_SEG, n_seg, nw_cuda.LONG_BUDGET)}
+    plans = [nw_cuda.align_plan(B, W, 65_536, 65_536, **pen)]
+    plans += [nw_cuda._segment_plan(B, W, 65_536, 65_536, nw_cuda.LONG_SEG, G, pen) for G in sorted(groups)]
+    for plan in plans:
+        assert plan.route == "wide"
+        slices = _check_slices(plan, B, nw_cuda.WIDE_RESIDENT[plan.cluster])
+        if W > 24_576:  # a chain of 16-CTA clusters: the card holds 7 at once
+            assert plan.clusters >= 2 and len(slices) > 1
+
+
+def test_wide_slices_at_a_measured_count():
+    """The launches follow the resident count the wrapper measures, not the
+    planner's table: a card that holds fewer clusters gets more launches; a
+    pair whose chain alone exceeds it raises."""
+    plan = nw_cuda.wide_plan(8, 40_000, 3)
+    assert (plan.clusters, plan.groups) == (2, 3)
+    assert _check_slices(plan, 8, 7) == [(b, min(3, 8 - b), y, 1) for y in range(3) for b in (0, 3, 6)]
+    assert _check_slices(plan, 8, 48) == [(0, 8, 0, 3)]
+    assert _check_slices(plan, 8, 32) == [(0, 8, 0, 2), (0, 8, 2, 1)]
+    assert len(_check_slices(plan, 8, 2)) == 24
+    with pytest.raises(RuntimeError, match="resident"):
+        nw_cuda.wide_slices(plan, 8, 1)
+    assert nw_cuda.wide_slices(plan, 0, 7) == []
+    one = nw_cuda.wide_plan(64, 8193)
+    assert one.clusters == 1 and nw_cuda.wide_slices(one, 64, 1) == [(0, 64, 0, 1)]
+
+
+def test_runner_records_kernel_a_route():
+    """The runner's chunk records name kernel A's route on the card
+    (align_plan, pure): the register route at the runner's usual bands, the
+    wide route for a gap open the register route does not take and for a
+    pair whose band passes REG_MAX_W (a 4.3 kb insertion, wide_route='full'),
+    each aligned here through the plain versions."""
+    from seqrush_tpu_torch.scores import AlignmentScores
+
+    rng = np.random.default_rng(9)
+    base = rng.integers(0, 4, 300).astype(np.uint8)
+    ins = np.concatenate([base[:150], rng.integers(0, 4, 4300).astype(np.uint8), base[150:]])
+    named = [("a", bytes(b"ACGT"[k] for k in base)), ("b", bytes(b"ACGT"[k] for k in ins))]
+    pairs = np.array([[0, 1]])
+    routes = {}
+    for label, cfg in (("regs", RunnerConfig()), ("open", RunnerConfig(scores=AlignmentScores(0, 5, 70000, 2, 24, 1))),
+                       ("band", RunnerConfig(wide_route="full"))):
+        seqs = _two_seqs() if label != "band" else make_sequence_set(named)
+        al = WfaAligner(seqs, cfg, device="cpu")
+        (res,) = al.align_pairs(pairs)
+        chunks = [d for d in al.stats["dispatches"] if d["kind"] == "chunk"]
+        routes[label] = [(d["sweep"], d["band"]) for d in chunks]
+        if label == "band":
+            assert res.score == 24 + 4300 and chunks[-1]["band"] + 1 > nw_cuda.REG_MAX_W
+    assert {r for r, _b in routes["regs"]} == {"regs"}
+    assert {r for r, _b in routes["open"]} == {"wide"}
+    assert routes["band"][-1][0] == "wide"
 
 
 def _shard_launch_cover(band, D, n_local, cluster, B=2):
@@ -627,7 +814,7 @@ def test_twin_plan_picks_and_reckoning():
     busiest SM, one wave; the twin's shared memory and the forcing."""
     picks = {(576, 512): ("twins", 4, 4), (288, 512): ("twins", 4, 4), (576, 128): ("twins", 4, 1),
              (144, 768): ("twins", 8, 3), (48, 1536): ("regs", 12, 4), (64, 1170): ("regs", 12, 4),
-             (9, 512): ("regs", 4, 4), (576, 4096): ("twins", 16, 8), (8, 4097): ("wide", 0, 32)}
+             (9, 512): ("regs", 4, 4), (576, 4096): ("twins", 16, 8), (8, 4097): ("wide", 2, 72)}
     for (B, W), want in picks.items():
         p = nw_cuda.plan_sweep_i16(B, W, 3584, 3584)
         assert (p.route, p.lanes, p.warps_per_pair) == want, (B, W)

@@ -181,3 +181,56 @@ def test_wrappers_check_arguments():
         nw_cuda.nw_align(Q, Q, lens.to(torch.int64), lens, **kw)
     with pytest.raises(ValueError):
         nw_cuda.nw_walk(tb[:, :, :8].contiguous(), lens, lens, band=15, tmax=16)
+
+
+@pytest.mark.parametrize("int16", [False, True])
+def test_plain_sweep_matches_sweep_v3_above_reg_max_w(int16):
+    """At W = 4,161, a band the register route does not take (kernel A's
+    wide route on the card), on pairs whose path runs out to lane ~4,000 (a
+    4 kb insertion), a SNP pair, an empty row and a 1 x 2 pair: the plain
+    sweep's scores equal the JAX package's _sweep_v3 (but the empty pair's
+    in int32, which _sweep_v3 reads at the origin where the Pallas kernel
+    leaves -1, as test_plain_sweep_matches_xla_sweep holds).  In int16 (which
+    clamps at INF16, as kernel A does) the whole traceback is equal; the
+    int32 _sweep_v3 leaves off-matrix states unclamped where kernel A clamps
+    at INF (ROADMAP §3), so there the two tracebacks are held on what they
+    decide: each walked from its final cell gives the same opcodes."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(4161)
+    base = rng.integers(0, 4, 300).astype(np.uint8)
+    snp = base.copy()
+    snp[rng.integers(0, 300, 9)] = rng.integers(0, 4, 9)
+    ins = np.concatenate([base[:80], rng.integers(0, 4, 4000).astype(np.uint8), base[80:150]])
+    qs = [base[:150], base, np.zeros(0, np.uint8), np.array([1], np.uint8)]
+    ts = [ins, snp, np.zeros(0, np.uint8), np.array([2, 3], np.uint8)]
+    B, L = len(qs), max(t.size for t in ts)
+    Q = np.full((B, L), jnw.QPAD, np.uint8)
+    T = np.full((B, L), jnw.TPAD, np.uint8)
+    for b, (q, t) in enumerate(zip(qs, ts)):
+        Q[b, : q.size], T[b, : t.size] = q, t
+    ql = np.array([q.size for q in qs], np.int32)
+    tl = np.array([t.size for t in ts], np.int32)
+    band, tmax = 4160, 4352
+    assert nw_cuda.plan_sweep(B, band + 1, L, L).route == "wide"
+    pen = dict(mismatch=5, o1=8, e1=2, o2=24, e2=1)
+    s_j, tb_j, _t = jnw._sweep_v3(*(jnp.asarray(a) for a in (Q, T, ql, tl)), band=band, tmax=tmax,
+                                  with_traceback=True, dtype=jnp.int16 if int16 else jnp.int32, **pen)
+    args = [torch.from_numpy(a) for a in (Q, T, ql, tl)]
+    s_p, tb_p = nw_cuda.nw_align(*args, band=band, tmax=tmax, int16=int16, **pen)
+    s_j = np.asarray(s_j).copy()
+    if not int16:
+        # _sweep_v3 reads an empty pair's score at the origin (0); the Pallas
+        # kernel that kernel A replaces, and so the port, leave it -1
+        assert s_j[2] == 0
+        s_j[2] = -1
+    np.testing.assert_array_equal(s_j, s_p.numpy())
+    assert int(s_p[0]) == 24 + 4000 and int(s_p[2]) == (0 if int16 else -1)
+    if int16:
+        tb_j = np.transpose(np.asarray(tb_j), (1, 0, 2))
+        np.testing.assert_array_equal(tb_j[:, : tmax + 1], tb_p.numpy()[:, : tmax + 1])
+    else:
+        ops_j = np.asarray(jnw._tb_scan_tbw(tb_j, jnp.asarray(ql), jnp.asarray(tl), band=band, t_total=tmax))
+        ops_p = nw_cuda.nw_walk(tb_p, args[2], args[3], band=band, tmax=tmax).numpy()
+        np.testing.assert_array_equal(ops_j, ops_p)
+        assert (ops_p[0] != 0).sum() == 150 + 4000  # 150 matched columns and the 4 kb insertion
